@@ -83,7 +83,10 @@ EDGE_GEOM_PACKED = 'edge_geom_packed'   # python bool (in-trace static):
 #   geometry-fused packed regime — EdgeEmbedding packs only the raw
 #   edge-vector columns (EDGE_VEC_PACKED, 3 cols instead of
 #   n_basis+n_sh); convolutions compute Bessel/cutoff/SH in-kernel
-#   (ops/pallas_conv.GeomSpec)
+#   (ops/pallas_conv.GeomSpec). In this port nothing is packed: the flag
+#   means the convolutions run geometry-fused from EDGE_VEC (chunked or
+#   whole-array; the engine sets it) and EdgeEmbedding computes no
+#   EDGE_EMBEDDING / EDGE_ATTR (ops/fused_conv.GeomSpec)
 EDGE_VEC_PACKED = 'edge_vec_packed'     # (E/G, 3*G): pack_cols of
 #   (vx, vy, vz) for the geometry-fused chunked path
 EDGE_BESSEL_COEFFS = 'edge_bessel_coeffs'  # (n_basis,) Bessel

@@ -2,10 +2,14 @@
 // backward, for NVIDIA Hopper (sm_90a), fp32 throughout.
 //
 // Replaces the TPU kernels of sevennet_exp_tpu/ops/pallas_conv.py:
-//   fused_conv_fwd <- make_fused_conv(agg_d > 0).fwd_kernel_cm
-//                     (_cm_fwd_core, _cg_acc_cm, _mlp_forward)
-//   fused_conv_bwd <- make_fused_conv(agg_d > 0).bwd_kernel_cm
-//                     (_cm_bwd_core, _act_grad)
+//   fused_conv_fwd      <- make_fused_conv(agg_d > 0).fwd_kernel_cm
+//                          (_cm_fwd_core, _cg_acc_cm, _mlp_forward)
+//   fused_conv_bwd      <- make_fused_conv(agg_d > 0).bwd_kernel_cm
+//                          (_cm_bwd_core, _act_grad)
+//   fused_conv_geom_fwd <- make_fused_conv(agg_d > 0, geom).fwd_kernel_geom
+//                          (_geom_fm, _sh_rows_fm, _mlp_fm, _cm_fwd_core)
+//   fused_conv_geom_bwd <- make_fused_conv(agg_d > 0, geom).bwd_kernel_geom
+//                          (the same, _cm_bwd_core and the geometry VJP)
 //
 // Per grid row e of atom i (row i*D + k is atom i's k-th neighbor):
 //   w[e]  = MLP(emb[e]) * ms[e]            radial MLP nb -> 64 -> 64 -> wn
@@ -40,6 +44,20 @@
 // The kernels are table-driven over the layer's plan (built by
 // ops/fused_conv.py from _tp_plan / _si2_groups), so one source serves
 // every layer (irreps up to l = 3).
+//
+// The geometry-fused pair takes the raw edge vector instead of sh and emb:
+//   r      = sqrt(|v|^2 + 1e-30)
+//   emb_n  = (2/rc) sin(c_n r)/r * env(r)       env: polynomial or XPLOR
+//   sh     = component-normalised real SH of v/r (a table of monomial terms)
+// computed per row tile into the shared-memory rows the MLP and the CG read,
+// so emb and sh never exist in global memory. Its backward keeps dsh and
+// demb of the tile in shared memory and folds them into dvec by the
+// geometry VJP written out by hand:
+//   dvec = (sum_n demb_n d emb_n/dr) v/r + (I - u u^T) (dsh . dY/du) / r
+// It is bound like the plain pair (the geometry is ~1 % of a mid layer's
+// arithmetic); what it saves is the (E, 17) round trip through global memory
+// and the PyTorch passes that would produce sh, emb and their VJPs. sinf,
+// cosf, sqrtf and powf are the accurate versions (c_n r reaches 8 pi).
 
 #include <cuda_runtime.h>
 
@@ -152,16 +170,159 @@ __device__ __forceinline__ void load_rows(float* dst,
   for (int i = threadIdx.x; i < rows * width; i += NT) dst[i] = s[i];
 }
 
-__global__ void __launch_bounds__(NT)
-fused_conv_fwd_kernel(const float* __restrict__ xg,
-                      const float* __restrict__ sh,
-                      const float* __restrict__ emb,
-                      const float* __restrict__ ms,
-                      const float* __restrict__ w0,
-                      const float* __restrict__ w1,
-                      const float* __restrict__ w2,
-                      const float* __restrict__ si2w, Plan P,
-                      float* __restrict__ out) {
+// geometry of the geometry-fused kernels (see ops/fused_conv.py::GeomSpec)
+struct Geom {
+  const float* coeffs;    // nb Bessel frequencies c_n
+  const int* sh_idx;      // per SH term: a | b << 4 | c << 8 | j << 12
+  const float* sh_coef;   // per SH term: coefficient of ux^a uy^b uz^c in Y_j
+  const int* sh_off;      // f + 1: term range of each SH component
+  int n_terms;
+  int env_kind;           // 0 polynomial, 1 XPLOR
+  int normalize;          // SH of v/r (1) or of v (0)
+  float cutoff, env_p, r_on;
+};
+
+__device__ __forceinline__ float ipow(float x, int k) {   // k <= 3
+  float r = 1.f;
+  for (int i = 0; i < k; ++i) r *= x;
+  return r;
+}
+
+// r, 1/r, the envelope and its derivative in r of one edge vector
+struct Radial { float r, inv_r, env, denv; };
+
+__device__ __forceinline__ Radial radial_of(const Geom& G, float x, float y,
+                                            float z) {
+  Radial R;
+  const float r2 = x * x + y * y + z * z;
+  R.r = sqrtf(r2 + 1e-30f);
+  R.inv_r = 1.f / R.r;
+  if (G.env_kind == 0) {
+    const float p = G.env_p;
+    const float c0 = (p + 1.f) * (p + 2.f) * 0.5f, c1 = p * (p + 2.f),
+                c2 = p * (p + 1.f) * 0.5f;
+    const float rr = R.r * (1.f / G.cutoff);
+    const float rp = powf(rr, p), rp1 = powf(rr, p - 1.f);
+    R.env = 1.f - c0 * rp + c1 * rp * rr - c2 * rp * rr * rr;
+    R.denv = (-c0 * p * rp1 + c1 * (p + 1.f) * rp
+              - c2 * (p + 2.f) * rp * rr) / G.cutoff;
+  } else {
+    const float rc2 = G.cutoff * G.cutoff, ron2 = G.r_on * G.r_on;
+    const float d = rc2 - ron2, inv_den = 1.f / (d * d * d);
+    const float a = rc2 - r2;
+    const bool inside = R.r < G.r_on;
+    // the smooth branch is not zero beyond the cutoff: only ms removes
+    // those rows
+    R.env = inside ? 1.f : a * a * (rc2 + 2.f * r2 - 3.f * ron2) * inv_den;
+    R.denv = inside ? 0.f : 12.f * a * (ron2 - r2) * inv_den * R.r;
+  }
+  return R;
+}
+
+// emb and sh rows of a tile from its edge vectors, into shared memory:
+// one thread per (row, basis function or SH component). Not synced.
+__device__ void geom_rows_fwd(const Plan& P, const Geom& G, int rows,
+                              const float* vec_s, float* emb_s,
+                              float* sh_s) {
+  const int per = P.nb + P.f;
+  for (int i = threadIdx.x; i < rows * per; i += NT) {
+    const int e = i / per, k = i - e * per;
+    const float x = vec_s[3 * e], y = vec_s[3 * e + 1], z = vec_s[3 * e + 2];
+    if (k < P.nb) {
+      const Radial R = radial_of(G, x, y, z);
+      emb_s[e * P.nb + k] = sinf(__ldg(G.coeffs + k) * R.r)
+                            * ((2.f / G.cutoff) * R.inv_r * R.env);
+    } else {
+      const int j = k - P.nb;
+      float ux = x, uy = y, uz = z;
+      if (G.normalize) {
+        const float inv_r = 1.f / sqrtf(x * x + y * y + z * z + 1e-30f);
+        ux *= inv_r; uy *= inv_r; uz *= inv_r;
+      }
+      float s = 0.f;
+      const int t1 = __ldg(G.sh_off + j + 1);
+      for (int t = __ldg(G.sh_off + j); t < t1; ++t) {
+        const int id = __ldg(G.sh_idx + t);
+        s = fmaf(__ldg(G.sh_coef + t),
+                 ipow(ux, id & 15) * ipow(uy, (id >> 4) & 15)
+                     * ipow(uz, (id >> 8) & 15), s);
+      }
+      sh_s[e * P.f + j] = s;
+    }
+  }
+}
+
+// geometry VJP of a tile: (demb, dsh) rows in shared memory -> dvec rows in
+// global memory, one warp per row, lanes over the basis functions and the
+// SH terms. Rows with ms == 0 get zeros.
+__device__ void geom_rows_bwd(const Plan& P, const Geom& G, int rows,
+                              long row0, const float* vec_s,
+                              const float* ms_s, const float* demb_s,
+                              const float* dsh_s, float* __restrict__ dvec) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int e = warp; e < rows; e += NT / 32) {
+    const float x = vec_s[3 * e], y = vec_s[3 * e + 1], z = vec_s[3 * e + 2];
+    const Radial R = radial_of(G, x, y, z);
+    float ux = x, uy = y, uz = z;
+    if (G.normalize) { ux *= R.inv_r; uy *= R.inv_r; uz *= R.inv_r; }
+    float gr = 0.f, gx = 0.f, gy = 0.f, gz = 0.f;
+    if (ms_s[e] != 0.f) {
+      // d emb_n / dr = (2/rc) [(c cos(cr)/r - sin(cr)/r^2) env
+      //                        + sin(cr)/r env']
+      for (int n = lane; n < P.nb; n += 32) {
+        const float c = __ldg(G.coeffs + n);
+        const float s = sinf(c * R.r), co = cosf(c * R.r);
+        const float d = (2.f / G.cutoff)
+                        * ((c * co - s * R.inv_r) * R.inv_r * R.env
+                           + s * R.inv_r * R.denv);
+        gr = fmaf(demb_s[e * P.nb + n], d, gr);
+      }
+      // gu = sum_j dsh_j dY_j/du, term by term
+      for (int t = lane; t < G.n_terms; t += 32) {
+        const int id = __ldg(G.sh_idx + t);
+        const int a = id & 15, b = (id >> 4) & 15, c = (id >> 8) & 15;
+        const float gj = dsh_s[e * P.f + (id >> 12)] * __ldg(G.sh_coef + t);
+        if (a) gx = fmaf(gj, a * ipow(ux, a - 1) * ipow(uy, b) * ipow(uz, c),
+                         gx);
+        if (b) gy = fmaf(gj, b * ipow(ux, a) * ipow(uy, b - 1) * ipow(uz, c),
+                         gy);
+        if (c) gz = fmaf(gj, c * ipow(ux, a) * ipow(uy, b) * ipow(uz, c - 1),
+                         gz);
+      }
+    }
+    gr = warp_sum(gr); gx = warp_sum(gx); gy = warp_sum(gy);
+    gz = warp_sum(gz);
+    if (lane == 0) {
+      float dx = gx, dy = gy, dz = gz;
+      if (G.normalize) {     // u = v/r: du/dv = (I - u u^T)/r
+        const float dot = ux * gx + uy * gy + uz * gz;
+        dx = (gx - ux * dot) * R.inv_r;
+        dy = (gy - uy * dot) * R.inv_r;
+        dz = (gz - uz * dot) * R.inv_r;
+      }
+      // dr/dv = v/r
+      float* o = dvec + (row0 + e) * 3;
+      o[0] = fmaf(gr, x * R.inv_r, dx);
+      o[1] = fmaf(gr, y * R.inv_r, dy);
+      o[2] = fmaf(gr, z * R.inv_r, dz);
+    }
+  }
+}
+
+// forward of one atom's block. GEOM: sh and emb are not read; the tile's rows
+// are computed from vec into the same shared-memory rows.
+template <bool GEOM>
+__device__ __forceinline__ void fwd_body(const float* __restrict__ xg,
+                                         const float* __restrict__ sh,
+                                         const float* __restrict__ emb,
+                                         const float* __restrict__ vec,
+                                         const float* __restrict__ ms,
+                                         const float* __restrict__ w0,
+                                         const float* __restrict__ w1,
+                                         const float* __restrict__ w2,
+                                         const float* __restrict__ si2w,
+                                         const Plan& P, const Geom& G,
+                                         float* __restrict__ out) {
   extern __shared__ float smem[];
   int* ins_s = reinterpret_cast<int*>(smem);       // n_ins * I_STRIDE
   int* nzi_s = ins_s + P.n_ins * I_STRIDE;         // n_nz
@@ -174,6 +335,7 @@ fused_conv_fwd_kernel(const float* __restrict__ xg,
   float* h1_s = h0_s + RT_F * H;         // RT_F * H
   float* agg_s = h1_s + RT_F * H;        // agg_dim
   float* out_s = agg_s + P.agg_dim;      // d_out
+  float* vec_s = out_s + P.d_out;        // RT_F * 3 (GEOM only)
 
   const int atom = blockIdx.x;
   const int tid = threadIdx.x;
@@ -185,9 +347,15 @@ fused_conv_fwd_kernel(const float* __restrict__ xg,
     const long row0 = (long)atom * P.D + t0;
     __syncthreads();
     load_rows(x_s, xg, row0, rows, P.d1);
-    load_rows(sh_s, sh, row0, rows, P.f);
-    load_rows(emb_s, emb, row0, rows, P.nb);
     load_rows(ms_s, ms, row0, rows, 1);
+    if constexpr (GEOM) {
+      load_rows(vec_s, vec, row0, rows, 3);
+      __syncthreads();
+      geom_rows_fwd(P, G, rows, vec_s, emb_s, sh_s);
+    } else {
+      load_rows(sh_s, sh, row0, rows, P.f);
+      load_rows(emb_s, emb, row0, rows, P.nb);
+    }
     __syncthreads();
     mlp_hidden(P, rows, emb_s, w0, w1, h0_s, h1_s, nullptr, nullptr);
 
@@ -251,19 +419,50 @@ fused_conv_fwd_kernel(const float* __restrict__ xg,
 }
 
 __global__ void __launch_bounds__(NT)
-fused_conv_bwd_kernel(const float* __restrict__ gout,
-                      const float* __restrict__ xg,
+fused_conv_fwd_kernel(const float* __restrict__ xg,
                       const float* __restrict__ sh,
                       const float* __restrict__ emb,
                       const float* __restrict__ ms,
                       const float* __restrict__ w0,
                       const float* __restrict__ w1,
-                      const float* __restrict__ w1t,
                       const float* __restrict__ w2,
-                      const float* __restrict__ w2t,
-                      const float* __restrict__ si2wt, Plan P,
-                      float* __restrict__ dxg, float* __restrict__ dsh,
-                      float* __restrict__ demb) {
+                      const float* __restrict__ si2w, Plan P,
+                      float* __restrict__ out) {
+  fwd_body<false>(xg, sh, emb, nullptr, ms, w0, w1, w2, si2w, P, Geom{}, out);
+}
+
+__global__ void __launch_bounds__(NT)
+fused_conv_geom_fwd_kernel(const float* __restrict__ xg,
+                           const float* __restrict__ vec,
+                           const float* __restrict__ ms,
+                           const float* __restrict__ w0,
+                           const float* __restrict__ w1,
+                           const float* __restrict__ w2,
+                           const float* __restrict__ si2w, Plan P, Geom G,
+                           float* __restrict__ out) {
+  fwd_body<true>(xg, nullptr, nullptr, vec, ms, w0, w1, w2, si2w, P, G, out);
+}
+
+// backward of one atom's block. GEOM: the tile's dsh and demb rows stay in
+// shared memory and leave as dvec through the geometry VJP.
+template <bool GEOM>
+__device__ __forceinline__ void bwd_body(const float* __restrict__ gout,
+                                         const float* __restrict__ xg,
+                                         const float* __restrict__ sh,
+                                         const float* __restrict__ emb,
+                                         const float* __restrict__ vec,
+                                         const float* __restrict__ ms,
+                                         const float* __restrict__ w0,
+                                         const float* __restrict__ w1,
+                                         const float* __restrict__ w1t,
+                                         const float* __restrict__ w2,
+                                         const float* __restrict__ w2t,
+                                         const float* __restrict__ si2wt,
+                                         const Plan& P, const Geom& G,
+                                         float* __restrict__ dxg,
+                                         float* __restrict__ dsh,
+                                         float* __restrict__ demb,
+                                         float* __restrict__ dvec) {
   extern __shared__ float smem[];
   int* ins_s = reinterpret_cast<int*>(smem);       // n_ins * I_STRIDE
   int* nzi_s = ins_s + P.n_ins * I_STRIDE;         // n_nz
@@ -281,6 +480,9 @@ fused_conv_bwd_kernel(const float* __restrict__ gout,
   float* red_s = da1_s + RT_B * H;           // KQ * RT_B * H
   float* weff_s = red_s + KQ * RT_B * H;     // RT_B * n_active
   float* dw_s = weff_s + RT_B * P.n_active;  // RT_B * n_active
+  float* vec_s = dw_s + RT_B * P.n_active;   // RT_B * 3 (GEOM only)
+  float* dsh_s = vec_s + RT_B * 3;           // RT_B * f (GEOM only)
+  float* demb_s = dsh_s + RT_B * P.f;        // RT_B * nb (GEOM only)
 
   const int atom = blockIdx.x;
   const int tid = threadIdx.x;
@@ -310,9 +512,15 @@ fused_conv_bwd_kernel(const float* __restrict__ gout,
     const long row0 = (long)atom * P.D + t0;
     __syncthreads();
     load_rows(x_s, xg, row0, rows, P.d1);
-    load_rows(sh_s, sh, row0, rows, P.f);
-    load_rows(emb_s, emb, row0, rows, P.nb);
     load_rows(ms_s, ms, row0, rows, 1);
+    if constexpr (GEOM) {
+      load_rows(vec_s, vec, row0, rows, 3);
+      __syncthreads();
+      geom_rows_fwd(P, G, rows, vec_s, emb_s, sh_s);
+    } else {
+      load_rows(sh_s, sh, row0, rows, P.f);
+      load_rows(emb_s, emb, row0, rows, P.nb);
+    }
     __syncthreads();
     mlp_hidden(P, rows, emb_s, w0, w1, h0_s, h1_s, da0_s, da1_s);
 
@@ -409,7 +617,10 @@ fused_conv_bwd_kernel(const float* __restrict__ gout,
         }
       }
       v = warp_sum(v);
-      if (lane == 0) dsh[(row0 + e) * P.f + sc] = v;
+      if (lane == 0) {
+        if constexpr (GEOM) dsh_s[item] = v;
+        else dsh[(row0 + e) * P.f + sc] = v;
+      }
     }
     // pass D: dh1 = dw_rad @ w2^T, register-blocked over the tile's rows:
     // thread (q, k) sums columns q, q + KQ, ... for all RT_B rows, one w2^T
@@ -458,9 +669,55 @@ fused_conv_bwd_kernel(const float* __restrict__ gout,
       float s = 0.f;
       for (int j = lane; j < H; j += 32) s = fmaf(dr[j], __ldg(wr + j), s);
       s = warp_sum(s);
-      if (lane == 0) demb[(row0 + e) * P.nb + b] = s * P.s0;
+      if (lane == 0) {
+        if constexpr (GEOM) demb_s[item] = s * P.s0;
+        else demb[(row0 + e) * P.nb + b] = s * P.s0;
+      }
+    }
+    if constexpr (GEOM) {
+      __syncthreads();
+      geom_rows_bwd(P, G, rows, row0, vec_s, ms_s, demb_s, dsh_s, dvec);
     }
   }
+}
+
+// The backward kernels are held to two blocks per SM (128 registers). Left
+// to itself ptxas has taken 173 (this kernel) and 193 (the geom one, with
+// the sinf/cosf/powf slow paths inlined): one block per SM, and 1.5-1.6x
+// the time.
+__global__ void __launch_bounds__(NT, 2)
+fused_conv_bwd_kernel(const float* __restrict__ gout,
+                      const float* __restrict__ xg,
+                      const float* __restrict__ sh,
+                      const float* __restrict__ emb,
+                      const float* __restrict__ ms,
+                      const float* __restrict__ w0,
+                      const float* __restrict__ w1,
+                      const float* __restrict__ w1t,
+                      const float* __restrict__ w2,
+                      const float* __restrict__ w2t,
+                      const float* __restrict__ si2wt, Plan P,
+                      float* __restrict__ dxg, float* __restrict__ dsh,
+                      float* __restrict__ demb) {
+  bwd_body<false>(gout, xg, sh, emb, nullptr, ms, w0, w1, w1t, w2, w2t, si2wt,
+                  P, Geom{}, dxg, dsh, demb, nullptr);
+}
+
+__global__ void __launch_bounds__(NT, 2)
+fused_conv_geom_bwd_kernel(const float* __restrict__ gout,
+                           const float* __restrict__ xg,
+                           const float* __restrict__ vec,
+                           const float* __restrict__ ms,
+                           const float* __restrict__ w0,
+                           const float* __restrict__ w1,
+                           const float* __restrict__ w1t,
+                           const float* __restrict__ w2,
+                           const float* __restrict__ w2t,
+                           const float* __restrict__ si2wt, Plan P, Geom G,
+                           float* __restrict__ dxg,
+                           float* __restrict__ dvec) {
+  bwd_body<true>(gout, xg, nullptr, nullptr, vec, ms, w0, w1, w1t, w2, w2t,
+                 si2wt, P, G, dxg, nullptr, nullptr, dvec);
 }
 
 Plan make_plan(const int* ins, const int* col_ins, const int* col_w,
@@ -481,17 +738,19 @@ Plan make_plan(const int* ins, const int* col_ins, const int* col_w,
   return P;
 }
 
-size_t fwd_smem(const Plan& P) {
+size_t fwd_smem(const Plan& P, bool geom) {
   return sizeof(float) * ((size_t)table_words(P)
-                          + (size_t)RT_F * (P.d1 + P.f + P.nb + 1 + 2 * H)
+                          + (size_t)RT_F * (P.d1 + P.f + P.nb + 1 + 2 * H
+                                            + (geom ? 3 : 0))
                           + P.agg_dim + P.d_out);
 }
 
-size_t bwd_smem(const Plan& P) {
+size_t bwd_smem(const Plan& P, bool geom) {
   return sizeof(float) * ((size_t)table_words(P) + P.d_out + P.agg_dim
                           + (size_t)RT_B * (P.d1 + P.f + P.nb + 1
                                             + (4 + KQ) * H
-                                            + 2 * P.n_active));
+                                            + 2 * P.n_active
+                                            + (geom ? 3 + P.f + P.nb : 0)));
 }
 
 }  // namespace
@@ -511,7 +770,8 @@ size_t bwd_smem(const Plan& P) {
 // raise a kernel's dynamic shared-memory limit on the current device
 // only when a launch needs more than it was last given
 constexpr int MAX_DEVICES = 64;
-static size_t fwd_reserved[MAX_DEVICES], bwd_reserved[MAX_DEVICES];
+static size_t fwd_reserved[MAX_DEVICES], bwd_reserved[MAX_DEVICES],
+    geom_fwd_reserved[MAX_DEVICES], geom_bwd_reserved[MAX_DEVICES];
 
 template <typename Kernel>
 static cudaError_t reserve_smem(Kernel kernel, size_t bytes,
@@ -532,7 +792,7 @@ extern "C" int fused_conv_fwd(const float* xg, const float* sh,
                               const float* w2, const float* si2w,
                               PLAN_ARGS, float* out, void* stream) {
   const Plan P = PLAN_CALL;
-  const size_t smem = fwd_smem(P);
+  const size_t smem = fwd_smem(P, false);
   const cudaError_t err =
       reserve_smem(fused_conv_fwd_kernel, smem, fwd_reserved);
   if (err != cudaSuccess) return (int)err;
@@ -550,12 +810,67 @@ extern "C" int fused_conv_bwd(const float* g, const float* xg,
                               const float* si2wt, PLAN_ARGS, float* dxg,
                               float* dsh, float* demb, void* stream) {
   const Plan P = PLAN_CALL;
-  const size_t smem = bwd_smem(P);
+  const size_t smem = bwd_smem(P, false);
   const cudaError_t err =
       reserve_smem(fused_conv_bwd_kernel, smem, bwd_reserved);
   if (err != cudaSuccess) return (int)err;
   if (P.n_atoms > 0)
     fused_conv_bwd_kernel<<<P.n_atoms, NT, smem, (cudaStream_t)stream>>>(
         g, xg, sh, emb, ms, w0, w1, w1t, w2, w2t, si2wt, P, dxg, dsh, demb);
+  return (int)cudaGetLastError();
+}
+
+#define GEOM_ARGS                                                          \
+  const float *coeffs, const int *sh_idx, const float *sh_coef,            \
+      const int *sh_off, int n_terms, int env_kind, int normalize,         \
+      float cutoff, float env_p, float r_on
+
+static Geom make_geom(GEOM_ARGS) {
+  Geom G;
+  G.coeffs = coeffs; G.sh_idx = sh_idx; G.sh_coef = sh_coef;
+  G.sh_off = sh_off; G.n_terms = n_terms; G.env_kind = env_kind;
+  G.normalize = normalize; G.cutoff = cutoff; G.env_p = env_p;
+  G.r_on = r_on;
+  return G;
+}
+#define GEOM_CALL                                                          \
+  make_geom(coeffs, sh_idx, sh_coef, sh_off, n_terms, env_kind, normalize, \
+            cutoff, env_p, r_on)
+
+extern "C" int fused_conv_geom_fwd(const float* xg, const float* vec,
+                                   const float* ms, const float* w0,
+                                   const float* w1, const float* w2,
+                                   const float* si2w, PLAN_ARGS, GEOM_ARGS,
+                                   float* out, void* stream) {
+  const Plan P = PLAN_CALL;
+  const Geom G = GEOM_CALL;
+  const size_t smem = fwd_smem(P, true);
+  const cudaError_t err =
+      reserve_smem(fused_conv_geom_fwd_kernel, smem, geom_fwd_reserved);
+  if (err != cudaSuccess) return (int)err;
+  if (P.n_atoms > 0)
+    fused_conv_geom_fwd_kernel<<<P.n_atoms, NT, smem,
+                                 (cudaStream_t)stream>>>(
+        xg, vec, ms, w0, w1, w2, si2w, P, G, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fused_conv_geom_bwd(const float* g, const float* xg,
+                                   const float* vec, const float* ms,
+                                   const float* w0, const float* w1,
+                                   const float* w1t, const float* w2,
+                                   const float* w2t, const float* si2wt,
+                                   PLAN_ARGS, GEOM_ARGS, float* dxg,
+                                   float* dvec, void* stream) {
+  const Plan P = PLAN_CALL;
+  const Geom G = GEOM_CALL;
+  const size_t smem = bwd_smem(P, true);
+  const cudaError_t err =
+      reserve_smem(fused_conv_geom_bwd_kernel, smem, geom_bwd_reserved);
+  if (err != cudaSuccess) return (int)err;
+  if (P.n_atoms > 0)
+    fused_conv_geom_bwd_kernel<<<P.n_atoms, NT, smem,
+                                 (cudaStream_t)stream>>>(
+        g, xg, vec, ms, w0, w1, w1t, w2, w2t, si2wt, P, G, dxg, dvec);
   return (int)cudaGetLastError();
 }

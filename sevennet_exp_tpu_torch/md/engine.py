@@ -14,6 +14,13 @@ plain Python (eager PyTorch); the grid's staleness bound (md_buffer/2)
 is checked after each chunk and a stale chunk is re-run at half the
 cadence.
 
+Above ``CHUNK_SWITCH_ROWS`` grid rows (or with ``conv_chunk_atoms``) the
+convolutions run chunk by chunk over the grid (``conv_chunk_rows``), so
+only one chunk's gathered neighbor features exist at a time, and by
+default geometry-fused: the model gets the raw edge vectors and the conv
+kernels compute Bessel, cutoff and SH themselves
+(``model/layers.py::_ChunkedConvFn``).
+
 Needs every cell width >= 2 * (cutoff + skin) (minimum image).
 """
 
@@ -27,6 +34,7 @@ import torch
 from .. import _keys as KEY
 from ..data.graph import Atoms
 from ..data.periodic import atomic_masses
+from ..model.layers import geom_packed_ok
 from ..model.model import SevenNetModel
 from ..ops.scatter import gather_pair, reverse_permutation
 from . import integrate
@@ -39,6 +47,17 @@ from .neighbor import (
     mic_displacements,
 )
 from .units import fs as FS
+
+
+# more grid rows than this and the convolutions run chunked (the JAX
+# engine's switch point, so the same systems chunk in both packages)
+CHUNK_SWITCH_ROWS = 524288
+# grid rows per chunk past the switch: the gathered neighbor features of
+# one mid layer (480 columns) then take 1.0 GB per chunk. Measured at
+# 97,336 atoms (tools/large_system.py, NVIDIA H100 80GB HBM3, 700 W):
+# 32,768 to 1,048,576 rows per chunk take 969 to 904 ms per force call and
+# 8.7 to 12.5 GB; this size is within 0.5 % of the fastest at 2 GB less
+CHUNK_ROWS = 524288
 
 
 def _cell_widths(cell) -> np.ndarray:
@@ -66,15 +85,26 @@ class MolecularDynamics:
         seed: int = 0,
         device='cuda',
         velocities: Optional[np.ndarray] = None,
+        conv_chunk_atoms: int = 0,
+        geom_fused: bool = True,
+        geom_dense: bool = False,
     ):
         """velocities: initial (N, 3) velocities in internal units; drawn
-        from Maxwell-Boltzmann on a ``torch.Generator(seed)`` if None."""
+        from Maxwell-Boltzmann on a ``torch.Generator(seed)`` if None.
+        conv_chunk_atoms: atoms per convolution chunk; 0 chunks only
+        above ``CHUNK_SWITCH_ROWS`` grid rows, at ``CHUNK_ROWS``.
+        geom_fused: the chunked path runs the geometry-fused conv (off:
+        shared sh/emb arrays and the plain fused conv per chunk).
+        geom_dense: the whole-array path runs geometry-fused too."""
         if ensemble not in ('nve', 'nvt'):
             raise ValueError(f'ensemble {ensemble!r}: the port runs nve '
                              'and nvt')
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.dtype = torch.float32
+        self.conv_chunk_atoms = int(conv_chunk_atoms)
+        self.geom_fused, self.geom_dense = bool(geom_fused), bool(geom_dense)
+        self._geom_ok: Optional[bool] = None
         n = len(atoms)
         self.n = n
         dev, f32 = self.device, self.dtype
@@ -143,9 +173,11 @@ class MolecularDynamics:
             self.cell_cap = int(np.ceil(max_occ * 1.3 + 4))
         else:
             self.cell_cap = 0
-        # count on the host in float64 with the port's own builders
-        pos_t = torch.as_tensor(pos, dtype=torch.float64)
-        cell_t = torch.as_tensor(cell, dtype=torch.float64)
+        # count in float64 with the port's own builders, on the engine's
+        # device (at 97k atoms the cell list forms ~80 M candidate pairs)
+        pos_t = torch.as_tensor(pos, dtype=torch.float64, device=self.device)
+        cell_t = torch.as_tensor(cell, dtype=torch.float64,
+                                 device=self.device)
         cap = max(64, self.n * 64)
         while True:
             nl = self._build(pos_t, cell_t, cap)
@@ -180,6 +212,24 @@ class MolecularDynamics:
     def e_cap_model(self) -> int:
         """Rows of the model-facing dense grid: n * deg_cap."""
         return self.n * self.deg_cap
+
+    def _geom_packed_ok(self) -> bool:
+        """Whether the model can run geometry-fused (every convolution
+        carries a GeomSpec and takes the fused conv); decided once per
+        engine."""
+        if self._geom_ok is None:
+            self._geom_ok = geom_packed_ok(self.model)
+        return self._geom_ok
+
+    @property
+    def conv_chunk_rows(self) -> int:
+        """0 = whole-array convolution; else the grid rows per chunk, a
+        whole number of atoms."""
+        if self.conv_chunk_atoms:
+            return self.conv_chunk_atoms * self.deg_cap
+        if self.e_cap_model > CHUNK_SWITCH_ROWS:
+            return max(1, CHUNK_ROWS // self.deg_cap) * self.deg_cap
+        return 0
 
     def _compact_nl(self, nl: NeighborState, pos) -> NeighborState:
         """Re-lay the Verlet list out as the dense per-atom grid (JAX
@@ -230,12 +280,17 @@ class MolecularDynamics:
         mask = nl.valid & (r2 < self.cutoff ** 2)
         unit_x = vec.new_tensor([1.0, 0.0, 0.0])
         safe = torch.where(mask[:, None], vec, unit_x)
+        chunk_rows = self.conv_chunk_rows
+        geom = ((self.geom_fused if chunk_rows else self.geom_dense)
+                and self._geom_packed_ok())
         return dict(self._const, **{
             KEY.EDGE_IDX: nl.edge_idx,
             KEY.EDGE_VEC: safe,
             KEY.EDGE_MASK: mask.to(safe.dtype),
             KEY.EDGE_REV: nl.rev,
             KEY.EDGE_DENSE_D: self.deg_cap,
+            KEY.CONV_CHUNK_ROWS: chunk_rows,
+            KEY.EDGE_GEOM_PACKED: geom,
         })
 
     def _energy_fn(self, pos, nl: NeighborState):

@@ -17,11 +17,12 @@ the FCN readout.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from .. import _const
 from .. import _keys as KEY
 from ..irreps import Irrep, Irreps, infer_irreps_out
+from ..ops.fused_conv import GeomSpec
 from ..ops.radial import BesselBasis, PolynomialCutoff, XPLORCutoff
 from ..ops.tensor_product import (
     FullyConnectedNetSpec,
@@ -98,7 +99,7 @@ def nequip_interaction_block(
     irreps_out: Irreps, weight_nn_layers: List[int], conv_denominator: float,
     self_connection_type: str, act_scalar: Dict[int, str],
     act_gate: Dict[int, str], act_radial: str, bias_in_linear: bool,
-    num_species: int,
+    num_species: int, geom: Optional[GeomSpec] = None,
 ) -> List[Tuple[str, Any]]:
     """One NequIP block (reference sevenn/nn/interaction_blocks.py)."""
     block: List[Tuple[str, Any]] = []
@@ -125,7 +126,7 @@ def nequip_interaction_block(
                           biases=bias_in_linear)
     block.append((f'{t}_convolution', L.IrrepsConvolution(
         tp=tp_spec, weight_nn=weight_nn, si2=si2_spec,
-        denominator=conv_denominator)))
+        denominator=conv_denominator, geom=geom)))
     block.append((f'{t}_self_connection_outro', L.SelfConnectionOutro()))
     block.append((f'{t}_equivariant_gate', L.EquivariantGate(gate_spec)))
     return block
@@ -166,6 +167,19 @@ def build_e3_equivariant_model(config: Dict[str, Any]) -> SevenNetModel:
     edge_embedding = init_edge_embedding(config)
     irreps_filter = edge_embedding.irreps_out
     layers.append(('edge_embedding', edge_embedding))
+    # geometry-fused convs (ops/fused_conv.GeomSpec): Bessel, cutoff and SH
+    # computed inside the conv kernels. Single-cutoff embedding with
+    # normalised SH only, up to the kernels' lmax of 3.
+    geom_spec = None
+    if edge_embedding.normalize_sph and edge_embedding.lmax_edge <= 3:
+        env = edge_embedding.cutoff_fn
+        geom_spec = GeomSpec(
+            cutoff=float(edge_embedding.basis.cutoff),
+            num_basis=int(edge_embedding.basis.num_basis),
+            lmax=int(edge_embedding.lmax_edge),
+            cutoff_kind='xplor' if isinstance(env, XPLORCutoff) else 'poly',
+            cutoff_p=float(getattr(env, 'p', 6)),
+            cutoff_on=float(getattr(env, 'cutoff_on', 0.0)))
     irreps_x = (Irreps(f'{feature_multiplicity}x0e')
                 if irreps_manual is None else irreps_manual[0])
     layers.append(('onehot_idx_to_onehot',
@@ -197,6 +211,7 @@ def build_e3_equivariant_model(config: Dict[str, Any]) -> SevenNetModel:
             act_scalar=act_scalar, act_gate=act_gate,
             act_radial=config[KEY.ACTIVATION_RADIAL],
             bias_in_linear=use_bias, num_species=num_species,
+            geom=geom_spec,
         ))
         irreps_x = irreps_out
 

@@ -21,7 +21,7 @@ from torch import nn
 
 from .. import _keys as KEY
 from ..irreps import Irreps
-from ..ops.fused_conv import FusedConv
+from ..ops.fused_conv import FusedConv, GeomSpec
 from ..ops.radial import BesselBasis
 from ..ops.scatter import gather_rev, scatter_sum
 from ..ops.spherical import spherical_harmonics
@@ -48,9 +48,22 @@ class ParamGroup(nn.Module):
         return dict(self.named_buffers(recurse=False))
 
 
+def geom_packed_ok(model) -> bool:
+    """Whether a model can run its convolutions geometry-fused: every
+    convolution carries a GeomSpec and takes the fused conv. Engines ask
+    once per instance."""
+    convs = [layer for layer in model.layers.values()
+             if isinstance(layer, IrrepsConvolution)]
+    return bool(convs) and all(
+        layer.geom is not None and layer._fused_eligible()
+        for layer in convs)
+
+
 class EdgeEmbedding(nn.Module):
     """EDGE_VEC -> EDGE_LENGTH, EDGE_EMBEDDING (Bessel * envelope * mask),
-    EDGE_ATTR (real SH). Reference sevenn/nn/edge_embedding.py:190-217."""
+    EDGE_ATTR (real SH). Reference sevenn/nn/edge_embedding.py:190-217.
+    Always publishes EDGE_BESSEL_COEFFS; with EDGE_GEOM_PACKED set it
+    computes nothing else (the convolutions do, in-kernel)."""
 
     def __init__(self, basis: BesselBasis, cutoff_fn, lmax_edge: int,
                  parity: int, normalize_sph: bool = True):
@@ -68,6 +81,9 @@ class EdgeEmbedding(nn.Module):
         return Irreps.spherical_harmonics(self.lmax_edge, self.parity)
 
     def forward(self, data: Data) -> Data:
+        data[KEY.EDGE_BESSEL_COEFFS] = self.coeffs
+        if data.get(KEY.EDGE_GEOM_PACKED):
+            return data
         rvec = data[KEY.EDGE_VEC]
         r = torch.sqrt(torch.sum(rvec * rvec, dim=-1))
         data[KEY.EDGE_LENGTH] = r
@@ -161,6 +177,78 @@ class SelfConnectionOutro(nn.Module):
         return data
 
 
+class _ChunkedConvFn(torch.autograd.Function):
+    """The convolution of one layer as a loop over row chunks of the dense
+    grid (counterpart of ``conv_scan`` in the JAX ``_apply_geom_packed``
+    and ``EDGE_FEAT_PACKED`` branches). ``feats`` are the per-edge inputs
+    that take a gradient: (vec,) geometry-fused (``coeffs`` given) or
+    (sh, emb).
+
+    Forward: per chunk gather ``x[src_c]``, run the fused conv forward,
+    keep the chunk's node rows. Saves x and the per-edge inputs, never
+    the gathered rows. Backward: per chunk gather again, run the fused
+    conv backward and keep dxg in one stacked (E, d1) buffer (``rev``
+    crosses chunks, so the x cotangent needs every chunk's dxg), then
+
+        dx[v] = sum over v's grid rows of dxg[rev]
+
+    chunk by chunk: scatter-free, and the buffer dies with the call.
+    First order only: the mask scale and the weights get no gradient."""
+
+    @staticmethod
+    def forward(ctx, conv, chunk_rows, src, rev, ms, coeffs, n_mlp, x,
+                *rest):
+        n_feats = 1 if coeffs is not None else 2
+        feats, ws = rest[:n_feats], rest[n_feats:]
+        ctx.conv, ctx.chunk_rows, ctx.n_mlp = conv, chunk_rows, n_mlp
+        ctx.n_feats = n_feats
+        ctx.save_for_backward(src, rev, ms, coeffs, x, *rest)
+        mlp_ws, si2_ws = ws[:n_mlp], ws[n_mlp:]
+        outs = []
+        for c0 in range(0, src.shape[0], chunk_rows):
+            c1 = min(c0 + chunk_rows, src.shape[0])
+            xg = x[src[c0:c1]]
+            feats_c = [f[c0:c1] for f in feats]
+            if coeffs is not None:
+                outs.append(conv.geom_forward(xg, *feats_c, ms[c0:c1],
+                                              coeffs, mlp_ws, si2_ws))
+            else:
+                outs.append(conv.forward(xg, *feats_c, ms[c0:c1], mlp_ws,
+                                         si2_ws))
+        return torch.cat(outs)
+
+    @staticmethod
+    def backward(ctx, g):
+        src, rev, ms, coeffs, x, *rest = ctx.saved_tensors
+        conv, chunk_rows, n_mlp = ctx.conv, ctx.chunk_rows, ctx.n_mlp
+        feats, ws = rest[:ctx.n_feats], rest[ctx.n_feats:]
+        mlp_ws, si2_ws = tuple(ws[:n_mlp]), tuple(ws[n_mlp:])
+        rows, dd = src.shape[0], conv.agg_d
+        chunks = [(c0, min(c0 + chunk_rows, rows))
+                  for c0 in range(0, rows, chunk_rows)]
+        dxg_all = x.new_empty((rows, conv.d1))
+        dfeats = [torch.empty_like(f) for f in feats]
+        for c0, c1 in chunks:
+            xg = x[src[c0:c1]]
+            g_c = g[c0 // dd:c1 // dd]
+            feats_c = [f[c0:c1] for f in feats]
+            if coeffs is not None:
+                got = conv.geom_backward(g_c, xg, *feats_c, ms[c0:c1],
+                                         coeffs, mlp_ws, si2_ws)
+            else:
+                got = conv.backward(g_c, xg, *feats_c, ms[c0:c1], mlp_ws,
+                                    si2_ws)
+            dxg_all[c0:c1] = got[0]
+            for d, o in zip(dfeats, got[1:]):
+                d[c0:c1] = o
+            del xg, got
+        dx = x.new_empty((rows // dd, conv.d1))
+        for c0, c1 in chunks:
+            dx[c0 // dd:c1 // dd] = dxg_all[rev[c0:c1]].reshape(
+                -1, dd, conv.d1).sum(1)
+        return (None,) * 7 + (dx[:x.shape[0]], *dfeats) + (None,) * len(ws)
+
+
 class IrrepsConvolution(nn.Module):
     """Message passing + self_interaction_2 on the dense neighbor grid.
 
@@ -170,13 +258,20 @@ class IrrepsConvolution(nn.Module):
     With an si2 linear, a 2-hidden-layer MLP and no si2 bias, the block
     runs as one fused call (``ops/fused_conv``: CUDA kernels on the
     card, the plain chain on the CPU); otherwise as the plain chain.
+
+    Two switches in the data select the execution (the engine sets them):
+    CONV_CHUNK_ROWS > 0 runs the fused conv chunk by chunk
+    (``_ChunkedConvFn``: large systems, the gathered rows of one chunk at
+    a time), and EDGE_GEOM_PACKED runs it geometry-fused, from EDGE_VEC
+    and EDGE_BESSEL_COEFFS instead of EDGE_ATTR and EDGE_EMBEDDING.
     """
 
     def __init__(self, tp: UVUTensorProductSpec,
                  weight_nn: FullyConnectedNetSpec, si2: Optional[LinearSpec],
-                 denominator: float):
+                 denominator: float, geom: Optional[GeomSpec] = None):
         super().__init__()
         self.tp, self.weight_nn, self.si2 = tp, weight_nn, si2
+        self.geom = geom
         self.register_buffer('denominator',
                              torch.tensor([denominator], dtype=torch.float32))
         self.weight_nn_p = ParamGroup(weight_nn.param_shapes())
@@ -194,25 +289,55 @@ class IrrepsConvolution(nn.Module):
         return (self.si2 is not None and len(self.weight_nn.hs) == 4
                 and not self.si2.biases)
 
-    def _rows_to_nodes(self, xg, sh, emb, scale, dd):
+    def _geom_eligible(self, data: Data) -> bool:
+        return (self.geom is not None and KEY.EDGE_BESSEL_COEFFS in data
+                and KEY.EDGE_VEC in data and self._fused_eligible())
+
+    def _conv(self, dd: int) -> FusedConv:
+        conv = self._fused.get(dd)
+        if conv is None:
+            conv = self._fused[dd] = FusedConv(
+                self.tp, self.weight_nn, self.si2, dd, geom=self.geom)
+        return conv
+
+    def _weights(self):
         mlp = self.weight_nn_p.as_dict()
+        si2 = self.si2_p.as_dict()
+        return (tuple(mlp[f'w{i}'] for i in range(len(mlp))),
+                tuple(si2[f'w{n}'] for n in range(len(si2))))
+
+    def _rows_to_nodes(self, xg, sh, emb, scale, dd):
         if self._fused_eligible():
-            conv = self._fused.get(dd)
-            if conv is None:
-                conv = self._fused[dd] = FusedConv(
-                    self.tp, self.weight_nn, self.si2, dd)
-            mlp_ws = tuple(mlp[f'w{i}'] for i in range(len(mlp)))
-            si2 = self.si2_p.as_dict()
-            si2_ws = tuple(si2[f'w{n}'] for n in range(len(si2)))
-            return conv(xg, sh.contiguous(), emb.contiguous(),
-                        scale.contiguous(), mlp_ws, si2_ws)
-        w = self.weight_nn.apply(mlp, emb) * scale
+            return self._conv(dd)(xg, sh.contiguous(), emb.contiguous(),
+                                  scale.contiguous(), *self._weights())
+        w = self.weight_nn.apply(self.weight_nn_p.as_dict(), emb) * scale
         message = self.tp.apply(xg, sh, w)
         agg = message.reshape(
             (message.shape[0] // dd, dd) + message.shape[1:]).sum(1)
         if self.si2 is None:
             return agg
         return self.si2.apply(self.si2_p.as_dict(), agg, skip_bias=True)
+
+    def _rows_to_nodes_geom(self, xg, vec, coeffs, scale, dd):
+        """Geometry-fused variant of ``_rows_to_nodes``: raw edge vectors
+        in, Bessel/cutoff/SH computed inside the fused conv."""
+        return self._conv(dd).apply_geom(
+            xg, vec.contiguous(), scale.contiguous(), coeffs,
+            *self._weights())
+
+    def _rows_to_nodes_chunked(self, x, src, rev, feats, coeffs, scale, dd,
+                               chunk_rows):
+        if not self._fused_eligible():
+            raise NotImplementedError(
+                'the chunked convolution runs the fused conv only')
+        if chunk_rows % dd:
+            raise ValueError(f'chunk of {chunk_rows} rows is not a whole '
+                             f'number of atoms (D = {dd})')
+        mlp_ws, si2_ws = self._weights()
+        return _ChunkedConvFn.apply(
+            self._conv(dd), chunk_rows, src, rev, scale.contiguous(), coeffs,
+            len(mlp_ws), x, *(f.contiguous() for f in feats), *mlp_ws,
+            *si2_ws)
 
     def forward(self, data: Data) -> Data:
         x = data[KEY.NODE_FEATURE]
@@ -228,9 +353,24 @@ class IrrepsConvolution(nn.Module):
         scale = x.new_ones((rows, 1)) / denom
         if KEY.EDGE_MASK in data:
             scale = scale * data[KEY.EDGE_MASK][..., None]
-        xg = gather_rev(x, edge_idx[1], rev, dd)
-        out = self._rows_to_nodes(xg, data[KEY.EDGE_ATTR],
-                                  data[KEY.EDGE_EMBEDDING], scale, dd)
+        geom = bool(data.get(KEY.EDGE_GEOM_PACKED))
+        if geom and not self._geom_eligible(data):
+            raise ValueError('EDGE_GEOM_PACKED is set but this convolution '
+                             'cannot run geometry-fused')
+        coeffs = data[KEY.EDGE_BESSEL_COEFFS].to(x.dtype) if geom else None
+        feats = ((data[KEY.EDGE_VEC],) if geom else
+                 (data[KEY.EDGE_ATTR], data[KEY.EDGE_EMBEDDING]))
+        chunk_rows = data.get(KEY.CONV_CHUNK_ROWS)
+        if chunk_rows:
+            out = self._rows_to_nodes_chunked(x, edge_idx[1], rev, feats,
+                                              coeffs, scale, dd, chunk_rows)
+        else:
+            xg = gather_rev(x, edge_idx[1], rev, dd)
+            if geom:
+                out = self._rows_to_nodes_geom(xg, feats[0], coeffs, scale,
+                                               dd)
+            else:
+                out = self._rows_to_nodes(xg, *feats, scale, dd)
         out = out[:x.shape[0]]
         if self.si2 is not None:
             bias = self.si2.bias_vector(self.si2_p.as_dict(), out.dtype)
@@ -291,7 +431,9 @@ class SpeciesWiseRescale(nn.Module):
 
 class AtomReduce(nn.Module):
     """Masked per-graph sum of atomic energies
-    (reference sevenn/nn/linear.py:104-141)."""
+    (reference sevenn/nn/linear.py:104-141). The sum runs in float64: an
+    ``index_add_`` of 97k float32 energies into one bucket adds them one
+    by one and drifts by ~1 eV (1e-5 eV/atom)."""
 
     def forward(self, data: Data) -> Data:
         src = data[KEY.ATOMIC_ENERGY][..., 0]
@@ -299,5 +441,5 @@ class AtomReduce(nn.Module):
             src = src * data[KEY.NODE_MASK]
         num_graphs = data[KEY.NUM_ATOMS].shape[0]
         data[KEY.PRED_TOTAL_ENERGY] = scatter_sum(
-            src, data[KEY.BATCH].long(), num_graphs)
+            src.double(), data[KEY.BATCH].long(), num_graphs).to(src.dtype)
         return data

@@ -13,6 +13,13 @@ The forward returns the (N, d_out) node rows; the backward recomputes
 the MLP and returns (dxg, dsh, demb) -- first order only, the mask
 scale and the weights get no gradient (as the JAX ``bwd_call``).
 
+With a ``GeomSpec`` the same block also runs geometry-fused (the
+counterpart of ``make_fused_conv(geom=...)``: ``fwd_kernel_geom`` and
+``bwd_kernel_geom``): it takes the raw edge vector ``vec`` and the Bessel
+frequencies instead of ``sh`` and ``emb``, computes both per row inside
+the kernel (``geom_rows`` is the plain version), and its backward returns
+(dxg, dvec).
+
 On CUDA tensors the wrapper launches the kernels of
 ``csrc/fused_conv.cu`` (built with nvcc at first use into ``_build/``);
 on CPU tensors it runs the plain version, the XLA-path chain of
@@ -36,6 +43,7 @@ import numpy as np
 import torch
 
 from .normalize import NORMALIZE2MOM_CST
+from .spherical import _monomials, sh_coefficients, spherical_harmonics
 from .tensor_product import (
     FullyConnectedNetSpec,
     LinearSpec,
@@ -60,12 +68,88 @@ _ACT_CODE = {'silu': 0, 'tanh': 1}
 
 # launches of each kernel; the wrappers add one per launch and nowhere
 # else (chip_smoke.py resets and reads these around the main path)
-launch_counts: Dict[str, int] = {'fused_conv_fwd': 0, 'fused_conv_bwd': 0}
+launch_counts: Dict[str, int] = {
+    'fused_conv_fwd': 0, 'fused_conv_bwd': 0,
+    'fused_conv_geom_fwd': 0, 'fused_conv_geom_bwd': 0}
 
 
 def reset_launch_counts():
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+# ---------------------------------------------------------------------
+# in-kernel edge geometry: counterpart of pallas_conv.GeomSpec / _geom_fm
+# ---------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class GeomSpec:
+    """Static geometry of the geometry-fused conv; mirrors
+    ``EdgeEmbedding``: emb_n = (2/rc) sin(c_n r)/r * env(r), Y = the
+    component-normalised real SH of the (normalised) edge vector."""
+    cutoff: float
+    num_basis: int
+    lmax: int
+    cutoff_kind: str            # 'poly' | 'xplor'
+    cutoff_p: float = 6.0       # poly exponent
+    cutoff_on: float = 0.0      # xplor r_on
+    normalize: bool = True      # SH of v/|v|
+
+
+_ENV_CODE = {'poly': 0, 'xplor': 1}
+
+
+def geom_rows(vec: Tensor, coeffs: Tensor, spec: GeomSpec):
+    """(E, 3) edge vectors and (num_basis,) Bessel frequencies ->
+    (emb (E, num_basis), sh (E, (lmax+1)^2)), row-major: the plain
+    version of the kernels' geometry (``pallas_conv._geom_fm``). The
+    mask is not applied here (the conv applies it through ``ms``); the
+    eps keeps an exactly zero vector finite."""
+    r2 = torch.sum(vec * vec, dim=-1, keepdim=True)
+    r = torch.sqrt(r2 + 1e-30)
+    inv_r = 1.0 / r
+    if spec.cutoff_kind == 'poly':
+        p = float(spec.cutoff_p)
+        c0 = (p + 1.0) * (p + 2.0) / 2.0
+        c1 = p * (p + 2.0)
+        c2 = p * (p + 1.0) / 2.0
+        rr = r * (1.0 / spec.cutoff)
+        rp = rr ** p
+        env = 1.0 - c0 * rp + c1 * rp * rr - c2 * rp * rr * rr
+    elif spec.cutoff_kind == 'xplor':
+        r_on2 = spec.cutoff_on ** 2
+        rc2 = spec.cutoff ** 2
+        smooth = ((rc2 - r2) ** 2 * (rc2 + 2.0 * r2 - 3.0 * r_on2)
+                  / (rc2 - r_on2) ** 3)
+        env = torch.where(r < spec.cutoff_on, torch.ones_like(r), smooth)
+    else:
+        raise ValueError(spec.cutoff_kind)
+    emb = (torch.sin(coeffs.to(vec.dtype) * r)
+           * ((2.0 / spec.cutoff) * inv_r * env))
+    u = vec * inv_r if spec.normalize else vec
+    sh = spherical_harmonics(spec.lmax, u, normalize=False,
+                             normalization='component')
+    return emb, sh
+
+
+def _sh_terms(lmax: int):
+    """The SH polynomials as a flat term list for the kernels:
+    Y_j(u) = sum over terms t in [off[j], off[j+1]) of
+    coef[t] * ux^a uy^b uz^c, (a, b, c) packed in idx[t] with j."""
+    idx, coef, off = [], [], [0]
+    j = 0
+    for l in range(lmax + 1):
+        C = np.asarray(sh_coefficients(l)) * math.sqrt(2 * l + 1)
+        monos = _monomials(l)
+        for m in range(2 * l + 1):
+            for k, (a, b, c) in enumerate(monos):
+                if abs(C[m, k]) < 1e-14:
+                    continue
+                idx.append(a | (b << 4) | (c << 8) | (j << 12))
+                coef.append(float(C[m, k]))
+            off.append(len(idx))
+            j += 1
+    return idx, coef, off
 
 
 # ---------------------------------------------------------------------
@@ -214,6 +298,10 @@ _DIM_ARGS = [_I] * 14 + [_F] * 4  # n_atoms, D, d1, f, nb, wn, d_out,
 #   n_ins, n_active, n_grp, n_xent, agg_dim, n_nz, act, act_cst, s0, s1, s2
 
 
+_GEOM_ARGS = [_P] * 4 + [_I] * 3 + [_F] * 3   # coeffs, sh_idx, sh_coef,
+#   sh_off, n_terms, env_kind, normalize, cutoff, env_p, r_on
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = ctypes.CDLL(build())
@@ -223,6 +311,12 @@ def _lib():
     lib.fused_conv_bwd.argtypes = ([_P] * 11 + _TABLE_ARGS + _DIM_ARGS
                                    + [_P, _P, _P, _P])
     lib.fused_conv_bwd.restype = _I
+    lib.fused_conv_geom_fwd.argtypes = ([_P] * 7 + _TABLE_ARGS + _DIM_ARGS
+                                        + _GEOM_ARGS + [_P, _P])
+    lib.fused_conv_geom_fwd.restype = _I
+    lib.fused_conv_geom_bwd.argtypes = ([_P] * 10 + _TABLE_ARGS + _DIM_ARGS
+                                        + _GEOM_ARGS + [_P, _P, _P])
+    lib.fused_conv_geom_bwd.restype = _I
     return lib
 
 
@@ -259,21 +353,34 @@ class _Tables:
 class FusedConv:
     """fused(xg, sh, emb, ms, mlp_ws, si2_ws) -> (N, d_out) node rows on
     the dense grid of ``agg_d`` rows per atom (see module docstring); the
-    counterpart of the function ``make_fused_conv(...)`` returns."""
+    counterpart of the function ``make_fused_conv(...)`` returns. With
+    ``geom`` it also offers the geometry-fused call
+    ``apply_geom(xg, vec, ms, coeffs, mlp_ws, si2_ws)``."""
 
     def __init__(self, tp_spec: UVUTensorProductSpec,
                  mlp_spec: FullyConnectedNetSpec, si2_spec: LinearSpec,
-                 agg_d: int):
+                 agg_d: int, geom: Optional[GeomSpec] = None):
         assert agg_d > 0, 'the port covers the dense-grid contract only'
         assert len(mlp_spec.hs) == 4, 'kernel assumes 2 hidden layers'
         self.tp, self.mlp, self.si2 = tp_spec, mlp_spec, si2_spec
         self.agg_d = agg_d
+        self.geom = geom
+        if geom is not None:
+            if geom.num_basis != mlp_spec.hs[0]:
+                raise ValueError('geom: num_basis != radial MLP input width')
+            if (geom.lmax + 1) ** 2 != tp_spec.irreps_in2.dim:
+                raise ValueError('geom: (lmax+1)^2 != filter width')
+            if geom.cutoff_kind not in _ENV_CODE:
+                raise ValueError(f'geom: envelope {geom.cutoff_kind!r}')
+            if geom.lmax > 3:
+                raise ValueError('geom: the kernels take lmax <= 3')
         self.plan, self.w_numel = _tp_plan(tp_spec)
         self.groups, self.d_out = _si2_groups(tp_spec, si2_spec)
         self.d1 = tp_spec.irreps_in1.dim
         self.f = tp_spec.irreps_in2.dim
         self.nb = mlp_spec.hs[0]
         self._tables: Dict[torch.device, _Tables] = {}
+        self._geom_tables: Dict[torch.device, tuple] = {}
         self._packed: Dict[tuple, tuple] = {}
 
     # -- plain version ------------------------------------------------
@@ -297,11 +404,38 @@ class FusedConv:
                 tuple(w.detach() for w in si2_ws))
             return torch.autograd.grad(out, ins, g)
 
+    def plain_geom_forward(self, xg, vec, ms, coeffs, mlp_ws,
+                           si2_ws) -> Tensor:
+        """``geom_rows`` followed by ``plain_forward``."""
+        emb, sh = geom_rows(vec, coeffs, self.geom)
+        return self.plain_forward(xg, sh, emb, ms, mlp_ws, si2_ws)
+
+    def plain_geom_backward(self, g, xg, vec, ms, coeffs, mlp_ws, si2_ws):
+        """(dxg, dvec): the VJP of ``plain_geom_forward`` by autograd."""
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(True) for t in (xg, vec)]
+            out = self.plain_geom_forward(
+                *ins, ms.detach(), coeffs.detach(),
+                tuple(w.detach() for w in mlp_ws),
+                tuple(w.detach() for w in si2_ws))
+            return torch.autograd.grad(out, ins, g)
+
     # -- kernel tables ------------------------------------------------
     def kernel_tables(self, device) -> _Tables:
         t = self._tables.get(device)
         if t is None:
             t = self._tables[device] = self._build_tables(device)
+        return t
+
+    def geom_tables(self, device):
+        """(sh_idx, sh_coef, sh_off) device tables of the SH terms."""
+        t = self._geom_tables.get(device)
+        if t is None:
+            idx, coef, off = _sh_terms(self.geom.lmax)
+            t = self._geom_tables[device] = (
+                torch.tensor(idx, dtype=torch.int32, device=device),
+                torch.tensor(coef, dtype=torch.float32, device=device),
+                torch.tensor(off, dtype=torch.int32, device=device))
         return t
 
     def _build_tables(self, device) -> _Tables:
@@ -419,16 +553,26 @@ class FusedConv:
                 1.0 / math.sqrt(_H), 1.0 / math.sqrt(_H)]
 
     def _check_inputs(self, xg, sh, emb, ms, *rest):
-        rows = xg.shape[0]
+        self._check_rows(xg=(xg, self.d1), sh=(sh, self.f),
+                         emb=(emb, self.nb), ms=(ms, 1))
+        self._check_tensors(xg, sh, emb, ms, *rest)
+
+    def _check_rows(self, **named):
+        """Every (tensor, width) is (rows, width) with rows % D == 0. (The
+        kernels form every global offset in 64 bits; one block per atom
+        bounds a launch at 2^31 - 1 atoms.)"""
+        rows = named['xg'][0].shape[0]
         if rows % self.agg_d:
             raise ValueError(f'{rows} rows is not a multiple of D')
-        want = {'xg': (xg, (rows, self.d1)), 'sh': (sh, (rows, self.f)),
-                'emb': (emb, (rows, self.nb)), 'ms': (ms, (rows, 1))}
-        for name, (t, shape) in want.items():
-            if tuple(t.shape) != shape:
-                raise ValueError(f'{name}: shape {tuple(t.shape)} != {shape}')
-        for t in (xg, sh, emb, ms, *rest):
-            if t.device != xg.device or t.dtype != torch.float32:
+        for name, (t, width) in named.items():
+            if tuple(t.shape) != (rows, width):
+                raise ValueError(f'{name}: shape {tuple(t.shape)} != '
+                                 f'{(rows, width)}')
+
+    @staticmethod
+    def _check_tensors(first, *rest):
+        for t in (first, *rest):
+            if t.device != first.device or t.dtype != torch.float32:
                 raise ValueError('fused conv kernel takes float32 tensors '
                                  'on one CUDA device')
             if not t.is_contiguous():
@@ -483,25 +627,99 @@ class FusedConv:
                                        t.nz_coef, t.grp, t.grp_alpha,
                                        t.xent, t.xins)]
 
+    def _geom_args(self, coeffs: Tensor):
+        if self.geom is None:
+            raise ValueError('this FusedConv was built without a GeomSpec')
+        if tuple(coeffs.shape) != (self.nb,):
+            raise ValueError(f'coeffs: shape {tuple(coeffs.shape)}')
+        g = self.geom
+        sh_idx, sh_coef, sh_off = self.geom_tables(coeffs.device)
+        return [self._ptr(coeffs), self._ptr(sh_idx), self._ptr(sh_coef),
+                self._ptr(sh_off), sh_idx.numel(), _ENV_CODE[g.cutoff_kind],
+                int(g.normalize), g.cutoff, g.cutoff_p, g.cutoff_on]
+
+    def kernel_geom_forward(self, xg, vec, ms, coeffs, mlp_ws,
+                            si2_ws) -> Tensor:
+        """Launch ``fused_conv_geom_fwd`` (CUDA tensors only)."""
+        self._check_rows(xg=(xg, self.d1), vec=(vec, 3), ms=(ms, 1))
+        self._check_tensors(xg, vec, ms, coeffs)
+        geom_args = self._geom_args(coeffs)
+        t = self.kernel_tables(xg.device)
+        w0, w1, _, w2, _, si2, _ = self._pack(mlp_ws, si2_ws)
+        rows = xg.shape[0]
+        out = torch.empty((rows // self.agg_d, self.d_out),
+                          dtype=xg.dtype, device=xg.device)
+        P = self._ptr
+        err = _lib().fused_conv_geom_fwd(
+            P(xg), P(vec), P(ms), P(w0), P(w1), P(w2), P(si2),
+            *self._table_ptrs(t), *self._dims(t, rows), *geom_args, P(out),
+            ctypes.c_void_p(torch.cuda.current_stream(xg.device).cuda_stream))
+        _check(err, 'fused_conv_geom_fwd')
+        launch_counts['fused_conv_geom_fwd'] += 1
+        return out
+
+    def kernel_geom_backward(self, g, xg, vec, ms, coeffs, mlp_ws, si2_ws):
+        """Launch ``fused_conv_geom_bwd`` (CUDA tensors only); returns
+        (dxg, dvec), every row written (zeros where ms == 0)."""
+        g = g.contiguous()
+        self._check_rows(xg=(xg, self.d1), vec=(vec, 3), ms=(ms, 1))
+        rows = xg.shape[0]
+        if tuple(g.shape) != (rows // self.agg_d, self.d_out):
+            raise ValueError(f'g: shape {tuple(g.shape)}')
+        self._check_tensors(xg, vec, ms, coeffs, g)
+        dxg = torch.empty_like(xg)
+        geom_args = self._geom_args(coeffs)
+        t = self.kernel_tables(xg.device)
+        w0, w1, w1t, w2, w2t, _, si2t = self._pack(mlp_ws, si2_ws)
+        dvec = torch.empty_like(vec)
+        P = self._ptr
+        err = _lib().fused_conv_geom_bwd(
+            P(g), P(xg), P(vec), P(ms), P(w0), P(w1), P(w1t), P(w2),
+            P(w2t), P(si2t), *self._table_ptrs(t), *self._dims(t, rows),
+            *geom_args, P(dxg), P(dvec),
+            ctypes.c_void_p(torch.cuda.current_stream(xg.device).cuda_stream))
+        _check(err, 'fused_conv_geom_bwd')
+        launch_counts['fused_conv_geom_bwd'] += 1
+        return dxg, dvec
+
     # -- dispatch -----------------------------------------------------
+    @staticmethod
+    def _by_device(t: Tensor, plain, kernel):
+        """The plain version for a CPU tensor, the kernel for a CUDA one."""
+        if t.device.type == 'cpu':
+            return plain
+        if t.device.type == 'cuda':
+            return kernel
+        raise ValueError(f'fused conv: no kernel for device {t.device}')
+
     def forward(self, xg, sh, emb, ms, mlp_ws, si2_ws) -> Tensor:
-        if xg.device.type == 'cpu':
-            return self.plain_forward(xg, sh, emb, ms, mlp_ws, si2_ws)
-        if xg.device.type == 'cuda':
-            return self.kernel_forward(xg, sh, emb, ms, mlp_ws, si2_ws)
-        raise ValueError(f'fused conv: no kernel for device {xg.device}')
+        return self._by_device(xg, self.plain_forward, self.kernel_forward)(
+            xg, sh, emb, ms, mlp_ws, si2_ws)
 
     def backward(self, g, xg, sh, emb, ms, mlp_ws, si2_ws):
-        if xg.device.type == 'cpu':
-            return self.plain_backward(g, xg, sh, emb, ms, mlp_ws, si2_ws)
-        if xg.device.type == 'cuda':
-            return self.kernel_backward(g, xg, sh, emb, ms, mlp_ws, si2_ws)
-        raise ValueError(f'fused conv: no kernel for device {xg.device}')
+        return self._by_device(xg, self.plain_backward, self.kernel_backward)(
+            g, xg, sh, emb, ms, mlp_ws, si2_ws)
+
+    def geom_forward(self, xg, vec, ms, coeffs, mlp_ws, si2_ws) -> Tensor:
+        return self._by_device(xg, self.plain_geom_forward,
+                               self.kernel_geom_forward)(
+            xg, vec, ms, coeffs, mlp_ws, si2_ws)
+
+    def geom_backward(self, g, xg, vec, ms, coeffs, mlp_ws, si2_ws):
+        return self._by_device(xg, self.plain_geom_backward,
+                               self.kernel_geom_backward)(
+            g, xg, vec, ms, coeffs, mlp_ws, si2_ws)
 
     def __call__(self, xg, sh, emb, ms, mlp_ws, si2_ws) -> Tensor:
         n_mlp = len(mlp_ws)
         return _FusedConvFn.apply(self, n_mlp, xg, sh, emb, ms,
                                   *mlp_ws, *si2_ws)
+
+    def apply_geom(self, xg, vec, ms, coeffs, mlp_ws, si2_ws) -> Tensor:
+        """The geometry-fused call with autograd: (N, d_out) node rows,
+        gradients to xg and vec."""
+        return _FusedConvGeomFn.apply(self, len(mlp_ws), xg, vec, ms, coeffs,
+                                      *mlp_ws, *si2_ws)
 
 
 class _FusedConvFn(torch.autograd.Function):
@@ -525,11 +743,35 @@ class _FusedConvFn(torch.autograd.Function):
         return (None, None, dxg, dsh, demb, None) + (None,) * len(ws)
 
 
-def conv_cost(conv: FusedConv, ms: Tensor) -> Tuple[float, float, float]:
+class _FusedConvGeomFn(torch.autograd.Function):
+    """Forward: geometry-fused conv. Backward: (dxg, dvec); None for the
+    mask scale, the Bessel frequencies and the weights."""
+
+    @staticmethod
+    def forward(ctx, conv, n_mlp, xg, vec, ms, coeffs, *ws):
+        ctx.conv, ctx.n_mlp = conv, n_mlp
+        ctx.save_for_backward(xg, vec, ms, coeffs, *ws)
+        return conv.geom_forward(xg, vec, ms, coeffs, ws[:n_mlp],
+                                 ws[n_mlp:])
+
+    @staticmethod
+    def backward(ctx, g):
+        xg, vec, ms, coeffs, *ws = ctx.saved_tensors
+        n_mlp = ctx.n_mlp
+        dxg, dvec = ctx.conv.geom_backward(g, xg, vec, ms, coeffs,
+                                           tuple(ws[:n_mlp]),
+                                           tuple(ws[n_mlp:]))
+        return (None, None, dxg, dvec, None, None) + (None,) * len(ws)
+
+
+def conv_cost(conv: FusedConv, ms: Tensor,
+              geom: bool = False) -> Tuple[float, float, float]:
     """(forward flops, backward flops, rows that carry an edge) for one
     launch on the mask scale ``ms``: the work this run's data needs --
     the kernels skip rows with ms == 0 and instructions no si2 path
-    reads. A multiply-add counts as 2 flops."""
+    reads. A multiply-add counts as 2 flops. ``geom``: the geometry-fused
+    pair, which adds the Bessel, envelope and SH arithmetic per row (a
+    transcendental counted as one operation) and its VJP."""
     real = float((ms.reshape(-1) != 0).sum().item())
     n_atoms = ms.shape[0] // conv.agg_d
     H = conv.mlp.hs[1]
@@ -546,16 +788,26 @@ def conv_cost(conv: FusedConv, ms: Tensor) -> Tuple[float, float, float]:
     # then the MLP backward (output layer + both hidden layers)
     bwd = (2.0 * n_atoms * si2
            + 2.0 * real * (2 * (mlp_hidden + mlp_out) + 4.5 * cg))
+    if geom:
+        # r, 1/r, envelope (~20), nb x (sin, 3 products), 3 products and
+        # one multiply-add per SH term; the backward recomputes it and
+        # runs the VJP at about twice that
+        geo = 20.0 + 4.0 * conv.nb + 5.0 * len(_sh_terms(conv.geom.lmax)[0])
+        fwd += real * geo
+        bwd += 3.0 * real * geo
     return fwd, bwd, real
 
 
-def conv_bytes(conv: FusedConv, ms: Tensor) -> Tuple[float, float]:
+def conv_bytes(conv: FusedConv, ms: Tensor,
+               geom: bool = False) -> Tuple[float, float]:
     """(forward bytes, backward bytes) one launch must move on the mask
     scale ``ms``: each input read once, each output written once. Per-row
     inputs count only on rows with ms != 0 and only in the xg and sh
     columns a live instruction reads; ms is read on every row; the MLP's
     last weight only in its live columns. The backward writes dxg, dsh
-    and demb on every row (zeros where nothing flows)."""
+    and demb on every row (zeros where nothing flows). ``geom``: the
+    geometry-fused pair reads the 3 vec columns in place of sh and emb
+    and its backward writes dxg and dvec only."""
     rows = ms.shape[0]
     real = float((ms.reshape(-1) != 0).sum().item())
     n_atoms = rows // conv.agg_d
@@ -567,8 +819,12 @@ def conv_bytes(conv: FusedConv, ms: Tensor) -> Tuple[float, float]:
         sh_cols.update(range(p['sh_off'], p['sh_off'] + p['dim2']))
     weights = (conv.nb * H + H * H + H * sum(p['mul'] for p in active)
                + sum(g['K'] * g['mo'] for g in conv.groups))
-    reads = real * (len(x_cols) + len(sh_cols) + conv.nb) + rows + weights
+    if geom:
+        edge_in, edge_out = 3, conv.d1 + 3
+        weights += conv.nb            # the Bessel frequencies
+    else:
+        edge_in, edge_out = len(sh_cols) + conv.nb, conv.d1 + conv.f + conv.nb
+    reads = real * (len(x_cols) + edge_in) + rows + weights
     fwd = 4.0 * (reads + n_atoms * conv.d_out)
-    bwd = 4.0 * (reads + n_atoms * conv.d_out
-                 + rows * (conv.d1 + conv.f + conv.nb))
+    bwd = 4.0 * (reads + n_atoms * conv.d_out + rows * edge_out)
     return fwd, bwd

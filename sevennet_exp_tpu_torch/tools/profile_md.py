@@ -1,13 +1,15 @@
-"""Profile the 1k NVT step on the card with torch.profiler.
+"""Profile the NVT step on the card with torch.profiler.
 
-    python -m sevennet_exp_tpu_torch.tools.profile_md
+    python -m sevennet_exp_tpu_torch.tools.profile_md [atoms]
 
 Builds the chip_smoke.py system (trained_nacl checkpoint, NaCl rocksalt
-of 1,000 atoms, 300 K, dt 2 fs, rebuild every 20 steps), warms up for 40
-steps, then traces 20 steps with CPU and CUDA activities. Prints the
-wall time per step, the summed device kernel time per step and the
-device's idle share (1 - kernel time / wall), and the top kernels by
-device time; writes the summary and the op table under chiprun_out/.
+of ``atoms`` atoms, default 1,000; 97336 is the large leg, which runs the
+chunked geometry-fused convolutions), 300 K, dt 2 fs, rebuild every 20
+steps. Warms up, then traces a window of steps (20, or 5 above 20,000
+atoms) with CPU and CUDA activities. Prints the wall time per step, the
+summed device kernel time per step and the device's idle share
+(1 - kernel time / wall), and the top kernels by device time; writes the
+summary and the op table under chiprun_out/.
 """
 
 import json
@@ -21,14 +23,14 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CKPT = os.path.join(ROOT, 'trained_nacl', 'checkpoint_best.pth.sevennet')
-ATOMS = 1000
-STEPS = 20
 
 
 def main():
     if not torch.cuda.is_available():
         print('profile_md: no CUDA device', file=sys.stderr)
         return 2
+    atoms = int(sys.argv[1]) if len(sys.argv) > 1 else 1000
+    steps, warm = (5, 2) if atoms > 20000 else (20, 40)
     from sevennet_exp_tpu_torch.checkpoint import SevenNetCheckpoint
     from sevennet_exp_tpu_torch.data.graph import build_nacl
     from sevennet_exp_tpu_torch.md.engine import MolecularDynamics
@@ -42,15 +44,15 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device('cuda')
     model, _ = SevenNetCheckpoint(CKPT).build_model(device=dev)
-    md = MolecularDynamics(model, build_nacl(ATOMS), dt_fs=2.0,
+    md = MolecularDynamics(model, build_nacl(atoms), dt_fs=2.0,
                            temperature_K=300.0, ensemble='nvt',
                            rebuild_every=20, seed=0, device=dev)
-    md.run(40)
+    md.run(warm)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        md.run(STEPS)
+        md.run(steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -60,18 +62,19 @@ def main():
         (e for e in events
          if e.device_type == torch.autograd.DeviceType.CUDA),
         key=lambda e: -e.self_device_time_total)
-    step_ms = wall / STEPS * 1e3
-    dev_ms = dev_us / 1e3 / STEPS
+    step_ms = wall / steps * 1e3
+    dev_ms = dev_us / 1e3 / steps
     summary = {
-        'card': card, 'atoms': md.n, 'steps': STEPS,
-        'rebuild_every': md.rebuild_every, 'wall_ms_per_step': step_ms,
+        'card': card, 'atoms': md.n, 'steps': steps,
+        'rebuild_every': md.rebuild_every,
+        'chunk_rows': md.conv_chunk_rows, 'wall_ms_per_step': step_ms,
         'device_kernel_ms_per_step': dev_ms,
         'device_idle_share': 1.0 - dev_ms / step_ms,
-        'launches_per_step': sum(e.count for e in kernels) / STEPS,
+        'launches_per_step': sum(e.count for e in kernels) / steps,
         'top_kernels': [
             {'name': e.key[:90], 'ms_per_step':
-             e.self_device_time_total / 1e3 / STEPS,
-             'calls_per_step': e.count / STEPS}
+             e.self_device_time_total / 1e3 / steps,
+             'calls_per_step': e.count / steps}
             for e in kernels[:25]],
     }
     print(json.dumps({k: v for k, v in summary.items()
@@ -81,9 +84,10 @@ def main():
               f"calls/step  {k['name']}")
     out_dir = os.path.join(ROOT, 'chiprun_out')
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, 'profile_md.json'), 'w') as fh:
+    with open(os.path.join(out_dir, f'profile_md_{md.n}.json'), 'w') as fh:
         json.dump(summary, fh, indent=1)
-    with open(os.path.join(out_dir, 'profile_md_table.txt'), 'w') as fh:
+    table = os.path.join(out_dir, f'profile_md_table_{md.n}.txt')
+    with open(table, 'w') as fh:
         fh.write(events.table(sort_by='self_cpu_time_total', row_limit=60))
     return 0
 
