@@ -3,7 +3,11 @@
 one NVIDIA GPU: the 7net-0 NVT MD path at 1,000 atoms (whole-array
 convolutions, kernels ``fused_conv_fwd`` / ``fused_conv_bwd``) and at
 97,336 atoms (chunked convolutions, the geometry-fused kernels
-``fused_conv_geom_fwd`` / ``fused_conv_geom_bwd``).
+``fused_conv_geom_fwd`` / ``fused_conv_geom_bwd``), the 1k path with the
+radial MLP on the half list (the external-weight kernels
+``fused_conv_extw_fwd`` / ``fused_conv_extw_bwd``), and the single-point
+calculator with stress (kernels 1-2 in their edge-row form, one output row
+per edge: ``fused_conv_edge_fwd`` / ``fused_conv_edge_bwd``).
 
     python3 chip_smoke.py            # needs one CUDA card
 
@@ -31,8 +35,24 @@ Phases (any failure raises, exits non-zero and prints no result):
      settles its rebuild cadence), then 20 timed steps with the
      counters reset just before them; every force call must have launched
      5 x chunks geom forward and backward kernels and none of kernels 1-2;
-  7. a ``{"kernels": [...]}`` line (all four kernels), then the card line
-     and the result line ``{"ok": true, "device": {...}}`` last.
+  7. the external-weight kernels against their plain versions on the 1k
+     path's real inputs with ``half_mlp`` (all five layers; pad rows of
+     dxg, dsh and dweff exactly zero), median times, the bound;
+  8. 1k energy and forces with ``half_mlp`` against the default kernel
+     path; both force-call times in turns and both peak memories; then 200
+     timed NVT steps with ``half_mlp``: every force call must have launched
+     5 + 5 external-weight kernels and none of kernels 1-2, and the run
+     ends at the default path's temperature;
+  9. the calculator on the 1k cell and on a sheared, 2 % strained copy:
+     the edge-row kernels against their plain versions on the call's real
+     inputs (all five layers); energy, forces and the six stress components
+     through the kernels against the same calculator through the plain
+     versions, the spread between two kernel runs (``index_add_`` adds by
+     atomics), repeated calls timed after the first, 5 + 5 launches of the
+     edge-row kernels per call and of no other kernel;
+ 10. a ``{"kernels": [...]}`` line (the six kernels and the edge-row form
+     of kernels 1-2), then the card line and the result line
+     ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of JAX or of the JAX package. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -60,6 +80,7 @@ REL_TOL = 1e-4
 # energy/forces of one path against another on the card
 F_TOL = 1e-3           # eV/A
 E_TOL_PER_ATOM = 1e-5  # eV/atom
+S_TOL = 1e-5           # eV/A^3, each of the six stress components
 
 N_LARGE = 97336        # 8 x 23^3: the large leg
 MD_KW = dict(dt_fs=2.0, temperature_K=300.0, ensemble='nvt',
@@ -139,7 +160,8 @@ def main():
     report['card'] = card
     report['device'] = torch.cuda.get_device_name(0)
     FC = fc.FusedConv
-    ROUTES = ('forward', 'backward', 'geom_forward', 'geom_backward')
+    ROUTES = ('forward', 'backward', 'geom_forward', 'geom_backward',
+              'extw_forward', 'extw_backward')
     dispatch = {name: getattr(FC, name) for name in ROUTES}
 
     @contextlib.contextmanager
@@ -156,21 +178,25 @@ def main():
     def plain_path():
         return patched(forward=FC.plain_forward, backward=FC.plain_backward,
                        geom_forward=FC.plain_geom_forward,
-                       geom_backward=FC.plain_geom_backward)
+                       geom_backward=FC.plain_geom_backward,
+                       extw_forward=FC.plain_extw_forward,
+                       extw_backward=FC.plain_extw_backward)
 
     @contextlib.contextmanager
     def recorded(keep=lambda i: True):
         """Time every fused conv call of a force call with a pair of CUDA
         events, and record the inputs and the cotangent of the forward
         calls i for which keep(i) holds (i = layer * chunks + chunk).
-        Yields (records, timings): a record is {'conv', 'call', 'geom',
-        'args', 'g'}; timings map a route to [(event, event, conv, ms)]."""
+        Yields (records, timings): a record is {'conv', 'call', 'kind',
+        'args', 'g'} with kind '' | 'geom' | 'extw'; timings map a route to
+        [(event, event, conv, ms)], ms being the mask scale (for 'extw' the
+        weights, whose all-zero rows are the pads)."""
         records, timings = {}, {name: [] for name in ROUTES}
 
         def wrap(name):
             fn = getattr(FC, name)
-            is_geom, is_bwd = name.startswith('geom'), 'backward' in name
-            ms_at = (2 if is_geom else 3) + is_bwd
+            kind, is_bwd = name.rpartition('_')[0], 'backward' in name
+            ms_at = (2 if kind else 3) + is_bwd
 
             def wrapped(self, *args):
                 idx = len(timings[name])
@@ -183,7 +209,7 @@ def main():
                         records[idx]['g'] = args[0].detach()
                 elif keep(idx):
                     records[idx] = {
-                        'conv': self, 'call': idx, 'geom': is_geom,
+                        'conv': self, 'call': idx, 'kind': kind,
                         'args': tuple(a.detach() if torch.is_tensor(a) else a
                                       for a in args)}
                 a = torch.cuda.Event(enable_timing=True)
@@ -202,11 +228,11 @@ def main():
         torch.cuda.synchronize()
         return sum(a.elapsed_time(b) for a, b, _, _ in pairs)
 
-    def launch_cost(pairs, geom, which):
+    def launch_cost(pairs, which, **kind):
         flops = nbytes = 0.0
         for _, _, conv, ms in pairs:
-            cost = fc.conv_cost(conv, ms, geom=geom)
-            byt = fc.conv_bytes(conv, ms, geom=geom)
+            cost = fc.conv_cost(conv, ms, **kind)
+            byt = fc.conv_bytes(conv, ms, **kind)
             flops += cost[0 if which == 'fwd' else 1]
             nbytes += byt[0 if which == 'fwd' else 1]
         return flops, nbytes
@@ -214,35 +240,43 @@ def main():
     def compare_kernels(rec, reps_plain=5):
         """One recorded launch: kernel against plain version, forward and
         backward, with median times and the bound."""
-        conv, args, g, geom = rec['conv'], rec['args'], rec['g'], rec['geom']
+        conv, args, g, kind = rec['conv'], rec['args'], rec['g'], rec['kind']
+        geom = kind == 'geom'
         if geom:
             kf, kb = conv.kernel_geom_forward, conv.kernel_geom_backward
             pf, pb = conv.plain_geom_forward, conv.plain_geom_backward
             names, ms = ('dxg', 'dvec'), args[2]
+        elif kind == 'extw':
+            kf, kb = conv.kernel_extw_forward, conv.kernel_extw_backward
+            pf, pb = conv.plain_extw_forward, conv.plain_extw_backward
+            names, ms = ('dxg', 'dsh', 'dweff'), args[2]
         else:
             kf, kb = conv.kernel_forward, conv.kernel_backward
             pf, pb = conv.plain_forward, conv.plain_backward
             names, ms = ('dxg', 'dsh', 'demb'), args[3]
+        cost_kind = {'geom': {'geom': True},
+                     'extw': {'ext_w': True}}.get(kind, {})
         row = {'rows': args[0].shape[0], 'd1': conv.d1, 'd_out': conv.d_out,
-               'geom': geom}
+               'kind': kind}
         y_k, y_p = kf(*args), pf(*args)
         d_k, d_p = kb(g, *args), pb(g, *args)
         torch.cuda.synchronize()
         row['fwd_err'], row['fwd_lim'] = check_close('fwd', y_k, y_p)
         for name, a, b in zip(names, d_k, d_p):
             row[f'{name}_err'], row[f'{name}_lim'] = check_close(name, a, b)
-        if geom:
-            pad = ms.reshape(-1) == 0
-            if float(d_k[1][pad].abs().max()) != 0.0 or float(
-                    d_k[0][pad].abs().max()) != 0.0:
-                raise AssertionError('pad rows of dxg/dvec are not zero')
+        if kind:
+            pad = (ms == 0).all(dim=1)
+            if any(float(d[pad].abs().max()) != 0.0 for d in d_k):
+                raise AssertionError(
+                    f'pad rows of {"/".join(names)} are not zero')
+            row['pad_rows'] = int(pad.sum())
         del y_k, y_p, d_k, d_p
         row['fwd_ms'] = cuda_ms(lambda: kf(*args))
         row['bwd_ms'] = cuda_ms(lambda: kb(g, *args))
         row['fwd_plain_ms'] = cuda_ms(lambda: pf(*args), reps=reps_plain)
         row['bwd_plain_ms'] = cuda_ms(lambda: pb(g, *args), reps=reps_plain)
-        fwd_flops, bwd_flops, real = fc.conv_cost(conv, ms, geom=geom)
-        fwd_bytes, bwd_bytes = fc.conv_bytes(conv, ms, geom=geom)
+        fwd_flops, bwd_flops, real = fc.conv_cost(conv, ms, **cost_kind)
+        fwd_bytes, bwd_bytes = fc.conv_bytes(conv, ms, **cost_kind)
         row.update(real_rows=real, fwd_flops=fwd_flops, bwd_flops=bwd_flops,
                    fwd_bytes=fwd_bytes, bwd_bytes=bwd_bytes)
         for k in ('fwd', 'bwd'):
@@ -271,8 +305,9 @@ def main():
         e_g, f_g = md_geom._ef_fn(md.state.pos, nl)
     torch.cuda.synchronize()
     records, records_g = list(records.values()), list(records_g.values())
-    assert len(records) == 5 and not any(r['geom'] for r in records)
-    assert len(records_g) == 3 and all(r['geom'] for r in records_g)
+    assert len(records) == 5 and not any(r['kind'] for r in records)
+    assert len(records_g) == 3 and all(r['kind'] == 'geom'
+                                       for r in records_g)
 
     # -- phase 2 -------------------------------------------------------
     phase('2 kernels vs plain versions (1k inputs)')
@@ -433,11 +468,13 @@ def main():
         call_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     assert [len(timings[k]) for k in ROUTES] == [0, 0, 5 * chunks,
-                                                 5 * chunks]
+                                                 5 * chunks, 0, 0]
     geom_ms = {'fwd': timed_ms(timings['geom_forward']),
                'bwd': timed_ms(timings['geom_backward'])}
-    geom_cost = {'fwd': launch_cost(timings['geom_forward'], True, 'fwd'),
-                 'bwd': launch_cost(timings['geom_backward'], True, 'bwd')}
+    geom_cost = {'fwd': launch_cost(timings['geom_forward'], 'fwd',
+                                    geom=True),
+                 'bwd': launch_cost(timings['geom_backward'], 'bwd',
+                                    geom=True)}
     print(f'97k force call {call_s * 1e3:.1f} ms on the host clock; geom '
           f'kernels {geom_ms["fwd"]:.1f} ms forward + {geom_ms["bwd"]:.1f} '
           f'ms backward in {5 * chunks} launches each; peak memory '
@@ -484,11 +521,194 @@ def main():
     check_launches(report['nvt_97k'], {'fused_conv_geom_fwd': 5 * chunks,
                                        'fused_conv_geom_bwd': 5 * chunks})
 
-    # -- phase 7 -------------------------------------------------------
-    phase('7 kernels')
+    big = nl = None
+    torch.cuda.empty_cache()
 
-    def total(key):
-        return sum(r[key] for r in layers)
+    # -- phase 7 -------------------------------------------------------
+    phase('7 external-weight kernels vs plain versions (1k inputs, '
+          'half_mlp)')
+    md = MolecularDynamics(model, atoms_1k, device=dev, **MD_KW)
+    md_half = MolecularDynamics(model, atoms_1k, device=dev, half_mlp=True,
+                                **MD_KW)
+    nl, nl_h = md._grid(), md_half._grid()
+    if nl_h.half is None or nl.half is not None:
+        raise AssertionError('half list: on only with half_mlp')
+    pos = md.state.pos
+    e_k, f_k = md._ef_fn(pos, nl)
+    with recorded() as (records, _):
+        e_h, f_h = md_half._ef_fn(pos, nl_h)
+    torch.cuda.synchronize()
+    records = list(records.values())
+    assert len(records) == 5 and all(r['kind'] == 'extw' for r in records)
+    extw_layers = []
+    for li, r in enumerate(records):
+        row = dict(layer=li, **compare_kernels(r))
+        show(row)
+        extw_layers.append(row)
+    report['extw_layers'] = extw_layers
+    records = None
+
+    # -- phase 8 -------------------------------------------------------
+    phase('8 1k with half_mlp: energy, forces, force-call time, NVT')
+    report['ef_half_mlp'] = check_ef('half_mlp path vs default kernel path',
+                                     n, e_h, f_h, e_k, f_k)
+
+    def half_call_ms(engine, grid, reps=10):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            engine._ef_fn(pos, grid)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    def call_peak(engine, grid):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        engine._ef_fn(pos, grid)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated()
+
+    pairs = ((md, nl), (md_half, nl_h))
+    for engine, grid in pairs:       # warm
+        half_call_ms(engine, grid, 3)
+    turns = [half_call_ms(*pairs[i]) for i in (0, 1, 1, 0)]
+    peaks = [call_peak(*pr) for pr in pairs]
+    with recorded(keep=lambda i: False) as (_, timings):
+        md._ef_fn(pos, nl)
+        md_half._ef_fn(pos, nl_h)
+    kernel_ms = {k: timed_ms(timings[k]) for k in ROUTES}
+    timings = None
+    report['force_call_half_mlp_1k'] = {
+        'default_ms': [turns[0], turns[3]],
+        'half_mlp_ms': [turns[1], turns[2]],
+        'default_peak_bytes': peaks[0], 'half_mlp_peak_bytes': peaks[1],
+        'default_kernel_ms': kernel_ms['forward'] + kernel_ms['backward'],
+        'half_mlp_kernel_ms': (kernel_ms['extw_forward']
+                               + kernel_ms['extw_backward'])}
+    print(f'1k force call, host clock, in turns: default {turns[0]:.3f} / '
+          f'{turns[3]:.3f} ms, half_mlp {turns[1]:.3f} / {turns[2]:.3f} ms; '
+          f'peak memory {peaks[0] / 2 ** 30:.3f} / {peaks[1] / 2 ** 30:.3f} '
+          f'GiB; conv kernels of one call {kernel_ms["forward"]:.3f} + '
+          f'{kernel_ms["backward"]:.3f} ms against '
+          f'{kernel_ms["extw_forward"]:.3f} + '
+          f'{kernel_ms["extw_backward"]:.3f} ms', flush=True)
+    # the same warm-up and steps as phase 4, from the same velocities: the
+    # two trajectories part only by fp32 rounding, so they end at the same
+    # temperature (within 10 K; the thermostat swings by ~150 K meanwhile)
+    report['nvt_half_mlp'] = timed_nvt(md_half, 40, 200)
+    check_launches(report['nvt_half_mlp'], {'fused_conv_extw_fwd': 5,
+                                            'fused_conv_extw_bwd': 5})
+    d_t = abs(report['nvt_half_mlp']['final_temperature_K']
+              - report['nvt']['final_temperature_K'])
+    print(f'final temperature with half_mlp and by default differ by '
+          f'{d_t:.3f} K', flush=True)
+    if not d_t <= 10.0:
+        raise AssertionError('the half_mlp trajectory left the default one')
+    md = md_half = nl = nl_h = e_h = f_h = None
+    torch.cuda.empty_cache()
+
+    # -- phase 9 -------------------------------------------------------
+    phase('9 calculator: energy, forces, stress')
+    import numpy as np
+    from sevennet_exp_tpu_torch.calculator import SevenNetCalculator
+    from sevennet_exp_tpu_torch.data.graph import Atoms
+    strain = np.eye(3) + np.array([[0.02, 0.01, 0.008], [0.01, -0.01, 0.015],
+                                   [0.008, 0.015, 0.0]])
+    sheared = Atoms(atoms_1k.atomic_numbers, atoms_1k.pos @ strain,
+                    atoms_1k.cell @ strain, atoms_1k.pbc)
+    calc = SevenNetCalculator(model)          # device: the default, 'cuda'
+    if calc.device.type != 'cuda':
+        raise AssertionError('the calculator did not default to the card')
+    report['calculator'] = {}
+    edge_layers, edge_launches = [], dict.fromkeys(fc.launch_counts, 0)
+    for name, at in (('nacl_1k', atoms_1k), ('sheared_2pct', sheared)):
+        calc.calculate(at)         # first call: tables, capacities
+        fc.reset_launch_counts()
+        with recorded(keep=lambda i: name == 'nacl_1k') as (records,
+                                                            timings):
+            res = calc.calculate(at)
+        launches = dict(fc.launch_counts)
+        for li, r in enumerate(records.values()):
+            assert r['conv'].agg_d == 0 and not r['kind']
+            row = dict(layer=li, **compare_kernels(r))
+            show(row)
+            edge_layers.append(row)
+        records = None
+        edge_ms = (timed_ms(timings['forward']),
+                   timed_ms(timings['backward']))
+        edge_cost = (bound(*launch_cost(timings['forward'], 'fwd')),
+                     bound(*launch_cost(timings['backward'], 'bwd')))
+        timings = None
+        want = dict.fromkeys(fc.launch_counts, 0)
+        want['fused_conv_edge_fwd'] = want['fused_conv_edge_bwd'] = 5
+        if launches != want:
+            raise AssertionError(f'calculator call launched {launches}, '
+                                 f'want {want}')
+        again = calc.calculate(at)
+        with plain_path():
+            ref = calc.calculate(at)
+        d = {'dE_per_atom': abs(res['energy'] - ref['energy']) / len(at),
+             'max_dF': float(np.abs(res['forces'] - ref['forces']).max()),
+             'max_dS': float(np.abs(res['stress'] - ref['stress']).max()),
+             'rerun_dE': abs(res['energy'] - again['energy']),
+             'rerun_max_dF': float(np.abs(res['forces']
+                                          - again['forces']).max()),
+             'rerun_max_dS': float(np.abs(res['stress']
+                                          - again['stress']).max())}
+        ok = (d['dE_per_atom'] <= E_TOL_PER_ATOM and d['max_dF'] <= F_TOL
+              and d['max_dS'] <= S_TOL
+              and all(np.isfinite(res[k]).all()
+                      for k in ('forces', 'stress', 'energies'))
+              and res['forces'].shape == (len(at), 3)
+              and res['stress'].shape == (6,))
+        print(f'{name}: E {res["energy"]:.6f} eV, stress '
+              f'{np.array2string(res["stress"], precision=6)} eV/A^3; kernel '
+              f'vs plain |dE|/N {d["dE_per_atom"]:.3e} (<= {E_TOL_PER_ATOM}), '
+              f'max|dF| {d["max_dF"]:.3e} (<= {F_TOL}), max|dS| '
+              f'{d["max_dS"]:.3e} (<= {S_TOL}); two kernel runs differ by '
+              f'|dE| {d["rerun_dE"]:.3e} eV, max|dF| {d["rerun_max_dF"]:.3e} '
+              f'eV/A, max|dS| {d["rerun_max_dS"]:.3e} eV/A^3', flush=True)
+        if not ok:
+            raise AssertionError(f'calculator on {name}: paths disagree')
+        reps = 5
+        fc.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            calc.calculate(at)
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) / reps * 1e3
+        for k, v in fc.launch_counts.items():
+            edge_launches[k] += v
+            if v != reps * want[k]:
+                raise AssertionError(f'{k}: {v} launches in {reps} '
+                                     'calculator calls')
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            batch = calc._batch(at)
+        torch.cuda.synchronize()
+        graph_ms = (time.perf_counter() - t0) / reps * 1e3
+        print(f'{name}: {call_ms:.2f} ms per call after the first, of which '
+              f'{graph_ms:.2f} ms host graph build and upload; edge rows '
+              f'{batch["edge_mask"].shape[0]} ({int(batch["edge_mask"].sum())}'
+              f' edges); edge-row kernels: '
+              f'{edge_ms[0]:.3f} + {edge_ms[1]:.3f} ms per call (bound '
+              f'{edge_cost[0][0]:.3f} + {edge_cost[1][0]:.3f} ms)',
+              flush=True)
+        report['calculator'][name] = dict(
+            d, energy=res['energy'], stress=res['stress'].tolist(),
+            call_ms=call_ms, graph_ms=graph_ms, launches=launches,
+            edge_rows=int(batch['edge_mask'].shape[0]),
+            edges=int(batch['edge_mask'].sum()),
+            edge_row_fwd_ms=edge_ms[0], edge_row_bwd_ms=edge_ms[1],
+            edge_row_fwd_bound_ms=edge_cost[0][0],
+            edge_row_bwd_bound_ms=edge_cost[1][0])
+    report['edge_layers'] = edge_layers
+    calc = batch = None
+
+    # -- phase 10 ------------------------------------------------------
+    phase('10 kernels')
+
+    def total(key, rows=None):
+        return sum(r[key] for r in (layers if rows is None else rows))
 
     source = 'sevennet_exp_tpu_torch/csrc/fused_conv.cu'
     kernels = []
@@ -520,6 +740,39 @@ def main():
             'max_abs_err': max(errs),
             # per 97k force call: 5 layers x chunks launches, each timed
             'ms': geom_ms[k], 'plain_ms': plain_ms[k],
+            'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None,
+        })
+    for name, k, line, grads in (
+            ('fused_conv_extw_fwd', 'fwd', 918, ()),
+            ('fused_conv_extw_bwd', 'bwd', 926, ('dxg', 'dsh', 'dweff'))):
+        errs = [r[f'{d}_err'] for r in extw_layers for d in grads or ('fwd',)]
+        b_ms, b_by = bound(total(f'{k}_flops', extw_layers),
+                           total(f'{k}_bytes', extw_layers))
+        kernels.append({
+            'name': name, 'route': 'cuda', 'source': source,
+            'replaces': f'sevennet_exp_tpu/ops/pallas_conv.py:{line}',
+            'launches': report['nvt_half_mlp']['launches'][name],
+            'max_abs_err': max(errs),
+            # per 1k force call with half_mlp: the five layers' launches
+            'ms': total(f'{k}_ms', extw_layers),
+            'plain_ms': total(f'{k}_plain_ms', extw_layers),
+            'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None,
+        })
+    for name, k, line, grads in (
+            ('fused_conv_edge_fwd', 'fwd', 792, ()),
+            ('fused_conv_edge_bwd', 'bwd', 886, ('dxg', 'dsh', 'demb'))):
+        errs = [r[f'{d}_err'] for r in edge_layers for d in grads or ('fwd',)]
+        b_ms, b_by = bound(total(f'{k}_flops', edge_layers),
+                           total(f'{k}_bytes', edge_layers))
+        kernels.append({
+            'name': name, 'route': 'cuda', 'source': source,
+            'replaces': f'sevennet_exp_tpu/ops/pallas_conv.py:{line}',
+            # the timed calculator calls of phase 9, both structures
+            'launches': edge_launches[name],
+            'max_abs_err': max(errs),
+            # per calculator call at 1,000 atoms: the five layers' launches
+            'ms': total(f'{k}_ms', edge_layers),
+            'plain_ms': total(f'{k}_plain_ms', edge_layers),
             'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None,
         })
     report['kernels'] = kernels

@@ -10,6 +10,10 @@
 //                          (_geom_fm, _sh_rows_fm, _mlp_fm, _cm_fwd_core)
 //   fused_conv_geom_bwd <- make_fused_conv(agg_d > 0, geom).bwd_kernel_geom
 //                          (the same, _cm_bwd_core and the geometry VJP)
+//   fused_conv_extw_fwd <- make_fused_conv(agg_d > 0, ext_w).fwd_kernel_cm_w
+//                          (_cm_fwd_core on given weights)
+//   fused_conv_extw_bwd <- make_fused_conv(agg_d > 0, ext_w).bwd_kernel_cm_w
+//                          (_cm_bwd_core; emits dweff)
 //
 // Per grid row e of atom i (row i*D + k is atom i's k-th neighbor):
 //   w[e]  = MLP(emb[e]) * ms[e]            radial MLP nb -> 64 -> 64 -> wn
@@ -58,6 +62,32 @@
 // arithmetic); what it saves is the (E, 17) round trip through global memory
 // and the PyTorch passes that would produce sh, emb and their VJPs. sinf,
 // cosf, sqrtf and powf are the accurate versions (c_n r reaches 8 pi).
+//
+// The external-weight pair runs no MLP: it takes the per-row weights
+// weff (E, wn), already scaled by mask/denominator (the caller computes them
+// once per edge PAIR on the half list, outside any kernel), and does the CG,
+// the D-row sum and si2 only; its backward returns dxg, dsh and dweff (E, wn)
+// and leaves the MLP's VJP to the caller. Without the MLP a mid layer does
+// ~4.3k multiply-adds per row against ~4.3 kB read per row (xg, sh and 576
+// live weights): ~3 flop/byte, so this pair is bound by bytes. Its design
+// keeps the one-block-per-atom shape and the thread-per-live-column CG of
+// kernels 1-2: a weight is read once, coalesced over the columns, with the
+// next row's weight in flight while this row's CG runs (forward) or staged
+// through shared memory per row tile (backward). A row whose live weights
+// are all zero is a grid pad: it sends no message and its dxg, dsh and
+// dweff rows are exact zeros; dweff columns no live instruction reads are
+// written as zeros.
+//
+// The edge-row pair (fused_conv_edge_fwd / fused_conv_edge_bwd) is kernels
+// 1-2 at agg_d = 0, the plain edge list of the calculator: one output row
+// per input row, si2 applied per row, the caller scatters the rows onto the
+// atoms. si2 per row is ~107k multiply-adds in a mid layer, more than the MLP
+// and the CG together, and its weights (~220 kB) fit no shared memory. One
+// row per block (the dense kernels with D = 1) reloads them, the tables and
+// the MLP's columns for every row; here a block owns RT_E (RT_EB) rows in any
+// order, keeps their aggregates (message cotangents) row-minor in shared
+// memory and reads each si2 weight once for all of them, the rows' values
+// by one or two 16-byte loads.
 
 #include <cuda_runtime.h>
 
@@ -67,8 +97,17 @@ constexpr int H = 64;       // radial MLP hidden width
 constexpr int NT = 256;     // threads per block
 constexpr int RT_F = 32;    // forward rows per tile
 constexpr int RT_B = 8;     // backward rows per tile
+constexpr int RT_E = 8;     // edge-row forward: rows per block
+constexpr int RT_EB = 4;    // edge-row backward: rows per block
 constexpr int MAXD = 8;     // offsets per key in an instruction record
 constexpr int KQ = NT / H;  // column groups of the backward's dw @ w2^T
+
+// what a kernel body takes per row: sh + emb (the MLP runs in the kernel),
+// the raw edge vector (geometry and MLP in the kernel), or sh + ready-made
+// weights (no MLP)
+// M_EDGE takes what M_PLAIN takes and returns one row per input row (the
+// plain edge list: si2 per row, no sum over rows)
+constexpr int M_PLAIN = 0, M_GEOM = 1, M_EXTW = 2, M_EDGE = 3;
 
 // instruction record (int32), one per live instruction
 enum {
@@ -93,14 +132,16 @@ struct Plan {
   const int* xent;       // n_xent * X_STRIDE
   const int* xins;       // live instructions per x entry
   int n_atoms, D, d1, f, nb, wn, d_out;
+  long n_rows;           // n_atoms * D, less in the last block of M_EDGE
   int n_ins, n_active, n_grp, n_xent, agg_dim, n_nz;
   int act;               // 0 silu, 1 tanh
   float act_cst, s0, s1, s2;   // normalize2mom constant, 1/sqrt(fan-in)
 };
 
-// words of shared memory the instruction and CG tables take
+// words of shared memory the instruction and CG tables take, rounded up so
+// that what follows is aligned to 16 bytes
 __host__ __device__ inline int table_words(const Plan& P) {
-  return P.n_ins * I_STRIDE + 2 * P.n_nz;
+  return (P.n_ins * I_STRIDE + 2 * P.n_nz + 3) & ~3;
 }
 
 // copy the instruction and CG tables into shared memory (not synced)
@@ -309,14 +350,16 @@ __device__ void geom_rows_bwd(const Plan& P, const Geom& G, int rows,
   }
 }
 
-// forward of one atom's block. GEOM: sh and emb are not read; the tile's rows
-// are computed from vec into the same shared-memory rows.
-template <bool GEOM>
+// forward of one atom's block. M_GEOM: sh and emb are not read; the tile's
+// rows are computed from vec into the same shared-memory rows. M_EXTW: no
+// MLP; the row weights are read from weff.
+template <int MODE>
 __device__ __forceinline__ void fwd_body(const float* __restrict__ xg,
                                          const float* __restrict__ sh,
                                          const float* __restrict__ emb,
                                          const float* __restrict__ vec,
                                          const float* __restrict__ ms,
+                                         const float* __restrict__ weff,
                                          const float* __restrict__ w0,
                                          const float* __restrict__ w1,
                                          const float* __restrict__ w2,
@@ -327,57 +370,86 @@ __device__ __forceinline__ void fwd_body(const float* __restrict__ xg,
   int* ins_s = reinterpret_cast<int*>(smem);       // n_ins * I_STRIDE
   int* nzi_s = ins_s + P.n_ins * I_STRIDE;         // n_nz
   float* nzc_s = reinterpret_cast<float*>(nzi_s + P.n_nz);   // n_nz
-  float* x_s = smem + table_words(P);    // RT_F * d1
-  float* sh_s = x_s + RT_F * P.d1;       // RT_F * f
-  float* emb_s = sh_s + RT_F * P.f;      // RT_F * nb
-  float* ms_s = emb_s + RT_F * P.nb;     // RT_F
-  float* h0_s = ms_s + RT_F;             // RT_F * H
-  float* h1_s = h0_s + RT_F * H;         // RT_F * H
-  float* agg_s = h1_s + RT_F * H;        // agg_dim
-  float* out_s = agg_s + P.agg_dim;      // d_out
-  float* vec_s = out_s + P.d_out;        // RT_F * 3 (GEOM only)
+  constexpr bool EDGE = MODE == M_EDGE;
+  constexpr int RT = EDGE ? RT_E : RT_F;     // rows per tile
+  float* next_s = smem + table_words(P);
+  auto take = [&next_s](int n) { float* q = next_s; next_s += n; return q; };
+  // M_EDGE: one aggregate per row, row-minor (entry i of row e at i * RT + e)
+  const int agg_words = EDGE ? RT * P.agg_dim : P.agg_dim;
+  float* agg_s = take(agg_words);
+  float* out_s = take(EDGE ? 0 : P.d_out);
+  float* x_s = take(RT * P.d1);
+  float* sh_s = take(RT * P.f);
+  float *emb_s = nullptr, *ms_s = nullptr, *h0_s = nullptr, *h1_s = nullptr,
+        *vec_s = nullptr;
+  if constexpr (MODE != M_EXTW) {
+    emb_s = take(RT * P.nb);
+    ms_s = take(RT);
+    h0_s = take(RT * H);
+    h1_s = take(RT * H);
+  }
+  if constexpr (MODE == M_GEOM) vec_s = take(RT * 3);
 
   const int atom = blockIdx.x;
   const int tid = threadIdx.x;
   load_tables(P, ins_s, nzi_s, nzc_s);
-  for (int i = tid; i < P.agg_dim; i += NT) agg_s[i] = 0.f;
+  for (int i = tid; i < agg_words; i += NT) agg_s[i] = 0.f;
 
-  for (int t0 = 0; t0 < P.D; t0 += RT_F) {
-    const int rows = min(RT_F, P.D - t0);
+  for (int t0 = 0; t0 < P.D; t0 += RT) {
     const long row0 = (long)atom * P.D + t0;
+    const int rows = (int)min((long)min(RT, P.D - t0), P.n_rows - row0);
     __syncthreads();
     load_rows(x_s, xg, row0, rows, P.d1);
-    load_rows(ms_s, ms, row0, rows, 1);
-    if constexpr (GEOM) {
-      load_rows(vec_s, vec, row0, rows, 3);
-      __syncthreads();
-      geom_rows_fwd(P, G, rows, vec_s, emb_s, sh_s);
-    } else {
+    if constexpr (MODE == M_EXTW) {
       load_rows(sh_s, sh, row0, rows, P.f);
-      load_rows(emb_s, emb, row0, rows, P.nb);
+      __syncthreads();
+    } else {
+      load_rows(ms_s, ms, row0, rows, 1);
+      if constexpr (MODE == M_GEOM) {
+        load_rows(vec_s, vec, row0, rows, 3);
+        __syncthreads();
+        geom_rows_fwd(P, G, rows, vec_s, emb_s, sh_s);
+      } else {
+        load_rows(sh_s, sh, row0, rows, P.f);
+        load_rows(emb_s, emb, row0, rows, P.nb);
+      }
+      __syncthreads();
+      mlp_hidden(P, rows, emb_s, w0, w1, h0_s, h1_s, nullptr, nullptr);
     }
-    __syncthreads();
-    mlp_hidden(P, rows, emb_s, w0, w1, h0_s, h1_s, nullptr, nullptr);
 
     for (int c = tid; c < P.n_active; c += NT) {
       const int* I = ins_s + P.col_ins[c] * I_STRIDE;
       const int u = c - I[I_COL0];
       const int mul = I[I_MUL], K = I[I_K], d3 = I[I_DIM3];
       const int col = P.col_w[c];
-      float wc[H];
+      float wc[MODE == M_EXTW ? 1 : H];
+      const float* wg = nullptr;     // this column of the tile's weff rows
+      float w_next = 0.f;
+      if constexpr (MODE == M_EXTW) {
+        wg = weff + row0 * P.wn + col;
+        w_next = __ldg(wg);
+      } else {
 #pragma unroll
-      for (int k = 0; k < H; ++k) wc[k] = __ldg(w2 + (long)k * P.wn + col);
+        for (int k = 0; k < H; ++k) wc[k] = __ldg(w2 + (long)k * P.wn + col);
+      }
       const float* xb = x_s + I[I_XOFF] + u;
       const float* sb = sh_s + I[I_SHOFF];
-      float* ab = agg_s + I[I_AGG] + u;
+      float* ab = agg_s + (I[I_AGG] + u) * (EDGE ? RT : 1);
       for (int e = 0; e < rows; ++e) {
-        const float m_e = ms_s[e];
-        if (m_e == 0.f) continue;          // grid pad row: no message
-        const float* hr = h1_s + e * H;
         float w = 0.f;
+        if constexpr (MODE == M_EXTW) {
+          // the next row's weight is in flight while this row's CG runs
+          w = w_next;
+          if (e + 1 < rows) w_next = __ldg(wg + (long)(e + 1) * P.wn);
+          if (w == 0.f) continue;   // pad row (or no weight): no message
+        } else {
+          const float m_e = ms_s[e];
+          if (m_e == 0.f) continue;          // grid pad row: no message
+          const float* hr = h1_s + e * H;
 #pragma unroll
-        for (int k = 0; k < H; ++k) w = fmaf(hr[k], wc[k], w);
-        w *= P.s2 * m_e;
+          for (int k = 0; k < H; ++k) w = fmaf(hr[k], wc[k], w);
+          w *= P.s2 * m_e;
+        }
         const float* xr = xb + e * P.d1;
         const float* sr = sb + e * P.f;
         for (int p = 0; p < d3; ++p) {
@@ -388,12 +460,54 @@ __device__ __forceinline__ void fwd_body(const float* __restrict__ xg,
             s = fmaf(nzc_s[q] * xr[(id & 0xff) * mul], sr[(id >> 8) & 0xff],
                      s);
           }
-          ab[p * K] += w * s;
+          if constexpr (EDGE) ab[p * K * RT + e] = w * s;
+          else ab[p * K] += w * s;
         }
       }
     }
   }
   __syncthreads();
+
+  if constexpr (EDGE) {
+    // self-interaction 2 per row: a thread owns one output column of every
+    // row of the block, so a weight is read once for RT rows
+    const long row0 = (long)atom * P.D;
+    const int rows = (int)min((long)P.D, P.n_rows - row0);
+    // output columns that no si2 path feeds are zeros
+    for (int i = tid; i < rows * P.d_out; i += NT)
+      out[row0 * P.d_out + i] = 0.f;
+    __syncthreads();
+    for (int g = 0; g < P.n_grp; ++g) {
+      const int* G = P.grp + g * G_STRIDE;
+      const int K = G[G_K], mo = G[G_MO], n = G[G_DIM3] * mo;
+      const float alpha = P.grp_alpha[g];
+      const float* W = si2w + G[G_WOFF];
+      for (int t = tid; t < n; t += NT) {
+        const int p = t / mo, o = t - p * mo;
+        const float4* a4 = reinterpret_cast<const float4*>(
+            agg_s + (long)(G[G_AGG] + p * K) * RT);
+        float acc[RT];
+#pragma unroll
+        for (int e = 0; e < RT; ++e) acc[e] = 0.f;
+        for (int r = 0; r < K; ++r) {
+          const float w = __ldg(W + (long)r * mo + o);
+#pragma unroll
+          for (int h = 0; h < RT / 4; ++h) {
+            const float4 a = a4[r * (RT / 4) + h];
+            acc[4 * h] = fmaf(a.x, w, acc[4 * h]);
+            acc[4 * h + 1] = fmaf(a.y, w, acc[4 * h + 1]);
+            acc[4 * h + 2] = fmaf(a.z, w, acc[4 * h + 2]);
+            acc[4 * h + 3] = fmaf(a.w, w, acc[4 * h + 3]);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < RT; ++e)
+          if (e < rows)
+            out[(row0 + e) * P.d_out + G[G_OUT] + p * mo + o] = acc[e] * alpha;
+      }
+    }
+    return;
+  }
 
   // per-atom self-interaction 2 over the aggregated messages
   for (int i = tid; i < P.d_out; i += NT) out_s[i] = 0.f;
@@ -418,7 +532,11 @@ __device__ __forceinline__ void fwd_body(const float* __restrict__ xg,
     out[(long)atom * P.d_out + i] = out_s[i];
 }
 
-__global__ void __launch_bounds__(NT)
+// The forward kernels keep a 64-weight MLP column in registers and fit two
+// blocks per SM at 128 registers. ptxas has found 128 by itself and, after
+// an unrelated edit of the shared body, 170 for the geom one (one block per
+// SM, 1.6x the time): the bound is stated on each.
+__global__ void __launch_bounds__(NT, 2)
 fused_conv_fwd_kernel(const float* __restrict__ xg,
                       const float* __restrict__ sh,
                       const float* __restrict__ emb,
@@ -428,10 +546,25 @@ fused_conv_fwd_kernel(const float* __restrict__ xg,
                       const float* __restrict__ w2,
                       const float* __restrict__ si2w, Plan P,
                       float* __restrict__ out) {
-  fwd_body<false>(xg, sh, emb, nullptr, ms, w0, w1, w2, si2w, P, Geom{}, out);
+  fwd_body<M_PLAIN>(xg, sh, emb, nullptr, ms, nullptr, w0, w1, w2, si2w, P,
+                    Geom{}, out);
 }
 
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 2)
+fused_conv_edge_fwd_kernel(const float* __restrict__ xg,
+                           const float* __restrict__ sh,
+                           const float* __restrict__ emb,
+                           const float* __restrict__ ms,
+                           const float* __restrict__ w0,
+                           const float* __restrict__ w1,
+                           const float* __restrict__ w2,
+                           const float* __restrict__ si2w, Plan P,
+                           float* __restrict__ out) {
+  fwd_body<M_EDGE>(xg, sh, emb, nullptr, ms, nullptr, w0, w1, w2, si2w, P,
+                   Geom{}, out);
+}
+
+__global__ void __launch_bounds__(NT, 2)
 fused_conv_geom_fwd_kernel(const float* __restrict__ xg,
                            const float* __restrict__ vec,
                            const float* __restrict__ ms,
@@ -440,18 +573,32 @@ fused_conv_geom_fwd_kernel(const float* __restrict__ xg,
                            const float* __restrict__ w2,
                            const float* __restrict__ si2w, Plan P, Geom G,
                            float* __restrict__ out) {
-  fwd_body<true>(xg, nullptr, nullptr, vec, ms, w0, w1, w2, si2w, P, G, out);
+  fwd_body<M_GEOM>(xg, nullptr, nullptr, vec, ms, nullptr, w0, w1, w2, si2w,
+                   P, G, out);
 }
 
-// backward of one atom's block. GEOM: the tile's dsh and demb rows stay in
-// shared memory and leave as dvec through the geometry VJP.
-template <bool GEOM>
+__global__ void __launch_bounds__(NT)
+fused_conv_extw_fwd_kernel(const float* __restrict__ xg,
+                           const float* __restrict__ sh,
+                           const float* __restrict__ weff,
+                           const float* __restrict__ si2w, Plan P,
+                           float* __restrict__ out) {
+  fwd_body<M_EXTW>(xg, sh, nullptr, nullptr, nullptr, weff, nullptr, nullptr,
+                   nullptr, si2w, P, Geom{}, out);
+}
+
+// backward of one atom's block. M_GEOM: the tile's dsh and demb rows stay in
+// shared memory and leave as dvec through the geometry VJP. M_EXTW: the row
+// weights come from weff, the backward ends at dweff (no MLP to run back
+// through); dead_w lists the n_dead weight columns no live instruction reads.
+template <int MODE>
 __device__ __forceinline__ void bwd_body(const float* __restrict__ gout,
                                          const float* __restrict__ xg,
                                          const float* __restrict__ sh,
                                          const float* __restrict__ emb,
                                          const float* __restrict__ vec,
                                          const float* __restrict__ ms,
+                                         const float* __restrict__ weff,
                                          const float* __restrict__ w0,
                                          const float* __restrict__ w1,
                                          const float* __restrict__ w1t,
@@ -459,80 +606,160 @@ __device__ __forceinline__ void bwd_body(const float* __restrict__ gout,
                                          const float* __restrict__ w2t,
                                          const float* __restrict__ si2wt,
                                          const Plan& P, const Geom& G,
+                                         const int* __restrict__ dead_w,
+                                         int n_dead,
                                          float* __restrict__ dxg,
                                          float* __restrict__ dsh,
                                          float* __restrict__ demb,
-                                         float* __restrict__ dvec) {
+                                         float* __restrict__ dvec,
+                                         float* __restrict__ dweff) {
   extern __shared__ float smem[];
   int* ins_s = reinterpret_cast<int*>(smem);       // n_ins * I_STRIDE
   int* nzi_s = ins_s + P.n_ins * I_STRIDE;         // n_nz
   float* nzc_s = reinterpret_cast<float*>(nzi_s + P.n_nz);   // n_nz
-  float* g_s = smem + table_words(P);        // d_out
-  float* gm_s = g_s + P.d_out;               // agg_dim: si2^T g
-  float* x_s = gm_s + P.agg_dim;             // RT_B * d1
-  float* sh_s = x_s + RT_B * P.d1;           // RT_B * f
-  float* emb_s = sh_s + RT_B * P.f;          // RT_B * nb
-  float* ms_s = emb_s + RT_B * P.nb;         // RT_B
-  float* h0_s = ms_s + RT_B;                 // RT_B * H (then dpre0)
-  float* h1_s = h0_s + RT_B * H;             // RT_B * H (then dpre1)
-  float* da0_s = h1_s + RT_B * H;            // RT_B * H
-  float* da1_s = da0_s + RT_B * H;           // RT_B * H
-  float* red_s = da1_s + RT_B * H;           // KQ * RT_B * H
-  float* weff_s = red_s + KQ * RT_B * H;     // RT_B * n_active
-  float* dw_s = weff_s + RT_B * P.n_active;  // RT_B * n_active
-  float* vec_s = dw_s + RT_B * P.n_active;   // RT_B * 3 (GEOM only)
-  float* dsh_s = vec_s + RT_B * 3;           // RT_B * f (GEOM only)
-  float* demb_s = dsh_s + RT_B * P.f;        // RT_B * nb (GEOM only)
+  constexpr bool EDGE = MODE == M_EDGE;
+  constexpr int RT = EDGE ? RT_EB : RT_B;    // rows per tile
+  float* next_s = smem + table_words(P);
+  auto take = [&next_s](int n) { float* q = next_s; next_s += n; return q; };
+  // M_EDGE: one cotangent per row: g row-minor (entry i of row e at
+  // i * RT + e), gm row by row (row e at e * agg_dim)
+  float* g_s = take(EDGE ? RT * P.d_out : P.d_out);
+  float* gm_s = take(EDGE ? RT * P.agg_dim : P.agg_dim);   // si2^T g
+  const int gs = EDGE ? P.agg_dim : 0;       // gm stride from row to row
+  float* x_s = take(RT * P.d1);
+  float* sh_s = take(RT * P.f);
+  float *emb_s = nullptr, *h0_s = nullptr, *h1_s = nullptr, *da0_s = nullptr,
+        *da1_s = nullptr, *red_s = nullptr, *dw_s = nullptr, *vec_s = nullptr,
+        *dsh_s = nullptr, *demb_s = nullptr;
+  if constexpr (MODE != M_EXTW) emb_s = take(RT * P.nb);
+  float* ms_s = take(RT);      // M_EXTW: 1 where a row has a nonzero weight
+  if constexpr (MODE != M_EXTW) {
+    h0_s = take(RT * H);                   // then dpre0
+    h1_s = take(RT * H);                   // then dpre1
+    da0_s = take(RT * H);
+    da1_s = take(RT * H);
+    red_s = take(KQ * RT * H);
+  }
+  float* weff_s = take(RT * P.n_active);
+  if constexpr (MODE != M_EXTW) dw_s = take(RT * P.n_active);
+  if constexpr (MODE == M_GEOM) {
+    vec_s = take(RT * 3);
+    dsh_s = take(RT * P.f);
+    demb_s = take(RT * P.nb);
+  }
 
   const int atom = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   load_tables(P, ins_s, nzi_s, nzc_s);
-  for (int i = tid; i < P.d_out; i += NT)
-    g_s[i] = gout[(long)atom * P.d_out + i];
+  if constexpr (EDGE) {
+    const long r0 = (long)atom * P.D;
+    for (int i = tid; i < RT * P.d_out; i += NT) {
+      const int e = i / P.d_out, c = i - e * P.d_out;
+      g_s[c * RT + e] =
+          r0 + e < P.n_rows ? gout[(r0 + e) * P.d_out + c] : 0.f;
+    }
+  } else {
+    for (int i = tid; i < P.d_out; i += NT)
+      g_s[i] = gout[(long)atom * P.d_out + i];
+  }
   __syncthreads();
   // message cotangent, once per atom: gm[p][r] = alpha * sum_o W[r,o] g[p,o]
-  for (int g = 0; g < P.n_grp; ++g) {
-    const int* G = P.grp + g * G_STRIDE;
-    const int K = G[G_K], mo = G[G_MO], n = G[G_DIM3] * K;
-    const float alpha = P.grp_alpha[g];
-    const float* WT = si2wt + G[G_WOFF];   // (mo, K)
-    for (int t = tid; t < n; t += NT) {
-      const int p = t / K, r = t - p * K;
-      const float* gp = g_s + G[G_OUT] + p * mo;
-      float s = 0.f;
-      for (int o = 0; o < mo; ++o)
-        s = fmaf(__ldg(WT + (long)o * K + r), gp[o], s);
-      gm_s[G[G_AGG] + p * K + r] = s * alpha;
+  // (M_EDGE: once per row, a weight read once for the block's RT rows)
+  if constexpr (EDGE) {
+    for (int g = 0; g < P.n_grp; ++g) {
+      const int* G = P.grp + g * G_STRIDE;
+      const int K = G[G_K], mo = G[G_MO], n = G[G_DIM3] * K;
+      const float alpha = P.grp_alpha[g];
+      const float* WT = si2wt + G[G_WOFF];   // (mo, K)
+      for (int t = tid; t < n; t += NT) {
+        const int p = t / K, r = t - p * K;
+        const float4* g4 = reinterpret_cast<const float4*>(
+            g_s + (long)(G[G_OUT] + p * mo) * RT);
+        float acc[RT];
+#pragma unroll
+        for (int e = 0; e < RT; ++e) acc[e] = 0.f;
+        for (int o = 0; o < mo; ++o) {
+          const float w = __ldg(WT + (long)o * K + r);
+#pragma unroll
+          for (int h = 0; h < RT / 4; ++h) {
+            const float4 a = g4[o * (RT / 4) + h];
+            acc[4 * h] = fmaf(a.x, w, acc[4 * h]);
+            acc[4 * h + 1] = fmaf(a.y, w, acc[4 * h + 1]);
+            acc[4 * h + 2] = fmaf(a.z, w, acc[4 * h + 2]);
+            acc[4 * h + 3] = fmaf(a.w, w, acc[4 * h + 3]);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < RT; ++e)
+          gm_s[e * gs + G[G_AGG] + p * K + r] = acc[e] * alpha;
+      }
+    }
+  } else {
+    for (int g = 0; g < P.n_grp; ++g) {
+      const int* G = P.grp + g * G_STRIDE;
+      const int K = G[G_K], mo = G[G_MO], n = G[G_DIM3] * K;
+      const float alpha = P.grp_alpha[g];
+      const float* WT = si2wt + G[G_WOFF];   // (mo, K)
+      for (int t = tid; t < n; t += NT) {
+        const int p = t / K, r = t - p * K;
+        const float* gp = g_s + G[G_OUT] + p * mo;
+        float s = 0.f;
+        for (int o = 0; o < mo; ++o)
+          s = fmaf(__ldg(WT + (long)o * K + r), gp[o], s);
+        gm_s[G[G_AGG] + p * K + r] = s * alpha;
+      }
     }
   }
 
-  for (int t0 = 0; t0 < P.D; t0 += RT_B) {
-    const int rows = min(RT_B, P.D - t0);
+  for (int t0 = 0; t0 < P.D; t0 += RT) {
     const long row0 = (long)atom * P.D + t0;
+    const int rows = (int)min((long)min(RT, P.D - t0), P.n_rows - row0);
     __syncthreads();
     load_rows(x_s, xg, row0, rows, P.d1);
-    load_rows(ms_s, ms, row0, rows, 1);
-    if constexpr (GEOM) {
-      load_rows(vec_s, vec, row0, rows, 3);
-      __syncthreads();
-      geom_rows_fwd(P, G, rows, vec_s, emb_s, sh_s);
-    } else {
+    if constexpr (MODE == M_EXTW) {
       load_rows(sh_s, sh, row0, rows, P.f);
-      load_rows(emb_s, emb, row0, rows, P.nb);
+      if (tid < RT) ms_s[tid] = 0.f;
+      __syncthreads();
+      // stage the tile's live weights, coalesced over the columns, and
+      // mark the rows that have any (a benign race: every writer stores 1)
+      for (int i = tid; i < rows * P.n_active; i += NT) {
+        const int e = i / P.n_active, c = i - e * P.n_active;
+        const float w = __ldg(weff + (row0 + e) * P.wn + P.col_w[c]);
+        weff_s[i] = w;
+        if (w != 0.f) ms_s[e] = 1.f;
+      }
+      for (int i = tid; i < rows * n_dead; i += NT) {
+        const int e = i / n_dead;
+        dweff[(row0 + e) * P.wn + dead_w[i - e * n_dead]] = 0.f;
+      }
+      __syncthreads();
+    } else {
+      load_rows(ms_s, ms, row0, rows, 1);
+      if constexpr (MODE == M_GEOM) {
+        load_rows(vec_s, vec, row0, rows, 3);
+        __syncthreads();
+        geom_rows_fwd(P, G, rows, vec_s, emb_s, sh_s);
+      } else {
+        load_rows(sh_s, sh, row0, rows, P.f);
+        load_rows(emb_s, emb, row0, rows, P.nb);
+      }
+      __syncthreads();
+      mlp_hidden(P, rows, emb_s, w0, w1, h0_s, h1_s, da0_s, da1_s);
     }
-    __syncthreads();
-    mlp_hidden(P, rows, emb_s, w0, w1, h0_s, h1_s, da0_s, da1_s);
 
-    // pass A, one thread per live column: w_eff and dw_rad
+    // pass A, one thread per live column: w_eff and dw_rad (M_EXTW: dweff,
+    // straight to global memory)
     for (int c = tid; c < P.n_active; c += NT) {
       const int* I = ins_s + P.col_ins[c] * I_STRIDE;
       const int u = c - I[I_COL0];
       const int mul = I[I_MUL], K = I[I_K], d3 = I[I_DIM3];
       const int col = P.col_w[c];
-      float wc[H];
+      float wc[MODE == M_EXTW ? 1 : H];
+      if constexpr (MODE != M_EXTW) {
 #pragma unroll
-      for (int k = 0; k < H; ++k) wc[k] = __ldg(w2 + (long)k * P.wn + col);
+        for (int k = 0; k < H; ++k) wc[k] = __ldg(w2 + (long)k * P.wn + col);
+      }
       const float* gmb = gm_s + I[I_AGG] + u;
       for (int e = 0; e < rows; ++e) {
         const float m_e = ms_s[e];
@@ -540,10 +767,12 @@ __device__ __forceinline__ void bwd_body(const float* __restrict__ gout,
         const float* sr = sh_s + e * P.f + I[I_SHOFF];
         float w = 0.f, dwe = 0.f;
         if (m_e != 0.f) {
-          const float* hr = h1_s + e * H;
+          if constexpr (MODE != M_EXTW) {
+            const float* hr = h1_s + e * H;
 #pragma unroll
-          for (int k = 0; k < H; ++k) w = fmaf(hr[k], wc[k], w);
-          w *= P.s2 * m_e;
+            for (int k = 0; k < H; ++k) w = fmaf(hr[k], wc[k], w);
+            w *= P.s2 * m_e;
+          }
           for (int p = 0; p < d3; ++p) {
             float s = 0.f;
             const int q1 = I[I_POFF + p + 1];
@@ -552,11 +781,15 @@ __device__ __forceinline__ void bwd_body(const float* __restrict__ gout,
               s = fmaf(nzc_s[q] * xr[(id & 0xff) * mul],
                        sr[(id >> 8) & 0xff], s);
             }
-            dwe = fmaf(gmb[p * K], s, dwe);
+            dwe = fmaf(gmb[e * gs + p * K], s, dwe);
           }
         }
-        weff_s[e * P.n_active + c] = w;
-        dw_s[e * P.n_active + c] = dwe * m_e;
+        if constexpr (MODE == M_EXTW) {
+          dweff[(row0 + e) * P.wn + col] = dwe;
+        } else {
+          weff_s[e * P.n_active + c] = w;
+          dw_s[e * P.n_active + c] = dwe * m_e;
+        }
       }
     }
     __syncthreads();
@@ -582,8 +815,8 @@ __device__ __forceinline__ void bwd_body(const float* __restrict__ gout,
           const int q1 = I[I_MOFF + m + 1];
           for (int q = I[I_MOFF + m]; q < q1; ++q) {
             const int id = nzi_s[q];
-            s = fmaf(nzc_s[q] * gmb[(id >> 16) * K], sr[(id >> 8) & 0xff],
-                     s);
+            s = fmaf(nzc_s[q] * gmb[e * gs + (id >> 16) * K],
+                     sr[(id >> 8) & 0xff], s);
           }
           v = fmaf(s, we, v);
         }
@@ -610,7 +843,7 @@ __device__ __forceinline__ void bwd_body(const float* __restrict__ gout,
           float s = 0.f;
           for (int q = q0; q < q1; ++q) {
             const int id = nzi_s[q];
-            s = fmaf(nzc_s[q] * gmb[(id >> 16) * K + u],
+            s = fmaf(nzc_s[q] * gmb[e * gs + (id >> 16) * K + u],
                      xb[(id & 0xff) * mul + u], s);
           }
           v = fmaf(s, wb[u], v);
@@ -618,26 +851,27 @@ __device__ __forceinline__ void bwd_body(const float* __restrict__ gout,
       }
       v = warp_sum(v);
       if (lane == 0) {
-        if constexpr (GEOM) dsh_s[item] = v;
+        if constexpr (MODE == M_GEOM) dsh_s[item] = v;
         else dsh[(row0 + e) * P.f + sc] = v;
       }
     }
+    if constexpr (MODE == M_EXTW) continue;   // no MLP to run back through
     // pass D: dh1 = dw_rad @ w2^T, register-blocked over the tile's rows:
-    // thread (q, k) sums columns q, q + KQ, ... for all RT_B rows, one w2^T
-    // load per RT_B multiply-adds (lanes read consecutive k: coalesced)
+    // thread (q, k) sums columns q, q + KQ, ... for all RT rows, one w2^T
+    // load per RT multiply-adds (lanes read consecutive k: coalesced)
     {
       const int k = tid % H, q = tid / H;
-      float acc[RT_B];
+      float acc[RT];
 #pragma unroll
-      for (int e = 0; e < RT_B; ++e) acc[e] = 0.f;
+      for (int e = 0; e < RT; ++e) acc[e] = 0.f;
       for (int c = q; c < P.n_active; c += KQ) {
         const float w = __ldg(w2t + (long)P.col_w[c] * H + k);
 #pragma unroll
-        for (int e = 0; e < RT_B; ++e)
+        for (int e = 0; e < RT; ++e)
           acc[e] = fmaf(dw_s[e * P.n_active + c], w, acc[e]);
       }
 #pragma unroll
-      for (int e = 0; e < RT_B; ++e) red_s[(q * RT_B + e) * H + k] = acc[e];
+      for (int e = 0; e < RT; ++e) red_s[(q * RT + e) * H + k] = acc[e];
     }
     __syncthreads();
     // dpre1 = dh1 * act'(pre1), into h1_s (partials summed in fixed order)
@@ -645,7 +879,7 @@ __device__ __forceinline__ void bwd_body(const float* __restrict__ gout,
       const int e = idx / H, k = idx - e * H;
       float s = 0.f;
 #pragma unroll
-      for (int q = 0; q < KQ; ++q) s += red_s[(q * RT_B + e) * H + k];
+      for (int q = 0; q < KQ; ++q) s += red_s[(q * RT + e) * H + k];
       h1_s[idx] = s * P.s2 * da1_s[idx];
     }
     __syncthreads();
@@ -670,11 +904,11 @@ __device__ __forceinline__ void bwd_body(const float* __restrict__ gout,
       for (int j = lane; j < H; j += 32) s = fmaf(dr[j], __ldg(wr + j), s);
       s = warp_sum(s);
       if (lane == 0) {
-        if constexpr (GEOM) demb_s[item] = s * P.s0;
+        if constexpr (MODE == M_GEOM) demb_s[item] = s * P.s0;
         else demb[(row0 + e) * P.nb + b] = s * P.s0;
       }
     }
-    if constexpr (GEOM) {
+    if constexpr (MODE == M_GEOM) {
       __syncthreads();
       geom_rows_bwd(P, G, rows, row0, vec_s, ms_s, demb_s, dsh_s, dvec);
     }
@@ -699,8 +933,28 @@ fused_conv_bwd_kernel(const float* __restrict__ gout,
                       const float* __restrict__ si2wt, Plan P,
                       float* __restrict__ dxg, float* __restrict__ dsh,
                       float* __restrict__ demb) {
-  bwd_body<false>(gout, xg, sh, emb, nullptr, ms, w0, w1, w1t, w2, w2t, si2wt,
-                  P, Geom{}, dxg, dsh, demb, nullptr);
+  bwd_body<M_PLAIN>(gout, xg, sh, emb, nullptr, ms, nullptr, w0, w1, w1t, w2,
+                    w2t, si2wt, P, Geom{}, nullptr, 0, dxg, dsh, demb,
+                    nullptr, nullptr);
+}
+
+__global__ void __launch_bounds__(NT, 2)
+fused_conv_edge_bwd_kernel(const float* __restrict__ gout,
+                           const float* __restrict__ xg,
+                           const float* __restrict__ sh,
+                           const float* __restrict__ emb,
+                           const float* __restrict__ ms,
+                           const float* __restrict__ w0,
+                           const float* __restrict__ w1,
+                           const float* __restrict__ w1t,
+                           const float* __restrict__ w2,
+                           const float* __restrict__ w2t,
+                           const float* __restrict__ si2wt, Plan P,
+                           float* __restrict__ dxg, float* __restrict__ dsh,
+                           float* __restrict__ demb) {
+  bwd_body<M_EDGE>(gout, xg, sh, emb, nullptr, ms, nullptr, w0, w1, w1t, w2,
+                   w2t, si2wt, P, Geom{}, nullptr, 0, dxg, dsh, demb, nullptr,
+                   nullptr);
 }
 
 __global__ void __launch_bounds__(NT, 2)
@@ -716,8 +970,26 @@ fused_conv_geom_bwd_kernel(const float* __restrict__ gout,
                            const float* __restrict__ si2wt, Plan P, Geom G,
                            float* __restrict__ dxg,
                            float* __restrict__ dvec) {
-  bwd_body<true>(gout, xg, nullptr, nullptr, vec, ms, w0, w1, w1t, w2, w2t,
-                 si2wt, P, G, dxg, nullptr, nullptr, dvec);
+  bwd_body<M_GEOM>(gout, xg, nullptr, nullptr, vec, ms, nullptr, w0, w1, w1t,
+                   w2, w2t, si2wt, P, G, nullptr, 0, dxg, nullptr, nullptr,
+                   dvec, nullptr);
+}
+
+// Without the MLP's weight column in registers this kernel fits three
+// blocks per SM (85 registers; ptxas has taken 72 and, after an unrelated
+// edit of the shared body, 96, which cost a block and 16 % of the time).
+__global__ void __launch_bounds__(NT, 3)
+fused_conv_extw_bwd_kernel(const float* __restrict__ gout,
+                           const float* __restrict__ xg,
+                           const float* __restrict__ sh,
+                           const float* __restrict__ weff,
+                           const float* __restrict__ si2wt, Plan P,
+                           const int* __restrict__ dead_w, int n_dead,
+                           float* __restrict__ dxg, float* __restrict__ dsh,
+                           float* __restrict__ dweff) {
+  bwd_body<M_EXTW>(gout, xg, sh, nullptr, nullptr, nullptr, weff, nullptr,
+                   nullptr, nullptr, nullptr, nullptr, si2wt, P, Geom{},
+                   dead_w, n_dead, dxg, dsh, nullptr, nullptr, dweff);
 }
 
 Plan make_plan(const int* ins, const int* col_ins, const int* col_w,
@@ -731,6 +1003,7 @@ Plan make_plan(const int* ins, const int* col_ins, const int* col_w,
   P.ins = ins; P.col_ins = col_ins; P.col_w = col_w; P.nz_idx = nz_idx;
   P.nz_coef = nz_coef; P.grp = grp; P.grp_alpha = grp_alpha;
   P.xent = xent; P.xins = xins;
+  P.n_rows = (long)n_atoms * D;
   P.n_atoms = n_atoms; P.D = D; P.d1 = d1; P.f = f; P.nb = nb; P.wn = wn;
   P.d_out = d_out; P.n_ins = n_ins; P.n_active = n_active;
   P.n_grp = n_grp; P.n_xent = n_xent; P.agg_dim = agg_dim; P.n_nz = n_nz;
@@ -738,19 +1011,33 @@ Plan make_plan(const int* ins, const int* col_ins, const int* col_w,
   return P;
 }
 
-size_t fwd_smem(const Plan& P, bool geom) {
+size_t fwd_smem(const Plan& P, int mode) {
+  const size_t rt = mode == M_EDGE ? RT_E : RT_F;
   return sizeof(float) * ((size_t)table_words(P)
-                          + (size_t)RT_F * (P.d1 + P.f + P.nb + 1 + 2 * H
-                                            + (geom ? 3 : 0))
-                          + P.agg_dim + P.d_out);
+                          + rt * (P.d1 + P.f
+                                  + (mode != M_EXTW ? P.nb + 1 + 2 * H : 0)
+                                  + (mode == M_GEOM ? 3 : 0))
+                          + (mode == M_EDGE ? rt * P.agg_dim
+                                            : P.agg_dim + P.d_out));
 }
 
-size_t bwd_smem(const Plan& P, bool geom) {
-  return sizeof(float) * ((size_t)table_words(P) + P.d_out + P.agg_dim
-                          + (size_t)RT_B * (P.d1 + P.f + P.nb + 1
-                                            + (4 + KQ) * H
-                                            + 2 * P.n_active
-                                            + (geom ? 3 + P.f + P.nb : 0)));
+size_t bwd_smem(const Plan& P, int mode) {
+  const size_t rt = mode == M_EDGE ? RT_EB : RT_B;
+  return sizeof(float) * ((size_t)table_words(P)
+                          + (mode == M_EDGE ? rt : 1) * (P.d_out + P.agg_dim)
+                          + rt * (P.d1 + P.f + 1 + P.n_active
+                                  + (mode != M_EXTW
+                                         ? P.nb + (4 + KQ) * H + P.n_active
+                                         : 0)
+                                  + (mode == M_GEOM ? 3 + P.f + P.nb : 0)));
+}
+
+// M_EDGE: P comes in as one row per block; regroup it to `rt` rows per block
+Plan edge_plan(Plan P, int rt) {
+  P.n_rows = (long)P.n_atoms * P.D;
+  P.D = rt;
+  P.n_atoms = (int)((P.n_rows + rt - 1) / rt);
+  return P;
 }
 
 }  // namespace
@@ -771,7 +1058,9 @@ size_t bwd_smem(const Plan& P, bool geom) {
 // only when a launch needs more than it was last given
 constexpr int MAX_DEVICES = 64;
 static size_t fwd_reserved[MAX_DEVICES], bwd_reserved[MAX_DEVICES],
-    geom_fwd_reserved[MAX_DEVICES], geom_bwd_reserved[MAX_DEVICES];
+    geom_fwd_reserved[MAX_DEVICES], geom_bwd_reserved[MAX_DEVICES],
+    extw_fwd_reserved[MAX_DEVICES], extw_bwd_reserved[MAX_DEVICES],
+    edge_fwd_reserved[MAX_DEVICES], edge_bwd_reserved[MAX_DEVICES];
 
 template <typename Kernel>
 static cudaError_t reserve_smem(Kernel kernel, size_t bytes,
@@ -792,7 +1081,7 @@ extern "C" int fused_conv_fwd(const float* xg, const float* sh,
                               const float* w2, const float* si2w,
                               PLAN_ARGS, float* out, void* stream) {
   const Plan P = PLAN_CALL;
-  const size_t smem = fwd_smem(P, false);
+  const size_t smem = fwd_smem(P, M_PLAIN);
   const cudaError_t err =
       reserve_smem(fused_conv_fwd_kernel, smem, fwd_reserved);
   if (err != cudaSuccess) return (int)err;
@@ -810,12 +1099,48 @@ extern "C" int fused_conv_bwd(const float* g, const float* xg,
                               const float* si2wt, PLAN_ARGS, float* dxg,
                               float* dsh, float* demb, void* stream) {
   const Plan P = PLAN_CALL;
-  const size_t smem = bwd_smem(P, false);
+  const size_t smem = bwd_smem(P, M_PLAIN);
   const cudaError_t err =
       reserve_smem(fused_conv_bwd_kernel, smem, bwd_reserved);
   if (err != cudaSuccess) return (int)err;
   if (P.n_atoms > 0)
     fused_conv_bwd_kernel<<<P.n_atoms, NT, smem, (cudaStream_t)stream>>>(
+        g, xg, sh, emb, ms, w0, w1, w1t, w2, w2t, si2wt, P, dxg, dsh, demb);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fused_conv_edge_fwd(const float* xg, const float* sh,
+                                   const float* emb, const float* ms,
+                                   const float* w0, const float* w1,
+                                   const float* w2, const float* si2w,
+                                   PLAN_ARGS, float* out, void* stream) {
+  const Plan P = edge_plan(PLAN_CALL, RT_E);
+  const size_t smem = fwd_smem(P, M_EDGE);
+  const cudaError_t err =
+      reserve_smem(fused_conv_edge_fwd_kernel, smem, edge_fwd_reserved);
+  if (err != cudaSuccess) return (int)err;
+  if (P.n_atoms > 0)
+    fused_conv_edge_fwd_kernel<<<P.n_atoms, NT, smem,
+                                 (cudaStream_t)stream>>>(
+        xg, sh, emb, ms, w0, w1, w2, si2w, P, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fused_conv_edge_bwd(const float* g, const float* xg,
+                                   const float* sh, const float* emb,
+                                   const float* ms, const float* w0,
+                                   const float* w1, const float* w1t,
+                                   const float* w2, const float* w2t,
+                                   const float* si2wt, PLAN_ARGS, float* dxg,
+                                   float* dsh, float* demb, void* stream) {
+  const Plan P = edge_plan(PLAN_CALL, RT_EB);
+  const size_t smem = bwd_smem(P, M_EDGE);
+  const cudaError_t err =
+      reserve_smem(fused_conv_edge_bwd_kernel, smem, edge_bwd_reserved);
+  if (err != cudaSuccess) return (int)err;
+  if (P.n_atoms > 0)
+    fused_conv_edge_bwd_kernel<<<P.n_atoms, NT, smem,
+                                 (cudaStream_t)stream>>>(
         g, xg, sh, emb, ms, w0, w1, w1t, w2, w2t, si2wt, P, dxg, dsh, demb);
   return (int)cudaGetLastError();
 }
@@ -844,7 +1169,7 @@ extern "C" int fused_conv_geom_fwd(const float* xg, const float* vec,
                                    float* out, void* stream) {
   const Plan P = PLAN_CALL;
   const Geom G = GEOM_CALL;
-  const size_t smem = fwd_smem(P, true);
+  const size_t smem = fwd_smem(P, M_GEOM);
   const cudaError_t err =
       reserve_smem(fused_conv_geom_fwd_kernel, smem, geom_fwd_reserved);
   if (err != cudaSuccess) return (int)err;
@@ -864,7 +1189,7 @@ extern "C" int fused_conv_geom_bwd(const float* g, const float* xg,
                                    float* dvec, void* stream) {
   const Plan P = PLAN_CALL;
   const Geom G = GEOM_CALL;
-  const size_t smem = bwd_smem(P, true);
+  const size_t smem = bwd_smem(P, M_GEOM);
   const cudaError_t err =
       reserve_smem(fused_conv_geom_bwd_kernel, smem, geom_bwd_reserved);
   if (err != cudaSuccess) return (int)err;
@@ -872,5 +1197,37 @@ extern "C" int fused_conv_geom_bwd(const float* g, const float* xg,
     fused_conv_geom_bwd_kernel<<<P.n_atoms, NT, smem,
                                  (cudaStream_t)stream>>>(
         g, xg, vec, ms, w0, w1, w1t, w2, w2t, si2wt, P, G, dxg, dvec);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fused_conv_extw_fwd(const float* xg, const float* sh,
+                                   const float* weff, const float* si2w,
+                                   PLAN_ARGS, float* out, void* stream) {
+  const Plan P = PLAN_CALL;
+  const size_t smem = fwd_smem(P, M_EXTW);
+  const cudaError_t err =
+      reserve_smem(fused_conv_extw_fwd_kernel, smem, extw_fwd_reserved);
+  if (err != cudaSuccess) return (int)err;
+  if (P.n_atoms > 0)
+    fused_conv_extw_fwd_kernel<<<P.n_atoms, NT, smem,
+                                 (cudaStream_t)stream>>>(
+        xg, sh, weff, si2w, P, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fused_conv_extw_bwd(const float* g, const float* xg,
+                                   const float* sh, const float* weff,
+                                   const float* si2wt, PLAN_ARGS,
+                                   const int* dead_w, int n_dead, float* dxg,
+                                   float* dsh, float* dweff, void* stream) {
+  const Plan P = PLAN_CALL;
+  const size_t smem = bwd_smem(P, M_EXTW);
+  const cudaError_t err =
+      reserve_smem(fused_conv_extw_bwd_kernel, smem, extw_bwd_reserved);
+  if (err != cudaSuccess) return (int)err;
+  if (P.n_atoms > 0)
+    fused_conv_extw_bwd_kernel<<<P.n_atoms, NT, smem,
+                                 (cudaStream_t)stream>>>(
+        g, xg, sh, weff, si2wt, P, dead_w, n_dead, dxg, dsh, dweff);
   return (int)cudaGetLastError();
 }

@@ -21,6 +21,13 @@ default geometry-fused: the model gets the raw edge vectors and the conv
 kernels compute Bessel, cutoff and SH themselves
 (``model/layers.py::_ChunkedConvFn``).
 
+With ``half_mlp`` the whole-array path runs the radial MLP once per edge
+pair: each compaction also builds the grid's half list (``half``, ``pair``
+on the grid state; built at static sizes without a host synchronisation,
+after one read of the degree-overflow flag, since a grid that overflowed
+must not carry one), and the convolutions take their per-edge weights
+ready-made (``model/layers.py::_half_mlp_w``). Off by default.
+
 Needs every cell width >= 2 * (cutoff + skin) (minimum image).
 """
 
@@ -36,7 +43,11 @@ from ..data.graph import Atoms
 from ..data.periodic import atomic_masses
 from ..model.layers import geom_packed_ok
 from ..model.model import SevenNetModel
-from ..ops.scatter import gather_pair, reverse_permutation
+from ..ops.scatter import (
+    gather_pair,
+    half_pair_indices,
+    reverse_permutation,
+)
 from . import integrate
 from .integrate import MDState
 from .neighbor import (
@@ -88,6 +99,7 @@ class MolecularDynamics:
         conv_chunk_atoms: int = 0,
         geom_fused: bool = True,
         geom_dense: bool = False,
+        half_mlp: bool = False,
     ):
         """velocities: initial (N, 3) velocities in internal units; drawn
         from Maxwell-Boltzmann on a ``torch.Generator(seed)`` if None.
@@ -95,7 +107,11 @@ class MolecularDynamics:
         above ``CHUNK_SWITCH_ROWS`` grid rows, at ``CHUNK_ROWS``.
         geom_fused: the chunked path runs the geometry-fused conv (off:
         shared sh/emb arrays and the plain fused conv per chunk).
-        geom_dense: the whole-array path runs geometry-fused too."""
+        geom_dense: the whole-array path runs geometry-fused too.
+        half_mlp: the whole-array path runs the radial MLP on the half
+        list (one row per edge pair) and the external-weight fused conv;
+        ``geom_dense`` goes first, the chunked path does not consult it,
+        and a grid with a degree overflow never feeds it."""
         if ensemble not in ('nve', 'nvt'):
             raise ValueError(f'ensemble {ensemble!r}: the port runs nve '
                              'and nvt')
@@ -104,6 +120,7 @@ class MolecularDynamics:
         self.dtype = torch.float32
         self.conv_chunk_atoms = int(conv_chunk_atoms)
         self.geom_fused, self.geom_dense = bool(geom_fused), bool(geom_dense)
+        self.half_mlp = bool(half_mlp)
         self._geom_ok: Optional[bool] = None
         n = len(atoms)
         self.n = n
@@ -265,10 +282,20 @@ class MolecularDynamics:
         rev_rows = torch.where(rev_rows < e_model, rev_rows, row)
         rev = torch.arange(e_model, device=dst.device)
         rev[rows_ok] = rev_rows[ok]
+        overflow_deg = torch.any(keep & (rank >= D))
+        half = pair = None
+        # a dropped edge leaves its reverse paired with itself: a real row
+        # that is a fixed point of rev, which the half list would read as a
+        # pad. Such a grid never carries a half list (one host read per
+        # compaction, only with the option on)
+        if (self.half_mlp and not self.conv_chunk_rows
+                and not bool(overflow_deg)):
+            half, pair = half_pair_indices(rev)
         return NeighborState(
             edge_idx=torch.stack([base, src_p]), valid=valid,
-            overflow=nl.overflow, overflow_deg=torch.any(keep & (rank >= D)),
-            overflow_bin=nl.overflow_bin, ref_pos=pos, rev=rev)
+            overflow=nl.overflow, overflow_deg=overflow_deg,
+            overflow_bin=nl.overflow_bin, ref_pos=pos, rev=rev,
+            half=half, pair=pair)
 
     # -- potential -----------------------------------------------------
     def _graph(self, pos, nl: NeighborState):
@@ -283,7 +310,10 @@ class MolecularDynamics:
         chunk_rows = self.conv_chunk_rows
         geom = ((self.geom_fused if chunk_rows else self.geom_dense)
                 and self._geom_packed_ok())
-        return dict(self._const, **{
+        half = {}
+        if nl.half is not None and not chunk_rows and not geom:
+            half = {KEY.EDGE_HALF: nl.half, KEY.EDGE_PAIR: nl.pair}
+        return dict(self._const, **half, **{
             KEY.EDGE_IDX: nl.edge_idx,
             KEY.EDGE_VEC: safe,
             KEY.EDGE_MASK: mask.to(safe.dtype),

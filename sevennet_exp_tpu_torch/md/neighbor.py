@@ -32,6 +32,9 @@ class NeighborState(NamedTuple):
     overflow_deg: Optional[Tensor] = None  # () bool -- grid degree overflow
     overflow_bin: Optional[Tensor] = None  # () bool -- cell-list bin overflow
     build_rev: Optional[Tensor] = None    # reverse permutation of the build list
+    half: Optional[Tensor] = None         # (E//2,) half list of the grid and
+    pair: Optional[Tensor] = None         # (E,) its pair index (engine option
+    #   half_mlp; ops/scatter.half_pair_indices); None after a degree overflow
 
 
 def mic_displacements(pos_i, pos_j, cell, inv_cell):

@@ -23,7 +23,12 @@ from .. import _keys as KEY
 from ..irreps import Irreps
 from ..ops.fused_conv import FusedConv, GeomSpec
 from ..ops.radial import BesselBasis
-from ..ops.scatter import gather_rev, scatter_sum
+from ..ops.scatter import (
+    gather_rev,
+    half_gather,
+    pair_spread,
+    scatter_sum,
+)
 from ..ops.spherical import spherical_harmonics
 from ..ops.tensor_product import (
     FullyConnectedNetSpec,
@@ -99,7 +104,9 @@ class EdgeEmbedding(nn.Module):
 
 
 class OnehotEmbedding(nn.Module):
-    """Type index -> one-hot (reference sevenn/nn/node_embedding.py)."""
+    """Type index -> one-hot (reference sevenn/nn/node_embedding.py). A
+    negative index (a pad atom of a padded batch: Z = 0 maps to -1) gives
+    a row of zeros."""
 
     def __init__(self, num_classes: int):
         super().__init__()
@@ -107,7 +114,9 @@ class OnehotEmbedding(nn.Module):
 
     def forward(self, data: Data) -> Data:
         inp = data[KEY.NODE_FEATURE]
-        embd = F.one_hot(inp.long(), self.num_classes).to(torch.float32)
+        idx = inp.long()
+        embd = (F.one_hot(idx.clamp(min=0), self.num_classes)
+                * (idx >= 0)[:, None]).to(torch.float32)
         data[KEY.NODE_FEATURE] = embd
         data[KEY.NODE_ATTR] = embd
         data[KEY.ATOM_TYPE] = inp
@@ -250,20 +259,33 @@ class _ChunkedConvFn(torch.autograd.Function):
 
 
 class IrrepsConvolution(nn.Module):
-    """Message passing + self_interaction_2 on the dense neighbor grid.
+    """Message passing + self_interaction_2, on the dense neighbor grid or
+    on a plain edge list.
 
     Reference semantics (sevenn/nn/convolution.py:29-137 and
     interaction_blocks.py:78-84): msg = TP(x[src], Y(r); MLP(radial)),
-    x' = linear(sum over the atom's grid rows of msg / denominator).
+    x' = linear(sum over the atom's edges of msg / denominator).
     With an si2 linear, a 2-hidden-layer MLP and no si2 bias, the block
     runs as one fused call (``ops/fused_conv``: CUDA kernels on the
     card, the plain chain on the CPU); otherwise as the plain chain.
 
-    Two switches in the data select the execution (the engine sets them):
+    With EDGE_REV and EDGE_DENSE_D in the data the edges follow the dense
+    grid (the MD engine), and the sum over an atom's edges is a
+    reshape-sum. Switches in the data select the execution there (the
+    engine sets them), in this order of priority:
     CONV_CHUNK_ROWS > 0 runs the fused conv chunk by chunk
     (``_ChunkedConvFn``: large systems, the gathered rows of one chunk at
-    a time), and EDGE_GEOM_PACKED runs it geometry-fused, from EDGE_VEC
-    and EDGE_BESSEL_COEFFS instead of EDGE_ATTR and EDGE_EMBEDDING.
+    a time); EDGE_GEOM_PACKED runs it geometry-fused, from EDGE_VEC
+    and EDGE_BESSEL_COEFFS instead of EDGE_ATTR and EDGE_EMBEDDING;
+    EDGE_HALF + EDGE_PAIR run the radial MLP once per edge pair on the
+    half list, outside the fused conv, which then takes the weights
+    ready-made (``_half_mlp_w``, ``_rows_to_nodes_extw``). The chunked
+    path does not consult the half list (as in the JAX package).
+
+    Without them the edges are a plain list in any order (the
+    calculator): x[src] is a plain gather, the fused conv returns one row
+    per edge (``agg_d = 0``) and ``scatter_sum`` adds the rows onto the
+    destination atoms.
     """
 
     def __init__(self, tp: UVUTensorProductSpec,
@@ -276,7 +298,7 @@ class IrrepsConvolution(nn.Module):
                              torch.tensor([denominator], dtype=torch.float32))
         self.weight_nn_p = ParamGroup(weight_nn.param_shapes())
         self.si2_p = ParamGroup(si2.param_shapes()) if si2 else None
-        self._fused = {}    # grid degree D -> FusedConv
+        self._fused = {}    # (grid degree D, ext_w) -> FusedConv
 
     def param_tree(self):
         tree = {'weight_nn': self.weight_nn_p.as_dict(),
@@ -293,11 +315,12 @@ class IrrepsConvolution(nn.Module):
         return (self.geom is not None and KEY.EDGE_BESSEL_COEFFS in data
                 and KEY.EDGE_VEC in data and self._fused_eligible())
 
-    def _conv(self, dd: int) -> FusedConv:
-        conv = self._fused.get(dd)
+    def _conv(self, dd: int, ext_w: bool = False) -> FusedConv:
+        conv = self._fused.get((dd, ext_w))
         if conv is None:
-            conv = self._fused[dd] = FusedConv(
-                self.tp, self.weight_nn, self.si2, dd, geom=self.geom)
+            conv = self._fused[dd, ext_w] = FusedConv(
+                self.tp, self.weight_nn, self.si2, dd,
+                geom=None if ext_w else self.geom, ext_w=ext_w)
         return conv
 
     def _weights(self):
@@ -317,6 +340,26 @@ class IrrepsConvolution(nn.Module):
         if self.si2 is None:
             return agg
         return self.si2.apply(self.si2_p.as_dict(), agg, skip_bias=True)
+
+    def _rows_to_nodes_extw(self, xg, sh, w_eff, dd):
+        """External-weight variant of ``_rows_to_nodes``: the per-edge
+        radial weights (already mask/denominator-scaled) come from
+        outside, and the fused conv runs the CG contraction, the
+        aggregation and si2 only."""
+        return self._conv(dd, ext_w=True)(
+            xg, sh.contiguous(), w_eff.contiguous(), self._weights()[1])
+
+    def _half_mlp_w(self, data: Data, emb, scale, rev):
+        """Per-edge radial weights by the half list: the MLP (one
+        ``torch.matmul`` chain, fp32) on the E/2 representative rows --
+        |r| is the same for an edge and its reverse, so their emb rows
+        are equal bit for bit -- spread to both directed edges by a
+        gather with a scatter-free backward, then mask/denominator-scaled.
+        Halves the radial MLP's operations."""
+        half, pair = data[KEY.EDGE_HALF], data[KEY.EDGE_PAIR]
+        emb_half = half_gather(emb, half, pair)
+        w_half = self.weight_nn.apply(self.weight_nn_p.as_dict(), emb_half)
+        return pair_spread(w_half, pair, half, rev) * scale
 
     def _rows_to_nodes_geom(self, xg, vec, coeffs, scale, dd):
         """Geometry-fused variant of ``_rows_to_nodes``: raw edge vectors
@@ -339,22 +382,35 @@ class IrrepsConvolution(nn.Module):
             len(mlp_ws), x, *(f.contiguous() for f in feats), *mlp_ws,
             *si2_ws)
 
+    def _edge_list(self, x, edge_dst, edge_src, sh, emb, scale):
+        """The plain edge-list branch: edge rows, then a scatter-add onto
+        the destination atoms (``index_add_``; on CUDA by atomics, in no
+        fixed order)."""
+        xg = x[edge_src]
+        n = x.shape[0]
+        if self._fused_eligible():
+            y = self._conv(0)(xg, sh.contiguous(), emb.contiguous(),
+                              scale.contiguous(), *self._weights())
+            return scatter_sum(y, edge_dst, n)
+        w = self.weight_nn.apply(self.weight_nn_p.as_dict(), emb) * scale
+        agg = scatter_sum(self.tp.apply(xg, sh, w), edge_dst, n)
+        if self.si2 is None:
+            return agg
+        return self.si2.apply(self.si2_p.as_dict(), agg, skip_bias=True)
+
     def forward(self, data: Data) -> Data:
         x = data[KEY.NODE_FEATURE]
         edge_idx = data[KEY.EDGE_IDX]
         rev = data.get(KEY.EDGE_REV)
         dd = data.get(KEY.EDGE_DENSE_D)
-        if rev is None or dd is None:
-            raise NotImplementedError(
-                'the port runs the convolution on the dense neighbor grid '
-                '(EDGE_REV + EDGE_DENSE_D) only')
+        dense = rev is not None and dd is not None
         denom = self.denominator.to(x.dtype)
         rows = edge_idx.shape[1]
         scale = x.new_ones((rows, 1)) / denom
         if KEY.EDGE_MASK in data:
             scale = scale * data[KEY.EDGE_MASK][..., None]
         geom = bool(data.get(KEY.EDGE_GEOM_PACKED))
-        if geom and not self._geom_eligible(data):
+        if geom and not (dense and self._geom_eligible(data)):
             raise ValueError('EDGE_GEOM_PACKED is set but this convolution '
                              'cannot run geometry-fused')
         coeffs = data[KEY.EDGE_BESSEL_COEFFS].to(x.dtype) if geom else None
@@ -362,15 +418,24 @@ class IrrepsConvolution(nn.Module):
                  (data[KEY.EDGE_ATTR], data[KEY.EDGE_EMBEDDING]))
         chunk_rows = data.get(KEY.CONV_CHUNK_ROWS)
         if chunk_rows:
+            if not dense:
+                raise ValueError('the chunked convolution needs the dense '
+                                 'neighbor grid (EDGE_REV + EDGE_DENSE_D)')
             out = self._rows_to_nodes_chunked(x, edge_idx[1], rev, feats,
                                               coeffs, scale, dd, chunk_rows)
-        else:
+        elif dense:
             xg = gather_rev(x, edge_idx[1], rev, dd)
             if geom:
                 out = self._rows_to_nodes_geom(xg, feats[0], coeffs, scale,
                                                dd)
+            elif (data.get(KEY.EDGE_HALF) is not None
+                    and self._fused_eligible()):
+                w_eff = self._half_mlp_w(data, feats[1], scale, rev)
+                out = self._rows_to_nodes_extw(xg, feats[0], w_eff, dd)
             else:
                 out = self._rows_to_nodes(xg, *feats, scale, dd)
+        else:
+            out = self._edge_list(x, edge_idx[0], edge_idx[1], *feats, scale)
         out = out[:x.shape[0]]
         if self.si2 is not None:
             bias = self.si2.bias_vector(self.si2_p.as_dict(), out.dtype)

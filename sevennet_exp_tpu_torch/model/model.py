@@ -4,7 +4,9 @@ Counterpart of ``sevennet_exp_tpu/model/model.py``. ``energy`` runs the
 layer sequence over the data dict; ``energy_and_forces`` takes forces
 as -dE/dpos by autograd through whatever builds the data from the
 positions (on the dense grid: the scatter-free pair gather of
-``ops/scatter.gather_pair``).
+``ops/scatter.gather_pair``). ``apply`` is the single-point form: the
+gradient with respect to the edge vectors, from which it assembles the
+forces and the virial stress (the calculator's path).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from torch import nn
 
 from .. import _keys as KEY
+from ..ops.scatter import scatter_sum
 
 Data = Dict[str, Any]
 
@@ -87,6 +90,55 @@ class SevenNetModel(nn.Module):
             e = self.energy(make_data(pos))
             (g,) = torch.autograd.grad(e, pos)
         return e.detach(), -g
+
+
+    def apply(self, data: Data, compute_stress: bool = True) -> Data:
+        """Energy + forces (+ stress) from one gradient with respect to
+        EDGE_VEC (reference force_output.py:167-224):
+
+          fij    = dE/d(edge_vec)
+          F_i    = sum_{e: i=edge_idx[0]} fij - sum_{e: i=edge_idx[1]} fij
+          virial = -(sum_e over graph r_ij (x) f_ij) / volume, Voigt
+                   (xx, yy, zz, xy, yz, zx)
+
+        On a symmetric dense grid (EDGE_REV + EDGE_DENSE_D) both force
+        sums are reshape-sums, the second one after a gather by ``rev``;
+        on a plain edge list they are two ``index_add_`` scatters. The
+        per-graph virial is summed in float64 (as ``AtomReduce`` sums the
+        energies): tens of thousands of float32 terms of both signs into
+        six numbers."""
+        edge_vec0 = data[KEY.EDGE_VEC]
+        with torch.enable_grad():
+            edge_vec = edge_vec0.detach().requires_grad_(True)
+            out = self.apply_energy(dict(data, **{KEY.EDGE_VEC: edge_vec}))
+            energy = torch.sum(out[KEY.PRED_TOTAL_ENERGY])
+            (fij,) = torch.autograd.grad(energy, edge_vec)
+        out = {k: v.detach() if torch.is_tensor(v) else v
+               for k, v in out.items()}
+        edge_idx = data[KEY.EDGE_IDX]
+        n_nodes = data[KEY.ATOMIC_NUMBERS].shape[0]
+        rev, dd = data.get(KEY.EDGE_REV), data.get(KEY.EDGE_DENSE_D)
+        if rev is not None and dd is not None:
+            pf = scatter_sum(fij, None, n_nodes, dense_d=dd)
+            nf = scatter_sum(fij[rev], None, n_nodes, dense_d=dd)
+        else:
+            pf = scatter_sum(fij, edge_idx[0], n_nodes)
+            nf = scatter_sum(fij, edge_idx[1], n_nodes)
+        out[KEY.PRED_FORCE] = pf - nf
+        if compute_stress:
+            rij = edge_vec0.detach().double()
+            f64 = fij.double()
+            virial = torch.cat([
+                rij * f64,
+                (rij[:, 0] * f64[:, 1])[:, None],
+                (rij[:, 1] * f64[:, 2])[:, None],
+                (rij[:, 2] * f64[:, 0])[:, None]], dim=-1)
+            num_graphs = data[KEY.NUM_ATOMS].shape[0]
+            sout = scatter_sum(virial, data[KEY.BATCH][edge_idx[1]],
+                               num_graphs)
+            vol = data[KEY.CELL_VOLUME].double()
+            out[KEY.PRED_STRESS] = (-sout / vol[..., None]).to(fij.dtype)
+        return out
 
 
 def _flatten(tree, prefix=''):

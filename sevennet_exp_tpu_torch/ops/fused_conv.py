@@ -20,6 +20,22 @@ frequencies instead of ``sh`` and ``emb``, computes both per row inside
 the kernel (``geom_rows`` is the plain version), and its backward returns
 (dxg, dvec).
 
+Built with ``ext_w=True`` the block takes the per-row weights ready-made
+(the counterpart of ``make_fused_conv(ext_w=True)``: ``fwd_kernel_cm_w``
+and ``bwd_kernel_cm_w``): ``fused(xg, sh, weff, si2_ws)`` with
+``weff = MLP(emb) * ms`` computed by the caller (on the half list, see
+``model/layers.py::_half_mlp_w``), no MLP inside, and a backward that
+returns (dxg, dsh, dweff) so that autograd carries ``dweff`` back through
+the caller's MLP. A row whose weights are all zero is a grid pad: its
+dxg, dsh and dweff rows are zeros.
+
+``agg_d = 0`` is the edge-row contract of the plain edge list: one
+(E, d_out) output row per edge, si2 applied per row, the caller scatters
+the rows onto the atoms. On the card it runs the edge-row instantiation of
+the same kernel bodies (``fused_conv_edge_fwd`` / ``fused_conv_edge_bwd``:
+a block owns a few rows in any order and reads each si2 weight once for
+all of them).
+
 On CUDA tensors the wrapper launches the kernels of
 ``csrc/fused_conv.cu`` (built with nvcc at first use into ``_build/``);
 on CPU tensors it runs the plain version, the XLA-path chain of
@@ -70,7 +86,9 @@ _ACT_CODE = {'silu': 0, 'tanh': 1}
 # else (chip_smoke.py resets and reads these around the main path)
 launch_counts: Dict[str, int] = {
     'fused_conv_fwd': 0, 'fused_conv_bwd': 0,
-    'fused_conv_geom_fwd': 0, 'fused_conv_geom_bwd': 0}
+    'fused_conv_geom_fwd': 0, 'fused_conv_geom_bwd': 0,
+    'fused_conv_extw_fwd': 0, 'fused_conv_extw_bwd': 0,
+    'fused_conv_edge_fwd': 0, 'fused_conv_edge_bwd': 0}
 
 
 def reset_launch_counts():
@@ -305,18 +323,25 @@ _GEOM_ARGS = [_P] * 4 + [_I] * 3 + [_F] * 3   # coeffs, sh_idx, sh_coef,
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = ctypes.CDLL(build())
-    lib.fused_conv_fwd.argtypes = ([_P] * 8 + _TABLE_ARGS + _DIM_ARGS
-                                   + [_P, _P])
-    lib.fused_conv_fwd.restype = _I
-    lib.fused_conv_bwd.argtypes = ([_P] * 11 + _TABLE_ARGS + _DIM_ARGS
-                                   + [_P, _P, _P, _P])
-    lib.fused_conv_bwd.restype = _I
+    for fwd, bwd in ((lib.fused_conv_fwd, lib.fused_conv_bwd),
+                     (lib.fused_conv_edge_fwd, lib.fused_conv_edge_bwd)):
+        fwd.argtypes = [_P] * 8 + _TABLE_ARGS + _DIM_ARGS + [_P, _P]
+        fwd.restype = _I
+        bwd.argtypes = ([_P] * 11 + _TABLE_ARGS + _DIM_ARGS
+                        + [_P, _P, _P, _P])
+        bwd.restype = _I
     lib.fused_conv_geom_fwd.argtypes = ([_P] * 7 + _TABLE_ARGS + _DIM_ARGS
                                         + _GEOM_ARGS + [_P, _P])
     lib.fused_conv_geom_fwd.restype = _I
     lib.fused_conv_geom_bwd.argtypes = ([_P] * 10 + _TABLE_ARGS + _DIM_ARGS
                                         + _GEOM_ARGS + [_P, _P, _P])
     lib.fused_conv_geom_bwd.restype = _I
+    lib.fused_conv_extw_fwd.argtypes = ([_P] * 4 + _TABLE_ARGS + _DIM_ARGS
+                                        + [_P, _P])
+    lib.fused_conv_extw_fwd.restype = _I
+    lib.fused_conv_extw_bwd.argtypes = ([_P] * 5 + _TABLE_ARGS + _DIM_ARGS
+                                        + [_P, _I, _P, _P, _P, _P])
+    lib.fused_conv_extw_bwd.restype = _I
     return lib
 
 
@@ -341,6 +366,8 @@ class _Tables:
     grp_alpha: Tensor
     xent: Tensor
     xins: Tensor
+    dead_w: Tensor               # MLP output columns no instruction reads
+    n_dead: int
     n_ins: int
     n_active: int
     n_grp: int
@@ -352,19 +379,25 @@ class _Tables:
 
 class FusedConv:
     """fused(xg, sh, emb, ms, mlp_ws, si2_ws) -> (N, d_out) node rows on
-    the dense grid of ``agg_d`` rows per atom (see module docstring); the
-    counterpart of the function ``make_fused_conv(...)`` returns. With
-    ``geom`` it also offers the geometry-fused call
-    ``apply_geom(xg, vec, ms, coeffs, mlp_ws, si2_ws)``."""
+    the dense grid of ``agg_d`` rows per atom, or (E, d_out) edge rows
+    with ``agg_d = 0`` (see module docstring); the counterpart of the
+    function ``make_fused_conv(...)`` returns. With ``geom`` it also
+    offers the geometry-fused call
+    ``apply_geom(xg, vec, ms, coeffs, mlp_ws, si2_ws)``; with ``ext_w``
+    the call is ``fused(xg, sh, weff, si2_ws)``."""
 
     def __init__(self, tp_spec: UVUTensorProductSpec,
                  mlp_spec: FullyConnectedNetSpec, si2_spec: LinearSpec,
-                 agg_d: int, geom: Optional[GeomSpec] = None):
-        assert agg_d > 0, 'the port covers the dense-grid contract only'
+                 agg_d: int, geom: Optional[GeomSpec] = None,
+                 ext_w: bool = False):
+        assert agg_d >= 0
         assert len(mlp_spec.hs) == 4, 'kernel assumes 2 hidden layers'
+        assert not (ext_w and geom is not None)
         self.tp, self.mlp, self.si2 = tp_spec, mlp_spec, si2_spec
         self.agg_d = agg_d
+        self.group = max(agg_d, 1)     # input rows per output row
         self.geom = geom
+        self.ext_w = ext_w
         if geom is not None:
             if geom.num_basis != mlp_spec.hs[0]:
                 raise ValueError('geom: num_basis != radial MLP input width')
@@ -388,12 +421,7 @@ class FusedConv:
         """The XLA-path chain (``model/layers.py::_rows_to_nodes``)."""
         w = self.mlp.apply({f'w{i}': v for i, v in enumerate(mlp_ws)},
                            emb) * ms
-        message = self.tp.apply(xg, sh, w)
-        agg = message.reshape(
-            (message.shape[0] // self.agg_d, self.agg_d)
-            + message.shape[1:]).sum(1)
-        return self.si2.apply({f'w{n}': v for n, v in enumerate(si2_ws)},
-                              agg, skip_bias=True)
+        return self.plain_extw_forward(xg, sh, w, si2_ws)
 
     def plain_backward(self, g, xg, sh, emb, ms, mlp_ws, si2_ws):
         """(dxg, dsh, demb): the VJP of ``plain_forward`` by autograd."""
@@ -403,6 +431,27 @@ class FusedConv:
                 *ins, ms.detach(), tuple(w.detach() for w in mlp_ws),
                 tuple(w.detach() for w in si2_ws))
             return torch.autograd.grad(out, ins, g)
+
+    def plain_extw_forward(self, xg, sh, weff, si2_ws) -> Tensor:
+        """TP on given weights -> sum over the group's rows -> si2."""
+        message = self.tp.apply(xg, sh, weff)
+        agg = message.reshape(
+            (message.shape[0] // self.group, self.group)
+            + message.shape[1:]).sum(1)
+        return self.si2.apply({f'w{n}': v for n, v in enumerate(si2_ws)},
+                              agg, skip_bias=True)
+
+    def plain_extw_backward(self, g, xg, sh, weff, si2_ws):
+        """(dxg, dsh, dweff): the VJP of ``plain_extw_forward`` by
+        autograd; dweff is zero on rows whose weights are all zero (grid
+        pads: the caller's mask scale removes them anyway)."""
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(True) for t in (xg, sh, weff)]
+            out = self.plain_extw_forward(
+                *ins, tuple(w.detach() for w in si2_ws))
+            dxg, dsh, dweff = torch.autograd.grad(out, ins, g)
+        live = (weff != 0).any(dim=1, keepdim=True)
+        return dxg, dsh, dweff * live
 
     def plain_geom_forward(self, xg, vec, ms, coeffs, mlp_ws,
                            si2_ws) -> Tensor:
@@ -501,6 +550,8 @@ class FusedConv:
             xent.append([sl.start, mul, ir.dim, len(users), len(xins)])
             xins.extend(users)
 
+        dead_w = sorted(set(range(self.w_numel)) - set(col_w))
+
         def it(v):
             return torch.tensor(np.asarray(v, np.int32).reshape(-1),
                                 device=device)
@@ -513,28 +564,32 @@ class FusedConv:
             ins=it(ins_rows), col_ins=it(col_ins), col_w=it(col_w),
             nz_idx=it(nz_idx), nz_coef=ft(nz_coef), grp=it(grp_rows),
             grp_alpha=ft(grp_alpha), xent=it(xent),
-            xins=it(xins if xins else [0]), n_ins=len(active),
+            xins=it(xins if xins else [0]),
+            dead_w=it(dead_w if dead_w else [0]), n_dead=len(dead_w),
+            n_ins=len(active),
             n_active=col0, n_grp=len(self.groups), n_xent=len(xent),
             agg_dim=agg_off, n_nz=len(nz_all), unsupported=unsupported,
         )
 
     def _pack(self, mlp_ws, si2_ws):
-        """Kernel-side weight layouts -- w1 and w2 transposed, si2 flat
-        and si2 transposed flat -- cached per set of weight tensors. An
-        entry holds its weights, so their ids stay unique while it
-        lives."""
+        """Kernel-side weight layouts -- w1 and w2 transposed (none
+        without MLP weights), si2 flat and si2 transposed flat -- cached
+        per set of weight tensors. An entry holds its weights, so their
+        ids stay unique while it lives."""
         ws = (*mlp_ws, *si2_ws)
         key = tuple((id(w), w._version) for w in ws)
         got = self._packed.get(key)
         if got is None:
             if len(self._packed) >= 16:
                 self._packed.clear()
-            w0, w1, w2 = (w.contiguous() for w in mlp_ws)
+            mlp = ()
+            if mlp_ws:
+                w0, w1, w2 = (w.contiguous() for w in mlp_ws)
+                mlp = (w0, w1, w1.t().contiguous(), w2, w2.t().contiguous())
             si2 = torch.cat([w.reshape(-1) for w in si2_ws]).contiguous()
             si2t = torch.cat([w.t().reshape(-1) for w in si2_ws]
                              ).contiguous()
-            got = (ws, (w0, w1, w1.t().contiguous(), w2,
-                        w2.t().contiguous(), si2, si2t))
+            got = (ws, (*mlp, si2, si2t))
             self._packed[key] = got
         return got[1]
 
@@ -546,7 +601,7 @@ class FusedConv:
             raise ValueError(f'fused conv kernel: activation {act!r}')
         if self.mlp.hs[1] != _H or self.mlp.hs[2] != _H:
             raise ValueError('fused conv kernel: hidden widths must be 64')
-        return [rows // self.agg_d, self.agg_d, self.d1, self.f, self.nb,
+        return [rows // self.group, self.group, self.d1, self.f, self.nb,
                 self.w_numel, self.d_out, t.n_ins, t.n_active, t.n_grp,
                 t.n_xent, t.agg_dim, t.n_nz, _ACT_CODE[act],
                 NORMALIZE2MOM_CST[act], 1.0 / math.sqrt(self.nb),
@@ -562,7 +617,7 @@ class FusedConv:
         kernels form every global offset in 64 bits; one block per atom
         bounds a launch at 2^31 - 1 atoms.)"""
         rows = named['xg'][0].shape[0]
-        if rows % self.agg_d:
+        if rows % self.group:
             raise ValueError(f'{rows} rows is not a multiple of D')
         for name, (t, width) in named.items():
             if tuple(t.shape) != (rows, width):
@@ -582,29 +637,38 @@ class FusedConv:
     def _ptr(t: Tensor):
         return ctypes.c_void_p(t.data_ptr())
 
+    def _entry(self, which: str):
+        """(name, C entry point) of kernel 1 or 2 (``which``: fwd | bwd):
+        the dense-grid kernel, or with ``agg_d = 0`` its edge-row form."""
+        name = f"fused_conv_{'edge_' if self.agg_d == 0 else ''}{which}"
+        return name, getattr(_lib(), name)
+
     def kernel_forward(self, xg, sh, emb, ms, mlp_ws, si2_ws) -> Tensor:
-        """Launch ``fused_conv_fwd`` (CUDA tensors only)."""
+        """Launch ``fused_conv_fwd``, or ``fused_conv_edge_fwd`` with
+        ``agg_d = 0`` (CUDA tensors only)."""
         self._check_inputs(xg, sh, emb, ms)
         t = self.kernel_tables(xg.device)
         w0, w1, _, w2, _, si2, _ = self._pack(mlp_ws, si2_ws)
         rows = xg.shape[0]
-        out = torch.empty((rows // self.agg_d, self.d_out),
+        out = torch.empty((rows // self.group, self.d_out),
                           dtype=xg.dtype, device=xg.device)
         P = self._ptr
-        err = _lib().fused_conv_fwd(
+        name, entry = self._entry('fwd')
+        err = entry(
             P(xg), P(sh), P(emb), P(ms), P(w0), P(w1), P(w2), P(si2),
             *self._table_ptrs(t), *self._dims(t, rows), P(out),
             ctypes.c_void_p(torch.cuda.current_stream(xg.device).cuda_stream))
-        _check(err, 'fused_conv_fwd')
-        launch_counts['fused_conv_fwd'] += 1
+        _check(err, name)
+        launch_counts[name] += 1
         return out
 
     def kernel_backward(self, g, xg, sh, emb, ms, mlp_ws, si2_ws):
-        """Launch ``fused_conv_bwd`` (CUDA tensors only)."""
+        """Launch ``fused_conv_bwd``, or ``fused_conv_edge_bwd`` with
+        ``agg_d = 0`` (CUDA tensors only)."""
         g = g.contiguous()
         self._check_inputs(xg, sh, emb, ms, g)
         rows = xg.shape[0]
-        if tuple(g.shape) != (rows // self.agg_d, self.d_out):
+        if tuple(g.shape) != (rows // self.group, self.d_out):
             raise ValueError(f'g: shape {tuple(g.shape)}')
         t = self.kernel_tables(xg.device)
         w0, w1, w1t, w2, w2t, _, si2t = self._pack(mlp_ws, si2_ws)
@@ -612,14 +676,15 @@ class FusedConv:
         dsh = torch.empty_like(sh)
         demb = torch.empty_like(emb)
         P = self._ptr
-        err = _lib().fused_conv_bwd(
+        name, entry = self._entry('bwd')
+        err = entry(
             P(g), P(xg), P(sh), P(emb), P(ms), P(w0), P(w1), P(w1t),
             P(w2), P(w2t), P(si2t), *self._table_ptrs(t),
             *self._dims(t, rows),
             P(dxg), P(dsh), P(demb),
             ctypes.c_void_p(torch.cuda.current_stream(xg.device).cuda_stream))
-        _check(err, 'fused_conv_bwd')
-        launch_counts['fused_conv_bwd'] += 1
+        _check(err, name)
+        launch_counts[name] += 1
         return dxg, dsh, demb
 
     def _table_ptrs(self, t: _Tables):
@@ -647,7 +712,7 @@ class FusedConv:
         t = self.kernel_tables(xg.device)
         w0, w1, _, w2, _, si2, _ = self._pack(mlp_ws, si2_ws)
         rows = xg.shape[0]
-        out = torch.empty((rows // self.agg_d, self.d_out),
+        out = torch.empty((rows // self.group, self.d_out),
                           dtype=xg.dtype, device=xg.device)
         P = self._ptr
         err = _lib().fused_conv_geom_fwd(
@@ -664,7 +729,7 @@ class FusedConv:
         g = g.contiguous()
         self._check_rows(xg=(xg, self.d1), vec=(vec, 3), ms=(ms, 1))
         rows = xg.shape[0]
-        if tuple(g.shape) != (rows // self.agg_d, self.d_out):
+        if tuple(g.shape) != (rows // self.group, self.d_out):
             raise ValueError(f'g: shape {tuple(g.shape)}')
         self._check_tensors(xg, vec, ms, coeffs, g)
         dxg = torch.empty_like(xg)
@@ -681,6 +746,52 @@ class FusedConv:
         _check(err, 'fused_conv_geom_bwd')
         launch_counts['fused_conv_geom_bwd'] += 1
         return dxg, dvec
+
+    def kernel_extw_forward(self, xg, sh, weff, si2_ws) -> Tensor:
+        """Launch ``fused_conv_extw_fwd`` (CUDA tensors only)."""
+        self._check_rows(xg=(xg, self.d1), sh=(sh, self.f),
+                         weff=(weff, self.w_numel))
+        self._check_tensors(xg, sh, weff)
+        t = self.kernel_tables(xg.device)
+        si2, _ = self._pack((), si2_ws)
+        rows = xg.shape[0]
+        out = torch.empty((rows // self.group, self.d_out),
+                          dtype=xg.dtype, device=xg.device)
+        P = self._ptr
+        err = _lib().fused_conv_extw_fwd(
+            P(xg), P(sh), P(weff), P(si2), *self._table_ptrs(t),
+            *self._dims(t, rows), P(out),
+            ctypes.c_void_p(torch.cuda.current_stream(xg.device).cuda_stream))
+        _check(err, 'fused_conv_extw_fwd')
+        launch_counts['fused_conv_extw_fwd'] += 1
+        return out
+
+    def kernel_extw_backward(self, g, xg, sh, weff, si2_ws):
+        """Launch ``fused_conv_extw_bwd`` (CUDA tensors only); returns
+        (dxg, dsh, dweff), every element written: zeros on rows whose
+        weights are all zero and in the dweff columns no instruction
+        reads."""
+        g = g.contiguous()
+        self._check_rows(xg=(xg, self.d1), sh=(sh, self.f),
+                         weff=(weff, self.w_numel))
+        rows = xg.shape[0]
+        if tuple(g.shape) != (rows // self.group, self.d_out):
+            raise ValueError(f'g: shape {tuple(g.shape)}')
+        self._check_tensors(xg, sh, weff, g)
+        t = self.kernel_tables(xg.device)
+        _, si2t = self._pack((), si2_ws)
+        dxg = torch.empty_like(xg)
+        dsh = torch.empty_like(sh)
+        dweff = torch.empty_like(weff)
+        P = self._ptr
+        err = _lib().fused_conv_extw_bwd(
+            P(g), P(xg), P(sh), P(weff), P(si2t), *self._table_ptrs(t),
+            *self._dims(t, rows), P(t.dead_w), t.n_dead,
+            P(dxg), P(dsh), P(dweff),
+            ctypes.c_void_p(torch.cuda.current_stream(xg.device).cuda_stream))
+        _check(err, 'fused_conv_extw_bwd')
+        launch_counts['fused_conv_extw_bwd'] += 1
+        return dxg, dsh, dweff
 
     # -- dispatch -----------------------------------------------------
     @staticmethod
@@ -710,9 +821,23 @@ class FusedConv:
                                self.kernel_geom_backward)(
             g, xg, vec, ms, coeffs, mlp_ws, si2_ws)
 
-    def __call__(self, xg, sh, emb, ms, mlp_ws, si2_ws) -> Tensor:
-        n_mlp = len(mlp_ws)
-        return _FusedConvFn.apply(self, n_mlp, xg, sh, emb, ms,
+    def extw_forward(self, xg, sh, weff, si2_ws) -> Tensor:
+        return self._by_device(xg, self.plain_extw_forward,
+                               self.kernel_extw_forward)(xg, sh, weff, si2_ws)
+
+    def extw_backward(self, g, xg, sh, weff, si2_ws):
+        return self._by_device(xg, self.plain_extw_backward,
+                               self.kernel_extw_backward)(
+            g, xg, sh, weff, si2_ws)
+
+    def __call__(self, xg, sh, *rest) -> Tensor:
+        """(xg, sh, emb, ms, mlp_ws, si2_ws), or with ``ext_w``
+        (xg, sh, weff, si2_ws), with autograd."""
+        if self.ext_w:
+            weff, si2_ws = rest
+            return _FusedConvExtWFn.apply(self, xg, sh, weff, *si2_ws)
+        emb, ms, mlp_ws, si2_ws = rest
+        return _FusedConvFn.apply(self, len(mlp_ws), xg, sh, emb, ms,
                                   *mlp_ws, *si2_ws)
 
     def apply_geom(self, xg, vec, ms, coeffs, mlp_ws, si2_ws) -> Tensor:
@@ -743,6 +868,25 @@ class _FusedConvFn(torch.autograd.Function):
         return (None, None, dxg, dsh, demb, None) + (None,) * len(ws)
 
 
+class _FusedConvExtWFn(torch.autograd.Function):
+    """Forward: external-weight fused conv. Backward: (dxg, dsh, dweff);
+    None for the si2 weights. ``dweff`` goes back to autograd, which runs
+    it through the caller's radial MLP."""
+
+    @staticmethod
+    def forward(ctx, conv, xg, sh, weff, *si2_ws):
+        ctx.conv = conv
+        ctx.save_for_backward(xg, sh, weff, *si2_ws)
+        return conv.extw_forward(xg, sh, weff, si2_ws)
+
+    @staticmethod
+    def backward(ctx, g):
+        xg, sh, weff, *si2_ws = ctx.saved_tensors
+        dxg, dsh, dweff = ctx.conv.extw_backward(g, xg, sh, weff,
+                                                 tuple(si2_ws))
+        return (None, dxg, dsh, dweff) + (None,) * len(si2_ws)
+
+
 class _FusedConvGeomFn(torch.autograd.Function):
     """Forward: geometry-fused conv. Backward: (dxg, dvec); None for the
     mask scale, the Bessel frequencies and the weights."""
@@ -764,30 +908,35 @@ class _FusedConvGeomFn(torch.autograd.Function):
         return (None, None, dxg, dvec, None, None) + (None,) * len(ws)
 
 
-def conv_cost(conv: FusedConv, ms: Tensor,
-              geom: bool = False) -> Tuple[float, float, float]:
+def _live_rows(ms: Tensor) -> float:
+    """Rows of ``ms`` with a nonzero entry: the mask scale (rows, 1), or
+    the external weights (rows, w_numel), whose all-zero rows are pads."""
+    return float((ms != 0).any(dim=1).sum().item())
+
+
+def conv_cost(conv: FusedConv, ms: Tensor, geom: bool = False,
+              ext_w: bool = False) -> Tuple[float, float, float]:
     """(forward flops, backward flops, rows that carry an edge) for one
     launch on the mask scale ``ms``: the work this run's data needs --
     the kernels skip rows with ms == 0 and instructions no si2 path
     reads. A multiply-add counts as 2 flops. ``geom``: the geometry-fused
     pair, which adds the Bessel, envelope and SH arithmetic per row (a
-    transcendental counted as one operation) and its VJP."""
-    real = float((ms.reshape(-1) != 0).sum().item())
-    n_atoms = ms.shape[0] // conv.agg_d
+    transcendental counted as one operation) and its VJP. ``ext_w``: the
+    external-weight pair, ``ms`` being its ``weff``: no MLP operations."""
+    real = _live_rows(ms)
+    n_out = ms.shape[0] // conv.group
     H = conv.mlp.hs[1]
     active = [(p_ins, g) for g in conv.groups for p_ins, _ in g['ks']]
     n_active = sum(p['mul'] for p, _ in active)
-    mlp_hidden = conv.nb * H + H * H
-    mlp_out = H * n_active
+    mlp = 0 if ext_w else conv.nb * H + H * H + H * n_active
     cg = sum(p['mul'] * len(p['nz']) for p, _ in active)
     si2 = sum(g['K'] * g['mo'] * g['dim3'] for g in conv.groups)
     # forward: MLP, CG (2 multiplies + 1 add per nonzero -> ~1.5 MAC)
-    # and the per-atom si2
-    fwd = 2.0 * real * (mlp_hidden + mlp_out + 1.5 * cg) + 2.0 * n_atoms * si2
-    # backward: W.g per atom, MLP recompute, CG for dw_eff, dsh and dxg,
-    # then the MLP backward (output layer + both hidden layers)
-    bwd = (2.0 * n_atoms * si2
-           + 2.0 * real * (2 * (mlp_hidden + mlp_out) + 4.5 * cg))
+    # and the si2 per output row
+    fwd = 2.0 * real * (mlp + 1.5 * cg) + 2.0 * n_out * si2
+    # backward: W.g per output row, MLP recompute, CG for dw_eff, dsh and
+    # dxg, then the MLP backward (output layer + both hidden layers)
+    bwd = 2.0 * n_out * si2 + 2.0 * real * (2 * mlp + 4.5 * cg)
     if geom:
         # r, 1/r, envelope (~20), nb x (sin, 3 products), 3 products and
         # one multiply-add per SH term; the backward recomputes it and
@@ -798,8 +947,8 @@ def conv_cost(conv: FusedConv, ms: Tensor,
     return fwd, bwd, real
 
 
-def conv_bytes(conv: FusedConv, ms: Tensor,
-               geom: bool = False) -> Tuple[float, float]:
+def conv_bytes(conv: FusedConv, ms: Tensor, geom: bool = False,
+               ext_w: bool = False) -> Tuple[float, float]:
     """(forward bytes, backward bytes) one launch must move on the mask
     scale ``ms``: each input read once, each output written once. Per-row
     inputs count only on rows with ms != 0 and only in the xg and sh
@@ -807,24 +956,34 @@ def conv_bytes(conv: FusedConv, ms: Tensor,
     last weight only in its live columns. The backward writes dxg, dsh
     and demb on every row (zeros where nothing flows). ``geom``: the
     geometry-fused pair reads the 3 vec columns in place of sh and emb
-    and its backward writes dxg and dvec only."""
+    and its backward writes dxg and dvec only. ``ext_w``: ``ms`` is
+    ``weff``; no MLP weights, no emb and no mask column; the live weight
+    columns are read on the live rows, and the backward writes dweff there
+    (the zeros it writes elsewhere are not counted)."""
     rows = ms.shape[0]
-    real = float((ms.reshape(-1) != 0).sum().item())
-    n_atoms = rows // conv.agg_d
+    real = _live_rows(ms)
+    n_out = rows // conv.group
     H = conv.mlp.hs[1]
     active = [p_ins for g in conv.groups for p_ins, _ in g['ks']]
+    n_active = sum(p['mul'] for p in active)
     x_cols, sh_cols = set(), set()
     for p in active:
         x_cols.update(range(p['x_off'], p['x_off'] + p['dim1'] * p['mul']))
         sh_cols.update(range(p['sh_off'], p['sh_off'] + p['dim2']))
-    weights = (conv.nb * H + H * H + H * sum(p['mul'] for p in active)
-               + sum(g['K'] * g['mo'] for g in conv.groups))
+    weights = sum(g['K'] * g['mo'] for g in conv.groups)
+    if not ext_w:
+        weights += conv.nb * H + H * H + H * n_active
+    live_out = 0.0
     if geom:
         edge_in, edge_out = 3, conv.d1 + 3
         weights += conv.nb            # the Bessel frequencies
+    elif ext_w:
+        edge_in, edge_out = len(sh_cols) + n_active, conv.d1 + conv.f
+        live_out = real * n_active
     else:
         edge_in, edge_out = len(sh_cols) + conv.nb, conv.d1 + conv.f + conv.nb
-    reads = real * (len(x_cols) + edge_in) + rows + weights
-    fwd = 4.0 * (reads + n_atoms * conv.d_out)
-    bwd = 4.0 * (reads + n_atoms * conv.d_out + rows * edge_out)
+    reads = (real * (len(x_cols) + edge_in) + (0 if ext_w else rows)
+             + weights)
+    fwd = 4.0 * (reads + n_out * conv.d_out)
+    bwd = 4.0 * (reads + n_out * conv.d_out + rows * edge_out + live_out)
     return fwd, bwd

@@ -1,13 +1,19 @@
 """Dense-grid gathers with scatter-free backwards, in torch.
 
 Counterpart of ``sevennet_exp_tpu/ops/scatter.py`` (``scatter_sum``,
-``gather_rev``, ``gather_pair``, ``reverse_permutation``). The MD edge
+``gather_rev``, ``gather_pair``, ``reverse_permutation`` and the half-list
+helpers ``half_pair_indices``, ``half_gather``, ``pair_spread``). The MD edge
 lists follow the dense neighbor-grid contract: row ``i*D + k`` holds atom
 i's k-th incident edge, pad rows are masked self-edges, and ``rev[e]`` is
 the row of the reverse edge. Then aggregation by destination is a static
 ``reshape(N, D, F).sum(1)`` and the transpose of a gather by source is a
 gather by ``rev`` followed by that same reduction -- no scatter-add in
 either direction.
+
+Off the grid (the calculator's plain edge list) ``scatter_sum`` without
+``dense_d`` is an ``index_add_`` and ``x[edge_src]`` a plain gather whose
+backward autograd scatters. On CUDA ``index_add_`` adds by atomics in no
+fixed order, so such sums differ from run to run in the last bits.
 """
 
 from __future__ import annotations
@@ -100,3 +106,86 @@ def reverse_permutation(edge_idx: Tensor, n_nodes: int) -> Tensor:
     rev = torch.empty_like(a)
     rev[a] = b
     return rev
+
+
+def half_pair_indices(rev: Tensor):
+    """Static-shape half list over a symmetric edge list, built without a
+    host synchronisation (cumulative sum and gathers at the static sizes;
+    no ``nonzero``).
+
+    Contract (``md/engine.py::_compact_nl``): real edges pair
+    (e, rev[e]) with rev[e] != e; pad rows are self-edges and fixed points
+    of ``rev``, so exactly n_real/2 <= E//2 rows satisfy e < rev[e].
+    Returns
+
+      half (E//2,) -- the representative edge of each pair, ascending;
+          the unused tail holds the sentinel E;
+      pair (E,) -- position of each edge's representative in ``half``.
+          Pad rows keep pair = 0: their mask scale is 0, so the weight
+          row they read multiplies to zero forward and backward.
+    """
+    e_cap = rev.shape[0]
+    n_half = e_cap // 2
+    iota = torch.arange(e_cap, dtype=rev.dtype, device=rev.device)
+    is_rep = iota < rev
+    pos = torch.cumsum(is_rep.to(rev.dtype), 0) - 1   # a representative's slot
+    # representatives write their own slot, every other row the spare last
+    # slot, which is cut off
+    slot = torch.where(is_rep, pos, torch.full_like(pos, n_half))
+    half = torch.full((n_half + 1,), e_cap, dtype=rev.dtype,
+                      device=rev.device)
+    half[torch.clamp(slot, max=n_half)] = torch.where(
+        is_rep, iota, torch.full_like(iota, e_cap))
+    half = half[:n_half]
+    pair = torch.where(is_rep, pos, torch.where(
+        rev < iota, pos[rev], torch.zeros_like(pos)))
+    return half, pair
+
+
+class _HalfGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rows, half, pair):
+        ctx.save_for_backward(half, pair)
+        return rows[torch.clamp(half, max=pair.shape[0] - 1)]
+
+    @staticmethod
+    def backward(ctx, ct):
+        half, pair = ctx.saved_tensors
+        e_cap = pair.shape[0]
+        iota = torch.arange(e_cap, dtype=half.dtype, device=half.device)
+        is_rep = torch.clamp(half, max=e_cap - 1)[pair] == iota
+        return (torch.where(is_rep[:, None], ct[pair],
+                            torch.zeros_like(ct[:1])), None, None)
+
+
+def half_gather(rows: Tensor, half: Tensor, pair: Tensor) -> Tensor:
+    """(E, W) per-edge rows -> (E//2, W) representative rows, with a
+    scatter-free backward: the cotangent of edge e is its pair's cotangent
+    if e is the representative (half[pair[e]] == e), else zero -- a
+    gather and a mask, where a plain ``rows[half]`` would scatter-add into
+    the (E, W) input on every force backward."""
+    return _HalfGather.apply(rows, half, pair)
+
+
+class _PairSpread(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w_half, pair, half, rev):
+        ctx.save_for_backward(pair, half, rev)
+        return w_half[pair]
+
+    @staticmethod
+    def backward(ctx, ct):
+        pair, half, rev = ctx.saved_tensors
+        e_cap = pair.shape[0]
+        hs = torch.clamp(half, max=e_cap - 1)
+        d = ct[hs] + ct[rev[hs]]
+        return (torch.where((half < e_cap)[:, None], d,
+                            torch.zeros_like(d[:1])), None, None, None)
+
+
+def pair_spread(w_half: Tensor, pair: Tensor, half: Tensor,
+                rev: Tensor) -> Tensor:
+    """(E//2, W) per-pair rows -> (E, W) per-edge rows by the pair index,
+    with a scatter-free backward: a half row's cotangent is the sum of its
+    two directed edges' cotangents, both plain gathers."""
+    return _PairSpread.apply(w_half, pair, half, rev)

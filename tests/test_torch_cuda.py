@@ -115,9 +115,9 @@ def test_wrapper_routes_cuda_tensors_to_the_kernel(cuda, model):
     out = conv(xg, sh, emb, ms, tuple(mw[f'w{i}'] for i in range(3)),
                tuple(sw[f'w{n}'] for n in range(len(sw))))
     out.sum().backward()
-    assert fc.launch_counts == {'fused_conv_fwd': 1, 'fused_conv_bwd': 1,
-                                'fused_conv_geom_fwd': 0,
-                                'fused_conv_geom_bwd': 0}
+    want = dict.fromkeys(fc.launch_counts, 0)
+    want['fused_conv_fwd'] = want['fused_conv_bwd'] = 1
+    assert fc.launch_counts == want
 
 
 # -- the geometry-fused pair ------------------------------------------------
@@ -212,7 +212,159 @@ def test_geom_wrapper_routes_cuda_tensors_to_the_kernel(cuda, model):
     fc.reset_launch_counts()
     out = conv.apply_geom(xg, vec, ms, coeffs, *cl._weights())
     out.sum().backward()
-    assert fc.launch_counts == {'fused_conv_fwd': 0, 'fused_conv_bwd': 0,
-                                'fused_conv_geom_fwd': 1,
-                                'fused_conv_geom_bwd': 1}
+    want = dict.fromkeys(fc.launch_counts, 0)
+    want['fused_conv_geom_fwd'] = want['fused_conv_geom_bwd'] = 1
+    assert fc.launch_counts == want
     assert xg.grad is not None and vec.grad is not None
+
+
+# -- the external-weight pair ------------------------------------------------
+
+def _extw_inputs(conv, n, degree, cuda, seed, mlp_ws=None):
+    """xg, sh, weff = MLP(emb) * ms with pad rows (ms = 0, so weff rows
+    of zeros), and a node cotangent."""
+    rng = np.random.default_rng(seed)
+    rows = n * degree
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=cuda)
+
+    ms = rng.uniform(0.01, 0.05, size=(rows, 1))
+    pad = rng.uniform(size=rows) < 0.2
+    ms[pad] = 0.0
+    emb = t(rng.normal(size=(rows, conv.nb)))
+    if mlp_ws is None:
+        weff = t(rng.normal(size=(rows, conv.w_numel))) * t(ms)
+    else:
+        weff = conv.mlp.apply({f'w{i}': w for i, w in enumerate(mlp_ws)},
+                              emb) * t(ms)
+    return (t(rng.normal(size=(rows, conv.d1))),
+            t(rng.normal(size=(rows, conv.f))), weff.contiguous(),
+            t(rng.normal(size=(n, conv.d_out))),
+            torch.tensor(pad, device=cuda))
+
+
+def _assert_extw_kernels_match_plain(conv, args, si2_ws):
+    xg, sh, weff, g, pad = args
+    y_k = conv.kernel_extw_forward(xg, sh, weff, si2_ws)
+    y_p = conv.plain_extw_forward(xg, sh, weff, si2_ws)
+    torch.cuda.synchronize()
+    assert (y_k - y_p).abs().max() <= 1e-4 * y_p.abs().max()
+    d_k = conv.kernel_extw_backward(g, xg, sh, weff, si2_ws)
+    d_p = conv.plain_extw_backward(g, xg, sh, weff, si2_ws)
+    torch.cuda.synchronize()
+    for a, b in zip(d_k, d_p):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max() <= 1e-4 * max(b.abs().max(), 1e-6)
+        assert a[pad].abs().max() == 0                   # pad rows: zeros
+    t = conv.kernel_tables(xg.device)
+    if t.n_dead:                    # columns no instruction reads: zeros
+        assert d_k[2][:, t.dead_w.long()].abs().max() == 0
+
+
+@pytest.mark.parametrize('layer', [0, 1, 4])
+@pytest.mark.parametrize('degree', [32, 40])
+def test_extw_kernels_match_plain(cuda, model, layer, degree):
+    from sevennet_exp_tpu_torch.ops.fused_conv import FusedConv
+    cl = model.layers[f'{layer}_convolution']
+    conv = FusedConv(cl.tp, cl.weight_nn, cl.si2, degree, ext_w=True)
+    mlp_ws, si2_ws = cl._weights()
+    _assert_extw_kernels_match_plain(
+        conv, _extw_inputs(conv, 37, degree, cuda, layer, mlp_ws), si2_ws)
+
+
+def test_extw_kernels_small_multiplicities(cuda):
+    """Multiplicity 4 (not a multiple of a warp) and l up to 3."""
+    from sevennet_exp_tpu_torch.irreps import Irreps, infer_irreps_out
+    from sevennet_exp_tpu_torch.ops.fused_conv import FusedConv
+    from sevennet_exp_tpu_torch.ops.tensor_product import (
+        FullyConnectedNetSpec, GateSpec, LinearSpec, UVUTensorProductSpec)
+    x = Irreps('4x0e+4x1o+4x2e+4x3o')
+    sh = Irreps('1x0e+1x1o+1x2e+1x3o')
+    tp = UVUTensorProductSpec(x, sh, infer_irreps_out(x, sh, 3, 'full'))
+    mlp = FullyConnectedNetSpec((8, 64, 64, tp.weight_numel), 'silu')
+    gate = GateSpec(x, {1: 'silu', -1: 'tanh'}, {1: 'silu', -1: 'tanh'})
+    si2 = LinearSpec(tp.irreps_out, gate.irreps_in)
+    conv = FusedConv(tp, mlp, si2, 16, ext_w=True)
+    rng = np.random.default_rng(9)
+    si2_ws = tuple(torch.tensor(rng.normal(size=si2.param_shapes()[f'w{n}']),
+                                dtype=torch.float32, device=cuda)
+                   for n in range(len(si2.paths)))
+    _assert_extw_kernels_match_plain(
+        conv, _extw_inputs(conv, 11, 16, cuda, 3), si2_ws)
+
+
+def test_extw_wrapper_routes_cuda_tensors_to_the_kernel(cuda, model):
+    from sevennet_exp_tpu_torch.ops import fused_conv as fc
+    cl = model.layers['1_convolution']
+    conv = fc.FusedConv(cl.tp, cl.weight_nn, cl.si2, 32, ext_w=True)
+    mlp_ws, si2_ws = cl._weights()
+    xg, sh, weff, _, _ = _extw_inputs(conv, 4, 32, cuda, 0, mlp_ws)
+    for t in (xg, sh, weff):
+        t.requires_grad_(True)
+    fc.reset_launch_counts()
+    conv(xg, sh, weff, si2_ws).sum().backward()
+    want = dict.fromkeys(fc.launch_counts, 0)
+    want['fused_conv_extw_fwd'] = want['fused_conv_extw_bwd'] = 1
+    assert fc.launch_counts == want
+    assert weff.grad is not None and weff.grad.shape == weff.shape
+
+
+# -- the edge-row contract (agg_d = 0) --------------------------------------
+
+@pytest.mark.parametrize('layer', [0, 1, 4])
+def test_edge_row_mode_matches_plain(cuda, model, layer):
+    """agg_d = 0: one output row per edge, from the edge-row form of
+    kernels 1-2; 301 rows (a ragged last block forward and backward) in no
+    grid order, a fifth of them masked."""
+    from sevennet_exp_tpu_torch.ops import fused_conv as fc
+    cl = model.layers[f'{layer}_convolution']
+    conv = fc.FusedConv(cl.tp, cl.weight_nn, cl.si2, 0)
+    mlp_ws, si2_ws = cl._weights()
+    rng = np.random.default_rng(20 + layer)
+    rows = 301
+
+    def t(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                            device=cuda)
+
+    xg, sh, emb, g = (t(rows, conv.d1), t(rows, conv.f), t(rows, conv.nb),
+                      t(rows, conv.d_out))
+    ms = torch.tensor(rng.uniform(0.01, 0.05, size=(rows, 1)),
+                      dtype=torch.float32, device=cuda)
+    ms[torch.tensor(rng.uniform(size=rows) < 0.2, device=cuda)] = 0.0
+    fc.reset_launch_counts()
+    y_k = conv.forward(xg, sh, emb, ms, mlp_ws, si2_ws)
+    d_k = conv.backward(g, xg, sh, emb, ms, mlp_ws, si2_ws)
+    want = dict.fromkeys(fc.launch_counts, 0)
+    want['fused_conv_edge_fwd'] = want['fused_conv_edge_bwd'] = 1
+    assert fc.launch_counts == want
+    y_p = conv.plain_forward(xg, sh, emb, ms, mlp_ws, si2_ws)
+    d_p = conv.plain_backward(g, xg, sh, emb, ms, mlp_ws, si2_ws)
+    torch.cuda.synchronize()
+    assert tuple(y_k.shape) == (rows, conv.d_out)
+    assert (y_k - y_p).abs().max() <= 1e-4 * y_p.abs().max()
+    for a, b in zip(d_k, d_p):
+        assert (a - b).abs().max() <= 1e-4 * max(b.abs().max(), 1e-6)
+
+
+def test_calculator_on_the_card_matches_cpu(cuda, model):
+    """E, F and stress of a sheared 64-atom NaCl: the card (kernels 1-2 in
+    their edge-row form + index_add_) against the CPU (plain versions). fp32 on
+    both: E 1e-4 eV, F 1e-4 eV/A, stress 1e-6 eV/A^3."""
+    from sevennet_exp_tpu_torch.calculator import SevenNetCalculator
+    from sevennet_exp_tpu_torch.data.graph import Atoms, build_nacl
+    from sevennet_exp_tpu_torch.ops import fused_conv as fc
+    at = build_nacl(64, rattle=0.1, seed=1)
+    strain = np.eye(3) + np.array([[0.02, 0.01, 0.008], [0.01, -0.01, 0.015],
+                                   [0.008, 0.015, 0.0]])
+    at = Atoms(at.atomic_numbers, at.pos @ strain, at.cell @ strain, at.pbc)
+    fc.reset_launch_counts()
+    res = SevenNetCalculator(model, device=cuda).calculate(at)
+    assert fc.launch_counts['fused_conv_edge_fwd'] == 5
+    assert fc.launch_counts['fused_conv_edge_bwd'] == 5
+    import copy
+    ref = SevenNetCalculator(copy.deepcopy(model), device='cpu').calculate(at)
+    assert abs(res['energy'] - ref['energy']) <= 1e-4
+    assert np.abs(res['forces'] - ref['forces']).max() <= 1e-4
+    assert np.abs(res['stress'] - ref['stress']).max() <= 1e-6
