@@ -7,13 +7,16 @@ convolutions, kernels ``fused_conv_fwd`` / ``fused_conv_bwd``) and at
 radial MLP on the half list (the external-weight kernels
 ``fused_conv_extw_fwd`` / ``fused_conv_extw_bwd``), and the single-point
 calculator with stress (kernels 1-2 in their edge-row form, one output row
-per edge: ``fused_conv_edge_fwd`` / ``fused_conv_edge_bwd``).
+per edge: ``fused_conv_edge_fwd`` / ``fused_conv_edge_bwd``), then the
+independently derived ``terms`` kernels (``fused_conv_terms_fwd`` /
+``fused_conv_terms_bwd``) under 1k NPT, the other ensembles, and the bare
+tensor-product kernels (``fused_tp_fwd`` / ``fused_tp_bwd``).
 
     python3 chip_smoke.py            # needs one CUDA card
 
 Phases (any failure raises, exits non-zero and prints no result):
   1. card name and power limit; TF32 off; build the CUDA kernels
-     (csrc/fused_conv.cu) with nvcc;
+     (csrc/*.cu, one nvcc per source, all started together);
   2. each kernel against its plain PyTorch version on the 1k path's real
      inputs (trained checkpoint; kernels 1-2 on all five layers, the geom
      kernels on layers 0, 1 and 4 through the geometry-fused whole-array
@@ -32,17 +35,16 @@ Phases (any failure raises, exits non-zero and prints no result):
      the chunked kernel path against the chunked plain path, each kernel
      launch of the force call timed; peak memory;
   6. 97k NVT, same settings: a 10-step warm-up (in which the engine
-     settles its rebuild cadence), then 20 timed steps with the
+     settles its rebuild cadence), then 10 timed steps with the
      counters reset just before them; every force call must have launched
      5 x chunks geom forward and backward kernels and none of kernels 1-2;
   7. the external-weight kernels against their plain versions on the 1k
      path's real inputs with ``half_mlp`` (all five layers; pad rows of
      dxg, dsh and dweff exactly zero), median times, the bound;
   8. 1k energy and forces with ``half_mlp`` against the default kernel
-     path; both force-call times in turns and both peak memories; then 200
+     path; both force-call times in turns and both peak memories; then 100
      timed NVT steps with ``half_mlp``: every force call must have launched
-     5 + 5 external-weight kernels and none of kernels 1-2, and the run
-     ends at the default path's temperature;
+     5 + 5 external-weight kernels and none of kernels 1-2;
   9. the calculator on the 1k cell and on a sheared, 2 % strained copy:
      the edge-row kernels against their plain versions on the call's real
      inputs (all five layers); energy, forces and the six stress components
@@ -50,8 +52,27 @@ Phases (any failure raises, exits non-zero and prints no result):
      versions, the spread between two kernel runs (``index_add_`` adds by
      atomics), repeated calls timed after the first, 5 + 5 launches of the
      edge-row kernels per call and of no other kernel;
- 10. a ``{"kernels": [...]}`` line (the six kernels and the edge-row form
-     of kernels 1-2), then the card line and the result line
+ 10. the ``terms`` kernels against their plain versions and against kernels
+     1-2, per layer, on the 1k grid's real inputs (``agg_d = 32``) and on
+     the calculator's padded edge list (``agg_d = 0``); pad rows exactly
+     zero; the times of both pairs side by side;
+ 11. 1k energy, forces and stress of the engine's NPT potential
+     (``_efs_fn``): ``cg_mode='terms'`` against ``'cmshared'`` and against
+     the plain path, and the engine's stress against the calculator's;
+ 12. 1k NPT with ``cg_mode='terms'`` (300 K, 2 fs, 1 GPa, a short barostat
+     time so that the cell moves in float32): warm-up, then 100 timed steps:
+     5 + 5 launches of the terms kernels per force call and none of
+     kernels 1-2, the volume below the start; then the same warm-up and 100
+     steps each of ``npt_aniso`` and ``langevin`` with the default kernels:
+     finite, mean temperature within 150-450 K (a 300 K draw on a
+     near-perfect lattice halves at first, then the thermostat rings), the
+     cell symmetrically strained;
+ 13. the bare tensor product: ``make_fused_tp`` driven through autograd on
+     the five layers' specs at the 1k grid's rows (counters reset just
+     before), then each kernel against its plain version, times, bound;
+ 14. a ``{"kernels": [...]}`` line (twelve entries: the six kernels, the
+     edge-row form of kernels 1-2, the terms pair and the tensor-product
+     pair), then the card line and the result line
      ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of JAX or of the JAX package. Details go to
@@ -122,6 +143,7 @@ def check_ef(what, n, e_a, f_a, e_b, f_b):
 
 
 def main():
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -149,13 +171,15 @@ def main():
     from sevennet_exp_tpu_torch.checkpoint import SevenNetCheckpoint
     from sevennet_exp_tpu_torch.data.graph import build_nacl
     from sevennet_exp_tpu_torch.md.engine import MolecularDynamics
+    from sevennet_exp_tpu_torch.ops import cuda_build
     from sevennet_exp_tpu_torch.ops import fused_conv as fc
+    from sevennet_exp_tpu_torch.ops import fused_tp as ftp
     from sevennet_exp_tpu_torch.tools.timing import cuda_ms
     t0 = time.perf_counter()
-    lib = fc.build(verbose=True)
+    libs = cuda_build.build_all(verbose=True)
     report['build_s'] = time.perf_counter() - t0
-    print(f'built {os.path.relpath(lib, HERE)} in {report["build_s"]:.1f} s',
-          flush=True)
+    print(f'built {[os.path.relpath(lib, HERE) for lib in libs]} in '
+          f'{report["build_s"]:.1f} s', flush=True)
     dev = torch.device('cuda')
     report['card'] = card
     report['device'] = torch.cuda.get_device_name(0)
@@ -237,9 +261,11 @@ def main():
             nbytes += byt[0 if which == 'fwd' else 1]
         return flops, nbytes
 
-    def compare_kernels(rec, reps_plain=5):
+    def compare_kernels(rec, reps_plain=5, against=None):
         """One recorded launch: kernel against plain version, forward and
-        backward, with median times and the bound."""
+        backward, with median times and the bound. against: a second
+        FusedConv of the same contract whose kernels are held to the same
+        limit and timed beside."""
         conv, args, g, kind = rec['conv'], rec['args'], rec['g'], rec['kind']
         geom = kind == 'geom'
         if geom:
@@ -264,7 +290,27 @@ def main():
         row['fwd_err'], row['fwd_lim'] = check_close('fwd', y_k, y_p)
         for name, a, b in zip(names, d_k, d_p):
             row[f'{name}_err'], row[f'{name}_lim'] = check_close(name, a, b)
-        if kind:
+        if against is not None:
+            y_o = against.kernel_forward(*args)
+            d_o = against.kernel_backward(g, *args)
+            lim = REL_TOL * float(y_p.abs().max())
+            row['fwd_vs_other'] = float((y_k - y_o).abs().max())
+            if not row['fwd_vs_other'] <= lim:
+                raise AssertionError(f'fwd: the two kernel pairs differ by '
+                                     f'{row["fwd_vs_other"]:.3e} > {lim:.3e}')
+            for name, a, b, ref in zip(names, d_k, d_o, d_p):
+                err, lim = float((a - b).abs().max()), \
+                    REL_TOL * float(ref.abs().max())
+                row[f'{name}_vs_other'] = err
+                if not err <= lim:
+                    raise AssertionError(f'{name}: the two kernel pairs '
+                                         f'differ by {err:.3e} > {lim:.3e}')
+            del y_o, d_o
+            row['other_fwd_ms'] = cuda_ms(
+                lambda: against.kernel_forward(*args))
+            row['other_bwd_ms'] = cuda_ms(
+                lambda: against.kernel_backward(g, *args))
+        if kind or conv.cg_mode == 'terms':
             pad = (ms == 0).all(dim=1)
             if any(float(d[pad].abs().max()) != 0.0 for d in d_k):
                 raise AssertionError(
@@ -378,29 +424,34 @@ def main():
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
         calls = [0]
-        ef0 = engine._ef_fn
+        which = '_efs_fn' if engine.npt else '_ef_fn'
+        ef0 = getattr(engine, which)
 
-        def counted(pos, grid):
+        def counted(*args):
             calls[0] += 1
-            return ef0(pos, grid)
+            return ef0(*args)
 
-        engine._ef_fn = counted
+        setattr(engine, which, counted)
         fc.reset_launch_counts()
         t0 = time.perf_counter()
         metrics = engine.run(n_steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(fc.launch_counts)
-        engine._ef_fn = ef0
+        setattr(engine, which, ef0)
         state = engine.state
         if not all(bool(torch.isfinite(t).all())
                    for t in (state.pos, state.vel, state.forces,
-                             state.energy)):
+                             state.energy) + ((state.cell,) if engine.npt
+                                              else ())):
             raise AssertionError('NaN/inf in the MD state')
         out = {'atoms': engine.n, 'steps': n_steps, 'warmup_s': warm_s,
                'wall_s': wall, 'ms_per_step': wall / n_steps * 1e3,
                'ns_per_day': n_steps / wall * 2.0 * 1e-6 * 86400.0,
                'final_temperature_K': float(metrics['temperature'][-1]),
+               'mean_temperature_K': float(metrics['temperature'].mean()),
+               'temperature_K': metrics['temperature'].tolist(),
+               'volume': metrics.get('volume', np.zeros(0)).tolist(),
                'force_calls': calls[0], 'launches': launches,
                'deg_cap': engine.deg_cap,
                'rebuild_every': engine.rebuild_every,
@@ -512,7 +563,7 @@ def main():
     # -- phase 6 -------------------------------------------------------
     phase('6 97k NVT 300 K, dt 2 fs, rebuild every 20')
     torch.cuda.reset_peak_memory_stats()
-    report['nvt_97k'] = timed_nvt(big, 10, 20)
+    report['nvt_97k'] = timed_nvt(big, 10, 10)
     report['nvt_97k']['peak_memory_bytes'] = torch.cuda.max_memory_allocated()
     report['nvt_97k']['chunks_per_layer'] = chunks
     print(f'chunk rows {chunk_rows}, {chunks} chunks per layer, peak memory '
@@ -591,16 +642,21 @@ def main():
           f'{kernel_ms["backward"]:.3f} ms against '
           f'{kernel_ms["extw_forward"]:.3f} + '
           f'{kernel_ms["extw_backward"]:.3f} ms', flush=True)
-    # the same warm-up and steps as phase 4, from the same velocities: the
-    # two trajectories part only by fp32 rounding, so they end at the same
-    # temperature (within 10 K; the thermostat swings by ~150 K meanwhile)
-    report['nvt_half_mlp'] = timed_nvt(md_half, 40, 200)
+    # the same warm-up and the first 100 steps of phase 4, from the same
+    # velocities: the two trajectories part only by fp32 rounding, so after
+    # the same chunks they are at the same temperature (within 10 K; the
+    # thermostat swings by ~150 K meanwhile)
+    report['nvt_half_mlp'] = timed_nvt(md_half, 40, 100)
     check_launches(report['nvt_half_mlp'], {'fused_conv_extw_fwd': 5,
                                             'fused_conv_extw_bwd': 5})
-    d_t = abs(report['nvt_half_mlp']['final_temperature_K']
-              - report['nvt']['final_temperature_K'])
-    print(f'final temperature with half_mlp and by default differ by '
-          f'{d_t:.3f} K', flush=True)
+    t_half = report['nvt_half_mlp']['temperature_K']
+    t_def = report['nvt']['temperature_K'][:len(t_half)]
+    if len(t_def) != len(t_half):
+        raise AssertionError('the half_mlp run took other chunks than the '
+                             'default run')
+    d_t = abs(t_half[-1] - t_def[-1])
+    print(f'temperature after {len(t_half)} chunks with half_mlp and by '
+          f'default differ by {d_t:.3f} K', flush=True)
     if not d_t <= 10.0:
         raise AssertionError('the half_mlp trajectory left the default one')
     md = md_half = nl = nl_h = e_h = f_h = None
@@ -608,7 +664,6 @@ def main():
 
     # -- phase 9 -------------------------------------------------------
     phase('9 calculator: energy, forces, stress')
-    import numpy as np
     from sevennet_exp_tpu_torch.calculator import SevenNetCalculator
     from sevennet_exp_tpu_torch.data.graph import Atoms
     strain = np.eye(3) + np.array([[0.02, 0.01, 0.008], [0.01, -0.01, 0.015],
@@ -705,7 +760,191 @@ def main():
     calc = batch = None
 
     # -- phase 10 ------------------------------------------------------
-    phase('10 kernels')
+    phase('10 terms kernels vs plain versions and vs kernels 1-2')
+    NPT_KW = dict(MD_KW, ensemble='npt', pressure_gpa=1.0, pdamp_fs=0.02)
+    md_c = MolecularDynamics(model, atoms_1k, device=dev, **NPT_KW)
+    md_t = MolecularDynamics(model, atoms_1k, device=dev, cg_mode='terms',
+                             **NPT_KW)
+    nl = md_c._grid()
+    pos, cell = md_c.state.pos, md_c.state.cell
+    fc.reset_launch_counts()
+    with recorded() as (records, _):
+        efs_t = md_t._efs_fn(pos, nl, cell)
+    want = dict.fromkeys(fc.launch_counts, 0)
+    want['fused_conv_terms_fwd'] = want['fused_conv_terms_bwd'] = 5
+    if fc.launch_counts != want:
+        raise AssertionError(f'terms force call launched {fc.launch_counts}')
+    torch.cuda.synchronize()
+    records = list(records.values())
+    assert len(records) == 5 and all(
+        r['conv'].cg_mode == 'terms' and r['conv'].agg_d == md_c.deg_cap
+        for r in records)
+
+    def default_twin(conv):
+        return FC(conv.tp, conv.mlp, conv.si2, conv.agg_d)
+
+    terms_layers = []
+    for li, r in enumerate(records):
+        row = dict(layer=li, **compare_kernels(
+            r, against=default_twin(r['conv'])))
+        show(row)
+        terms_layers.append(row)
+    report['terms_layers'] = terms_layers
+    # the bare tensor product's inputs (phase 13): each layer's xg and sh and
+    # the weights the radial MLP gives on them
+    tp_inputs = []
+    for r in records:
+        conv, (xg, sh, emb, ms, mlp_ws, _) = r['conv'], r['args']
+        w = conv.mlp.apply({f'w{i}': v for i, v in enumerate(mlp_ws)},
+                           emb) * ms
+        tp_inputs.append((conv.tp, xg, sh, w.contiguous()))
+    calc_t = SevenNetCalculator(model, cg_mode='terms')
+    calc_t.calculate(atoms_1k)
+    with recorded() as (records, _):
+        res_t = calc_t.calculate(atoms_1k)
+    terms_edge_layers = []
+    for li, r in enumerate(records.values()):
+        assert r['conv'].agg_d == 0 and r['conv'].cg_mode == 'terms'
+        row = dict(layer=li, **compare_kernels(
+            r, against=default_twin(r['conv'])))
+        show(row)
+        terms_edge_layers.append(row)
+    report['terms_edge_layers'] = terms_edge_layers
+    records = r = None
+
+    # -- phase 11 ------------------------------------------------------
+    phase('11 1k energy, forces, stress: terms vs cmshared vs plain; engine '
+          'vs calculator')
+
+    def check_efs(what, a, b):
+        out = check_ef(what, n, a[0], a[1], b[0], b[1])
+        out['max_dS'] = float((a[2] - b[2]).abs().max())
+        print(f'{what}: max|dS| {out["max_dS"]:.3e} eV/A^3 (<= {S_TOL})',
+              flush=True)
+        if not (out['max_dS'] <= S_TOL and torch.isfinite(a[2]).all()):
+            raise AssertionError(f'{what}: stresses disagree')
+        return out
+
+    efs_c = md_c._efs_fn(pos, nl, cell)
+    with plain_path():
+        efs_p = md_c._efs_fn(pos, nl, cell)
+    report['efs_terms_vs_cmshared'] = check_efs('terms vs cmshared', efs_t,
+                                                efs_c)
+    report['efs_terms_vs_plain'] = check_efs('terms vs plain path', efs_t,
+                                             efs_p)
+    report['efs_cmshared_vs_plain'] = check_efs('cmshared vs plain path',
+                                                efs_c, efs_p)
+    # model Voigt (xx,yy,zz,xy,yz,zx) -> ASE (xx,yy,zz,yz,xz,xy), sign flipped
+    s_engine = -efs_t[2].cpu().numpy()[[0, 1, 2, 4, 5, 3]]
+    res_c = SevenNetCalculator(model).calculate(atoms_1k)
+    for name, res in (('terms', res_t), ('cmshared', res_c)):
+        d_s = float(np.abs(s_engine - res['stress']).max())
+        d_f = float(np.abs(efs_t[1].cpu().numpy() - res['forces']).max())
+        d_e = abs(float(efs_t[0]) - res['energy']) / n
+        print(f'engine (dense grid, terms) vs calculator (edge list, {name}):'
+              f' |dE|/N {d_e:.3e} eV/atom, max|dF| {d_f:.3e} eV/A, max|dS| '
+              f'{d_s:.3e} eV/A^3 (<= {S_TOL}); stress '
+              f'{np.array2string(s_engine, precision=6)}', flush=True)
+        if not (d_s <= S_TOL and d_f <= F_TOL and d_e <= E_TOL_PER_ATOM):
+            raise AssertionError('engine and calculator disagree')
+        report[f'engine_vs_calculator_{name}'] = {
+            'dE_per_atom': d_e, 'max_dF': d_f, 'max_dS': d_s}
+    calc_t = res_t = res_c = None
+
+    # -- phase 12 ------------------------------------------------------
+    phase('12 1k NPT with the terms kernels; npt_aniso and langevin')
+    v0 = float(torch.abs(torch.linalg.det(md_t.state.cell)))
+    report['npt_terms'] = timed_nvt(md_t, 40, 100)
+    check_launches(report['npt_terms'], {'fused_conv_terms_fwd': 5,
+                                         'fused_conv_terms_bwd': 5})
+    v1 = report['npt_terms']['volume'][-1]
+    print(f'volume {v0:.3f} -> {v1:.3f} A^3 ({(v1 / v0 - 1) * 100:.4f} %), '
+          f'mean T {report["npt_terms"]["mean_temperature_K"]:.1f} K',
+          flush=True)
+    if not v1 < v0:
+        raise AssertionError('1 GPa did not compress the cell')
+    for name, kw in (('npt_aniso', dict(NPT_KW, ensemble='npt_aniso')),
+                     ('langevin', dict(MD_KW, ensemble='langevin',
+                                       friction_per_fs=0.01))):
+        engine = MolecularDynamics(model, atoms_1k, device=dev, **kw)
+        out = timed_nvt(engine, 40, 100)
+        check_launches(out, {'fused_conv_fwd': 5, 'fused_conv_bwd': 5})
+        # the same thermostat as phase 4 rings the same way: for comparison
+        print(f'{name}: mean T {out["mean_temperature_K"]:.1f} K, per chunk '
+              f'{[round(t, 1) for t in out["temperature_K"]]}; NVT (phase 4) '
+              f'{[round(t, 1) for t in report["nvt"]["temperature_K"][:5]]}',
+              flush=True)
+        if not 150.0 <= out['mean_temperature_K'] <= 450.0:
+            raise AssertionError(f'{name}: mean temperature '
+                                 f'{out["mean_temperature_K"]:.1f} K')
+        if engine.npt:
+            c = engine.state.cell
+            c0 = torch.as_tensor(atoms_1k.cell, dtype=c.dtype, device=dev)
+            asym = float((c - c.T).abs().max())
+            moved = float((c - c0).abs().max())
+            print(f'{name}: cell moved by {moved:.3e} A, asymmetry '
+                  f'{asym:.3e} A', flush=True)
+            if not (asym <= 1e-5 and moved > 1e-5 and out['volume'][-1] < v0):
+                raise AssertionError(f'{name}: the cell was not '
+                                     'symmetrically strained')
+            out.update(cell_moved=moved, cell_asymmetry=asym)
+        report[name] = out
+    md_c = md_t = engine = nl = None
+
+    # -- phase 13 ------------------------------------------------------
+    phase('13 bare tensor product: make_fused_tp vs plain')
+    gs = [torch.randn(xg.shape[0], ftp.make_fused_tp(spec).d3, device=dev,
+                      generator=torch.Generator(dev).manual_seed(li))
+          for li, (spec, xg, _, _) in enumerate(tp_inputs)]
+    # the op's path: forward and backward through autograd, on all five specs
+    fc.reset_launch_counts()
+    driven = []
+    for (spec, xg, sh, w), g in zip(tp_inputs, gs):
+        ins = [t.detach().clone().requires_grad_(True) for t in (xg, sh, w)]
+        out = ftp.make_fused_tp(spec)(*ins)
+        driven.append((out.detach(), torch.autograd.grad(out, ins, g)))
+    torch.cuda.synchronize()
+    tp_launches = dict(fc.launch_counts)
+    want = dict.fromkeys(fc.launch_counts, 0)
+    want['fused_tp_fwd'] = want['fused_tp_bwd'] = len(tp_inputs)
+    if tp_launches != want:
+        raise AssertionError(f'fused_tp path launched {tp_launches}')
+    tp_layers = []
+    for li, ((spec, xg, sh, w), g, (out, grads)) in enumerate(
+            zip(tp_inputs, gs, driven)):
+        op = ftp.make_fused_tp(spec)
+        row = {'layer': li, 'rows': xg.shape[0], 'd1': op.d1,
+               'w_numel': op.w_numel, 'd3': op.d3}
+        y_p = op.plain_forward(xg, sh, w)
+        d_p = op.plain_backward(g, xg, sh, w)
+        y_k = op.kernel_forward(xg, sh, w)
+        d_k = op.kernel_backward(g, xg, sh, w)
+        torch.cuda.synchronize()
+        if not (torch.equal(y_k, out) and all(
+                torch.equal(a, b) for a, b in zip(d_k, grads))):
+            raise AssertionError('fused_tp: autograd path != direct launch')
+        row['fwd_err'], row['fwd_lim'] = check_close('tp fwd', y_k, y_p)
+        for name, a, b in zip(('dxg', 'dsh', 'dw'), d_k, d_p):
+            row[f'{name}_err'], row[f'{name}_lim'] = check_close(name, a, b)
+        del y_p, d_p, y_k, d_k
+        row['fwd_ms'] = cuda_ms(lambda: op.kernel_forward(xg, sh, w))
+        row['bwd_ms'] = cuda_ms(lambda: op.kernel_backward(g, xg, sh, w))
+        row['fwd_plain_ms'] = cuda_ms(lambda: op.plain_forward(xg, sh, w),
+                                      reps=5)
+        row['bwd_plain_ms'] = cuda_ms(
+            lambda: op.plain_backward(g, xg, sh, w), reps=5)
+        row['fwd_flops'], row['bwd_flops'] = ftp.tp_cost(spec, xg.shape[0])
+        row['fwd_bytes'], row['bwd_bytes'] = ftp.tp_bytes(spec, xg.shape[0])
+        for k in ('fwd', 'bwd'):
+            row[f'{k}_bound_ms'], row[f'{k}_bound_by'] = bound(
+                row[f'{k}_flops'], row[f'{k}_bytes'])
+        show(row)
+        tp_layers.append(row)
+    report['tp_layers'] = tp_layers
+    tp_inputs = gs = driven = None
+
+    # -- phase 14 ------------------------------------------------------
+    phase('14 kernels')
 
     def total(key, rows=None):
         return sum(r[key] for r in (layers if rows is None else rows))
@@ -775,6 +1014,43 @@ def main():
             'plain_ms': total(f'{k}_plain_ms', edge_layers),
             'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None,
         })
+    for name, k, line, grads in (
+            ('fused_conv_terms_fwd', 'fwd', 547, ()),
+            ('fused_conv_terms_bwd', 'bwd', 589, ('dxg', 'dsh', 'demb'))):
+        both = terms_layers + terms_edge_layers
+        errs = [r[f'{d}_err'] for r in both for d in grads or ('fwd',)]
+        b_ms, b_by = bound(total(f'{k}_flops', terms_layers),
+                           total(f'{k}_bytes', terms_layers))
+        kernels.append({
+            'name': name, 'route': 'cuda',
+            'source': 'sevennet_exp_tpu_torch/csrc/fused_conv_terms.cu',
+            'replaces': f'sevennet_exp_tpu/ops/pallas_conv.py:{line}',
+            'launches': report['npt_terms']['launches'][name],
+            'max_abs_err': max(errs),
+            # per 1k force call on the grid: the five layers' launches
+            'ms': total(f'{k}_ms', terms_layers),
+            'plain_ms': total(f'{k}_plain_ms', terms_layers),
+            'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None,
+        })
+    for name, k, line, grads in (
+            ('fused_tp_fwd', 'fwd', 114, ()),
+            ('fused_tp_bwd', 'bwd', 136, ('dxg', 'dsh', 'dw'))):
+        errs = [r[f'{d}_err'] for r in tp_layers for d in grads or ('fwd',)]
+        b_ms, b_by = bound(total(f'{k}_flops', tp_layers),
+                           total(f'{k}_bytes', tp_layers))
+        kernels.append({
+            'name': name, 'route': 'cuda',
+            'source': 'sevennet_exp_tpu_torch/csrc/fused_tp.cu',
+            'replaces': f'sevennet_exp_tpu/ops/pallas_tp.py:{line}',
+            'launches': tp_launches[name],
+            'max_abs_err': max(errs),
+            # the five layers' specs at the 1k grid's 32,000 rows
+            'ms': total(f'{k}_ms', tp_layers),
+            'plain_ms': total(f'{k}_plain_ms', tp_layers),
+            'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None,
+        })
+    if len(kernels) != 12 or any(not kr['launches'] > 0 for kr in kernels):
+        raise AssertionError('a kernel of the path was never launched')
     report['kernels'] = kernels
     report['script_s'] = time.perf_counter() - t_script
     print(f'whole script {report["script_s"]:.1f} s', flush=True)

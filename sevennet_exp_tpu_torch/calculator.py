@@ -32,6 +32,7 @@ from .data.graph import (
     unlabeled_atoms_to_graph,
 )
 from .model.model import SevenNetModel
+from .ops.fused_conv import CG_MODE_KEY, CG_MODES
 
 try:  # optional ASE integration
     from ase.calculators.calculator import Calculator as _ASECalculator
@@ -69,13 +70,19 @@ class SevenNetCalculator(_ASECalculator):
     ]
 
     def __init__(self, model: Union[str, SevenNetModel], device='cuda',
-                 modal: Optional[str] = None, **kwargs):
-        """model: a native checkpoint path or a built ``SevenNetModel``."""
+                 modal: Optional[str] = None, cg_mode: str = 'cmshared',
+                 **kwargs):
+        """model: a native checkpoint path or a built ``SevenNetModel``.
+        cg_mode: which kernels the fused convolutions launch on the card,
+        'cmshared' (default) or the independently derived 'terms'."""
         if _HAS_ASE:
             _ASECalculator.__init__(self, **kwargs)
         else:
             self.results = {}
         self.device = torch.device(device)
+        if cg_mode not in CG_MODES:
+            raise ValueError(f'cg_mode {cg_mode!r}: one of {CG_MODES}')
+        self.cg_mode = cg_mode
         if isinstance(model, str):
             cp = SevenNetCheckpoint(model)
             self.model, _ = cp.build_model(device=self.device)
@@ -100,10 +107,12 @@ class SevenNetCalculator(_ASECalculator):
         e_cap = max(self._caps[1], pad_cap(e, multiple=256, margin=1.2))
         self._caps = (n_cap, e_cap)
         b = collate_graphs([g], n_node=n_cap, n_edge=e_cap, dtype=self.dtype)
-        return {k: torch.as_tensor(
-                    v, dtype=torch.long if k in _INT_KEYS else None,
-                    device=self.device)
-                for k, v in b.items()}
+        batch = {k: torch.as_tensor(
+                     v, dtype=torch.long if k in _INT_KEYS else None,
+                     device=self.device)
+                 for k, v in b.items()}
+        batch[CG_MODE_KEY] = self.cg_mode
+        return batch
 
     def calculate_single(self, atoms) -> Dict[str, np.ndarray]:
         n = len(_as_internal_atoms(atoms))

@@ -1,7 +1,8 @@
 """MD driver on one device: two-tier Verlet list + dense neighbor grid.
 
-Counterpart of ``sevennet_exp_tpu/md/engine.py::MolecularDynamics`` for
-the ``nve``/``nvt`` ensembles on the whole-array dense grid. A Verlet
+Counterpart of ``sevennet_exp_tpu/md/engine.py::MolecularDynamics`` with
+its five ensembles (``nve``, ``langevin``, ``nvt``, ``npt``,
+``npt_aniso``) on the dense grid. A Verlet
 list is built at cutoff + skin and reused while no atom has moved more
 than (skin - md_buffer)/2 since its build; every ``rebuild_every`` steps
 it is compacted (``_compact_nl``) into the dense per-atom grid the model
@@ -28,6 +29,18 @@ after one read of the degree-overflow flag, since a grid that overflowed
 must not carry one), and the convolutions take their per-edge weights
 ready-made (``model/layers.py::_half_mlp_w``). Off by default.
 
+Under ``npt`` / ``npt_aniso`` the cell lives in the state and moves every
+step: the potential returns the stress too (``_efs_fn``), every neighbor
+routine takes the state's cell (the engine keeps no cached cell then), the
+Verlet list is rebuilt at every chunk, and the grid's staleness inside a
+chunk is measured in fractional coordinates plus a bound on what the
+cell's strain alone does to a pair distance.
+
+``cg_mode='terms'`` runs the convolutions through the independently derived
+``terms`` kernels (``ops/fused_conv_terms.py``) instead of the default
+ones: same numbers, a cross-check. It has no geometry-fused and no
+half-list form.
+
 Needs every cell width >= 2 * (cutoff + skin) (minimum image).
 """
 
@@ -43,6 +56,7 @@ from ..data.graph import Atoms
 from ..data.periodic import atomic_masses
 from ..model.layers import geom_packed_ok
 from ..model.model import SevenNetModel
+from ..ops.fused_conv import CG_MODE_KEY, CG_MODES
 from ..ops.scatter import (
     gather_pair,
     half_pair_indices,
@@ -55,9 +69,14 @@ from .neighbor import (
     cell_list_neighbor_list,
     choose_grid,
     dense_neighbor_list,
+    det3,
+    inv3,
     mic_displacements,
 )
 from .units import fs as FS
+
+ENSEMBLES = ('nve', 'langevin', 'nvt', 'npt', 'npt_aniso')
+EV_A3_PER_GPA = 1.0 / 160.21766      # 1 GPa in eV/A^3
 
 
 # more grid rows than this and the convolutions run chunked (the JAX
@@ -81,7 +100,9 @@ def _cell_widths(cell) -> np.ndarray:
 
 
 class MolecularDynamics:
-    """MD on one device. ensemble: 'nve' | 'nvt' (Nose-Hoover)."""
+    """MD on one device. ensemble: 'nve' | 'langevin' (BAOAB) | 'nvt'
+    (Nose-Hoover) | 'npt' (Nose-Hoover + isotropic Berendsen barostat) |
+    'npt_aniso' (full-cell tensor Berendsen barostat)."""
 
     def __init__(
         self,
@@ -90,6 +111,7 @@ class MolecularDynamics:
         dt_fs: float = 2.0,
         temperature_K: float = 300.0,
         ensemble: str = 'nvt',
+        friction_per_fs: float = 0.002,
         tdamp_fs: Optional[float] = None,
         skin: float = 2.0,
         rebuild_every: int = 10,
@@ -100,6 +122,9 @@ class MolecularDynamics:
         geom_fused: bool = True,
         geom_dense: bool = False,
         half_mlp: bool = False,
+        pressure_gpa: float = 0.0,
+        pdamp_fs: Optional[float] = None,
+        cg_mode: str = 'cmshared',
     ):
         """velocities: initial (N, 3) velocities in internal units; drawn
         from Maxwell-Boltzmann on a ``torch.Generator(seed)`` if None.
@@ -111,10 +136,22 @@ class MolecularDynamics:
         half_mlp: the whole-array path runs the radial MLP on the half
         list (one row per edge pair) and the external-weight fused conv;
         ``geom_dense`` goes first, the chunked path does not consult it,
-        and a grid with a degree overflow never feeds it."""
-        if ensemble not in ('nve', 'nvt'):
-            raise ValueError(f'ensemble {ensemble!r}: the port runs nve '
-                             'and nvt')
+        and a grid with a degree overflow never feeds it.
+        friction_per_fs: Langevin friction. pressure_gpa, pdamp_fs: target
+        pressure and barostat time of the NPT ensembles (default 1000 dt).
+        cg_mode: 'cmshared' (default kernels) or 'terms' (the independent
+        cross-check pair; not with ``geom_dense`` or ``half_mlp``; chunks
+        then run with shared sh/emb whatever ``geom_fused`` says)."""
+        if ensemble not in ENSEMBLES:
+            raise ValueError(f'ensemble {ensemble!r}: one of {ENSEMBLES}')
+        if cg_mode not in CG_MODES:
+            raise ValueError(f'cg_mode {cg_mode!r}: one of {CG_MODES}')
+        if cg_mode == 'terms' and (geom_dense or half_mlp):
+            raise ValueError("cg_mode 'terms' has no geometry-fused and no "
+                             'external-weight kernels: not with geom_dense '
+                             'or half_mlp')
+        self.cg_mode = cg_mode
+        self.npt = ensemble.startswith('npt')
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.dtype = torch.float32
@@ -162,10 +199,18 @@ class MolecularDynamics:
             vel=vel, forces=torch.zeros((n, 3), dtype=f32, device=dev),
             energy=torch.zeros((), dtype=f32, device=dev),
             xi=torch.zeros((), dtype=f32, device=dev),
+            cell=self.cell if self.npt else None,
         )
+        if self.npt:
+            # the cell lives in the state from here on: a stale read of a
+            # cached cell must fail, not pass
+            self.cell = self.inv_cell = None
         if tdamp_fs is None:
             tdamp_fs = 100.0 * dt_fs / 2.0
         self.tdamp = tdamp_fs * FS
+        self.friction = friction_per_fs / FS
+        self.pressure = pressure_gpa * EV_A3_PER_GPA
+        self.pdamp = (pdamp_fs or 1000.0 * dt_fs) * FS
         self._verlet: Optional[NeighborState] = None
         self._primed = False
         self._const = {
@@ -220,8 +265,15 @@ class MolecularDynamics:
         return dense_neighbor_list(pos, cell, self.build_cutoff, e_cap)
 
     # -- neighbor lists ------------------------------------------------
-    def _build_nl(self, pos) -> NeighborState:
-        nl = self._build(pos, self.cell, self.e_cap)
+    def _cell_pair(self, cell=None):
+        """(cell, inverse): the given (state's) cell, or the engine's static
+        one outside NPT."""
+        if cell is None:
+            return self.cell, self.inv_cell
+        return cell, inv3(cell)
+
+    def _build_nl(self, pos, cell=None) -> NeighborState:
+        nl = self._build(pos, self._cell_pair(cell)[0], self.e_cap)
         return nl._replace(
             build_rev=reverse_permutation(nl.edge_idx, self.n))
 
@@ -248,7 +300,8 @@ class MolecularDynamics:
             return max(1, CHUNK_ROWS // self.deg_cap) * self.deg_cap
         return 0
 
-    def _compact_nl(self, nl: NeighborState, pos) -> NeighborState:
+    def _compact_nl(self, nl: NeighborState, pos,
+                    cell=None) -> NeighborState:
         """Re-lay the Verlet list out as the dense per-atom grid (JAX
         ``_compact_nl``): rank each kept edge within its center's
         segment, drop ranks >= deg_cap (flagging overflow_deg), fill the
@@ -256,8 +309,7 @@ class MolecularDynamics:
         permutation from the build list's one by O(E) gathers."""
         D = self.deg_cap
         dst, src = nl.edge_idx[0], nl.edge_idx[1]
-        vec = mic_displacements(pos[dst], pos[src], self.cell,
-                                self.inv_cell)
+        vec = mic_displacements(pos[dst], pos[src], *self._cell_pair(cell))
         r2 = torch.sum(vec * vec, dim=-1)
         keep = nl.valid & (r2 < (self.cutoff + self.md_buffer) ** 2)
         ckeep = torch.cumsum(keep.long(), 0)
@@ -295,21 +347,26 @@ class MolecularDynamics:
             edge_idx=torch.stack([base, src_p]), valid=valid,
             overflow=nl.overflow, overflow_deg=overflow_deg,
             overflow_bin=nl.overflow_bin, ref_pos=pos, rev=rev,
-            half=half, pair=pair)
+            half=half, pair=pair, ref_cell=cell)
 
     # -- potential -----------------------------------------------------
-    def _graph(self, pos, nl: NeighborState):
+    def _graph(self, pos, nl: NeighborState, cell=None, strain=None):
         """Model inputs on the dense grid; the pair gather carries the
-        scatter-free backward that assembles the forces."""
+        scatter-free backward that assembles the forces. cell: the state's
+        cell under NPT. strain: a (3, 3) strain applied to the edge vectors
+        as ``vec + vec @ strain`` (``_efs_fn`` needs none: the model takes
+        the strain gradient in closed form)."""
         pi, pj = gather_pair(pos, nl.edge_idx, nl.rev, self.deg_cap)
-        vec = mic_displacements(pi, pj, self.cell, self.inv_cell)
+        vec = mic_displacements(pi, pj, *self._cell_pair(cell))
         r2 = torch.sum(vec * vec, dim=-1)
         mask = nl.valid & (r2 < self.cutoff ** 2)
         unit_x = vec.new_tensor([1.0, 0.0, 0.0])
         safe = torch.where(mask[:, None], vec, unit_x)
+        if strain is not None:
+            safe = safe + safe @ strain
         chunk_rows = self.conv_chunk_rows
         geom = ((self.geom_fused if chunk_rows else self.geom_dense)
-                and self._geom_packed_ok())
+                and self.cg_mode != 'terms' and self._geom_packed_ok())
         half = {}
         if nl.half is not None and not chunk_rows and not geom:
             half = {KEY.EDGE_HALF: nl.half, KEY.EDGE_PAIR: nl.pair}
@@ -321,6 +378,7 @@ class MolecularDynamics:
             KEY.EDGE_DENSE_D: self.deg_cap,
             KEY.CONV_CHUNK_ROWS: chunk_rows,
             KEY.EDGE_GEOM_PACKED: geom,
+            CG_MODE_KEY: self.cg_mode,
         })
 
     def _energy_fn(self, pos, nl: NeighborState):
@@ -330,32 +388,87 @@ class MolecularDynamics:
         return self.model.energy_and_forces(
             pos, lambda p: self._graph(p, nl))
 
+    def _efs_fn(self, pos, nl: NeighborState, cell):
+        """(energy, forces, stress Voigt) on an explicit cell (the NPT
+        path); stress = -virial/V in the model convention."""
+        return self.model.energy_forces_stress(
+            pos, cell, lambda p: self._graph(p, nl, cell))
+
     def _make_step(self):
         if self.ensemble == 'nve':
             return integrate.make_nve_step(self._ef_fn, self.masses, self.dt)
-        return integrate.make_nose_hoover_step(
-            self._ef_fn, self.masses, self.dt, self.temperature_K,
-            self.tdamp)
+        if self.ensemble == 'langevin':
+            return integrate.make_langevin_step(
+                self._ef_fn, self.masses, self.dt, self.temperature_K,
+                self.friction, self.generator)
+        if self.ensemble == 'nvt':
+            return integrate.make_nose_hoover_step(
+                self._ef_fn, self.masses, self.dt, self.temperature_K,
+                self.tdamp)
+        make = (integrate.make_npt_berendsen_step if self.ensemble == 'npt'
+                else integrate.make_npt_berendsen_aniso_step)
+        return make(self._efs_fn, self.masses, self.dt, self.temperature_K,
+                    self.tdamp, self.pressure, self.pdamp)
 
     # -- run loop ------------------------------------------------------
     @property
     def _verlet_thresh(self) -> float:
         return 0.5 * (self.skin - self.md_buffer)
 
-    def _max_disp(self, ref, pos) -> torch.Tensor:
-        d = mic_displacements(ref, pos, self.cell, self.inv_cell)
-        return torch.sqrt(torch.max(torch.sum(d * d, dim=-1)))
+    def _max_disp(self, ref, pos, ref_cell=None, cell=None) -> torch.Tensor:
+        """Largest displacement of an atom since ``ref``. Under NPT (cells
+        given) the displacement is taken in fractional coordinates and
+        mapped by the current cell, so the barostat's scaling of all
+        positions does not count as motion; what the strain alone does to a
+        pair at the grid's radius is added as a bound."""
+        if cell is None:
+            d = mic_displacements(ref, pos, self.cell, self.inv_cell)
+            return torch.sqrt(torch.max(torch.sum(d * d, dim=-1)))
+        inv_ref = inv3(ref_cell)
+        frac = pos @ inv3(cell) - ref @ inv_ref
+        d = (frac - torch.round(frac)) @ cell
+        strain = inv_ref @ cell - torch.eye(
+            3, dtype=cell.dtype, device=cell.device)
+        return (torch.sqrt(torch.max(torch.sum(d * d, dim=-1)))
+                + 0.5 * (self.cutoff + self.md_buffer)
+                * torch.linalg.norm(strain))
+
+    def _follow_cell(self, cell):
+        """NPT, once per compaction (host): the moved cell must still hold
+        the minimum image -- the skin is clamped on it as at start-up, and a
+        cell too small for the smallest skin raises -- and the bin grid is
+        re-chosen when the barostat has made a bin thinner than the build
+        cutoff."""
+        cell_np = cell.detach().cpu().numpy().astype(np.float64)
+        widths = _cell_widths(cell_np)
+        if np.any(widths < 2 * self.build_cutoff):
+            self.skin = float(widths.min()) / 2.0 - self.cutoff - 1e-6
+            if self.skin < 0.25:
+                raise ValueError(
+                    'the cell shrank below the minimum-image width '
+                    f'2 * (cutoff + 0.25) = {2 * (self.cutoff + 0.25)}')
+            self.build_cutoff = self.cutoff + self.skin
+            self.md_buffer = min(0.5, self.skin)
+        if self.use_cell_list and np.any(
+                widths / np.asarray(self.grid) < self.build_cutoff):
+            self.grid = choose_grid(cell_np, self.build_cutoff)
+            self.use_cell_list = (all(g >= 3 for g in self.grid)
+                                  and self.n > 512)
 
     def _grid(self) -> NeighborState:
         """Compacted grid at the current positions; rebuilds the Verlet
-        list when stale and regrows capacities on overflow (host checks,
-        once per compaction)."""
-        pos = self.state.pos
+        list when stale (under NPT always: staleness against an old cell is
+        ill-defined) and regrows capacities on overflow (host checks, once
+        per compaction)."""
+        pos, cell = self.state.pos, self.state.cell
+        if self.npt:
+            self._follow_cell(cell)
+            self._verlet = None
         while True:
             if (self._verlet is None or float(self._max_disp(
                     self._verlet.ref_pos, pos)) > self._verlet_thresh):
-                self._verlet = self._build_nl(pos)
-            nl = self._compact_nl(self._verlet, pos)
+                self._verlet = self._build_nl(pos, cell)
+            nl = self._compact_nl(self._verlet, pos, cell)
             over, over_deg, over_bin = torch.stack(
                 [nl.overflow, nl.overflow_deg, nl.overflow_bin]).tolist()
             if not (over or over_deg or over_bin):
@@ -372,12 +485,17 @@ class MolecularDynamics:
         """Forces at the current positions (once before the first step)."""
         if self._primed:
             return
-        e, f = self._ef_fn(self.state.pos, self._grid())
+        if self.npt:
+            e, f, _ = self._efs_fn(self.state.pos, self._grid(),
+                                   self.state.cell)
+        else:
+            e, f = self._ef_fn(self.state.pos, self._grid())
         self.state = self.state._replace(energy=e, forces=f)
         self._primed = True
 
     def run(self, n_steps: int) -> Dict[str, np.ndarray]:
-        """Advance n_steps; returns per-chunk energy and temperature."""
+        """Advance n_steps; returns per-chunk energy and temperature (and
+        the volume under NPT)."""
         self.prime()
         step = self._make_step()
         rows: List[Dict[str, float]] = []
@@ -388,7 +506,8 @@ class MolecularDynamics:
             state = self.state
             for _ in range(k):
                 state = step(state, nl)
-            worst = float(self._max_disp(nl.ref_pos, state.pos))
+            worst = float(self._max_disp(nl.ref_pos, state.pos, nl.ref_cell,
+                                         state.cell))
             if worst > 0.5 * self.md_buffer and k > 1:
                 # the grid went stale inside the chunk: redo it at half
                 # the cadence from the chunk's start
@@ -402,5 +521,8 @@ class MolecularDynamics:
                                                            self.masses)),
                 'max_disp': worst,
             })
+            if self.npt:
+                rows[-1]['volume'] = float(
+                    torch.abs(det3(state.cell)))
         return {key: np.array([r[key] for r in rows]) for key in rows[0]} \
             if rows else {}

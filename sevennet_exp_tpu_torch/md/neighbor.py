@@ -35,6 +35,22 @@ class NeighborState(NamedTuple):
     half: Optional[Tensor] = None         # (E//2,) half list of the grid and
     pair: Optional[Tensor] = None         # (E,) its pair index (engine option
     #   half_mlp; ops/scatter.half_pair_indices); None after a degree overflow
+    ref_cell: Optional[Tensor] = None     # (3, 3) cell at compaction (NPT only)
+
+
+def det3(cell: Tensor) -> Tensor:
+    """Determinant of a (3, 3) cell by the triple product: elementwise
+    kernels only, where ``torch.linalg.det`` on the card factorises and
+    makes the host wait (the NPT step calls this every step)."""
+    return torch.dot(cell[0], torch.linalg.cross(cell[1], cell[2]))
+
+
+def inv3(cell: Tensor) -> Tensor:
+    """Inverse of a (3, 3) cell by cofactors (see ``det3``)."""
+    a, b, c = cell[0], cell[1], cell[2]
+    bc, ca, ab = (torch.linalg.cross(b, c), torch.linalg.cross(c, a),
+                  torch.linalg.cross(a, b))
+    return torch.stack([bc, ca, ab], dim=1) / torch.dot(a, bc)
 
 
 def mic_displacements(pos_i, pos_j, cell, inv_cell):

@@ -21,7 +21,7 @@ from torch import nn
 
 from .. import _keys as KEY
 from ..irreps import Irreps
-from ..ops.fused_conv import FusedConv, GeomSpec
+from ..ops.fused_conv import CG_MODE_KEY, FusedConv, GeomSpec
 from ..ops.radial import BesselBasis
 from ..ops.scatter import (
     gather_rev,
@@ -281,6 +281,9 @@ class IrrepsConvolution(nn.Module):
     half list, outside the fused conv, which then takes the weights
     ready-made (``_half_mlp_w``, ``_rows_to_nodes_extw``). The chunked
     path does not consult the half list (as in the JAX package).
+    ``CG_MODE_KEY`` = 'terms' makes the fused conv launch its independently
+    derived ``terms`` kernels (dense grid, chunked with shared sh/emb, or
+    edge list); it excludes the geometry-fused and the half-list branches.
 
     Without them the edges are a plain list in any order (the
     calculator): x[src] is a plain gather, the fused conv returns one row
@@ -298,7 +301,7 @@ class IrrepsConvolution(nn.Module):
                              torch.tensor([denominator], dtype=torch.float32))
         self.weight_nn_p = ParamGroup(weight_nn.param_shapes())
         self.si2_p = ParamGroup(si2.param_shapes()) if si2 else None
-        self._fused = {}    # (grid degree D, ext_w) -> FusedConv
+        self._fused = {}    # (grid degree D, ext_w, cg_mode) -> FusedConv
 
     def param_tree(self):
         tree = {'weight_nn': self.weight_nn_p.as_dict(),
@@ -315,12 +318,15 @@ class IrrepsConvolution(nn.Module):
         return (self.geom is not None and KEY.EDGE_BESSEL_COEFFS in data
                 and KEY.EDGE_VEC in data and self._fused_eligible())
 
-    def _conv(self, dd: int, ext_w: bool = False) -> FusedConv:
-        conv = self._fused.get((dd, ext_w))
+    def _conv(self, dd: int, ext_w: bool = False,
+              cg_mode: str = 'cmshared') -> FusedConv:
+        conv = self._fused.get((dd, ext_w, cg_mode))
         if conv is None:
-            conv = self._fused[dd, ext_w] = FusedConv(
+            terms = cg_mode == 'terms'
+            conv = self._fused[dd, ext_w, cg_mode] = FusedConv(
                 self.tp, self.weight_nn, self.si2, dd,
-                geom=None if ext_w else self.geom, ext_w=ext_w)
+                geom=None if ext_w or terms else self.geom, ext_w=ext_w,
+                cg_mode=cg_mode)
         return conv
 
     def _weights(self):
@@ -329,10 +335,11 @@ class IrrepsConvolution(nn.Module):
         return (tuple(mlp[f'w{i}'] for i in range(len(mlp))),
                 tuple(si2[f'w{n}'] for n in range(len(si2))))
 
-    def _rows_to_nodes(self, xg, sh, emb, scale, dd):
+    def _rows_to_nodes(self, xg, sh, emb, scale, dd, cg_mode='cmshared'):
         if self._fused_eligible():
-            return self._conv(dd)(xg, sh.contiguous(), emb.contiguous(),
-                                  scale.contiguous(), *self._weights())
+            return self._conv(dd, cg_mode=cg_mode)(
+                xg, sh.contiguous(), emb.contiguous(), scale.contiguous(),
+                *self._weights())
         w = self.weight_nn.apply(self.weight_nn_p.as_dict(), emb) * scale
         message = self.tp.apply(xg, sh, w)
         agg = message.reshape(
@@ -369,7 +376,7 @@ class IrrepsConvolution(nn.Module):
             *self._weights())
 
     def _rows_to_nodes_chunked(self, x, src, rev, feats, coeffs, scale, dd,
-                               chunk_rows):
+                               chunk_rows, cg_mode='cmshared'):
         if not self._fused_eligible():
             raise NotImplementedError(
                 'the chunked convolution runs the fused conv only')
@@ -378,19 +385,22 @@ class IrrepsConvolution(nn.Module):
                              f'number of atoms (D = {dd})')
         mlp_ws, si2_ws = self._weights()
         return _ChunkedConvFn.apply(
-            self._conv(dd), chunk_rows, src, rev, scale.contiguous(), coeffs,
+            self._conv(dd, cg_mode=cg_mode), chunk_rows, src, rev,
+            scale.contiguous(), coeffs,
             len(mlp_ws), x, *(f.contiguous() for f in feats), *mlp_ws,
             *si2_ws)
 
-    def _edge_list(self, x, edge_dst, edge_src, sh, emb, scale):
+    def _edge_list(self, x, edge_dst, edge_src, sh, emb, scale,
+                   cg_mode='cmshared'):
         """The plain edge-list branch: edge rows, then a scatter-add onto
         the destination atoms (``index_add_``; on CUDA by atomics, in no
         fixed order)."""
         xg = x[edge_src]
         n = x.shape[0]
         if self._fused_eligible():
-            y = self._conv(0)(xg, sh.contiguous(), emb.contiguous(),
-                              scale.contiguous(), *self._weights())
+            y = self._conv(0, cg_mode=cg_mode)(
+                xg, sh.contiguous(), emb.contiguous(), scale.contiguous(),
+                *self._weights())
             return scatter_sum(y, edge_dst, n)
         w = self.weight_nn.apply(self.weight_nn_p.as_dict(), emb) * scale
         agg = scatter_sum(self.tp.apply(xg, sh, w), edge_dst, n)
@@ -410,6 +420,11 @@ class IrrepsConvolution(nn.Module):
         if KEY.EDGE_MASK in data:
             scale = scale * data[KEY.EDGE_MASK][..., None]
         geom = bool(data.get(KEY.EDGE_GEOM_PACKED))
+        cg_mode = data.get(CG_MODE_KEY, 'cmshared')
+        half = data.get(KEY.EDGE_HALF) is not None
+        if cg_mode == 'terms' and (geom or half):
+            raise ValueError("cg_mode 'terms' runs neither geometry-fused "
+                             'nor on the half list')
         if geom and not (dense and self._geom_eligible(data)):
             raise ValueError('EDGE_GEOM_PACKED is set but this convolution '
                              'cannot run geometry-fused')
@@ -422,20 +437,21 @@ class IrrepsConvolution(nn.Module):
                 raise ValueError('the chunked convolution needs the dense '
                                  'neighbor grid (EDGE_REV + EDGE_DENSE_D)')
             out = self._rows_to_nodes_chunked(x, edge_idx[1], rev, feats,
-                                              coeffs, scale, dd, chunk_rows)
+                                              coeffs, scale, dd, chunk_rows,
+                                              cg_mode)
         elif dense:
             xg = gather_rev(x, edge_idx[1], rev, dd)
             if geom:
                 out = self._rows_to_nodes_geom(xg, feats[0], coeffs, scale,
                                                dd)
-            elif (data.get(KEY.EDGE_HALF) is not None
-                    and self._fused_eligible()):
+            elif half and self._fused_eligible():
                 w_eff = self._half_mlp_w(data, feats[1], scale, rev)
                 out = self._rows_to_nodes_extw(xg, feats[0], w_eff, dd)
             else:
-                out = self._rows_to_nodes(xg, *feats, scale, dd)
+                out = self._rows_to_nodes(xg, *feats, scale, dd, cg_mode)
         else:
-            out = self._edge_list(x, edge_idx[0], edge_idx[1], *feats, scale)
+            out = self._edge_list(x, edge_idx[0], edge_idx[1], *feats, scale,
+                                  cg_mode)
         out = out[:x.shape[0]]
         if self.si2 is not None:
             bias = self.si2.bias_vector(self.si2_p.as_dict(), out.dtype)

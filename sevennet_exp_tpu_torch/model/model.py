@@ -6,7 +6,9 @@ as -dE/dpos by autograd through whatever builds the data from the
 positions (on the dense grid: the scatter-free pair gather of
 ``ops/scatter.gather_pair``). ``apply`` is the single-point form: the
 gradient with respect to the edge vectors, from which it assembles the
-forces and the virial stress (the calculator's path).
+forces and the virial stress (the calculator's path);
+``energy_forces_stress`` is the engine's form of the same on the dense
+grid (NPT).
 """
 
 from __future__ import annotations
@@ -91,6 +93,28 @@ class SevenNetModel(nn.Module):
             (g,) = torch.autograd.grad(e, pos)
         return e.detach(), -g
 
+    def energy_forces_stress(self, pos: torch.Tensor, cell: torch.Tensor,
+                             make_data: Callable[[torch.Tensor], Data]):
+        """(E, F, stress Voigt xx yy zz xy yz zx) on the cell ``cell``, the
+        stress in the model convention: -dE/d(strain)/V at zero strain,
+        the strain acting on the edge vectors as ``vec + vec @ strain``
+        (the JAX engine's ``_efs_fn``). One backward pass gives both
+        gradients: with fij = dE/d(EDGE_VEC) of the data ``make_data(pos)``
+        builds, dE/d(strain)[b, a] = sum_e vec[e, b] fij[e, a], summed in
+        float64 as ``apply`` sums its virial. The six entries are taken from
+        the unsymmetrised gradient, as the JAX engine takes them."""
+        with torch.enable_grad():
+            pos = pos.detach().requires_grad_(True)
+            data = make_data(pos)
+            vec = data[KEY.EDGE_VEC]
+            e = self.energy(data)
+            g, fij = torch.autograd.grad(e, [pos, vec])
+        ge = vec.detach().double().T @ fij.double()
+        c = cell.detach().double()
+        vol = torch.abs(torch.dot(c[0], torch.linalg.cross(c[1], c[2])))
+        stress = -torch.stack([ge[0, 0], ge[1, 1], ge[2, 2], ge[0, 1],
+                               ge[1, 2], ge[2, 0]]) / vol
+        return e.detach(), -g, stress.to(pos.dtype)
 
     def apply(self, data: Data, compute_stress: bool = True) -> Data:
         """Energy + forces (+ stress) from one gradient with respect to

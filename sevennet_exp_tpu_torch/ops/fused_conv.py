@@ -36,6 +36,11 @@ the same kernel bodies (``fused_conv_edge_fwd`` / ``fused_conv_edge_bwd``:
 a block owns a few rows in any order and reads each si2 weight once for
 all of them).
 
+``cg_mode='terms'`` (the counterpart of ``set_cg_mode('terms')``:
+``fwd_kernel`` / ``bwd_kernel``) keeps the function and swaps the kernels of
+the plain contract, for either ``agg_d``, for the independently derived
+pair of ``csrc/fused_conv_terms.cu`` (``ops/fused_conv_terms.py``).
+
 On CUDA tensors the wrapper launches the kernels of
 ``csrc/fused_conv.cu`` (built with nvcc at first use into ``_build/``);
 on CPU tensors it runs the plain version, the XLA-path chain of
@@ -47,17 +52,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from . import cuda_build
+from .cuda_build import check as _check
+from .cuda_build import launch_counts, reset_launch_counts  # noqa: F401
+from .fused_conv_terms import TermsKernels
 from .normalize import NORMALIZE2MOM_CST
 from .spherical import _monomials, sh_coefficients, spherical_harmonics
 from .tensor_product import (
@@ -69,12 +74,6 @@ from .wigner import wigner_3j
 
 Tensor = torch.Tensor
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG_DIR, 'csrc', 'fused_conv.cu')
-BUILD_DIR = os.path.join(_PKG_DIR, '_build')
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
-              '-std=c++17', '-shared', '-Xcompiler', '-fPIC')
-
 # table layout and constants shared with csrc/fused_conv.cu
 _H = 64          # radial MLP hidden width
 _MAXD = 8        # offsets per key in an instruction record (irrep dim <= 7)
@@ -82,18 +81,11 @@ _I_STRIDE = 10 + 3 * _MAXD    # ints per instruction record
 _G_STRIDE = 6                 # ints per si2 group record
 _ACT_CODE = {'silu': 0, 'tanh': 1}
 
-# launches of each kernel; the wrappers add one per launch and nowhere
-# else (chip_smoke.py resets and reads these around the main path)
-launch_counts: Dict[str, int] = {
-    'fused_conv_fwd': 0, 'fused_conv_bwd': 0,
-    'fused_conv_geom_fwd': 0, 'fused_conv_geom_bwd': 0,
-    'fused_conv_extw_fwd': 0, 'fused_conv_extw_bwd': 0,
-    'fused_conv_edge_fwd': 0, 'fused_conv_edge_bwd': 0}
-
-
-def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
+CG_MODES = ('cmshared', 'terms')
+# data-dict key under which the engine or the calculator names the mode per
+# call (the JAX package's module switch set_cg_mode; absent = 'cmshared').
+# It is the port's own, so it stays out of _keys.py, a copy of the JAX file
+CG_MODE_KEY = 'conv_cg_mode'
 
 
 # ---------------------------------------------------------------------
@@ -271,40 +263,11 @@ def _si2_plan(tp_spec: UVUTensorProductSpec, si2: LinearSpec):
 # kernel build and binding (nvcc -> shared library -> ctypes)
 # ---------------------------------------------------------------------
 
-def _nvcc() -> str:
-    nvcc = shutil.which('nvcc')
-    if nvcc is None and os.path.exists('/usr/local/cuda/bin/nvcc'):
-        nvcc = '/usr/local/cuda/bin/nvcc'
-    if nvcc is None:
-        raise RuntimeError('nvcc not found: the fused conv kernels are '
-                           'built from csrc/fused_conv.cu at first use')
-    return nvcc
-
-
-def library_path() -> str:
-    with open(_SOURCE, 'rb') as fh:
-        digest = hashlib.sha1(fh.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f'libfused_conv_{digest}.so')
-
-
 def build(verbose: bool = False) -> str:
     """Compile csrc/fused_conv.cu for sm_90a (once per source hash) and
     return the shared library's path; verbose prints ptxas' register and
     shared-memory report."""
-    out = library_path()
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f'{out}.{os.getpid()}.tmp'
-    cmd = [_nvcc(), *NVCC_FLAGS, '-Xptxas', '-v', '-o', tmp, _SOURCE]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({res.returncode}):\n'
-                           f'{res.stdout}\n{res.stderr}')
-    os.replace(tmp, out)
-    if verbose:
-        print(res.stderr.strip())
-    return out
+    return cuda_build.build('fused_conv', verbose)
 
 
 _P = ctypes.c_void_p
@@ -322,7 +285,7 @@ _GEOM_ARGS = [_P] * 4 + [_I] * 3 + [_F] * 3   # coeffs, sh_idx, sh_coef,
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    lib = ctypes.CDLL(build())
+    lib = cuda_build.load('fused_conv')
     for fwd, bwd in ((lib.fused_conv_fwd, lib.fused_conv_bwd),
                      (lib.fused_conv_edge_fwd, lib.fused_conv_edge_bwd)):
         fwd.argtypes = [_P] * 8 + _TABLE_ARGS + _DIM_ARGS + [_P, _P]
@@ -343,11 +306,6 @@ def _lib():
                                         + [_P, _I, _P, _P, _P, _P])
     lib.fused_conv_extw_bwd.restype = _I
     return lib
-
-
-def _check(err: int, name: str):
-    if err != 0:
-        raise RuntimeError(f'{name}: CUDA error {err}')
 
 
 # ---------------------------------------------------------------------
@@ -384,15 +342,30 @@ class FusedConv:
     function ``make_fused_conv(...)`` returns. With ``geom`` it also
     offers the geometry-fused call
     ``apply_geom(xg, vec, ms, coeffs, mlp_ws, si2_ws)``; with ``ext_w``
-    the call is ``fused(xg, sh, weff, si2_ws)``."""
+    the call is ``fused(xg, sh, weff, si2_ws)``.
+
+    ``cg_mode`` (the JAX package's ``set_cg_mode``) picks the kernels of
+    the plain contract on the card: ``'cmshared'`` (default) the kernels of
+    ``csrc/fused_conv.cu``, ``'terms'`` the independently derived pair of
+    ``csrc/fused_conv_terms.cu``, for either ``agg_d``. The function and
+    its plain version are the same. Under ``'terms'`` the geometry-fused
+    and the external-weight contracts do not exist."""
 
     def __init__(self, tp_spec: UVUTensorProductSpec,
                  mlp_spec: FullyConnectedNetSpec, si2_spec: LinearSpec,
                  agg_d: int, geom: Optional[GeomSpec] = None,
-                 ext_w: bool = False):
+                 ext_w: bool = False, cg_mode: str = 'cmshared'):
         assert agg_d >= 0
         assert len(mlp_spec.hs) == 4, 'kernel assumes 2 hidden layers'
         assert not (ext_w and geom is not None)
+        if cg_mode not in CG_MODES:
+            raise ValueError(f'cg_mode {cg_mode!r}: one of {CG_MODES}')
+        if cg_mode == 'terms' and (ext_w or geom is not None):
+            raise ValueError("cg_mode 'terms' has no geometry-fused and no "
+                             'external-weight kernels')
+        self.cg_mode = cg_mode
+        self._terms = (TermsKernels(tp_spec, mlp_spec, si2_spec)
+                       if cg_mode == 'terms' else None)
         self.tp, self.mlp, self.si2 = tp_spec, mlp_spec, si2_spec
         self.agg_d = agg_d
         self.group = max(agg_d, 1)     # input rows per output row
@@ -645,8 +618,13 @@ class FusedConv:
 
     def kernel_forward(self, xg, sh, emb, ms, mlp_ws, si2_ws) -> Tensor:
         """Launch ``fused_conv_fwd``, or ``fused_conv_edge_fwd`` with
-        ``agg_d = 0`` (CUDA tensors only)."""
+        ``agg_d = 0``; under ``cg_mode='terms'`` ``fused_conv_terms_fwd``
+        (CUDA tensors only)."""
         self._check_inputs(xg, sh, emb, ms)
+        if self._terms is not None:
+            w0, w1, _, w2, _, si2, _ = self._pack(mlp_ws, si2_ws)
+            return self._terms.forward(self.agg_d, xg, sh, emb, ms, w0, w1,
+                                       w2, si2)
         t = self.kernel_tables(xg.device)
         w0, w1, _, w2, _, si2, _ = self._pack(mlp_ws, si2_ws)
         rows = xg.shape[0]
@@ -664,12 +642,17 @@ class FusedConv:
 
     def kernel_backward(self, g, xg, sh, emb, ms, mlp_ws, si2_ws):
         """Launch ``fused_conv_bwd``, or ``fused_conv_edge_bwd`` with
-        ``agg_d = 0`` (CUDA tensors only)."""
+        ``agg_d = 0``; under ``cg_mode='terms'`` ``fused_conv_terms_bwd``
+        (CUDA tensors only)."""
         g = g.contiguous()
         self._check_inputs(xg, sh, emb, ms, g)
         rows = xg.shape[0]
         if tuple(g.shape) != (rows // self.group, self.d_out):
             raise ValueError(f'g: shape {tuple(g.shape)}')
+        if self._terms is not None:
+            w0, w1, w1t, w2, w2t, _, si2t = self._pack(mlp_ws, si2_ws)
+            return self._terms.backward(self.agg_d, g, xg, sh, emb, ms, w0,
+                                        w1, w1t, w2, w2t, si2t)
         t = self.kernel_tables(xg.device)
         w0, w1, w1t, w2, w2t, _, si2t = self._pack(mlp_ws, si2_ws)
         dxg = torch.empty_like(xg)

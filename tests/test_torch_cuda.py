@@ -368,3 +368,181 @@ def test_calculator_on_the_card_matches_cpu(cuda, model):
     assert abs(res['energy'] - ref['energy']) <= 1e-4
     assert np.abs(res['forces'] - ref['forces']).max() <= 1e-4
     assert np.abs(res['stress'] - ref['stress']).max() <= 1e-6
+
+
+# -- the terms pair (cg_mode='terms') ----------------------------------------
+
+def _plain_inputs(conv, rows, cuda, seed):
+    """xg, sh, emb, ms (a fifth of the rows masked) and a cotangent of the
+    output's shape; returns the pad rows too."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                            device=cuda)
+
+    ms = rng.uniform(0.01, 0.05, size=(rows, 1))
+    pad = rng.uniform(size=rows) < 0.2
+    ms[pad] = 0.0
+    return (t(rows, conv.d1), t(rows, conv.f), t(rows, conv.nb),
+            torch.tensor(ms, dtype=torch.float32, device=cuda),
+            t(rows // conv.group, conv.d_out), torch.tensor(pad, device=cuda))
+
+
+def _assert_terms_match(terms, default, args, mlp_ws, si2_ws):
+    """The terms kernels against the plain version and against the default
+    kernels; pad rows of the gradients exactly zero."""
+    from sevennet_exp_tpu_torch.ops import fused_conv as fc
+    xg, sh, emb, ms, g, pad = args
+    fc.reset_launch_counts()
+    y_t = terms.forward(xg, sh, emb, ms, mlp_ws, si2_ws)
+    d_t = terms.backward(g, xg, sh, emb, ms, mlp_ws, si2_ws)
+    want = dict.fromkeys(fc.launch_counts, 0)
+    want['fused_conv_terms_fwd'] = want['fused_conv_terms_bwd'] = 1
+    assert fc.launch_counts == want
+    y_p = terms.plain_forward(xg, sh, emb, ms, mlp_ws, si2_ws)
+    d_p = terms.plain_backward(g, xg, sh, emb, ms, mlp_ws, si2_ws)
+    y_k = default.kernel_forward(xg, sh, emb, ms, mlp_ws, si2_ws)
+    d_k = default.kernel_backward(g, xg, sh, emb, ms, mlp_ws, si2_ws)
+    torch.cuda.synchronize()
+    assert tuple(y_t.shape) == tuple(y_p.shape)
+    assert torch.isfinite(y_t).all()
+    for ref in (y_p, y_k):
+        assert (y_t - ref).abs().max() <= 1e-4 * y_p.abs().max()
+    for a, b, c in zip(d_t, d_p, d_k):
+        assert torch.isfinite(a).all()
+        lim = 1e-4 * max(b.abs().max(), 1e-6)
+        assert (a - b).abs().max() <= lim and (a - c).abs().max() <= lim
+        assert a[pad].abs().max() == 0                   # pad rows: zeros
+
+
+@pytest.mark.parametrize('layer', [0, 1, 4])
+@pytest.mark.parametrize('degree', [32, 36, 0])
+def test_terms_kernels_match_plain_and_default(cuda, model, layer, degree):
+    """agg_d = 32 (whole tiles), 36 (a ragged last tile per atom) and 0
+    (edge rows, 301 of them: a ragged last block); layer 0 has output
+    columns no si2 path feeds."""
+    from sevennet_exp_tpu_torch.ops.fused_conv import FusedConv
+    cl = model.layers[f'{layer}_convolution']
+    terms = FusedConv(cl.tp, cl.weight_nn, cl.si2, degree, cg_mode='terms')
+    default = FusedConv(cl.tp, cl.weight_nn, cl.si2, degree)
+    rows = 37 * degree if degree else 301
+    _assert_terms_match(terms, default,
+                        _plain_inputs(terms, rows, cuda, 40 + layer),
+                        *cl._weights())
+
+
+@pytest.mark.parametrize('degree', [16, 0])
+def test_terms_kernels_small_multiplicities(cuda, degree):
+    """Multiplicity 4 (not a multiple of a warp) and l up to 3."""
+    from sevennet_exp_tpu_torch.irreps import Irreps, infer_irreps_out
+    from sevennet_exp_tpu_torch.ops.fused_conv import FusedConv
+    from sevennet_exp_tpu_torch.ops.tensor_product import (
+        FullyConnectedNetSpec, GateSpec, LinearSpec, UVUTensorProductSpec)
+    x = Irreps('4x0e+4x1o+4x2e+4x3o')
+    sh = Irreps('1x0e+1x1o+1x2e+1x3o')
+    tp = UVUTensorProductSpec(x, sh, infer_irreps_out(x, sh, 3, 'full'))
+    mlp = FullyConnectedNetSpec((8, 64, 64, tp.weight_numel), 'silu')
+    gate = GateSpec(x, {1: 'silu', -1: 'tanh'}, {1: 'silu', -1: 'tanh'})
+    si2 = LinearSpec(tp.irreps_out, gate.irreps_in)
+    terms = FusedConv(tp, mlp, si2, degree, cg_mode='terms')
+    default = FusedConv(tp, mlp, si2, degree)
+    rng = np.random.default_rng(9)
+
+    def t(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                            device=cuda)
+
+    mlp_ws = tuple(t(*s) for s in mlp.param_shapes().values())
+    si2_ws = tuple(t(*si2.param_shapes()[f'w{n}'])
+                   for n in range(len(si2.paths)))
+    rows = 11 * degree if degree else 77
+    _assert_terms_match(terms, default, _plain_inputs(terms, rows, cuda, 5),
+                        mlp_ws, si2_ws)
+
+
+def test_terms_wrapper_routes_cuda_tensors_to_the_kernel(cuda, model):
+    from sevennet_exp_tpu_torch.ops import fused_conv as fc
+    cl = model.layers['1_convolution']
+    conv = fc.FusedConv(cl.tp, cl.weight_nn, cl.si2, 32, cg_mode='terms')
+    xg, sh, emb, ms, _, _ = _plain_inputs(conv, 4 * 32, cuda, 0)
+    xg.requires_grad_(True)
+    fc.reset_launch_counts()
+    conv(xg, sh, emb, ms, *cl._weights()).sum().backward()
+    want = dict.fromkeys(fc.launch_counts, 0)
+    want['fused_conv_terms_fwd'] = want['fused_conv_terms_bwd'] = 1
+    assert fc.launch_counts == want and xg.grad is not None
+
+
+def test_engine_with_terms_matches_default_on_the_card(cuda, model):
+    """E, F and stress of a 64-atom NPT engine: terms kernels against the
+    default kernels, whole-array and in chunks of 24 atoms."""
+    from sevennet_exp_tpu_torch.data.graph import build_nacl
+    from sevennet_exp_tpu_torch.md.engine import MolecularDynamics
+    from sevennet_exp_tpu_torch.ops import fused_conv as fc
+    at = build_nacl(64, rattle=0.1, seed=1)
+    kw = dict(device=cuda, ensemble='npt', pressure_gpa=1.0)
+    md = MolecularDynamics(model, at, **kw)
+    nl = md._grid()
+    e0, f0, s0 = md._efs_fn(md.state.pos, nl, md.state.cell)
+    for chunk in (0, 24):
+        mdt = MolecularDynamics(model, at, cg_mode='terms',
+                                conv_chunk_atoms=chunk, **kw)
+        fc.reset_launch_counts()
+        e, f, s = mdt._efs_fn(md.state.pos, nl, md.state.cell)
+        n_chunks = 3 if chunk else 1
+        assert fc.launch_counts['fused_conv_terms_fwd'] == 5 * n_chunks
+        assert fc.launch_counts['fused_conv_terms_bwd'] == 5 * n_chunks
+        assert fc.launch_counts['fused_conv_fwd'] == 0
+        assert abs(float(e) - float(e0)) <= 1e-4
+        assert (f - f0).abs().max() <= 1e-4
+        assert (s - s0).abs().max() <= 1e-6
+
+
+# -- the bare tensor product ---------------------------------------------------
+
+def _tp_inputs(op, rows, cuda, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.normal(size=(rows, d)), dtype=torch.float32,
+                         device=cuda)
+            for d in (op.d1, op.f, op.w_numel, op.d3)]
+
+
+def _assert_tp_matches_plain(op, rows, cuda, seed):
+    from sevennet_exp_tpu_torch.ops import fused_tp as ftp
+    xg, sh, w, g = _tp_inputs(op, rows, cuda, seed)
+    ftp.launch_counts['fused_tp_fwd'] = ftp.launch_counts['fused_tp_bwd'] = 0
+    xs = [t.clone().requires_grad_(True) for t in (xg, sh, w)]
+    out = op(*xs)                               # through autograd
+    grads = torch.autograd.grad(out, xs, g)
+    assert ftp.launch_counts['fused_tp_fwd'] == 1
+    assert ftp.launch_counts['fused_tp_bwd'] == 1
+    ref = op.plain_forward(xg, sh, w)
+    ref_grads = op.plain_backward(g, xg, sh, w)
+    torch.cuda.synchronize()
+    assert tuple(out.shape) == (rows, op.d3)
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+    for a, b in zip(grads, ref_grads):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max() <= 1e-4 * max(b.abs().max(), 1e-6)
+
+
+@pytest.mark.parametrize('layer', [0, 1, 4])
+@pytest.mark.parametrize('rows', [256, 301])
+def test_fused_tp_kernels_match_plain(cuda, model, layer, rows):
+    """301 rows: a ragged last block (8 rows per block)."""
+    from sevennet_exp_tpu_torch.ops.fused_tp import make_fused_tp
+    op = make_fused_tp(model.layers[f'{layer}_convolution'].tp)
+    _assert_tp_matches_plain(op, rows, cuda, 60 + layer)
+
+
+def test_fused_tp_kernels_small_multiplicities(cuda):
+    """Multiplicity 4 (not a multiple of a warp), l up to 3."""
+    from sevennet_exp_tpu_torch.irreps import Irreps, infer_irreps_out
+    from sevennet_exp_tpu_torch.ops.fused_tp import make_fused_tp
+    from sevennet_exp_tpu_torch.ops.tensor_product import UVUTensorProductSpec
+    x = Irreps('4x0e+4x1o+4x2e+4x3o')
+    sh = Irreps('1x0e+1x1o+1x2e+1x3o')
+    op = make_fused_tp(UVUTensorProductSpec(
+        x, sh, infer_irreps_out(x, sh, 3, 'full')))
+    _assert_tp_matches_plain(op, 77, cuda, 3)
