@@ -9,8 +9,10 @@ radial MLP on the half list (the external-weight kernels
 calculator with stress (kernels 1-2 in their edge-row form, one output row
 per edge: ``fused_conv_edge_fwd`` / ``fused_conv_edge_bwd``), then the
 independently derived ``terms`` kernels (``fused_conv_terms_fwd`` /
-``fused_conv_terms_bwd``) under 1k NPT, the other ensembles, and the bare
-tensor-product kernels (``fused_tp_fwd`` / ``fused_tp_bwd``).
+``fused_conv_terms_bwd``) under 1k NPT, the other ensembles, the bare
+tensor-product kernels (``fused_tp_fwd`` / ``fused_tp_bwd``), and the
+four kernel micro-benchmarks (``tools/bench_pieces.py``,
+``bench_cgmxu.py``, ``bench_dot.py``, ``bench_cg.py``, fourteen kernels).
 
     python3 chip_smoke.py            # needs one CUDA card
 
@@ -70,10 +72,18 @@ Phases (any failure raises, exits non-zero and prints no result):
  13. the bare tensor product: ``make_fused_tp`` driven through autograd on
      the five layers' specs at the 1k grid's rows (counters reset just
      before), then each kernel against its plain version, times, bound;
- 14. a ``{"kernels": [...]}`` line (twelve entries: the six kernels, the
+ 14. the entries of the twelve kernels above (the six kernels, the
      edge-row form of kernels 1-2, the terms pair and the tensor-product
-     pair), then the card line and the result line
-     ``{"ok": true, "device": {...}}`` last.
+     pair);
+ 15. the micro-benchmarks at their default sizes through their entry
+     points (``bench_cgmxu`` at i1 = 1 and 2), every counter reset just
+     before: each prints its times and (``bench_pieces``) its piece costs;
+     then each of the fourteen kernels against its plain version on the
+     tool's inputs (``bench_pieces`` ``full`` bit for bit against kernel 1;
+     bf16 ``bench_dot`` against the fp32 product of the rounded inputs,
+     1e-5 x K x max|plain|), plain and library times, bounds;
+ then a ``{"kernels": [...]}`` line (26 entries), the card line and the
+ result line ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of JAX or of the JAX package. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -112,8 +122,8 @@ def phase(name):
     print(f'== {name}', flush=True)
 
 
-def bound(flops, nbytes):
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def bound(flops, nbytes, peak=PEAK_FP32_FLOPS):
+    t_ops = flops / peak * 1e3
     t_mem = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_mem), 'operations' if t_ops >= t_mem else 'bytes'
 
@@ -140,6 +150,172 @@ def check_ef(what, n, e_a, f_a, e_b, f_b):
         raise AssertionError(f'{what}: non-finite forces')
     return {'dE_per_atom': d_e, 'max_dF': d_f, 'energy': float(e_a),
             'energy_other': float(e_b)}
+
+
+def micro_benchmarks(report, dev, cuda_ms, show):
+    """Phase 15: the four micro-benchmark tools at their default sizes, run
+    through their entry points with every launch counter at 0 before them;
+    then each kernel against its plain version on the tool's own inputs
+    (bench_pieces ``full`` bit for bit against kernel 1), the plain and the
+    library times, the bounds. Returns the kernels' entries."""
+    import torch
+    from sevennet_exp_tpu_torch.ops import cuda_build
+    from sevennet_exp_tpu_torch.tools import (bench_cg, bench_cgmxu,
+                                              bench_dot, bench_pieces)
+    t0 = time.perf_counter()
+    dot_rows = {}
+
+    def dot_check(shape, dtype, C, Z, out):
+        """bench_dot's first launch of each shape and type against the
+        plain version (fp32: 1e-4 max|plain|; bf16: the fp32 product of
+        the rounded inputs, 1e-5 K max|plain|); the outputs are not kept."""
+        ref = bench_dot.plain(dtype, C, Z)
+        err = float((out - ref).abs().max())
+        lim = (REL_TOL if dtype == 'fp32' else 1e-5 * shape[0]) * float(
+            ref.abs().max())
+        if not (err <= lim and math.isfinite(err)):
+            raise AssertionError(f'bench_dot {shape} {dtype}: |err| '
+                                 f'{err:.3e} > {lim:.3e}')
+        plain_ms = cuda_ms(lambda: bench_dot.plain(dtype, C, Z), reps=2,
+                           batches=1, warm=1)
+        dot_rows[(shape, dtype)] = {'err': err, 'lim': lim,
+                                    'plain_ms': plain_ms}
+
+    cuda_build.reset_launch_counts()
+    pieces = bench_pieces.run()
+    cgmxu = {i1: bench_cgmxu.run(i1) for i1 in (1, 2)}
+    dots = bench_dot.run(reps=10, check=dot_check)
+    cgs = bench_cg.run()
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.launch_counts)
+    other = {k: v for k, v in launches.items()
+             if v and k not in cuda_build.BENCH_KERNELS}
+    if other:
+        raise AssertionError(f'the micro-benchmarks launched {other}')
+    run_s = time.perf_counter() - t0
+    kernels, rows = [], []
+
+    def entry(name, source, line, errs, ms, plain_ms, cost, library_ms,
+              peak=PEAK_FP32_FLOPS):
+        """cost: [(flops, bytes)] of the launches ms sums over."""
+        b_ms = sum(bound(f, b, peak)[0] for f, b in cost)
+        t_ops = sum(f for f, _ in cost) / peak
+        t_mem = sum(b for _, b in cost) / PEAK_BYTES
+        kernels.append({
+            'name': name, 'route': 'cuda',
+            'source': f'sevennet_exp_tpu_torch/csrc/{source}',
+            'replaces': f'tools/{line}',
+            'launches': launches[name], 'max_abs_err': max(errs),
+            'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms,
+            'bound_by': 'operations' if t_ops >= t_mem else 'bytes',
+            'library_ms': library_ms})
+        show(kernels[-1])
+
+    # bench_pieces: one launch of each variant on E = 32,768 rows
+    conv, ins = pieces['conv'], pieces['inputs']
+    full_k = conv.kernel_forward(*ins)
+    torch.cuda.synchronize()
+    if not torch.equal(full_k, pieces['out']['full']):
+        raise AssertionError('bench_pieces full != kernel 1 bit for bit')
+    for v in bench_pieces.VARIANTS:
+        ref = bench_pieces.plain_variant(conv, v, *ins)
+        err, lim = check_close(f'bench_pieces {v}', pieces['out'][v], ref)
+        plain_ms = cuda_ms(lambda: bench_pieces.plain_variant(conv, v, *ins),
+                           reps=1, batches=1, warm=1)
+        cost = bench_pieces.variant_cost(conv, ins[3], v)
+        rows.append({'tool': 'bench_pieces', 'variant': v,
+                     'ms': pieces['ms'][v], 'piece_ns_per_row':
+                     pieces['piece_ns'].get(v), 'err': err, 'lim': lim,
+                     'plain_ms': plain_ms, 'flops': cost[0],
+                     'bytes': cost[1]})
+        entry(bench_pieces.COUNTER[v], 'bench_pieces.cu', 'bench_pieces.py:232',
+              [err], pieces['ms'][v], plain_ms, [cost], None)
+    del full_k, pieces, conv, ins
+    # bench_cgmxu: one launch of each mode at i1 = 1 and at i1 = 2
+    for mode in bench_cgmxu.MODES:
+        errs, ms, plain_ms, cost, lib_ms = [], 0.0, 0.0, [], 0.0
+        for i1, res in cgmxu.items():
+            cls, ins = res['cls'], res['inputs']
+            ref = bench_cgmxu.plain(cls, mode, *ins)
+            err, lim = check_close(f'bench_cgmxu {i1} {mode}',
+                                   res['out'][mode], ref)
+            del ref
+            p_ms = cuda_ms(lambda: bench_cgmxu.plain(cls, mode, *ins),
+                           reps=2, batches=1, warm=1)
+            E = ins[0].shape[1]
+            c = bench_cgmxu.cost(cls, mode, E)
+            row = {'tool': 'bench_cgmxu', 'i1': i1, 'mode': mode,
+                   'ms': res['ms'][mode], 'ns_per_row':
+                   res['ms'][mode] / E * 1e6, 'err': err, 'lim': lim,
+                   'oracle_err': res['oracle_err'].get(mode),
+                   'plain_ms': p_ms, 'flops': c[0], 'bytes': c[1],
+                   'formulation_flops':
+                   bench_cgmxu.formulation_flops(cls, mode, E),
+                   'bound_ms': bound(*c)[0]}
+            if mode == 'dots':
+                C = torch.as_tensor(cls.C, device=dev)
+                Z = bench_cgmxu.outer_z(cls, ins[0], ins[1]).contiguous()
+                row['library_ms'] = cuda_ms(lambda: torch.matmul(C, Z),
+                                            reps=5)
+                lib_ms += row['library_ms']
+                del Z
+            rows.append(row)
+            errs.append(err)
+            ms += res['ms'][mode]
+            plain_ms += p_ms
+            cost.append(c)
+        entry(bench_cgmxu.COUNTER[mode], 'bench_cgmxu.cu',
+              'bench_cgmxu.py:166', errs, ms, plain_ms, cost,
+              lib_ms if mode == 'dots' else None)
+    del cgmxu
+    # bench_dot: one launch of each of the ten shapes per type
+    for dtype in bench_dot.DTYPES:
+        peak = bench_dot.cost(*bench_dot.SHAPES[0], dtype)[2]
+        cost = [bench_dot.cost(*shape, dtype)[:2] for shape in dots]
+        for shape in dots:
+            rows.append({'tool': 'bench_dot', 'shape': list(shape),
+                         'dtype': dtype, 'ms': dots[shape][dtype],
+                         'cublas_fp32_ms': dots[shape]['cublas_fp32'],
+                         'cublas_bf16_ms': dots[shape]['cublas_bf16'],
+                         **dot_rows[(shape, dtype)],
+                         'bound_ms': bound(*bench_dot.cost(*shape, dtype)[:2],
+                                           peak)[0]})
+        entry(bench_dot.COUNTER[dtype], 'bench_dot.cu', 'bench_dot.py:46',
+              [dot_rows[(s, dtype)]['err'] for s in dots],
+              sum(dots[s][dtype] for s in dots),
+              sum(dot_rows[(s, dtype)]['plain_ms'] for s in dots), cost,
+              sum(dots[s]['cublas_fp32'] for s in dots)
+              if dtype == 'fp32' else None, peak)
+    # bench_cg: one launch of each formulation on E = 32,768 rows; the
+    # library time is one einsum of the instruction on the same x and y
+    x, y = cgs['inputs']
+    c = bench_cg.cost(x.shape[0])
+    lib_err, _ = check_close('bench_cg einsum', bench_cg.library(x, y),
+                             bench_cg.plain(bench_cg.VARIANTS[0], x, y))
+    lib_ms = cuda_ms(lambda: bench_cg.library(x, y), reps=5)
+    print(f'bench_cg einsum: {lib_ms:.4f} ms (|err| vs plain a '
+          f'{lib_err:.3e})', flush=True)
+    for v in bench_cg.VARIANTS:
+        ref = bench_cg.plain(v, x, y)
+        err, lim = check_close(f'bench_cg {v}', cgs['out'][v], ref)
+        p_ms = cuda_ms(lambda: bench_cg.plain(v, x, y), reps=2, batches=1,
+                       warm=1)
+        rows.append({'tool': 'bench_cg', 'variant': v, 'ms': cgs['ms'][v],
+                     'err': err, 'lim': lim, 'cross_err':
+                     cgs['cross_err'].get(v), 'plain_ms': p_ms,
+                     'library_ms': lib_ms, 'flops': c[0], 'bytes': c[1],
+                     'formulation_flops':
+                     bench_cg.formulation_flops(v, x.shape[0]),
+                     'bound_ms': bound(*c)[0]})
+        entry(bench_cg.COUNTER[v], 'bench_cg.cu', 'bench_cg.py:99', [err],
+              cgs['ms'][v], p_ms, [c], lib_ms)
+    report['micro'] = {'run_s': run_s, 'rows': rows,
+                       'phase_s': time.perf_counter() - t0,
+                       'launches': {k: launches[k]
+                                    for k in cuda_build.BENCH_KERNELS}}
+    print(f'micro-benchmarks: tools {run_s:.1f} s, phase '
+          f'{report["micro"]["phase_s"]:.1f} s', flush=True)
+    return kernels
 
 
 def main():
@@ -1049,7 +1225,12 @@ def main():
             'plain_ms': total(f'{k}_plain_ms', tp_layers),
             'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None,
         })
-    if len(kernels) != 12 or any(not kr['launches'] > 0 for kr in kernels):
+
+    # -- phase 15 ------------------------------------------------------
+    phase('15 micro-benchmarks: bench_pieces, bench_cgmxu (i1 = 1, 2), '
+          'bench_dot, bench_cg')
+    kernels += micro_benchmarks(report, dev, cuda_ms, show)
+    if len(kernels) != 26 or any(not kr['launches'] > 0 for kr in kernels):
         raise AssertionError('a kernel of the path was never launched')
     report['kernels'] = kernels
     report['script_s'] = time.perf_counter() - t_script

@@ -1,7 +1,8 @@
 """Build and binding of the port's hand-written CUDA kernels: nvcc -> one
-shared library per source under ``_build/`` (named by the source's hash)
--> ctypes. Nothing here touches the GPU; a module that owns kernels keeps
-its own ``argtypes`` next to its wrappers.
+shared library per source under ``_build/`` (named by the hash of the
+source and of every ``csrc/*.cuh`` header) -> ctypes. Nothing here touches
+the GPU; a module that owns kernels keeps its own ``argtypes`` next to its
+wrappers.
 
 The launch counters of every kernel of the port live here too: a wrapper
 adds one where it launches its kernel and nowhere else (``chip_smoke.py``
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import glob
 import hashlib
 import os
 import shutil
@@ -29,7 +31,19 @@ SOURCES = {
     'fused_conv': 'fused_conv.cu',
     'fused_conv_terms': 'fused_conv_terms.cu',
     'fused_tp': 'fused_tp.cu',
+    'bench_pieces': 'bench_pieces.cu',
+    'bench_cgmxu': 'bench_cgmxu.cu',
+    'bench_dot': 'bench_dot.cu',
+    'bench_cg': 'bench_cg.cu',
 }
+
+# the micro-benchmark kernels, by variant (tools/bench_*.py)
+BENCH_KERNELS = (
+    'bench_pieces_full', 'bench_pieces_nomlp', 'bench_pieces_nocg',
+    'bench_pieces_now', 'bench_pieces_noagg', 'bench_pieces_nosi2',
+    'bench_cgmxu_st', 'bench_cgmxu_outer', 'bench_cgmxu_dots',
+    'bench_dot_fp32', 'bench_dot_bf16',
+    'bench_cg_a', 'bench_cg_b', 'bench_cg_c')
 
 launch_counts: Dict[str, int] = {
     'fused_conv_fwd': 0, 'fused_conv_bwd': 0,
@@ -37,7 +51,8 @@ launch_counts: Dict[str, int] = {
     'fused_conv_extw_fwd': 0, 'fused_conv_extw_bwd': 0,
     'fused_conv_edge_fwd': 0, 'fused_conv_edge_bwd': 0,
     'fused_conv_terms_fwd': 0, 'fused_conv_terms_bwd': 0,
-    'fused_tp_fwd': 0, 'fused_tp_bwd': 0}
+    'fused_tp_fwd': 0, 'fused_tp_bwd': 0,
+    **dict.fromkeys(BENCH_KERNELS, 0)}
 
 
 def reset_launch_counts():
@@ -60,9 +75,14 @@ def source_path(name: str) -> str:
 
 
 def library_path(name: str) -> str:
-    with open(source_path(name), 'rb') as fh:
-        digest = hashlib.sha1(fh.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f'lib{name}_{digest}.so')
+    """The library's path, named by the hash of its source and of every
+    ``csrc/*.cuh``, so that an edit of either builds it anew."""
+    digest = hashlib.sha1()
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, '*.cuh')))
+    for path in [source_path(name), *headers]:
+        with open(path, 'rb') as fh:
+            digest.update(fh.read())
+    return os.path.join(BUILD_DIR, f'lib{name}_{digest.hexdigest()[:12]}.so')
 
 
 def _start(name: str):

@@ -19,11 +19,13 @@ chiprun_out/half_mlp_sizes.json.
 
 import json
 import os
-import subprocess
 import sys
 import time
 
 import torch
+
+from .timing import card as timing_card
+from .timing import require_card
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -32,18 +34,14 @@ SIZES = (1000, 4096, 8000, 13824)
 
 
 def main():
-    if not torch.cuda.is_available():
-        print('half_mlp_sizes: no CUDA device', file=sys.stderr)
+    if not require_card('half_mlp_sizes'):
         return 2
     from sevennet_exp_tpu_torch.checkpoint import SevenNetCheckpoint
     from sevennet_exp_tpu_torch.data.graph import build_nacl
     from sevennet_exp_tpu_torch.md.engine import MolecularDynamics
     from sevennet_exp_tpu_torch.ops import fused_conv as fc
 
-    card = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = timing_card()
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device('cuda')

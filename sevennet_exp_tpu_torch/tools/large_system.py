@@ -19,11 +19,13 @@ chiprun_out/large_system.json. The default chunk size in md/engine.py
 
 import json
 import os
-import subprocess
 import sys
 import time
 
 import torch
+
+from .timing import card as timing_card
+from .timing import require_card
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -32,18 +34,14 @@ CHUNK_ROWS = (32768, 65536, 131072, 262144, 524288, 1048576)
 
 
 def main():
-    if not torch.cuda.is_available():
-        print('large_system: no CUDA device', file=sys.stderr)
+    if not require_card('large_system'):
         return 2
     from sevennet_exp_tpu_torch.checkpoint import SevenNetCheckpoint
     from sevennet_exp_tpu_torch.data.graph import build_nacl
     from sevennet_exp_tpu_torch.md.engine import MolecularDynamics
 
     atoms = int(sys.argv[1]) if len(sys.argv) > 1 else 97336
-    card = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = timing_card()
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     structure = build_nacl(atoms)

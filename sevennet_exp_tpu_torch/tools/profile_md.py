@@ -16,11 +16,13 @@ summary and the op table under chiprun_out/.
 
 import json
 import os
-import subprocess
 import sys
 import time
 
 import torch
+
+from .timing import card as timing_card
+from .timing import require_card
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -28,8 +30,7 @@ CKPT = os.path.join(ROOT, 'trained_nacl', 'checkpoint_best.pth.sevennet')
 
 
 def main():
-    if not torch.cuda.is_available():
-        print('profile_md: no CUDA device', file=sys.stderr)
+    if not require_card('profile_md'):
         return 2
     atoms = int(sys.argv[1]) if len(sys.argv) > 1 else 1000
     variant = sys.argv[2] if len(sys.argv) > 2 else ''
@@ -42,10 +43,7 @@ def main():
     from sevennet_exp_tpu_torch.md.engine import MolecularDynamics
     from torch.profiler import ProfilerActivity, profile
 
-    card = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = timing_card()
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device('cuda')

@@ -1,6 +1,8 @@
-"""Device timing by CUDA events."""
+"""Device timing by CUDA events, and the card the times were taken on."""
 
 import statistics
+import subprocess
+import sys
 
 import torch
 
@@ -24,3 +26,20 @@ def cuda_ms(fn, reps: int = 20, batches: int = 3, warm: int = 3) -> float:
         b.synchronize()
         per_call.append(a.elapsed_time(b) / reps)
     return statistics.median(per_call)
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def require_card(tool: str) -> bool:
+    """True with a CUDA card; else says so on stderr (the micro-benchmarks
+    time kernels that have no CPU mode, so they never fall back)."""
+    if torch.cuda.is_available():
+        return True
+    print(f'{tool}: needs an NVIDIA GPU (no CUDA device)', file=sys.stderr)
+    return False

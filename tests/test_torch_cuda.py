@@ -546,3 +546,70 @@ def test_fused_tp_kernels_small_multiplicities(cuda):
     op = make_fused_tp(UVUTensorProductSpec(
         x, sh, infer_irreps_out(x, sh, 3, 'full')))
     _assert_tp_matches_plain(op, 77, cuda, 3)
+
+
+# -- the micro-benchmark kernels (tools/bench_*.py) ----------------------
+
+@pytest.mark.parametrize('pads', [False, True], ids=['ms1', 'pads'])
+@pytest.mark.parametrize('variant', ['full', '-mlp', '-cg', '-w', '-agg',
+                                     '-si2'])
+def test_bench_pieces_kernels_match_plain(cuda, variant, pads):
+    from sevennet_exp_tpu_torch.ops import cuda_build
+    from sevennet_exp_tpu_torch.tools import bench_pieces as bp
+    conv = bp.mid_layer_conv()
+    xg, sh, emb, ms, mlp_ws, si2_ws = bp.make_inputs(conv, 9 * 32, cuda)
+    if pads:
+        ms[torch.rand(ms.shape[0], device=cuda) < 0.2] = 0.0
+    ins = (xg, sh, emb, ms, mlp_ws, si2_ws)
+    before = cuda_build.launch_counts[bp.COUNTER[variant]]
+    got = bp.variant_forward(conv, variant, *ins)
+    assert cuda_build.launch_counts[bp.COUNTER[variant]] == before + 1
+    ref = bp.plain_variant(conv, variant, *ins)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+    if variant == 'full':
+        assert torch.equal(got, conv.kernel_forward(*ins))
+
+
+@pytest.mark.parametrize('mode', ['st', 'outer', 'dots'])
+@pytest.mark.parametrize('i1', [1, 2])
+def test_bench_cgmxu_kernels_match_plain(cuda, i1, mode):
+    from sevennet_exp_tpu_torch.tools import bench_cgmxu as bc
+    cls = bc.cg_class(i1)
+    ins = bc.make_inputs(cls, 320, cuda)
+    got = bc.forward(cls, mode, *ins)
+    ref = bc.plain(cls, mode, *ins)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+    if mode != 'dots':
+        orc = torch.tensor(bc.oracle(cls, *ins, 64), device=cuda)
+        assert (got[:, :64] - orc).abs().max() <= 1e-4 * orc.abs().max()
+
+
+@pytest.mark.parametrize('dtype', ['fp32', 'bf16'])
+@pytest.mark.parametrize('shape', [(27, 20, 256), (45, 22, 128),
+                                   (128, 128, 256), (8, 128, 128),
+                                   (128, 8, 384)])
+def test_bench_dot_kernels_match_plain(cuda, shape, dtype):
+    from sevennet_exp_tpu_torch.tools import bench_dot as bd
+    K, M, N = shape
+    C, Z = bd.make_inputs(K, M, N, cuda, g=3)
+    got = bd.forward(dtype, C, Z)
+    ref = bd.plain(dtype, C, Z)
+    torch.cuda.synchronize()
+    lim = (1e-4 if dtype == 'fp32' else 1e-5 * K) * ref.abs().max()
+    assert (got - ref).abs().max() <= lim
+    if dtype == 'bf16':      # the rounding of the inputs shows
+        assert (got - bd.plain('fp32', C, Z)).abs().max() > lim
+
+
+@pytest.mark.parametrize('variant', ['a:per-term', 'b:3d-reshape',
+                                     'c:full-width'])
+def test_bench_cg_kernels_match_plain(cuda, variant):
+    from sevennet_exp_tpu_torch.tools import bench_cg
+    x, y = bench_cg.make_inputs(100, cuda)     # a ragged last block
+    got = bench_cg.forward(variant, x, y)
+    ref = bench_cg.plain(variant, x, y)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
