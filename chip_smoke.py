@@ -11,8 +11,9 @@ per edge: ``fused_conv_edge_fwd`` / ``fused_conv_edge_bwd``), then the
 independently derived ``terms`` kernels (``fused_conv_terms_fwd`` /
 ``fused_conv_terms_bwd``) under 1k NPT, the other ensembles, the bare
 tensor-product kernels (``fused_tp_fwd`` / ``fused_tp_bwd``), and the
-four kernel micro-benchmarks (``tools/bench_pieces.py``,
-``bench_cgmxu.py``, ``bench_dot.py``, ``bench_cg.py``, fourteen kernels).
+six kernel micro-benchmarks (``tools/bench_pieces.py``,
+``bench_cgmxu.py``, ``bench_dot.py``, ``bench_cg.py``, ``bench_layout.py``,
+``bench_tile.py``, twenty-one kernels).
 
     python3 chip_smoke.py            # needs one CUDA card
 
@@ -31,7 +32,10 @@ Phases (any failure raises, exits non-zero and prints no result):
   4. 1k NVT (300 K, 2 fs, rebuild every 20 steps): warm-up, then 200 timed
      steps with the launch counters reset just before them; every force
      call must have gone through 5 forward + 5 backward launches of
-     kernels 1-2 and none of the geom kernels;
+     kernels 1-2 and none of the geom kernels; prints the force calls of
+     the timed steps (a stale chunk re-runs) and the cadence of every
+     chunk over warm-up and timed steps (it drops onto a ladder when a
+     chunk goes stale and climbs back to 20 when chunks are quiet);
   5. 97,336 atoms: engine start-up time; the geom kernels against their
      plain versions on one full chunk of a mid layer; energy and forces of
      the chunked kernel path against the chunked plain path, each kernel
@@ -78,11 +82,16 @@ Phases (any failure raises, exits non-zero and prints no result):
  15. the micro-benchmarks at their default sizes through their entry
      points (``bench_cgmxu`` at i1 = 1 and 2), every counter reset just
      before: each prints its times and (``bench_pieces``) its piece costs;
-     then each of the fourteen kernels against its plain version on the
+     then each of the twenty-one kernels against its plain version on the
      tool's inputs (``bench_pieces`` ``full`` bit for bit against kernel 1;
      bf16 ``bench_dot`` against the fp32 product of the rounded inputs,
-     1e-5 x K x max|plain|), plain and library times, bounds;
- then a ``{"kernels": [...]}`` line (26 entries), the card line and the
+     1e-5 x K x max|plain|; ``bench_layout`` row-major against transpose,
+     ``bench_tile`` a, b and c against d within 1e-3), plain and library
+     times, bounds; the SASS of ``bench_layout`` and ``bench_tile`` must
+     issue every repeated pass (cuobjdump: 24 x 16 FFMA per output, and 8
+     x 4 per output, the fifth product of each pass being the FMUL that
+     starts it);
+ then a ``{"kernels": [...]}`` line (33 entries), the card line and the
  result line ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of JAX or of the JAX package. Details go to
@@ -153,15 +162,18 @@ def check_ef(what, n, e_a, f_a, e_b, f_b):
 
 
 def micro_benchmarks(report, dev, cuda_ms, show):
-    """Phase 15: the four micro-benchmark tools at their default sizes, run
+    """Phase 15: the six micro-benchmark tools at their default sizes, run
     through their entry points with every launch counter at 0 before them;
     then each kernel against its plain version on the tool's own inputs
     (bench_pieces ``full`` bit for bit against kernel 1), the plain and the
-    library times, the bounds. Returns the kernels' entries."""
+    library times, the bounds, and the static FFMA counts of bench_layout's
+    and bench_tile's kernels. Returns the kernels' entries."""
     import torch
     from sevennet_exp_tpu_torch.ops import cuda_build
     from sevennet_exp_tpu_torch.tools import (bench_cg, bench_cgmxu,
-                                              bench_dot, bench_pieces)
+                                              bench_dot, bench_layout,
+                                              bench_pieces, bench_tile,
+                                              sass_compare)
     t0 = time.perf_counter()
     dot_rows = {}
 
@@ -186,6 +198,8 @@ def micro_benchmarks(report, dev, cuda_ms, show):
     cgmxu = {i1: bench_cgmxu.run(i1) for i1 in (1, 2)}
     dots = bench_dot.run(reps=10, check=dot_check)
     cgs = bench_cg.run()
+    lay = bench_layout.run()
+    tile = bench_tile.run()
     torch.cuda.synchronize()
     launches = dict(cuda_build.launch_counts)
     other = {k: v for k, v in launches.items()
@@ -239,6 +253,19 @@ def micro_benchmarks(report, dev, cuda_ms, show):
             ref = bench_cgmxu.plain(cls, mode, *ins)
             err, lim = check_close(f'bench_cgmxu {i1} {mode}',
                                    res['out'][mode], ref)
+            lib_row = {}
+            if mode != 'dots':
+                # one einsum of C, x, sh and the weight gathered per row
+                # (outside the timed window)
+                wg = bench_cgmxu.gathered_weight(cls, ins[2])
+                lib_row['library_err'] = check_close(
+                    f'bench_cgmxu {i1} einsum', bench_cgmxu.library(
+                        cls, ins[0], ins[1], wg), ref)[0]
+                lib_row['library_ms'] = cuda_ms(
+                    lambda: bench_cgmxu.library(cls, ins[0], ins[1], wg),
+                    reps=5)
+                lib_ms += lib_row['library_ms']
+                del wg
             del ref
             p_ms = cuda_ms(lambda: bench_cgmxu.plain(cls, mode, *ins),
                            reps=2, batches=1, warm=1)
@@ -251,7 +278,7 @@ def micro_benchmarks(report, dev, cuda_ms, show):
                    'plain_ms': p_ms, 'flops': c[0], 'bytes': c[1],
                    'formulation_flops':
                    bench_cgmxu.formulation_flops(cls, mode, E),
-                   'bound_ms': bound(*c)[0]}
+                   'bound_ms': bound(*c)[0], **lib_row}
             if mode == 'dots':
                 C = torch.as_tensor(cls.C, device=dev)
                 Z = bench_cgmxu.outer_z(cls, ins[0], ins[1]).contiguous()
@@ -265,8 +292,7 @@ def micro_benchmarks(report, dev, cuda_ms, show):
             plain_ms += p_ms
             cost.append(c)
         entry(bench_cgmxu.COUNTER[mode], 'bench_cgmxu.cu',
-              'bench_cgmxu.py:166', errs, ms, plain_ms, cost,
-              lib_ms if mode == 'dots' else None)
+              'bench_cgmxu.py:166', errs, ms, plain_ms, cost, lib_ms)
     del cgmxu
     # bench_dot: one launch of each of the ten shapes per type
     for dtype in bench_dot.DTYPES:
@@ -309,6 +335,81 @@ def micro_benchmarks(report, dev, cuda_ms, show):
                      'bound_ms': bound(*c)[0]})
         entry(bench_cg.COUNTER[v], 'bench_cg.cu', 'bench_cg.py:99', [err],
               cgs['ms'][v], p_ms, [c], lib_ms)
+    del cgs, x, y
+    # the repeated passes of bench_layout and bench_tile must all be issued:
+    # static opcode counts of each kernel's SASS (its loops fully unrolled)
+    sass = {name: sass_compare.count(name)
+            for name in ('bench_layout', 'bench_tile')}
+
+    def sass_of(name, stem, want):
+        """The kernel's static opcode counts; its FFMAs (one thread = one
+        output) must cover every repeated multiply-add."""
+        (counts,) = [v for k, v in sass[name].items() if stem in k]
+        print(f'{stem}: SASS {counts} (want >= {want} FFMA)', flush=True)
+        if counts['FFMA'] < want:
+            raise AssertionError(f'{stem}: {counts["FFMA"]} FFMA per output '
+                                 f'in its SASS, fewer than {want}')
+        return counts
+    # bench_layout: one launch of each layout on the tool's (32768, 512)
+    # inputs; the library time is one einsum pass on the same inputs
+    c = bench_layout.cost()
+    cross, _ = check_close('bench_layout transpose vs rowmajor',
+                           lay['out']['transpose'], lay['out']['rowmajor'])
+    for v in bench_layout.VARIANTS:
+        ins = lay['inputs'][v]
+        ref = bench_layout.plain(v, *ins)
+        err, lim = check_close(f'bench_layout {v}', lay['out'][v], ref)
+        check_close(f'bench_layout {v} einsum x R',
+                    bench_layout.R * bench_layout.library(v, *ins), ref)
+        del ref
+        p_ms = cuda_ms(lambda: bench_layout.plain(v, *ins), reps=2,
+                       batches=1, warm=1)
+        l_ms = cuda_ms(lambda: bench_layout.library(v, *ins), reps=5)
+        counts = sass_of('bench_layout', f'layout_{v}_kernel',
+                         bench_layout.R * bench_layout.NSLICE)
+        rows.append({'tool': 'bench_layout', 'variant': v,
+                     'ms': lay['ms'][v], 'err': err, 'lim': lim,
+                     'cross_err': cross if v == 'transpose' else None,
+                     'plain_ms': p_ms, 'library_ms': l_ms, 'flops': c[0],
+                     'bytes': c[1], 'bound_ms': bound(*c)[0],
+                     'gmac_per_s': bench_layout.macs() / lay['ms'][v] / 1e6,
+                     'sass': counts})
+        entry(bench_layout.COUNTER[v], 'bench_layout.cu', 'bench_layout.py:67',
+              [err], lay['ms'][v], p_ms, [c], l_ms)
+    del lay, ins
+    # bench_tile: one launch of each variant on E = 32,768 rows, timed over
+    # the tool's rotating input copies, as are the plain and library calls
+    x, s = tile['inputs']
+    copies = tile['copies']
+    c = bench_tile.cost(x.shape[0])
+    l_ms = cuda_ms(bench_tile.rotate(bench_tile.library, copies), reps=5)
+    passes = sum(1.0 + r for r in range(bench_tile.REPS))   # sum of (1 + r)
+    check_close('bench_tile einsum x passes',
+                passes * bench_tile.library(x, s),
+                bench_tile.plain(bench_tile.VARIANTS[0], x, s))
+    for v in bench_tile.VARIANTS:
+        ref = bench_tile.plain(v, x, s)
+        err, lim = check_close(f'bench_tile {v}', tile['out'][v], ref)
+        cross = float((tile['out'][v] - tile['out'][bench_tile.VARIANTS[0]])
+                      .abs().max())
+        if not cross < bench_tile.CROSS_TOL:
+            raise AssertionError(f'bench_tile {v} vs d: {cross:.3e}')
+        p_ms = cuda_ms(bench_tile.rotate(
+            lambda xi, si: bench_tile.plain(v, xi, si), copies), reps=2,
+            batches=1, warm=1)
+        # the first product of each pass is an FMUL, the other four FFMAs
+        counts = sass_of('bench_tile', f'tile_{v[0]}_kernel',
+                         bench_tile.REPS * (bench_tile.D1 - 1))
+        rows.append({'tool': 'bench_tile', 'variant': v, 'ms': tile['ms'][v],
+                     'err': err, 'lim': lim, 'cross_err': cross,
+                     'plain_ms': p_ms, 'library_ms': l_ms, 'flops': c[0],
+                     'bytes': c[1], 'formulation_flops':
+                     bench_tile.formulation_flops(v, x.shape[0]),
+                     'bound_ms': bound(*c)[0], 'copies': len(copies),
+                     'sass': counts})
+        entry(bench_tile.COUNTER[v], 'bench_tile.cu', 'bench_tile.py:93',
+              [err], tile['ms'][v], p_ms, [c], l_ms)
+    del tile, copies
     report['micro'] = {'run_s': run_s, 'rows': rows,
                        'phase_s': time.perf_counter() - t0,
                        'launches': {k: launches[k]
@@ -596,7 +697,7 @@ def main():
 
     def timed_nvt(engine, warm_steps, n_steps):
         t0 = time.perf_counter()
-        engine.run(warm_steps)
+        warm = engine.run(warm_steps)
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
         calls = [0]
@@ -631,12 +732,19 @@ def main():
                'force_calls': calls[0], 'launches': launches,
                'deg_cap': engine.deg_cap,
                'rebuild_every': engine.rebuild_every,
+               # steps of each accepted chunk, i.e. the cadence it ran at
+               # (a stale chunk re-runs: force calls - steps = re-run steps)
+               'cadence_warmup': warm['steps'].astype(int).tolist(),
+               'cadence': metrics['steps'].astype(int).tolist(),
                'chunk_rows': engine.conv_chunk_rows,
                'energy': metrics['energy'].tolist()}
         print(f'{n_steps} steps in {wall:.3f} s: {out["ms_per_step"]:.3f} '
               f'ms/step, {out["ns_per_day"]:.4f} ns/day, final T '
-              f'{out["final_temperature_K"]:.1f} K, force calls {calls[0]}, '
-              f'launches {launches}', flush=True)
+              f'{out["final_temperature_K"]:.1f} K, force calls {calls[0]} '
+              f'for {n_steps} steps, launches {launches}', flush=True)
+        print(f'cadence (steps per chunk): warm-up {out["cadence_warmup"]}, '
+              f'timed {out["cadence"]}; rebuild_every now '
+              f'{engine.rebuild_every}', flush=True)
         return out
 
     def check_launches(nvt, per_call):
@@ -1228,9 +1336,9 @@ def main():
 
     # -- phase 15 ------------------------------------------------------
     phase('15 micro-benchmarks: bench_pieces, bench_cgmxu (i1 = 1, 2), '
-          'bench_dot, bench_cg')
+          'bench_dot, bench_cg, bench_layout, bench_tile')
     kernels += micro_benchmarks(report, dev, cuda_ms, show)
-    if len(kernels) != 26 or any(not kr['launches'] > 0 for kr in kernels):
+    if len(kernels) != 33 or any(not kr['launches'] > 0 for kr in kernels):
         raise AssertionError('a kernel of the path was never launched')
     report['kernels'] = kernels
     report['script_s'] = time.perf_counter() - t_script

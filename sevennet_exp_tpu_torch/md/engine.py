@@ -12,8 +12,9 @@ each row with its reverse. Capacities (``e_cap``, ``deg_cap``,
 ``cell_cap``) are sized from the t=0 structure; an overflow, checked on
 the host once per compaction, grows them and rebuilds. The loop is
 plain Python (eager PyTorch); the grid's staleness bound (md_buffer/2)
-is checked after each chunk and a stale chunk is re-run at half the
-cadence.
+is checked after each chunk: a stale chunk drops the cadence onto a fixed
+ladder and is re-run, a quiet one (under 0.35 of the bound) climbs the
+ladder one rung back towards the configured cadence.
 
 Above ``CHUNK_SWITCH_ROWS`` grid rows (or with ``conv_chunk_atoms``) the
 convolutions run chunk by chunk over the grid (``conv_chunk_rows``), so
@@ -179,6 +180,7 @@ class MolecularDynamics:
             raise ValueError('cell too small for minimum-image MD')
         self.md_buffer = min(0.5, self.skin)
         self.rebuild_every = rebuild_every
+        self._rebuild_every0 = rebuild_every
         self.dt = dt_fs * FS
         self.temperature_K = temperature_K
         self.ensemble = ensemble
@@ -493,9 +495,38 @@ class MolecularDynamics:
         self.state = self.state._replace(energy=e, forces=f)
         self._primed = True
 
+    def _cadence_ladder(self) -> List[int]:
+        """The cadences the engine may take: a fixed ladder below the
+        configured one, and the configured one (as the JAX engine's)."""
+        k0 = self._rebuild_every0
+        base = [1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 20, 25, 32, 40, 50]
+        return sorted({k for k in base if k < k0} | {k0})
+
+    def _snap_cadence(self, k: int) -> int:
+        downs = [v for v in self._cadence_ladder() if v <= max(1, k)]
+        return downs[-1] if downs else 1
+
+    def _adjust_cadence(self, worst: float) -> bool:
+        """Moves ``rebuild_every`` after a chunk whose largest displacement
+        since the grid's compaction was ``worst``; True when the chunk went
+        stale and must be re-run. Stale (over md_buffer/2): straight to the
+        rung under a cadence that keeps the chunk at ~70 % of the bound.
+        Quiet (under 0.35 of it): one rung up, to the configured cadence at
+        most; the gap between the two is the hysteresis."""
+        bound = 0.5 * self.md_buffer
+        if worst > bound:
+            k_new = max(1, int(self.rebuild_every * 0.7 * bound / worst))
+            self.rebuild_every = self._snap_cadence(
+                min(k_new, max(1, self.rebuild_every - 1)))
+            return True
+        if worst < 0.35 * bound and self.rebuild_every < self._rebuild_every0:
+            self.rebuild_every = next(
+                k for k in self._cadence_ladder() if k > self.rebuild_every)
+        return False
+
     def run(self, n_steps: int) -> Dict[str, np.ndarray]:
-        """Advance n_steps; returns per-chunk energy and temperature (and
-        the volume under NPT)."""
+        """Advance n_steps; returns per-chunk energy, temperature, largest
+        displacement and steps (and the volume under NPT)."""
         self.prime()
         step = self._make_step()
         rows: List[Dict[str, float]] = []
@@ -508,10 +539,10 @@ class MolecularDynamics:
                 state = step(state, nl)
             worst = float(self._max_disp(nl.ref_pos, state.pos, nl.ref_cell,
                                          state.cell))
-            if worst > 0.5 * self.md_buffer and k > 1:
-                # the grid went stale inside the chunk: redo it at half
-                # the cadence from the chunk's start
-                self.rebuild_every = max(1, k // 2)
+            if self._adjust_cadence(worst) and k > 1:
+                # the grid went stale inside the chunk: redo it from the
+                # chunk's start at the shorter cadence (a one-step chunk
+                # cannot be shortened and is kept)
                 continue
             self.state = state
             done += k
@@ -520,6 +551,7 @@ class MolecularDynamics:
                 'temperature': float(integrate.temperature(state,
                                                            self.masses)),
                 'max_disp': worst,
+                'steps': k,
             })
             if self.npt:
                 rows[-1]['volume'] = float(

@@ -35,6 +35,8 @@ SOURCES = {
     'bench_cgmxu': 'bench_cgmxu.cu',
     'bench_dot': 'bench_dot.cu',
     'bench_cg': 'bench_cg.cu',
+    'bench_layout': 'bench_layout.cu',
+    'bench_tile': 'bench_tile.cu',
 }
 
 # the micro-benchmark kernels, by variant (tools/bench_*.py)
@@ -43,7 +45,10 @@ BENCH_KERNELS = (
     'bench_pieces_now', 'bench_pieces_noagg', 'bench_pieces_nosi2',
     'bench_cgmxu_st', 'bench_cgmxu_outer', 'bench_cgmxu_dots',
     'bench_dot_fp32', 'bench_dot_bf16',
-    'bench_cg_a', 'bench_cg_b', 'bench_cg_c')
+    'bench_cg_a', 'bench_cg_b', 'bench_cg_c',
+    'bench_layout_rowmajor', 'bench_layout_colmajor',
+    'bench_layout_transpose',
+    'bench_tile_d', 'bench_tile_a', 'bench_tile_b', 'bench_tile_c')
 
 launch_counts: Dict[str, int] = {
     'fused_conv_fwd': 0, 'fused_conv_bwd': 0,

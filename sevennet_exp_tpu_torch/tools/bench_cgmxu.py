@@ -179,6 +179,25 @@ def plain(cls: CgClass, mode: str, xT, shT, wT) -> Tensor:
     raise ValueError(mode)
 
 
+def gathered_weight(cls: CgClass, wT) -> Tensor:
+    """The radial weight of each (instruction, component) row, (d3tot,
+    mul, E): ``wT``'s rows gathered by ``row_ins`` (outside any timed
+    window)."""
+    ri = torch.as_tensor(cls.row_ins(), device=wT.device).long()
+    return wT.reshape(len(cls.instrs), cls.mul, -1)[ri]
+
+
+def library(cls: CgClass, xT, shT, wg) -> Tensor:
+    """The block st and outer compute, as ONE ``torch.einsum`` of the dense
+    CG table C (d3tot, d1, f), x, sh and the gathered weight ``wg``
+    (``gathered_weight``)."""
+    E = xT.shape[1]
+    C = cls.device_tables(xT.device)[3].view(cls.d3tot, cls.d1, cls.f)
+    return torch.einsum('rmn,mub,nb,rub->rub', C,
+                        xT.view(cls.d1, cls.mul, E), shT,
+                        wg).reshape(cls.wide, E)
+
+
 def oracle(cls: CgClass, xT, shT, wT, B: int) -> np.ndarray:
     """The JAX tool's numpy oracle (``bench_cgmxu.py:210-227``) on the
     first B edges."""

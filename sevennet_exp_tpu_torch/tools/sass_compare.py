@@ -11,6 +11,10 @@ both with ``cuobjdump -sass`` and reads the registers with ``cuobjdump
 instruction count and whether the SASS is identical; writes the same as
 JSON to OUT.json when given. Exits 1 when a kernel's SASS differs or a
 kernel is on one side only. Needs nvcc and cuobjdump, not a card.
+
+``count(NAME)`` gives the static opcode counts of one source's kernels
+instead (``chip_smoke.py`` checks with it that the micro-benchmarks'
+repeated passes are all issued).
 """
 
 from __future__ import annotations
@@ -31,6 +35,9 @@ _FUNC = re.compile(r'^\s*Function\s*:\s*(\S+)\s*$')
 _RES = re.compile(r'^\s*Function\s+([^\s:]+)\s*:(.*)$')
 _REG = re.compile(r'\bREG:(\d+)')
 _INSTR = re.compile(r'^\s*/\*[0-9a-f]{4,}\*/\s')
+_OPCODE = re.compile(r'^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)')
+# the arithmetic and data-movement opcodes the micro-benchmarks count
+OPS = ('FFMA', 'FMUL', 'FADD', 'SHFL', 'LDS', 'STS', 'LDG', 'STG')
 # nvcc names an anonymous namespace by a hash of the file's path, which
 # differs between two checkouts of one source
 _ANON = re.compile(r'_GLOBAL__N__[0-9a-f]+_')
@@ -92,6 +99,21 @@ def compare(a_sass: str, b_sass: str, a_res: str = '',
             'kernels': kernels}
 
 
+def opcode_counts(sass: str) -> Dict[str, Dict[str, int]]:
+    """``cuobjdump -sass`` text -> {mangled kernel name: {opcode: static
+    count}} for the opcodes ``OPS`` (predicates and modifiers such as
+    ``.FTZ`` or ``.IDX`` are not part of the opcode)."""
+    out = {}
+    for name, text in split_functions(sass).items():
+        counts = dict.fromkeys(OPS, 0)
+        for line in text.splitlines():
+            m = _OPCODE.match(line)
+            if m and m.group(1) in counts:
+                counts[m.group(1)] += 1
+        out[name] = counts
+    return out
+
+
 def _cubin(src: str, out_dir: str, tag: str) -> str:
     flags = [f for f in cuda_build.NVCC_FLAGS
              if f not in ('-shared', '-Xcompiler', '-fPIC')]
@@ -119,6 +141,14 @@ def run(other: str, name: str = 'fused_conv') -> Dict:
     res = compare(texts[0][0], texts[1][0], texts[0][1], texts[1][1])
     res.update(a=os.path.abspath(other), b=cuda_build.source_path(name))
     return res
+
+
+def count(name: str) -> Dict[str, Dict[str, int]]:
+    """Static opcode counts of every kernel of library NAME's source
+    (``opcode_counts``), compiled with the port's flags."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = _cubin(cuda_build.source_path(name), tmp, name)
+        return opcode_counts(_cuobjdump('-sass', cubin))
 
 
 def main(argv=None) -> int:

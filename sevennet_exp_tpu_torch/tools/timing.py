@@ -3,22 +3,36 @@
 import statistics
 import subprocess
 import sys
+import time
 
 import torch
+
+# the spin before a timed batch: at most this long, at >= 1 cycle per ns
+MAX_SPIN_S = 0.05
+SPIN_CYCLES_PER_S = 2e9
 
 
 def cuda_ms(fn, reps: int = 20, batches: int = 3, warm: int = 3) -> float:
     """Milliseconds per call of fn() on the current CUDA stream: the
     median over ``batches`` of one event pair around ``reps`` calls
-    issued back to back, so the device stays busy and the host's launch
-    overhead hides behind earlier calls wherever a call outlasts it."""
-    for _ in range(warm):
+    issued back to back. Each batch is queued behind a spin kernel
+    (``torch.cuda._sleep``) that outlasts twice the host's time to issue
+    it (the quickest warm-up call's, at most ``MAX_SPIN_S``), so the
+    calls run back to back on the device and a call shorter than its own
+    launch on the host is timed by the device, not by the host."""
+    host_s = 0.0
+    for i in range(warm):
+        t0 = time.perf_counter()
         fn()
+        t = time.perf_counter() - t0
+        host_s = t if i == 0 else min(host_s, t)
     torch.cuda.synchronize()
+    spin = int(min(MAX_SPIN_S, 2.0 * host_s * reps) * SPIN_CYCLES_PER_S)
     per_call = []
     for _ in range(batches):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
         a.record()
         for _ in range(reps):
             fn()

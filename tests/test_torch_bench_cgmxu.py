@@ -147,3 +147,22 @@ def test_cost_bound(i1):
             assert bench_cgmxu.formulation_flops(cls, mode, 32768) > flops
     if i1 == 1:
         assert abs(bench_cgmxu.cost(cls, 'st', 32768)[1] - 244.4e6) < 1e5
+
+
+@pytest.mark.parametrize('i1', [1, 2])
+def test_library_einsum_matches_jax_oracle(jax_mid_conv, i1):
+    """One einsum of C, x, sh and the instruction-gathered weight computes
+    the block of st and outer (their library column)."""
+    instrs, _, _, _ = _jax_class(jax_mid_conv, i1)
+    cls = bench_cgmxu.cg_class(i1)
+    rng = np.random.default_rng(10 + i1)
+    xT = rng.normal(size=(cls.d1 * cls.mul, E)).astype(np.float32)
+    shT = rng.normal(size=(cls.f, E)).astype(np.float32)
+    wT = rng.normal(size=(len(cls.instrs) * cls.mul, E)).astype(np.float32)
+    ref = _jax_oracle(instrs, xT, shT, wT)
+    wg = bench_cgmxu.gathered_weight(cls, torch.tensor(wT))
+    assert tuple(wg.shape) == (cls.d3tot, cls.mul, E)
+    got = bench_cgmxu.library(cls, torch.tensor(xT), torch.tensor(shT), wg)
+    assert tuple(got.shape) == (cls.wide, E)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())

@@ -28,7 +28,8 @@ from sevennet_exp_tpu_torch.model.build import build_e3_equivariant_model
 from sevennet_exp_tpu_torch.model.layers import IrrepsConvolution
 from sevennet_exp_tpu_torch.ops import cuda_build
 from sevennet_exp_tpu_torch.tools import (bench_cg, bench_cgmxu, bench_dot,
-                                          bench_pieces)
+                                          bench_layout, bench_pieces,
+                                          bench_tile)
 
 PRESETS = ['sevennet_0_config', 'sevennet_l3i5_config']
 SPECIES = [['Na', 'Cl'], ['Hf', 'O', 'Hf'], None]
@@ -93,16 +94,20 @@ def test_every_micro_benchmark_kernel_has_a_counter():
     names = (list(bench_pieces.COUNTER.values())
              + list(bench_cgmxu.COUNTER.values())
              + list(bench_dot.COUNTER.values())
-             + list(bench_cg.COUNTER.values()))
+             + list(bench_cg.COUNTER.values())
+             + list(bench_layout.COUNTER.values())
+             + list(bench_tile.COUNTER.values()))
     assert sorted(names) == sorted(cuda_build.BENCH_KERNELS)
     assert set(names) <= set(cuda_build.launch_counts)
-    for name in ('bench_pieces', 'bench_cgmxu', 'bench_dot', 'bench_cg'):
+    for name in ('bench_pieces', 'bench_cgmxu', 'bench_dot', 'bench_cg',
+                 'bench_layout', 'bench_tile'):
         assert os.path.exists(cuda_build.source_path(name))
 
 
 @pytest.mark.parametrize('tool', [bench_pieces, bench_cgmxu, bench_dot,
-                                  bench_cg],
-                         ids=['pieces', 'cgmxu', 'dot', 'cg'])
+                                  bench_cg, bench_layout, bench_tile],
+                         ids=['pieces', 'cgmxu', 'dot', 'cg', 'layout',
+                              'tile'])
 def test_tools_exit_nonzero_without_a_card(tool, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     assert tool.main([]) != 0

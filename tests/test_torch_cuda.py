@@ -613,3 +613,45 @@ def test_bench_cg_kernels_match_plain(cuda, variant):
     ref = bench_cg.plain(variant, x, y)
     torch.cuda.synchronize()
     assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.parametrize('variant', ['rowmajor', 'colmajor', 'transpose'])
+def test_bench_layout_kernels_match_plain(cuda, variant):
+    from sevennet_exp_tpu_torch.ops import cuda_build
+    from sevennet_exp_tpu_torch.tools import bench_layout as bl
+    x, y = bl.make_inputs(cuda, grid=3)
+    xv, yv = bl.inputs_for(variant, x, y)
+    before = cuda_build.launch_counts[bl.COUNTER[variant]]
+    got = bl.forward(variant, xv, yv)
+    assert cuda_build.launch_counts[bl.COUNTER[variant]] == before + 1
+    ref = bl.plain(variant, xv, yv)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+    if variant == 'rowmajor':        # a ragged last block of 8 rows
+        part = bl.forward(variant, x[:100].contiguous(), y[:100].contiguous())
+        assert torch.equal(part, got[:100])
+    if variant == 'transpose':       # the same passes in the same order
+        assert torch.equal(got, bl.forward('rowmajor', x, y))
+
+
+@pytest.mark.parametrize('variant', ['d:per-slice', 'a:repeat',
+                                     'b:bcast+cat', 'c:mxu-tile'])
+def test_bench_tile_kernels_match_plain(cuda, variant):
+    from sevennet_exp_tpu_torch.ops import cuda_build
+    from sevennet_exp_tpu_torch.tools import bench_tile as bt
+    x, s = bt.make_inputs(100, cuda)           # a ragged last block
+    before = cuda_build.launch_counts[bt.COUNTER[variant]]
+    got = bt.forward(variant, x, s)
+    assert cuda_build.launch_counts[bt.COUNTER[variant]] == before + 1
+    ref = bt.plain(variant, x, s)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+    assert (got - bt.forward('d:per-slice', x, s)).abs().max() < 1e-3
+    if variant == 'c:mxu-tile':      # T is read, not assumed
+        T = torch.as_tensor(bt.ones_block(), device=cuda)
+        T[1, 5] = -3.0
+        got2 = bt.forward(variant, x, s, T)
+        ref2 = bt.plain(variant, x, s, T)
+        assert (got2 - ref2).abs().max() <= 1e-4 * ref2.abs().max()
+        assert (got2 - got).abs().max() > 1e-3

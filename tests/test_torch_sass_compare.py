@@ -83,3 +83,15 @@ def test_a_kernel_on_one_side_only_is_a_difference():
 
 def test_needs_a_source():
     assert sass_compare.main([]) == 2
+
+
+def test_opcode_counts_per_kernel():
+    sass = SASS.replace('{OP}', 'FFMA R5, R2, R3, R5 ;\n'
+                        '        /*0018*/               @!P0 FFMA R5, R2, R3, '
+                        'R5 ;\n        /*001c*/                   SHFL.IDX '
+                        'PT, R4, R4, RZ, 0x1f ;')
+    counts = sass_compare.opcode_counts(sass)
+    assert counts['_Z3barPf']['FFMA'] == 2
+    assert counts['_Z3barPf']['SHFL'] == 1
+    assert counts['_Z3fooPf']['FFMA'] == 0
+    assert set(counts['_Z3fooPf']) == set(sass_compare.OPS)
