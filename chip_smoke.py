@@ -87,10 +87,13 @@ Phases (any failure raises, exits non-zero and prints no result):
      bf16 ``bench_dot`` against the fp32 product of the rounded inputs,
      1e-5 x K x max|plain|; ``bench_layout`` row-major against transpose,
      ``bench_tile`` a, b and c against d within 1e-3), plain and library
-     times, bounds; the SASS of ``bench_layout`` and ``bench_tile`` must
-     issue every repeated pass (cuobjdump: 24 x 16 FFMA per output, and 8
-     x 4 per output, the fifth product of each pass being the FMUL that
-     starts it);
+     times, bounds, and for every ``bench_dot`` shape and both dots
+     classes the share of the bound and the time over the library call's;
+     the SASS of ``bench_layout`` and ``bench_tile`` must issue every
+     repeated pass (cuobjdump: 24 x 16 FFMA per output, and 8 x 4 per
+     output, the fifth product of each pass being the FMUL that starts
+     it), each dots instance d3tot x K FFMA per column a thread owns, and
+     the fp32 ``bench_dot`` kernels no tensor-core opcode;
  then a ``{"kernels": [...]}`` line (33 entries), the card line and the
  result line ``{"ok": true, "device": {...}}`` last.
 
@@ -245,6 +248,38 @@ def micro_benchmarks(report, dev, cuda_ms, show):
         entry(bench_pieces.COUNTER[v], 'bench_pieces.cu', 'bench_pieces.py:232',
               [err], pieces['ms'][v], plain_ms, [cost], None)
     del full_k, pieces, conv, ins
+    # static opcode counts of each kernel's SASS (its loops fully unrolled):
+    # the repeated passes of bench_layout and bench_tile and the dense
+    # products of the dots instances must all be issued, and the fp32 dot
+    # kernels must use no tensor-core opcode
+    sass = {name: sass_compare.count(name)
+            for name in ('bench_cgmxu', 'bench_dot', 'bench_layout',
+                         'bench_tile')}
+
+    def sass_of(name, stem, want):
+        """The kernel's static opcode counts; its FFMAs must cover every
+        multiply-add of its outputs (want)."""
+        (counts,) = [v for k, v in sass[name].items() if stem in k]
+        print(f'{stem}: SASS {counts} (want >= {want} FFMA)', flush=True)
+        if counts['FFMA'] < want:
+            raise AssertionError(f'{stem}: {counts["FFMA"]} FFMA in its '
+                                 f'SASS, fewer than {want}')
+        return counts
+    # dots: d3tot K FFMA per column a thread owns, in each instance
+    dots_sass = {f'{K}x{d3}': sass_of(
+        'bench_cgmxu', f'cgmxu_dots_kernelILi{K}ELi{d3}E',
+        d3 * K * bench_cgmxu.DOTS_EDGES)
+        for K, d3 in bench_cgmxu.DOTS_SHAPES}
+    # fp32 dot: FFMA on the CUDA cores, no tensor-core opcode
+    dot_sass = {k: v for k, v in sass['bench_dot'].items()
+                if 'dot_fp32_' in k}
+    for k, v in dot_sass.items():
+        tc = {op: v[op] for op in sass_compare.TENSOR_CORE_OPS if v[op]}
+        if tc or not v['FFMA']:
+            raise AssertionError(f'bench_dot fp32 kernel {k}: tensor-core '
+                                 f'opcodes {tc}, {v["FFMA"]} FFMA')
+    print(f'bench_dot fp32: {len(dot_sass)} kernels, no tensor-core opcode; '
+          f'FFMA {sorted(v["FFMA"] for v in dot_sass.values())}', flush=True)
     # bench_cgmxu: one launch of each mode at i1 = 1 and at i1 = 2
     for mode in bench_cgmxu.MODES:
         errs, ms, plain_ms, cost, lib_ms = [], 0.0, 0.0, [], 0.0
@@ -286,6 +321,15 @@ def micro_benchmarks(report, dev, cuda_ms, show):
                                             reps=5)
                 lib_ms += row['library_ms']
                 del Z
+                K = cls.d1 * cls.f
+                row.update(share_of_bound=row['bound_ms'] / row['ms'],
+                           vs_library=row['ms'] / row['library_ms'],
+                           sass=dots_sass[f'{K}x{cls.d3tot}'])
+                print(f'bench_cgmxu dots i1={i1}: {row["ms"]:.4f} ms, '
+                      f'bound {row["bound_ms"]:.4f} ms '
+                      f'({row["share_of_bound"]:.1%}), torch.matmul '
+                      f'{row["library_ms"]:.4f} ms (x{row["vs_library"]:.2f})',
+                      flush=True)
             rows.append(row)
             errs.append(err)
             ms += res['ms'][mode]
@@ -295,17 +339,30 @@ def micro_benchmarks(report, dev, cuda_ms, show):
               'bench_cgmxu.py:166', errs, ms, plain_ms, cost, lib_ms)
     del cgmxu
     # bench_dot: one launch of each of the ten shapes per type
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for dtype in bench_dot.DTYPES:
         peak = bench_dot.cost(*bench_dot.SHAPES[0], dtype)[2]
         cost = [bench_dot.cost(*shape, dtype)[:2] for shape in dots]
         for shape in dots:
+            ms = dots[shape][dtype]
+            b_ms, by = bound(*bench_dot.cost(*shape, dtype)[:2], peak)
+            lib = dots[shape]['cublas_fp32'] if dtype == 'fp32' else None
+            p = bench_dot.plan(*shape, bench_dot.G, n_sm) \
+                if dtype == 'fp32' else None
             rows.append({'tool': 'bench_dot', 'shape': list(shape),
-                         'dtype': dtype, 'ms': dots[shape][dtype],
+                         'dtype': dtype, 'ms': ms,
                          'cublas_fp32_ms': dots[shape]['cublas_fp32'],
                          'cublas_bf16_ms': dots[shape]['cublas_bf16'],
                          **dot_rows[(shape, dtype)],
-                         'bound_ms': bound(*bench_dot.cost(*shape, dtype)[:2],
-                                           peak)[0]})
+                         'bound_ms': b_ms, 'bound_by': by,
+                         'share_of_bound': b_ms / ms,
+                         'vs_library': ms / lib if lib else None,
+                         'plan': p})
+            print(f'bench_dot {shape} {dtype}: {ms:.4f} ms, bound '
+                  f'{b_ms:.4f} ms by {by} ({b_ms / ms:.1%})'
+                  + (f', torch.bmm {lib:.4f} ms (x{ms / lib:.2f}), '
+                     f'{p["cls"]} tm={p["tm"]} bn={p["bn"]} kc={p["kc"]}'
+                     if lib else ''), flush=True)
         entry(bench_dot.COUNTER[dtype], 'bench_dot.cu', 'bench_dot.py:46',
               [dot_rows[(s, dtype)]['err'] for s in dots],
               sum(dots[s][dtype] for s in dots),
@@ -336,20 +393,6 @@ def micro_benchmarks(report, dev, cuda_ms, show):
         entry(bench_cg.COUNTER[v], 'bench_cg.cu', 'bench_cg.py:99', [err],
               cgs['ms'][v], p_ms, [c], lib_ms)
     del cgs, x, y
-    # the repeated passes of bench_layout and bench_tile must all be issued:
-    # static opcode counts of each kernel's SASS (its loops fully unrolled)
-    sass = {name: sass_compare.count(name)
-            for name in ('bench_layout', 'bench_tile')}
-
-    def sass_of(name, stem, want):
-        """The kernel's static opcode counts; its FFMAs (one thread = one
-        output) must cover every repeated multiply-add."""
-        (counts,) = [v for k, v in sass[name].items() if stem in k]
-        print(f'{stem}: SASS {counts} (want >= {want} FFMA)', flush=True)
-        if counts['FFMA'] < want:
-            raise AssertionError(f'{stem}: {counts["FFMA"]} FFMA per output '
-                                 f'in its SASS, fewer than {want}')
-        return counts
     # bench_layout: one launch of each layout on the tool's (32768, 512)
     # inputs; the library time is one einsum pass on the same inputs
     c = bench_layout.cost()

@@ -26,10 +26,14 @@
 // owns 32 consecutive edges of one channel u, so every load and store of a
 // row is one 128-byte line; the 8 warps of a block take 8 channels of the
 // same edges, so sh (and for st, the tables) is read once per block into L1
-// or shared memory. A thread owns one (u, edge) column and keeps its
-// d3tot sums in registers (outer, dots: a tile product 1 x d3tot per thread,
-// C from shared memory as a broadcast). Tensor cores (3xTF32) are for the
-// redesign; this is the fp32 baseline the JAX tool asked about.
+// or shared memory. A thread of st and outer owns one (u, edge) column and
+// keeps its d3tot sums in registers (outer: a tile product 1 x d3tot per
+// thread, C from shared memory as a broadcast, one 4-byte shared load per
+// multiply-add). dots is bound by the bytes it writes at i1 = 1 (168 MB,
+// 0.050 ms) and by its multiply-adds at i1 = 2 (0.031 ms at 67 TFLOP/s);
+// its redesign takes the shared load off the multiply-add: the class's
+// shape at compile time, 4 edges a thread, C as 16-byte broadcasts (below).
+// All fp32 on the CUDA cores (no TF32, no tensor cores).
 
 #include <cuda_runtime.h>
 
@@ -129,52 +133,101 @@ cgmxu_outer_kernel(const float* __restrict__ xT,
           acc[r] * wT[((long)ri_s[r] * C.mul + u) * C.E + b];
 }
 
-// channels of a block: slots 0..US/2-1 take u = US/2 * blockIdx.y + i, the
-// others mul - 1 - that, so that u = 0 and u = mul - 1 meet in block 0
-__global__ void __launch_bounds__(NT)
+// dots, redesigned for Hopper: the class's shape is a template parameter,
+// (K = d1 f, D3 = d3tot), so the r and j loops unroll completely. A thread
+// owns DE = 4 consecutive edges b of one channel u: it reads z as one float4,
+// keeps D3 x 4 sums in registers and reads C from shared memory as LDS.128
+// broadcasts, 4 j at a time, each C value feeding the 4 columns (16 FFMA per
+// shared load). A warp owns 128 edges of one channel, so each output row is
+// one 512-byte float4 store per warp. Channels of a block: slots 0..US/2-1
+// take u = US/2 * blockIdx.y + i, the others mul - 1 - that, so that u = 0
+// and u = mul - 1 meet in block row 0. E a multiple of 32: a thread's four
+// edges are all in or all out, and the last block may be ragged.
+constexpr int DE = 4;                 // edges per thread (one float4)
+constexpr int DEB = EB * DE;          // edges per block: 128
+
+template <int K, int D3>
+__global__ void __launch_bounds__(NT, 2)
 cgmxu_dots_kernel(const float* __restrict__ xT, const float* __restrict__ cg,
-                  Cls C, float* __restrict__ out) {
-  extern __shared__ float sm[];
-  const int K = C.d1 * C.f;
-  float* c_s = sm;                     // d3tot * K
-  float* ex_s = c_s + C.d3tot * K;     // d3tot x EB: out0 of u = mul - 1
+                  int mul, long E, float* __restrict__ out) {
+  constexpr int KP = (K + 3) / 4 * 4;   // C row stride: 16-byte rows
+  __shared__ __align__(16) float c_s[D3 * KP];
+  __shared__ __align__(16) float ex_s[D3 * DEB];  // out0 of u = mul - 1
   const int tid = threadIdx.x, lane = tid & 31, slot = tid >> 5;
-  const long b = (long)blockIdx.x * EB + lane;
+  const long b = (long)blockIdx.x * DEB + DE * lane;
   const int half = US / 2, base = half * blockIdx.y;
-  const int u = slot < half ? base + slot : C.mul - 1 - (base + slot - half);
-  for (int i = tid; i < C.d3tot * K; i += NT) c_s[i] = cg[i];
-  __syncthreads();
-  const float z = xT[b];
-  float acc[MAXR];
-#pragma unroll
-  for (int r = 0; r < MAXR; ++r) acc[r] = 0.f;
-  for (int j = 0; j < K; ++j) {
-#pragma unroll
-    for (int r = 0; r < MAXR; ++r)
-      if (r < C.d3tot) acc[r] = fmaf(c_s[r * K + j], z, acc[r]);
+  const int u = slot < half ? base + slot : mul - 1 - (base + slot - half);
+  for (int i = tid; i < D3 * KP; i += NT) {
+    const int r = i / KP, j = i % KP;
+    c_s[i] = j < K ? cg[r * K + j] : 0.f;
   }
-  if (blockIdx.y == 0) {
-    if (u == C.mul - 1) {
+  __syncthreads();
+  const bool live = b < E;
+  float4 zv = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (live) zv = *reinterpret_cast<const float4*>(xT + b);
+  const float z[DE] = {zv.x, zv.y, zv.z, zv.w};
+  // each sum starts at z * 0 (+-0), not at a literal 0, so that nvcc keeps
+  // the first product an FFMA: the SASS then shows all D3 K FFMAs a column
+  float acc[D3][DE];
 #pragma unroll
-      for (int r = 0; r < MAXR; ++r)
-        if (r < C.d3tot) ex_s[r * EB + lane] = acc[r];
+  for (int r = 0; r < D3; ++r)
+#pragma unroll
+    for (int c = 0; c < DE; ++c) acc[r][c] = z[c] * 0.f;
+#pragma unroll
+  for (int r = 0; r < D3; ++r)
+#pragma unroll
+    for (int j = 0; j < K; j += 4) {
+      const float4 cv = *reinterpret_cast<const float4*>(&c_s[r * KP + j]);
+      const float cj[4] = {cv.x, cv.y, cv.z, cv.w};
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        if (j + jj < K)
+#pragma unroll
+          for (int c = 0; c < DE; ++c)
+            acc[r][c] = fmaf(cj[jj], z[c], acc[r][c]);
+    }
+  float4* ex4 = reinterpret_cast<float4*>(ex_s);
+  if (blockIdx.y == 0) {
+    if (u == mul - 1) {
+#pragma unroll
+      for (int r = 0; r < D3; ++r)
+        ex4[r * EB + lane] =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
     }
     __syncthreads();
   }
-  // rows 0..d3tot-1 (channel u < d3tot of row group 0) get the sums from
-  // u = 0; every other row of the column is zero, written by its owner as
-  // its own sum times 0 so that the product stays whole in every thread
+  if (!live) return;
+  // rows 0..D3-1 (channel u < D3 of row group 0) get the sums from u = 0
+  // and u = mul - 1; every other row of the column is zero, written by its
+  // owner as its own sum times 0 so that the product stays whole in every
+  // thread. The output is written once and never read here: streaming
+  // stores (evict first), which let the 168 MB of i1 = 1 drain beside the
+  // FFMAs of the blocks still computing
 #pragma unroll
-  for (int r = 0; r < MAXR; ++r) {
-    if (r >= C.d3tot) continue;
-    if (u == 0) out[(long)r * C.E + b] = acc[r] + ex_s[r * EB + lane];
-    if (r > 0 || u >= C.d3tot)
-      out[((long)r * C.mul + u) * C.E + b] = acc[r] * 0.f;
+  for (int r = 0; r < D3; ++r) {
+    if (u == 0) {
+      const float4 e = ex4[r * EB + lane];
+      __stcs(reinterpret_cast<float4*>(out + (long)r * E + b),
+             make_float4(acc[r][0] + e.x, acc[r][1] + e.y, acc[r][2] + e.z,
+                         acc[r][3] + e.w));
+    }
+    if (r > 0 || u >= D3)
+      __stcs(reinterpret_cast<float4*>(out + ((long)r * mul + u) * E + b),
+             make_float4(acc[r][0] * 0.f, acc[r][1] * 0.f, acc[r][2] * 0.f,
+                         acc[r][3] * 0.f));
   }
 }
 
+template <int K, int D3>
+cudaError_t launch_dots(const float* xT, const float* cg, int mul, long E,
+                        float* out, cudaStream_t stream) {
+  const dim3 grid((unsigned)((E + DEB - 1) / DEB), mul / US);
+  cgmxu_dots_kernel<K, D3><<<grid, NT, 0, stream>>>(xT, cg, mul, E, out);
+  return cudaGetLastError();
+}
+
 constexpr int MAX_DEVICES = 64;
-size_t reserved[3][MAX_DEVICES];
+size_t reserved[2][MAX_DEVICES];
 
 template <typename Kernel>
 cudaError_t reserve_smem(Kernel kernel, size_t bytes, size_t* res) {
@@ -238,14 +291,19 @@ extern "C" int cgmxu_outer(const float* xT, const float* shT, const float* wT,
   return (int)cudaGetLastError();
 }
 
+// the classes the dots kernel is instantiated for, (d1 f, d3tot): i1 = 0,
+// 1 and 2 of the 7net-0 mid layer (tools/bench_cgmxu.py::DOTS_SHAPES)
 extern "C" int cgmxu_dots(const float* xT, const float* cg, CLS_ARGS,
                           float* out, void* stream) {
   const Cls C = CLS_CALL(0);
   if (!valid(C)) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)d3tot * (d1 * f + EB));
-  const cudaError_t err = reserve_smem(cgmxu_dots_kernel, smem, reserved[2]);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(E / EB), mul / US);
-  cgmxu_dots_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(xT, cg, C, out);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int K = d1 * f;
+  if (K == 9 && d3tot == 9)
+    return (int)launch_dots<9, 9>(xT, cg, mul, E, out, s);
+  if (K == 27 && d3tot == 20)
+    return (int)launch_dots<27, 20>(xT, cg, mul, E, out, s);
+  if (K == 45 && d3tot == 22)
+    return (int)launch_dots<45, 22>(xT, cg, mul, E, out, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -14,7 +14,9 @@ weighted message block in the feature-major layout of the JAX tool (rows
          per-p products with x and sums over m, x the radial weight
   outer  Z = x (x) sh, (d1 f, mul E), built in shared memory; ONE dense CG
          product C (d3tot, d1 f) @ Z; x the radial weight
-  dots   the product alone (Z at no build cost), with the JAX write pattern
+  dots   the product alone (Z at no build cost), with the JAX write pattern;
+         a kernel per class (``DOTS_SHAPES``: i1 = 0, 1, 2), launched as
+         ``dots_plan`` says
 
 Prints each one's ms and ns per edge row (CUDA events), then
 max|kernel - oracle| of st and outer on the first B edges against the
@@ -43,6 +45,10 @@ Tensor = torch.Tensor
 
 MODES = ('st', 'outer', 'dots')
 COUNTER = {m: f'bench_cgmxu_{m}' for m in MODES}
+# the classes (d1 f, d3tot) the dots kernel is compiled for: i1 = 0, 1, 2
+DOTS_SHAPES = ((9, 9), (27, 20), (45, 22))
+# dots: threads a block, edges a thread (one float4), edges a block
+DOTS_THREADS, DOTS_EDGES, DOTS_BLOCK_EDGES = 256, 4, 128
 
 
 @dataclass
@@ -221,6 +227,48 @@ def oracle(cls: CgClass, xT, shT, wT, B: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------
+# the dots kernel's launch plan
+# ---------------------------------------------------------------------
+
+def dots_plan(cls: CgClass, E: int) -> Dict:
+    """The dots kernel's launch: a template instance per class (K = d1 f,
+    d3tot), 256 threads a block, each 4 consecutive edges of one channel,
+    8 channels a block; grid (ceil(E / 128), mul / 8). Raises on a class
+    the kernel is not compiled for and on E % 32 or mul % 8."""
+    K = cls.d1 * cls.f
+    if (K, cls.d3tot) not in DOTS_SHAPES:
+        raise ValueError(f'bench_cgmxu dots: no kernel for the class (K, '
+                         f'd3tot) = ({K}, {cls.d3tot}); compiled for '
+                         f'{DOTS_SHAPES}')
+    if E < 1 or E % 32 or cls.mul % 8 or cls.d3tot > cls.mul:
+        raise ValueError('bench_cgmxu dots takes E % 32 == 0, mul % 8 == 0 '
+                         'and d3tot <= mul')
+    warps = DOTS_THREADS // 32
+    return {'K': K, 'd3tot': cls.d3tot, 'threads': DOTS_THREADS,
+            'edges_per_thread': DOTS_EDGES,
+            'grid': (-(-E // DOTS_BLOCK_EDGES), cls.mul // warps),
+            'channels_per_block': warps}
+
+
+def dots_columns(cls: CgClass, E: int) -> np.ndarray:
+    """The (u, b) columns each dots thread owns, as the kernel indexes
+    them: (n, 2) for every live (block, thread, edge); the first slots of a
+    block take u = 4 blockIdx.y + slot, the others mul - 1 - that."""
+    plan = dots_plan(cls, E)
+    gx, gy = plan['grid']
+    half = plan['channels_per_block'] // 2
+    bx, by, tid, c = np.meshgrid(np.arange(gx), np.arange(gy),
+                                 np.arange(DOTS_THREADS),
+                                 np.arange(DOTS_EDGES), indexing='ij')
+    lane, slot = tid % 32, tid // 32
+    b = bx * DOTS_BLOCK_EDGES + DOTS_EDGES * lane
+    u = np.where(slot < half, half * by + slot,
+                 cls.mul - 1 - (half * by + slot - half))
+    live = b < E            # a thread's four edges are all in or all out
+    return np.stack([u[live], (b + c)[live]], axis=1)
+
+
+# ---------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------
 
@@ -265,6 +313,7 @@ def kernel(cls: CgClass, mode: str, xT, shT, wT) -> Tensor:
         err = lib.cgmxu_outer(P(xT), P(shT), P(wT), P(row_ins), P(C), *dims,
                               P(out), stream)
     elif mode == 'dots':
+        dots_plan(cls, E)
         err = lib.cgmxu_dots(P(xT), P(C), *dims, P(out), stream)
     else:
         raise ValueError(mode)

@@ -7,7 +7,11 @@ slices, C (K, M), Z (G, K, N), fp32 out, on the CG-operator shapes the
 fused conv kernels care about, by the two kernels of ``csrc/bench_dot.cu``:
 ``fp32`` on the CUDA cores, ``bf16`` rounding the fp32 inputs to bf16 in
 the kernel and multiplying on the tensor cores (mma.sync, fp32
-accumulation). Prints per shape and type the microseconds per dot (one
+accumulation). ``fp32`` is one of two kernels that ``plan`` picks per
+shape: ``stream`` for the shapes bound by bytes (a block holds all of M for
+its N tile, so Z is read once, and streams Z through a cp.async ring) and
+``tile`` for those bound by operations (a register-blocked 128 x 128
+SGEMM). Prints per shape and type the microseconds per dot (one
 launch over G) and the rate in Tmac/s, as the JAX tool does, and beside them
 cuBLAS's time for the same function (``torch.bmm`` in fp32) and for the
 same product on inputs already in bf16. Times are CUDA events. The inputs
@@ -20,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import sys
 from typing import Callable, Dict, Optional
 
@@ -71,16 +76,179 @@ def library(C, Z) -> Tensor:
     return torch.bmm(C.t().unsqueeze(0).expand(Z.shape[0], -1, -1), Z)
 
 
+# ---------------------------------------------------------------------
+# the fp32 kernels' launch plan
+# ---------------------------------------------------------------------
+
+PEAK_BYTES = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
+N_SM = 132                    # H100 SXM streaming multiprocessors
+THREADS = 256
+SMEM_BLOCK = 232448           # shared bytes a block may use (227 KB)
+SMEM_SM = 233472              # shared bytes of an SM (228 KB)
+SMEM_RESERVED = 1024          # the runtime's share of each block
+# stream: the kernel's instances by rows a thread (TM), those also built
+# with 8 columns a thread (CW = 8, BN = 256 only), its ring's stages, the
+# most bytes of Z one stage holds
+STREAM_TMS = (1, 2, 3, 4, 5, 6, 7, 8, 16)
+STREAM_TMS_CW8 = (8,)
+STREAM_STAGES = 3
+STAGE_BYTES = 32 * 1024
+# tile: the block's output tile, K step and stages (csrc/bench_dot.cu)
+TILE_BM, TILE_BN, TILE_BK, TILE_STAGES = 128, 128, 8, 4
+# 8 columns a thread where the FFMAs take at least this share of the time
+# the bytes take (fewer shared loads per FFMA; (64, 64) alone of the ten)
+CW8_FROM = 0.5
+
+
+def tm_pad(tm: int) -> int:
+    """A stream thread's C rows as stored in shared memory: padded to a
+    16-byte vector (8 bytes for 2 rows)."""
+    return tm if tm <= 2 else -(-tm // 4) * 4
+
+
+def _stream_plan(K: int, M: int, N: int, g: int, n_sm: int, cw8: bool):
+    """The stream kernel's launch, or None when all of M does not fit one
+    block's registers or its C and stages do not fit shared memory."""
+    best = None
+    for bn, cw in ((256, 8), (256, 4), (128, 4)):
+        if N % bn or (cw == 8) != cw8:
+            continue
+        tmg = THREADS // (bn // cw)
+        tms = STREAM_TMS_CW8 if cw == 8 else STREAM_TMS
+        tm = next((t for t in tms if t * tmg >= M), None)
+        if tm is not None:
+            key = (tm * tmg - M, -tm)     # least padding, then more rows
+            if best is None or key < best[0]:
+                best = (key, bn, cw, tmg, tm)
+    if best is None:
+        return None if not cw8 else _stream_plan(K, M, N, g, n_sm, False)
+    _, bn, cw, tmg, tm = best
+    nkc = -(-K // (STAGE_BYTES // (4 * bn)))
+    kc = -(-K // nkc)
+    c_len = -(-K * tmg * tm_pad(tm) // 4) * 4
+    smem = 4 * (c_len + STREAM_STAGES * kc * bn)
+    if smem > SMEM_BLOCK:
+        return None
+    per_sm = min(2, SMEM_SM // (smem + SMEM_RESERVED))
+    tiles = g * (N // bn)
+    return {'cls': 'stream', 'tm': tm, 'cw': cw, 'tmg': tmg, 'mp': tm * tmg,
+            'bn': bn, 'kc': kc, 'nkc': nkc, 'stages': STREAM_STAGES,
+            'tiles': tiles, 'grid': (min(tiles, n_sm * per_sm), 1, 1),
+            'threads': THREADS, 'smem': smem}
+
+
+def _tile_plan(K: int, M: int, N: int, g: int):
+    grid = (-(-M // TILE_BM), N // TILE_BN, g)
+    return {'cls': 'tile', 'tm': 8, 'cw': 8, 'tmg': 16,
+            'mp': grid[0] * TILE_BM,
+            'bn': TILE_BN, 'kc': TILE_BK, 'nkc': -(-K // TILE_BK),
+            'stages': TILE_STAGES, 'tiles': grid[0] * grid[1] * g,
+            'grid': grid, 'threads': THREADS,
+            'smem': 4 * TILE_STAGES * TILE_BK * (TILE_BM + TILE_BN)}
+
+
+@functools.lru_cache(maxsize=None)
+def plan(K: int, M: int, N: int, g: int = G, n_sm: int = N_SM) -> Dict:
+    """The fp32 kernel and its launch for C (K, M), Z (g, K, N): 'stream'
+    where the shape is bound by bytes (``cost``) and all of M fits one
+    block (at most 16 rows a thread), else 'tile'. Returns the class, the
+    tile (rows ``tm`` and columns ``cw`` a thread, thread groups across M
+    ``tmg``, padded M ``mp``, N tile ``bn``, K step ``kc`` and steps
+    ``nkc``), the ring's stages, the output tiles, the grid (stream:
+    persistent blocks, two an SM; tile: one block a tile), the threads and
+    the dynamic shared bytes a block. Raises on N % 128, g outside
+    1..65535, K or M < 1."""
+    if N < 128 or N % 128:
+        raise ValueError(f'N = {N} is not a multiple of 128')
+    if not 1 <= g <= 65535 or K < 1 or M < 1:
+        raise ValueError(f'bench_dot: want 1 <= G <= 65535, K, M >= 1; got '
+                         f'G = {g}, K = {K}, M = {M}')
+    flops, nbytes, peak = cost(K, M, N, 'fp32', g)
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    if t_bytes >= t_ops:
+        got = _stream_plan(K, M, N, g, n_sm, t_ops >= CW8_FROM * t_bytes)
+        if got is not None:
+            return got
+    return _tile_plan(K, M, N, g)
+
+
+def stream_c(p: Dict, C) -> Tensor:
+    """C as the stream kernel stages it in shared memory, (K, tmg, tm_pad):
+    [k, mg, i] = C[k, mg tm + i], zero past M and past tm."""
+    K, M = C.shape
+    tm, tmg = p['tm'], p['tmg']
+    cp = C.new_zeros(K, tmg, tm_pad(tm))
+    full = C.new_zeros(K, tmg * tm)
+    full[:, :M] = C
+    cp[:, :, :tm] = full.view(K, tmg, tm)
+    return cp
+
+
+def walk(p: Dict, C, Z) -> Tensor:
+    """The planned launch replayed on the CPU, block by block with the
+    plan's tiles, offsets and padding (the kernels' sums in their order of
+    k, as products of the staged pieces); raises if a tile is visited
+    twice or never."""
+    g, K, N = Z.shape
+    M = C.shape[1]
+    out = torch.full((g, M, N), float('nan'), dtype=C.dtype)
+    seen = torch.zeros(p['tiles'], dtype=torch.int64)
+    if p['cls'] == 'stream':
+        bn, kc, P = p['bn'], p['kc'], p['grid'][0]
+        c_s = stream_c(p, C)[:, :, :p['tm']].reshape(K, p['mp'])
+        ntn = N // bn
+        for b in range(P):
+            for t in range(b, p['tiles'], P):
+                seen[t] += 1
+                gi, n0 = t // ntn, (t % ntn) * bn
+                acc = C.new_zeros(p['mp'], bn)
+                for ch in range(p['nkc']):
+                    k0 = ch * kc
+                    kl = min(kc, K - k0)
+                    acc += c_s[k0:k0 + kl].t() @ Z[gi, k0:k0 + kl, n0:n0 + bn]
+                out[gi, :, n0:n0 + bn] = acc[:M]
+        assert bool((seen == 1).all()), 'a tile is walked twice or never'
+        return out
+    bm, bn, bk = TILE_BM, TILE_BN, TILE_BK
+    gx, gy, gz = p['grid']
+    Kp = p['nkc'] * bk
+    a = C.new_zeros(Kp, gx * bm)
+    a[:K, :M] = C
+    for z in range(gz):
+        zp = Z.new_zeros(Kp, N)
+        zp[:K] = Z[z]
+        for x in range(gx):
+            for y in range(gy):
+                seen[(z * gy + y) * gx + x] += 1
+                acc = C.new_zeros(bm, bn)
+                for kt in range(p['nkc']):
+                    ks = slice(kt * bk, (kt + 1) * bk)
+                    acc += a[ks, x * bm:(x + 1) * bm].t() @ \
+                        zp[ks, y * bn:(y + 1) * bn]
+                rows = min(bm, M - x * bm)
+                out[z, x * bm:x * bm + rows, y * bn:(y + 1) * bn] = acc[:rows]
+    assert bool((seen == 1).all()), 'a tile is walked twice or never'
+    return out
+
+
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+CLS_ID = {'stream': 0, 'tile': 1}
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = cuda_build.load('bench_dot')
+    lib.dot_fp32.argtypes = [_P, _P, _I, _I, _I, _L] + [_I] * 5 + [_L, _I,
+                                                                  _P, _P]
+    lib.dot_bf16.argtypes = [_P, _P, _I, _I, _I, _L, _P, _P]
     for fn in (lib.dot_fp32, lib.dot_bf16):
-        fn.argtypes = [_P, _P, _I, _I, _I, _L, _P, _P]
         fn.restype = _I
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def kernel(dtype: str, C, Z) -> Tensor:
@@ -98,11 +266,20 @@ def kernel(dtype: str, C, Z) -> Tensor:
     M = C.shape[1]
     if N % 128:
         raise ValueError(f'N = {N} is not a multiple of 128')
+    if dtype not in DTYPES:
+        raise ValueError(dtype)
     out = torch.empty((g, M, N), dtype=C.dtype, device=C.device)
-    fn = {'fp32': _lib().dot_fp32, 'bf16': _lib().dot_bf16}[dtype]
-    err = fn(ctypes.c_void_p(C.data_ptr()), ctypes.c_void_p(Z.data_ptr()),
-             g, K, M, N, ctypes.c_void_p(out.data_ptr()),
-             ctypes.c_void_p(torch.cuda.current_stream(C.device).cuda_stream))
+    ptrs = (ctypes.c_void_p(C.data_ptr()), ctypes.c_void_p(Z.data_ptr()),
+            g, K, M, N)
+    tail = (ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(torch.cuda.current_stream(C.device).cuda_stream))
+    if dtype == 'fp32':
+        p = plan(K, M, N, g, _n_sm(C.device.index or 0))
+        err = _lib().dot_fp32(*ptrs, CLS_ID[p['cls']], p['tm'], p['cw'],
+                              p['bn'], p['kc'], math.prod(p['grid']),
+                              p['smem'], *tail)
+    else:
+        err = _lib().dot_bf16(*ptrs, *tail)
     cuda_build.check(err, COUNTER[dtype])
     cuda_build.launch_counts[COUNTER[dtype]] += 1
     return out

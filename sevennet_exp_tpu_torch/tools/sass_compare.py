@@ -14,7 +14,8 @@ kernel is on one side only. Needs nvcc and cuobjdump, not a card.
 
 ``count(NAME)`` gives the static opcode counts of one source's kernels
 instead (``chip_smoke.py`` checks with it that the micro-benchmarks'
-repeated passes are all issued).
+repeated passes and dense products are all issued, and that the fp32 dot
+kernels use no tensor-core opcode).
 """
 
 from __future__ import annotations
@@ -37,10 +38,16 @@ _REG = re.compile(r'\bREG:(\d+)')
 _INSTR = re.compile(r'^\s*/\*[0-9a-f]{4,}\*/\s')
 _OPCODE = re.compile(r'^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)')
 # the arithmetic and data-movement opcodes the micro-benchmarks count
-OPS = ('FFMA', 'FMUL', 'FADD', 'SHFL', 'LDS', 'STS', 'LDG', 'STG')
+# and the tensor-core opcodes (warp-level mma.sync, Hopper's wgmma, integer
+# and fp8 forms), of which a kernel meant for the CUDA cores has none
+TENSOR_CORE_OPS = ('HMMA', 'HGMMA', 'IMMA', 'IGMMA', 'QGMMA', 'BMMA',
+                   'BGMMA', 'DMMA')
+OPS = ('FFMA', 'FMUL', 'FADD', 'SHFL', 'LDS', 'STS', 'LDG', 'STG',
+       *TENSOR_CORE_OPS)
 # nvcc names an anonymous namespace by a hash of the file's path, which
 # differs between two checkouts of one source
 _ANON = re.compile(r'_GLOBAL__N__[0-9a-f]+_')
+_BLANKS = re.compile(r'\s+')
 
 
 def _plain_name(text: str) -> str:
@@ -49,7 +56,10 @@ def _plain_name(text: str) -> str:
 
 def split_functions(sass: str) -> Dict[str, str]:
     """``cuobjdump -sass`` text -> {mangled kernel name: its SASS lines},
-    anonymous-namespace hashes taken out of both."""
+    anonymous-namespace hashes taken out of both and each run of blanks
+    made one space (cuobjdump pads the encoding column to the longest
+    instruction of the whole file, so a kernel added beside another moves
+    the other's padding, not its code)."""
     out, name = {}, None
     for line in _plain_name(sass).splitlines():
         m = _FUNC.match(line)
@@ -57,7 +67,7 @@ def split_functions(sass: str) -> Dict[str, str]:
             name = m.group(1)
             out[name] = []
         elif name is not None and line.strip():
-            out[name].append(line.rstrip())
+            out[name].append(_BLANKS.sub(' ', line.strip()))
     return {k: '\n'.join(v) for k, v in out.items()}
 
 

@@ -166,3 +166,40 @@ def test_library_einsum_matches_jax_oracle(jax_mid_conv, i1):
     assert tuple(got.shape) == (cls.wide, E)
     np.testing.assert_allclose(got.numpy(), ref, rtol=0,
                                atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.fixture(scope='module')
+def classes():
+    return {i1: bench_cgmxu.cg_class(i1) for i1 in (0, 1, 2)}
+
+
+@pytest.mark.parametrize('E', [320, 32768])
+@pytest.mark.parametrize('i1', [0, 1, 2])
+def test_dots_plan_covers_every_column_once(classes, i1, E):
+    """The dots kernel's threads (4 edges of one channel each, 128 edges
+    a block, 8 channels a block with u = 0 and mul - 1 in block row 0) own
+    every (u, b) column exactly once, the ragged last block at E = 320
+    included."""
+    cls = classes[i1]
+    p = bench_cgmxu.dots_plan(cls, E)
+    assert (p['K'], p['d3tot']) in bench_cgmxu.DOTS_SHAPES
+    assert p['grid'] == (-(-E // 128), cls.mul // 8)
+    cols = bench_cgmxu.dots_columns(cls, E)
+    flat = cols[:, 0].astype(np.int64) * E + cols[:, 1]
+    assert len(flat) == cls.mul * E == len(np.unique(flat))
+    assert cols[:, 0].min() == 0 and cols[:, 0].max() == cls.mul - 1
+    assert cols[:, 1].min() == 0 and cols[:, 1].max() == E - 1
+    # block row 0 holds both channels whose sums make rows 0..d3tot-1
+    first = bench_cgmxu.dots_columns(cls, 128)
+    assert {0, cls.mul - 1} <= set(first[:len(first) // (cls.mul // 8),
+                                         0].tolist())
+
+
+def test_dots_plan_raises_off_its_classes(classes):
+    import dataclasses
+    cls = classes[1]
+    other = dataclasses.replace(cls, d3s=cls.d3s[:-1], instrs=cls.instrs[:-1])
+    with pytest.raises(ValueError, match='no kernel for the class'):
+        bench_cgmxu.dots_plan(other, 320)
+    with pytest.raises(ValueError):
+        bench_cgmxu.dots_plan(cls, 336 + 8)

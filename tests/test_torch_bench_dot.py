@@ -66,3 +66,95 @@ def test_cost_counts_the_shape():
     assert flops == 2.0 * 128 * 27 * 20 * 16384 and peak == 67e12
     assert nbytes == 4.0 * (27 * 20 + 128 * (27 + 20) * 16384)
     assert bench_dot.cost(27, 20, 16384, 'bf16')[2] == 989e12
+
+
+# -- the fp32 launch plan (bench_dot.plan) --------------------------------
+# the kernels cannot run here; the plan, the staged C layout and a walk of
+# the planned tiles can
+
+RAGGED = [(1, 1, 128), (33, 17, 384), (127, 129, 256), (128, 8, 128)]
+THIN = [s for s in bench_dot.SHAPES if s != (128, 128, 16384)]
+
+
+@pytest.mark.parametrize('shape', bench_dot.SHAPES)
+def test_plan_class_follows_the_bound(shape):
+    """The nine thin shapes are bound by bytes and stream; (128, 128,
+    16384) is bound by operations and takes the register-blocked tile."""
+    p = bench_dot.plan(*shape)
+    assert p['cls'] == ('tile' if shape == (128, 128, 16384) else 'stream')
+    flops, nbytes, peak = bench_dot.cost(*shape, 'fp32')
+    assert (p['cls'] == 'stream') == (nbytes / bench_dot.PEAK_BYTES
+                                      >= flops / peak)
+
+
+@pytest.mark.parametrize('shape', THIN)
+def test_stream_plan_reads_z_once(shape):
+    """A stream block holds all of M for its N tile (one tile per (slice,
+    N range), none per M range), pads M by less than a row per thread group
+    and K not at all."""
+    K, M, N = shape
+    p = bench_dot.plan(*shape)
+    assert p['tiles'] == bench_dot.G * N // p['bn'] and N % p['bn'] == 0
+    assert p['mp'] == p['tm'] * p['tmg'] >= M and p['mp'] - M < p['tmg']
+    assert p['tmg'] * p['bn'] // p['cw'] == p['threads'] == 256
+    assert p['kc'] * (p['nkc'] - 1) < K <= p['kc'] * p['nkc']
+    assert 4 * p['kc'] * p['bn'] <= bench_dot.STAGE_BYTES
+    # persistent: two blocks an SM walk the tiles
+    assert p['grid'] == (2 * bench_dot.N_SM, 1, 1)
+    assert p['tm'] in (bench_dot.STREAM_TMS_CW8 if p['cw'] == 8
+                       else bench_dot.STREAM_TMS)
+    # 8 columns a thread only where the FFMAs near the bytes' time
+    assert (p['cw'] == 8) == (shape == (64, 64, 16384))
+
+
+@pytest.mark.parametrize('shape', list(bench_dot.SHAPES) + RAGGED)
+def test_plan_shared_memory_fits(shape):
+    p = bench_dot.plan(*shape)
+    assert 0 < p['smem'] <= bench_dot.SMEM_BLOCK
+    if p['cls'] == 'stream':
+        K = shape[0]
+        c_len = -(-K * p['tmg'] * bench_dot.tm_pad(p['tm']) // 4) * 4
+        assert p['smem'] == 4 * (c_len + p['stages'] * p['kc'] * p['bn'])
+    else:
+        assert p['smem'] == 4 * bench_dot.TILE_STAGES * 8 * (128 + 128)
+
+
+@pytest.mark.parametrize('bad', [(27, 20, 200), (27, 20, 64), (27, 20, 0),
+                                 (0, 20, 128), (27, 0, 128)])
+def test_plan_raises(bad):
+    with pytest.raises(ValueError):
+        bench_dot.plan(*bad)
+    with pytest.raises(ValueError):
+        bench_dot.plan(27, 20, 128, 0)
+
+
+@pytest.mark.parametrize('shape', RAGGED + [(45, 22, 256), (64, 64, 256)])
+def test_walk_of_the_plan_equals_plain(shape):
+    """The planned tiles, replayed on the CPU with the plan's padding and
+    offsets (every tile exactly once), give the plain product; a ragged
+    shape of each class and the stream's K chunks (128, 8) and (64, 64)."""
+    K, M, N = shape
+    rng = np.random.default_rng(K * 7 + M)
+    C = torch.tensor(rng.normal(size=(K, M)).astype(np.float32))
+    Z = torch.tensor(rng.normal(size=(G, K, N)).astype(np.float32))
+    p = bench_dot.plan(K, M, N, G)
+    assert p['cls'] == ('tile' if shape == (127, 129, 256) else 'stream')
+    got = bench_dot.walk(p, C, Z)
+    ref = bench_dot.plain('fp32', C, Z)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0,
+                               atol=1e-5 * K ** 0.5 * float(ref.abs().max()))
+
+
+def test_stream_c_layout():
+    """The stream kernel's staged C: thread group mg's rows mg tm .. mg tm
+    + tm - 1 of C^T, zero past M and in the vector padding."""
+    C = torch.arange(1.0, 1.0 + 5 * 17).reshape(5, 17)
+    p = bench_dot.plan(5, 17, 384, 2)
+    cs = bench_dot.stream_c(p, C)
+    assert tuple(cs.shape) == (5, p['tmg'], bench_dot.tm_pad(p['tm']))
+    for mg in range(p['tmg']):
+        for i in range(cs.shape[2]):
+            m = mg * p['tm'] + i
+            want = C[:, m] if i < p['tm'] and m < 17 else torch.zeros(5)
+            assert torch.equal(cs[:, mg, i], want)
+

@@ -587,10 +587,24 @@ def test_bench_cgmxu_kernels_match_plain(cuda, i1, mode):
         assert (got[:, :64] - orc).abs().max() <= 1e-4 * orc.abs().max()
 
 
+def test_bench_cgmxu_dots_sass_has_every_multiply_add(cuda):
+    """Each dots instance issues at least d3tot K FFMA per column it owns
+    (4 edges a thread): the dense product is neither folded nor cut."""
+    from sevennet_exp_tpu_torch.tools import bench_cgmxu as bc
+    from sevennet_exp_tpu_torch.tools import sass_compare
+    counts = sass_compare.count('bench_cgmxu')
+    for K, d3 in bc.DOTS_SHAPES:
+        (c,) = [v for k, v in counts.items()
+                if f'cgmxu_dots_kernelILi{K}ELi{d3}E' in k]
+        assert c['FFMA'] >= d3 * K * bc.DOTS_EDGES
+
+
 @pytest.mark.parametrize('dtype', ['fp32', 'bf16'])
 @pytest.mark.parametrize('shape', [(27, 20, 256), (45, 22, 128),
                                    (128, 128, 256), (8, 128, 128),
-                                   (128, 8, 384)])
+                                   (128, 8, 384), (1, 1, 128),
+                                   (33, 17, 384), (64, 64, 256),
+                                   (127, 129, 256)])
 def test_bench_dot_kernels_match_plain(cuda, shape, dtype):
     from sevennet_exp_tpu_torch.tools import bench_dot as bd
     K, M, N = shape
@@ -602,6 +616,22 @@ def test_bench_dot_kernels_match_plain(cuda, shape, dtype):
     assert (got - ref).abs().max() <= lim
     if dtype == 'bf16':      # the rounding of the inputs shows
         assert (got - bd.plain('fp32', C, Z)).abs().max() > lim
+
+
+def test_bench_dot_fp32_has_no_tensor_core_op(cuda):
+    """The fp32 kernels multiply on the CUDA cores: FFMA, no HMMA (bf16's
+    kernel, the check's control, has its mma.sync)."""
+    from sevennet_exp_tpu_torch.tools import bench_dot as bd
+    from sevennet_exp_tpu_torch.tools import sass_compare
+    counts = sass_compare.count('bench_dot')
+    fp32 = {k: v for k, v in counts.items() if 'dot_fp32_' in k}
+    assert len(fp32) == (len(bd.STREAM_TMS) + len(bd.STREAM_TMS_CW8)
+                         + 1)        # the stream instances and the tile
+    for v in fp32.values():
+        assert v['FFMA'] > 0
+        assert not any(v[op] for op in sass_compare.TENSOR_CORE_OPS)
+    (bf16,) = [v for k, v in counts.items() if 'dot_bf16_kernel' in k]
+    assert bf16['HMMA'] > 0
 
 
 @pytest.mark.parametrize('variant', ['a:per-term', 'b:3d-reshape',

@@ -95,3 +95,28 @@ def test_opcode_counts_per_kernel():
     assert counts['_Z3barPf']['SHFL'] == 1
     assert counts['_Z3fooPf']['FFMA'] == 0
     assert set(counts['_Z3fooPf']) == set(sass_compare.OPS)
+
+
+def test_opcode_counts_of_tensor_core_ops():
+    """The tensor-core opcodes are counted by their stem (``HMMA.16816.F32
+    .BF16`` is an HMMA)."""
+    sass = SASS.replace('{OP}', 'HMMA.16816.F32.BF16 R8, R12, R16, R8 ;\n'
+                        '        /*0018*/                   FFMA R5, R2, R3, '
+                        'R5 ;')
+    counts = sass_compare.opcode_counts(sass)
+    assert counts['_Z3barPf']['HMMA'] == 1 and counts['_Z3barPf']['FFMA'] == 1
+    assert not any(counts['_Z3fooPf'][op]
+                   for op in sass_compare.TENSOR_CORE_OPS)
+
+
+@pytest.mark.parametrize('pad, equal', [(' ' * 9, True), ('', True),
+                                        (' R0', False)])
+def test_column_padding_is_not_a_difference(pad, equal):
+    """cuobjdump pads each line's encoding comment to the longest
+    instruction of the file: a kernel added to a source moves the padding
+    of the others. Blanks are not code; an operand is."""
+    a = SASS.replace('{OP}', 'NOP ;                   /* 0x0000000000007918 */')
+    b = a.replace('NOP ;', f'NOP{pad} ;')
+    res = sass_compare.compare(a, b)
+    assert res['equal'] is equal
+    assert res['kernels']['_Z3fooPf']['identical']
