@@ -39,7 +39,8 @@ Phases (any failure raises, exits non-zero and prints no result):
   5. 97,336 atoms: engine start-up time; the geom kernels against their
      plain versions on one full chunk of a mid layer; energy and forces of
      the chunked kernel path against the chunked plain path, each kernel
-     launch of the force call timed; peak memory;
+     launch of the force call timed (ms a launch and share of the bound at
+     layers 0, 1-3 and 4); peak memory;
   6. 97k NVT, same settings: a 10-step warm-up (in which the engine
      settles its rebuild cadence), then 10 timed steps with the
      counters reset just before them; every force call must have launched
@@ -76,9 +77,10 @@ Phases (any failure raises, exits non-zero and prints no result):
  13. the bare tensor product: ``make_fused_tp`` driven through autograd on
      the five layers' specs at the 1k grid's rows (counters reset just
      before), then each kernel against its plain version, times, bound;
- 14. the entries of the twelve kernels above (the six kernels, the
-     edge-row form of kernels 1-2, the terms pair and the tensor-product
-     pair);
+ 14. the SASS of the geom kernels (csrc/fused_conv_geom.cu): no
+     tensor-core and no local-memory opcode; the entries of the twelve
+     kernels above (the six kernels, the edge-row form of kernels 1-2, the
+     terms pair and the tensor-product pair);
  15. the micro-benchmarks at their default sizes through their entry
      points (``bench_cgmxu`` at i1 = 1 and 2), every counter reset just
      before: each prints its times and (``bench_pieces``) its piece costs;
@@ -857,6 +859,25 @@ def main():
           f'kernels {geom_ms["fwd"]:.1f} ms forward + {geom_ms["bwd"]:.1f} '
           f'ms backward in {5 * chunks} launches each; peak memory '
           f'{peak / 2 ** 30:.2f} GiB', flush=True)
+    # per layer group: ms a launch and its share of the bound (forward
+    # calls run layer by layer, the backward's in reverse)
+    geom_by_layer = {}
+    for k, route in (('fwd', 'geom_forward'), ('bwd', 'geom_backward')):
+        pairs = timings[route]
+        for group, layers_in in (('0', (0,)), ('1-3', (1, 2, 3)),
+                                 ('4', (4,))):
+            sel = [p for i, p in enumerate(pairs)
+                   if (i // chunks if k == 'fwd' else 4 - i // chunks)
+                   in layers_in]
+            g_ms = timed_ms(sel) / len(sel)
+            b_ms, b_by = bound(*launch_cost(sel, k, geom=True))
+            b_ms /= len(sel)
+            geom_by_layer[f'{k} layer {group}'] = {
+                'ms_per_launch': g_ms, 'bound_ms_per_launch': b_ms,
+                'bound_by': b_by, 'share_of_bound': b_ms / g_ms}
+            print(f'geom {k}, layer {group}: {g_ms:.3f} ms a launch, bound '
+                  f'{b_ms:.3f} ms ({b_by}), {100 * b_ms / g_ms:.1f} % of '
+                  'the bound', flush=True)
     (rec,) = records.values()
     assert rec['args'][0].shape[0] == chunk_rows
     row = dict(layer=1, chunk=0, **compare_kernels(rec, reps_plain=3))
@@ -882,6 +903,7 @@ def main():
         'structure_s': t_atoms, 'engine_startup_s': t_engine,
         'first_grid_s': t_grid, 'compaction_ms': t_compact * 1e3,
         'force_call_ms': call_s * 1e3, 'geom_kernel_ms': geom_ms,
+        'geom_kernel_by_layer': geom_by_layer,
         'geom_plain_ms': plain_ms, 'peak_memory_bytes': peak,
         'peak_memory_plain_bytes': peak_plain}
     e_p = f_p = e_k = f_k = None
@@ -1272,6 +1294,19 @@ def main():
 
     # -- phase 14 ------------------------------------------------------
     phase('14 kernels')
+    # rows 5-6 (csrc/fused_conv_geom.cu): fp32 on the CUDA cores, nothing
+    # in local memory
+    from sevennet_exp_tpu_torch.tools import sass_compare
+    geom_sass = {k: v for k, v in sass_compare.count('fused_conv_geom').items()
+                 if 'fused_conv_geom_' in k}
+    for k, v in geom_sass.items():
+        bad = {op: v[op] for op in (*sass_compare.TENSOR_CORE_OPS,
+                                    *sass_compare.LOCAL_OPS) if v[op]}
+        print(f'{k}: SASS {v}', flush=True)
+        if bad or not v['FFMA']:
+            raise AssertionError(f'{k}: tensor-core or local-memory opcodes '
+                                 f'{bad}, {v["FFMA"]} FFMA')
+    report['geom_sass'] = geom_sass
 
     def total(key, rows=None):
         return sum(r[key] for r in (layers if rows is None else rows))
@@ -1300,7 +1335,9 @@ def main():
                 [r[f'{d}_err'] for r in geom_rows for d in ('dxg', 'dvec')])
         b_ms, b_by = bound(*geom_cost[k])
         kernels.append({
-            'name': name, 'route': 'cuda', 'source': source,
+            'name': name, 'route': 'cuda',
+            'source': 'sevennet_exp_tpu_torch/csrc/fused_conv_geom.cu',
+            'status': 'redesigned for Hopper: csrc/fused_conv_geom.cu',
             'replaces': f'sevennet_exp_tpu/ops/pallas_conv.py:{line}',
             'launches': report['nvt_97k']['launches'][name],
             'max_abs_err': max(errs),

@@ -37,8 +37,8 @@ bench_pieces_full_kernel(const float* __restrict__ xg,
                          const float* __restrict__ w2,
                          const float* __restrict__ si2w, Plan P,
                          float* __restrict__ out) {
-  fwd_body<M_PLAIN>(xg, sh, emb, nullptr, ms, nullptr, w0, w1, w2, si2w, P,
-                    Geom{}, out);
+  fwd_body<M_PLAIN>(xg, sh, emb, ms, nullptr, w0, w1, w2, si2w, P,
+                    out);
 }
 
 __global__ void __launch_bounds__(NT, 2)
@@ -51,8 +51,8 @@ bench_pieces_nomlp_kernel(const float* __restrict__ xg,
                           const float* __restrict__ w2,
                           const float* __restrict__ si2w, Plan P,
                           float* __restrict__ out) {
-  fwd_body<M_PLAIN, S_MLP>(xg, sh, emb, nullptr, ms, nullptr, w0, w1, w2,
-                           si2w, P, Geom{}, out);
+  fwd_body<M_PLAIN, S_MLP>(xg, sh, emb, ms, nullptr, w0, w1, w2,
+                           si2w, P, out);
 }
 
 __global__ void __launch_bounds__(NT, 2)
@@ -65,8 +65,8 @@ bench_pieces_nocg_kernel(const float* __restrict__ xg,
                          const float* __restrict__ w2,
                          const float* __restrict__ si2w, Plan P,
                          float* __restrict__ out) {
-  fwd_body<M_PLAIN, S_CG>(xg, sh, emb, nullptr, ms, nullptr, w0, w1, w2,
-                          si2w, P, Geom{}, out);
+  fwd_body<M_PLAIN, S_CG>(xg, sh, emb, ms, nullptr, w0, w1, w2,
+                          si2w, P, out);
 }
 
 __global__ void __launch_bounds__(NT, 2)
@@ -79,8 +79,8 @@ bench_pieces_now_kernel(const float* __restrict__ xg,
                         const float* __restrict__ w2,
                         const float* __restrict__ si2w, Plan P,
                         float* __restrict__ out) {
-  fwd_body<M_PLAIN, S_W>(xg, sh, emb, nullptr, ms, nullptr, w0, w1, w2, si2w,
-                         P, Geom{}, out);
+  fwd_body<M_PLAIN, S_W>(xg, sh, emb, ms, nullptr, w0, w1, w2, si2w,
+                         P, out);
 }
 
 __global__ void __launch_bounds__(NT, 2)
@@ -93,8 +93,7 @@ bench_pieces_noagg_kernel(const float* __restrict__ xg,
                           const float* __restrict__ w2,
                           const float* __restrict__ si2w, Plan P,
                           float* __restrict__ out) {
-  fwd_body<M_EDGE>(xg, sh, emb, nullptr, ms, nullptr, w0, w1, w2, si2w, P,
-                   Geom{}, out);
+  fwd_body<M_EDGE>(xg, sh, emb, ms, nullptr, w0, w1, w2, si2w, P, out);
 }
 
 __global__ void __launch_bounds__(NT, 2)
@@ -107,8 +106,8 @@ bench_pieces_nosi2_kernel(const float* __restrict__ xg,
                           const float* __restrict__ w2,
                           const float* __restrict__ si2w, Plan P,
                           float* __restrict__ out) {
-  fwd_body<M_PLAIN, S_SI2>(xg, sh, emb, nullptr, ms, nullptr, w0, w1, w2,
-                           si2w, P, Geom{}, out);
+  fwd_body<M_PLAIN, S_SI2>(xg, sh, emb, ms, nullptr, w0, w1, w2,
+                           si2w, P, out);
 }
 
 using Kernel = void (*)(const float*, const float*, const float*,

@@ -6,10 +6,6 @@
 //                          (_cm_fwd_core, _cg_acc_cm, _mlp_forward)
 //   fused_conv_bwd      <- make_fused_conv(agg_d > 0).bwd_kernel_cm
 //                          (_cm_bwd_core, _act_grad)
-//   fused_conv_geom_fwd <- make_fused_conv(agg_d > 0, geom).fwd_kernel_geom
-//                          (_geom_fm, _sh_rows_fm, _mlp_fm, _cm_fwd_core)
-//   fused_conv_geom_bwd <- make_fused_conv(agg_d > 0, geom).bwd_kernel_geom
-//                          (the same, _cm_bwd_core and the geometry VJP)
 //   fused_conv_extw_fwd <- make_fused_conv(agg_d > 0, ext_w).fwd_kernel_cm_w
 //                          (_cm_fwd_core on given weights)
 //   fused_conv_extw_bwd <- make_fused_conv(agg_d > 0, ext_w).bwd_kernel_cm_w
@@ -49,19 +45,8 @@
 // ops/fused_conv.py from _tp_plan / _si2_groups), so one source serves
 // every layer (irreps up to l = 3).
 //
-// The geometry-fused pair takes the raw edge vector instead of sh and emb:
-//   r      = sqrt(|v|^2 + 1e-30)
-//   emb_n  = (2/rc) sin(c_n r)/r * env(r)       env: polynomial or XPLOR
-//   sh     = component-normalised real SH of v/r (a table of monomial terms)
-// computed per row tile into the shared-memory rows the MLP and the CG read,
-// so emb and sh never exist in global memory. Its backward keeps dsh and
-// demb of the tile in shared memory and folds them into dvec by the
-// geometry VJP written out by hand:
-//   dvec = (sum_n demb_n d emb_n/dr) v/r + (I - u u^T) (dsh . dY/du) / r
-// It is bound like the plain pair (the geometry is ~1 % of a mid layer's
-// arithmetic); what it saves is the (E, 17) round trip through global memory
-// and the PyTorch passes that would produce sh, emb and their VJPs. sinf,
-// cosf, sqrtf and powf are the accurate versions (c_n r reaches 8 pi).
+// The geometry-fused pair (fwd_kernel_geom / bwd_kernel_geom) has its own
+// source, fused_conv_geom.cu, with the same plan and table layout.
 //
 // The external-weight pair runs no MLP: it takes the per-row weights
 // weff (E, wn), already scaled by mask/denominator (the caller computes them
@@ -96,8 +81,8 @@ namespace {
 
 // The forward kernels keep a 64-weight MLP column in registers and fit two
 // blocks per SM at 128 registers. ptxas has found 128 by itself and, after
-// an unrelated edit of the shared body, 170 for the geom one (one block per
-// SM, 1.6x the time): the bound is stated on each.
+// an unrelated edit of the shared body, 170 for the first geometry-fused one
+// (one block per SM, 1.6x the time): the bound is stated on each.
 __global__ void __launch_bounds__(NT, 2)
 fused_conv_fwd_kernel(const float* __restrict__ xg,
                       const float* __restrict__ sh,
@@ -108,8 +93,8 @@ fused_conv_fwd_kernel(const float* __restrict__ xg,
                       const float* __restrict__ w2,
                       const float* __restrict__ si2w, Plan P,
                       float* __restrict__ out) {
-  fwd_body<M_PLAIN>(xg, sh, emb, nullptr, ms, nullptr, w0, w1, w2, si2w, P,
-                    Geom{}, out);
+  fwd_body<M_PLAIN>(xg, sh, emb, ms, nullptr, w0, w1, w2, si2w, P,
+                    out);
 }
 
 __global__ void __launch_bounds__(NT, 2)
@@ -122,21 +107,7 @@ fused_conv_edge_fwd_kernel(const float* __restrict__ xg,
                            const float* __restrict__ w2,
                            const float* __restrict__ si2w, Plan P,
                            float* __restrict__ out) {
-  fwd_body<M_EDGE>(xg, sh, emb, nullptr, ms, nullptr, w0, w1, w2, si2w, P,
-                   Geom{}, out);
-}
-
-__global__ void __launch_bounds__(NT, 2)
-fused_conv_geom_fwd_kernel(const float* __restrict__ xg,
-                           const float* __restrict__ vec,
-                           const float* __restrict__ ms,
-                           const float* __restrict__ w0,
-                           const float* __restrict__ w1,
-                           const float* __restrict__ w2,
-                           const float* __restrict__ si2w, Plan P, Geom G,
-                           float* __restrict__ out) {
-  fwd_body<M_GEOM>(xg, nullptr, nullptr, vec, ms, nullptr, w0, w1, w2, si2w,
-                   P, G, out);
+  fwd_body<M_EDGE>(xg, sh, emb, ms, nullptr, w0, w1, w2, si2w, P, out);
 }
 
 __global__ void __launch_bounds__(NT)
@@ -145,14 +116,14 @@ fused_conv_extw_fwd_kernel(const float* __restrict__ xg,
                            const float* __restrict__ weff,
                            const float* __restrict__ si2w, Plan P,
                            float* __restrict__ out) {
-  fwd_body<M_EXTW>(xg, sh, nullptr, nullptr, nullptr, weff, nullptr, nullptr,
-                   nullptr, si2w, P, Geom{}, out);
+  fwd_body<M_EXTW>(xg, sh, nullptr, nullptr, weff, nullptr, nullptr,
+                   nullptr, si2w, P, out);
 }
 
 // The backward kernels are held to two blocks per SM (128 registers). Left
-// to itself ptxas has taken 173 (this kernel) and 193 (the geom one, with
-// the sinf/cosf/powf slow paths inlined): one block per SM, and 1.5-1.6x
-// the time.
+// to itself ptxas has taken 173 (this kernel) and 193 (the first
+// geometry-fused one, with the sinf/cosf/powf slow paths inlined): one
+// block per SM, and 1.5-1.6x the time.
 __global__ void __launch_bounds__(NT, 2)
 fused_conv_bwd_kernel(const float* __restrict__ gout,
                       const float* __restrict__ xg,
@@ -167,9 +138,9 @@ fused_conv_bwd_kernel(const float* __restrict__ gout,
                       const float* __restrict__ si2wt, Plan P,
                       float* __restrict__ dxg, float* __restrict__ dsh,
                       float* __restrict__ demb) {
-  bwd_body<M_PLAIN>(gout, xg, sh, emb, nullptr, ms, nullptr, w0, w1, w1t, w2,
-                    w2t, si2wt, P, Geom{}, nullptr, 0, dxg, dsh, demb,
-                    nullptr, nullptr);
+  bwd_body<M_PLAIN>(gout, xg, sh, emb, ms, nullptr, w0, w1, w1t, w2,
+                    w2t, si2wt, P, nullptr, 0, dxg, dsh, demb,
+                    nullptr);
 }
 
 __global__ void __launch_bounds__(NT, 2)
@@ -186,27 +157,9 @@ fused_conv_edge_bwd_kernel(const float* __restrict__ gout,
                            const float* __restrict__ si2wt, Plan P,
                            float* __restrict__ dxg, float* __restrict__ dsh,
                            float* __restrict__ demb) {
-  bwd_body<M_EDGE>(gout, xg, sh, emb, nullptr, ms, nullptr, w0, w1, w1t, w2,
-                   w2t, si2wt, P, Geom{}, nullptr, 0, dxg, dsh, demb, nullptr,
+  bwd_body<M_EDGE>(gout, xg, sh, emb, ms, nullptr, w0, w1, w1t, w2,
+                   w2t, si2wt, P, nullptr, 0, dxg, dsh, demb,
                    nullptr);
-}
-
-__global__ void __launch_bounds__(NT, 2)
-fused_conv_geom_bwd_kernel(const float* __restrict__ gout,
-                           const float* __restrict__ xg,
-                           const float* __restrict__ vec,
-                           const float* __restrict__ ms,
-                           const float* __restrict__ w0,
-                           const float* __restrict__ w1,
-                           const float* __restrict__ w1t,
-                           const float* __restrict__ w2,
-                           const float* __restrict__ w2t,
-                           const float* __restrict__ si2wt, Plan P, Geom G,
-                           float* __restrict__ dxg,
-                           float* __restrict__ dvec) {
-  bwd_body<M_GEOM>(gout, xg, nullptr, nullptr, vec, ms, nullptr, w0, w1, w1t,
-                   w2, w2t, si2wt, P, G, nullptr, 0, dxg, nullptr, nullptr,
-                   dvec, nullptr);
 }
 
 // Without the MLP's weight column in registers this kernel fits three
@@ -221,15 +174,14 @@ fused_conv_extw_bwd_kernel(const float* __restrict__ gout,
                            const int* __restrict__ dead_w, int n_dead,
                            float* __restrict__ dxg, float* __restrict__ dsh,
                            float* __restrict__ dweff) {
-  bwd_body<M_EXTW>(gout, xg, sh, nullptr, nullptr, nullptr, weff, nullptr,
-                   nullptr, nullptr, nullptr, nullptr, si2wt, P, Geom{},
-                   dead_w, n_dead, dxg, dsh, nullptr, nullptr, dweff);
+  bwd_body<M_EXTW>(gout, xg, sh, nullptr, nullptr, weff, nullptr,
+                   nullptr, nullptr, nullptr, nullptr, si2wt, P,
+                   dead_w, n_dead, dxg, dsh, nullptr, dweff);
 }
 
 }  // namespace
 
 static size_t fwd_reserved[MAX_DEVICES], bwd_reserved[MAX_DEVICES],
-    geom_fwd_reserved[MAX_DEVICES], geom_bwd_reserved[MAX_DEVICES],
     extw_fwd_reserved[MAX_DEVICES], extw_bwd_reserved[MAX_DEVICES],
     edge_fwd_reserved[MAX_DEVICES], edge_bwd_reserved[MAX_DEVICES];
 
@@ -300,61 +252,6 @@ extern "C" int fused_conv_edge_bwd(const float* g, const float* xg,
     fused_conv_edge_bwd_kernel<<<P.n_atoms, NT, smem,
                                  (cudaStream_t)stream>>>(
         g, xg, sh, emb, ms, w0, w1, w1t, w2, w2t, si2wt, P, dxg, dsh, demb);
-  return (int)cudaGetLastError();
-}
-
-#define GEOM_ARGS                                                          \
-  const float *coeffs, const int *sh_idx, const float *sh_coef,            \
-      const int *sh_off, int n_terms, int env_kind, int normalize,         \
-      float cutoff, float env_p, float r_on
-
-static Geom make_geom(GEOM_ARGS) {
-  Geom G;
-  G.coeffs = coeffs; G.sh_idx = sh_idx; G.sh_coef = sh_coef;
-  G.sh_off = sh_off; G.n_terms = n_terms; G.env_kind = env_kind;
-  G.normalize = normalize; G.cutoff = cutoff; G.env_p = env_p;
-  G.r_on = r_on;
-  return G;
-}
-#define GEOM_CALL                                                          \
-  make_geom(coeffs, sh_idx, sh_coef, sh_off, n_terms, env_kind, normalize, \
-            cutoff, env_p, r_on)
-
-extern "C" int fused_conv_geom_fwd(const float* xg, const float* vec,
-                                   const float* ms, const float* w0,
-                                   const float* w1, const float* w2,
-                                   const float* si2w, PLAN_ARGS, GEOM_ARGS,
-                                   float* out, void* stream) {
-  const Plan P = PLAN_CALL;
-  const Geom G = GEOM_CALL;
-  const size_t smem = fwd_smem(P, M_GEOM);
-  const cudaError_t err =
-      reserve_smem(fused_conv_geom_fwd_kernel, smem, geom_fwd_reserved);
-  if (err != cudaSuccess) return (int)err;
-  if (P.n_atoms > 0)
-    fused_conv_geom_fwd_kernel<<<P.n_atoms, NT, smem,
-                                 (cudaStream_t)stream>>>(
-        xg, vec, ms, w0, w1, w2, si2w, P, G, out);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int fused_conv_geom_bwd(const float* g, const float* xg,
-                                   const float* vec, const float* ms,
-                                   const float* w0, const float* w1,
-                                   const float* w1t, const float* w2,
-                                   const float* w2t, const float* si2wt,
-                                   PLAN_ARGS, GEOM_ARGS, float* dxg,
-                                   float* dvec, void* stream) {
-  const Plan P = PLAN_CALL;
-  const Geom G = GEOM_CALL;
-  const size_t smem = bwd_smem(P, M_GEOM);
-  const cudaError_t err =
-      reserve_smem(fused_conv_geom_bwd_kernel, smem, geom_bwd_reserved);
-  if (err != cudaSuccess) return (int)err;
-  if (P.n_atoms > 0)
-    fused_conv_geom_bwd_kernel<<<P.n_atoms, NT, smem,
-                                 (cudaStream_t)stream>>>(
-        g, xg, vec, ms, w0, w1, w1t, w2, w2t, si2wt, P, G, dxg, dvec);
   return (int)cudaGetLastError();
 }
 

@@ -2,7 +2,9 @@
 // helpers, shared by fused_conv.cu (the kernels of the model) and
 // bench_pieces.cu (the same forward body with pieces stubbed, for the
 // per-piece micro-benchmark). See fused_conv.cu for what the kernels
-// compute and how they are laid out.
+// compute and how they are laid out. fused_conv_geom.cu (the
+// geometry-fused pair) takes the plan, the table layout and the small
+// helpers from here, not the bodies.
 
 #pragma once
 
@@ -20,11 +22,10 @@ constexpr int MAXD = 8;     // offsets per key in an instruction record
 constexpr int KQ = NT / H;  // column groups of the backward's dw @ w2^T
 
 // what a kernel body takes per row: sh + emb (the MLP runs in the kernel),
-// the raw edge vector (geometry and MLP in the kernel), or sh + ready-made
-// weights (no MLP)
+// or sh + ready-made weights (no MLP)
 // M_EDGE takes what M_PLAIN takes and returns one row per input row (the
 // plain edge list: si2 per row, no sum over rows)
-constexpr int M_PLAIN = 0, M_GEOM = 1, M_EXTW = 2, M_EDGE = 3;
+constexpr int M_PLAIN = 0, M_EXTW = 2, M_EDGE = 3;
 
 // pieces of the M_PLAIN forward that bench_pieces.cu replaces by stand-ins
 // (SKIP of fwd_body; 0, every kernel of the model, runs them all):
@@ -137,161 +138,20 @@ __device__ __forceinline__ void load_rows(float* dst,
   for (int i = threadIdx.x; i < rows * width; i += NT) dst[i] = s[i];
 }
 
-// geometry of the geometry-fused kernels (see ops/fused_conv.py::GeomSpec)
-struct Geom {
-  const float* coeffs;    // nb Bessel frequencies c_n
-  const int* sh_idx;      // per SH term: a | b << 4 | c << 8 | j << 12
-  const float* sh_coef;   // per SH term: coefficient of ux^a uy^b uz^c in Y_j
-  const int* sh_off;      // f + 1: term range of each SH component
-  int n_terms;
-  int env_kind;           // 0 polynomial, 1 XPLOR
-  int normalize;          // SH of v/r (1) or of v (0)
-  float cutoff, env_p, r_on;
-};
-
-__device__ __forceinline__ float ipow(float x, int k) {   // k <= 3
-  float r = 1.f;
-  for (int i = 0; i < k; ++i) r *= x;
-  return r;
-}
-
-// r, 1/r, the envelope and its derivative in r of one edge vector
-struct Radial { float r, inv_r, env, denv; };
-
-__device__ __forceinline__ Radial radial_of(const Geom& G, float x, float y,
-                                            float z) {
-  Radial R;
-  const float r2 = x * x + y * y + z * z;
-  R.r = sqrtf(r2 + 1e-30f);
-  R.inv_r = 1.f / R.r;
-  if (G.env_kind == 0) {
-    const float p = G.env_p;
-    const float c0 = (p + 1.f) * (p + 2.f) * 0.5f, c1 = p * (p + 2.f),
-                c2 = p * (p + 1.f) * 0.5f;
-    const float rr = R.r * (1.f / G.cutoff);
-    const float rp = powf(rr, p), rp1 = powf(rr, p - 1.f);
-    R.env = 1.f - c0 * rp + c1 * rp * rr - c2 * rp * rr * rr;
-    R.denv = (-c0 * p * rp1 + c1 * (p + 1.f) * rp
-              - c2 * (p + 2.f) * rp * rr) / G.cutoff;
-  } else {
-    const float rc2 = G.cutoff * G.cutoff, ron2 = G.r_on * G.r_on;
-    const float d = rc2 - ron2, inv_den = 1.f / (d * d * d);
-    const float a = rc2 - r2;
-    const bool inside = R.r < G.r_on;
-    // the smooth branch is not zero beyond the cutoff: only ms removes
-    // those rows
-    R.env = inside ? 1.f : a * a * (rc2 + 2.f * r2 - 3.f * ron2) * inv_den;
-    R.denv = inside ? 0.f : 12.f * a * (ron2 - r2) * inv_den * R.r;
-  }
-  return R;
-}
-
-// emb and sh rows of a tile from its edge vectors, into shared memory:
-// one thread per (row, basis function or SH component). Not synced.
-__device__ void geom_rows_fwd(const Plan& P, const Geom& G, int rows,
-                              const float* vec_s, float* emb_s,
-                              float* sh_s) {
-  const int per = P.nb + P.f;
-  for (int i = threadIdx.x; i < rows * per; i += NT) {
-    const int e = i / per, k = i - e * per;
-    const float x = vec_s[3 * e], y = vec_s[3 * e + 1], z = vec_s[3 * e + 2];
-    if (k < P.nb) {
-      const Radial R = radial_of(G, x, y, z);
-      emb_s[e * P.nb + k] = sinf(__ldg(G.coeffs + k) * R.r)
-                            * ((2.f / G.cutoff) * R.inv_r * R.env);
-    } else {
-      const int j = k - P.nb;
-      float ux = x, uy = y, uz = z;
-      if (G.normalize) {
-        const float inv_r = 1.f / sqrtf(x * x + y * y + z * z + 1e-30f);
-        ux *= inv_r; uy *= inv_r; uz *= inv_r;
-      }
-      float s = 0.f;
-      const int t1 = __ldg(G.sh_off + j + 1);
-      for (int t = __ldg(G.sh_off + j); t < t1; ++t) {
-        const int id = __ldg(G.sh_idx + t);
-        s = fmaf(__ldg(G.sh_coef + t),
-                 ipow(ux, id & 15) * ipow(uy, (id >> 4) & 15)
-                     * ipow(uz, (id >> 8) & 15), s);
-      }
-      sh_s[e * P.f + j] = s;
-    }
-  }
-}
-
-// geometry VJP of a tile: (demb, dsh) rows in shared memory -> dvec rows in
-// global memory, one warp per row, lanes over the basis functions and the
-// SH terms. Rows with ms == 0 get zeros.
-__device__ void geom_rows_bwd(const Plan& P, const Geom& G, int rows,
-                              long row0, const float* vec_s,
-                              const float* ms_s, const float* demb_s,
-                              const float* dsh_s, float* __restrict__ dvec) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int e = warp; e < rows; e += NT / 32) {
-    const float x = vec_s[3 * e], y = vec_s[3 * e + 1], z = vec_s[3 * e + 2];
-    const Radial R = radial_of(G, x, y, z);
-    float ux = x, uy = y, uz = z;
-    if (G.normalize) { ux *= R.inv_r; uy *= R.inv_r; uz *= R.inv_r; }
-    float gr = 0.f, gx = 0.f, gy = 0.f, gz = 0.f;
-    if (ms_s[e] != 0.f) {
-      // d emb_n / dr = (2/rc) [(c cos(cr)/r - sin(cr)/r^2) env
-      //                        + sin(cr)/r env']
-      for (int n = lane; n < P.nb; n += 32) {
-        const float c = __ldg(G.coeffs + n);
-        const float s = sinf(c * R.r), co = cosf(c * R.r);
-        const float d = (2.f / G.cutoff)
-                        * ((c * co - s * R.inv_r) * R.inv_r * R.env
-                           + s * R.inv_r * R.denv);
-        gr = fmaf(demb_s[e * P.nb + n], d, gr);
-      }
-      // gu = sum_j dsh_j dY_j/du, term by term
-      for (int t = lane; t < G.n_terms; t += 32) {
-        const int id = __ldg(G.sh_idx + t);
-        const int a = id & 15, b = (id >> 4) & 15, c = (id >> 8) & 15;
-        const float gj = dsh_s[e * P.f + (id >> 12)] * __ldg(G.sh_coef + t);
-        if (a) gx = fmaf(gj, a * ipow(ux, a - 1) * ipow(uy, b) * ipow(uz, c),
-                         gx);
-        if (b) gy = fmaf(gj, b * ipow(ux, a) * ipow(uy, b - 1) * ipow(uz, c),
-                         gy);
-        if (c) gz = fmaf(gj, c * ipow(ux, a) * ipow(uy, b) * ipow(uz, c - 1),
-                         gz);
-      }
-    }
-    gr = warp_sum(gr); gx = warp_sum(gx); gy = warp_sum(gy);
-    gz = warp_sum(gz);
-    if (lane == 0) {
-      float dx = gx, dy = gy, dz = gz;
-      if (G.normalize) {     // u = v/r: du/dv = (I - u u^T)/r
-        const float dot = ux * gx + uy * gy + uz * gz;
-        dx = (gx - ux * dot) * R.inv_r;
-        dy = (gy - uy * dot) * R.inv_r;
-        dz = (gz - uz * dot) * R.inv_r;
-      }
-      // dr/dv = v/r
-      float* o = dvec + (row0 + e) * 3;
-      o[0] = fmaf(gr, x * R.inv_r, dx);
-      o[1] = fmaf(gr, y * R.inv_r, dy);
-      o[2] = fmaf(gr, z * R.inv_r, dz);
-    }
-  }
-}
-
-// forward of one atom's block. M_GEOM: sh and emb are not read; the tile's
-// rows are computed from vec into the same shared-memory rows. M_EXTW: no
-// MLP; the row weights are read from weff. SKIP (M_PLAIN only): the S_*
-// pieces replaced by their stand-ins.
+// forward of one atom's block. M_EXTW: no MLP; the row weights are read
+// from weff. SKIP (M_PLAIN only): the S_* pieces replaced by their
+// stand-ins.
 template <int MODE, int SKIP = 0>
 __device__ __forceinline__ void fwd_body(const float* __restrict__ xg,
                                          const float* __restrict__ sh,
                                          const float* __restrict__ emb,
-                                         const float* __restrict__ vec,
                                          const float* __restrict__ ms,
                                          const float* __restrict__ weff,
                                          const float* __restrict__ w0,
                                          const float* __restrict__ w1,
                                          const float* __restrict__ w2,
                                          const float* __restrict__ si2w,
-                                         const Plan& P, const Geom& G,
+                                         const Plan& P,
                                          float* __restrict__ out) {
   extern __shared__ float smem[];
   int* ins_s = reinterpret_cast<int*>(smem);       // n_ins * I_STRIDE
@@ -307,15 +167,13 @@ __device__ __forceinline__ void fwd_body(const float* __restrict__ xg,
   float* out_s = take(EDGE ? 0 : P.d_out);
   float* x_s = take(RT * P.d1);
   float* sh_s = take(RT * P.f);
-  float *emb_s = nullptr, *ms_s = nullptr, *h0_s = nullptr, *h1_s = nullptr,
-        *vec_s = nullptr;
+  float *emb_s = nullptr, *ms_s = nullptr, *h0_s = nullptr, *h1_s = nullptr;
   if constexpr (MODE != M_EXTW) {
     emb_s = take(RT * P.nb);
     ms_s = take(RT);
     h0_s = take(RT * H);
     h1_s = take(RT * H);
   }
-  if constexpr (MODE == M_GEOM) vec_s = take(RT * 3);
 
   const int atom = blockIdx.x;
   const int tid = threadIdx.x;
@@ -332,14 +190,8 @@ __device__ __forceinline__ void fwd_body(const float* __restrict__ xg,
       __syncthreads();
     } else {
       load_rows(ms_s, ms, row0, rows, 1);
-      if constexpr (MODE == M_GEOM) {
-        load_rows(vec_s, vec, row0, rows, 3);
-        __syncthreads();
-        geom_rows_fwd(P, G, rows, vec_s, emb_s, sh_s);
-      } else {
-        load_rows(sh_s, sh, row0, rows, P.f);
-        load_rows(emb_s, emb, row0, rows, P.nb);
-      }
+      load_rows(sh_s, sh, row0, rows, P.f);
+      load_rows(emb_s, emb, row0, rows, P.nb);
       __syncthreads();
       if constexpr (!(SKIP & S_MLP))
         mlp_hidden(P, rows, emb_s, w0, w1, h0_s, h1_s, nullptr, nullptr);
@@ -476,16 +328,14 @@ __device__ __forceinline__ void fwd_body(const float* __restrict__ xg,
     out[(long)atom * P.d_out + i] = out_s[i];
 }
 
-// backward of one atom's block. M_GEOM: the tile's dsh and demb rows stay in
-// shared memory and leave as dvec through the geometry VJP. M_EXTW: the row
-// weights come from weff, the backward ends at dweff (no MLP to run back
-// through); dead_w lists the n_dead weight columns no live instruction reads.
+// backward of one atom's block. M_EXTW: the row weights come from weff, the
+// backward ends at dweff (no MLP to run back through); dead_w lists the
+// n_dead weight columns no live instruction reads.
 template <int MODE>
 __device__ __forceinline__ void bwd_body(const float* __restrict__ gout,
                                          const float* __restrict__ xg,
                                          const float* __restrict__ sh,
                                          const float* __restrict__ emb,
-                                         const float* __restrict__ vec,
                                          const float* __restrict__ ms,
                                          const float* __restrict__ weff,
                                          const float* __restrict__ w0,
@@ -494,13 +344,12 @@ __device__ __forceinline__ void bwd_body(const float* __restrict__ gout,
                                          const float* __restrict__ w2,
                                          const float* __restrict__ w2t,
                                          const float* __restrict__ si2wt,
-                                         const Plan& P, const Geom& G,
+                                         const Plan& P,
                                          const int* __restrict__ dead_w,
                                          int n_dead,
                                          float* __restrict__ dxg,
                                          float* __restrict__ dsh,
                                          float* __restrict__ demb,
-                                         float* __restrict__ dvec,
                                          float* __restrict__ dweff) {
   extern __shared__ float smem[];
   int* ins_s = reinterpret_cast<int*>(smem);       // n_ins * I_STRIDE
@@ -518,8 +367,7 @@ __device__ __forceinline__ void bwd_body(const float* __restrict__ gout,
   float* x_s = take(RT * P.d1);
   float* sh_s = take(RT * P.f);
   float *emb_s = nullptr, *h0_s = nullptr, *h1_s = nullptr, *da0_s = nullptr,
-        *da1_s = nullptr, *red_s = nullptr, *dw_s = nullptr, *vec_s = nullptr,
-        *dsh_s = nullptr, *demb_s = nullptr;
+        *da1_s = nullptr, *red_s = nullptr, *dw_s = nullptr;
   if constexpr (MODE != M_EXTW) emb_s = take(RT * P.nb);
   float* ms_s = take(RT);      // M_EXTW: 1 where a row has a nonzero weight
   if constexpr (MODE != M_EXTW) {
@@ -531,11 +379,6 @@ __device__ __forceinline__ void bwd_body(const float* __restrict__ gout,
   }
   float* weff_s = take(RT * P.n_active);
   if constexpr (MODE != M_EXTW) dw_s = take(RT * P.n_active);
-  if constexpr (MODE == M_GEOM) {
-    vec_s = take(RT * 3);
-    dsh_s = take(RT * P.f);
-    demb_s = take(RT * P.nb);
-  }
 
   const int atom = blockIdx.x;
   const int tid = threadIdx.x;
@@ -625,14 +468,8 @@ __device__ __forceinline__ void bwd_body(const float* __restrict__ gout,
       __syncthreads();
     } else {
       load_rows(ms_s, ms, row0, rows, 1);
-      if constexpr (MODE == M_GEOM) {
-        load_rows(vec_s, vec, row0, rows, 3);
-        __syncthreads();
-        geom_rows_fwd(P, G, rows, vec_s, emb_s, sh_s);
-      } else {
-        load_rows(sh_s, sh, row0, rows, P.f);
-        load_rows(emb_s, emb, row0, rows, P.nb);
-      }
+      load_rows(sh_s, sh, row0, rows, P.f);
+      load_rows(emb_s, emb, row0, rows, P.nb);
       __syncthreads();
       mlp_hidden(P, rows, emb_s, w0, w1, h0_s, h1_s, da0_s, da1_s);
     }
@@ -739,10 +576,7 @@ __device__ __forceinline__ void bwd_body(const float* __restrict__ gout,
         }
       }
       v = warp_sum(v);
-      if (lane == 0) {
-        if constexpr (MODE == M_GEOM) dsh_s[item] = v;
-        else dsh[(row0 + e) * P.f + sc] = v;
-      }
+      if (lane == 0) dsh[(row0 + e) * P.f + sc] = v;
     }
     if constexpr (MODE == M_EXTW) continue;   // no MLP to run back through
     // pass D: dh1 = dw_rad @ w2^T, register-blocked over the tile's rows:
@@ -792,14 +626,7 @@ __device__ __forceinline__ void bwd_body(const float* __restrict__ gout,
       float s = 0.f;
       for (int j = lane; j < H; j += 32) s = fmaf(dr[j], __ldg(wr + j), s);
       s = warp_sum(s);
-      if (lane == 0) {
-        if constexpr (MODE == M_GEOM) demb_s[item] = s * P.s0;
-        else demb[(row0 + e) * P.nb + b] = s * P.s0;
-      }
-    }
-    if constexpr (MODE == M_GEOM) {
-      __syncthreads();
-      geom_rows_bwd(P, G, rows, row0, vec_s, ms_s, demb_s, dsh_s, dvec);
+      if (lane == 0) demb[(row0 + e) * P.nb + b] = s * P.s0;
     }
   }
 }
@@ -827,8 +654,7 @@ size_t fwd_smem(const Plan& P, int mode) {
   const size_t rt = mode == M_EDGE ? RT_E : RT_F;
   return sizeof(float) * ((size_t)table_words(P)
                           + rt * (P.d1 + P.f
-                                  + (mode != M_EXTW ? P.nb + 1 + 2 * H : 0)
-                                  + (mode == M_GEOM ? 3 : 0))
+                                  + (mode != M_EXTW ? P.nb + 1 + 2 * H : 0))
                           + (mode == M_EDGE ? rt * P.agg_dim
                                             : P.agg_dim + P.d_out));
 }
@@ -840,8 +666,7 @@ size_t bwd_smem(const Plan& P, int mode) {
                           + rt * (P.d1 + P.f + 1 + P.n_active
                                   + (mode != M_EXTW
                                          ? P.nb + (4 + KQ) * H + P.n_active
-                                         : 0)
-                                  + (mode == M_GEOM ? 3 + P.f + P.nb : 0)));
+                                         : 0)));
 }
 
 // M_EDGE: P comes in as one row per block; regroup it to `rt` rows per block

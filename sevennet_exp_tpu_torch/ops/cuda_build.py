@@ -29,6 +29,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
 # the sources, by the name their library carries
 SOURCES = {
     'fused_conv': 'fused_conv.cu',
+    'fused_conv_geom': 'fused_conv_geom.cu',
     'fused_conv_terms': 'fused_conv_terms.cu',
     'fused_tp': 'fused_tp.cu',
     'bench_pieces': 'bench_pieces.cu',

@@ -42,7 +42,8 @@ the plain contract, for either ``agg_d``, for the independently derived
 pair of ``csrc/fused_conv_terms.cu`` (``ops/fused_conv_terms.py``).
 
 On CUDA tensors the wrapper launches the kernels of
-``csrc/fused_conv.cu`` (built with nvcc at first use into ``_build/``);
+``csrc/fused_conv.cu``, the geometry-fused pair those of
+``csrc/fused_conv_geom.cu`` (built with nvcc at first use into ``_build/``);
 on CPU tensors it runs the plain version, the XLA-path chain of
 ``model/layers.py::_rows_to_nodes`` (MLP -> TP -> reshape-sum -> si2).
 Any other device raises.
@@ -293,18 +294,31 @@ def _lib():
         bwd.argtypes = ([_P] * 11 + _TABLE_ARGS + _DIM_ARGS
                         + [_P, _P, _P, _P])
         bwd.restype = _I
-    lib.fused_conv_geom_fwd.argtypes = ([_P] * 7 + _TABLE_ARGS + _DIM_ARGS
-                                        + _GEOM_ARGS + [_P, _P])
-    lib.fused_conv_geom_fwd.restype = _I
-    lib.fused_conv_geom_bwd.argtypes = ([_P] * 10 + _TABLE_ARGS + _DIM_ARGS
-                                        + _GEOM_ARGS + [_P, _P, _P])
-    lib.fused_conv_geom_bwd.restype = _I
     lib.fused_conv_extw_fwd.argtypes = ([_P] * 4 + _TABLE_ARGS + _DIM_ARGS
                                         + [_P, _P])
     lib.fused_conv_extw_fwd.restype = _I
     lib.fused_conv_extw_bwd.argtypes = ([_P] * 5 + _TABLE_ARGS + _DIM_ARGS
                                         + [_P, _I, _P, _P, _P, _P])
     lib.fused_conv_extw_bwd.restype = _I
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _geom_lib():
+    """The geometry-fused pair, csrc/fused_conv_geom.cu."""
+    return bind_geom(cuda_build.load('fused_conv_geom'))
+
+
+def bind_geom(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entries ``fused_conv_geom_fwd`` / ``_bwd`` of a library
+    (the port's, or another build with the same ABI for an A/B:
+    ``tools/geom_ab.py``)."""
+    lib.fused_conv_geom_fwd.argtypes = ([_P] * 7 + _TABLE_ARGS + _DIM_ARGS
+                                        + _GEOM_ARGS + [_P, _P])
+    lib.fused_conv_geom_fwd.restype = _I
+    lib.fused_conv_geom_bwd.argtypes = ([_P] * 10 + _TABLE_ARGS + _DIM_ARGS
+                                        + _GEOM_ARGS + [_P, _P, _P])
+    lib.fused_conv_geom_bwd.restype = _I
     return lib
 
 
@@ -381,6 +395,10 @@ class FusedConv:
             if geom.lmax > 3:
                 raise ValueError('geom: the kernels take lmax <= 3')
         self.plan, self.w_numel = _tp_plan(tp_spec)
+        if geom is not None and any(p['sh_off'] != (p['dim2'] // 2) ** 2
+                                    for p in self.plan):
+            # the kernels read an instruction's SH block at l2^2
+            raise ValueError('geom: the filter irreps are not 1x0+1x1+...')
         self.groups, self.d_out = _si2_groups(tp_spec, si2_spec)
         self.d1 = tp_spec.irreps_in1.dim
         self.f = tp_spec.irreps_in2.dim
@@ -698,7 +716,7 @@ class FusedConv:
         out = torch.empty((rows // self.group, self.d_out),
                           dtype=xg.dtype, device=xg.device)
         P = self._ptr
-        err = _lib().fused_conv_geom_fwd(
+        err = _geom_lib().fused_conv_geom_fwd(
             P(xg), P(vec), P(ms), P(w0), P(w1), P(w2), P(si2),
             *self._table_ptrs(t), *self._dims(t, rows), *geom_args, P(out),
             ctypes.c_void_p(torch.cuda.current_stream(xg.device).cuda_stream))
@@ -721,7 +739,7 @@ class FusedConv:
         w0, w1, w1t, w2, w2t, _, si2t = self._pack(mlp_ws, si2_ws)
         dvec = torch.empty_like(vec)
         P = self._ptr
-        err = _lib().fused_conv_geom_bwd(
+        err = _geom_lib().fused_conv_geom_bwd(
             P(g), P(xg), P(vec), P(ms), P(w0), P(w1), P(w1t), P(w2),
             P(w2t), P(si2t), *self._table_ptrs(t), *self._dims(t, rows),
             *geom_args, P(dxg), P(dvec),

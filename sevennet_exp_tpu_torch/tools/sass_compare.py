@@ -12,6 +12,8 @@ instruction count and whether the SASS is identical; writes the same as
 JSON to OUT.json when given. Exits 1 when a kernel's SASS differs or a
 kernel is on one side only. Needs nvcc and cuobjdump, not a card.
 
+``digests(NAME)`` gives each kernel's SASS digest (the card tests hold
+the conv kernels that a change did not touch to their earlier digests).
 ``count(NAME)`` gives the static opcode counts of one source's kernels
 instead (``chip_smoke.py`` checks with it that the micro-benchmarks'
 repeated passes and dense products are all issued, and that the fp32 dot
@@ -37,13 +39,15 @@ _RES = re.compile(r'^\s*Function\s+([^\s:]+)\s*:(.*)$')
 _REG = re.compile(r'\bREG:(\d+)')
 _INSTR = re.compile(r'^\s*/\*[0-9a-f]{4,}\*/\s')
 _OPCODE = re.compile(r'^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)')
-# the arithmetic and data-movement opcodes the micro-benchmarks count
-# and the tensor-core opcodes (warp-level mma.sync, Hopper's wgmma, integer
-# and fp8 forms), of which a kernel meant for the CUDA cores has none
+# the arithmetic and data-movement opcodes the micro-benchmarks count,
+# the tensor-core opcodes (warp-level mma.sync, Hopper's wgmma, integer
+# and fp8 forms), of which a kernel meant for the CUDA cores has none, and
+# the local-memory opcodes (spills, stack arrays)
 TENSOR_CORE_OPS = ('HMMA', 'HGMMA', 'IMMA', 'IGMMA', 'QGMMA', 'BMMA',
                    'BGMMA', 'DMMA')
+LOCAL_OPS = ('LDL', 'STL')
 OPS = ('FFMA', 'FMUL', 'FADD', 'SHFL', 'LDS', 'STS', 'LDG', 'STG',
-       *TENSOR_CORE_OPS)
+       *TENSOR_CORE_OPS, *LOCAL_OPS)
 # nvcc names an anonymous namespace by a hash of the file's path, which
 # differs between two checkouts of one source
 _ANON = re.compile(r'_GLOBAL__N__[0-9a-f]+_')
@@ -159,6 +163,17 @@ def count(name: str) -> Dict[str, Dict[str, int]]:
     with tempfile.TemporaryDirectory() as tmp:
         cubin = _cubin(cuda_build.source_path(name), tmp, name)
         return opcode_counts(_cuobjdump('-sass', cubin))
+
+
+def digests(name: str, src: str = None) -> Dict[str, str]:
+    """{kernel: sha1[:12] of its SASS as ``compare`` reads it} of library
+    NAME's source (or of SRC), compiled with the port's flags: a kernel's
+    digest is unchanged exactly when ``compare`` calls it identical."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = _cubin(src or cuda_build.source_path(name), tmp, name)
+        funcs = split_functions(_cuobjdump('-sass', cubin))
+    return {k: hashlib.sha1(v.encode()).hexdigest()[:12]
+            for k, v in funcs.items()}
 
 
 def main(argv=None) -> int:

@@ -218,6 +218,91 @@ def test_geom_wrapper_routes_cuda_tensors_to_the_kernel(cuda, model):
     assert xg.grad is not None and vec.grad is not None
 
 
+def test_geom_kernels_match_plain_at_97k_chunk_shape(cuda, model):
+    """Checkpoint layer 1 at the 97k leg's shapes: one full chunk (16,384
+    atoms x 32 rows) and the 40-atom remainder chunk, with pad rows."""
+    from sevennet_exp_tpu_torch.ops.fused_conv import FusedConv
+    cl = model.layers['1_convolution']
+    conv = FusedConv(cl.tp, cl.weight_nn, cl.si2, 32, geom=cl.geom)
+    mlp_ws, si2_ws = cl._weights()
+    for n_atoms in (16384, 40):
+        _assert_geom_kernels_match_plain(
+            conv, _geom_inputs(conv, n_atoms, 32, cuda, n_atoms), mlp_ws,
+            si2_ws)
+        torch.cuda.empty_cache()
+
+
+def test_geom_launch_shape_matches_python_mirror(cuda, model):
+    """The C entry's tile, row groups and shared bytes are those of
+    ops/fused_conv_geom.py (which the CPU tests hold)."""
+    from sevennet_exp_tpu_torch.ops import fused_conv_geom as fcg
+    from sevennet_exp_tpu_torch.ops.fused_conv import FusedConv
+    for layer in (0, 1, 4):
+        cl = model.layers[f'{layer}_convolution']
+        for D in (16, 32, 40, 6):
+            conv = FusedConv(cl.tp, cl.weight_nn, cl.si2, D, geom=cl.geom)
+            dims = fcg.layer_dims(conv, D)
+            for bwd in (False, True):
+                assert fcg.kernel_shape(dims, bwd) == fcg.shape(dims, bwd)
+
+
+def test_geom_kernels_sass_fp32_cuda_cores_no_local_memory(cuda):
+    """Rows 5-6: FFMA on the CUDA cores, no tensor-core opcode, nothing in
+    local memory (no spill, no stack array), in every instance."""
+    from sevennet_exp_tpu_torch.tools import sass_compare
+    counts = {k: v for k, v in sass_compare.count('fused_conv_geom').items()
+              if 'fused_conv_geom_' in k}
+    assert len(counts) == 4          # forward, backward at 4, 9, 16 SH
+    for k, v in counts.items():
+        assert v['FFMA'] > 0, k
+        for op in (*sass_compare.TENSOR_CORE_OPS, *sass_compare.LOCAL_OPS):
+            assert v[op] == 0, (k, op, v[op])
+
+
+# SASS digests (tools/sass_compare.digests) of the conv kernels whose code
+# the geometry-fused redesign did not touch, from a build of the parent
+# tree's csrc/fused_conv.cu and csrc/bench_pieces.cu with the same nvcc on
+# the card machine
+PARENT_SASS = {
+    '_ZN46_GLOBAL__N__13_fused_conv_cu_97ac331b21fused_conv_bwd_kernelEPKfS1_S1_S1_S1_S1_S1_S1_S1_S1_S1_NS_4PlanEPfS3_S3_':
+        '6774671276e0',
+    '_ZN46_GLOBAL__N__13_fused_conv_cu_97ac331b21fused_conv_fwd_kernelEPKfS1_S1_S1_S1_S1_S1_S1_NS_4PlanEPf':
+        '9363ad0df108',
+    '_ZN46_GLOBAL__N__13_fused_conv_cu_97ac331b26fused_conv_edge_bwd_kernelEPKfS1_S1_S1_S1_S1_S1_S1_S1_S1_S1_NS_4PlanEPfS3_S3_':
+        '4de88c67043a',
+    '_ZN46_GLOBAL__N__13_fused_conv_cu_97ac331b26fused_conv_edge_fwd_kernelEPKfS1_S1_S1_S1_S1_S1_S1_NS_4PlanEPf':
+        'd22176e6071b',
+    '_ZN46_GLOBAL__N__13_fused_conv_cu_97ac331b26fused_conv_extw_bwd_kernelEPKfS1_S1_S1_S1_NS_4PlanEPKiiPfS5_S5_':
+        '18e133ee3965',
+    '_ZN46_GLOBAL__N__13_fused_conv_cu_97ac331b26fused_conv_extw_fwd_kernelEPKfS1_S1_S1_NS_4PlanEPf':
+        '126d4c70bb14',
+    '_ZN48_GLOBAL__N__15_bench_pieces_cu_2586ebd423bench_pieces_now_kernelEPKfS1_S1_S1_S1_S1_S1_S1_NS_4PlanEPf':
+        'd18e332ac461',
+    '_ZN48_GLOBAL__N__15_bench_pieces_cu_2586ebd424bench_pieces_full_kernelEPKfS1_S1_S1_S1_S1_S1_S1_NS_4PlanEPf':
+        '9363ad0df108',
+    '_ZN48_GLOBAL__N__15_bench_pieces_cu_2586ebd424bench_pieces_nocg_kernelEPKfS1_S1_S1_S1_S1_S1_S1_NS_4PlanEPf':
+        'eb3b90fec497',
+    '_ZN48_GLOBAL__N__15_bench_pieces_cu_2586ebd425bench_pieces_noagg_kernelEPKfS1_S1_S1_S1_S1_S1_S1_NS_4PlanEPf':
+        'd22176e6071b',
+    '_ZN48_GLOBAL__N__15_bench_pieces_cu_2586ebd425bench_pieces_nomlp_kernelEPKfS1_S1_S1_S1_S1_S1_S1_NS_4PlanEPf':
+        '54b06e6b7930',
+    '_ZN48_GLOBAL__N__15_bench_pieces_cu_2586ebd425bench_pieces_nosi2_kernelEPKfS1_S1_S1_S1_S1_S1_S1_NS_4PlanEPf':
+        'a75cad855539',
+}
+
+
+def test_untouched_conv_kernels_sass_identical_to_parent(cuda):
+    """Kernels 1-2, their edge-row forms, 7-8 and bench_pieces compile to
+    the SASS of the tree before the geometry-fused kernels left
+    fused_conv_body.cuh."""
+    from sevennet_exp_tpu_torch.tools import sass_compare
+    got = {}
+    for name in ('fused_conv', 'bench_pieces'):
+        got.update(sass_compare.digests(name))
+    assert set(got) == set(PARENT_SASS)
+    assert got == PARENT_SASS
+
+
 # -- the external-weight pair ------------------------------------------------
 
 def _extw_inputs(conv, n, degree, cuda, seed, mlp_ws=None):

@@ -120,3 +120,30 @@ def test_column_padding_is_not_a_difference(pad, equal):
     res = sass_compare.compare(a, b)
     assert res['equal'] is equal
     assert res['kernels']['_Z3fooPf']['identical']
+
+
+@pytest.mark.parametrize('op', ['LDL.64 R4, [R1+0x8]', 'STL [R1+0x4], R3'])
+def test_local_memory_opcodes_are_counted(op):
+    """Spills and stack arrays show as LDL / STL, which the geometry-fused
+    kernels must not have."""
+    counts = sass_compare.opcode_counts(SASS.replace('{OP}', op + ' ;'))
+    assert sum(counts['_Z3barPf'][o] for o in sass_compare.LOCAL_OPS) == 1
+    assert not any(counts['_Z3fooPf'][o] for o in sass_compare.LOCAL_OPS)
+
+
+def test_digests_agree_with_compare(monkeypatch):
+    """A kernel's digest changes exactly when ``compare`` calls it
+    different (padding blanks are not a difference)."""
+    a = SASS.replace('{OP}', 'NOP ;')
+    texts = {'a': a, 'b': a.replace('NOP ;', 'NOP          ;'),
+             'c': a.replace('NOP ;', 'NOP R0 ;')}
+    monkeypatch.setattr(sass_compare, '_cubin',
+                        lambda src, out_dir, tag: src)
+    monkeypatch.setattr(sass_compare, '_cuobjdump',
+                        lambda flag, cubin: texts[cubin])
+    d = {k: sass_compare.digests('fused_conv', k) for k in texts}
+    assert d['a'] == d['b'] and d['a']['_Z3fooPf'] == d['c']['_Z3fooPf']
+    assert d['a']['_Z3barPf'] != d['c']['_Z3barPf']
+    res = sass_compare.compare(texts['a'], texts['c'])
+    assert res['kernels']['_Z3barPf']['sha1'] == [d['a']['_Z3barPf'],
+                                                  d['c']['_Z3barPf']]
