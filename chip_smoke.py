@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``sevennet_exp_tpu_torch``) on
 one NVIDIA GPU: the 7net-0 NVT MD path at 1,000 atoms (whole-array
-convolutions, kernels ``fused_conv_fwd`` / ``fused_conv_bwd``) and at
+convolutions, kernels ``fused_conv_fwd`` / ``fused_conv_bwd``, the
+geometry-fused pair's template without the geometry) and at
 97,336 atoms (chunked convolutions, the geometry-fused kernels
 ``fused_conv_geom_fwd`` / ``fused_conv_geom_bwd``), the 1k path with the
 radial MLP on the half list (the external-weight kernels
@@ -19,12 +20,16 @@ six kernel micro-benchmarks (``tools/bench_pieces.py``,
 
 Phases (any failure raises, exits non-zero and prints no result):
   1. card name and power limit; TF32 off; build the CUDA kernels
-     (csrc/*.cu, one nvcc per source, all started together);
+     (csrc/*.cu, one nvcc per source, all started together; ptxas' report);
+     per layer, the registers, local bytes and blocks an SM of kernels 1-2
+     as launched (at least three forward and two backward blocks, no local
+     memory);
   2. each kernel against its plain PyTorch version on the 1k path's real
-     inputs (trained checkpoint; kernels 1-2 on all five layers, the geom
-     kernels on layers 0, 1 and 4 through the geometry-fused whole-array
-     branch, so on the same grid): max abs error against the stated limit,
-     median times, the bound;
+     inputs (trained checkpoint; kernels 1-2 on all five layers, their pad
+     rows' gradients exactly zero and a second launch bit-identical; the
+     geom kernels on layers 0, 1 and 4 through the geometry-fused
+     whole-array branch, so on the same grid): max abs error against the
+     stated limit, median times, the bound;
   3. 1k energy and forces: kernel path against plain path; the
      geometry-fused branch against the default branch, with both times per
      force call; chunks of 96 atoms (a remainder chunk), geometry-fused
@@ -77,15 +82,17 @@ Phases (any failure raises, exits non-zero and prints no result):
  13. the bare tensor product: ``make_fused_tp`` driven through autograd on
      the five layers' specs at the 1k grid's rows (counters reset just
      before), then each kernel against its plain version, times, bound;
- 14. the SASS of the geom kernels (csrc/fused_conv_geom.cu): no
-     tensor-core and no local-memory opcode; the entries of the twelve
-     kernels above (the six kernels, the edge-row form of kernels 1-2, the
-     terms pair and the tensor-product pair);
+ 14. the SASS of both pairs of csrc/fused_conv_geom.cu (the geom kernels
+     and kernels 1-2): no tensor-core and no local-memory opcode; the
+     entries of the twelve kernels above (the six kernels, the edge-row
+     form of kernels 1-2, the terms pair and the tensor-product pair);
  15. the micro-benchmarks at their default sizes through their entry
      points (``bench_cgmxu`` at i1 = 1 and 2), every counter reset just
      before: each prints its times and (``bench_pieces``) its piece costs;
      then each of the twenty-one kernels against its plain version on the
-     tool's inputs (``bench_pieces`` ``full`` bit for bit against kernel 1;
+     tool's inputs (``bench_pieces`` ``full``, kernel 1's first design,
+     against kernel 1 at the kernels' limit and at that design's SASS
+     digest;
      bf16 ``bench_dot`` against the fp32 product of the rounded inputs,
      1e-5 x K x max|plain|; ``bench_layout`` row-major against transpose,
      ``bench_tile`` a, b and c against d within 1e-3), plain and library
@@ -128,6 +135,10 @@ E_TOL_PER_ATOM = 1e-5  # eV/atom
 S_TOL = 1e-5           # eV/A^3, each of the six stress components
 
 N_LARGE = 97336        # 8 x 23^3: the large leg
+# SASS digest (tools/sass_compare.digests) of kernel 1 before its redesign,
+# which bench_pieces' full variant still compiles to
+FIRST_KERNEL_1_SASS = '9363ad0df108'
+
 MD_KW = dict(dt_fs=2.0, temperature_K=300.0, ensemble='nvt',
              rebuild_every=20, seed=0)
 
@@ -170,7 +181,8 @@ def micro_benchmarks(report, dev, cuda_ms, show):
     """Phase 15: the six micro-benchmark tools at their default sizes, run
     through their entry points with every launch counter at 0 before them;
     then each kernel against its plain version on the tool's own inputs
-    (bench_pieces ``full`` bit for bit against kernel 1), the plain and the
+    (bench_pieces ``full`` against kernel 1 at REL_TOL and at the SASS digest
+    of kernel 1's first design, which it still is), the plain and the
     library times, the bounds, and the static FFMA counts of bench_layout's
     and bench_tile's kernels. Returns the kernels' entries."""
     import torch
@@ -234,8 +246,16 @@ def micro_benchmarks(report, dev, cuda_ms, show):
     conv, ins = pieces['conv'], pieces['inputs']
     full_k = conv.kernel_forward(*ins)
     torch.cuda.synchronize()
-    if not torch.equal(full_k, pieces['out']['full']):
-        raise AssertionError('bench_pieces full != kernel 1 bit for bit')
+    # kernel 1 sums in its redesigned order now: the same limit as plain
+    full_err = check_close('bench_pieces full vs kernel 1',
+                           pieces['out']['full'], full_k)[0]
+    (full_digest,) = [v for k, v in sass_compare.digests(
+        'bench_pieces').items() if 'bench_pieces_full_kernel' in k]
+    print(f'bench_pieces full vs kernel 1: |err| {full_err:.3e}; SASS digest '
+          f'{full_digest} (kernel 1 before its redesign: '
+          f'{FIRST_KERNEL_1_SASS})', flush=True)
+    if full_digest != FIRST_KERNEL_1_SASS:
+        raise AssertionError('bench_pieces full is not the first kernel 1')
     for v in bench_pieces.VARIANTS:
         ref = bench_pieces.plain_variant(conv, v, *ins)
         err, lim = check_close(f'bench_pieces {v}', pieces['out'][v], ref)
@@ -632,12 +652,20 @@ def main():
                 lambda: against.kernel_forward(*args))
             row['other_bwd_ms'] = cuda_ms(
                 lambda: against.kernel_backward(g, *args))
-        if kind or conv.cg_mode == 'terms':
+        if kind or conv.cg_mode == 'terms' or conv.agg_d > 0:
             pad = (ms == 0).all(dim=1)
             if any(float(d[pad].abs().max()) != 0.0 for d in d_k):
                 raise AssertionError(
                     f'pad rows of {"/".join(names)} are not zero')
             row['pad_rows'] = int(pad.sum())
+        if not kind and conv.cg_mode == 'cmshared' and conv.agg_d > 0:
+            # kernels 1-2 sum in a fixed order: a second launch, same bits
+            again = (kf(*args), *kb(g, *args))
+            if not all(torch.equal(a, b) for a, b in zip(again,
+                                                          (y_k, *d_k))):
+                raise AssertionError('kernels 1-2: two launches differ')
+            row['bit_identical'] = True
+            del again
         del y_k, y_p, d_k, d_p
         row['fwd_ms'] = cuda_ms(lambda: kf(*args))
         row['bwd_ms'] = cuda_ms(lambda: kb(g, *args))
@@ -665,6 +693,24 @@ def main():
     print(f'{n} atoms, deg_cap {md.deg_cap}, grid rows {md.e_cap_model}, '
           f'e_cap {md.e_cap}, cell list {md.use_cell_list}', flush=True)
     assert md.conv_chunk_rows == 0, 'the 1k path must not chunk'
+    # kernels 1-2 as launched at each layer: registers, local memory, blocks
+    # an SM at the layer's shared bytes
+    from sevennet_exp_tpu_torch.ops import fused_conv_geom as fcg
+    report['dense_resources'] = []
+    for li in range(5):
+        cl = model.layers[f'{li}_convolution']
+        conv = FC(cl.tp, cl.weight_nn, cl.si2, md.deg_cap)
+        dims = fcg.layer_dims(conv, md.deg_cap)
+        for k, want in (('fwd', 3), ('bwd', 2)):
+            r = fcg.kernel_resources(dims, conv.f, k == 'bwd', geom=False)
+            print(f'kernel {1 if k == "fwd" else 2}, layer {li}: '
+                  f'{r.registers} registers, {r.local_bytes} local bytes, '
+                  f'{r.blocks_per_sm} blocks an SM at {r.smem} shared bytes',
+                  flush=True)
+            if r.local_bytes or r.blocks_per_sm < want:
+                raise AssertionError(f'kernel {k} layer {li}: {r}')
+            report['dense_resources'].append(dict(layer=li, kernel=k,
+                                                  **r._asdict()))
 
     nl = md._grid()
     with recorded() as (records, _):
@@ -1294,15 +1340,22 @@ def main():
 
     # -- phase 14 ------------------------------------------------------
     phase('14 kernels')
-    # rows 5-6 (csrc/fused_conv_geom.cu): fp32 on the CUDA cores, nothing
-    # in local memory
+    # rows 5-6 and kernels 1-2 (csrc/fused_conv_geom.cu, the template's
+    # GEOM and dense instances): fp32 on the CUDA cores, nothing in local
+    # memory
     from sevennet_exp_tpu_torch.tools import sass_compare
     geom_sass = {k: v for k, v in sass_compare.count('fused_conv_geom').items()
-                 if 'fused_conv_geom_' in k}
+                 if sass_compare.geom_label(k)}
+    if len(geom_sass) != 8:
+        raise AssertionError(f'fused_conv_geom.cu: {len(geom_sass)} kernel '
+                             'instances, want 2 pairs x (fwd, bwd at 4, 9, '
+                             '16 SH)')
     for k, v in geom_sass.items():
         bad = {op: v[op] for op in (*sass_compare.TENSOR_CORE_OPS,
                                     *sass_compare.LOCAL_OPS) if v[op]}
-        print(f'{k}: SASS {v}', flush=True)
+        pair = 'geom' if 'Lb1E' in k else 'dense'
+        print(f'{pair} {sass_compare.geom_label(k)} {k}: SASS {v}',
+              flush=True)
         if bad or not v['FFMA']:
             raise AssertionError(f'{k}: tensor-core or local-memory opcodes '
                                  f'{bad}, {v["FFMA"]} FFMA')
@@ -1320,7 +1373,10 @@ def main():
                  for d in ('dxg', 'dsh', 'demb')])
         b_ms, b_by = bound(total(f'{k}_flops'), total(f'{k}_bytes'))
         kernels.append({
-            'name': name, 'route': 'cuda', 'source': source,
+            'name': name, 'route': 'cuda',
+            'source': 'sevennet_exp_tpu_torch/csrc/fused_conv_geom.cu',
+            'status': 'redesigned for Hopper on the geometry-fused pair\'s '
+                      'template: csrc/fused_conv_geom.cu',
             'replaces': f'sevennet_exp_tpu/ops/pallas_conv.py:{line}',
             'launches': report['nvt']['launches'][name],
             'max_abs_err': max(errs),

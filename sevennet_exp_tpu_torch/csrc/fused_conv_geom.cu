@@ -1,11 +1,23 @@
-// Geometry-fused convolution block on the dense neighbor grid, forward and
-// force backward, for NVIDIA Hopper (sm_90a), fp32 on the CUDA cores.
+// Convolution block on the dense neighbor grid, forward and force backward,
+// for NVIDIA Hopper (sm_90a), fp32 on the CUDA cores: the geometry-fused
+// pair and the dense pair, one template on GEOM.
 //
 // Replaces the TPU kernels of sevennet_exp_tpu/ops/pallas_conv.py:
 //   fused_conv_geom_fwd <- make_fused_conv(agg_d > 0, geom).fwd_kernel_geom
 //                          (_geom_fm, _sh_rows_fm, _mlp_fm, _cm_fwd_core)
 //   fused_conv_geom_bwd <- make_fused_conv(agg_d > 0, geom).bwd_kernel_geom
 //                          (the same, _cm_bwd_core and the geometry VJP)
+//   fused_conv_fwd      <- make_fused_conv(agg_d > 0).fwd_kernel_cm
+//                          (_cm_fwd_core, _cg_acc_cm, _mlp_forward)
+//   fused_conv_bwd      <- make_fused_conv(agg_d > 0).bwd_kernel_cm
+//                          (_cm_bwd_core, _act_grad)
+// With GEOM the kernels compute each row's emb and sh from its edge vector
+// (below) and the backward returns dvec. Without it (the dense pair) they
+// take the rows' sh (rows, f) and emb (rows, nb), staged into the same
+// shared layout by 16-byte loads, and the backward writes the rows' dsh and
+// demb with streaming stores, exact zeros where ms == 0; everything between
+// is the same code. The dense pair needs every instruction's SH block at
+// l2^2 and f <= 16, as the geometry does (ops/fused_conv.py checks).
 //
 // Per grid row e of atom i (row i*D + k is atom i's k-th neighbor), from the
 // raw edge vector v[e]:
@@ -83,7 +95,9 @@
 // ~60 kB of shared memory at a mid layer), the backward to two (128
 // registers, ~94 kB); no local memory, no tensor-core opcode. Latency
 // decides both: the third block an SM made the forward faster; at three
-// the backward spills.
+// the backward spills. The dense instances hold the same bounds with less
+// shared memory (no edge vectors); their staged rows and stores cost a few
+// instructions a row where the geometry cost ~7 % of the kernels' time.
 
 #include "fused_conv_body.cuh"
 #include "cg_patterns.cuh"
@@ -109,6 +123,19 @@ struct Geom {
   int normalize;          // SH of v/r (1) or of v (0)
   float cutoff, env_p, r_on;
 };
+
+// per-row inputs and outputs of the dense pair, row-major: sh (rows, f),
+// emb (rows, nb); the backward writes dsh and demb of the same shapes
+struct Dense {
+  const float* sh;
+  const float* emb;
+  float* dsh;
+  float* demb;
+};
+
+// what a kernel takes for its rows' sh and emb: the geometry, or Dense
+template <bool GEOM> struct RowArgs { using type = Geom; };
+template <> struct RowArgs<false> { using type = Dense; };
 
 // launch shape, chosen on the host (geom_shape below; mirrored by
 // ops/fused_conv_geom.py, which the CPU tests hold)
@@ -300,6 +327,83 @@ __device__ void geom_vjp(const Plan& P, const Geom& G, int T, int rows,
   }
 }
 
+// put(i, src[i]) for i < n: 16-byte loads over the 16-byte aligned part of
+// src, single floats before and after it
+template <typename Put>
+__device__ __forceinline__ void load_block(const float* __restrict__ src,
+                                           int n, Put put) {
+  const int head =
+      min(n, (int)(((16 - (reinterpret_cast<size_t>(src) & 15)) & 15) >> 2));
+  const int n4 = (n - head) >> 2;
+  const float4* s4 = reinterpret_cast<const float4*>(src + head);
+  for (int i = threadIdx.x; i < n4; i += NT) {
+    const float4 v = __ldg(s4 + i);
+    const int j = head + 4 * i;
+    put(j, v.x); put(j + 1, v.y); put(j + 2, v.z); put(j + 3, v.w);
+  }
+  for (int i = threadIdx.x; i < head; i += NT) put(i, __ldg(src + i));
+  for (int i = head + 4 * n4 + threadIdx.x; i < n; i += NT)
+    put(i, __ldg(src + i));
+}
+
+// dst[i] = get(i) for i < n: 16-byte streaming stores over the aligned part
+// of dst, single floats before and after it
+template <typename Get>
+__device__ __forceinline__ void store_block(float* __restrict__ dst, int n,
+                                            Get get) {
+  const int head =
+      min(n, (int)(((16 - (reinterpret_cast<size_t>(dst) & 15)) & 15) >> 2));
+  const int n4 = (n - head) >> 2;
+  float4* d4 = reinterpret_cast<float4*>(dst + head);
+  for (int i = threadIdx.x; i < n4; i += NT) {
+    const int j = head + 4 * i;
+    __stcs(d4 + i, make_float4(get(j), get(j + 1), get(j + 2), get(j + 3)));
+  }
+  for (int i = threadIdx.x; i < head; i += NT) __stcs(dst + i, get(i));
+  for (int i = head + 4 * n4 + threadIdx.x; i < n; i += NT)
+    __stcs(dst + i, get(i));
+}
+
+// the dense pair's rows of a tile, in geom_rows' layout: emb row-minor
+// (basis n of row e at n * T + e), sh at e * SHP with zeros past f. Not
+// synced.
+__device__ __forceinline__ void stage_rows(const Plan& P, const Dense& G,
+                                           int T, int rows, long row0,
+                                           float* embT_s, float* sh_s) {
+  const int nb = P.nb, f = P.f, pad = SHP - P.f;
+  load_block(G.emb + row0 * nb, rows * nb, [&](int i, float v) {
+    const int e = i / nb;
+    embT_s[(i - e * nb) * T + e] = v;
+  });
+  load_block(G.sh + row0 * f, rows * f, [&](int i, float v) {
+    const int e = i / f;
+    sh_s[e * SHP + i - e * f] = v;
+  });
+  for (int i = threadIdx.x; i < rows * pad; i += NT) {
+    const int e = i / pad;
+    sh_s[e * SHP + f + i - e * pad] = 0.f;
+  }
+}
+
+// the dense backward's outputs of a tile: dsh rows from dsh_s (row e at
+// e * SHP), demb rows from the row-minor dembT_s; rows with ms == 0 get
+// zeros
+__device__ __forceinline__ void store_rows(const Plan& P, const Dense& G,
+                                           int T, int rows, long row0,
+                                           const float* ms_s,
+                                           const float* dembT_s,
+                                           const float* dsh_s) {
+  const int nb = P.nb, f = P.f;
+  store_block(G.dsh + row0 * f, rows * f, [&](int i) {
+    const int e = i / f;
+    return ms_s[e] != 0.f ? dsh_s[e * SHP + i - e * f] : 0.f;
+  });
+  store_block(G.demb + row0 * nb, rows * nb, [&](int i) {
+    const int e = i / nb;
+    return ms_s[e] != 0.f ? dembT_s[(i - e * nb) * T + e] : 0.f;
+  });
+}
+
 // the hidden layers for a tile, row-minor (entry k of row e at k * T + e):
 // h0 = act(s0 emb w0) cst, h1 = act(s1 h0 w1) cst, and with da0/da1 the
 // activations' derivatives times cst. Layer 1: a thread owns one output j
@@ -472,6 +576,7 @@ __device__ __forceinline__ void fwd_cg(const Plan& P, const int* I, int u,
   for (int p = 0; p < D3; ++p) ab[p * K] += acc[p] * sc;
 }
 
+template <bool GEOM>
 __global__ void __launch_bounds__(NT, 3)
 fused_conv_geom_fwd_kernel(const float* __restrict__ xg,
                            const float* __restrict__ vec,
@@ -479,8 +584,9 @@ fused_conv_geom_fwd_kernel(const float* __restrict__ xg,
                            const float* __restrict__ w0,
                            const float* __restrict__ w1,
                            const float* __restrict__ w2,
-                           const float* __restrict__ si2w, Plan P, Geom G,
-                           Shape S, float* __restrict__ out) {
+                           const float* __restrict__ si2w, Plan P,
+                           typename RowArgs<GEOM>::type G, Shape S,
+                           float* __restrict__ out) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int T = S.T;
@@ -494,7 +600,9 @@ fused_conv_geom_fwd_kernel(const float* __restrict__ xg,
   float* sc_s = take(P.n_ins);
   float* sh_s = take(T * SHP);
   float* embT_s = take(T * P.nb);
-  float* vec_s = take(T * 3);
+  // one expression: a nullptr assigned under `if constexpr` renumbered PTX
+  // registers and moved the GEOM backward's SASS
+  float* vec_s = GEOM ? take(T * 3) : nullptr;
   float* ms_s = take(T);
   float* h0T_s = take(T * H);
   float* h1T_s = take(T * H);
@@ -526,10 +634,15 @@ fused_conv_geom_fwd_kernel(const float* __restrict__ xg,
       const int rows = min(T, P.D - t0);
       __syncthreads();
       const float* xr = xg + row0 * P.d1;
-      for (int i = tid; i < rows * 3; i += NT) vec_s[i] = vec[row0 * 3 + i];
+      if constexpr (GEOM)
+        for (int i = tid; i < rows * 3; i += NT) vec_s[i] = vec[row0 * 3 + i];
       for (int i = tid; i < T; i += NT) ms_s[i] = i < rows ? ms[row0 + i] : 0.f;
-      __syncthreads();
-      geom_rows(P, G, T, rows, vec_s, embT_s, sh_s);
+      if constexpr (GEOM) {
+        __syncthreads();
+        geom_rows(P, G, T, rows, vec_s, embT_s, sh_s);
+      } else {
+        stage_rows(P, G, T, rows, row0, embT_s, sh_s);
+      }
       __syncthreads();
       hidden_rm(P, T, embT_s, w0, w1, h0T_s, h1T_s, nullptr, nullptr);
       w_rows(P, S, rows, h1T_s, ms_s, w2, w_s);
@@ -711,7 +824,7 @@ __device__ __forceinline__ int butterfly_index(int lane) {
 
 // NSH: (lmax + 1)^2 of the filter, 4, 9 or 16: the size of the per-thread
 // sh and dsh arrays
-template <int NSH>
+template <int NSH, bool GEOM>
 __global__ void __launch_bounds__(NT, 2)
 fused_conv_geom_bwd_kernel(const float* __restrict__ gout,
                            const float* __restrict__ xg,
@@ -722,8 +835,9 @@ fused_conv_geom_bwd_kernel(const float* __restrict__ gout,
                            const float* __restrict__ w1t,
                            const float* __restrict__ w2,
                            const float* __restrict__ w2t,
-                           const float* __restrict__ si2wt, Plan P, Geom G,
-                           Shape S, float* __restrict__ dxg,
+                           const float* __restrict__ si2wt, Plan P,
+                           typename RowArgs<GEOM>::type G, Shape S,
+                           float* __restrict__ dxg,
                            float* __restrict__ dvec) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -749,7 +863,7 @@ fused_conv_geom_bwd_kernel(const float* __restrict__ gout,
   float* dsh_s = take(T * SHP);
   float* sh_s = take(T * SHP);
   float* embT_s = take(T * P.nb);                  // then demb
-  float* vec_s = take(T * 3);
+  float* vec_s = GEOM ? take(T * 3) : nullptr;
   float* ms_s = take(T);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -822,11 +936,16 @@ fused_conv_geom_bwd_kernel(const float* __restrict__ gout,
       const long row0 = (long)atom * P.D + t0;
       const int rows = min(T, P.D - t0);
       __syncthreads();
-      for (int i = tid; i < rows * 3; i += NT) vec_s[i] = vec[row0 * 3 + i];
+      if constexpr (GEOM)
+        for (int i = tid; i < rows * 3; i += NT) vec_s[i] = vec[row0 * 3 + i];
       for (int i = tid; i < T; i += NT) ms_s[i] = i < rows ? ms[row0 + i] : 0.f;
       for (int i = tid; i < NW * T * SHP; i += NT) dshp_s[i] = 0.f;
-      __syncthreads();
-      geom_rows(P, G, T, rows, vec_s, embT_s, sh_s);
+      if constexpr (GEOM) {
+        __syncthreads();
+        geom_rows(P, G, T, rows, vec_s, embT_s, sh_s);
+      } else {
+        stage_rows(P, G, T, rows, row0, embT_s, sh_s);
+      }
       __syncthreads();
       hidden_rm(P, T, embT_s, w0, w1, h0T_s, h1T_s, da0T_s, da1T_s);
 
@@ -965,7 +1084,10 @@ fused_conv_geom_bwd_kernel(const float* __restrict__ gout,
         embT_s[i] = s * P.s0;
       }
       __syncthreads();
-      geom_vjp(P, G, T, rows, row0, vec_s, ms_s, embT_s, dsh_s, dvec);
+      if constexpr (GEOM)
+        geom_vjp(P, G, T, rows, row0, vec_s, ms_s, embT_s, dsh_s, dvec);
+      else
+        store_rows(P, G, T, rows, row0, ms_s, embT_s, dsh_s);
     }
   }
 }
@@ -980,21 +1102,26 @@ int tile_rows(int D, int tmax) {
   return d4 < tmax ? d4 : tmax;
 }
 
-size_t fwd_words(const Plan& P, const Shape& S) {
+// shared words of one block; geom: the edge vectors' T * 3 words too
+size_t fwd_words(const Plan& P, const Shape& S, bool geom) {
   auto r4 = [](size_t n) { return (n + 3) & ~(size_t)3; };
   const size_t T = S.T;
   return (size_t)table_words(P) + r4(P.n_ins) + r4(T * SHP)
-         + r4(T * P.nb) + r4(T * 3) + r4(T) + 2 * r4(T * H)
+         + r4(T * P.nb) + (geom ? r4(T * 3) : 0) + r4(T) + 2 * r4(T * H)
          + r4(T * S.nap) + r4((size_t)S.s * P.agg_dim) + r4(P.d_out);
 }
 
-size_t bwd_words(const Plan& P, const Shape& S) {
+size_t bwd_words(const Plan& P, const Shape& S, bool geom) {
   auto r4 = [](size_t n) { return (n + 3) & ~(size_t)3; };
   const size_t T = S.T;
   return (size_t)table_words(P) + r4(P.n_ins) + r4(MAX_XENT * 5)
          + r4(P.d_out) + r4(P.agg_dim) + r4(TB * S.nap + SLAB) + 4 * r4(T * H)
          + r4(QD * T * H) + r4(NW * T * SHP) + 2 * r4(T * SHP)
-         + r4(T * P.nb) + r4(T * 3) + r4(T);
+         + r4(T * P.nb) + (geom ? r4(T * 3) : 0) + r4(T);
+}
+
+size_t words(const Plan& P, const Shape& S, bool bwd, bool geom) {
+  return bwd ? bwd_words(P, S, geom) : fwd_words(P, S, geom);
 }
 
 // shared memory of one block when two fit on an SM (228 KB, 1 KB of it
@@ -1004,9 +1131,9 @@ constexpr size_t TWO_PER_SM = (233472 - 2 * 1024) / 2;
 // rows per tile and row groups per column: the groups (1, 2 or 4, each a
 // multiple of 4 rows) that take the fewest rounds of the block's threads,
 // a w2 column load counted as 4 rows of work, within two blocks an SM
-Shape geom_shape(const Plan& P, int tmax, bool bwd) {
+Shape geom_shape(const Plan& P, bool bwd, bool geom) {
   Shape S;
-  S.T = tile_rows(P.D, tmax);
+  S.T = tile_rows(P.D, bwd ? TB : TF);
   S.nap = (P.n_active + 3) & ~3;
   S.cq = ((P.n_active + QD - 1) / QD + 3) & ~3;
   S.s = 1;
@@ -1015,8 +1142,7 @@ Shape geom_shape(const Plan& P, int tmax, bool bwd) {
     if (S.T % (4 * s)) break;
     Shape t = S;
     t.s = s;
-    const size_t bytes = 4 * (bwd ? bwd_words(P, t) : fwd_words(P, t));
-    if (s > 1 && bytes > TWO_PER_SM) break;
+    if (s > 1 && 4 * words(P, t, bwd, geom) > TWO_PER_SM) break;
     const long rounds = ((long)P.n_active * s + NT - 1) / NT;
     const long cost = rounds * (S.T / s + 4);
     if (best < 0 || cost < best) { best = cost; S.s = s; }
@@ -1041,9 +1167,115 @@ cudaError_t persistent_grid(Kernel kernel, size_t smem, int n_atoms,
   return cudaSuccess;
 }
 
-}  // namespace
+// the dynamic shared bytes each kernel instance was last given, per device
+template <bool BWD, int NSH, bool GEOM>
+struct Reserved { static size_t bytes[MAX_DEVICES]; };
+template <bool BWD, int NSH, bool GEOM>
+size_t Reserved<BWD, NSH, GEOM>::bytes[MAX_DEVICES];
 
-static size_t geom_fwd_reserved[MAX_DEVICES], geom_bwd_reserved[MAX_DEVICES];
+// registers, local bytes a thread, blocks an SM and dynamic shared bytes
+// of one kernel instance at `smem`
+template <typename Kernel>
+int resources(Kernel kernel, size_t smem, size_t* reserved, int* out) {
+  cudaFuncAttributes a;
+  int per_sm = 0;
+  cudaError_t err = reserve_smem(kernel, smem, reserved);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT,
+                                                        smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs; out[1] = (int)a.localSizeBytes; out[2] = per_sm;
+  out[3] = (int)smem;
+  return 0;
+}
+
+template <bool GEOM>
+int launch_fwd(const float* xg, const float* vec, const float* ms,
+               const float* w0, const float* w1, const float* w2,
+               const float* si2w, const Plan& P,
+               const typename RowArgs<GEOM>::type& G, float* out,
+               void* stream) {
+  if (P.f > SHP) return (int)cudaErrorInvalidValue;
+  const Shape S = geom_shape(P, false, GEOM);
+  const size_t smem = 4 * fwd_words(P, S, GEOM);
+  cudaError_t err = reserve_smem(fused_conv_geom_fwd_kernel<GEOM>, smem,
+                                 Reserved<false, 0, GEOM>::bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (P.n_atoms > 0) {
+    int grid = 0;
+    err = persistent_grid(fused_conv_geom_fwd_kernel<GEOM>, smem, P.n_atoms,
+                          &grid);
+    if (err != cudaSuccess) return (int)err;
+    fused_conv_geom_fwd_kernel<GEOM>
+        <<<grid, NT, smem, (cudaStream_t)stream>>>(xg, vec, ms, w0, w1, w2,
+                                                   si2w, P, G, S, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int NSH, bool GEOM>
+int launch_bwd(const float* g, const float* xg, const float* vec,
+               const float* ms, const float* w0, const float* w1,
+               const float* w1t, const float* w2, const float* w2t,
+               const float* si2wt, const Plan& P,
+               const typename RowArgs<GEOM>::type& G, float* dxg,
+               float* dvec, void* stream) {
+  const Shape S = geom_shape(P, true, GEOM);
+  const size_t smem = 4 * bwd_words(P, S, GEOM);
+  cudaError_t err = reserve_smem(fused_conv_geom_bwd_kernel<NSH, GEOM>, smem,
+                                 Reserved<true, NSH, GEOM>::bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (P.n_atoms > 0) {
+    int grid = 0;
+    err = persistent_grid(fused_conv_geom_bwd_kernel<NSH, GEOM>, smem,
+                          P.n_atoms, &grid);
+    if (err != cudaSuccess) return (int)err;
+    fused_conv_geom_bwd_kernel<NSH, GEOM>
+        <<<grid, NT, smem, (cudaStream_t)stream>>>(
+            g, xg, vec, ms, w0, w1, w1t, w2, w2t, si2wt, P, G, S, dxg, dvec);
+  }
+  return (int)cudaGetLastError();
+}
+
+// the backward instance for the filter's SH count
+template <bool GEOM>
+int launch_bwd_nsh(const float* g, const float* xg, const float* vec,
+                   const float* ms, const float* w0, const float* w1,
+                   const float* w1t, const float* w2, const float* w2t,
+                   const float* si2wt, const Plan& P,
+                   const typename RowArgs<GEOM>::type& G, float* dxg,
+                   float* dvec, void* stream) {
+  if (P.f > SHP || P.n_xent >= MAX_XENT) return (int)cudaErrorInvalidValue;
+  if (P.f <= 4)
+    return launch_bwd<4, GEOM>(g, xg, vec, ms, w0, w1, w1t, w2, w2t, si2wt,
+                               P, G, dxg, dvec, stream);
+  if (P.f <= 9)
+    return launch_bwd<9, GEOM>(g, xg, vec, ms, w0, w1, w1t, w2, w2t, si2wt,
+                               P, G, dxg, dvec, stream);
+  return launch_bwd<16, GEOM>(g, xg, vec, ms, w0, w1, w1t, w2, w2t, si2wt, P,
+                              G, dxg, dvec, stream);
+}
+
+template <bool GEOM>
+int resources_of(const Plan& P, bool bwd, int* out) {
+  if (P.f > SHP) return (int)cudaErrorInvalidValue;
+  const Shape S = geom_shape(P, bwd, GEOM);
+  const size_t smem = 4 * words(P, S, bwd, GEOM);
+  if (!bwd)
+    return resources(fused_conv_geom_fwd_kernel<GEOM>, smem,
+                     Reserved<false, 0, GEOM>::bytes, out);
+  if (P.f <= 4)
+    return resources(fused_conv_geom_bwd_kernel<4, GEOM>, smem,
+                     Reserved<true, 4, GEOM>::bytes, out);
+  if (P.f <= 9)
+    return resources(fused_conv_geom_bwd_kernel<9, GEOM>, smem,
+                     Reserved<true, 9, GEOM>::bytes, out);
+  return resources(fused_conv_geom_bwd_kernel<16, GEOM>, smem,
+                   Reserved<true, 16, GEOM>::bytes, out);
+}
+
+}  // namespace
 
 #define GEOM_ARGS                                                          \
   const float *coeffs, const int *sh_idx, const float *sh_coef,            \
@@ -1063,13 +1295,24 @@ static Geom make_geom(GEOM_ARGS) {
             cutoff, env_p, r_on)
 
 // the launch shape a layer gets (ops/fused_conv_geom.py holds the same
-// arithmetic): T, s, nap, cq and the dynamic shared bytes
-extern "C" int fused_conv_geom_shape(int bwd, PLAN_ARGS, int* out) {
+// arithmetic): T, s, nap, cq and the dynamic shared bytes; geom 0 is the
+// dense pair
+extern "C" int fused_conv_geom_shape(int bwd, int geom, PLAN_ARGS,
+                                     int* out) {
   const Plan P = PLAN_CALL;
-  const Shape S = geom_shape(P, bwd ? TB : TF, bwd != 0);
+  const Shape S = geom_shape(P, bwd != 0, geom != 0);
   out[0] = S.T; out[1] = S.s; out[2] = S.nap; out[3] = S.cq;
-  out[4] = (int)(4 * (bwd ? bwd_words(P, S) : fwd_words(P, S)));
+  out[4] = (int)(4 * words(P, S, bwd != 0, geom != 0));
   return 0;
+}
+
+// the compiled kernel a layer launches: registers, local bytes a thread,
+// blocks an SM and dynamic shared bytes (on the current device)
+extern "C" int fused_conv_geom_resources(int bwd, int geom, PLAN_ARGS,
+                                         int* out) {
+  const Plan P = PLAN_CALL;
+  return geom ? resources_of<true>(P, bwd != 0, out)
+              : resources_of<false>(P, bwd != 0, out);
 }
 
 extern "C" int fused_conv_geom_fwd(const float* xg, const float* vec,
@@ -1077,49 +1320,9 @@ extern "C" int fused_conv_geom_fwd(const float* xg, const float* vec,
                                    const float* w1, const float* w2,
                                    const float* si2w, PLAN_ARGS, GEOM_ARGS,
                                    float* out, void* stream) {
-  const Plan P = PLAN_CALL;
-  const Geom G = GEOM_CALL;
-  if (P.f > SHP) return (int)cudaErrorInvalidValue;
-  const Shape S = geom_shape(P, TF, false);
-  const size_t smem = 4 * fwd_words(P, S);
-  cudaError_t err =
-      reserve_smem(fused_conv_geom_fwd_kernel, smem, geom_fwd_reserved);
-  if (err != cudaSuccess) return (int)err;
-  if (P.n_atoms > 0) {
-    int grid = 0;
-    err = persistent_grid(fused_conv_geom_fwd_kernel, smem, P.n_atoms, &grid);
-    if (err != cudaSuccess) return (int)err;
-    fused_conv_geom_fwd_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-        xg, vec, ms, w0, w1, w2, si2w, P, G, S, out);
-  }
-  return (int)cudaGetLastError();
+  return launch_fwd<true>(xg, vec, ms, w0, w1, w2, si2w, PLAN_CALL,
+                          GEOM_CALL, out, stream);
 }
-
-template <int NSH>
-static int launch_geom_bwd(const float* g, const float* xg, const float* vec,
-                           const float* ms, const float* w0, const float* w1,
-                           const float* w1t, const float* w2,
-                           const float* w2t, const float* si2wt,
-                           const Plan& P, const Geom& G, float* dxg,
-                           float* dvec, void* stream, size_t* reserved) {
-  const Shape S = geom_shape(P, TB, true);
-  const size_t smem = 4 * bwd_words(P, S);
-  cudaError_t err =
-      reserve_smem(fused_conv_geom_bwd_kernel<NSH>, smem, reserved);
-  if (err != cudaSuccess) return (int)err;
-  if (P.n_atoms > 0) {
-    int grid = 0;
-    err = persistent_grid(fused_conv_geom_bwd_kernel<NSH>, smem, P.n_atoms,
-                          &grid);
-    if (err != cudaSuccess) return (int)err;
-    fused_conv_geom_bwd_kernel<NSH><<<grid, NT, smem, (cudaStream_t)stream>>>(
-        g, xg, vec, ms, w0, w1, w1t, w2, w2t, si2wt, P, G, S, dxg, dvec);
-  }
-  return (int)cudaGetLastError();
-}
-
-static size_t geom_bwd4_reserved[MAX_DEVICES],
-    geom_bwd9_reserved[MAX_DEVICES];
 
 extern "C" int fused_conv_geom_bwd(const float* g, const float* xg,
                                    const float* vec, const float* ms,
@@ -1128,15 +1331,29 @@ extern "C" int fused_conv_geom_bwd(const float* g, const float* xg,
                                    const float* w2t, const float* si2wt,
                                    PLAN_ARGS, GEOM_ARGS, float* dxg,
                                    float* dvec, void* stream) {
-  const Plan P = PLAN_CALL;
-  const Geom G = GEOM_CALL;
-  if (P.f > SHP || P.n_xent >= MAX_XENT) return (int)cudaErrorInvalidValue;
-  if (P.f <= 4)
-    return launch_geom_bwd<4>(g, xg, vec, ms, w0, w1, w1t, w2, w2t, si2wt, P,
-                              G, dxg, dvec, stream, geom_bwd4_reserved);
-  if (P.f <= 9)
-    return launch_geom_bwd<9>(g, xg, vec, ms, w0, w1, w1t, w2, w2t, si2wt, P,
-                              G, dxg, dvec, stream, geom_bwd9_reserved);
-  return launch_geom_bwd<16>(g, xg, vec, ms, w0, w1, w1t, w2, w2t, si2wt, P,
-                             G, dxg, dvec, stream, geom_bwd_reserved);
+  return launch_bwd_nsh<true>(g, xg, vec, ms, w0, w1, w1t, w2, w2t, si2wt,
+                              PLAN_CALL, GEOM_CALL, dxg, dvec, stream);
+}
+
+// the dense pair: kernels 1-2's C entries, their arguments unchanged
+extern "C" int fused_conv_fwd(const float* xg, const float* sh,
+                              const float* emb, const float* ms,
+                              const float* w0, const float* w1,
+                              const float* w2, const float* si2w,
+                              PLAN_ARGS, float* out, void* stream) {
+  const Dense R = {sh, emb, nullptr, nullptr};
+  return launch_fwd<false>(xg, nullptr, ms, w0, w1, w2, si2w, PLAN_CALL, R,
+                           out, stream);
+}
+
+extern "C" int fused_conv_bwd(const float* g, const float* xg,
+                              const float* sh, const float* emb,
+                              const float* ms, const float* w0,
+                              const float* w1, const float* w1t,
+                              const float* w2, const float* w2t,
+                              const float* si2wt, PLAN_ARGS, float* dxg,
+                              float* dsh, float* demb, void* stream) {
+  const Dense R = {sh, emb, dsh, demb};
+  return launch_bwd_nsh<false>(g, xg, nullptr, ms, w0, w1, w1t, w2, w2t,
+                               si2wt, PLAN_CALL, R, dxg, nullptr, stream);
 }

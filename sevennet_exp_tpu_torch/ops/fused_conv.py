@@ -42,11 +42,15 @@ the plain contract, for either ``agg_d``, for the independently derived
 pair of ``csrc/fused_conv_terms.cu`` (``ops/fused_conv_terms.py``).
 
 On CUDA tensors the wrapper launches the kernels of
-``csrc/fused_conv.cu``, the geometry-fused pair those of
-``csrc/fused_conv_geom.cu`` (built with nvcc at first use into ``_build/``);
-on CPU tensors it runs the plain version, the XLA-path chain of
-``model/layers.py::_rows_to_nodes`` (MLP -> TP -> reshape-sum -> si2).
-Any other device raises.
+``csrc/fused_conv_geom.cu`` for the dense-grid pair (``agg_d > 0``) and the
+geometry-fused pair, one template there, and those of
+``csrc/fused_conv.cu`` for the edge-row and external-weight pairs (built
+with nvcc at first use into ``_build/``); on CPU tensors it runs the plain
+version, the XLA-path chain of ``model/layers.py::_rows_to_nodes`` (MLP ->
+TP -> reshape-sum -> si2). Any other device raises. The dense-grid
+kernels, like the geometry-fused ones, read an instruction's SH block at
+``l2^2`` and take at most 16 SH components and 15 x entries
+(``dense_unsupported``).
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ import torch
 from . import cuda_build
 from .cuda_build import check as _check
 from .cuda_build import launch_counts, reset_launch_counts  # noqa: F401
+from .fused_conv_geom import MAX_XENT, SHP
 from .fused_conv_terms import TermsKernels
 from .normalize import NORMALIZE2MOM_CST
 from .spherical import _monomials, sh_coefficients, spherical_harmonics
@@ -284,16 +289,20 @@ _GEOM_ARGS = [_P] * 4 + [_I] * 3 + [_F] * 3   # coeffs, sh_idx, sh_coef,
 #   sh_off, n_terms, env_kind, normalize, cutoff, env_p, r_on
 
 
+def _bind_rows_pair(fwd, bwd):
+    """argtypes of a pair with kernels 1-2's arguments (xg, sh, emb, ms,
+    weights ...)."""
+    fwd.argtypes = [_P] * 8 + _TABLE_ARGS + _DIM_ARGS + [_P, _P]
+    fwd.restype = _I
+    bwd.argtypes = [_P] * 11 + _TABLE_ARGS + _DIM_ARGS + [_P, _P, _P, _P]
+    bwd.restype = _I
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
+    """The edge-row and external-weight pairs, csrc/fused_conv.cu."""
     lib = cuda_build.load('fused_conv')
-    for fwd, bwd in ((lib.fused_conv_fwd, lib.fused_conv_bwd),
-                     (lib.fused_conv_edge_fwd, lib.fused_conv_edge_bwd)):
-        fwd.argtypes = [_P] * 8 + _TABLE_ARGS + _DIM_ARGS + [_P, _P]
-        fwd.restype = _I
-        bwd.argtypes = ([_P] * 11 + _TABLE_ARGS + _DIM_ARGS
-                        + [_P, _P, _P, _P])
-        bwd.restype = _I
+    _bind_rows_pair(lib.fused_conv_edge_fwd, lib.fused_conv_edge_bwd)
     lib.fused_conv_extw_fwd.argtypes = ([_P] * 4 + _TABLE_ARGS + _DIM_ARGS
                                         + [_P, _P])
     lib.fused_conv_extw_fwd.restype = _I
@@ -305,8 +314,16 @@ def _lib():
 
 @functools.lru_cache(maxsize=None)
 def _geom_lib():
-    """The geometry-fused pair, csrc/fused_conv_geom.cu."""
-    return bind_geom(cuda_build.load('fused_conv_geom'))
+    """The dense-grid and geometry-fused pairs, csrc/fused_conv_geom.cu."""
+    return bind_dense(bind_geom(cuda_build.load('fused_conv_geom')))
+
+
+def bind_dense(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entries ``fused_conv_fwd`` / ``_bwd`` of the dense-grid
+    pair (kernels 1-2) of a library: the port's, or another build with the
+    same ABI for an A/B (``tools/geom_ab.py --dense``)."""
+    _bind_rows_pair(lib.fused_conv_fwd, lib.fused_conv_bwd)
+    return lib
 
 
 def bind_geom(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -403,6 +420,8 @@ class FusedConv:
         self.d1 = tp_spec.irreps_in1.dim
         self.f = tp_spec.irreps_in2.dim
         self.nb = mlp_spec.hs[0]
+        self._dense_unsupported = (dense_unsupported(tp_spec)
+                                   if agg_d > 0 else None)
         self._tables: Dict[torch.device, _Tables] = {}
         self._geom_tables: Dict[torch.device, tuple] = {}
         self._packed: Dict[tuple, tuple] = {}
@@ -630,9 +649,15 @@ class FusedConv:
 
     def _entry(self, which: str):
         """(name, C entry point) of kernel 1 or 2 (``which``: fwd | bwd):
-        the dense-grid kernel, or with ``agg_d = 0`` its edge-row form."""
-        name = f"fused_conv_{'edge_' if self.agg_d == 0 else ''}{which}"
-        return name, getattr(_lib(), name)
+        the dense-grid kernel of csrc/fused_conv_geom.cu, or with ``agg_d =
+        0`` the edge-row form of csrc/fused_conv.cu."""
+        if self.agg_d == 0:
+            name = f'fused_conv_edge_{which}'
+            return name, getattr(_lib(), name)
+        if self._dense_unsupported:
+            raise ValueError(self._dense_unsupported)
+        name = f'fused_conv_{which}'
+        return name, getattr(_geom_lib(), name)
 
     def kernel_forward(self, xg, sh, emb, ms, mlp_ws, si2_ws) -> Tensor:
         """Launch ``fused_conv_fwd``, or ``fused_conv_edge_fwd`` with
@@ -907,6 +932,24 @@ class _FusedConvGeomFn(torch.autograd.Function):
                                            tuple(ws[:n_mlp]),
                                            tuple(ws[n_mlp:]))
         return (None, None, dxg, dvec, None, None) + (None,) * len(ws)
+
+
+def dense_unsupported(tp_spec: UVUTensorProductSpec) -> Optional[str]:
+    """Why the dense-grid and geometry-fused kernels cannot take this tensor
+    product, or None: they keep an instruction's SH operands in registers
+    at the offset ``l2^2``, at most 16 of them, and the backward's table of
+    x entries has 15 rows."""
+    plan, _ = _tp_plan(tp_spec)
+    if tp_spec.irreps_in2.dim > SHP:
+        return (f'dense-grid conv kernel takes at most {SHP} SH components;'
+                f' got {tp_spec.irreps_in2.dim}')
+    if any(p['sh_off'] != (p['dim2'] // 2) ** 2 for p in plan):
+        return ('dense-grid conv kernel reads an instruction\'s SH block '
+                'at l2^2: the filter irreps are not 1x0+1x1+...')
+    if len(tp_spec.irreps_in1) >= MAX_XENT:
+        return (f'dense-grid conv kernel takes fewer than {MAX_XENT} x '
+                f'entries; got {len(tp_spec.irreps_in1)}')
+    return None
 
 
 def _live_rows(ms: Tensor) -> float:

@@ -1,5 +1,7 @@
-"""Launch shape and work mapping of the geometry-fused conv kernels
-(``csrc/fused_conv_geom.cu``), in Python.
+"""Launch shape and work mapping of the conv kernels of
+``csrc/fused_conv_geom.cu``, in Python: the geometry-fused pair
+(``geom=True``) and the dense-grid pair, kernels 1-2 (``geom=False``), one
+template there, which differ only in the shared words of the edge vectors.
 
 The kernels choose their tile, their row groups and their i1 classes on
 the host side of the C entry (``geom_shape``) and inside the block; this
@@ -7,7 +9,9 @@ module holds the same arithmetic so that the CPU tests can check that every
 live column and every x channel of every row is covered exactly once, and so
 that a numpy replay can run the kernels' loop order. On the card
 ``kernel_shape`` asks the C entry ``fused_conv_geom_shape`` for the numbers
-it launches with (``tests/test_torch_cuda.py`` holds the two equal).
+it launches with (``tests/test_torch_cuda.py`` holds the two equal), and
+``kernel_resources`` the compiled instance's registers, local memory and
+blocks an SM.
 
     T     rows per tile: at most 16, D rounded up to 4 when that is fewer
     s     row groups per live column (1, 2 or 4; T / s rows each, a
@@ -36,7 +40,8 @@ QD = NT // H      # pass D: column quarters
 NW = NT // 32     # warps per block
 MAX_XENT = 16
 I_STRIDE = 34     # ints per instruction record (ops/fused_conv.py)
-TWO_PER_SM = (233472 - 2 * 1024) // 2
+TWO_PER_SM = (233472 - 2 * 1024) // 2     # shared bytes a block, 2 an SM
+THREE_PER_SM = (233472 - 3 * 1024) // 3   # the same, 3 an SM
 
 
 class Shape(NamedTuple):
@@ -59,22 +64,25 @@ def tile_rows(D: int, tmax: int) -> int:
     return min(tmax, _r4(D))
 
 
-def _words(dims: Dict[str, int], T: int, s: int, nap: int, bwd: bool) -> int:
+def _words(dims: Dict[str, int], T: int, s: int, nap: int, bwd: bool,
+           geom: bool) -> int:
     d = dims
     base = _table_words(d['n_ins'], d['n_nz']) + _r4(d['n_ins'])
+    vec = _r4(T * 3) if geom else 0
     if not bwd:
         return (base + _r4(T * SHP) + _r4(T * d['nb'])
-                + _r4(T * 3) + _r4(T) + 2 * _r4(T * H) + _r4(T * nap)
+                + vec + _r4(T) + 2 * _r4(T * H) + _r4(T * nap)
                 + _r4(s * d['agg_dim']) + _r4(d['d_out']))
     return (base + _r4(MAX_XENT * 5) + _r4(d['d_out']) + _r4(d['agg_dim'])
             + _r4(TB * nap + SLAB) + 4 * _r4(T * H) + _r4(QD * T * H)
             + _r4(NW * T * SHP) + 2 * _r4(T * SHP) + _r4(T * d['nb'])
-            + _r4(T * 3) + _r4(T))
+            + vec + _r4(T))
 
 
-def shape(dims: Dict[str, int], bwd: bool) -> Shape:
+def shape(dims: Dict[str, int], bwd: bool, geom: bool = True) -> Shape:
     """The launch shape of one layer: ``dims`` holds D, d1, nb, d_out,
-    n_ins, n_active, agg_dim, n_nz (``layer_dims``)."""
+    n_ins, n_active, agg_dim, n_nz (``layer_dims``); ``geom`` False for the
+    dense-grid pair."""
     T = tile_rows(dims['D'], TB if bwd else TF)
     nap = _r4(dims['n_active'])
     cq = _r4(-(-dims['n_active'] // QD))
@@ -83,14 +91,15 @@ def shape(dims: Dict[str, int], bwd: bool) -> Shape:
     while s <= 4:
         if T % (4 * s):
             break
-        if s > 1 and 4 * _words(dims, T, s, nap, bwd) > TWO_PER_SM:
+        if s > 1 and 4 * _words(dims, T, s, nap, bwd, geom) > TWO_PER_SM:
             break
         rounds = -(-dims['n_active'] * s // NT)
         cost = rounds * (T // s + 4)
         if best is None or cost < best:
             best, s_best = cost, s
         s *= 2
-    return Shape(T, s_best, nap, cq, 4 * _words(dims, T, s_best, nap, bwd))
+    return Shape(T, s_best, nap, cq,
+                 4 * _words(dims, T, s_best, nap, bwd, geom))
 
 
 def layer_dims(conv, D: int) -> Dict[str, int]:
@@ -166,21 +175,45 @@ def class_items(xent: np.ndarray, T: int, rows: int):
 def _lib():
     lib = cuda_build.load('fused_conv_geom')
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fused_conv_geom_shape.argtypes = ([I] + [P] * 9 + [I] * 14 + [F] * 4
-                                          + [P])
-    lib.fused_conv_geom_shape.restype = I
+    for fn in (lib.fused_conv_geom_shape, lib.fused_conv_geom_resources):
+        fn.argtypes = [I, I] + [P] * 9 + [I] * 14 + [F] * 4 + [P]
+        fn.restype = I
     return lib
 
 
-def kernel_shape(dims: Dict[str, int], bwd: bool) -> Shape:
+def _plan_args(dims: Dict[str, int], f: int = 0) -> list:
+    """The plan arguments the host side reads (no tables: nothing is
+    launched)."""
+    d = dims
+    return [None] * 9 + [
+        1, d['D'], d['d1'], f, d['nb'], 0, d['d_out'], d['n_ins'],
+        d['n_active'], 0, 0, d['agg_dim'], d['n_nz'], 0, 0.0, 0.0, 0.0, 0.0]
+
+
+def kernel_shape(dims: Dict[str, int], bwd: bool, geom: bool = True) -> Shape:
     """The shape the C entry launches with (needs the built library, not a
     card)."""
     out = (ctypes.c_int * 5)()
-    d = dims
-    n_atoms = 1
-    args = [int(bwd)] + [None] * 9 + [
-        n_atoms, d['D'], d['d1'], 0, d['nb'], 0, d['d_out'], d['n_ins'],
-        d['n_active'], 0, 0, d['agg_dim'], d['n_nz'], 0, 0.0, 0.0, 0.0, 0.0]
-    err = _lib().fused_conv_geom_shape(*args, out)
+    err = _lib().fused_conv_geom_shape(int(bwd), int(geom),
+                                       *_plan_args(dims), out)
     cuda_build.check(err, 'fused_conv_geom_shape')
     return Shape(*out)
+
+
+class Resources(NamedTuple):
+    registers: int
+    local_bytes: int    # local memory a thread (spills, stack arrays)
+    blocks_per_sm: int
+    smem: int           # dynamic shared bytes of one block
+
+
+def kernel_resources(dims: Dict[str, int], f: int, bwd: bool,
+                     geom: bool = True) -> Resources:
+    """The compiled kernel a layer with ``f`` SH components launches: its
+    registers, local bytes, blocks an SM at its shared bytes (on the current
+    card)."""
+    out = (ctypes.c_int * 4)()
+    err = _lib().fused_conv_geom_resources(int(bwd), int(geom),
+                                           *_plan_args(dims, f), out)
+    cuda_build.check(err, 'fused_conv_geom_resources')
+    return Resources(*out)

@@ -3,7 +3,10 @@
     python -m sevennet_exp_tpu_torch.tools.bench_pieces [E] [block]
 
 Counterpart of ``tools/bench_pieces.py``. Runs stripped variants of kernel 1
-(``csrc/fused_conv.cu::fused_conv_fwd_kernel``) on the 7net-0 mid layer
+as it was first designed (``csrc/fused_conv_body.cuh::fwd_body``, the
+table-driven CG; ``full`` still compiles to that kernel's SASS, while the
+model's kernel 1 now runs the geometry-fused pair's template in
+``csrc/fused_conv_geom.cu``) on the 7net-0 mid layer
 (``sevennet_0_config(species=['Na', 'Cl'])``, third convolution), each piece
 replaced by a near-free stand-in (``csrc/bench_pieces.cu``), and reports
 the time each piece costs inside the real kernel:
@@ -24,7 +27,7 @@ stripped variant its piece cost, full minus variant, in ns per row.
 Where it differs from the JAX tool: the inputs come from a seeded
 ``torch.Generator`` on the card (the JAX PRNG stream cannot be reproduced);
 ``block`` (default 256) only has to divide E as the JAX grid's block did,
-since kernel 1 takes one atom of D rows per block; ``-transpose``, named in
+since each variant takes one atom of D rows per block; ``-transpose``, named in
 the JAX docstring, is never run there and has no counterpart for a kernel
 that reads rows as they lie; and the JAX ``-agg`` stores (block, 576) into a
 (block / 32, 576) output block, which cannot hold it, where this ``-agg``
@@ -177,7 +180,8 @@ def _lib():
 def kernel_variant(conv: FusedConv, variant: str, xg, sh, emb, ms, mlp_ws,
                    si2_ws) -> Tensor:
     """Launch the variant's kernel of csrc/bench_pieces.cu (CUDA tensors
-    only): kernel 1's tables, weights and launch on the same inputs."""
+    only): the tables, weights and arguments kernel 1 takes, on the same
+    inputs."""
     conv._check_inputs(xg, sh, emb, ms)
     t = conv.kernel_tables(xg.device)
     w0, w1, _, w2, _, si2, _ = conv._pack(mlp_ws, si2_ws)

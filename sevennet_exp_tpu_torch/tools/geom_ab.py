@@ -1,13 +1,16 @@
 """Same-call A/B of the geometry-fused conv pair (``fused_conv_geom_fwd`` /
-``fused_conv_geom_bwd``) against another build of the same C entries.
+``fused_conv_geom_bwd``), or with ``--dense`` of the dense-grid pair
+(kernels 1-2, ``fused_conv_fwd`` / ``fused_conv_bwd``), against another
+build of the same C entries.
 
-    python -m sevennet_exp_tpu_torch.tools.geom_ab OTHER.cu [STEPS] [OUT.json]
+    python -m sevennet_exp_tpu_torch.tools.geom_ab OTHER.cu [STEPS] [OUT.json] [--dense]
 
 OTHER.cu is any source that exports the two entries with the port's ABI,
-for example an earlier tree's ``csrc/fused_conv.cu`` (the pair lived there
-before its redesign) unpacked with ``git archive``, its headers beside it.
-It is compiled with the port's nvcc flags; then, on one card, the two builds
-run in turns (other, this, this, other):
+for example an earlier tree's ``csrc/fused_conv.cu`` (both pairs lived
+there before their redesigns) unpacked with ``git archive``, its headers
+beside it. It is compiled with the port's nvcc flags; then, on one card,
+the two builds run in turns (other, this, this, other). The geometry-fused
+pair:
 
   - each kernel at a 97k chunk's shape (16,384 atoms x 32 rows, 6 pad rows
     an atom, random inputs from seed 0) on checkpoint layers 0, 1 and 4: ms
@@ -17,6 +20,18 @@ run in turns (other, this, this, other):
     CUDA events around every launch), host-clock ms and peak device memory;
   - 97k NVT (300 K, 2 fs, rebuild every 20): ms/step over STEPS (default 10)
     steps after a 5-step warm-up.
+
+The dense-grid pair (``--dense``):
+
+  - each kernel on the 1k grid's shape (1,000 atoms x 32 rows, 6 pad rows
+    an atom, sh and emb of random edge vectors, seed 0) on the checkpoint's
+    five layers, and the two builds' outputs against each other;
+  - the wave tail: layer 1's kernels at WAVE_ATOMS atoms, whole rounds of
+    the persistent blocks (396 forward, 264 backward on an H100) around
+    1,000 atoms;
+  - the whole-array force call at 1,000 and at 8,000 atoms (256,000 grid
+    rows): the dense kernels' ms, host-clock ms and peak device memory;
+  - 1k NVT: ms/step over STEPS (default 100) steps after a 5-step warm-up.
 
 Prints one line per measurement and the means of each side; writes them to
 OUT.json when given. Needs a card (exits 2 without one).
@@ -45,23 +60,28 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
 CHECKPOINT = os.path.join(ROOT, 'trained_nacl', 'checkpoint_best.pth.sevennet')
 N_LARGE = 97336
 CHUNK_ATOMS, D, PADS = 16384, 32, 6
+DENSE_ATOMS = (1000, 8000)       # the dense pair's force calls
+# forward rounds 2, 2.67, 3 and backward rounds 3, 4, 4.5 of 132 SMs x 3
+# (forward) and x 2 (backward) blocks; 1,000 atoms are 2.53 and 3.79
+WAVE_ATOMS = (792, 1056, 1188)
 MD_KW = dict(dt_fs=2.0, temperature_K=300.0, ensemble='nvt',
              rebuild_every=20, seed=0)
 
 
-def build_other(src: str, out_dir: str) -> ctypes.CDLL:
+def build_other(src: str, out_dir: str, dense: bool = False) -> ctypes.CDLL:
     so = os.path.join(out_dir, 'libgeom_other.so')
     subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, '-o', so,
                     src], check=True, capture_output=True, text=True)
-    return fc.bind_geom(ctypes.CDLL(so))
+    return (fc.bind_dense if dense else fc.bind_geom)(ctypes.CDLL(so))
 
 
-def chunk_inputs(conv, dev, seed=0):
-    """One chunk of the 97k leg's shape: edge vectors within the cutoff,
-    the last PADS rows of every atom pads (ms = 0, unit vector)."""
+def chunk_inputs(conv, dev, seed=0, atoms=CHUNK_ATOMS, geom=None):
+    """One chunk of the 97k leg's shape (or ``atoms`` atoms): edge vectors
+    within the cutoff of ``geom`` (default the conv's), the last PADS rows
+    of every atom pads (ms = 0, unit vector)."""
     rng = np.random.default_rng(seed)
-    rows = CHUNK_ATOMS * D
-    rc = conv.geom.cutoff
+    rows = atoms * D
+    rc = (geom or conv.geom).cutoff
     u = rng.normal(size=(rows, 3))
     u /= np.linalg.norm(u, axis=1, keepdims=True)
     vec = u * rng.uniform(0.5 * rc, 0.99 * rc, size=(rows, 1))
@@ -75,14 +95,25 @@ def chunk_inputs(conv, dev, seed=0):
 
     coeffs = np.arange(1, conv.nb + 1) * np.pi / rc
     return (t(rng.normal(size=(rows, conv.d1))), t(vec), t(ms), t(coeffs),
-            t(rng.normal(size=(CHUNK_ATOMS, conv.d_out))))
+            t(rng.normal(size=(atoms, conv.d_out))))
 
 
-def timed_force_call(md, pos, nl):
-    """(geom kernel ms, host-clock ms, peak bytes) of one force call."""
+def dense_inputs(conv, geom, dev, atoms, seed=0):
+    """The dense pair's (xg, sh, emb, ms, g): ``chunk_inputs`` at ``atoms``
+    atoms, sh and emb the rows' geometry (``fused_conv.geom_rows``)."""
+    xg, vec, ms, coeffs, g = chunk_inputs(conv, dev, seed, atoms, geom)
+    emb, sh = fc.geom_rows(vec, coeffs, geom)
+    return xg, sh.contiguous(), emb.contiguous(), ms, g
+
+
+def timed_force_call(md, pos, nl, dense=False):
+    """(conv kernel ms, host-clock ms, peak bytes) of one force call: the
+    geom pair's launches, or with ``dense`` the dense pair's."""
     pairs = []
     FC = fc.FusedConv
-    kf, kb = FC.kernel_geom_forward, FC.kernel_geom_backward
+    names = (('kernel_forward', 'kernel_backward') if dense
+             else ('kernel_geom_forward', 'kernel_geom_backward'))
+    kf, kb = (getattr(FC, n) for n in names)
 
     def wrap(fn):
         def wrapped(self, *args):
@@ -95,7 +126,8 @@ def timed_force_call(md, pos, nl):
             return out
         return wrapped
 
-    FC.kernel_geom_forward, FC.kernel_geom_backward = wrap(kf), wrap(kb)
+    setattr(FC, names[0], wrap(kf))
+    setattr(FC, names[1], wrap(kb))
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -104,9 +136,114 @@ def timed_force_call(md, pos, nl):
         torch.cuda.synchronize()
         host = (time.perf_counter() - t0) * 1e3
     finally:
-        FC.kernel_geom_forward, FC.kernel_geom_backward = kf, kb
+        setattr(FC, names[0], kf)
+        setattr(FC, names[1], kb)
     return (sum(a.elapsed_time(b) for a, b in pairs), host,
             torch.cuda.max_memory_allocated())
+
+
+def _means(res):
+    for side in ('other', 'this'):
+        turns = [t for t in res['turns'] if t['side'] == side]
+        res[f'{side}_mean'] = {k: statistics.mean(t[k] for t in turns)
+                               for k in turns[0] if k != 'side'}
+        print(side, json.dumps({k: round(v, 3)
+                                for k, v in res[f'{side}_mean'].items()}),
+              flush=True)
+    return res
+
+
+def _show(turn):
+    print(json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
+                      for k, v in turn.items()}), flush=True)
+
+
+def run_dense(other_src: str, steps: int = 100):
+    """The dense pair's A/B (see the module docstring)."""
+    from ..checkpoint import SevenNetCheckpoint
+    from ..data.graph import build_nacl
+    from ..md.engine import MolecularDynamics
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device('cuda')
+    res = {'card': card(), 'other': os.path.abspath(other_src),
+           'pair': 'dense', 'turns': []}
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = {'other': build_other(other_src, tmp, dense=True),
+                'this': fc._geom_lib()}
+        geom_lib = fc._geom_lib
+        try:
+            model, _ = SevenNetCheckpoint(CHECKPOINT).build_model(device=dev)
+            convs = {}
+            for layer in range(5):
+                cl = model.layers[f'{layer}_convolution']
+                conv = fc.FusedConv(cl.tp, cl.weight_nn, cl.si2, D)
+                convs[layer] = (conv, cl._weights(),
+                                dense_inputs(conv, cl.geom, dev, 1000))
+            wave = {n: dense_inputs(convs[1][0],
+                                    model.layers['1_convolution'].geom, dev,
+                                    n) for n in WAVE_ATOMS}
+            mds = {}
+            for n in DENSE_ATOMS:
+                md = MolecularDynamics(model, build_nacl(n), device=dev,
+                                       **MD_KW)
+                if md.conv_chunk_rows or md.deg_cap != D:
+                    raise RuntimeError(f'{n} atoms: not the whole-array '
+                                       f'grid of {D} rows an atom')
+                mds[n] = (md, md._grid())
+            for side in ('other', 'this', 'this', 'other'):
+                fc._geom_lib = lambda lib=libs[side]: lib
+                turn = {'side': side}
+                for layer, (conv, (mlp_ws, si2_ws), ins) in convs.items():
+                    xg, sh, emb, ms, g = ins
+                    turn[f'layer{layer}_fwd_ms'] = cuda_ms(
+                        lambda: conv.kernel_forward(xg, sh, emb, ms, mlp_ws,
+                                                    si2_ws))
+                    turn[f'layer{layer}_bwd_ms'] = cuda_ms(
+                        lambda: conv.kernel_backward(g, xg, sh, emb, ms,
+                                                     mlp_ws, si2_ws))
+                conv, (mlp_ws, si2_ws), _ = convs[1]
+                for n, ins in wave.items():
+                    xg, sh, emb, ms, g = ins
+                    turn[f'wave_{n}_fwd_ms'] = cuda_ms(
+                        lambda: conv.kernel_forward(xg, sh, emb, ms, mlp_ws,
+                                                    si2_ws))
+                    turn[f'wave_{n}_bwd_ms'] = cuda_ms(
+                        lambda: conv.kernel_backward(g, xg, sh, emb, ms,
+                                                     mlp_ws, si2_ws))
+                for n, (md, nl) in mds.items():
+                    timed_force_call(md, md.state.pos, nl, dense=True)
+                    (turn[f'force_call_{n}_kernel_ms'],
+                     turn[f'force_call_{n}_host_ms'],
+                     turn[f'force_call_{n}_peak_bytes']) = timed_force_call(
+                        md, md.state.pos, nl, dense=True)
+                md = mds[1000][0]
+                md.run(5)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                md.run(steps)
+                torch.cuda.synchronize()
+                turn['nvt_1k_ms_per_step'] = (time.perf_counter() - t0) \
+                    / steps * 1e3
+                _show(turn)
+                res['turns'].append(turn)
+            for layer, (conv, (mlp_ws, si2_ws), ins) in convs.items():
+                xg, sh, emb, ms, g = ins
+                outs = {}
+                for side in ('other', 'this'):
+                    fc._geom_lib = lambda lib=libs[side]: lib
+                    outs[side] = (
+                        conv.kernel_forward(xg, sh, emb, ms, mlp_ws, si2_ws),
+                        *conv.kernel_backward(g, xg, sh, emb, ms, mlp_ws,
+                                              si2_ws))
+                res[f'layer{layer}_rel_diff'] = [
+                    float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(outs['this'], outs['other'])]
+                print(f'layer {layer}: out / dxg / dsh / demb of the two '
+                      f'builds differ by {res[f"layer{layer}_rel_diff"]} of '
+                      'max|other|', flush=True)
+        finally:
+            fc._geom_lib = geom_lib
+    return _means(res)
 
 
 def run(other_src: str, steps: int = 10):
@@ -156,9 +293,7 @@ def run(other_src: str, steps: int = 10):
                 torch.cuda.synchronize()
                 turn['nvt_ms_per_step'] = (time.perf_counter() - t0) \
                     / steps * 1e3
-                print(json.dumps({k: (round(v, 4) if isinstance(v, float)
-                                      else v) for k, v in turn.items()}),
-                      flush=True)
+                _show(turn)
                 res['turns'].append(turn)
             # the two builds' outputs on one chunk of each layer
             for layer, (conv, (mlp_ws, si2_ws)) in convs.items():
@@ -179,24 +314,23 @@ def run(other_src: str, steps: int = 10):
                 del outs, args
         finally:
             fc._geom_lib = geom_lib
-    for side in ('other', 'this'):
-        turns = [t for t in res['turns'] if t['side'] == side]
-        res[f'{side}_mean'] = {k: statistics.mean(t[k] for t in turns)
-                               for k in turns[0] if k != 'side'}
-        print(side, json.dumps({k: round(v, 3)
-                                for k, v in res[f'{side}_mean'].items()}),
-              flush=True)
-    return res
+    return _means(res)
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    dense = '--dense' in argv
+    argv = [a for a in argv if a != '--dense']
     if not argv:
-        print(__doc__.strip().splitlines()[2].strip(), file=sys.stderr)
+        print(next(ln.strip() for ln in __doc__.splitlines()
+                   if 'python -m' in ln), file=sys.stderr)
         return 2
     if not require_card('geom_ab'):
         return 2
-    res = run(argv[0], int(argv[1]) if len(argv) > 1 else 10)
+    if dense:
+        res = run_dense(argv[0], int(argv[1]) if len(argv) > 1 else 100)
+    else:
+        res = run(argv[0], int(argv[1]) if len(argv) > 1 else 10)
     if len(argv) > 2:
         os.makedirs(os.path.dirname(os.path.abspath(argv[2])), exist_ok=True)
         with open(argv[2], 'w') as fh:

@@ -1,7 +1,8 @@
-"""Per-pass cost of the geometry-fused conv kernels, measured by stubbing
-one pass at a time and timing each build at a 97k chunk's shape.
+"""Per-pass cost of the geometry-fused conv kernels, or with ``--dense`` of
+the dense-grid pair (kernels 1-2, the same template without the geometry),
+measured by stubbing one pass at a time and timing each build.
 
-    python -m sevennet_exp_tpu_torch.tools.geom_passes [OTHER.cu] [OUT.json]
+    python -m sevennet_exp_tpu_torch.tools.geom_passes [OTHER.cu] [OUT.json] [--dense]
 
 Each pass gets a ``-DSTUB_<PASS>`` switch, inserted into a temporary copy of
 the source (the stand-in keeps its result live, so the compiler keeps the
@@ -10,6 +11,9 @@ port's pair (``fused_conv.bind_geom``) and timed with ``timing.cuda_ms`` on
 ``geom_ab.chunk_inputs`` (16,384 atoms x 32 rows, 6 pad rows an atom) at
 checkpoint layer 1, then layers 4 and 0 (all variants). Per variant and
 kernel it prints the ms a launch and (full - stubbed) / rows in ns a row.
+With ``--dense`` the dense pair is timed the same way on the 1k grid's
+shape (``geom_ab.dense_inputs``, 1,000 atoms x 32 rows, 6 pad rows an
+atom), with the passes of ``DENSE_PASSES``.
 
 Without OTHER.cu the source is the port's ``csrc/fused_conv_geom.cu``, with
 the passes of ``NEW_STUBS``. With OTHER.cu it is an earlier tree's
@@ -19,6 +23,8 @@ the passes of ``OLD_STUBS``. Needs a card (exits 2 without one).
 
 The stand-ins (what each switch leaves of its pass):
   GEOM  emb and sh a cheap function of the edge vector; dvec from demb, dsh
+  ROWS  (dense pair) emb and sh a cheap function of the tile's first emb
+        value, not loaded
   HID   the hidden layers a product of emb and one w1 entry, derivatives 1
   W / FMLP / AMLP  the radial weight from one w2 entry, not the 64-term sum
   CG / FCG / ACG   one term of the CG instead of the instruction's pattern
@@ -45,7 +51,7 @@ import torch
 
 from ..ops import cuda_build
 from ..ops import fused_conv as fc
-from .geom_ab import CHECKPOINT, chunk_inputs
+from .geom_ab import CHECKPOINT, chunk_inputs, dense_inputs
 from .timing import card, cuda_ms, require_card
 
 Stubs = List[Tuple[str, str]]
@@ -78,6 +84,21 @@ NEW_STUBS: Stubs = [
   }
   return;
 #endif"""),
+    ("""                                           float* embT_s, float* sh_s) {
+  const int nb = P.nb, f = P.f, pad = SHP - P.f;
+""",
+     """                                           float* embT_s, float* sh_s) {
+  const int nb = P.nb, f = P.f, pad = SHP - P.f;
+#ifdef STUB_ROWS
+  const float v0 = __ldg(G.emb + row0 * nb);
+  for (int i = threadIdx.x; i < rows * (nb + SHP); i += NT) {
+    const int e = i / (nb + SHP), k = i - e * (nb + SHP);
+    const float v = v0 * 0.25f + (e + k) * 0.01f;
+    if (k < nb) embT_s[k * T + e] = v; else sh_s[e * SHP + k - nb] = v;
+  }
+  return;
+#endif
+"""),
     ("""                          float* h1T_s, float* da0T_s, float* da1T_s) {
 """,
      """                          float* h1T_s, float* da0T_s, float* da1T_s) {
@@ -356,6 +377,7 @@ constexpr int H = 64;"""),
 ]
 
 NEW_PASSES = ('GEOM', 'HID', 'W', 'CG', 'RED', 'D', 'EF', 'SI2')
+DENSE_PASSES = ('ROWS',) + NEW_PASSES[1:]
 OLD_PASSES = ('GEOM', 'HID', 'AMLP', 'ACG', 'B', 'C', 'D', 'EF', 'FMLP', 'FCG',
               'SI2', 'LOAD')
 
@@ -370,18 +392,20 @@ def apply(text: str, stubs: Stubs) -> str:
     return text
 
 
-def stubbed_source(other: str = None) -> Tuple[str, str, Stubs, Tuple]:
+def stubbed_source(other: str = None,
+                   dense: bool = False) -> Tuple[str, str, Stubs, Tuple]:
     """(directory to copy, file to patch in it, stubs, passes)."""
     if other is None:
         src = cuda_build.source_path('fused_conv_geom')
         return (os.path.dirname(src), os.path.basename(src), NEW_STUBS,
-                NEW_PASSES)
+                DENSE_PASSES if dense else NEW_PASSES)
     return (os.path.dirname(os.path.abspath(other)), 'fused_conv_body.cuh',
             OLD_STUBS, OLD_PASSES)
 
 
-def build(other: str, out_dir: str) -> Dict[str, ctypes.CDLL]:
-    src_dir, target, stubs, passes = stubbed_source(other)
+def build(other: str, out_dir: str,
+          dense: bool = False) -> Dict[str, ctypes.CDLL]:
+    src_dir, target, stubs, passes = stubbed_source(other, dense)
     work = os.path.join(out_dir, 'src')
     shutil.copytree(src_dir, work, ignore=shutil.ignore_patterns('_build'))
     path = os.path.join(work, target)
@@ -404,38 +428,55 @@ def build(other: str, out_dir: str) -> Dict[str, ctypes.CDLL]:
         out, err = p.communicate()
         if p.returncode:
             raise RuntimeError(f'nvcc failed on variant {v}:\n{out}\n{err}')
-        libs[v] = fc.bind_geom(ctypes.CDLL(so))
+        lib = fc.bind_geom(ctypes.CDLL(so))
+        libs[v] = lib if other else fc.bind_dense(lib)
     return libs
 
 
-def run(other: str = None) -> Dict:
+def run(other: str = None, dense: bool = False) -> Dict:
     from ..checkpoint import SevenNetCheckpoint
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device('cuda')
     res = {'card': card(), 'source': other or 'csrc/fused_conv_geom.cu',
-           'layers': {}}
+           'pair': 'dense' if dense else 'geom', 'layers': {}}
     geom_lib = fc._geom_lib
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(other, tmp)
+        libs = build(other, tmp, dense)
         try:
             model, _ = SevenNetCheckpoint(CHECKPOINT).build_model(device=dev)
             for layer in (1, 4, 0):
                 cl = model.layers[f'{layer}_convolution']
-                conv = fc.FusedConv(cl.tp, cl.weight_nn, cl.si2, 32,
-                                    geom=cl.geom)
                 mlp_ws, si2_ws = cl._weights()
-                xg, vec, ms, coeffs, g = chunk_inputs(conv, dev)
+                if dense:
+                    conv = fc.FusedConv(cl.tp, cl.weight_nn, cl.si2, 32)
+                    xg, sh, emb, ms, g = dense_inputs(conv, cl.geom, dev,
+                                                      1000)
+
+                    def fwd():
+                        conv.kernel_forward(xg, sh, emb, ms, mlp_ws, si2_ws)
+
+                    def bwd():
+                        conv.kernel_backward(g, xg, sh, emb, ms, mlp_ws,
+                                             si2_ws)
+                else:
+                    conv = fc.FusedConv(cl.tp, cl.weight_nn, cl.si2, 32,
+                                        geom=cl.geom)
+                    xg, vec, ms, coeffs, g = chunk_inputs(conv, dev)
+
+                    def fwd():
+                        conv.kernel_geom_forward(xg, vec, ms, coeffs, mlp_ws,
+                                                 si2_ws)
+
+                    def bwd():
+                        conv.kernel_geom_backward(g, xg, vec, ms, coeffs,
+                                                  mlp_ws, si2_ws)
                 rows = xg.shape[0]
+                reps = 20 if dense else 5
                 out = {}
                 for v, lib in libs.items():
                     fc._geom_lib = lambda lib=lib: lib
-                    out[v] = {
-                        'fwd_ms': cuda_ms(lambda: conv.kernel_geom_forward(
-                            xg, vec, ms, coeffs, mlp_ws, si2_ws), reps=5,
-                            warm=1),
-                        'bwd_ms': cuda_ms(lambda: conv.kernel_geom_backward(
-                            g, xg, vec, ms, coeffs, mlp_ws, si2_ws), reps=5,
-                            warm=1)}
+                    out[v] = {'fwd_ms': cuda_ms(fwd, reps=reps, warm=1),
+                              'bwd_ms': cuda_ms(bwd, reps=reps, warm=1)}
                     full = out['full']
                     out[v].update({f'{k[:3]}_ns_per_row_saved':
                                    (full[k] - out[v][k]) * 1e6 / rows
@@ -444,7 +485,7 @@ def run(other: str = None) -> Dict:
                         {k: round(x, 3) for k, x in out[v].items()}),
                         flush=True)
                 res['layers'][layer] = out
-                del xg, vec, ms, coeffs, g
+                del xg, ms, g
                 torch.cuda.empty_cache()
         finally:
             fc._geom_lib = geom_lib
@@ -453,10 +494,15 @@ def run(other: str = None) -> Dict:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    dense = '--dense' in argv
+    other = argv[0] if argv and argv[0].endswith('.cu') else None
+    if dense and other:
+        print('geom_passes: --dense stubs the port\'s own source only',
+              file=sys.stderr)
+        return 2
     if not require_card('geom_passes'):
         return 2
-    other = argv[0] if argv and argv[0].endswith('.cu') else None
-    res = run(other)
+    res = run(other, dense)
     out = [a for a in argv if a.endswith('.json')]
     if out:
         os.makedirs(os.path.dirname(os.path.abspath(out[0])), exist_ok=True)

@@ -11,7 +11,10 @@ at 1,000 atoms). Warms up, then traces a window of steps (20, or 5 above 20,000
 atoms) with CPU and CUDA activities. Prints the wall time per step, the
 summed device kernel time per step and the device's idle share
 (1 - kernel time / wall), and the top kernels by device time; writes the
-summary and the op table under chiprun_out/.
+summary and the op table under chiprun_out/. The trace slows the host, so
+the same number of steps is also timed untraced just before the window:
+the kernels take the same time either way, and 1 - kernel time / untraced
+wall is the idle share of the step users run.
 """
 
 import json
@@ -54,6 +57,10 @@ def main():
                            half_mlp=variant == 'half_mlp')
     md.run(warm)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    md.run(steps)
+    torch.cuda.synchronize()
+    untraced_ms = (time.perf_counter() - t0) / steps * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -75,6 +82,8 @@ def main():
         'chunk_rows': md.conv_chunk_rows, 'wall_ms_per_step': step_ms,
         'device_kernel_ms_per_step': dev_ms,
         'device_idle_share': 1.0 - dev_ms / step_ms,
+        'untraced_ms_per_step': untraced_ms,
+        'device_idle_share_untraced': 1.0 - dev_ms / untraced_ms,
         'launches_per_step': sum(e.count for e in kernels) / steps,
         'top_kernels': [
             {'name': e.key[:90], 'ms_per_step':

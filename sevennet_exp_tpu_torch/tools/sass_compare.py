@@ -13,7 +13,9 @@ JSON to OUT.json when given. Exits 1 when a kernel's SASS differs or a
 kernel is on one side only. Needs nvcc and cuobjdump, not a card.
 
 ``digests(NAME)`` gives each kernel's SASS digest (the card tests hold
-the conv kernels that a change did not touch to their earlier digests).
+the conv kernels that a change did not touch to their earlier digests;
+``geom_label`` names the instances of ``csrc/fused_conv_geom.cu`` across
+its template switch).
 ``count(NAME)`` gives the static opcode counts of one source's kernels
 instead (``chip_smoke.py`` checks with it that the micro-benchmarks'
 repeated passes and dense products are all issued, and that the fp32 dot
@@ -56,6 +58,18 @@ _BLANKS = re.compile(r'\s+')
 
 def _plain_name(text: str) -> str:
     return _ANON.sub('_GLOBAL__N__', text)
+
+
+def geom_label(name: str):
+    """'fwd', 'bwd4', 'bwd9' or 'bwd16' for a kernel of
+    csrc/fused_conv_geom.cu (either pair, before or after their template
+    switch: the mangled names differ), None for any other name."""
+    for nsh in (4, 9, 16):
+        if f'fused_conv_geom_bwd_kernelILi{nsh}E' in name:
+            return f'bwd{nsh}'
+    if 'fused_conv_geom_fwd_kernel' in name:
+        return 'fwd'
+    return None
 
 
 def split_functions(sass: str) -> Dict[str, str]:

@@ -101,6 +101,47 @@ def test_fused_conv_kernels_small_multiplicities(cuda):
         assert (a - b).abs().max() <= 1e-4 * max(b.abs().max(), 1e-6)
 
 
+@pytest.mark.parametrize('layer', [0, 1, 4])
+def test_dense_kernels_pad_rows_zero_and_runs_bit_identical(cuda, model,
+                                                            layer):
+    """Kernels 1-2 (the geometry-fused pair's template without the
+    geometry): pad rows (ms = 0, their sh and emb rows random) get exact-zero
+    dxg, dsh and demb, and two launches give the same bits (no atomics)."""
+    from sevennet_exp_tpu_torch.ops.fused_conv import FusedConv
+    cl = model.layers[f'{layer}_convolution']
+    conv = FusedConv(cl.tp, cl.weight_nn, cl.si2, 32)
+    mlp_ws, si2_ws = cl._weights()
+    xg, sh, emb, ms, g, pad = _plain_inputs(conv, 37 * 32, cuda, 80 + layer)
+    outs = []
+    for _ in range(2):
+        outs.append((conv.kernel_forward(xg, sh, emb, ms, mlp_ws, si2_ws),
+                     *conv.kernel_backward(g, xg, sh, emb, ms, mlp_ws,
+                                           si2_ws)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    for d in outs[0][1:]:
+        assert torch.isfinite(d).all()
+        assert d[pad].abs().max() == 0
+
+
+def test_dense_kernels_resources(cuda, model):
+    """As compiled: no local memory, three forward and two backward blocks
+    an SM at every layer's shared bytes; the launch shape is the Python
+    mirror's."""
+    from sevennet_exp_tpu_torch.ops import fused_conv_geom as fcg
+    from sevennet_exp_tpu_torch.ops.fused_conv import FusedConv
+    for layer in range(5):
+        cl = model.layers[f'{layer}_convolution']
+        conv = FusedConv(cl.tp, cl.weight_nn, cl.si2, 32)
+        dims = fcg.layer_dims(conv, 32)
+        for bwd, blocks in ((False, 3), (True, 2)):
+            assert fcg.kernel_shape(dims, bwd, False) == fcg.shape(
+                dims, bwd, False)
+            r = fcg.kernel_resources(dims, conv.f, bwd, False)
+            assert r.local_bytes == 0 and r.blocks_per_sm >= blocks, r
+            assert r.smem == fcg.shape(dims, bwd, False).smem
+
+
 def test_wrapper_routes_cuda_tensors_to_the_kernel(cuda, model):
     from sevennet_exp_tpu_torch.ops import fused_conv as fc
     cl = model.layers['1_convolution']
@@ -234,7 +275,8 @@ def test_geom_kernels_match_plain_at_97k_chunk_shape(cuda, model):
 
 def test_geom_launch_shape_matches_python_mirror(cuda, model):
     """The C entry's tile, row groups and shared bytes are those of
-    ops/fused_conv_geom.py (which the CPU tests hold)."""
+    ops/fused_conv_geom.py (which the CPU tests hold), for the
+    geometry-fused pair and the dense pair."""
     from sevennet_exp_tpu_torch.ops import fused_conv_geom as fcg
     from sevennet_exp_tpu_torch.ops.fused_conv import FusedConv
     for layer in (0, 1, 4):
@@ -243,31 +285,59 @@ def test_geom_launch_shape_matches_python_mirror(cuda, model):
             conv = FusedConv(cl.tp, cl.weight_nn, cl.si2, D, geom=cl.geom)
             dims = fcg.layer_dims(conv, D)
             for bwd in (False, True):
-                assert fcg.kernel_shape(dims, bwd) == fcg.shape(dims, bwd)
+                for geom in (True, False):
+                    assert fcg.kernel_shape(dims, bwd, geom) == fcg.shape(
+                        dims, bwd, geom)
 
 
-def test_geom_kernels_sass_fp32_cuda_cores_no_local_memory(cuda):
-    """Rows 5-6: FFMA on the CUDA cores, no tensor-core opcode, nothing in
-    local memory (no spill, no stack array), in every instance."""
+def _geom_source_instances(geom):
+    """{label: opcode counts} of csrc/fused_conv_geom.cu's kernel instances
+    of one pair (GEOM true: rows 5-6; false: kernels 1-2), labelled fwd,
+    bwd4, bwd9, bwd16."""
     from sevennet_exp_tpu_torch.tools import sass_compare
-    counts = {k: v for k, v in sass_compare.count('fused_conv_geom').items()
-              if 'fused_conv_geom_' in k}
-    assert len(counts) == 4          # forward, backward at 4, 9, 16 SH
+    return {sass_compare.geom_label(k): v
+            for k, v in sass_compare.count('fused_conv_geom').items()
+            if sass_compare.geom_label(k) and f'Lb{int(geom)}E' in k}
+
+
+@pytest.mark.parametrize('geom', [True, False], ids=['geom', 'dense'])
+def test_geom_kernels_sass_fp32_cuda_cores_no_local_memory(cuda, geom):
+    """Rows 5-6 and kernels 1-2: FFMA on the CUDA cores, no tensor-core
+    opcode, nothing in local memory (no spill, no stack array), in every
+    instance."""
+    from sevennet_exp_tpu_torch.tools import sass_compare
+    counts = _geom_source_instances(geom)
+    # forward, backward at 4, 9, 16 SH
+    assert set(counts) == {'fwd', 'bwd4', 'bwd9', 'bwd16'}
     for k, v in counts.items():
         assert v['FFMA'] > 0, k
         for op in (*sass_compare.TENSOR_CORE_OPS, *sass_compare.LOCAL_OPS):
             assert v[op] == 0, (k, op, v[op])
 
 
+# SASS digests of the geometry-fused pair (rows 5-6) built from the tree
+# before the dense pair joined their template, by label
+# (sass_compare.geom_label), same nvcc on the card machine
+PARENT_GEOM_SASS = {'fwd': '282ef8d7e2ab', 'bwd4': '9eca060d6abd',
+                    'bwd9': '4fded89d1077', 'bwd16': 'daa9f3ecb780'}
+
+
+def test_geom_instances_sass_identical_to_parent(cuda):
+    """The template switch leaves rows 5-6 as they were compiled: each
+    GEOM instance's SASS digest is the earlier kernel's."""
+    from sevennet_exp_tpu_torch.tools import sass_compare
+    got = {sass_compare.geom_label(k): v for k, v in
+           sass_compare.digests('fused_conv_geom').items()
+           if sass_compare.geom_label(k) and 'Lb1E' in k}
+    assert got == PARENT_GEOM_SASS
+
+
 # SASS digests (tools/sass_compare.digests) of the conv kernels whose code
-# the geometry-fused redesign did not touch, from a build of the parent
-# tree's csrc/fused_conv.cu and csrc/bench_pieces.cu with the same nvcc on
-# the card machine
+# the redesigns of the geometry-fused and dense pairs did not touch, from a
+# build of the parent tree's csrc/fused_conv.cu and csrc/bench_pieces.cu
+# with the same nvcc on the card machine. bench_pieces_full is the code of
+# the first dense-grid forward (kernel 1 before its redesign).
 PARENT_SASS = {
-    '_ZN46_GLOBAL__N__13_fused_conv_cu_97ac331b21fused_conv_bwd_kernelEPKfS1_S1_S1_S1_S1_S1_S1_S1_S1_S1_NS_4PlanEPfS3_S3_':
-        '6774671276e0',
-    '_ZN46_GLOBAL__N__13_fused_conv_cu_97ac331b21fused_conv_fwd_kernelEPKfS1_S1_S1_S1_S1_S1_S1_NS_4PlanEPf':
-        '9363ad0df108',
     '_ZN46_GLOBAL__N__13_fused_conv_cu_97ac331b26fused_conv_edge_bwd_kernelEPKfS1_S1_S1_S1_S1_S1_S1_S1_S1_S1_NS_4PlanEPfS3_S3_':
         '4de88c67043a',
     '_ZN46_GLOBAL__N__13_fused_conv_cu_97ac331b26fused_conv_edge_fwd_kernelEPKfS1_S1_S1_S1_S1_S1_S1_NS_4PlanEPf':
@@ -291,16 +361,26 @@ PARENT_SASS = {
 }
 
 
+def _without_file_hash(name):
+    """A kernel's name without the hash nvcc puts after the file name in
+    its anonymous namespace (fused_conv.cu's moved when kernels 1-2 left
+    it; the code did not)."""
+    import re
+    return re.sub(r'(_cu_)[0-9a-f]{8}', r'\1', name)
+
+
 def test_untouched_conv_kernels_sass_identical_to_parent(cuda):
-    """Kernels 1-2, their edge-row forms, 7-8 and bench_pieces compile to
-    the SASS of the tree before the geometry-fused kernels left
+    """The edge-row forms of kernels 1-2, kernels 7-8 and bench_pieces
+    compile to the SASS of the tree before the geometry-fused kernels left
     fused_conv_body.cuh."""
     from sevennet_exp_tpu_torch.tools import sass_compare
     got = {}
     for name in ('fused_conv', 'bench_pieces'):
         got.update(sass_compare.digests(name))
-    assert set(got) == set(PARENT_SASS)
-    assert got == PARENT_SASS
+    got = {_without_file_hash(k): v for k, v in got.items()}
+    want = {_without_file_hash(k): v for k, v in PARENT_SASS.items()}
+    assert set(got) == set(want)
+    assert got == want
 
 
 # -- the external-weight pair ------------------------------------------------
@@ -654,7 +734,18 @@ def test_bench_pieces_kernels_match_plain(cuda, variant, pads):
     assert got.shape == ref.shape
     assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
     if variant == 'full':
-        assert torch.equal(got, conv.kernel_forward(*ins))
+        # kernel 1 now sums in the redesigned order: held at the same limit
+        kern = conv.kernel_forward(*ins)
+        assert (got - kern).abs().max() <= 1e-4 * ref.abs().max()
+
+
+def test_bench_pieces_full_is_the_first_kernel_1(cuda):
+    """bench_pieces full is still the code of kernel 1 before its redesign:
+    the SASS digest of that kernel."""
+    from sevennet_exp_tpu_torch.tools import sass_compare
+    (digest,) = [v for k, v in sass_compare.digests('bench_pieces').items()
+                 if 'bench_pieces_full_kernel' in k]
+    assert digest == '9363ad0df108'
 
 
 @pytest.mark.parametrize('mode', ['st', 'outer', 'dots'])

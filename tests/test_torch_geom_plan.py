@@ -1,4 +1,5 @@
-"""The geometry-fused conv kernels of csrc/fused_conv_geom.cu, held on the
+"""The conv kernels of csrc/fused_conv_geom.cu -- the geometry-fused pair
+and the dense-grid pair (kernels 1-2), one template there -- held on the
 CPU where they cannot run:
 
   - csrc/cg_patterns.cuh is what tools/cg_patterns.py writes from the port's
@@ -16,7 +17,12 @@ CPU where they cannot run:
     the backward's merged passes by i1 class, passes D-F) reproduces
     ``plain_geom_forward`` / ``plain_geom_backward`` within 1e-5 of
     max|plain| on the tiny config's layers, the random plans and checkpoint
-    layers 0, 1 and 4.
+    layers 0, 1 and 4;
+  - the same for the dense-grid pair: its launch shape on the checkpoint's
+    five layers (shared bytes within three forward and two backward blocks
+    an SM), its work mapping, and the replay with staged sh / emb rows in
+    and dsh / demb rows out against ``plain_forward`` / ``plain_backward``,
+    pad rows exactly zero.
 
 The kernels themselves run on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
@@ -47,7 +53,7 @@ def checkpoint_convs():
     from sevennet_exp_tpu_torch.checkpoint import SevenNetCheckpoint
     model, _ = SevenNetCheckpoint(CKPT).build_model('cpu')
     out = {}
-    for li in (0, 1, 4):
+    for li in range(5):
         cl = model.layers[f'{li}_convolution']
         mlp_ws, si2_ws = cl._weights()
         out[li] = (cl.tp, cl.weight_nn, cl.si2, cl.geom, mlp_ws, si2_ws)
@@ -91,9 +97,9 @@ def _random_weights(mlp, si2, seed):
     return mlp_ws, si2_ws
 
 
-def _plan(which, checkpoint_convs, D):
+def _plan(which, checkpoint_convs, D, geom=True):
     """(FusedConv, mlp_ws, si2_ws) of 'checkpoint:L', 'random:LMAX[:kind]'
-    or 'tiny:L'."""
+    or 'tiny:L'; geom=False: the dense-grid conv (no GeomSpec)."""
     kind, _, rest = which.partition(':')
     if kind == 'checkpoint':
         tp, mlp, si2, geom, mlp_ws, si2_ws = checkpoint_convs[int(rest)]
@@ -104,7 +110,8 @@ def _plan(which, checkpoint_convs, D):
         else:
             tp, mlp, si2, geom = _tiny_plans()[int(rest)]
         mlp_ws, si2_ws = _random_weights(mlp, si2, len(which))
-    return pfc.FusedConv(tp, mlp, si2, D, geom=geom), mlp_ws, si2_ws
+    return (pfc.FusedConv(tp, mlp, si2, D, geom=geom if geom else None),
+            mlp_ws, si2_ws)
 
 
 PLANS = ['checkpoint:0', 'checkpoint:1', 'checkpoint:4', 'random:1',
@@ -224,10 +231,11 @@ def _act(name):
 
 class _Replay:
     """The arithmetic of csrc/fused_conv_geom.cu in float64 numpy, in its
-    loop order, over all atoms at once."""
+    loop order, over all atoms at once; geom=False: the dense-grid pair
+    (sh and emb rows in, dsh and demb rows out)."""
 
-    def __init__(self, conv, D, mlp_ws, si2_ws):
-        self.conv, self.D = conv, D
+    def __init__(self, conv, D, mlp_ws, si2_ws, geom=True):
+        self.conv, self.D, self.geom = conv, D, geom
         t = conv.kernel_tables(torch.device('cpu'))
         self.t = t
         self.ins = t.ins.numpy().reshape(t.n_ins, -1)
@@ -274,12 +282,17 @@ class _Replay:
             yield t0, min(T, self.D - t0)
 
     def forward(self, xg, vec, ms, coeffs):
+        return self.forward_rows(xg, *self.geometry(vec, coeffs), ms)
+
+    def forward_rows(self, xg, emb, sh, ms):
+        """The forward on the tile's emb and sh rows (the geometry's, or
+        the dense pair's staged inputs)."""
         n = xg.shape[0] // self.D
         X = xg.astype(np.float64).reshape(n, self.D, -1)
-        emb, sh = self.geometry(vec, coeffs)
-        emb, sh = emb.reshape(n, self.D, -1), sh.reshape(n, self.D, -1)
+        emb = emb.astype(np.float64).reshape(n, self.D, -1)
+        sh = sh.astype(np.float64).reshape(n, self.D, -1)
         M = ms.astype(np.float64).reshape(n, self.D)
-        S = fcg.shape(self.dims, False)
+        S = fcg.shape(self.dims, False, self.geom)
         n_act, agg_dim = self.t.n_active, self.t.agg_dim
         aggp = np.zeros((S.s, n, agg_dim))
         R = S.T // S.s
@@ -317,10 +330,25 @@ class _Replay:
         return out
 
     def backward(self, g, xg, vec, ms, coeffs):
+        dxg, dsh, demb = self.backward_rows(
+            g, xg, *self.geometry(vec, coeffs), ms)
+        # geometry VJP of (demb, dsh); pad rows give zeros
+        v = torch.tensor(vec, dtype=torch.float64, requires_grad=True)
+        e_, s_ = pfc.geom_rows(v, torch.tensor(coeffs, dtype=torch.float64),
+                               self.conv.geom)
+        (dvec,) = torch.autograd.grad(
+            (e_, s_), v, (torch.tensor(demb), torch.tensor(dsh)))
+        dvec = dvec.numpy() * (ms != 0)
+        return dxg, dvec
+
+    def backward_rows(self, g, xg, emb, sh, ms):
+        """(dxg, dsh, demb) rows of the backward on the tile's emb and sh
+        rows; dsh and demb zero on pad rows, as the dense pair stores
+        them."""
         n = xg.shape[0] // self.D
         X = xg.astype(np.float64).reshape(n, self.D, -1)
-        emb, sh = self.geometry(vec, coeffs)
-        emb, sh = emb.reshape(n, self.D, -1), sh.reshape(n, self.D, -1)
+        emb = emb.astype(np.float64).reshape(n, self.D, -1)
+        sh = sh.astype(np.float64).reshape(n, self.D, -1)
         M = ms.astype(np.float64).reshape(n, self.D)
         G64 = g.astype(np.float64)
         # gm = si2^T g, once per atom
@@ -332,7 +360,7 @@ class _Replay:
             gm[:, a_off:a_off + d3 * K] = (
                 np.einsum('apo,ko->apk', gp, W) * self.alpha[gi]
             ).reshape(n, -1)
-        S = fcg.shape(self.dims, True)
+        S = fcg.shape(self.dims, True, self.geom)
         n_act = self.t.n_active
         dxg = np.zeros_like(X)
         demb = np.zeros_like(emb)
@@ -381,15 +409,9 @@ class _Replay:
             dp1 = dh1 * self.s2 * da1
             dp0 = (dp1 @ self.w1.T) * self.s1 * da0
             demb[:, sl] = (dp0 @ self.w0.T) * self.s0
-        # geometry VJP of (demb, dsh); pad rows give zeros
-        v = torch.tensor(vec, dtype=torch.float64, requires_grad=True)
-        e_, s_ = pfc.geom_rows(v, torch.tensor(coeffs, dtype=torch.float64),
-                               self.conv.geom)
-        (dvec,) = torch.autograd.grad(
-            (e_, s_), v, (torch.tensor(demb.reshape(e_.shape)),
-                          torch.tensor(dsh.reshape(s_.shape))))
-        dvec = dvec.numpy() * (ms != 0)
-        return dxg.reshape(xg.shape), dvec
+        live = (M != 0)[..., None]
+        return (dxg.reshape(xg.shape), (dsh * live).reshape(-1, sh.shape[-1]),
+                (demb * live).reshape(-1, emb.shape[-1]))
 
 
 def _geom_inputs(conv, n, D, seed):
@@ -435,29 +457,145 @@ def test_replay_reproduces_plain(checkpoint_convs, which, D):
     assert np.abs(d_r[0][pad]).max() == 0 and np.abs(d_r[1][pad]).max() == 0
 
 
+# -- the dense-grid pair (kernels 1-2: no geometry) ----------------------------
+
+@pytest.mark.parametrize('layer', range(5))
+@pytest.mark.parametrize('D', [32, 40, 16])
+def test_dense_launch_shape_fits_three_forward_two_backward_blocks(
+        checkpoint_convs, layer, D):
+    """The checkpoint's five layers: the dense pair's tile and row groups
+    are the geometry-fused pair's, its shared bytes those less the edge
+    vectors' T * 3 words, within three forward and two backward blocks an
+    SM."""
+    conv, _, _ = _plan(f'checkpoint:{layer}', checkpoint_convs, D, geom=False)
+    dims = fcg.layer_dims(conv, D)
+    for bwd, limit in ((False, fcg.THREE_PER_SM), (True, fcg.TWO_PER_SM)):
+        S, Sg = fcg.shape(dims, bwd, geom=False), fcg.shape(dims, bwd)
+        assert S[:4] == Sg[:4]
+        assert S.T == min(16, -(-D // 4) * 4) and S.s == 1
+        assert S.smem == Sg.smem - 4 * (-(-S.T * 3 // 4) * 4)
+        assert S.smem <= limit
+
+
+@pytest.mark.parametrize('which', PLANS)
+@pytest.mark.parametrize('D', [32, 40, 16])
+def test_dense_items_cover_every_column_and_x_channel_once(
+        checkpoint_convs, which, D):
+    conv, _, _ = _plan(which, checkpoint_convs, D, geom=False)
+    dims = fcg.layer_dims(conv, D)
+    t = conv.kernel_tables(torch.device('cpu'))
+    xent = t.xent.numpy().reshape(t.n_xent, -1)
+    n = dims['n_active']
+    for bwd in (False, True):
+        S = fcg.shape(dims, bwd, geom=False)
+        for t0 in range(0, D, S.T):
+            rows = min(S.T, D - t0)
+            seen = np.zeros((n, rows), int)
+            for items in fcg.column_items(n, S.T, S.s, rows):
+                for c, e0, e1 in items:
+                    seen[c, e0:e1] += 1
+            assert (seen == 1).all()
+            if not bwd:
+                continue
+            got = {}
+            for items in fcg.class_items(xent, S.T, rows):
+                for xe, e, us in items:
+                    for u in us:
+                        got[(xe, e, u)] = got.get((xe, e, u), 0) + 1
+            want = {(xe, e, u) for xe, (_, mul, _, _, _) in enumerate(xent)
+                    for e in range(rows) for u in range(mul)}
+            assert set(got) == want and set(got.values()) == {1}
+
+
+def _dense_inputs(conv, n, D, seed):
+    """xg, sh, emb, ms with a fifth of the rows pads (ms = 0, their sh and
+    emb rows random all the same) and a node cotangent."""
+    rng = np.random.default_rng(seed)
+    rows = n * D
+    ms = rng.uniform(0.01, 0.05, size=(rows, 1)).astype(np.float32)
+    ms[rng.uniform(size=rows) < 0.2] = 0.0
+    return (rng.normal(size=(rows, conv.d1)).astype(np.float32),
+            rng.normal(size=(rows, conv.f)).astype(np.float32),
+            rng.normal(size=(rows, conv.nb)).astype(np.float32), ms,
+            rng.normal(size=(n, conv.d_out)).astype(np.float32))
+
+
+@pytest.mark.parametrize('which,D', [
+    ('tiny:0', 16), ('tiny:1', 40), ('random:3', 16), ('checkpoint:0', 32),
+    ('checkpoint:1', 40), ('checkpoint:4', 32)])
+def test_dense_replay_reproduces_plain(checkpoint_convs, which, D):
+    """Staged sh / emb rows in, dsh / demb rows out: the replay of the dense
+    pair against plain_forward / plain_backward at 1e-5 of max|plain|; the
+    pad rows' dxg, dsh and demb exactly zero."""
+    conv, mlp_ws, si2_ws = _plan(which, checkpoint_convs, D, geom=False)
+    assert pfc.dense_unsupported(conv.tp) is None
+    xg, sh, emb, ms, g = _dense_inputs(conv, 3, D, len(which) + D)
+    rep = _Replay(conv, D, mlp_ws, si2_ws, geom=False)
+    ins = [torch.tensor(a) for a in (xg, sh, emb, ms)]
+    y_p = conv.plain_forward(*ins, mlp_ws, si2_ws).numpy()
+    y_r = rep.forward_rows(xg, emb, sh, ms)
+    np.testing.assert_allclose(y_r, y_p, rtol=0,
+                               atol=REL * np.abs(y_p).max())
+    d_p = conv.plain_backward(torch.tensor(g), *ins, mlp_ws, si2_ws)
+    d_r = rep.backward_rows(g, xg, emb, sh, ms)
+    pad = ms[:, 0] == 0
+    assert pad.any()
+    for a, b in zip(d_r, d_p):
+        b = b.numpy()
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, b, rtol=0, atol=REL * np.abs(b).max())
+        assert np.abs(a[pad]).max() == 0
+
+
+def test_dense_kernels_refuse_plans_they_cannot_hold():
+    """Kernels 1-2 keep the SH operands in registers at l2^2 (at most 16)
+    and a table of fewer than 16 x entries: other plans raise before any
+    launch, the plain version still takes them."""
+    from sevennet_exp_tpu_torch.irreps import Irreps, infer_irreps_out
+    from sevennet_exp_tpu_torch.ops.tensor_product import (
+        UVUTensorProductSpec)
+    x = Irreps('4x0e+4x1o')
+    for sh, why in (('1x1o+1x0e', 'l2^2'),
+                    ('1x0e+1x1o+1x2e+1x3o+1x4e', 'SH components')):
+        tp = UVUTensorProductSpec(x, Irreps(sh),
+                                  infer_irreps_out(x, Irreps(sh), 1, 'full'))
+        assert why in pfc.dense_unsupported(tp)
+    many = Irreps('+'.join(['1x0e'] * 16))
+    tp = UVUTensorProductSpec(many, Irreps('1x0e'),
+                              infer_irreps_out(many, Irreps('1x0e'), 0,
+                                               'full'))
+    assert 'x entries' in pfc.dense_unsupported(tp)
+    assert pfc.dense_unsupported(_random_plan(3)[0]) is None
+
+
 # -- the card tools of the pair ------------------------------------------------
 
 def test_pass_stubs_apply_to_the_source():
     """tools/geom_passes.py inserts one switch per pass of NEW_STUBS into
-    csrc/fused_conv_geom.cu (every anchor found exactly once)."""
+    csrc/fused_conv_geom.cu (every anchor found exactly once), the dense
+    pair's passes included."""
     from sevennet_exp_tpu_torch.ops import cuda_build
     from sevennet_exp_tpu_torch.tools import geom_passes
     with open(cuda_build.source_path('fused_conv_geom')) as fh:
         text = fh.read()
     out = geom_passes.apply(text, geom_passes.NEW_STUBS)
     assert out.count('#ifdef STUB_') >= len(geom_passes.NEW_PASSES)
-    for p in geom_passes.NEW_PASSES:
+    for p in geom_passes.NEW_PASSES + geom_passes.DENSE_PASSES:
         assert f'STUB_{p}' in out
     with pytest.raises(ValueError):
         geom_passes.apply(out, geom_passes.NEW_STUBS)
 
 
 def test_card_tools_exit_2_without_a_card():
+    """Both tools, for either pair (``--dense``: kernels 1-2)."""
     from sevennet_exp_tpu_torch.tools import geom_ab, geom_passes
     assert geom_ab.main([]) == 2
+    assert geom_ab.main(['--dense']) == 2
     if not torch.cuda.is_available():
         assert geom_ab.main(['other.cu']) == 2
+        assert geom_ab.main(['other.cu', '--dense']) == 2
         assert geom_passes.main([]) == 2
+        assert geom_passes.main(['--dense']) == 2
 
 
 def test_kernel_sin_cos_emulated_in_float32():
