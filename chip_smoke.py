@@ -8,7 +8,8 @@ geometry-fused pair's template without the geometry) and at
 radial MLP on the half list (the external-weight kernels
 ``fused_conv_extw_fwd`` / ``fused_conv_extw_bwd``), and the single-point
 calculator with stress (kernels 1-2 in their edge-row form, one output row
-per edge: ``fused_conv_edge_fwd`` / ``fused_conv_edge_bwd``), then the
+per edge: the edge pair ``fused_conv_edge_fwd`` / ``fused_conv_edge_bwd``),
+then the
 independently derived ``terms`` kernels (``fused_conv_terms_fwd`` /
 ``fused_conv_terms_bwd``) under 1k NPT, the other ensembles, the bare
 tensor-product kernels (``fused_tp_fwd`` / ``fused_tp_bwd``), and the
@@ -23,7 +24,8 @@ Phases (any failure raises, exits non-zero and prints no result):
      (csrc/*.cu, one nvcc per source, all started together; ptxas' report);
      per layer, the registers, local bytes and blocks an SM of kernels 1-2
      as launched (at least three forward and two backward blocks, no local
-     memory);
+     memory) and of their edge-row form, the edge pair (at least two each
+     way, no local memory);
   2. each kernel against its plain PyTorch version on the 1k path's real
      inputs (trained checkpoint; kernels 1-2 on all five layers, their pad
      rows' gradients exactly zero and a second launch bit-identical; the
@@ -59,7 +61,8 @@ Phases (any failure raises, exits non-zero and prints no result):
      5 + 5 external-weight kernels and none of kernels 1-2;
   9. the calculator on the 1k cell and on a sheared, 2 % strained copy:
      the edge-row kernels against their plain versions on the call's real
-     inputs (all five layers); energy, forces and the six stress components
+     inputs (all five layers; the pad rows' outputs and gradients exactly
+     zero, a second launch bit-identical); energy, forces and the six stress components
      through the kernels against the same calculator through the plain
      versions, the spread between two kernel runs (``index_add_`` adds by
      atomics), repeated calls timed after the first, 5 + 5 launches of the
@@ -82,8 +85,9 @@ Phases (any failure raises, exits non-zero and prints no result):
  13. the bare tensor product: ``make_fused_tp`` driven through autograd on
      the five layers' specs at the 1k grid's rows (counters reset just
      before), then each kernel against its plain version, times, bound;
- 14. the SASS of both pairs of csrc/fused_conv_geom.cu (the geom kernels
-     and kernels 1-2): no tensor-core and no local-memory opcode; the
+ 14. the SASS of the three pairs of csrc/fused_conv_geom.cu (the geom
+     kernels, kernels 1-2 and their edge-row form): no tensor-core and no
+     local-memory opcode; the
      entries of the twelve kernels above (the six kernels, the edge-row
      form of kernels 1-2, the terms pair and the tensor-product pair);
  15. the micro-benchmarks at their default sizes through their entry
@@ -652,14 +656,17 @@ def main():
                 lambda: against.kernel_forward(*args))
             row['other_bwd_ms'] = cuda_ms(
                 lambda: against.kernel_backward(g, *args))
-        if kind or conv.cg_mode == 'terms' or conv.agg_d > 0:
-            pad = (ms == 0).all(dim=1)
-            if any(float(d[pad].abs().max()) != 0.0 for d in d_k):
-                raise AssertionError(
-                    f'pad rows of {"/".join(names)} are not zero')
-            row['pad_rows'] = int(pad.sum())
-        if not kind and conv.cg_mode == 'cmshared' and conv.agg_d > 0:
-            # kernels 1-2 sum in a fixed order: a second launch, same bits
+        pad = (ms == 0).all(dim=1)
+        if any(float(d[pad].abs().max()) != 0.0 for d in d_k):
+            raise AssertionError(
+                f'pad rows of {"/".join(names)} are not zero')
+        if (not kind and conv.cg_mode == 'cmshared' and conv.agg_d == 0
+                and float(y_k[pad].abs().max())):
+            raise AssertionError('pad rows of the edge rows are not zero')
+        row['pad_rows'] = int(pad.sum())
+        if not kind and conv.cg_mode == 'cmshared':
+            # kernels 1-2 (either form) sum in a fixed order: a second
+            # launch, same bits
             again = (kf(*args), *kb(g, *args))
             if not all(torch.equal(a, b) for a, b in zip(again,
                                                           (y_k, *d_k))):
@@ -711,6 +718,22 @@ def main():
                 raise AssertionError(f'kernel {k} layer {li}: {r}')
             report['dense_resources'].append(dict(layer=li, kernel=k,
                                                   **r._asdict()))
+    # the edge pair (the calculator's agg_d = 0) as launched at each layer
+    report['edge_resources'] = []
+    for li in range(5):
+        cl = model.layers[f'{li}_convolution']
+        conv = FC(cl.tp, cl.weight_nn, cl.si2, 0)
+        dims = fcg.layer_dims(conv, 0)
+        for k in ('fwd', 'bwd'):
+            r = fcg.kernel_resources(dims, conv.f, k == 'bwd', edge=True)
+            print(f'edge-row kernel {1 if k == "fwd" else 2}, layer {li}: '
+                  f'{r.registers} registers, {r.local_bytes} local bytes, '
+                  f'{r.blocks_per_sm} blocks an SM at {r.smem} shared bytes',
+                  flush=True)
+            if r.local_bytes or r.blocks_per_sm < 2:
+                raise AssertionError(f'edge kernel {k} layer {li}: {r}')
+            report['edge_resources'].append(dict(layer=li, kernel=k,
+                                                 **r._asdict()))
 
     nl = md._grid()
     with recorded() as (records, _):
@@ -1340,20 +1363,20 @@ def main():
 
     # -- phase 14 ------------------------------------------------------
     phase('14 kernels')
-    # rows 5-6 and kernels 1-2 (csrc/fused_conv_geom.cu, the template's
-    # GEOM and dense instances): fp32 on the CUDA cores, nothing in local
-    # memory
+    # rows 5-6, kernels 1-2 and their edge-row form (csrc/fused_conv_geom.cu,
+    # the template's geom, dense and edge instances): fp32 on the CUDA
+    # cores, nothing in local memory
     from sevennet_exp_tpu_torch.tools import sass_compare
     geom_sass = {k: v for k, v in sass_compare.count('fused_conv_geom').items()
                  if sass_compare.geom_label(k)}
-    if len(geom_sass) != 8:
+    if len(geom_sass) != 12:
         raise AssertionError(f'fused_conv_geom.cu: {len(geom_sass)} kernel '
-                             'instances, want 2 pairs x (fwd, bwd at 4, 9, '
+                             'instances, want 3 pairs x (fwd, bwd at 4, 9, '
                              '16 SH)')
     for k, v in geom_sass.items():
         bad = {op: v[op] for op in (*sass_compare.TENSOR_CORE_OPS,
                                     *sass_compare.LOCAL_OPS) if v[op]}
-        pair = 'geom' if 'Lb1E' in k else 'dense'
+        pair = sass_compare.geom_pair(k)
         print(f'{pair} {sass_compare.geom_label(k)} {k}: SASS {v}',
               flush=True)
         if bad or not v['FFMA']:
@@ -1424,7 +1447,11 @@ def main():
         b_ms, b_by = bound(total(f'{k}_flops', edge_layers),
                            total(f'{k}_bytes', edge_layers))
         kernels.append({
-            'name': name, 'route': 'cuda', 'source': source,
+            'name': name, 'route': 'cuda',
+            'source': 'sevennet_exp_tpu_torch/csrc/fused_conv_geom.cu',
+            'status': 'redesigned for Hopper on the dense pair\'s passes, '
+                      'si2 group by group, a product over the row tile: '
+                      'csrc/fused_conv_geom.cu',
             'replaces': f'sevennet_exp_tpu/ops/pallas_conv.py:{line}',
             # the timed calculator calls of phase 9, both structures
             'launches': edge_launches[name],

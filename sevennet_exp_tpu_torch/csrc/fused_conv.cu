@@ -1,20 +1,18 @@
-// Fused convolution block, edge-row and external-weight forms, forward and
-// force backward, for NVIDIA Hopper (sm_90a), fp32 throughout.
+// Fused convolution block, external-weight form, forward and force
+// backward, for NVIDIA Hopper (sm_90a), fp32 throughout.
 //
 // Replaces the TPU kernels of sevennet_exp_tpu/ops/pallas_conv.py:
-//   fused_conv_edge_fwd <- make_fused_conv(agg_d = 0).fwd_kernel_cm
-//                          (_cm_fwd_core, _cg_acc_cm, _mlp_forward)
-//   fused_conv_edge_bwd <- make_fused_conv(agg_d = 0).bwd_kernel_cm
-//                          (_cm_bwd_core, _act_grad)
 //   fused_conv_extw_fwd <- make_fused_conv(agg_d > 0, ext_w).fwd_kernel_cm_w
 //                          (_cm_fwd_core on given weights)
 //   fused_conv_extw_bwd <- make_fused_conv(agg_d > 0, ext_w).bwd_kernel_cm_w
 //                          (_cm_bwd_core; emits dweff)
 // The dense-grid pair of fwd_kernel_cm / bwd_kernel_cm (agg_d > 0, entries
-// fused_conv_fwd / fused_conv_bwd) is the geometry-fused pair's template
-// without the geometry, in fused_conv_geom.cu. The bodies below are the
-// first design of that pair (fused_conv_body.cuh), which bench_pieces.cu
-// still stubs piece by piece.
+// fused_conv_fwd / fused_conv_bwd) and its edge-row form (agg_d = 0,
+// fused_conv_edge_fwd / fused_conv_edge_bwd) live in fused_conv_geom.cu,
+// beside the geometry-fused pair. The bodies below are the first design of
+// the dense-grid pair (fused_conv_body.cuh), which bench_pieces.cu still
+// stubs piece by piece (its edge-row mode M_EDGE is the edge-row kernel 1
+// of that design).
 //
 // Per grid row e of atom i (row i*D + k is atom i's k-th neighbor):
 //   w[e]  = MLP(emb[e]) * ms[e]            radial MLP nb -> 64 -> 64 -> wn
@@ -64,39 +62,11 @@
 // whose live weights are all zero is a grid pad: it sends no message and
 // its dxg, dsh and dweff rows are exact zeros; dweff columns no live
 // instruction reads are written as zeros.
-//
-// The edge-row pair (fused_conv_edge_fwd / fused_conv_edge_bwd) is the
-// first dense-grid design at agg_d = 0, the plain edge list of the
-// calculator: one output row per input row, si2 applied per row, the caller
-// scatters the rows onto the atoms. si2 per row is ~107k multiply-adds in a
-// mid layer, more than the MLP and the CG together, and its weights (~220
-// kB) fit no shared memory. One row per block (the dense design with D = 1)
-// reloads them, the tables and the MLP's columns for every row; here a
-// block owns RT_E (RT_EB) rows in any order, keeps their aggregates
-// (message cotangents) row-minor in shared memory and reads each si2 weight
-// once for all of them, the rows' values by one or two 16-byte loads.
 
 
 #include "fused_conv_body.cuh"
 
 namespace {
-
-// The forward kernels keep a 64-weight MLP column in registers and fit two
-// blocks per SM at 128 registers. ptxas has found 128 by itself and, after
-// an unrelated edit of the shared body, 170 for the first geometry-fused one
-// (one block per SM, 1.6x the time): the bound is stated on each.
-__global__ void __launch_bounds__(NT, 2)
-fused_conv_edge_fwd_kernel(const float* __restrict__ xg,
-                           const float* __restrict__ sh,
-                           const float* __restrict__ emb,
-                           const float* __restrict__ ms,
-                           const float* __restrict__ w0,
-                           const float* __restrict__ w1,
-                           const float* __restrict__ w2,
-                           const float* __restrict__ si2w, Plan P,
-                           float* __restrict__ out) {
-  fwd_body<M_EDGE>(xg, sh, emb, ms, nullptr, w0, w1, w2, si2w, P, out);
-}
 
 __global__ void __launch_bounds__(NT)
 fused_conv_extw_fwd_kernel(const float* __restrict__ xg,
@@ -106,29 +76,6 @@ fused_conv_extw_fwd_kernel(const float* __restrict__ xg,
                            float* __restrict__ out) {
   fwd_body<M_EXTW>(xg, sh, nullptr, nullptr, weff, nullptr, nullptr,
                    nullptr, si2w, P, out);
-}
-
-// The backward kernels are held to two blocks per SM (128 registers). Left
-// to itself ptxas has taken 173 (the first dense-grid backward) and 193
-// (the first geometry-fused one, with the sinf/cosf/powf slow paths
-// inlined): one block per SM, and 1.5-1.6x the time.
-__global__ void __launch_bounds__(NT, 2)
-fused_conv_edge_bwd_kernel(const float* __restrict__ gout,
-                           const float* __restrict__ xg,
-                           const float* __restrict__ sh,
-                           const float* __restrict__ emb,
-                           const float* __restrict__ ms,
-                           const float* __restrict__ w0,
-                           const float* __restrict__ w1,
-                           const float* __restrict__ w1t,
-                           const float* __restrict__ w2,
-                           const float* __restrict__ w2t,
-                           const float* __restrict__ si2wt, Plan P,
-                           float* __restrict__ dxg, float* __restrict__ dsh,
-                           float* __restrict__ demb) {
-  bwd_body<M_EDGE>(gout, xg, sh, emb, ms, nullptr, w0, w1, w1t, w2,
-                   w2t, si2wt, P, nullptr, 0, dxg, dsh, demb,
-                   nullptr);
 }
 
 // Without the MLP's weight column in registers this kernel fits three
@@ -150,44 +97,7 @@ fused_conv_extw_bwd_kernel(const float* __restrict__ gout,
 
 }  // namespace
 
-static size_t extw_fwd_reserved[MAX_DEVICES], extw_bwd_reserved[MAX_DEVICES],
-    edge_fwd_reserved[MAX_DEVICES], edge_bwd_reserved[MAX_DEVICES];
-
-extern "C" int fused_conv_edge_fwd(const float* xg, const float* sh,
-                                   const float* emb, const float* ms,
-                                   const float* w0, const float* w1,
-                                   const float* w2, const float* si2w,
-                                   PLAN_ARGS, float* out, void* stream) {
-  const Plan P = edge_plan(PLAN_CALL, RT_E);
-  const size_t smem = fwd_smem(P, M_EDGE);
-  const cudaError_t err =
-      reserve_smem(fused_conv_edge_fwd_kernel, smem, edge_fwd_reserved);
-  if (err != cudaSuccess) return (int)err;
-  if (P.n_atoms > 0)
-    fused_conv_edge_fwd_kernel<<<P.n_atoms, NT, smem,
-                                 (cudaStream_t)stream>>>(
-        xg, sh, emb, ms, w0, w1, w2, si2w, P, out);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int fused_conv_edge_bwd(const float* g, const float* xg,
-                                   const float* sh, const float* emb,
-                                   const float* ms, const float* w0,
-                                   const float* w1, const float* w1t,
-                                   const float* w2, const float* w2t,
-                                   const float* si2wt, PLAN_ARGS, float* dxg,
-                                   float* dsh, float* demb, void* stream) {
-  const Plan P = edge_plan(PLAN_CALL, RT_EB);
-  const size_t smem = bwd_smem(P, M_EDGE);
-  const cudaError_t err =
-      reserve_smem(fused_conv_edge_bwd_kernel, smem, edge_bwd_reserved);
-  if (err != cudaSuccess) return (int)err;
-  if (P.n_atoms > 0)
-    fused_conv_edge_bwd_kernel<<<P.n_atoms, NT, smem,
-                                 (cudaStream_t)stream>>>(
-        g, xg, sh, emb, ms, w0, w1, w1t, w2, w2t, si2wt, P, dxg, dsh, demb);
-  return (int)cudaGetLastError();
-}
+static size_t extw_fwd_reserved[MAX_DEVICES], extw_bwd_reserved[MAX_DEVICES];
 
 extern "C" int fused_conv_extw_fwd(const float* xg, const float* sh,
                                    const float* weff, const float* si2w,

@@ -1,6 +1,7 @@
 // Convolution block on the dense neighbor grid, forward and force backward,
 // for NVIDIA Hopper (sm_90a), fp32 on the CUDA cores: the geometry-fused
-// pair and the dense pair, one template on GEOM.
+// pair and the dense pair, one template on MODE, and the edge pair, its
+// third mode: the dense passes on the plain edge list (below the backward).
 //
 // Replaces the TPU kernels of sevennet_exp_tpu/ops/pallas_conv.py:
 //   fused_conv_geom_fwd <- make_fused_conv(agg_d > 0, geom).fwd_kernel_geom
@@ -11,6 +12,8 @@
 //                          (_cm_fwd_core, _cg_acc_cm, _mlp_forward)
 //   fused_conv_bwd      <- make_fused_conv(agg_d > 0).bwd_kernel_cm
 //                          (_cm_bwd_core, _act_grad)
+//   fused_conv_edge_fwd <- make_fused_conv(agg_d = 0).fwd_kernel_cm
+//   fused_conv_edge_bwd <- make_fused_conv(agg_d = 0).bwd_kernel_cm
 // With GEOM the kernels compute each row's emb and sh from its edge vector
 // (below) and the backward returns dvec. Without it (the dense pair) they
 // take the rows' sh (rows, f) and emb (rows, nb), staged into the same
@@ -98,6 +101,35 @@
 // the backward spills. The dense instances hold the same bounds with less
 // shared memory (no edge vectors); their staged rows and stores cost a few
 // instructions a row where the geometry cost ~7 % of the kernels' time.
+//
+// The edge pair (agg_d = 0, the calculator's padded edge list): one output
+// row per input row, y[e] = si2(msg[e]), the caller scatters the rows onto
+// the atoms. si2 per row is ~107k multiply-adds in a mid layer, two thirds
+// of the row's work, and its ~220 kB of weights fit no shared memory; the
+// first design (a block owning 8 rows forward, 4 backward, each weight
+// read from L2 for them by one load per multiply-add) ran it at ~10 and
+// ~4 TFLOP/s. Both kernels run si2 group by group as a product over a
+// tile's rows (row_product): a thread holds an 8-row by 4-column block of
+// sums and reads the group's weights from L2 by 16-byte loads, each weight
+// once a tile for the block.
+//  - The forward (edge_fwd_tiles) fits its tile to two blocks an SM: up to
+//    TEF = 16 rows, set by the widest group's columns and the largest
+//    group's messages (T x dim3 K: 80 kB at a mid layer), which is all a
+//    tile holds of the messages. Per tile it stages the rows and runs the
+//    hidden layers once; then per si2 group the w pass over the group's
+//    columns (a group's instructions, and so its columns, are consecutive),
+//    the CG of those columns into the group's message tile in the plain
+//    chain's layout, and the product with W, written as output rows.
+//  - The backward walks tiles of TE = 8 rows with the dense pair's passes
+//    (stage_rows, hidden_rm, w_rows, the class pass, passes D-F,
+//    store_rows) and forms gm = alpha g W^T per row by the same product
+//    before its class pass, which reads each row's own gm where the dense
+//    pair keeps one per atom. The per-row cotangents (T x agg_dim words,
+//    60 kB for 8 rows at a mid layer) are what holds it to 8 rows at two
+//    blocks an SM; the rows' g sit in the words of the MLP's rows, which
+//    are written after them.
+// Tiles whose rows are all pads store zeros and skip the rest; sums run in
+// a fixed order (no atomics: two launches give one result).
 
 #include "fused_conv_body.cuh"
 #include "cg_patterns.cuh"
@@ -111,6 +143,17 @@ constexpr int SLAB = 16;    // pass D: w2^T columns a thread holds
 constexpr int QD = NT / H;  // pass D: column quarters
 constexpr int NW = NT / 32; // warps per block
 constexpr int MAX_XENT = 16;
+constexpr int TE = 8;       // edge backward: rows per tile
+constexpr int TEF = 16;     // edge forward: rows per tile (at most)
+constexpr int KS_MAX = 8;   // edge products: threads that share one block
+constexpr int RB = 8;       // edge products: rows of a thread's block
+// edge forward: shared words of one block, two an SM (228 KB, 1 KB of it
+// reserved per block); the kernel fits its tile into them
+constexpr int EDGE_FWD_WORDS = (233472 - 2 * 1024) / 2 / 4;
+
+// the template's pairs: the dense pair (kernels 1-2), the geometry-fused
+// pair (rows 5-6), the edge pair (kernels 1-2 at agg_d = 0)
+constexpr int K_DENSE = 0, K_GEOM = 1, K_EDGE = 2;
 
 // geometry of the geometry-fused kernels (see ops/fused_conv.py::GeomSpec)
 struct Geom {
@@ -134,8 +177,8 @@ struct Dense {
 };
 
 // what a kernel takes for its rows' sh and emb: the geometry, or Dense
-template <bool GEOM> struct RowArgs { using type = Geom; };
-template <> struct RowArgs<false> { using type = Dense; };
+template <int MODE> struct RowArgs { using type = Dense; };
+template <> struct RowArgs<K_GEOM> { using type = Geom; };
 
 // launch shape, chosen on the host (geom_shape below; mirrored by
 // ops/fused_conv_geom.py, which the CPU tests hold)
@@ -474,6 +517,183 @@ __device__ __forceinline__ int shape_key(const int* I) {
 }
 
 // ---------------------------------------------------------------------
+// the edge pair's per-row si2: products over a tile's rows
+// ---------------------------------------------------------------------
+
+// The per-row self-interaction of one si2 group over a tile of T rows:
+//   put(e, p, j, v): v[t] = sum_k A[e ae + p ap + k] B[k][j + t]
+// for rows e < T (a multiple of RB), components p < d3, columns j + t < n,
+// k < kred. Forward: A the rows' messages of the group, B its W (K x mo);
+// backward: A the rows' cotangents g, B the group's W^T (mo x K). A thread
+// owns a block of RB (e, p) rows (one p, RB consecutive e) by 4 columns,
+// so each weight it loads serves RB rows: A by shared-memory broadcasts,
+// four k of a row in one 16-byte load, and B straight from global memory,
+// 16 bytes a k, the next four k loaded while the FMAs of these run (the
+// loads come from L2). Blocks of 4 rows ran the backward 6 % faster but
+// left one register of its 16-SH instance in local memory; without the
+// prefetch they ran it 10 % slower still. Plans
+// whose offsets or widths are not multiples of 4 take a loop of single,
+// guarded loads instead (the choice is uniform over the block and made
+// outside the loop: one instance serves every plan); the k past the last
+// multiple of 4 are a scalar tail. The block's threads read each weight
+// from L2 once for the tile, the L1 serving the threads that share it:
+// staging B in shared memory by cp.async, in chunks behind a barrier each,
+// was slower (two stages or three).
+// When the blocks are fewer than the threads, ks threads share one, each
+// taking every ks-th group of 4 k (part 0 also the tail), and part 0 adds
+// the others' sums in order from red (no atomics: one result; red holds
+// red_words). Starts after a sync of A; ends synchronised, red free.
+template <typename Put>
+__device__ __forceinline__ void row_product(int T, const float* A, int ae,
+                                            int ap, int d3,
+                                            const float* __restrict__ B,
+                                            int kred, int n, float* red,
+                                            int red_words, Put put) {
+  const int tid = threadIdx.x;
+  const bool fast =
+      ((ae | ap | n) & 3) == 0
+      && ((reinterpret_cast<size_t>(A) | reinterpret_cast<size_t>(B)) & 15)
+             == 0;
+  const int nq = (n + 3) / 4, k4 = kred & ~3;
+  const int items = (T * d3 / RB) * nq;
+  const int ks = items >= NT ? 1
+                             : min(min(NT / items, KS_MAX),
+                                   1 + red_words / (4 * RB * items));
+  for (int base = 0; base < items; base += NT) {
+    const int item = items >= NT ? base + tid : tid % items;
+    const int part = items >= NT ? 0 : tid / items;
+    const bool on = item < items && part < ks;
+    const int rq = on ? item / nq : 0, jq = on ? item - rq * nq : 0;
+    const int p = (RB * rq) / T, e0 = RB * rq - p * T;
+    const float* a = A + (long)e0 * ae + p * ap;
+    const float* b = B + 4 * jq;
+    float acc[RB][4];
+#pragma unroll
+    for (int e = 0; e < RB; ++e)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) acc[e][t] = 0.f;
+    // B[k][4 jq .. 4 jq + 3] by single loads, zeros past n
+    auto b_at = [&](int k) {
+      const float* r = b + (long)k * n;
+      const int m = n - 4 * jq;
+      return make_float4(__ldg(r), m > 1 ? __ldg(r + 1) : 0.f,
+                         m > 2 ? __ldg(r + 2) : 0.f,
+                         m > 3 ? __ldg(r + 3) : 0.f);
+    };
+    auto fma_row = [](float (&c)[4], float x, const float4& w) {
+      c[0] = fmaf(x, w.x, c[0]);
+      c[1] = fmaf(x, w.y, c[1]);
+      c[2] = fmaf(x, w.z, c[2]);
+      c[3] = fmaf(x, w.w, c[3]);
+    };
+    if (on) {
+      if (fast) {
+        int k = 4 * part;
+        float4 bn[4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          bn[kk] = k < k4 ? __ldg(reinterpret_cast<const float4*>(
+                                b + (long)(k + kk) * n))
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 1
+        for (; k < k4; k += 4 * ks) {
+          float4 bk[4];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) bk[kk] = bn[kk];
+          if (k + 4 * ks < k4)
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              bn[kk] = __ldg(reinterpret_cast<const float4*>(
+                  b + (long)(k + 4 * ks + kk) * n));
+#pragma unroll
+          for (int e = 0; e < RB; ++e) {
+            const float4 av =
+                *reinterpret_cast<const float4*>(a + e * ae + k);
+            fma_row(acc[e], av.x, bk[0]);
+            fma_row(acc[e], av.y, bk[1]);
+            fma_row(acc[e], av.z, bk[2]);
+            fma_row(acc[e], av.w, bk[3]);
+          }
+        }
+      } else {
+#pragma unroll 1
+        for (int k = 4 * part; k < k4; k += 4 * ks)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const float4 w = b_at(k + kk);
+#pragma unroll
+            for (int e = 0; e < RB; ++e)
+              fma_row(acc[e], a[e * ae + k + kk], w);
+          }
+      }
+      if (part == 0)
+        for (int k = k4; k < kred; ++k) {
+          const float4 w = b_at(k);
+#pragma unroll
+          for (int e = 0; e < RB; ++e) fma_row(acc[e], a[e * ae + k], w);
+        }
+    }
+    if (ks > 1) {
+      if (on && part > 0)
+#pragma unroll
+        for (int e = 0; e < RB; ++e)
+#pragma unroll
+          for (int t = 0; t < 4; ++t)
+            red[((part - 1) * items + item) * (4 * RB) + 4 * e + t] =
+                acc[e][t];
+      __syncthreads();
+      if (on && part == 0)
+        for (int q = 1; q < ks; ++q)
+#pragma unroll
+          for (int e = 0; e < RB; ++e)
+#pragma unroll
+            for (int t = 0; t < 4; ++t)
+              acc[e][t] +=
+                  red[((q - 1) * items + item) * (4 * RB) + 4 * e + t];
+    }
+    if (on && part == 0)
+#pragma unroll
+      for (int e = 0; e < RB; ++e) put(e0 + e, p, 4 * jq, acc[e]);
+    __syncthreads();
+  }
+}
+
+// si2 group g's live columns [*c0, *c0 + *nc): ops/fused_conv.py lists the
+// instructions group by group, so a group's columns are consecutive
+__device__ __forceinline__ void group_columns(const Plan& P,
+                                              const int* ins_s, int g,
+                                              int* c0, int* nc) {
+  const int* Gr = P.grp + g * G_STRIDE;
+  const int a0 = Gr[G_AGG], a1 = a0 + Gr[G_DIM3] * Gr[G_K];
+  int lo = P.n_active, hi = 0;
+  for (int i = 0; i < P.n_ins; ++i) {
+    const int* I = ins_s + i * I_STRIDE;
+    if (I[I_AGG] >= a0 && I[I_AGG] < a1) {
+      lo = min(lo, I[I_COL0]);
+      hi = max(hi, I[I_COL0] + I[I_MUL]);
+    }
+  }
+  *c0 = lo;
+  *nc = max(hi - lo, 0);
+}
+
+// the output columns that no si2 group writes (zeros in every row): their
+// count at unc_s[0], the columns after it. Not synced.
+__device__ __forceinline__ void unwritten_columns(const Plan& P, int* unc_s) {
+  if (threadIdx.x != 0) return;
+  int nu = 0;
+  for (int j = 0; j < P.d_out; ++j) {
+    bool hit = false;
+    for (int g = 0; g < P.n_grp && !hit; ++g) {
+      const int* Gr = P.grp + g * G_STRIDE;
+      hit = j >= Gr[G_OUT] && j < Gr[G_OUT] + Gr[G_DIM3] * Gr[G_MO];
+    }
+    if (!hit) unc_s[1 + nu++] = j;
+  }
+  unc_s[0] = nu;
+}
+
+// ---------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------
 
@@ -576,8 +796,212 @@ __device__ __forceinline__ void fwd_cg(const Plan& P, const int* I, int u,
   for (int p = 0; p < D3; ++p) ab[p * K] += acc[p] * sc;
 }
 
-template <bool GEOM>
-__global__ void __launch_bounds__(NT, 3)
+// the edge forward's CG of one live column of an si2 group over rows
+// [e0, e1) of a tile: one message a row, row e at msg + e * as in the
+// group's slice of the plain chain's layout (msg at the instruction's
+// offset in the slice; every slot of a row is some column's, so nothing is
+// zeroed first); w_s holds the group's columns (lc the column's place
+// there); pad rows (w = 0) get zeros and load nothing
+template <int L1, int L2, int L3>
+__device__ __forceinline__ void fwd_cg_rows(const Plan& P, const int* I,
+                                            int u, int lc, float sc,
+                                            const float* __restrict__ xr,
+                                            const float* sh_s,
+                                            const float* w_s, int nap,
+                                            int e0, int e1, float* msg,
+                                            int as) {
+  constexpr int D1 = 2 * L1 + 1, D2 = 2 * L2 + 1, D3 = 2 * L3 + 1;
+  const int mul = I[I_MUL], K = I[I_K];
+  const float* xb = xr + I[I_XOFF] + u;
+  const float* sb = sh_s + L2 * L2;
+  float* mb = msg + u;
+#pragma unroll 2
+  for (int e = e0; e < e1; ++e) {
+    const float w = w_s[e * nap + lc];
+    float s[D3];
+#pragma unroll
+    for (int p = 0; p < D3; ++p) s[p] = 0.f;
+    if (w != 0.f) {
+      float xv[D1], sv[D2];
+#pragma unroll
+      for (int m = 0; m < D1; ++m) xv[m] = __ldg(xb + e * P.d1 + m * mul);
+#pragma unroll
+      for (int n = 0; n < D2; ++n) sv[n] = sb[e * SHP + n];
+      CgPattern<L1, L2, L3>::each([&](auto m, auto n, auto p, float cf) {
+        s[decltype(p)::value] = fmaf(cf * xv[decltype(m)::value],
+                                     sv[decltype(n)::value],
+                                     s[decltype(p)::value]);
+      });
+    }
+#pragma unroll
+    for (int p = 0; p < D3; ++p) mb[e * as + p * K] = w * s[p] * sc;
+  }
+}
+
+// the edge forward's tile rows: the most, a multiple of RB up to TEF, whose
+// words fit EDGE_FWD_WORDS next to `fixed` words: per row its sh, emb, ms
+// and h1, the widest group's w (nc4 columns) and the larger of h0 and the
+// largest group's messages (slice4 words); 0 when not even RB rows fit
+__host__ __device__ inline int edge_fwd_rows(int fixed, int nb, int nc4,
+                                             int slice4) {
+  const int msg = slice4 > H ? slice4 : H;
+  const int per_row = SHP + nb + 1 + H + nc4 + msg;
+  for (int T = TEF; T >= RB; T -= RB)
+    if (fixed + T * per_row <= EDGE_FWD_WORDS) return T;
+  return 0;
+}
+
+// n floats from src into L2, a 128-byte line a thread
+__device__ __forceinline__ void prefetch_rows(const float* src, int n) {
+  const char* p = reinterpret_cast<const char*>(src);
+  const long lines = ((long)n * 4 + 127) / 128;
+  for (long i = threadIdx.x; i < lines; i += NT)
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(p + 128 * i));
+}
+
+// row groups of a w pass over nc columns of T rows: geom_shape's rule
+__device__ __forceinline__ int w_row_groups(int nc, int T) {
+  int best = -1, s_best = 1;
+  for (int s = 1; s <= 4; s *= 2) {
+    if (T % (4 * s)) break;
+    const int cost = ((nc * s + NT - 1) / NT) * (T / s + 4);
+    if (best < 0 || cost < best) { best = cost; s_best = s; }
+  }
+  return s_best;
+}
+
+// The edge forward (K_EDGE), after the tables: tiles of T rows of the edge
+// list, walked persistently; per tile the staged rows and the hidden layers
+// once, then per si2 group its w pass, its CG into the group's message
+// tile (T x dim3 K) and the product with its W, written as output rows.
+// Tiles whose rows are all pads store zeros and skip the rest.
+__device__ void edge_fwd_tiles(const Plan& P, const Dense& G,
+                               const float* __restrict__ xg,
+                               const float* __restrict__ ms,
+                               const float* __restrict__ w0,
+                               const float* __restrict__ w1,
+                               const float* __restrict__ w2,
+                               const float* __restrict__ si2w,
+                               const int* ins_s, const float* sc_s,
+                               float* smem, float* next_s,
+                               float* __restrict__ out) {
+  auto r4 = [](int n) { return (n + 3) & ~3; };
+  auto take = [&next_s](int n) {
+    float* q = next_s; next_s += (n + 3) & ~3; return q;
+  };
+  int nc4 = 0, slice4 = 0;
+  for (int g = 0; g < P.n_grp; ++g) {
+    const int* Gr = P.grp + g * G_STRIDE;
+    int c0, nc;
+    group_columns(P, ins_s, g, &c0, &nc);
+    nc4 = max(nc4, r4(nc));
+    slice4 = max(slice4, r4(Gr[G_DIM3] * Gr[G_K]));
+  }
+  int* unc_s = reinterpret_cast<int*>(take(P.d_out + 1));
+  const int T = edge_fwd_rows((int)(next_s - smem), P.nb, nc4, slice4);
+  float* sh_s = take(T * SHP);
+  float* embT_s = take(T * P.nb);
+  float* ms_s = take(T);
+  float* h1T_s = take(T * H);
+  float* w_s = take(T * nc4);             // the group's w, then its sums
+  float* msg_s = take(T * max(H, slice4));   // h0, then the messages
+  const int tid = threadIdx.x;
+  unwritten_columns(P, unc_s);
+  const bool vec_out = (P.d_out & 3) == 0
+                       && (reinterpret_cast<size_t>(out) & 15) == 0;
+  const long n_tiles = T ? (P.n_rows + T - 1) / T : 0;
+  for (long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long row0 = tile * T;
+    const int rows = (int)min((long)T, P.n_rows - row0);
+    __syncthreads();
+    for (int i = tid; i < T; i += NT) ms_s[i] = i < rows ? ms[row0 + i] : 0.f;
+    // the x rows of this tile (the first) and of the block's next one into
+    // L2: the CG reads them once a group, the first time from HBM
+    for (long t = tile == blockIdx.x ? tile : tile + gridDim.x;
+         t <= tile + gridDim.x && t < n_tiles; t += gridDim.x)
+      prefetch_rows(xg + t * T * P.d1,
+                    (int)min((long)T, P.n_rows - t * T) * P.d1);
+    // a tile of pads only: zero rows, nothing else
+    if (!__syncthreads_or(tid < rows && ms_s[tid] != 0.f)) {
+      store_block(out + row0 * P.d_out, rows * P.d_out,
+                  [](int) { return 0.f; });
+      continue;
+    }
+    stage_rows(P, G, T, rows, row0, embT_s, sh_s);
+    __syncthreads();
+    hidden_rm(P, T, embT_s, w0, w1, msg_s, h1T_s, nullptr, nullptr);
+    // columns no group writes: zeros
+    const int nu = unc_s[0];
+    for (int i = tid; i < rows * nu; i += NT) {
+      const int e = i / nu;
+      __stcs(out + (row0 + e) * P.d_out + unc_s[1 + i - e * nu], 0.f);
+    }
+    const float* xr = xg + row0 * P.d1;
+    for (int g = 0; g < P.n_grp; ++g) {
+      const int* Gr = P.grp + g * G_STRIDE;
+      const int K = Gr[G_K], mo = Gr[G_MO], d3 = Gr[G_DIM3];
+      const int a0 = Gr[G_AGG], o_off = Gr[G_OUT], as = r4(d3 * K);
+      const float alpha = P.grp_alpha[g];
+      int c0, nc;
+      group_columns(P, ins_s, g, &c0, &nc);
+      // the w pass over the group's columns: a plan whose live columns
+      // are the group's
+      Plan Pg = P;
+      Pg.n_active = nc;
+      Pg.col_w = P.col_w + c0;
+      Shape Sg;
+      Sg.T = T;
+      Sg.s = w_row_groups(nc, T);
+      Sg.nap = nc4;
+      Sg.cq = 0;
+      w_rows(Pg, Sg, rows, h1T_s, ms_s, w2, w_s);
+      __syncthreads();
+      // the CG, (column, part of the rows) items
+      int sp = 1;
+      while (sp < 4 && nc * sp * 2 <= NT) sp *= 2;
+      const int R = T / sp;
+      for (int j = tid; j < nc * sp; j += NT) {
+        const int lc = j % nc, q = j / nc;
+        const int e0 = q * R, e1 = min(e0 + R, rows);
+        if (e0 >= e1) continue;
+        const int ii = __ldg(P.col_ins + c0 + lc);
+        const int* I = ins_s + ii * I_STRIDE;
+        const int u = c0 + lc - I[I_COL0];
+        float* msg = msg_s + (I[I_AGG] - a0);
+        switch (shape_key(I)) {
+#define EDGE_FWD_CASE(A, B, C)                                              \
+          case A * 16 + B * 4 + C:                                          \
+            fwd_cg_rows<A, B, C>(P, I, u, lc, sc_s[ii], xr, sh_s, w_s, nc4, \
+                                 e0, e1, msg, as);                          \
+            break;
+          CG_SHAPES(EDGE_FWD_CASE)
+#undef EDGE_FWD_CASE
+        }
+      }
+      __syncthreads();
+      const bool v4 = vec_out && (mo & 3) == 0 && (o_off & 3) == 0;
+      row_product(
+          T, msg_s, as, K, d3, si2w + Gr[G_WOFF], K, mo, w_s, T * nc4,
+          [&](int e, int p, int j, const float (&v)[4]) {
+            if (e >= rows) return;
+            float* o = out + (row0 + e) * P.d_out + o_off + p * mo + j;
+            if (v4) {
+              __stcs(reinterpret_cast<float4*>(o),
+                     make_float4(v[0] * alpha, v[1] * alpha, v[2] * alpha,
+                                 v[3] * alpha));
+            } else {
+#pragma unroll
+              for (int t = 0; t < 4; ++t)
+                if (j + t < mo) __stcs(o + t, v[t] * alpha);
+            }
+          });
+    }
+  }
+}
+
+// MODE K_EDGE: edge_fwd_tiles after the tables
+template <int MODE>
+__global__ void __launch_bounds__(NT, MODE == K_EDGE ? 2 : 3)
 fused_conv_geom_fwd_kernel(const float* __restrict__ xg,
                            const float* __restrict__ vec,
                            const float* __restrict__ ms,
@@ -585,8 +1009,9 @@ fused_conv_geom_fwd_kernel(const float* __restrict__ xg,
                            const float* __restrict__ w1,
                            const float* __restrict__ w2,
                            const float* __restrict__ si2w, Plan P,
-                           typename RowArgs<GEOM>::type G, Shape S,
+                           typename RowArgs<MODE>::type G, Shape S,
                            float* __restrict__ out) {
+  constexpr bool GEOM = MODE == K_GEOM;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int T = S.T;
@@ -623,6 +1048,11 @@ fused_conv_geom_fwd_kernel(const float* __restrict__ xg,
 #undef GEOM_SCALE_CASE
     }
     sc_s[i] = sc;
+  }
+  if constexpr (MODE == K_EDGE) {
+    edge_fwd_tiles(P, G, xg, ms, w0, w1, w2, si2w, ins_s, sc_s, smem,
+                   sc_s + ((P.n_ins + 3) & ~3), out);
+    return;
   }
   const int R = T / S.s;                 // rows per row group
 
@@ -823,8 +1253,11 @@ __device__ __forceinline__ int butterfly_index(int lane) {
 }
 
 // NSH: (lmax + 1)^2 of the filter, 4, 9 or 16: the size of the per-thread
-// sh and dsh arrays
-template <int NSH, bool GEOM>
+// sh and dsh arrays. MODE K_EDGE: tiles of TE rows of the edge list in
+// place of an atom's D rows, and gm = alpha g W^T per row (the products over
+// the tile's rows, in the words that w / dw and the MLP's rows take after
+// them) in place of once per atom; the class pass reads each row's own gm
+template <int NSH, int MODE>
 __global__ void __launch_bounds__(NT, 2)
 fused_conv_geom_bwd_kernel(const float* __restrict__ gout,
                            const float* __restrict__ xg,
@@ -836,9 +1269,11 @@ fused_conv_geom_bwd_kernel(const float* __restrict__ gout,
                            const float* __restrict__ w2,
                            const float* __restrict__ w2t,
                            const float* __restrict__ si2wt, Plan P,
-                           typename RowArgs<GEOM>::type G, Shape S,
+                           typename RowArgs<MODE>::type G, Shape S,
                            float* __restrict__ dxg,
                            float* __restrict__ dvec) {
+  constexpr bool GEOM = MODE == K_GEOM, EDGE = MODE == K_EDGE;
+  constexpr int TR = EDGE ? TE : TB;   // rows pass D computes
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int T = S.T;
@@ -851,9 +1286,14 @@ fused_conv_geom_bwd_kernel(const float* __restrict__ gout,
   };
   float* sc_s = take(P.n_ins);
   XClass* cls_s = reinterpret_cast<XClass*>(take(MAX_XENT * 5));
-  float* g_s = take(P.d_out);
-  float* gm_s = take(P.agg_dim);                   // si2^T g
-  float* wdw_s = take(TB * S.nap + SLAB);          // w, then dw, per row
+  float* g_s = take(EDGE ? 0 : P.d_out);
+  float* gm_s = take(EDGE ? T * P.agg_dim : P.agg_dim);   // si2^T g
+  // w, then dw, per row. EDGE: from here to the pass-D partials first the
+  // rows' g, then the products' partial sums
+  float* wdw_s = take(EDGE ? max(TE * S.nap + SLAB,
+                                 T * ((P.d_out + 3) & ~3)
+                                     - (4 + QD) * T * H - NW * T * SHP)
+                           : TB * S.nap + SLAB);
   float* h0T_s = take(T * H);                      // then dpre0
   float* h1T_s = take(T * H);                      // then dpre1
   float* da0T_s = take(T * H);
@@ -869,8 +1309,8 @@ fused_conv_geom_bwd_kernel(const float* __restrict__ gout,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   load_tables(P, ins_s, nzi_s, nzc_s);
   // w / dw rows start as zeros: pass D reads its 16-byte groups past a
-  // quarter's last column (times a zero weight) and all TB rows
-  for (int i = tid; i < TB * S.nap + SLAB; i += NT) wdw_s[i] = 0.f;
+  // quarter's last column (times a zero weight) and all TR rows
+  for (int i = tid; i < TR * S.nap + SLAB; i += NT) wdw_s[i] = 0.f;
   __syncthreads();
   for (int i = tid; i < P.n_ins; i += NT) {
     const int* I = ins_s + i * I_STRIDE;
@@ -913,6 +1353,45 @@ fused_conv_geom_bwd_kernel(const float* __restrict__ gout,
 
   for (int atom = blockIdx.x; atom < P.n_atoms; atom += gridDim.x) {
     __syncthreads();
+    if constexpr (EDGE) {
+      // the tile's rows: pads only -> zero rows; else gm per row
+      const long row0 = (long)atom * T;
+      const int rows = (int)min((long)T, P.n_rows - row0);
+      for (int i = tid; i < T; i += NT) ms_s[i] = i < rows ? ms[row0 + i] : 0.f;
+      if (!__syncthreads_or(tid < rows && ms_s[tid] != 0.f)) {
+        auto zero = [](int) { return 0.f; };
+        store_block(dxg + row0 * P.d1, rows * P.d1, zero);
+        store_block(G.dsh + row0 * P.f, rows * P.f, zero);
+        store_block(G.demb + row0 * P.nb, rows * P.nb, zero);
+        continue;
+      }
+      const int ds = (P.d_out + 3) & ~3;
+      float* gt_s = wdw_s;                         // the rows' g
+      load_block(gout + row0 * P.d_out, rows * P.d_out, [&](int i, float v) {
+        const int e = i / P.d_out;
+        gt_s[e * ds + i - e * P.d_out] = v;
+      });
+      for (int i = rows * ds + tid; i < T * ds; i += NT) gt_s[i] = 0.f;
+      __syncthreads();
+      for (int g = 0; g < P.n_grp; ++g) {
+        const int* Gr = P.grp + g * G_STRIDE;
+        const int K = Gr[G_K], mo = Gr[G_MO];
+        float* gm = gm_s + Gr[G_AGG];
+        const float alpha = P.grp_alpha[g];
+        row_product(
+            T, gt_s + Gr[G_OUT], ds, mo, Gr[G_DIM3], si2wt + Gr[G_WOFF], mo, K,
+            gt_s + T * ds,
+            (int)(dshp_s + NW * T * SHP - (gt_s + T * ds)),
+            [&](int e, int p, int j, const float (&v)[4]) {
+#pragma unroll
+              for (int t = 0; t < 4; ++t)
+                if (j + t < K) gm[e * P.agg_dim + p * K + j + t] = v[t] * alpha;
+            });
+      }
+      // w / dw rows start as zeros (see above)
+      for (int i = tid; i < TE * S.nap + SLAB; i += NT) wdw_s[i] = 0.f;
+    }
+    if constexpr (!EDGE) {
     for (int i = tid; i < P.d_out; i += NT)
       g_s[i] = gout[(long)atom * P.d_out + i];
     __syncthreads();
@@ -931,10 +1410,12 @@ fused_conv_geom_bwd_kernel(const float* __restrict__ gout,
         gm_s[Gr[G_AGG] + p * K + r] = s * alpha;
       }
     }
+    }
 
     for (int t0 = 0; t0 < P.D; t0 += T) {
       const long row0 = (long)atom * P.D + t0;
-      const int rows = min(T, P.D - t0);
+      const int rows = EDGE ? (int)min((long)T, P.n_rows - row0)
+                            : min(T, P.D - t0);
       __syncthreads();
       if constexpr (GEOM)
         for (int i = tid; i < rows * 3; i += NT) vec_s[i] = vec[row0 * 3 + i];
@@ -978,9 +1459,10 @@ fused_conv_geom_bwd_kernel(const float* __restrict__ gout,
           switch (C.l1) {
 #define GEOM_CLASS_CASE(l)                                                 \
             case l:                                                        \
-              bwd_class_item<NSH, l>(P, X, ins_s, sc_s, gm_s, xg, dxg,     \
-                                     row, m_e, sv, wdw_row, lane_u, C.uit, \
-                                     dsh);                                 \
+              bwd_class_item<NSH, l>(P, X, ins_s, sc_s,                    \
+                                     gm_s + (EDGE ? e * P.agg_dim : 0),    \
+                                     xg, dxg, row, m_e, sv, wdw_row,       \
+                                     lane_u, C.uit, dsh);                  \
               break;
             GEOM_CLASS_CASE(0) GEOM_CLASS_CASE(1) GEOM_CLASS_CASE(2)
             GEOM_CLASS_CASE(3)
@@ -1011,9 +1493,9 @@ fused_conv_geom_bwd_kernel(const float* __restrict__ gout,
       {
         const int k = tid % H, q = tid / H;
         const int c_lo = q * S.cq, c_hi = min(c_lo + S.cq, P.n_active);
-        float acc[TB];
+        float acc[TR];
 #pragma unroll
-        for (int e = 0; e < TB; ++e) acc[e] = 0.f;
+        for (int e = 0; e < TR; ++e) acc[e] = 0.f;
         for (int c0 = c_lo; c0 < c_hi; c0 += SLAB) {
           float wr[SLAB];
 #pragma unroll
@@ -1021,12 +1503,12 @@ fused_conv_geom_bwd_kernel(const float* __restrict__ gout,
             wr[i] = c0 + i < c_hi
                         ? __ldg(w2t + (long)__ldg(P.col_w + c0 + i) * H + k)
                         : 0.f;
-          // all TB rows (those past the tile's read finite stale rows and
+          // all TR rows (those past the tile's read finite stale rows and
           // are not stored): the 16 sums interleave
 #pragma unroll
           for (int i = 0; i < SLAB / 4; ++i) {
 #pragma unroll
-            for (int e = 0; e < TB; ++e) {
+            for (int e = 0; e < TR; ++e) {
               const float4 d = *reinterpret_cast<const float4*>(
                   wdw_s + e * S.nap + c0 + 4 * i);
               acc[e] = fmaf(d.x, wr[4 * i], acc[e]);
@@ -1037,7 +1519,7 @@ fused_conv_geom_bwd_kernel(const float* __restrict__ gout,
           }
         }
 #pragma unroll
-        for (int e = 0; e < TB; ++e)
+        for (int e = 0; e < TR; ++e)
           if (e < rows) red_s[(q * T + e) * H + k] = acc[e];
       }
       for (int i = tid; i < rows * SHP; i += NT) {
@@ -1120,8 +1602,28 @@ size_t bwd_words(const Plan& P, const Shape& S, bool geom) {
          + r4(T * P.nb) + (geom ? r4(T * 3) : 0) + r4(T);
 }
 
-size_t words(const Plan& P, const Shape& S, bool bwd, bool geom) {
-  return bwd ? bwd_words(P, S, geom) : fwd_words(P, S, geom);
+// the edge pair's shared words: forward EDGE_FWD_WORDS, into which the
+// kernel fits its tile (edge_fwd_rows); backward (T = TE) the dense layout
+// with one message cotangent per row, w / dw wide enough that with the
+// MLP's rows after it the words hold the tile's g rows
+size_t edge_words(const Plan& P, const Shape& S, bool bwd) {
+  if (!bwd) return EDGE_FWD_WORDS;
+  auto r4 = [](long n) { return (n + 3) & ~3L; };
+  const long T = S.T;
+  const long head = table_words(P) + r4(P.n_ins) + r4(T * P.agg_dim)
+                    + r4(T * SHP) + r4(T * P.nb) + r4(T);
+  const long mlp = (4L + QD) * T * H + NW * T * SHP;
+  const long wdw = TE * S.nap + SLAB > T * r4(P.d_out) - mlp
+                       ? TE * S.nap + SLAB
+                       : T * r4(P.d_out) - mlp;
+  return head + r4(MAX_XENT * 5) + r4(T * SHP) + r4(wdw) + mlp;
+}
+
+// the dynamic shared words of one block of a mode's kernel
+size_t words(const Plan& P, const Shape& S, bool bwd, int mode) {
+  if (mode == K_EDGE) return edge_words(P, S, bwd);
+  return bwd ? bwd_words(P, S, mode == K_GEOM)
+             : fwd_words(P, S, mode == K_GEOM);
 }
 
 // shared memory of one block when two fit on an SM (228 KB, 1 KB of it
@@ -1131,18 +1633,21 @@ constexpr size_t TWO_PER_SM = (233472 - 2 * 1024) / 2;
 // rows per tile and row groups per column: the groups (1, 2 or 4, each a
 // multiple of 4 rows) that take the fewest rounds of the block's threads,
 // a w2 column load counted as 4 rows of work, within two blocks an SM
-Shape geom_shape(const Plan& P, bool bwd, bool geom) {
+Shape geom_shape(const Plan& P, bool bwd, int mode) {
   Shape S;
-  S.T = tile_rows(P.D, bwd ? TB : TF);
+  S.T = mode == K_EDGE ? (bwd ? TE : TEF)
+                       : tile_rows(P.D, bwd ? TB : TF);
   S.nap = (P.n_active + 3) & ~3;
   S.cq = ((P.n_active + QD - 1) / QD + 3) & ~3;
   S.s = 1;
+  // the edge forward picks its row groups per si2 group (w_row_groups)
+  if (mode == K_EDGE && !bwd) return S;
   long best = -1;
   for (int s = 1; s <= 4; s *= 2) {
     if (S.T % (4 * s)) break;
     Shape t = S;
     t.s = s;
-    if (s > 1 && 4 * words(P, t, bwd, geom) > TWO_PER_SM) break;
+    if (s > 1 && 4 * words(P, t, bwd, mode) > TWO_PER_SM) break;
     const long rounds = ((long)P.n_active * s + NT - 1) / NT;
     const long cost = rounds * (S.T / s + 4);
     if (best < 0 || cost < best) { best = cost; S.s = s; }
@@ -1168,10 +1673,10 @@ cudaError_t persistent_grid(Kernel kernel, size_t smem, int n_atoms,
 }
 
 // the dynamic shared bytes each kernel instance was last given, per device
-template <bool BWD, int NSH, bool GEOM>
+template <bool BWD, int NSH, int MODE>
 struct Reserved { static size_t bytes[MAX_DEVICES]; };
-template <bool BWD, int NSH, bool GEOM>
-size_t Reserved<BWD, NSH, GEOM>::bytes[MAX_DEVICES];
+template <bool BWD, int NSH, int MODE>
+size_t Reserved<BWD, NSH, MODE>::bytes[MAX_DEVICES];
 
 // registers, local bytes a thread, blocks an SM and dynamic shared bytes
 // of one kernel instance at `smem`
@@ -1190,48 +1695,48 @@ int resources(Kernel kernel, size_t smem, size_t* reserved, int* out) {
   return 0;
 }
 
-template <bool GEOM>
+template <int MODE>
 int launch_fwd(const float* xg, const float* vec, const float* ms,
                const float* w0, const float* w1, const float* w2,
                const float* si2w, const Plan& P,
-               const typename RowArgs<GEOM>::type& G, float* out,
+               const typename RowArgs<MODE>::type& G, float* out,
                void* stream) {
   if (P.f > SHP) return (int)cudaErrorInvalidValue;
-  const Shape S = geom_shape(P, false, GEOM);
-  const size_t smem = 4 * fwd_words(P, S, GEOM);
-  cudaError_t err = reserve_smem(fused_conv_geom_fwd_kernel<GEOM>, smem,
-                                 Reserved<false, 0, GEOM>::bytes);
+  const Shape S = geom_shape(P, false, MODE);
+  const size_t smem = 4 * words(P, S, false, MODE);
+  cudaError_t err = reserve_smem(fused_conv_geom_fwd_kernel<MODE>, smem,
+                                 Reserved<false, 0, MODE>::bytes);
   if (err != cudaSuccess) return (int)err;
   if (P.n_atoms > 0) {
     int grid = 0;
-    err = persistent_grid(fused_conv_geom_fwd_kernel<GEOM>, smem, P.n_atoms,
+    err = persistent_grid(fused_conv_geom_fwd_kernel<MODE>, smem, P.n_atoms,
                           &grid);
     if (err != cudaSuccess) return (int)err;
-    fused_conv_geom_fwd_kernel<GEOM>
+    fused_conv_geom_fwd_kernel<MODE>
         <<<grid, NT, smem, (cudaStream_t)stream>>>(xg, vec, ms, w0, w1, w2,
                                                    si2w, P, G, S, out);
   }
   return (int)cudaGetLastError();
 }
 
-template <int NSH, bool GEOM>
+template <int NSH, int MODE>
 int launch_bwd(const float* g, const float* xg, const float* vec,
                const float* ms, const float* w0, const float* w1,
                const float* w1t, const float* w2, const float* w2t,
                const float* si2wt, const Plan& P,
-               const typename RowArgs<GEOM>::type& G, float* dxg,
+               const typename RowArgs<MODE>::type& G, float* dxg,
                float* dvec, void* stream) {
-  const Shape S = geom_shape(P, true, GEOM);
-  const size_t smem = 4 * bwd_words(P, S, GEOM);
-  cudaError_t err = reserve_smem(fused_conv_geom_bwd_kernel<NSH, GEOM>, smem,
-                                 Reserved<true, NSH, GEOM>::bytes);
+  const Shape S = geom_shape(P, true, MODE);
+  const size_t smem = 4 * words(P, S, true, MODE);
+  cudaError_t err = reserve_smem(fused_conv_geom_bwd_kernel<NSH, MODE>, smem,
+                                 Reserved<true, NSH, MODE>::bytes);
   if (err != cudaSuccess) return (int)err;
   if (P.n_atoms > 0) {
     int grid = 0;
-    err = persistent_grid(fused_conv_geom_bwd_kernel<NSH, GEOM>, smem,
+    err = persistent_grid(fused_conv_geom_bwd_kernel<NSH, MODE>, smem,
                           P.n_atoms, &grid);
     if (err != cudaSuccess) return (int)err;
-    fused_conv_geom_bwd_kernel<NSH, GEOM>
+    fused_conv_geom_bwd_kernel<NSH, MODE>
         <<<grid, NT, smem, (cudaStream_t)stream>>>(
             g, xg, vec, ms, w0, w1, w1t, w2, w2t, si2wt, P, G, S, dxg, dvec);
   }
@@ -1239,40 +1744,52 @@ int launch_bwd(const float* g, const float* xg, const float* vec,
 }
 
 // the backward instance for the filter's SH count
-template <bool GEOM>
+template <int MODE>
 int launch_bwd_nsh(const float* g, const float* xg, const float* vec,
                    const float* ms, const float* w0, const float* w1,
                    const float* w1t, const float* w2, const float* w2t,
                    const float* si2wt, const Plan& P,
-                   const typename RowArgs<GEOM>::type& G, float* dxg,
+                   const typename RowArgs<MODE>::type& G, float* dxg,
                    float* dvec, void* stream) {
   if (P.f > SHP || P.n_xent >= MAX_XENT) return (int)cudaErrorInvalidValue;
   if (P.f <= 4)
-    return launch_bwd<4, GEOM>(g, xg, vec, ms, w0, w1, w1t, w2, w2t, si2wt,
+    return launch_bwd<4, MODE>(g, xg, vec, ms, w0, w1, w1t, w2, w2t, si2wt,
                                P, G, dxg, dvec, stream);
   if (P.f <= 9)
-    return launch_bwd<9, GEOM>(g, xg, vec, ms, w0, w1, w1t, w2, w2t, si2wt,
+    return launch_bwd<9, MODE>(g, xg, vec, ms, w0, w1, w1t, w2, w2t, si2wt,
                                P, G, dxg, dvec, stream);
-  return launch_bwd<16, GEOM>(g, xg, vec, ms, w0, w1, w1t, w2, w2t, si2wt, P,
+  return launch_bwd<16, MODE>(g, xg, vec, ms, w0, w1, w1t, w2, w2t, si2wt, P,
                               G, dxg, dvec, stream);
 }
 
-template <bool GEOM>
+template <int MODE>
 int resources_of(const Plan& P, bool bwd, int* out) {
   if (P.f > SHP) return (int)cudaErrorInvalidValue;
-  const Shape S = geom_shape(P, bwd, GEOM);
-  const size_t smem = 4 * words(P, S, bwd, GEOM);
+  const Shape S = geom_shape(P, bwd, MODE);
+  const size_t smem = 4 * words(P, S, bwd, MODE);
   if (!bwd)
-    return resources(fused_conv_geom_fwd_kernel<GEOM>, smem,
-                     Reserved<false, 0, GEOM>::bytes, out);
+    return resources(fused_conv_geom_fwd_kernel<MODE>, smem,
+                     Reserved<false, 0, MODE>::bytes, out);
   if (P.f <= 4)
-    return resources(fused_conv_geom_bwd_kernel<4, GEOM>, smem,
-                     Reserved<true, 4, GEOM>::bytes, out);
+    return resources(fused_conv_geom_bwd_kernel<4, MODE>, smem,
+                     Reserved<true, 4, MODE>::bytes, out);
   if (P.f <= 9)
-    return resources(fused_conv_geom_bwd_kernel<9, GEOM>, smem,
-                     Reserved<true, 9, GEOM>::bytes, out);
-  return resources(fused_conv_geom_bwd_kernel<16, GEOM>, smem,
-                   Reserved<true, 16, GEOM>::bytes, out);
+    return resources(fused_conv_geom_bwd_kernel<9, MODE>, smem,
+                     Reserved<true, 9, MODE>::bytes, out);
+  return resources(fused_conv_geom_bwd_kernel<16, MODE>, smem,
+                   Reserved<true, 16, MODE>::bytes, out);
+}
+
+// the edge pair's plan: the C entries get one "atom" per row (D = 1); the
+// backward takes tiles of TE rows as its atoms, the last one cut at n_rows,
+// and the forward walks tiles of its own rows over n_rows (edge_fwd_tiles)
+// on the grid this sizes
+Plan edge_tiles(Plan P) {
+  const long rows = P.n_rows;
+  P.D = TE;
+  P.n_atoms = (int)((rows + TE - 1) / TE);
+  P.n_rows = rows;
+  return P;
 }
 
 }  // namespace
@@ -1295,24 +1812,25 @@ static Geom make_geom(GEOM_ARGS) {
             cutoff, env_p, r_on)
 
 // the launch shape a layer gets (ops/fused_conv_geom.py holds the same
-// arithmetic): T, s, nap, cq and the dynamic shared bytes; geom 0 is the
-// dense pair
-extern "C" int fused_conv_geom_shape(int bwd, int geom, PLAN_ARGS,
+// arithmetic): T, s, nap, cq and the dynamic shared bytes; mode 0 the dense
+// pair, 1 the geometry-fused pair, 2 the edge pair
+extern "C" int fused_conv_geom_shape(int bwd, int mode, PLAN_ARGS,
                                      int* out) {
   const Plan P = PLAN_CALL;
-  const Shape S = geom_shape(P, bwd != 0, geom != 0);
+  const Shape S = geom_shape(P, bwd != 0, mode);
   out[0] = S.T; out[1] = S.s; out[2] = S.nap; out[3] = S.cq;
-  out[4] = (int)(4 * words(P, S, bwd != 0, geom != 0));
+  out[4] = (int)(4 * words(P, S, bwd != 0, mode));
   return 0;
 }
 
 // the compiled kernel a layer launches: registers, local bytes a thread,
 // blocks an SM and dynamic shared bytes (on the current device)
-extern "C" int fused_conv_geom_resources(int bwd, int geom, PLAN_ARGS,
+extern "C" int fused_conv_geom_resources(int bwd, int mode, PLAN_ARGS,
                                          int* out) {
   const Plan P = PLAN_CALL;
-  return geom ? resources_of<true>(P, bwd != 0, out)
-              : resources_of<false>(P, bwd != 0, out);
+  if (mode == K_EDGE) return resources_of<K_EDGE>(P, bwd != 0, out);
+  return mode == K_GEOM ? resources_of<K_GEOM>(P, bwd != 0, out)
+                        : resources_of<K_DENSE>(P, bwd != 0, out);
 }
 
 extern "C" int fused_conv_geom_fwd(const float* xg, const float* vec,
@@ -1320,8 +1838,8 @@ extern "C" int fused_conv_geom_fwd(const float* xg, const float* vec,
                                    const float* w1, const float* w2,
                                    const float* si2w, PLAN_ARGS, GEOM_ARGS,
                                    float* out, void* stream) {
-  return launch_fwd<true>(xg, vec, ms, w0, w1, w2, si2w, PLAN_CALL,
-                          GEOM_CALL, out, stream);
+  return launch_fwd<K_GEOM>(xg, vec, ms, w0, w1, w2, si2w, PLAN_CALL,
+                            GEOM_CALL, out, stream);
 }
 
 extern "C" int fused_conv_geom_bwd(const float* g, const float* xg,
@@ -1331,8 +1849,8 @@ extern "C" int fused_conv_geom_bwd(const float* g, const float* xg,
                                    const float* w2t, const float* si2wt,
                                    PLAN_ARGS, GEOM_ARGS, float* dxg,
                                    float* dvec, void* stream) {
-  return launch_bwd_nsh<true>(g, xg, vec, ms, w0, w1, w1t, w2, w2t, si2wt,
-                              PLAN_CALL, GEOM_CALL, dxg, dvec, stream);
+  return launch_bwd_nsh<K_GEOM>(g, xg, vec, ms, w0, w1, w1t, w2, w2t, si2wt,
+                                PLAN_CALL, GEOM_CALL, dxg, dvec, stream);
 }
 
 // the dense pair: kernels 1-2's C entries, their arguments unchanged
@@ -1342,8 +1860,8 @@ extern "C" int fused_conv_fwd(const float* xg, const float* sh,
                               const float* w2, const float* si2w,
                               PLAN_ARGS, float* out, void* stream) {
   const Dense R = {sh, emb, nullptr, nullptr};
-  return launch_fwd<false>(xg, nullptr, ms, w0, w1, w2, si2w, PLAN_CALL, R,
-                           out, stream);
+  return launch_fwd<K_DENSE>(xg, nullptr, ms, w0, w1, w2, si2w, PLAN_CALL, R,
+                             out, stream);
 }
 
 extern "C" int fused_conv_bwd(const float* g, const float* xg,
@@ -1354,6 +1872,35 @@ extern "C" int fused_conv_bwd(const float* g, const float* xg,
                               const float* si2wt, PLAN_ARGS, float* dxg,
                               float* dsh, float* demb, void* stream) {
   const Dense R = {sh, emb, dsh, demb};
-  return launch_bwd_nsh<false>(g, xg, nullptr, ms, w0, w1, w1t, w2, w2t,
-                               si2wt, PLAN_CALL, R, dxg, nullptr, stream);
+  return launch_bwd_nsh<K_DENSE>(g, xg, nullptr, ms, w0, w1, w1t, w2, w2t,
+                                 si2wt, PLAN_CALL, R, dxg, nullptr, stream);
+}
+
+// the edge pair (agg_d = 0): kernels 1-2's edge-row C entries, their
+// arguments unchanged (one "atom" of one row per input row)
+extern "C" int fused_conv_edge_fwd(const float* xg, const float* sh,
+                                   const float* emb, const float* ms,
+                                   const float* w0, const float* w1,
+                                   const float* w2, const float* si2w,
+                                   PLAN_ARGS, float* out, void* stream) {
+  const Plan P = PLAN_CALL;
+  if (P.D != 1) return (int)cudaErrorInvalidValue;
+  const Dense R = {sh, emb, nullptr, nullptr};
+  return launch_fwd<K_EDGE>(xg, nullptr, ms, w0, w1, w2, si2w, edge_tiles(P),
+                            R, out, stream);
+}
+
+extern "C" int fused_conv_edge_bwd(const float* g, const float* xg,
+                                   const float* sh, const float* emb,
+                                   const float* ms, const float* w0,
+                                   const float* w1, const float* w1t,
+                                   const float* w2, const float* w2t,
+                                   const float* si2wt, PLAN_ARGS, float* dxg,
+                                   float* dsh, float* demb, void* stream) {
+  const Plan P = PLAN_CALL;
+  if (P.D != 1) return (int)cudaErrorInvalidValue;
+  const Dense R = {sh, emb, dsh, demb};
+  return launch_bwd_nsh<K_EDGE>(g, xg, nullptr, ms, w0, w1, w1t, w2, w2t,
+                                si2wt, edge_tiles(P), R, dxg, nullptr,
+                                stream);
 }

@@ -31,10 +31,15 @@ dxg, dsh and dweff rows are zeros.
 
 ``agg_d = 0`` is the edge-row contract of the plain edge list: one
 (E, d_out) output row per edge, si2 applied per row, the caller scatters
-the rows onto the atoms. On the card it runs the edge-row instantiation of
-the same kernel bodies (``fused_conv_edge_fwd`` / ``fused_conv_edge_bwd``:
-a block owns a few rows in any order and reads each si2 weight once for
-all of them).
+the rows onto the atoms. On the card it runs the edge pair of
+``csrc/fused_conv_geom.cu`` (``fused_conv_edge_fwd`` /
+``fused_conv_edge_bwd``), the dense-grid pair's template in a third mode:
+its MLP and CG on tiles of rows in any order, si2 as a product over the
+tile's rows per si2 group, each si2 weight read once a tile. The forward
+runs group by group (the group's w pass, its CG into the group's message
+tile, the product), on tiles of up to 16 rows; the backward keeps one
+message cotangent per row of 8-row tiles (``edge_unsupported`` says which
+plans the pair takes).
 
 ``cg_mode='terms'`` (the counterpart of ``set_cg_mode('terms')``:
 ``fwd_kernel`` / ``bwd_kernel``) keeps the function and swaps the kernels of
@@ -42,15 +47,14 @@ the plain contract, for either ``agg_d``, for the independently derived
 pair of ``csrc/fused_conv_terms.cu`` (``ops/fused_conv_terms.py``).
 
 On CUDA tensors the wrapper launches the kernels of
-``csrc/fused_conv_geom.cu`` for the dense-grid pair (``agg_d > 0``) and the
-geometry-fused pair, one template there, and those of
-``csrc/fused_conv.cu`` for the edge-row and external-weight pairs (built
-with nvcc at first use into ``_build/``); on CPU tensors it runs the plain
-version, the XLA-path chain of ``model/layers.py::_rows_to_nodes`` (MLP ->
-TP -> reshape-sum -> si2). Any other device raises. The dense-grid
-kernels, like the geometry-fused ones, read an instruction's SH block at
-``l2^2`` and take at most 16 SH components and 15 x entries
-(``dense_unsupported``).
+``csrc/fused_conv_geom.cu`` for the dense-grid pair (``agg_d > 0``), its
+edge-row form (``agg_d = 0``) and the geometry-fused pair, and those of
+``csrc/fused_conv.cu`` for the external-weight pair (built with nvcc at
+first use into ``_build/``); on CPU tensors it runs the plain version, the
+XLA-path chain of ``model/layers.py::_rows_to_nodes`` (MLP -> TP ->
+reshape-sum -> si2). Any other device raises. The kernels of
+``fused_conv_geom.cu`` read an instruction's SH block at ``l2^2`` and take
+at most 16 SH components and 15 x entries (``dense_unsupported``).
 """
 
 from __future__ import annotations
@@ -67,6 +71,7 @@ import torch
 from . import cuda_build
 from .cuda_build import check as _check
 from .cuda_build import launch_counts, reset_launch_counts  # noqa: F401
+from . import fused_conv_geom as _fcg
 from .fused_conv_geom import MAX_XENT, SHP
 from .fused_conv_terms import TermsKernels
 from .normalize import NORMALIZE2MOM_CST
@@ -300,9 +305,8 @@ def _bind_rows_pair(fwd, bwd):
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    """The edge-row and external-weight pairs, csrc/fused_conv.cu."""
+    """The external-weight pair, csrc/fused_conv.cu."""
     lib = cuda_build.load('fused_conv')
-    _bind_rows_pair(lib.fused_conv_edge_fwd, lib.fused_conv_edge_bwd)
     lib.fused_conv_extw_fwd.argtypes = ([_P] * 4 + _TABLE_ARGS + _DIM_ARGS
                                         + [_P, _P])
     lib.fused_conv_extw_fwd.restype = _I
@@ -314,8 +318,18 @@ def _lib():
 
 @functools.lru_cache(maxsize=None)
 def _geom_lib():
-    """The dense-grid and geometry-fused pairs, csrc/fused_conv_geom.cu."""
-    return bind_dense(bind_geom(cuda_build.load('fused_conv_geom')))
+    """The dense-grid pair, its edge-row form and the geometry-fused pair,
+    csrc/fused_conv_geom.cu."""
+    return bind_edge(bind_dense(bind_geom(cuda_build.load('fused_conv_geom'))))
+
+
+def bind_edge(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entries ``fused_conv_edge_fwd`` / ``_bwd`` of the
+    edge-row pair (kernels 1-2 at ``agg_d = 0``) of a library: the port's,
+    or another build with the same ABI for an A/B (``tools/geom_ab.py
+    --edge``, an earlier tree's ``csrc/fused_conv.cu``)."""
+    _bind_rows_pair(lib.fused_conv_edge_fwd, lib.fused_conv_edge_bwd)
+    return lib
 
 
 def bind_dense(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -420,11 +434,13 @@ class FusedConv:
         self.d1 = tp_spec.irreps_in1.dim
         self.f = tp_spec.irreps_in2.dim
         self.nb = mlp_spec.hs[0]
-        self._dense_unsupported = (dense_unsupported(tp_spec)
-                                   if agg_d > 0 else None)
         self._tables: Dict[torch.device, _Tables] = {}
         self._geom_tables: Dict[torch.device, tuple] = {}
         self._packed: Dict[tuple, tuple] = {}
+        # why the kernels cannot take this plan (None: they can)
+        self._unsupported: Optional[str] = (
+            dense_unsupported(tp_spec) if agg_d > 0
+            else edge_unsupported(self))
 
     # -- plain version ------------------------------------------------
     def plain_forward(self, xg, sh, emb, ms, mlp_ws, si2_ws) -> Tensor:
@@ -648,15 +664,13 @@ class FusedConv:
         return ctypes.c_void_p(t.data_ptr())
 
     def _entry(self, which: str):
-        """(name, C entry point) of kernel 1 or 2 (``which``: fwd | bwd):
-        the dense-grid kernel of csrc/fused_conv_geom.cu, or with ``agg_d =
-        0`` the edge-row form of csrc/fused_conv.cu."""
-        if self.agg_d == 0:
-            name = f'fused_conv_edge_{which}'
-            return name, getattr(_lib(), name)
-        if self._dense_unsupported:
-            raise ValueError(self._dense_unsupported)
-        name = f'fused_conv_{which}'
+        """(name, C entry point) of kernel 1 or 2 (``which``: fwd | bwd) in
+        csrc/fused_conv_geom.cu: the dense-grid kernel, or with ``agg_d =
+        0`` its edge-row form."""
+        if self._unsupported:
+            raise ValueError(self._unsupported)
+        name = (f'fused_conv_edge_{which}' if self.agg_d == 0
+                else f'fused_conv_{which}')
         return name, getattr(_geom_lib(), name)
 
     def kernel_forward(self, xg, sh, emb, ms, mlp_ws, si2_ws) -> Tensor:
@@ -952,6 +966,28 @@ def dense_unsupported(tp_spec: UVUTensorProductSpec) -> Optional[str]:
     return None
 
 
+def edge_unsupported(conv: 'FusedConv') -> Optional[str]:
+    """Why the edge-row pair (``agg_d = 0``) cannot take this layer, or
+    None: ``dense_unsupported``, a forward tile of fewer than 8 rows in two
+    blocks' shared words (per row the widest si2 group's w and the largest
+    group's messages), or backward shared memory past one block an SM (one
+    message cotangent per row of a tile)."""
+    why = dense_unsupported(conv.tp)
+    if why:
+        return why
+    dims = _fcg.layer_dims(conv, 0)
+    F = _fcg.edge_fwd_plan(dims, conv.kernel_tables(torch.device('cpu')))
+    if F.T == 0:
+        return (f'edge-row conv kernel: not {_fcg.RB} rows of a tile in '
+                f'{_fcg.TWO_PER_SM} shared bytes (w of {F.nc4} columns, '
+                f'{F.slice4} message words a row)')
+    smem = _fcg.shape(dims, True, edge=True).smem
+    if smem > _fcg.MAX_SMEM:
+        return (f'edge-row conv kernel: {smem} shared bytes a block '
+                f'(at most {_fcg.MAX_SMEM})')
+    return None
+
+
 def _live_rows(ms: Tensor) -> float:
     """Rows of ``ms`` with a nonzero entry: the mask scale (rows, 1), or
     the external weights (rows, w_numel), whose all-zero rows are pads."""
@@ -975,12 +1011,15 @@ def conv_cost(conv: FusedConv, ms: Tensor, geom: bool = False,
     mlp = 0 if ext_w else conv.nb * H + H * H + H * n_active
     cg = sum(p['mul'] * len(p['nz']) for p, _ in active)
     si2 = sum(g['K'] * g['mo'] * g['dim3'] for g in conv.groups)
+    # si2 per output row; at agg_d = 0 an output row is an input row, and
+    # a pad row's is zero without any work
+    si2_rows = real if conv.agg_d == 0 else n_out
     # forward: MLP, CG (2 multiplies + 1 add per nonzero -> ~1.5 MAC)
     # and the si2 per output row
-    fwd = 2.0 * real * (mlp + 1.5 * cg) + 2.0 * n_out * si2
+    fwd = 2.0 * real * (mlp + 1.5 * cg) + 2.0 * si2_rows * si2
     # backward: W.g per output row, MLP recompute, CG for dw_eff, dsh and
     # dxg, then the MLP backward (output layer + both hidden layers)
-    bwd = 2.0 * n_out * si2 + 2.0 * real * (2 * mlp + 4.5 * cg)
+    bwd = 2.0 * si2_rows * si2 + 2.0 * real * (2 * mlp + 4.5 * cg)
     if geom:
         # r, 1/r, envelope (~20), nb x (sin, 3 products), 3 products and
         # one multiply-add per SH term; the backward recomputes it and

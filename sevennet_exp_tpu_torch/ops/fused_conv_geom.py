@@ -1,7 +1,10 @@
 """Launch shape and work mapping of the conv kernels of
 ``csrc/fused_conv_geom.cu``, in Python: the geometry-fused pair
 (``geom=True``) and the dense-grid pair, kernels 1-2 (``geom=False``), one
-template there, which differ only in the shared words of the edge vectors.
+template there, which differ only in the shared words of the edge vectors;
+and that template's third mode, the edge pair, kernels 1-2 at ``agg_d = 0``
+(``edge=True``), whose tiles are any rows of the edge list and whose si2 is
+a product over the tile's rows (``product_plan``).
 
 The kernels choose their tile, their row groups and their i1 classes on
 the host side of the C entry (``geom_shape``) and inside the block; this
@@ -19,6 +22,16 @@ blocks an SM.
           column load counted as 4 rows, within two blocks per SM
     nap   live columns rounded up to 4 (row stride of the per-row w / dw)
     cq    pass D: live columns per quarter, a multiple of 4
+
+The edge pair (the template's third mode): its forward gets the shared
+words of two blocks an SM and fits its tile into them inside the block
+(``edge_fwd_plan``: up to ``TEF`` rows, set by the widest si2 group's
+columns and the largest group's messages), then runs si2 group by group:
+the w pass over the group's columns, its CG into the group's message tile,
+the product with its W. Its backward takes T = TE with one message
+cotangent per row and, in the words of the MLP's rows, the rows'
+cotangents g; its products keep their partial sums in those words
+(``edge_red_words``).
 """
 
 from __future__ import annotations
@@ -42,6 +55,12 @@ MAX_XENT = 16
 I_STRIDE = 34     # ints per instruction record (ops/fused_conv.py)
 TWO_PER_SM = (233472 - 2 * 1024) // 2     # shared bytes a block, 2 an SM
 THREE_PER_SM = (233472 - 3 * 1024) // 3   # the same, 3 an SM
+MAX_SMEM = 232448                         # shared bytes a block at most
+TE = 8            # edge backward: rows per tile
+TEF = 16          # edge forward: rows per tile (at most)
+KS_MAX = 8        # edge products: threads that share one block
+RB = 8            # edge products: rows of a thread's block
+EDGE_FWD_WORDS = TWO_PER_SM // 4   # edge forward: shared words a block
 
 
 class Shape(NamedTuple):
@@ -64,8 +83,105 @@ def tile_rows(D: int, tmax: int) -> int:
     return min(tmax, _r4(D))
 
 
+def _edge_words(dims: Dict[str, int], T: int, nap: int, bwd: bool) -> int:
+    d = dims
+    if not bwd:
+        return EDGE_FWD_WORDS
+    head = (_table_words(d['n_ins'], d['n_nz']) + _r4(d['n_ins'])
+            + _r4(T * d['agg_dim']) + _r4(T * SHP) + _r4(T * d['nb'])
+            + _r4(T))
+    mlp = (4 + QD) * T * H + NW * T * SHP
+    wdw = max(TE * nap + SLAB, T * _r4(d['d_out']) - mlp)
+    return head + _r4(MAX_XENT * 5) + _r4(T * SHP) + _r4(wdw) + mlp
+
+
+def edge_red_words(dims: Dict[str, int]) -> int:
+    """The words the edge backward's products keep their parts' partial
+    sums in: w / dw to the pass-D partials past the tile's g rows (the
+    forward's are its w rows, ``EdgeFwdPlan.red_words``)."""
+    T, nap = TE, _r4(dims['n_active'])
+    mlp = (4 + QD) * T * H + NW * T * SHP
+    ds = T * _r4(dims['d_out'])
+    return _r4(max(TE * nap + SLAB, ds - mlp)) + mlp - ds
+
+
+class EdgeGroup(NamedTuple):
+    c0: int       # first live column (the group's columns are consecutive)
+    nc: int       # live columns
+    K: int
+    mo: int
+    d3: int
+    a0: int       # offset of the group's slice in the plain chain's layout
+    o_off: int    # first output column
+    w_off: int    # offset of W in the flat si2 weights
+
+
+def edge_groups(tables) -> List[EdgeGroup]:
+    """The si2 groups of a layer's kernel tables (``FusedConv
+    .kernel_tables``) with their live columns, as ``group_columns`` finds
+    them: every instruction whose slice offset lies in the group's."""
+    ins = tables.ins.cpu().numpy().reshape(tables.n_ins, -1)
+    out = []
+    for K, mo, d3, o_off, a0, w_off in \
+            tables.grp.cpu().numpy().reshape(tables.n_grp, -1).tolist():
+        mine = [r for r in ins if a0 <= r[7] < a0 + d3 * K]
+        lo = min((int(r[9]) for r in mine), default=tables.n_active)
+        hi = max((int(r[9] + r[1]) for r in mine), default=0)
+        out.append(EdgeGroup(lo, max(hi - lo, 0), K, mo, d3, a0, o_off,
+                             w_off))
+    return out
+
+
+class EdgeFwdPlan(NamedTuple):
+    T: int          # rows per tile (0: not even RB fit)
+    nc4: int        # the widest group's columns, rounded up to 4
+    slice4: int     # the largest group's message words a row, rounded up
+    red_words: int  # the products' partial sums: the w rows, T * nc4
+    groups: List[EdgeGroup]
+
+
+def edge_fwd_plan(dims: Dict[str, int], tables) -> EdgeFwdPlan:
+    """The edge forward's tile (``edge_fwd_tiles`` / ``edge_fwd_rows``):
+    the most rows, a multiple of RB up to TEF, whose sh, emb, ms, h1, w of
+    the widest group and the larger of h0 and the largest group's messages
+    fit EDGE_FWD_WORDS after the tables, the factors and the unwritten
+    columns' list."""
+    groups = edge_groups(tables)
+    nc4 = max((_r4(g.nc) for g in groups), default=0)
+    slice4 = max((_r4(g.d3 * g.K) for g in groups), default=0)
+    fixed = (_table_words(dims['n_ins'], dims['n_nz']) + _r4(dims['n_ins'])
+             + _r4(dims['d_out'] + 1))
+    per_row = SHP + dims['nb'] + 1 + H + nc4 + max(H, slice4)
+    T = next((t for t in range(TEF, 0, -RB)
+              if fixed + t * per_row <= EDGE_FWD_WORDS), 0)
+    return EdgeFwdPlan(T, nc4, slice4, T * nc4, groups)
+
+
+def w_row_groups(nc: int, T: int) -> int:
+    """Row groups of the edge forward's w pass over nc columns: the rule
+    of ``shape``."""
+    best, s_best, s = None, 1, 1
+    while s <= 4 and T % (4 * s) == 0:
+        cost = -(-nc * s // NT) * (T // s + 4)
+        if best is None or cost < best:
+            best, s_best = cost, s
+        s *= 2
+    return s_best
+
+
+def cg_parts(nc: int) -> int:
+    """Parts of the rows the edge forward's CG splits a column's rows into
+    (1, 2 or 4): doubled while the items fit the block's threads."""
+    sp = 1
+    while sp < 4 and nc * sp * 2 <= NT:
+        sp *= 2
+    return sp
+
+
 def _words(dims: Dict[str, int], T: int, s: int, nap: int, bwd: bool,
-           geom: bool) -> int:
+           geom: bool, edge: bool = False) -> int:
+    if edge:
+        return _edge_words(dims, T, nap, bwd)
     d = dims
     base = _table_words(d['n_ins'], d['n_nz']) + _r4(d['n_ins'])
     vec = _r4(T * 3) if geom else 0
@@ -79,19 +195,23 @@ def _words(dims: Dict[str, int], T: int, s: int, nap: int, bwd: bool,
             + vec + _r4(T))
 
 
-def shape(dims: Dict[str, int], bwd: bool, geom: bool = True) -> Shape:
+def shape(dims: Dict[str, int], bwd: bool, geom: bool = True,
+          edge: bool = False) -> Shape:
     """The launch shape of one layer: ``dims`` holds D, d1, nb, d_out,
     n_ins, n_active, agg_dim, n_nz (``layer_dims``); ``geom`` False for the
-    dense-grid pair."""
-    T = tile_rows(dims['D'], TB if bwd else TF)
+    dense-grid pair; ``edge`` the edge pair (D not read)."""
+    T = ((TE if bwd else TEF) if edge
+         else tile_rows(dims['D'], TB if bwd else TF))
     nap = _r4(dims['n_active'])
     cq = _r4(-(-dims['n_active'] // QD))
     best, s_best = None, 1
-    s = 1
+    # the edge forward picks its row groups per si2 group (w_row_groups)
+    s = 5 if edge and not bwd else 1
     while s <= 4:
         if T % (4 * s):
             break
-        if s > 1 and 4 * _words(dims, T, s, nap, bwd, geom) > TWO_PER_SM:
+        if s > 1 and 4 * _words(dims, T, s, nap, bwd, geom,
+                                edge) > TWO_PER_SM:
             break
         rounds = -(-dims['n_active'] * s // NT)
         cost = rounds * (T // s + 4)
@@ -99,7 +219,41 @@ def shape(dims: Dict[str, int], bwd: bool, geom: bool = True) -> Shape:
             best, s_best = cost, s
         s *= 2
     return Shape(T, s_best, nap, cq,
-                 4 * _words(dims, T, s_best, nap, bwd, geom))
+                 4 * _words(dims, T, s_best, nap, bwd, geom, edge))
+
+
+def edge_tiles(n_rows: int, grid: int, T: int = TE) -> List[List]:
+    """Per block of a persistent grid, its (first row, rows) tiles of the
+    edge pair: tile t = block + k grid covers rows [t T, t T + T) cut at
+    n_rows (T: TE backward, the forward's ``edge_fwd_plan``)."""
+    n_tiles = -(-n_rows // T)
+    return [[(t * T, min(T, n_rows - t * T))
+             for t in range(b, n_tiles, grid)] for b in range(grid)]
+
+
+class ProductPlan(NamedTuple):
+    items: int    # blocks of sums: RB rows (of one p) by 4 columns
+    ks: int       # threads that share a block (each every ks-th 4 k)
+
+
+def product_plan(T: int, d3: int, kred: int, n: int,
+                 red_words: int) -> ProductPlan:
+    """The blocks of the edge pair's per-group product (``row_product``):
+    kred-deep sums for T * d3 rows and n columns, the parts' partial sums
+    ((ks - 1) blocks of 4 RB each) within red_words."""
+    items = (T * d3 // RB) * (-(-n // 4))
+    ks = 1 if items >= NT else min(NT // items, KS_MAX,
+                                   1 + red_words // (4 * RB * items))
+    return ProductPlan(items, ks)
+
+
+def product_ks(plan: ProductPlan, part: int, kred: int) -> List[int]:
+    """The k that part ``part`` of a block sums, in order: every ks-th
+    group of 4 below the last multiple of 4, part 0 then the tail."""
+    k4 = kred & ~3
+    ks = [k + kk for k in range(4 * part, k4, 4 * plan.ks)
+          for kk in range(4)]
+    return ks + (list(range(k4, kred)) if part == 0 else [])
 
 
 def layer_dims(conv, D: int) -> Dict[str, int]:
@@ -190,11 +344,17 @@ def _plan_args(dims: Dict[str, int], f: int = 0) -> list:
         d['n_active'], 0, 0, d['agg_dim'], d['n_nz'], 0, 0.0, 0.0, 0.0, 0.0]
 
 
-def kernel_shape(dims: Dict[str, int], bwd: bool, geom: bool = True) -> Shape:
+def _mode(geom: bool, edge: bool) -> int:
+    """The C entries' pair: 0 dense, 1 geometry-fused, 2 edge."""
+    return 2 if edge else int(geom)
+
+
+def kernel_shape(dims: Dict[str, int], bwd: bool, geom: bool = True,
+                 edge: bool = False) -> Shape:
     """The shape the C entry launches with (needs the built library, not a
     card)."""
     out = (ctypes.c_int * 5)()
-    err = _lib().fused_conv_geom_shape(int(bwd), int(geom),
+    err = _lib().fused_conv_geom_shape(int(bwd), _mode(geom, edge),
                                        *_plan_args(dims), out)
     cuda_build.check(err, 'fused_conv_geom_shape')
     return Shape(*out)
@@ -208,12 +368,12 @@ class Resources(NamedTuple):
 
 
 def kernel_resources(dims: Dict[str, int], f: int, bwd: bool,
-                     geom: bool = True) -> Resources:
+                     geom: bool = True, edge: bool = False) -> Resources:
     """The compiled kernel a layer with ``f`` SH components launches: its
     registers, local bytes, blocks an SM at its shared bytes (on the current
     card)."""
     out = (ctypes.c_int * 4)()
-    err = _lib().fused_conv_geom_resources(int(bwd), int(geom),
+    err = _lib().fused_conv_geom_resources(int(bwd), _mode(geom, edge),
                                            *_plan_args(dims, f), out)
     cuda_build.check(err, 'fused_conv_geom_resources')
     return Resources(*out)

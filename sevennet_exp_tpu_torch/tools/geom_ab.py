@@ -1,9 +1,10 @@
 """Same-call A/B of the geometry-fused conv pair (``fused_conv_geom_fwd`` /
-``fused_conv_geom_bwd``), or with ``--dense`` of the dense-grid pair
-(kernels 1-2, ``fused_conv_fwd`` / ``fused_conv_bwd``), against another
-build of the same C entries.
+``fused_conv_geom_bwd``), with ``--dense`` of the dense-grid pair (kernels
+1-2, ``fused_conv_fwd`` / ``fused_conv_bwd``), with ``--edge`` of the edge
+pair (kernels 1-2 at ``agg_d = 0``, ``fused_conv_edge_fwd`` /
+``fused_conv_edge_bwd``), against another build of the same C entries.
 
-    python -m sevennet_exp_tpu_torch.tools.geom_ab OTHER.cu [STEPS] [OUT.json] [--dense]
+    python -m sevennet_exp_tpu_torch.tools.geom_ab OTHER.cu [STEPS] [OUT.json] [--dense | --edge]
 
 OTHER.cu is any source that exports the two entries with the port's ABI,
 for example an earlier tree's ``csrc/fused_conv.cu`` (both pairs lived
@@ -33,6 +34,17 @@ The dense-grid pair (``--dense``):
     rows): the dense kernels' ms, host-clock ms and peak device memory;
   - 1k NVT: ms/step over STEPS (default 100) steps after a 5-step warm-up.
 
+The edge pair (``--edge``; OTHER.cu for example an earlier tree's
+``csrc/fused_conv.cu``, where the pair lived before its redesign):
+
+  - each kernel on the 1k calculator's rows (31,232, the last 5,232 pads as
+    the calculator pads its list, sh and emb of random edge vectors, seed 0)
+    on the checkpoint's five layers, and the two builds' outputs against
+    each other;
+  - the calculator call at 1,000 and at 8,000 atoms: the edge kernels' ms
+    (a pair of CUDA events around every launch), host-clock ms and peak
+    device memory.
+
 Prints one line per measurement and the means of each side; writes them to
 OUT.json when given. Needs a card (exits 2 without one).
 """
@@ -61,6 +73,7 @@ CHECKPOINT = os.path.join(ROOT, 'trained_nacl', 'checkpoint_best.pth.sevennet')
 N_LARGE = 97336
 CHUNK_ATOMS, D, PADS = 16384, 32, 6
 DENSE_ATOMS = (1000, 8000)       # the dense pair's force calls
+EDGE_ROWS, EDGE_EDGES = 31232, 26000   # the 1k calculator's padded list
 # forward rounds 2, 2.67, 3 and backward rounds 3, 4, 4.5 of 132 SMs x 3
 # (forward) and x 2 (backward) blocks; 1,000 atoms are 2.53 and 3.79
 WAVE_ATOMS = (792, 1056, 1188)
@@ -68,11 +81,13 @@ MD_KW = dict(dt_fs=2.0, temperature_K=300.0, ensemble='nvt',
              rebuild_every=20, seed=0)
 
 
-def build_other(src: str, out_dir: str, dense: bool = False) -> ctypes.CDLL:
+def build_other(src: str, out_dir: str, pair: str = 'geom') -> ctypes.CDLL:
     so = os.path.join(out_dir, 'libgeom_other.so')
     subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, '-o', so,
                     src], check=True, capture_output=True, text=True)
-    return (fc.bind_dense if dense else fc.bind_geom)(ctypes.CDLL(so))
+    bind = {'geom': fc.bind_geom, 'dense': fc.bind_dense,
+            'edge': fc.bind_edge}[pair]
+    return bind(ctypes.CDLL(so))
 
 
 def chunk_inputs(conv, dev, seed=0, atoms=CHUNK_ATOMS, geom=None):
@@ -104,6 +119,124 @@ def dense_inputs(conv, geom, dev, atoms, seed=0):
     xg, vec, ms, coeffs, g = chunk_inputs(conv, dev, seed, atoms, geom)
     emb, sh = fc.geom_rows(vec, coeffs, geom)
     return xg, sh.contiguous(), emb.contiguous(), ms, g
+
+
+def edge_inputs(conv, geom, dev, seed=0):
+    """The edge pair's (xg, sh, emb, ms, g) on the 1k calculator's rows:
+    EDGE_ROWS rows of which the first EDGE_EDGES are edges (random vectors
+    within the cutoff) and the rest pads (ms = 0, unit vector)."""
+    rng = np.random.default_rng(seed)
+    rc = geom.cutoff
+    u = rng.normal(size=(EDGE_ROWS, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    vec = u * rng.uniform(0.5 * rc, 0.99 * rc, size=(EDGE_ROWS, 1))
+    ms = rng.uniform(0.01, 0.05, size=(EDGE_ROWS, 1))
+    ms[EDGE_EDGES:] = 0.0
+    vec[EDGE_EDGES:] = [1.0, 0.0, 0.0]
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    coeffs = t(np.arange(1, conv.nb + 1) * np.pi / rc)
+    emb, sh = fc.geom_rows(t(vec), coeffs, geom)
+    return (t(rng.normal(size=(EDGE_ROWS, conv.d1))), sh.contiguous(),
+            emb.contiguous(), t(ms), t(rng.normal(size=(EDGE_ROWS,
+                                                        conv.d_out))))
+
+
+def timed_calculator_call(calc, atoms):
+    """(edge kernel ms, host-clock ms, peak bytes) of one calculator call
+    after the first."""
+    pairs = []
+    FC = fc.FusedConv
+    kf, kb = FC.kernel_forward, FC.kernel_backward
+
+    def wrap(fn):
+        def wrapped(self, *args):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(self, *args)
+            b.record()
+            pairs.append((a, b))
+            return out
+        return wrapped
+
+    calc.calculate(atoms)
+    FC.kernel_forward, FC.kernel_backward = wrap(kf), wrap(kb)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        calc.calculate(atoms)
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+    finally:
+        FC.kernel_forward, FC.kernel_backward = kf, kb
+    return (sum(a.elapsed_time(b) for a, b in pairs), host,
+            torch.cuda.max_memory_allocated())
+
+
+def run_edge(other_src: str):
+    """The edge pair's A/B (see the module docstring)."""
+    from ..calculator import SevenNetCalculator
+    from ..checkpoint import SevenNetCheckpoint
+    from ..data.graph import build_nacl
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device('cuda')
+    res = {'card': card(), 'other': os.path.abspath(other_src),
+           'pair': 'edge', 'turns': []}
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = {'other': build_other(other_src, tmp, 'edge'),
+                'this': fc._geom_lib()}
+        geom_lib = fc._geom_lib
+        try:
+            model, _ = SevenNetCheckpoint(CHECKPOINT).build_model(device=dev)
+            convs = {}
+            for layer in range(5):
+                cl = model.layers[f'{layer}_convolution']
+                conv = fc.FusedConv(cl.tp, cl.weight_nn, cl.si2, 0)
+                convs[layer] = (conv, cl._weights(),
+                                edge_inputs(conv, cl.geom, dev))
+            # one calculator a size: its padded capacities only grow
+            systems = {n: (SevenNetCalculator(model, device=dev),
+                           build_nacl(n)) for n in DENSE_ATOMS}
+            for side in ('other', 'this', 'this', 'other'):
+                fc._geom_lib = lambda lib=libs[side]: lib
+                turn = {'side': side}
+                for layer, (conv, (mlp_ws, si2_ws), ins) in convs.items():
+                    xg, sh, emb, ms, g = ins
+                    turn[f'layer{layer}_fwd_ms'] = cuda_ms(
+                        lambda: conv.kernel_forward(xg, sh, emb, ms, mlp_ws,
+                                                    si2_ws))
+                    turn[f'layer{layer}_bwd_ms'] = cuda_ms(
+                        lambda: conv.kernel_backward(g, xg, sh, emb, ms,
+                                                     mlp_ws, si2_ws))
+                for n, (calc, atoms) in systems.items():
+                    (turn[f'calculator_{n}_kernel_ms'],
+                     turn[f'calculator_{n}_host_ms'],
+                     turn[f'calculator_{n}_peak_bytes']) = \
+                        timed_calculator_call(calc, atoms)
+                _show(turn)
+                res['turns'].append(turn)
+            for layer, (conv, (mlp_ws, si2_ws), ins) in convs.items():
+                xg, sh, emb, ms, g = ins
+                outs = {}
+                for side in ('other', 'this'):
+                    fc._geom_lib = lambda lib=libs[side]: lib
+                    outs[side] = (
+                        conv.kernel_forward(xg, sh, emb, ms, mlp_ws, si2_ws),
+                        *conv.kernel_backward(g, xg, sh, emb, ms, mlp_ws,
+                                              si2_ws))
+                res[f'layer{layer}_rel_diff'] = [
+                    float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(outs['this'], outs['other'])]
+                print(f'layer {layer}: out / dxg / dsh / demb of the two '
+                      f'builds differ by {res[f"layer{layer}_rel_diff"]} of '
+                      'max|other|', flush=True)
+        finally:
+            fc._geom_lib = geom_lib
+    return _means(res)
 
 
 def timed_force_call(md, pos, nl, dense=False):
@@ -168,7 +301,7 @@ def run_dense(other_src: str, steps: int = 100):
     res = {'card': card(), 'other': os.path.abspath(other_src),
            'pair': 'dense', 'turns': []}
     with tempfile.TemporaryDirectory() as tmp:
-        libs = {'other': build_other(other_src, tmp, dense=True),
+        libs = {'other': build_other(other_src, tmp, 'dense'),
                 'this': fc._geom_lib()}
         geom_lib = fc._geom_lib
         try:
@@ -319,15 +452,17 @@ def run(other_src: str, steps: int = 10):
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    dense = '--dense' in argv
-    argv = [a for a in argv if a != '--dense']
-    if not argv:
+    dense, edge = '--dense' in argv, '--edge' in argv
+    argv = [a for a in argv if a not in ('--dense', '--edge')]
+    if not argv or (dense and edge):
         print(next(ln.strip() for ln in __doc__.splitlines()
                    if 'python -m' in ln), file=sys.stderr)
         return 2
     if not require_card('geom_ab'):
         return 2
-    if dense:
+    if edge:
+        res = run_edge(argv[0])
+    elif dense:
         res = run_dense(argv[0], int(argv[1]) if len(argv) > 1 else 100)
     else:
         res = run(argv[0], int(argv[1]) if len(argv) > 1 else 10)

@@ -1,8 +1,9 @@
-"""Per-pass cost of the geometry-fused conv kernels, or with ``--dense`` of
+"""Per-pass cost of the geometry-fused conv kernels, with ``--dense`` of
 the dense-grid pair (kernels 1-2, the same template without the geometry),
-measured by stubbing one pass at a time and timing each build.
+with ``--edge`` of the edge pair (kernels 1-2 at ``agg_d = 0``), measured by
+stubbing one pass at a time and timing each build.
 
-    python -m sevennet_exp_tpu_torch.tools.geom_passes [OTHER.cu] [OUT.json] [--dense]
+    python -m sevennet_exp_tpu_torch.tools.geom_passes [OTHER.cu] [OUT.json] [--dense | --edge]
 
 Each pass gets a ``-DSTUB_<PASS>`` switch, inserted into a temporary copy of
 the source (the stand-in keeps its result live, so the compiler keeps the
@@ -13,7 +14,10 @@ checkpoint layer 1, then layers 4 and 0 (all variants). Per variant and
 kernel it prints the ms a launch and (full - stubbed) / rows in ns a row.
 With ``--dense`` the dense pair is timed the same way on the 1k grid's
 shape (``geom_ab.dense_inputs``, 1,000 atoms x 32 rows, 6 pad rows an
-atom), with the passes of ``DENSE_PASSES``.
+atom), with the passes of ``DENSE_PASSES``. With ``--edge`` the edge pair
+on the 1k calculator's rows (``geom_ab.edge_inputs``: 31,232 rows, the last
+5,232 pads), with the passes of ``EDGE_PASSES`` (its SI2 the per-group
+products over the tile's rows).
 
 Without OTHER.cu the source is the port's ``csrc/fused_conv_geom.cu``, with
 the passes of ``NEW_STUBS``. With OTHER.cu it is an earlier tree's
@@ -32,7 +36,11 @@ The stand-ins (what each switch leaves of its pass):
   B, C  (old kernels) dxg and dsh from one product, no scan
   D     dh1 from one dw and one w2 entry per row
   EF    passes E and F with one hidden unit
-  SI2   the per-atom si2 (forward) and si2^T g (backward) as copies
+  SI2   the per-atom si2 (forward) and si2^T g (backward) as copies; in
+        the edge pair the group products without their weight loads and
+        multiply-adds
+  (the edge forward's W and CG are its per-group w pass and CG: the same
+  switches)
   LOAD  (old kernels) the x rows not staged in shared memory
 """
 
@@ -51,7 +59,7 @@ import torch
 
 from ..ops import cuda_build
 from ..ops import fused_conv as fc
-from .geom_ab import CHECKPOINT, chunk_inputs, dense_inputs
+from .geom_ab import CHECKPOINT, chunk_inputs, dense_inputs, edge_inputs
 from .timing import card, cuda_ms, require_card
 
 Stubs = List[Tuple[str, str]]
@@ -172,7 +180,7 @@ NEW_STUBS: Stubs = [
     ("""        for (int c0 = c_lo; c0 < c_hi; c0 += SLAB) {""",
      """#ifdef STUB_D
 #pragma unroll
-        for (int e = 0; e < TB; ++e)
+        for (int e = 0; e < TR; ++e)
           acc[e] = wdw_s[e * S.nap + (c_lo + k) % S.nap] * __ldg(w2t + k);
         if (false)
 #endif
@@ -185,6 +193,28 @@ NEW_STUBS: Stubs = [
           const float4 d = *reinterpret_cast<const float4*>(h1T_s + k * T + q);"""),
     ("""        for (int j = 0; j < H; ++j) s = fmaf(h0T_s[j * T + e], __ldg(wr + j), s);""",
      """        for (int j = 0; j < EF_K; ++j) s = fmaf(h0T_s[j * T + e], __ldg(wr + j), s);"""),
+    ("""    if (on) {
+      if (fast) {""",
+     """#ifdef STUB_SI2
+    if (on) acc[0][0] += __ldg(b) * a[0];
+    if (false)
+#endif
+    if (on) {
+      if (fast) {"""),
+    ("""      CgPattern<L1, L2, L3>::each([&](auto m, auto n, auto p, float cf) {
+        s[decltype(p)::value] = fmaf(cf * xv[decltype(m)::value],
+                                     sv[decltype(n)::value],
+                                     s[decltype(p)::value]);
+      });""",
+     """#ifdef STUB_CG
+      s[0] = xv[0] * sv[0];
+#else
+      CgPattern<L1, L2, L3>::each([&](auto m, auto n, auto p, float cf) {
+        s[decltype(p)::value] = fmaf(cf * xv[decltype(m)::value],
+                                     sv[decltype(n)::value],
+                                     s[decltype(p)::value]);
+      });
+#endif"""),
     ("""namespace {
 
 constexpr int TF = 16;""",
@@ -378,6 +408,7 @@ constexpr int H = 64;"""),
 
 NEW_PASSES = ('GEOM', 'HID', 'W', 'CG', 'RED', 'D', 'EF', 'SI2')
 DENSE_PASSES = ('ROWS',) + NEW_PASSES[1:]
+EDGE_PASSES = DENSE_PASSES
 OLD_PASSES = ('GEOM', 'HID', 'AMLP', 'ACG', 'B', 'C', 'D', 'EF', 'FMLP', 'FCG',
               'SI2', 'LOAD')
 
@@ -393,19 +424,21 @@ def apply(text: str, stubs: Stubs) -> str:
 
 
 def stubbed_source(other: str = None,
-                   dense: bool = False) -> Tuple[str, str, Stubs, Tuple]:
-    """(directory to copy, file to patch in it, stubs, passes)."""
+                   pair: str = 'geom') -> Tuple[str, str, Stubs, Tuple]:
+    """(directory to copy, file to patch in it, stubs, passes); pair:
+    'geom', 'dense' or 'edge'."""
     if other is None:
         src = cuda_build.source_path('fused_conv_geom')
         return (os.path.dirname(src), os.path.basename(src), NEW_STUBS,
-                DENSE_PASSES if dense else NEW_PASSES)
+                {'geom': NEW_PASSES, 'dense': DENSE_PASSES,
+                 'edge': EDGE_PASSES}[pair])
     return (os.path.dirname(os.path.abspath(other)), 'fused_conv_body.cuh',
             OLD_STUBS, OLD_PASSES)
 
 
 def build(other: str, out_dir: str,
-          dense: bool = False) -> Dict[str, ctypes.CDLL]:
-    src_dir, target, stubs, passes = stubbed_source(other, dense)
+          pair: str = 'geom') -> Dict[str, ctypes.CDLL]:
+    src_dir, target, stubs, passes = stubbed_source(other, pair)
     work = os.path.join(out_dir, 'src')
     shutil.copytree(src_dir, work, ignore=shutil.ignore_patterns('_build'))
     path = os.path.join(work, target)
@@ -429,28 +462,31 @@ def build(other: str, out_dir: str,
         if p.returncode:
             raise RuntimeError(f'nvcc failed on variant {v}:\n{out}\n{err}')
         lib = fc.bind_geom(ctypes.CDLL(so))
-        libs[v] = lib if other else fc.bind_dense(lib)
+        libs[v] = lib if other else fc.bind_edge(fc.bind_dense(lib))
     return libs
 
 
-def run(other: str = None, dense: bool = False) -> Dict:
+def run(other: str = None, pair: str = 'geom') -> Dict:
     from ..checkpoint import SevenNetCheckpoint
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device('cuda')
     res = {'card': card(), 'source': other or 'csrc/fused_conv_geom.cu',
-           'pair': 'dense' if dense else 'geom', 'layers': {}}
+           'pair': pair, 'layers': {}}
+    dense = pair != 'geom'
     geom_lib = fc._geom_lib
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(other, tmp, dense)
+        libs = build(other, tmp, pair)
         try:
             model, _ = SevenNetCheckpoint(CHECKPOINT).build_model(device=dev)
             for layer in (1, 4, 0):
                 cl = model.layers[f'{layer}_convolution']
                 mlp_ws, si2_ws = cl._weights()
                 if dense:
-                    conv = fc.FusedConv(cl.tp, cl.weight_nn, cl.si2, 32)
-                    xg, sh, emb, ms, g = dense_inputs(conv, cl.geom, dev,
-                                                      1000)
+                    conv = fc.FusedConv(cl.tp, cl.weight_nn, cl.si2,
+                                        0 if pair == 'edge' else 32)
+                    xg, sh, emb, ms, g = (
+                        edge_inputs(conv, cl.geom, dev) if pair == 'edge'
+                        else dense_inputs(conv, cl.geom, dev, 1000))
 
                     def fwd():
                         conv.kernel_forward(xg, sh, emb, ms, mlp_ws, si2_ws)
@@ -494,15 +530,16 @@ def run(other: str = None, dense: bool = False) -> Dict:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    dense = '--dense' in argv
+    pair = ('edge' if '--edge' in argv else
+            'dense' if '--dense' in argv else 'geom')
     other = argv[0] if argv and argv[0].endswith('.cu') else None
-    if dense and other:
-        print('geom_passes: --dense stubs the port\'s own source only',
+    if pair != 'geom' and other:
+        print(f'geom_passes: --{pair} stubs the port\'s own source only',
               file=sys.stderr)
         return 2
     if not require_card('geom_passes'):
         return 2
-    res = run(other, dense)
+    res = run(other, pair)
     out = [a for a in argv if a.endswith('.json')]
     if out:
         os.makedirs(os.path.dirname(os.path.abspath(out[0])), exist_ok=True)

@@ -62,14 +62,27 @@ def _plain_name(text: str) -> str:
 
 def geom_label(name: str):
     """'fwd', 'bwd4', 'bwd9' or 'bwd16' for a kernel of
-    csrc/fused_conv_geom.cu (either pair, before or after their template
-    switch: the mangled names differ), None for any other name."""
+    csrc/fused_conv_geom.cu (any pair, before or after their template
+    switches: the mangled names differ), None for any other name."""
     for nsh in (4, 9, 16):
         if f'fused_conv_geom_bwd_kernelILi{nsh}E' in name:
             return f'bwd{nsh}'
     if 'fused_conv_geom_fwd_kernel' in name:
         return 'fwd'
     return None
+
+
+_GEOM_MODE = re.compile(
+    r'fused_conv_geom_(?:fwd|bwd)_kernelI(?:Li\d+E)?L[bi](\d)EE')
+
+
+def geom_pair(name: str):
+    """'dense', 'geom' or 'edge' for a kernel instance of
+    csrc/fused_conv_geom.cu: the template's bool GEOM (before the edge pair
+    joined it) or its int MODE (0 dense, 1 geom, 2 edge); None for any
+    other name."""
+    m = _GEOM_MODE.search(name)
+    return ('dense', 'geom', 'edge')[int(m.group(1))] if m else None
 
 
 def split_functions(sass: str) -> Dict[str, str]:

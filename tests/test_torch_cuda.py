@@ -288,25 +288,31 @@ def test_geom_launch_shape_matches_python_mirror(cuda, model):
                 for geom in (True, False):
                     assert fcg.kernel_shape(dims, bwd, geom) == fcg.shape(
                         dims, bwd, geom)
+        # the edge pair (D not read)
+        conv = FusedConv(cl.tp, cl.weight_nn, cl.si2, 0)
+        dims = fcg.layer_dims(conv, 0)
+        for bwd in (False, True):
+            assert fcg.kernel_shape(dims, bwd, edge=True) == fcg.shape(
+                dims, bwd, edge=True)
 
 
-def _geom_source_instances(geom):
+def _geom_source_instances(pair):
     """{label: opcode counts} of csrc/fused_conv_geom.cu's kernel instances
-    of one pair (GEOM true: rows 5-6; false: kernels 1-2), labelled fwd,
-    bwd4, bwd9, bwd16."""
+    of one pair ('geom': rows 5-6; 'dense': kernels 1-2; 'edge': their
+    edge-row form), labelled fwd, bwd4, bwd9, bwd16."""
     from sevennet_exp_tpu_torch.tools import sass_compare
     return {sass_compare.geom_label(k): v
             for k, v in sass_compare.count('fused_conv_geom').items()
-            if sass_compare.geom_label(k) and f'Lb{int(geom)}E' in k}
+            if sass_compare.geom_pair(k) == pair}
 
 
-@pytest.mark.parametrize('geom', [True, False], ids=['geom', 'dense'])
-def test_geom_kernels_sass_fp32_cuda_cores_no_local_memory(cuda, geom):
-    """Rows 5-6 and kernels 1-2: FFMA on the CUDA cores, no tensor-core
-    opcode, nothing in local memory (no spill, no stack array), in every
-    instance."""
+@pytest.mark.parametrize('pair', ['geom', 'dense', 'edge'])
+def test_geom_kernels_sass_fp32_cuda_cores_no_local_memory(cuda, pair):
+    """Rows 5-6, kernels 1-2 and their edge-row form: FFMA on the CUDA
+    cores, no tensor-core opcode, nothing in local memory (no spill, no
+    stack array), in every instance."""
     from sevennet_exp_tpu_torch.tools import sass_compare
-    counts = _geom_source_instances(geom)
+    counts = _geom_source_instances(pair)
     # forward, backward at 4, 9, 16 SH
     assert set(counts) == {'fwd', 'bwd4', 'bwd9', 'bwd16'}
     for k, v in counts.items():
@@ -316,32 +322,47 @@ def test_geom_kernels_sass_fp32_cuda_cores_no_local_memory(cuda, geom):
 
 
 # SASS digests of the geometry-fused pair (rows 5-6) built from the tree
-# before the dense pair joined their template, by label
-# (sass_compare.geom_label), same nvcc on the card machine
+# before the dense pair joined their template (and before the edge pair
+# did), by label (sass_compare.geom_label), same nvcc on the card machine
 PARENT_GEOM_SASS = {'fwd': '282ef8d7e2ab', 'bwd4': '9eca060d6abd',
                     'bwd9': '4fded89d1077', 'bwd16': 'daa9f3ecb780'}
 
 
 def test_geom_instances_sass_identical_to_parent(cuda):
-    """The template switch leaves rows 5-6 as they were compiled: each
-    GEOM instance's SASS digest is the earlier kernel's."""
+    """The template switches leave rows 5-6 as they were compiled: each
+    geom instance's SASS digest is the earlier kernel's."""
     from sevennet_exp_tpu_torch.tools import sass_compare
     got = {sass_compare.geom_label(k): v for k, v in
            sass_compare.digests('fused_conv_geom').items()
-           if sass_compare.geom_label(k) and 'Lb1E' in k}
+           if sass_compare.geom_pair(k) == 'geom'}
     assert got == PARENT_GEOM_SASS
 
 
+# SASS digests of the dense pair (kernels 1-2) built from the tree before
+# the edge pair joined csrc/fused_conv_geom.cu, by label, same nvcc on the
+# card machine
+PARENT_DENSE_SASS = {'fwd': 'ed74768ed1fc', 'bwd4': 'c79437837836',
+                     'bwd9': '28421c2cd7d5', 'bwd16': '5128e637db46'}
+
+
+def test_dense_instances_sass_identical_to_parent(cuda):
+    """The edge pair joins the template as its third mode: each dense
+    instance's SASS digest is the earlier kernel's."""
+    from sevennet_exp_tpu_torch.tools import sass_compare
+    got = {sass_compare.geom_label(k): v for k, v in
+           sass_compare.digests('fused_conv_geom').items()
+           if sass_compare.geom_pair(k) == 'dense'}
+    assert got == PARENT_DENSE_SASS
+
+
 # SASS digests (tools/sass_compare.digests) of the conv kernels whose code
-# the redesigns of the geometry-fused and dense pairs did not touch, from a
-# build of the parent tree's csrc/fused_conv.cu and csrc/bench_pieces.cu
-# with the same nvcc on the card machine. bench_pieces_full is the code of
-# the first dense-grid forward (kernel 1 before its redesign).
+# the redesigns of the geometry-fused, dense and edge pairs did not touch,
+# from a build of the parent tree's csrc/fused_conv.cu and
+# csrc/bench_pieces.cu with the same nvcc on the card machine.
+# bench_pieces_full is the code of the first dense-grid forward (kernel 1
+# before its redesign), bench_pieces_noagg that of the first edge-row
+# forward (its digest, d22176e6071b, was the edge-row kernel 1's).
 PARENT_SASS = {
-    '_ZN46_GLOBAL__N__13_fused_conv_cu_97ac331b26fused_conv_edge_bwd_kernelEPKfS1_S1_S1_S1_S1_S1_S1_S1_S1_S1_NS_4PlanEPfS3_S3_':
-        '4de88c67043a',
-    '_ZN46_GLOBAL__N__13_fused_conv_cu_97ac331b26fused_conv_edge_fwd_kernelEPKfS1_S1_S1_S1_S1_S1_S1_NS_4PlanEPf':
-        'd22176e6071b',
     '_ZN46_GLOBAL__N__13_fused_conv_cu_97ac331b26fused_conv_extw_bwd_kernelEPKfS1_S1_S1_S1_NS_4PlanEPKiiPfS5_S5_':
         '18e133ee3965',
     '_ZN46_GLOBAL__N__13_fused_conv_cu_97ac331b26fused_conv_extw_fwd_kernelEPKfS1_S1_S1_NS_4PlanEPf':
@@ -370,9 +391,8 @@ def _without_file_hash(name):
 
 
 def test_untouched_conv_kernels_sass_identical_to_parent(cuda):
-    """The edge-row forms of kernels 1-2, kernels 7-8 and bench_pieces
-    compile to the SASS of the tree before the geometry-fused kernels left
-    fused_conv_body.cuh."""
+    """Kernels 7-8 and bench_pieces compile to the SASS of the tree before
+    the geometry-fused kernels left fused_conv_body.cuh."""
     from sevennet_exp_tpu_torch.tools import sass_compare
     got = {}
     for name in ('fused_conv', 'bench_pieces'):
@@ -479,9 +499,9 @@ def test_extw_wrapper_routes_cuda_tensors_to_the_kernel(cuda, model):
 
 @pytest.mark.parametrize('layer', [0, 1, 4])
 def test_edge_row_mode_matches_plain(cuda, model, layer):
-    """agg_d = 0: one output row per edge, from the edge-row form of
-    kernels 1-2; 301 rows (a ragged last block forward and backward) in no
-    grid order, a fifth of them masked."""
+    """agg_d = 0: one output row per edge, from the edge pair; 301 rows (a
+    ragged last tile forward and backward) in no grid order, a fifth of them
+    masked."""
     from sevennet_exp_tpu_torch.ops import fused_conv as fc
     cl = model.layers[f'{layer}_convolution']
     conv = fc.FusedConv(cl.tp, cl.weight_nn, cl.si2, 0)
@@ -513,10 +533,90 @@ def test_edge_row_mode_matches_plain(cuda, model, layer):
         assert (a - b).abs().max() <= 1e-4 * max(b.abs().max(), 1e-6)
 
 
+@pytest.mark.parametrize('layer', [0, 1, 4])
+def test_edge_kernels_pad_rows_zero_and_runs_bit_identical(cuda, model,
+                                                           layer):
+    """The edge pair: pad rows (ms = 0, their sh and emb rows random) get
+    exact-zero output, dxg, dsh and demb rows, tiles of pads only too (the
+    last 53 rows, as the calculator pads its list), and two launches give
+    the same bits (no atomics)."""
+    from sevennet_exp_tpu_torch.ops.fused_conv import FusedConv
+    cl = model.layers[f'{layer}_convolution']
+    conv = FusedConv(cl.tp, cl.weight_nn, cl.si2, 0)
+    mlp_ws, si2_ws = cl._weights()
+    xg, sh, emb, ms, g, pad = _plain_inputs(conv, 301, cuda, 90 + layer)
+    ms[-53:] = 0.0
+    pad[-53:] = True
+    outs = []
+    for _ in range(2):
+        outs.append((conv.kernel_forward(xg, sh, emb, ms, mlp_ws, si2_ws),
+                     *conv.kernel_backward(g, xg, sh, emb, ms, mlp_ws,
+                                           si2_ws)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    for d in outs[0]:
+        assert torch.isfinite(d).all()
+        assert d[pad].abs().max() == 0
+
+
+@pytest.mark.parametrize('mul', [3, 4])
+def test_edge_kernels_small_multiplicities(cuda, mul):
+    """The edge pair on multiplicities under a warp and l up to 3; with 3
+    the si2 groups' offsets are not multiples of 4 (the products' scalar
+    loads and stores), with 4 they are."""
+    from sevennet_exp_tpu_torch.irreps import Irreps, infer_irreps_out
+    from sevennet_exp_tpu_torch.ops.fused_conv import FusedConv
+    from sevennet_exp_tpu_torch.ops.tensor_product import (
+        FullyConnectedNetSpec, GateSpec, LinearSpec, UVUTensorProductSpec)
+    x = Irreps('+'.join(f'{mul}x{l}{"eo"[l % 2]}' for l in range(4)))
+    sh = Irreps('1x0e+1x1o+1x2e+1x3o')
+    tp = UVUTensorProductSpec(x, sh, infer_irreps_out(x, sh, 3, 'full'))
+    mlp = FullyConnectedNetSpec((8, 64, 64, tp.weight_numel), 'silu')
+    gate = GateSpec(x, {1: 'silu', -1: 'tanh'}, {1: 'silu', -1: 'tanh'})
+    si2 = LinearSpec(tp.irreps_out, gate.irreps_in)
+    conv = FusedConv(tp, mlp, si2, 0)
+    rng = np.random.default_rng(mul)
+
+    def t(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                            device=cuda)
+
+    mlp_ws = tuple(t(*s) for s in mlp.param_shapes().values())
+    si2_ws = tuple(t(*si2.param_shapes()[f'w{n}'])
+                   for n in range(len(si2.paths)))
+    xg, sh_, emb, ms, g, pad = _plain_inputs(conv, 173, cuda, 40 + mul)
+    y_k = conv.kernel_forward(xg, sh_, emb, ms, mlp_ws, si2_ws)
+    y_p = conv.plain_forward(xg, sh_, emb, ms, mlp_ws, si2_ws)
+    torch.cuda.synchronize()
+    assert (y_k - y_p).abs().max() <= 1e-4 * y_p.abs().max()
+    assert y_k[pad].abs().max() == 0
+    for a, b in zip(conv.kernel_backward(g, xg, sh_, emb, ms, mlp_ws,
+                                         si2_ws),
+                    conv.plain_backward(g, xg, sh_, emb, ms, mlp_ws,
+                                        si2_ws)):
+        assert (a - b).abs().max() <= 1e-4 * max(b.abs().max(), 1e-6)
+        assert a[pad].abs().max() == 0
+
+
+def test_edge_kernels_resources(cuda, model):
+    """As compiled: no local memory, at least two blocks an SM each way at
+    every layer's shared bytes; the launch shape is the Python mirror's."""
+    from sevennet_exp_tpu_torch.ops import fused_conv_geom as fcg
+    from sevennet_exp_tpu_torch.ops.fused_conv import FusedConv
+    for layer in range(5):
+        cl = model.layers[f'{layer}_convolution']
+        conv = FusedConv(cl.tp, cl.weight_nn, cl.si2, 0)
+        dims = fcg.layer_dims(conv, 0)
+        for bwd in (False, True):
+            r = fcg.kernel_resources(dims, conv.f, bwd, edge=True)
+            assert r.local_bytes == 0 and r.blocks_per_sm >= 2, r
+            assert r.smem == fcg.shape(dims, bwd, edge=True).smem
+
+
 def test_calculator_on_the_card_matches_cpu(cuda, model):
-    """E, F and stress of a sheared 64-atom NaCl: the card (kernels 1-2 in
-    their edge-row form + index_add_) against the CPU (plain versions). fp32 on
-    both: E 1e-4 eV, F 1e-4 eV/A, stress 1e-6 eV/A^3."""
+    """E, F and stress of a sheared 64-atom NaCl: the card (the edge pair +
+    index_add_) against the CPU (plain versions). fp32 on both: E 1e-4 eV,
+    F 1e-4 eV/A, stress 1e-6 eV/A^3."""
     from sevennet_exp_tpu_torch.calculator import SevenNetCalculator
     from sevennet_exp_tpu_torch.data.graph import Atoms, build_nacl
     from sevennet_exp_tpu_torch.ops import fused_conv as fc

@@ -361,14 +361,28 @@ class _Replay:
                 np.einsum('apo,ko->apk', gp, W) * self.alpha[gi]
             ).reshape(n, -1)
         S = fcg.shape(self.dims, True, self.geom)
+        dxg, dsh, demb = self.backward_tiles(X, emb, sh, M, gm, S)
+        live = (M != 0)[..., None]
+        return (dxg.reshape(xg.shape), (dsh * live).reshape(-1, sh.shape[-1]),
+                (demb * live).reshape(-1, emb.shape[-1]))
+
+    def backward_tiles(self, X, emb, sh, M, gm, S):
+        """The tiles' passes of the backward on (n, D, .) rows: the w pass,
+        the i1 classes and passes D-F. gm: (n, agg) one message cotangent
+        for all D rows (the dense pairs), or (n, D, agg) one per row (the
+        edge pair)."""
+        n, D = M.shape
         n_act = self.t.n_active
         dxg = np.zeros_like(X)
         demb = np.zeros_like(emb)
         dsh = np.zeros_like(sh)
-        for t0, rows in self.tiles(S.T):
+        for t0 in range(0, D, S.T):
+            rows = min(S.T, D - t0)
             sl = slice(t0, t0 + rows)
             h0, h1, da0, da1 = self.hidden(emb[:, sl])
             Mt = M[:, sl]
+            # per row: (n, rows, agg); for all rows: (n, 1, agg)
+            gmt = gm[:, sl] if gm.ndim == 3 else gm[:, None]
             # column items: w = MLP * s2 * ms into the w / dw rows
             wdw = np.zeros((n, rows, n_act))
             for items in fcg.column_items(n_act, S.T, S.s, rows):
@@ -389,12 +403,12 @@ class _Replay:
                     l2 = (rec[5] - 1) // 2
                     cols = rec[9] + us
                     w = wdw[..., cols]
-                    gmv = np.stack([gm[:, rec[7] + p * rec[8] + us]
+                    gmv = np.stack([gmt[..., rec[7] + p * rec[8] + us]
                                     for p in range(rec[6])], -1) * self.sc[ii]
                     tm = np.zeros(xv.shape)
                     vn = np.zeros(xv.shape[:3] + (rec[5],))
                     for m, nn, p, cf in self.pat[ii]:
-                        gg = np.float64(cf) * gmv[:, None, :, p]
+                        gg = np.float64(cf) * gmv[..., p]
                         tm[..., m] += gg * sr[..., l2 * l2 + nn, None]
                         vn[..., nn] += gg * xv[..., m]
                     dw[..., cols] = (xv * tm).sum(-1) * Mt[..., None]
@@ -409,9 +423,112 @@ class _Replay:
             dp1 = dh1 * self.s2 * da1
             dp0 = (dp1 @ self.w1.T) * self.s1 * da0
             demb[:, sl] = (dp0 @ self.w0.T) * self.s0
+        return dxg, dsh, demb
+
+
+    # -- the edge pair: tiles of rows of the edge list, one message
+    # (cotangent) per row --
+
+    @staticmethod
+    def edge_rows(T, *arrays):
+        """(n_tiles, T, .) float64 views of per-row arrays, the last tile
+        padded with rows of zeros (ms = 0: pads)."""
+        E = arrays[0].shape[0]
+        nt = -(-E // T)
+        out = []
+        for a in arrays:
+            a = a.astype(np.float64).reshape(E, -1)
+            z = np.zeros((nt * T - E, a.shape[1]))
+            out.append(np.concatenate([a, z]).reshape(nt, T, -1))
+        return out
+
+    @staticmethod
+    def group_product(A, B, T, d3, kred, n, red_words):
+        """sum_k A[..., k] B[k] the way row_product sums it: part q of a
+        block taking its k, part 0 adding the others in order."""
+        plan = fcg.product_plan(T, d3, kred, n, red_words)
+        acc = 0.0
+        for q in range(plan.ks):
+            ks = fcg.product_ks(plan, q, kred)
+            assert len(set(ks)) == len(ks)
+            acc = acc + A[..., ks] @ B[ks]
+        return acc
+
+    def forward_edge(self, xg, emb, sh, ms):
+        """The edge forward (agg_d = 0): per tile the hidden layers, then
+        per si2 group the w pass over its columns, the CG of its (column,
+        part of the rows) items into the group's message tile (one message
+        a row) and the product of the tile with W."""
+        E = xg.shape[0]
+        F = fcg.edge_fwd_plan(self.dims, self.t)
+        T = F.T
+        assert T >= 4
+        X, emb, sh, M = self.edge_rows(T, xg, emb, sh, ms)
+        M = M[..., 0]
+        nt = M.shape[0]
+        _, h1, _, _ = self.hidden(emb)
+        out = np.zeros((nt, T, self.conv.d_out))
+        for gi, G in enumerate(F.groups):
+            # the w pass over the group's columns: its own row groups
+            s = fcg.w_row_groups(G.nc, T)
+            w = np.zeros((nt, T, F.nc4))
+            for items in fcg.column_items(G.nc, T, s, T):
+                for lc, e0, e1 in items:
+                    w[:, e0:e1, lc] = (
+                        h1[:, e0:e1] @ self.w2[:, self.col_w[G.c0 + lc]]) \
+                        * self.s2 * M[:, e0:e1]
+            # the CG: every slot of the group's slice is some column's
+            msg = np.full((nt, T, G.d3 * G.K), np.nan)
+            sp = fcg.cg_parts(G.nc)
+            R = T // sp
+            for j in range(G.nc * sp):
+                lc, q = j % G.nc, j // G.nc
+                c = G.c0 + lc
+                ii = self.col_ins[c]
+                rec = self.ins[ii]
+                assert G.a0 <= rec[7] < G.a0 + G.d3 * G.K
+                u = c - rec[9]
+                l2 = (rec[5] - 1) // 2
+                rs = slice(q * R, q * R + R)
+                sv = np.zeros((nt, R, rec[6]))
+                for m, nn, p, cf in self.pat[ii]:
+                    sv[..., p] += (np.float64(cf)
+                                   * X[:, rs, rec[0] + m * rec[1] + u]
+                                   * sh[:, rs, l2 * l2 + nn])
+                for p in range(rec[6]):
+                    msg[:, rs, rec[7] - G.a0 + p * rec[8] + u] = \
+                        w[:, rs, lc] * sv[..., p] * self.sc[ii]
+            assert not np.isnan(msg).any()
+            W = self.si2_flat[G.w_off:G.w_off + G.K * G.mo].reshape(
+                G.K, G.mo)
+            A = msg.reshape(nt, T, G.d3, G.K)
+            out[..., G.o_off:G.o_off + G.d3 * G.mo] = (self.group_product(
+                A, W, T, G.d3, G.K, G.mo, F.red_words)
+                * self.alpha[gi]).reshape(nt, T, -1)
+        return out.reshape(nt * T, -1)[:E]
+
+    def backward_edge(self, g, xg, emb, sh, ms):
+        """(dxg, dsh, demb) of the edge backward: per tile gm = alpha g
+        W^T per row by the group products, then the dense pair's passes
+        with each row's own gm; pad rows exactly zero."""
+        E = xg.shape[0]
+        T = fcg.TE
+        G64, X, emb, sh, M = self.edge_rows(T, g, xg, emb, sh, ms)
+        M = M[..., 0]
+        nt = M.shape[0]
+        gm = np.zeros((nt, T, self.t.agg_dim))
+        for gi, Gr in enumerate(self.grp):
+            K, mo, d3, o_off, a_off, w_off = Gr
+            WT = self.si2_flat[w_off:w_off + K * mo].reshape(K, mo).T
+            A = G64[..., o_off:o_off + d3 * mo].reshape(nt, T, d3, mo)
+            gm[..., a_off:a_off + d3 * K] = (self.group_product(
+                A, WT, T, d3, mo, K, fcg.edge_red_words(self.dims))
+                * self.alpha[gi]).reshape(nt, T, -1)
+        S = fcg.shape(self.dims, True, edge=True)
+        dxg, dsh, demb = self.backward_tiles(X, emb, sh, M, gm, S)
         live = (M != 0)[..., None]
-        return (dxg.reshape(xg.shape), (dsh * live).reshape(-1, sh.shape[-1]),
-                (demb * live).reshape(-1, emb.shape[-1]))
+        return tuple((a * live).reshape(nt * T, -1)[:E]
+                     for a in (dxg, dsh, demb))
 
 
 def _geom_inputs(conv, n, D, seed):
@@ -580,22 +697,31 @@ def test_pass_stubs_apply_to_the_source():
         text = fh.read()
     out = geom_passes.apply(text, geom_passes.NEW_STUBS)
     assert out.count('#ifdef STUB_') >= len(geom_passes.NEW_PASSES)
-    for p in geom_passes.NEW_PASSES + geom_passes.DENSE_PASSES:
+    for p in (geom_passes.NEW_PASSES + geom_passes.DENSE_PASSES
+              + geom_passes.EDGE_PASSES):
         assert f'STUB_{p}' in out
+    # the edge pair's products get a stand-in of their own
+    assert out.count('#ifdef STUB_SI2') == 3
     with pytest.raises(ValueError):
         geom_passes.apply(out, geom_passes.NEW_STUBS)
 
 
 def test_card_tools_exit_2_without_a_card():
-    """Both tools, for either pair (``--dense``: kernels 1-2)."""
+    """Both tools, for each pair (``--dense``: kernels 1-2; ``--edge``:
+    their edge-row form)."""
     from sevennet_exp_tpu_torch.tools import geom_ab, geom_passes
     assert geom_ab.main([]) == 2
     assert geom_ab.main(['--dense']) == 2
+    assert geom_ab.main(['--edge']) == 2
+    assert geom_ab.main(['other.cu', '--dense', '--edge']) == 2
+    assert geom_passes.main(['other.cu', '--edge']) == 2
     if not torch.cuda.is_available():
         assert geom_ab.main(['other.cu']) == 2
         assert geom_ab.main(['other.cu', '--dense']) == 2
+        assert geom_ab.main(['other.cu', '--edge']) == 2
         assert geom_passes.main([]) == 2
         assert geom_passes.main(['--dense']) == 2
+        assert geom_passes.main(['--edge']) == 2
 
 
 def test_kernel_sin_cos_emulated_in_float32():
