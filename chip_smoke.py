@@ -15,7 +15,8 @@ independently derived ``terms`` kernels (``fused_conv_terms_fwd`` /
 tensor-product kernels (``fused_tp_fwd`` / ``fused_tp_bwd``), and the
 six kernel micro-benchmarks (``tools/bench_pieces.py``,
 ``bench_cgmxu.py``, ``bench_dot.py``, ``bench_cg.py``, ``bench_layout.py``,
-``bench_tile.py``, twenty-one kernels).
+``bench_tile.py``, twenty-one kernels), and last the port's training:
+fault C.1's routes on the card and ``train_v2`` at 7net-0 width.
 
     python3 chip_smoke.py            # needs one CUDA card
 
@@ -86,8 +87,12 @@ Phases (any failure raises, exits non-zero and prints no result):
      the five layers' specs at the 1k grid's rows (counters reset just
      before), then each kernel against its plain version, times, bound;
  14. the SASS of the three pairs of csrc/fused_conv_geom.cu (the geom
-     kernels, kernels 1-2 and their edge-row form): no tensor-core and no
-     local-memory opcode; the
+     kernels, kernels 1-2 and their edge-row form), 12 instances in each
+     of its two builds (``fused_conv_geom``, run-time silu / tanh, and
+     ``fused_conv_geom_ssp``, the shifted softplus), compiled together: no
+     tensor-core and no local-memory opcode, and the silu / tanh instances
+     at the SASS they had before the shifted softplus joined
+     (``PARENT_GEOM_SASS``); the
      entries of the twelve kernels above (the six kernels, the edge-row
      form of kernels 1-2, the terms pair and the tensor-product pair);
  15. the micro-benchmarks at their default sizes through their entry
@@ -107,6 +112,19 @@ Phases (any failure raises, exits non-zero and prints no result):
      output, the fifth product of each pass being the FMUL that starts
      it), each dots instance d3tot x K FFMA per column a thread owns, and
      the fp32 ``bench_dot`` kernels no tensor-core opcode;
+ 16. fault C.1 on the card: a tiny model with hidden [32, 32] routes every
+     conv to the plain chain, launches no conv kernel and gives the CPU's
+     E/F; a 1x1o+1x0e filter layer is refused and matches the CPU; a tiny
+     ssp model routes to the kernels, whose shifted-softplus build (its
+     dense, edge and geom pairs) and the terms pair's ssp branch match
+     their plain versions. Then training: ``train_v2`` on ``trained_nacl/input.yaml``
+     (7net-0 width, ``nacl_classical_data/``, batch 8, one epoch: 47 train
+     steps, 6 valid batches) in a temporary dir, after the first step's
+     loss and gradients on the card against the CPU (same parameters and
+     batch); ms a step after the first, peak memory, the epoch's RMSEs;
+     the loss falls, no conv kernel launches, and ``checkpoint_last``
+     reloads in the calculator on the card; three more steps traced
+     (device kernel time, idle share, launches, top kernels);
  then a ``{"kernels": [...]}`` line (33 entries), the card line and the
  result line ``{"ok": true, "device": {...}}`` last.
 
@@ -142,12 +160,28 @@ N_LARGE = 97336        # 8 x 23^3: the large leg
 # SASS digest (tools/sass_compare.digests) of kernel 1 before its redesign,
 # which bench_pieces' full variant still compiles to
 FIRST_KERNEL_1_SASS = '9363ad0df108'
+# SASS digests of csrc/fused_conv_geom.cu's run-time-activation instances
+# (silu, tanh) by (pair, label), before the shifted softplus joined the
+# source (tests/test_torch_cuda.py holds them too)
+PARENT_GEOM_SASS = {
+    ('dense', 'fwd'): 'ed74768ed1fc', ('dense', 'bwd4'): 'c79437837836',
+    ('dense', 'bwd9'): '28421c2cd7d5', ('dense', 'bwd16'): '5128e637db46',
+    ('geom', 'fwd'): '282ef8d7e2ab', ('geom', 'bwd4'): '9eca060d6abd',
+    ('geom', 'bwd9'): '4fded89d1077', ('geom', 'bwd16'): 'daa9f3ecb780',
+    ('edge', 'fwd'): '1bd8cca68cf4', ('edge', 'bwd4'): '2b2ea3b3dae0',
+    ('edge', 'bwd9'): '785447e4d5fa', ('edge', 'bwd16'): '3d5b2d34c0c5',
+}
 
 MD_KW = dict(dt_fs=2.0, temperature_K=300.0, ensemble='nvt',
              rebuild_every=20, seed=0)
 
 
+# (phase, its start on the host clock): the seconds of each phase
+_PHASES = []
+
+
 def phase(name):
+    _PHASES.append((name, time.perf_counter()))
     print(f'== {name}', flush=True)
 
 
@@ -486,6 +520,367 @@ def micro_benchmarks(report, dev, cuda_ms, show):
     print(f'micro-benchmarks: tools {run_s:.1f} s, phase '
           f'{report["micro"]["phase_s"]:.1f} s', flush=True)
     return kernels
+
+
+def _tiny_config(**over):
+    """A small model config with its species given (no dataset
+    statistics needed)."""
+    from sevennet_exp_tpu_torch.util import chemical_species_preprocess
+    config = {
+        'cutoff': 4.0, 'channel': 4,
+        'radial_basis': {'radial_basis_name': 'bessel'},
+        'cutoff_function': {'cutoff_function_name': 'poly_cut'},
+        'lmax': 2, 'is_parity': True, 'num_convolution_layer': 2,
+        'weight_nn_hidden_neurons': [64, 64], 'act_radial': 'silu',
+        'conv_denominator': 30.0, 'self_connection_type': 'linear',
+        'shift': -10.0, 'scale': 10.0,
+    }
+    config.update(chemical_species_preprocess(['Na', 'Cl']))
+    config.update(over)
+    return config
+
+
+def conv_routes_on_card(report, dev):
+    """Fault C.1 on the card: a tiny model the kernels refuse (hidden
+    [32, 32]) routes every conv to the plain chain and launches no conv
+    kernel, E/F equal to the CPU (phase 3's limits); a layer with a
+    1x1o+1x0e filter is refused (its SH block is not at l2^2) and its
+    plain chain on the card equals the CPU's (REL_TOL); a tiny ssp
+    model routes to the kernels, whose shifted-softplus build
+    (``fused_conv_geom_ssp``: the dense, edge and geom pairs) and the
+    terms pair's ssp branch match their plain versions within REL_TOL
+    (phase 2's limit), the geom pair's pad rows exact zeros."""
+    import copy
+    import numpy as np
+    import torch
+    from sevennet_exp_tpu_torch import _keys as KEY
+    from sevennet_exp_tpu_torch.calculator import SevenNetCalculator
+    from sevennet_exp_tpu_torch.data.graph import Atoms, build_nacl
+    from sevennet_exp_tpu_torch.irreps import Irreps, infer_irreps_out
+    from sevennet_exp_tpu_torch.model.build import (
+        build_e3_equivariant_model)
+    from sevennet_exp_tpu_torch.model.layers import IrrepsConvolution
+    from sevennet_exp_tpu_torch.model.model import flatten
+    from sevennet_exp_tpu_torch.ops import fused_conv as fc
+    from sevennet_exp_tpu_torch.ops.tensor_product import (
+        FullyConnectedNetSpec, LinearSpec, UVUTensorProductSpec)
+
+    def random_model(config, seed):
+        model = build_e3_equivariant_model(config)
+        params, _ = model.init(torch.Generator().manual_seed(seed))
+        model.load_state(flatten(params))
+        return model
+
+    at = build_nacl(64, rattle=0.1, seed=2)
+    s = 3.4 / 5.63
+    at = Atoms(at.atomic_numbers, at.pos * s, at.cell * s, at.pbc)
+    out = {}
+    refused = random_model(_tiny_config(weight_nn_hidden_neurons=[32, 32]),
+                           3)
+    routes = refused.conv_routes(0)
+    print(f'hidden [32, 32]: routes {routes}', flush=True)
+    if any(r['route'] != 'plain' for r in routes):
+        raise AssertionError('a refused conv routes to the kernel')
+    ref = SevenNetCalculator(copy.deepcopy(refused),
+                             device='cpu').calculate(at)
+    fc.reset_launch_counts()
+    got = SevenNetCalculator(refused, device=dev).calculate(at)
+    if any(fc.launch_counts.values()):
+        raise AssertionError(f'refused model launched {fc.launch_counts}')
+    out['refused_hidden'] = check_ef('refused model, card vs CPU', 64,
+                                     got['energy'], torch.tensor(
+                                         got['forces']), ref['energy'],
+                                     torch.tensor(ref['forces']))
+
+    x, sh = Irreps('4x0e+4x1o'), Irreps('1x1o+1x0e')
+    tp = UVUTensorProductSpec(x, sh, infer_irreps_out(x, sh, 1, 'full'))
+    layer = IrrepsConvolution(
+        tp, FullyConnectedNetSpec((8, 64, 64, tp.weight_numel), 'silu'),
+        LinearSpec(tp.irreps_out, x), 10.0)
+    why = layer.kernel_refusal(0)
+    print(f'1x1o+1x0e filter: refused: {why}', flush=True)
+    if why is None or 'l2^2' not in why:
+        raise AssertionError('the 1x1o+1x0e filter layer is not refused')
+    params, _ = layer.init(torch.Generator().manual_seed(5))
+    for group, vals in ((layer.weight_nn_p, params['weight_nn']),
+                        (layer.si2_p, params['si2'])):
+        for k, v in vals.items():
+            getattr(group, k).copy_(v)
+    rng = np.random.default_rng(5)
+    n, e = 64, 2048
+    data = {KEY.NODE_FEATURE: rng.normal(size=(n, x.dim)),
+            KEY.EDGE_IDX: rng.integers(0, n, size=(2, e)),
+            KEY.EDGE_ATTR: rng.normal(size=(e, sh.dim)),
+            KEY.EDGE_EMBEDDING: rng.normal(size=(e, 8)),
+            KEY.EDGE_MASK: (rng.uniform(size=e) > 0.2).astype(float)}
+    ys = {}
+    for d in ('cpu', dev):
+        layer.to(d)
+        batch = {k: torch.tensor(v, device=d,
+                                 dtype=torch.long if k == KEY.EDGE_IDX
+                                 else torch.float32)
+                 for k, v in data.items()}
+        fc.reset_launch_counts()
+        ys[str(d)] = layer(batch)[KEY.NODE_FEATURE].cpu()
+        if any(fc.launch_counts.values()):
+            raise AssertionError('the refused filter layer launched')
+    out['refused_filter_err'] = check_close(
+        'refused filter layer, card vs CPU', ys[str(dev)], ys['cpu'])[0]
+
+    ssp = random_model(_tiny_config(act_radial='ssp'), 4).to(dev)
+    routes = ssp.conv_routes(0)
+    if any(r['route'] != 'kernel' for r in routes):
+        raise AssertionError(f'ssp model routes {routes}')
+    errs = []
+    rows = 16 * 37
+
+    def t(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                            device=dev)
+
+    for name, cl in ssp.layers.items():
+        if not isinstance(cl, IrrepsConvolution):
+            continue
+        mlp_ws, si2_ws = cl._weights()
+        ms = torch.tensor(rng.uniform(0.01, 0.05, size=(rows, 1)),
+                          dtype=torch.float32, device=dev)
+        pad = torch.tensor(rng.uniform(size=rows) < 0.2, device=dev)
+        ms[pad] = 0
+        for dd, mode in ((0, 'cmshared'), (16, 'cmshared'), (0, 'terms'),
+                         (16, 'terms')):
+            conv = fc.FusedConv(cl.tp, cl.weight_nn, cl.si2, dd,
+                                cg_mode=mode)
+            xg, shr, emb, g = (t(rows, conv.d1), t(rows, conv.f),
+                               t(rows, conv.nb),
+                               t(rows // conv.group, conv.d_out))
+            args = (xg, shr, emb, ms, mlp_ws, si2_ws)
+            what = f'{name} ssp {mode} D={dd}'
+            errs.append(check_close(f'{what} fwd', conv.kernel_forward(*args),
+                                    conv.plain_forward(*args))[0])
+            for a, b in zip(conv.kernel_backward(g, *args),
+                            conv.plain_backward(g, *args)):
+                errs.append(check_close(f'{what} bwd', a, b)[0])
+        # the geom pair: edge vectors up to just past the cutoff, pad rows
+        # (ms = 0, the unit vector) exact zeros in dxg and dvec
+        conv = fc.FusedConv(cl.tp, cl.weight_nn, cl.si2, 16, geom=cl.geom)
+        rc = conv.geom.cutoff
+        u = rng.normal(size=(rows, 3))
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        vec = u * rng.uniform(0.3 * rc, 1.02 * rc, size=(rows, 1))
+        vec[pad.cpu().numpy()] = [1.0, 0.0, 0.0]
+        vec = torch.tensor(vec, dtype=torch.float32, device=dev)
+        coeffs = torch.arange(1, conv.nb + 1, dtype=torch.float32,
+                              device=dev) * (math.pi / rc)
+        xg, g = t(rows, conv.d1), t(rows // 16, conv.d_out)
+        args = (xg, vec, ms, coeffs, mlp_ws, si2_ws)
+        errs.append(check_close(f'{name} ssp geom fwd',
+                                conv.kernel_geom_forward(*args),
+                                conv.plain_geom_forward(*args))[0])
+        for a, b in zip(conv.kernel_geom_backward(g, *args),
+                        conv.plain_geom_backward(g, *args)):
+            errs.append(check_close(f'{name} ssp geom bwd', a, b)[0])
+            if a[pad].abs().max() != 0:
+                raise AssertionError(f'{name} ssp geom bwd: pad rows not '
+                                     'zero')
+    out['ssp_max_err'] = max(errs)
+    print(f'ssp kernels vs plain: max abs err {max(errs):.3e}', flush=True)
+    report['conv_routes'] = out
+
+
+def training(report, dev, card):
+    """Phase 16: train_v2 on trained_nacl/input.yaml (7net-0 width, the
+    repo's NaCl data, batch 8, one epoch: 47 train steps, 6 valid batches)
+    in a temporary working dir. Holds: the first step's loss (1e-5
+    relative) and every gradient leaf (1e-4 of the leaf's max|g|) on the
+    card against the CPU, from the same parameters and first batch; the
+    mean loss of the last 10 steps below that of the first 10; no conv
+    kernel launched; checkpoint_last reloads in the calculator on the card
+    (plain chain: E/F equal to the trainer model's within 1e-5; kernels:
+    within phase 3's limits)."""
+    import copy
+    import csv
+    import tempfile
+    import numpy as np
+    import torch
+    from sevennet_exp_tpu_torch import _keys as KEY
+    from sevennet_exp_tpu_torch.calculator import SevenNetCalculator
+    from sevennet_exp_tpu_torch.data.dataset import datasets_from_config
+    from sevennet_exp_tpu_torch.data.extxyz import read_extxyz
+    from sevennet_exp_tpu_torch.data.graph import (
+        Atoms, atoms_to_graph, collate_graphs)
+    from sevennet_exp_tpu_torch.logger import Logger
+    from sevennet_exp_tpu_torch.model.build import (
+        build_e3_equivariant_model)
+    from sevennet_exp_tpu_torch.ops import fused_conv as fc
+    from sevennet_exp_tpu_torch.parse_input import read_config_yaml
+    from sevennet_exp_tpu_torch.scripts.train import (
+        loader_from_config, train_v2)
+    from sevennet_exp_tpu_torch.train.trainer import Trainer
+
+    out = {}
+    data_dir = os.path.join(HERE, 'nacl_classical_data')
+    config = read_config_yaml(os.path.join(HERE, 'trained_nacl',
+                                           'input.yaml'))
+    config[KEY.LOAD_TRAINSET] = [os.path.join(data_dir, 'train.extxyz')]
+    config[KEY.LOAD_VALIDSET] = [os.path.join(data_dir, 'valid.extxyz')]
+    config[KEY.EPOCH] = 1
+    with tempfile.TemporaryDirectory() as work:
+        # the first step on both devices, same parameters and batch
+        cfg0 = copy.deepcopy(config)
+        t0 = time.perf_counter()
+        sets = datasets_from_config(cfg0, work)
+        out['dataset_s'] = time.perf_counter() - t0
+        batch = next(iter(loader_from_config(cfg0, sets['trainset'],
+                                             is_train=True)))
+        model = build_e3_equivariant_model(cfg0)
+        params, mask = model.init(torch.Generator().manual_seed(
+            cfg0[KEY.RANDOM_SEED]))
+        first = {}
+        for d in ('cpu', dev):
+            tr = Trainer(copy.deepcopy(model), params, mask, cfg0, device=d)
+            t0 = time.perf_counter()
+            first[str(d)] = tr.loss_and_grads(tr.batch_to_device(batch))
+            if d != 'cpu':
+                torch.cuda.synchronize()
+            out[f'first_step_{"cpu" if d == "cpu" else "card"}_s'] = (
+                time.perf_counter() - t0)
+            del tr
+        (l_c, g_c), (l_g, g_g) = first['cpu'], first[str(dev)]
+        d_loss = abs(float(l_g) - float(l_c)) / abs(float(l_c))
+        worst = max(float((g_g[k].cpu() - g_c[k]).abs().max())
+                    / max(float(g_c[k].abs().max()), 1e-30) for k in g_c)
+        print(f'first step: loss card {float(l_g):.8f} cpu {float(l_c):.8f}'
+              f' (rel {d_loss:.2e} <= 1e-5); worst gradient leaf '
+              f'{worst:.2e} of its max|g| (<= 1e-4), {len(g_c)} leaves; '
+              f'{batch[KEY.NUM_ATOMS].sum()} atoms, '
+              f'{int(batch[KEY.EDGE_MASK].sum())} edges', flush=True)
+        if not (d_loss <= 1e-5 and worst <= 1e-4):
+            raise AssertionError('first step: card and CPU disagree')
+        out.update(first_loss=float(l_g), first_loss_rel_err=d_loss,
+                   first_grad_worst=worst)
+        first = g_c = g_g = None
+
+        # the epoch through train_v2, every train step timed
+        losses, step_ms = [], []
+        orig = Trainer.train_step
+
+        def timed(self, b):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            stats = orig(self, b)
+            losses.append(float(stats['TotalLoss'][0]))
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            return stats
+
+        Trainer.train_step = timed
+        torch.cuda.reset_peak_memory_stats()
+        fc.reset_launch_counts()
+        try:
+            t0 = time.perf_counter()
+            trainer = train_v2(copy.deepcopy(config), work, device=dev)
+            torch.cuda.synchronize()
+            out['train_v2_s'] = time.perf_counter() - t0
+        finally:
+            Trainer.train_step = orig
+        launched = {k: v for k, v in fc.launch_counts.items()
+                    if k.startswith('fused_conv') and v}
+        out['peak_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out['steps'] = len(losses)
+        out['ms_per_step'] = float(np.mean(step_ms[1:]))
+        out['first_step_ms'] = step_ms[0]
+        first10, last10 = np.mean(losses[:10]), np.mean(losses[-10:])
+        out.update(loss_first10=float(first10), loss_last10=float(last10))
+        with open(os.path.join(work, 'lc.csv')) as fh:
+            row = list(csv.DictReader(fh))[-1]
+        out['lc'] = {k: float(v) for k, v in row.items()}
+        print(f'{card}: {len(losses)} train steps, {out["ms_per_step"]:.1f} '
+              f'ms a step after the first ({step_ms[0]:.1f} ms), peak '
+              f'{out["peak_gib"]:.2f} GiB; mean loss of the first 10 steps '
+              f'{first10:.6f}, of the last 10 {last10:.6f}', flush=True)
+        print('epoch 1: ' + ', '.join(f'{k} {v:.6g}' for k, v in
+                                      out['lc'].items()), flush=True)
+        if len(losses) != 47:
+            raise AssertionError(f'{len(losses)} train steps, want 47')
+        if not last10 < first10:
+            raise AssertionError('the loss did not fall')
+        if launched:
+            raise AssertionError(f'training launched conv kernels: '
+                                 f'{launched}')
+
+        # the last checkpoint in the calculator on the card
+        frame = read_extxyz(config[KEY.LOAD_VALIDSET][0], 0)[0]
+        g = atoms_to_graph(frame, trainer.model.cutoff)
+        b = trainer.batch_to_device(collate_graphs([g]))
+        with torch.no_grad():
+            ref = trainer.model.apply(b)
+        e_ref, f_ref = ref[KEY.PRED_TOTAL_ENERGY][0], ref[KEY.PRED_FORCE][:64]
+        path = os.path.join(work, 'checkpoint_last.pth.sevennet')
+        at = Atoms(frame.atomic_numbers, frame.pos, frame.cell, frame.pbc)
+        res = SevenNetCalculator(path, device=dev,
+                                 use_kernels=False).calculate(at)
+        d_f = float(np.abs(res['forces'] - f_ref.cpu().numpy()).max())
+        d_e = abs(res['energy'] - float(e_ref))
+        print(f'checkpoint_last in the calculator (plain chain): |dE| '
+              f'{d_e:.2e} eV, max|dF| {d_f:.2e} eV/A (<= 1e-5)', flush=True)
+        if not (d_f <= 1e-5 and d_e <= 1e-5 * 64):
+            raise AssertionError('the checkpoint does not reload')
+        fc.reset_launch_counts()
+        calc = SevenNetCalculator(path, device=dev)
+        res_k = calc.calculate(at)
+        routes = calc.model.conv_routes(0)
+        if fc.launch_counts['fused_conv_edge_fwd'] != len(routes):
+            raise AssertionError(f'the calculator did not run the kernels: '
+                                 f'{routes}')
+        out['reload'] = {'plain_dE': d_e, 'plain_max_dF': d_f,
+                         'kernels': check_ef(
+                             'checkpoint_last, kernels vs plain', 64,
+                             res_k['energy'], torch.tensor(res_k['forces']),
+                             res['energy'], torch.tensor(res['forces']))}
+        # where a step's time goes: steps on the epoch's first batch (after
+        # the checkpoint check: they move the parameters), three untraced,
+        # then three under torch.profiler; the idle share is of the
+        # untraced steps on that batch
+        from torch.profiler import ProfilerActivity, profile
+        b0 = trainer.batch_to_device(batch)
+        trainer.train_step(b0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            trainer.train_step(b0)
+        torch.cuda.synchronize()
+        untraced = (time.perf_counter() - t0) / 3 * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                trainer.train_step(b0)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 3 * 1e3
+        ev = sorted((e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: -e.self_device_time_total)
+        dev_ms = sum(e.self_device_time_total for e in ev) / 3e3
+        out['trace'] = {
+            'traced_ms_per_step': wall, 'untraced_ms_per_step': untraced,
+            'device_kernel_ms_per_step': dev_ms,
+            'device_idle_share': 1.0 - dev_ms / untraced,
+            'launches_per_step': sum(e.count for e in ev) / 3,
+            'top_kernels': [{'name': e.key[:90],
+                             'ms_per_step': e.self_device_time_total / 3e3,
+                             'calls_per_step': e.count / 3}
+                            for e in ev[:8]]}
+        print(f'first batch: untraced step {untraced:.1f} ms, traced '
+              f'{wall:.1f} ms, device kernels {dev_ms:.1f} ms a step '
+              f'({out["trace"]["launches_per_step"]:.0f} launches): device '
+              f'idle {out["trace"]["device_idle_share"]:.1%} of the '
+              f'untraced step', flush=True)
+        for k in out['trace']['top_kernels']:
+            print(f"  {k['ms_per_step']:8.2f} ms/step "
+                  f"{k['calls_per_step']:6.0f} calls  {k['name']}",
+                  flush=True)
+        Logger().file.close()
+        Logger().file = None
+    report['training'] = out
 
 
 def main():
@@ -1367,18 +1762,32 @@ def main():
     # the template's geom, dense and edge instances): fp32 on the CUDA
     # cores, nothing in local memory
     from sevennet_exp_tpu_torch.tools import sass_compare
-    geom_sass = {k: v for k, v in sass_compare.count('fused_conv_geom').items()
-                 if sass_compare.geom_label(k)}
-    if len(geom_sass) != 12:
-        raise AssertionError(f'fused_conv_geom.cu: {len(geom_sass)} kernel '
-                             'instances, want 3 pairs x (fwd, bwd at 4, 9, '
-                             '16 SH)')
+    builds = sass_compare.count_and_digests(('fused_conv_geom',
+                                             'fused_conv_geom_ssp'))
+    geom_sass = {}
+    for lib, (counts, _) in builds.items():
+        got = {k: v for k, v in counts.items() if sass_compare.geom_label(k)}
+        if len(got) != 12:
+            raise AssertionError(f'{lib}: {len(got)} kernel instances, want '
+                                 '3 pairs x (fwd, bwd at 4, 9, 16 SH)')
+        geom_sass.update({f'{lib} {k}': v for k, v in got.items()})
+    # the silu / tanh instances keep their code
+    moved = {}
+    for k, v in builds['fused_conv_geom'][1].items():
+        key = (sass_compare.geom_pair(k), sass_compare.geom_label(k))
+        if key in PARENT_GEOM_SASS and v != PARENT_GEOM_SASS[key]:
+            moved[key] = v
+    print(f'silu / tanh instances against the parent\'s SASS: '
+          f'{"identical" if not moved else moved}', flush=True)
+    if moved:
+        raise AssertionError(f'SASS moved: {moved}')
+    report['geom_sass_moved'] = len(moved)
     for k, v in geom_sass.items():
         bad = {op: v[op] for op in (*sass_compare.TENSOR_CORE_OPS,
                                     *sass_compare.LOCAL_OPS) if v[op]}
-        pair = sass_compare.geom_pair(k)
-        print(f'{pair} {sass_compare.geom_label(k)} {k}: SASS {v}',
-              flush=True)
+        name = k.split()[1]
+        print(f'{sass_compare.geom_pair(name)} '
+              f'{sass_compare.geom_label(name)} {k}: SASS {v}', flush=True)
         if bad or not v['FFMA']:
             raise AssertionError(f'{k}: tensor-core or local-memory opcodes '
                                  f'{bad}, {v["FFMA"]} FFMA')
@@ -1504,7 +1913,23 @@ def main():
     if len(kernels) != 33 or any(not kr['launches'] > 0 for kr in kernels):
         raise AssertionError('a kernel of the path was never launched')
     report['kernels'] = kernels
+
+    # -- phase 16 ------------------------------------------------------
+    phase('16 fault C.1 on the card; training at 7net-0 width')
+    t0 = time.perf_counter()
+    conv_routes_on_card(report, dev)
+    report['conv_routes']['seconds'] = time.perf_counter() - t0
+    training(report, dev, card)
     report['script_s'] = time.perf_counter() - t_script
+    ends = [t for _, t in _PHASES[1:]] + [time.perf_counter()]
+    report['phase_s'] = {name: end - t for (name, t), end
+                         in zip(_PHASES, ends)}
+    print('seconds by phase: ' + ', '.join(
+        f'{name.split()[0]} {v:.1f}' for name, v in report['phase_s'].items())
+        + f'; nvcc {report["build_s"]:.1f} of phase 1, C.1 checks '
+        f'{report["conv_routes"]["seconds"]:.1f}, CPU first step '
+        f'{report["training"]["first_step_cpu_s"]:.1f} and train_v2 '
+        f'{report["training"]["train_v2_s"]:.1f} of phase 16', flush=True)
     print(f'whole script {report["script_s"]:.1f} s', flush=True)
     with open(os.path.join(out_dir, 'chip_smoke.json'), 'w') as fh:
         json.dump(report, fh, indent=1)

@@ -12,8 +12,9 @@ systems reuse their shapes), then ``SevenNetModel.apply`` on the device:
 the plain edge-list convolution -- the fused conv with one output row per
 edge, then a scatter-add -- and the gradient with respect to the edge
 vectors for forces and the virial stress. On a CUDA device the fused conv
-launches its kernels, on the CPU its plain version; the device decides,
-there is no switch.
+launches its kernels, on the CPU its plain version; a layer the kernels
+refuse runs the plain chain on either (``SevenNetModel.conv_routes``), and
+``use_kernels=False`` (JAX ``use_pallas=False``) sends every layer there.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from .data.graph import (
     unlabeled_atoms_to_graph,
 )
 from .model.model import SevenNetModel
-from .ops.fused_conv import CG_MODE_KEY, CG_MODES
+from .ops.fused_conv import CG_MODE_KEY, CG_MODES, USE_KERNELS_KEY
 
 try:  # optional ASE integration
     from ase.calculators.calculator import Calculator as _ASECalculator
@@ -71,10 +72,11 @@ class SevenNetCalculator(_ASECalculator):
 
     def __init__(self, model: Union[str, SevenNetModel], device='cuda',
                  modal: Optional[str] = None, cg_mode: str = 'cmshared',
-                 **kwargs):
+                 use_kernels: bool = True, **kwargs):
         """model: a native checkpoint path or a built ``SevenNetModel``.
         cg_mode: which kernels the fused convolutions launch on the card,
-        'cmshared' (default) or the independently derived 'terms'."""
+        'cmshared' (default) or the independently derived 'terms'.
+        use_kernels: False runs every convolution as the plain chain."""
         if _HAS_ASE:
             _ASECalculator.__init__(self, **kwargs)
         else:
@@ -83,6 +85,7 @@ class SevenNetCalculator(_ASECalculator):
         if cg_mode not in CG_MODES:
             raise ValueError(f'cg_mode {cg_mode!r}: one of {CG_MODES}')
         self.cg_mode = cg_mode
+        self.use_kernels = bool(use_kernels)
         if isinstance(model, str):
             cp = SevenNetCheckpoint(model)
             self.model, _ = cp.build_model(device=self.device)
@@ -112,6 +115,7 @@ class SevenNetCalculator(_ASECalculator):
                      device=self.device)
                  for k, v in b.items()}
         batch[CG_MODE_KEY] = self.cg_mode
+        batch[USE_KERNELS_KEY] = self.use_kernels
         return batch
 
     def calculate_single(self, atoms) -> Dict[str, np.ndarray]:

@@ -1,6 +1,10 @@
-"""Native checkpoint loader (no JAX, no optax).
+"""Native checkpoint writer and loader (no JAX, no optax).
 
 Counterpart of the native-format part of ``sevennet_exp_tpu/checkpoint.py``.
+``save_checkpoint`` writes the JAX package's format from the port's
+trainer: ``params`` in the JAX tree layout and an ``optimizer_state`` of
+numpy arrays and builtins only, so that the JAX ``load_checkpoint`` reads
+a checkpoint the port trained.
 A native checkpoint is a pickle of ``{config, params, optimizer_state,
 epoch, version, hash}`` whose ``params`` are plain numpy arrays. Its
 ``optimizer_state`` holds optax named tuples, and a plain ``pickle.load``
@@ -20,7 +24,8 @@ from __future__ import annotations
 import importlib
 import os
 import pickle
-from typing import Any, Dict, Tuple
+import uuid
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +61,24 @@ class _CheckpointUnpickler(pickle.Unpickler):
             except ImportError:
                 module = 'numpy.core' + module[len('numpy._core'):]
         return super().find_class(module, name)
+
+
+def save_checkpoint(path: str, config: Dict, params,
+                    optimizer_state=None, epoch: Optional[int] = None):
+    """{config, params, optimizer_state, epoch, version, hash} as a
+    pickle (JAX ``save_checkpoint``); ``params`` and ``optimizer_state``
+    must hold numpy arrays and builtins (``Trainer.get_checkpoint_pieces``).
+    """
+    payload = {
+        'config': config,
+        'params': params,
+        'optimizer_state': optimizer_state,
+        'epoch': epoch,
+        'version': '0.1.0+tpu',
+        'hash': uuid.uuid4().hex,
+    }
+    with open(path, 'wb') as f:
+        pickle.dump(payload, f)
 
 
 def load_native_checkpoint(path: str) -> Dict[str, Any]:

@@ -155,6 +155,18 @@ constexpr int EDGE_FWD_WORDS = (233472 - 2 * 1024) / 2 / 4;
 // pair (rows 5-6), the edge pair (kernels 1-2 at agg_d = 0)
 constexpr int K_DENSE = 0, K_GEOM = 1, K_EDGE = 2;
 
+// the activation of this build. The library fused_conv_geom takes the
+// plan's act at run time (0 silu, 1 tanh); fused_conv_geom_ssp, the same
+// source built with -DFUSED_CONV_SSP=1 (ops/cuda_build.py), runs the shifted
+// softplus, the plan's code 2 (ops/fused_conv.py _ACT_CODE), and is built
+// only when a layer with it first launches. Each build refuses the other's
+// plans.
+#ifndef FUSED_CONV_SSP
+#define FUSED_CONV_SSP 0
+#endif
+constexpr bool SSP_BUILD = FUSED_CONV_SSP != 0;
+constexpr int ACT_SSP = 2;
+
 // geometry of the geometry-fused kernels (see ops/fused_conv.py::GeomSpec)
 struct Geom {
   const float* coeffs;    // nb Bessel frequencies c_n
@@ -180,6 +192,17 @@ struct Dense {
 template <int MODE> struct RowArgs { using type = Dense; };
 template <> struct RowArgs<K_GEOM> { using type = Geom; };
 
+// the shifted softplus, ssp(x) = softplus(x) - ln 2, and its derivative
+// sigmoid(x), from one exp (JAX pallas_conv's 'ssp'). logf(1 + e), not
+// log1pf(e): within 6e-8 of it for e <= 1, and log1pf left the
+// geometry-fused forward (80 registers) with a spill
+__device__ __forceinline__ void ssp_both(float x, float* f, float* df) {
+  const float e = expf(-fabsf(x));
+  const float s = 1.f / (1.f + e);
+  *f = fmaxf(x, 0.f) + logf(1.f + e) - 0.693147180559945309f;
+  *df = x >= 0.f ? s : 1.f - s;
+}
+
 // launch shape, chosen on the host (geom_shape below; mirrored by
 // ops/fused_conv_geom.py, which the CPU tests hold)
 struct Shape {
@@ -200,6 +223,26 @@ __device__ __forceinline__ void act_both(float x, int act, float* f,
     const float t = tanhf(x);
     *f = t;
     *df = 1.f - t * t;
+  }
+}
+
+// the activation of this build: the plan's act, or the shifted softplus
+__device__ __forceinline__ void act_pair(float x, int act, float* f,
+                                         float* df) {
+  if constexpr (SSP_BUILD) {
+    ssp_both(x, f, df);
+  } else {
+    act_both(x, act, f, df);
+  }
+}
+
+__device__ __forceinline__ float act_one(float x, int act) {
+  if constexpr (SSP_BUILD) {
+    float f, df;
+    ssp_both(x, &f, &df);
+    return f;
+  } else {
+    return act_f(x, act);
   }
 }
 
@@ -463,11 +506,11 @@ __device__ void hidden_rm(const Plan& P, int T, const float* embT_s,
     s *= P.s0;
     if (da0T_s) {
       float f, df;
-      act_both(s, P.act, &f, &df);
+      act_pair(s, P.act, &f, &df);
       h0T_s[i] = f * P.act_cst;
       da0T_s[i] = df * P.act_cst;
     } else {
-      h0T_s[i] = act_f(s, P.act) * P.act_cst;
+      h0T_s[i] = act_one(s, P.act) * P.act_cst;
     }
   }
   __syncthreads();
@@ -486,9 +529,9 @@ __device__ void hidden_rm(const Plan& P, int T, const float* embT_s,
 #pragma unroll
     for (int i4 = 0; i4 < 4; ++i4) {
       if (da1T_s) {
-        act_both(a[i4], P.act, &o[i4], &d[i4]);
+        act_pair(a[i4], P.act, &o[i4], &d[i4]);
       } else {
-        o[i4] = act_f(a[i4], P.act);
+        o[i4] = act_one(a[i4], P.act);
         d[i4] = 0.f;
       }
     }
@@ -1701,7 +1744,8 @@ int launch_fwd(const float* xg, const float* vec, const float* ms,
                const float* si2w, const Plan& P,
                const typename RowArgs<MODE>::type& G, float* out,
                void* stream) {
-  if (P.f > SHP) return (int)cudaErrorInvalidValue;
+  if (P.f > SHP || (P.act == ACT_SSP) != SSP_BUILD)
+    return (int)cudaErrorInvalidValue;
   const Shape S = geom_shape(P, false, MODE);
   const size_t smem = 4 * words(P, S, false, MODE);
   cudaError_t err = reserve_smem(fused_conv_geom_fwd_kernel<MODE>, smem,
@@ -1751,7 +1795,8 @@ int launch_bwd_nsh(const float* g, const float* xg, const float* vec,
                    const float* si2wt, const Plan& P,
                    const typename RowArgs<MODE>::type& G, float* dxg,
                    float* dvec, void* stream) {
-  if (P.f > SHP || P.n_xent >= MAX_XENT) return (int)cudaErrorInvalidValue;
+  if (P.f > SHP || P.n_xent >= MAX_XENT || (P.act == ACT_SSP) != SSP_BUILD)
+    return (int)cudaErrorInvalidValue;
   if (P.f <= 4)
     return launch_bwd<4, MODE>(g, xg, vec, ms, w0, w1, w1t, w2, w2t, si2wt,
                                P, G, dxg, dvec, stream);
@@ -1764,7 +1809,8 @@ int launch_bwd_nsh(const float* g, const float* xg, const float* vec,
 
 template <int MODE>
 int resources_of(const Plan& P, bool bwd, int* out) {
-  if (P.f > SHP) return (int)cudaErrorInvalidValue;
+  if (P.f > SHP || (P.act == ACT_SSP) != SSP_BUILD)
+    return (int)cudaErrorInvalidValue;
   const Shape S = geom_shape(P, bwd, MODE);
   const size_t smem = 4 * words(P, S, bwd, MODE);
   if (!bwd)

@@ -76,12 +76,17 @@ struct Args {
   long n_rows;
   int group;                // input rows per output row
   int d1, f, nb, wn, d_msg, d_out;
-  int act;                  // 0 silu, 1 tanh
+  int act;                  // 0 silu, 1 tanh, 2 ssp
   float act_cst, s0, s1, s2;
 };
 
+// ssp(x) = softplus(x) - ln 2 (the shifted softplus), its derivative the
+// sigmoid
 __device__ __forceinline__ float act_f(float x, int act) {
   if (act == 0) return x / (1.f + expf(-x));
+  if (act == 2)
+    return fmaxf(x, 0.f) + logf(1.f + expf(-fabsf(x)))
+           - 0.693147180559945309f;
   return tanhf(x);
 }
 
@@ -90,6 +95,7 @@ __device__ __forceinline__ float act_df(float x, int act) {
     const float s = 1.f / (1.f + expf(-x));
     return s + x * s * (1.f - s);
   }
+  if (act == 2) return 1.f / (1.f + expf(-x));
   const float t = tanhf(x);
   return 1.f - t * t;
 }

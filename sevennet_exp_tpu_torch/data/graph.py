@@ -1,12 +1,13 @@
 """Structure container, Atoms -> graph dicts and static-shape padded
 batching, numpy on the host.
 
-Counterpart of ``sevennet_exp_tpu/data/graph.py`` for unlabeled
-structures (``Atoms``, ``unlabeled_atoms_to_graph``, ``pad_cap``,
-``collate_graphs``); the labeled variants come with the training stack.
-A graph is a dict of numpy arrays under the reference's key names; a
-batch is one concatenated graph padded to fixed (n_node, n_edge, n_graph)
-capacities with NODE_MASK / EDGE_MASK / GRAPH_MASK.
+Counterpart of ``sevennet_exp_tpu/data/graph.py``: ``Atoms`` (with
+optional energy, force and stress labels), ``unlabeled_atoms_to_graph``,
+``atoms_to_graph``, ``pad_cap`` and ``collate_graphs``. A graph is a dict
+of numpy arrays under the reference's key names; a batch is one
+concatenated graph padded to fixed (n_node, n_edge, n_graph) capacities
+with NODE_MASK / EDGE_MASK / GRAPH_MASK, and with the labels (NaN where a
+label is missing or the slot is a pad) when its graphs carry them.
 """
 
 from __future__ import annotations
@@ -23,11 +24,14 @@ from .neighborlist import neighbor_list
 @dataclass
 class Atoms:
     """ASE-free structure: numbers, Cartesian positions (Angstrom), cell
-    rows as lattice vectors, periodic flags."""
+    rows as lattice vectors, periodic flags, and optional labels."""
     atomic_numbers: np.ndarray      # (N,) int
     pos: np.ndarray                 # (N, 3)
     cell: np.ndarray                # (3, 3)
     pbc: np.ndarray                 # (3,) bool
+    energy: Optional[float] = None          # eV
+    forces: Optional[np.ndarray] = None     # (N, 3) eV/A
+    stress: Optional[np.ndarray] = None     # (6,) xx yy zz xy yz zx, eV/A^3
     info: Optional[Dict] = None
 
     def __len__(self):
@@ -84,6 +88,29 @@ def unlabeled_atoms_to_graph(atoms: Atoms, cutoff: float) -> Dict:
     }
 
 
+def atoms_to_graph(atoms: Atoms, cutoff: float, transfer_info: bool = True,
+                   allow_unlabeled: bool = False) -> Dict:
+    """Labeled variant (reference dataload.py:133-226). Missing labels are
+    NaN (the losses mask them)."""
+    g = unlabeled_atoms_to_graph(atoms, cutoff)
+    n = len(atoms)
+    y_energy = np.nan if atoms.energy is None else float(atoms.energy)
+    y_force = (np.full((n, 3), np.nan) if atoms.forces is None
+               else np.asarray(atoms.forces, dtype=np.float64))
+    y_stress = (np.full((6,), np.nan) if atoms.stress is None
+                else np.asarray(atoms.stress, dtype=np.float64).reshape(6))
+    if not allow_unlabeled and (np.isnan(y_energy)
+                                or np.isnan(y_force).any()):
+        raise ValueError('Unlabeled E or F found, set allow_unlabeled True')
+    g[KEY.ENERGY] = np.float64(y_energy)
+    g[KEY.FORCE] = y_force
+    g[KEY.STRESS] = y_stress.reshape(1, 6)
+    g[KEY.PER_ATOM_ENERGY] = np.float64(y_energy / n)
+    if not transfer_info:
+        g[KEY.INFO] = {}
+    return g
+
+
 def pad_cap(n: int, multiple: int = 8, margin: float = 1.0) -> int:
     """Round a capacity up to a multiple, after a growth margin."""
     n = int(np.ceil(n * margin))
@@ -97,7 +124,8 @@ def collate_graphs(graphs: Sequence[Dict], n_node: Optional[int] = None,
     """Concatenate graphs and pad to capacities -> static-shape batch.
     Pad atoms belong to the last graph with NODE_MASK 0; pad edges are
     self-edges of the last atom slot with EDGE_MASK 0 and the unit vector
-    (1, 0, 0), which keeps their norms finite."""
+    (1, 0, 0), which keeps their norms finite. Labeled graphs add ENERGY,
+    FORCE, STRESS (NaN on pads) and the per-graph data weights."""
     n_graphs = len(graphs)
     tot_nodes = int(sum(int(g[KEY.NUM_ATOMS]) for g in graphs))
     tot_edges = int(sum(g[KEY.EDGE_IDX].shape[1] for g in graphs))
@@ -123,6 +151,15 @@ def collate_graphs(graphs: Sequence[Dict], n_node: Optional[int] = None,
     edge_mask = np.zeros(n_edge, dtype=dtype)
     graph_mask = np.zeros(n_graph, dtype=dtype)
 
+    has_labels = KEY.ENERGY in graphs[0] if graphs else False
+    if has_labels:
+        y_e = np.full(n_graph, np.nan, dtype=dtype)
+        y_f = np.full((n_node, 3), np.nan, dtype=dtype)
+        y_s = np.full((n_graph, 6), np.nan, dtype=dtype)
+        w_e = np.ones(n_graph, dtype=dtype)
+        w_f = np.ones(n_graph, dtype=dtype)
+        w_s = np.ones(n_graph, dtype=dtype)
+
     no, eo = 0, 0
     for gi, g in enumerate(graphs):
         n = int(g[KEY.NUM_ATOMS])
@@ -139,10 +176,19 @@ def collate_graphs(graphs: Sequence[Dict], n_node: Optional[int] = None,
         node_mask[no:no + n] = 1.0
         edge_mask[eo:eo + e] = 1.0
         graph_mask[gi] = 1.0
+        if has_labels:
+            y_e[gi] = g[KEY.ENERGY]
+            y_f[no:no + n] = g[KEY.FORCE]
+            y_s[gi] = g[KEY.STRESS].reshape(6)
+            dw = g.get(KEY.DATA_WEIGHT)
+            if dw is not None:
+                w_e[gi] = dw.get('energy', 1.0)
+                w_f[gi] = dw.get('force', 1.0)
+                w_s[gi] = dw.get('stress', 1.0)
         no += n
         eo += e
 
-    return {
+    out = {
         KEY.ATOMIC_NUMBERS: z,
         KEY.POS: pos,
         KEY.BATCH: batch,
@@ -156,3 +202,11 @@ def collate_graphs(graphs: Sequence[Dict], n_node: Optional[int] = None,
         KEY.EDGE_MASK: edge_mask,
         KEY.GRAPH_MASK: graph_mask,
     }
+    if has_labels:
+        out[KEY.ENERGY] = y_e
+        out[KEY.FORCE] = y_f
+        out[KEY.STRESS] = y_s
+        out['data_weight_energy'] = w_e
+        out['data_weight_force'] = w_f
+        out['data_weight_stress'] = w_s
+    return out

@@ -57,7 +57,7 @@ from ..data.graph import Atoms
 from ..data.periodic import atomic_masses
 from ..model.layers import geom_packed_ok
 from ..model.model import SevenNetModel
-from ..ops.fused_conv import CG_MODE_KEY, CG_MODES
+from ..ops.fused_conv import CG_MODE_KEY, CG_MODES, USE_KERNELS_KEY
 from ..ops.scatter import (
     gather_pair,
     half_pair_indices,
@@ -126,6 +126,7 @@ class MolecularDynamics:
         pressure_gpa: float = 0.0,
         pdamp_fs: Optional[float] = None,
         cg_mode: str = 'cmshared',
+        use_kernels: bool = True,
     ):
         """velocities: initial (N, 3) velocities in internal units; drawn
         from Maxwell-Boltzmann on a ``torch.Generator(seed)`` if None.
@@ -142,7 +143,10 @@ class MolecularDynamics:
         pressure and barostat time of the NPT ensembles (default 1000 dt).
         cg_mode: 'cmshared' (default kernels) or 'terms' (the independent
         cross-check pair; not with ``geom_dense`` or ``half_mlp``; chunks
-        then run with shared sh/emb whatever ``geom_fused`` says)."""
+        then run with shared sh/emb whatever ``geom_fused`` says).
+        use_kernels: False runs every convolution as the plain chain (JAX
+        ``use_pallas=False``): whole-array path only, no geometry fusion
+        and no half list; the chunked path raises."""
         if ensemble not in ENSEMBLES:
             raise ValueError(f'ensemble {ensemble!r}: one of {ENSEMBLES}')
         if cg_mode not in CG_MODES:
@@ -152,6 +156,7 @@ class MolecularDynamics:
                              'external-weight kernels: not with geom_dense '
                              'or half_mlp')
         self.cg_mode = cg_mode
+        self.use_kernels = bool(use_kernels)
         self.npt = ensemble.startswith('npt')
         self.device = torch.device(device)
         self.model = model.to(self.device)
@@ -187,6 +192,9 @@ class MolecularDynamics:
         self.grid = choose_grid(cell_np, self.build_cutoff)
         self.use_cell_list = all(g >= 3 for g in self.grid) and n > 512
         self._size_capacities(np.asarray(atoms.pos, np.float64), cell_np)
+        if not self.use_kernels and self.conv_chunk_rows:
+            raise ValueError('the chunked convolution runs the fused conv '
+                             'only: not with use_kernels=False')
 
         self.generator = torch.Generator(device=dev).manual_seed(seed)
         if velocities is None:
@@ -342,7 +350,7 @@ class MolecularDynamics:
         # that is a fixed point of rev, which the half list would read as a
         # pad. Such a grid never carries a half list (one host read per
         # compaction, only with the option on)
-        if (self.half_mlp and not self.conv_chunk_rows
+        if (self.half_mlp and self.use_kernels and not self.conv_chunk_rows
                 and not bool(overflow_deg)):
             half, pair = half_pair_indices(rev)
         return NeighborState(
@@ -368,7 +376,8 @@ class MolecularDynamics:
             safe = safe + safe @ strain
         chunk_rows = self.conv_chunk_rows
         geom = ((self.geom_fused if chunk_rows else self.geom_dense)
-                and self.cg_mode != 'terms' and self._geom_packed_ok())
+                and self.cg_mode != 'terms' and self.use_kernels
+                and self._geom_packed_ok())
         half = {}
         if nl.half is not None and not chunk_rows and not geom:
             half = {KEY.EDGE_HALF: nl.half, KEY.EDGE_PAIR: nl.pair}
@@ -381,6 +390,7 @@ class MolecularDynamics:
             KEY.CONV_CHUNK_ROWS: chunk_rows,
             KEY.EDGE_GEOM_PACKED: geom,
             CG_MODE_KEY: self.cg_mode,
+            USE_KERNELS_KEY: self.use_kernels,
         })
 
     def _energy_fn(self, pos, nl: NeighborState):

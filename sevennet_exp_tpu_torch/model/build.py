@@ -89,9 +89,11 @@ def init_shift_scale(config):
 
     if config.get(KEY.USE_MODALITY, False):
         raise NotImplementedError('modalities are not in the port yet')
+    train = bool(config.get(KEY.TRAIN_SHIFT_SCALE, False))
     if isinstance(shift, float) and isinstance(scale, float):
-        return L.Rescale(shift=shift, scale=scale)
-    return L.SpeciesWiseRescale(shift=_as_list(shift), scale=_as_list(scale))
+        return L.Rescale(shift=shift, scale=scale, train_shift_scale=train)
+    return L.SpeciesWiseRescale(shift=_as_list(shift), scale=_as_list(scale),
+                                train_shift_scale=train)
 
 
 def nequip_interaction_block(
@@ -100,6 +102,7 @@ def nequip_interaction_block(
     self_connection_type: str, act_scalar: Dict[int, str],
     act_gate: Dict[int, str], act_radial: str, bias_in_linear: bool,
     num_species: int, geom: Optional[GeomSpec] = None,
+    train_denominator: bool = False,
 ) -> List[Tuple[str, Any]]:
     """One NequIP block (reference sevenn/nn/interaction_blocks.py)."""
     block: List[Tuple[str, Any]] = []
@@ -126,7 +129,8 @@ def nequip_interaction_block(
                           biases=bias_in_linear)
     block.append((f'{t}_convolution', L.IrrepsConvolution(
         tp=tp_spec, weight_nn=weight_nn, si2=si2_spec,
-        denominator=conv_denominator, geom=geom)))
+        denominator=conv_denominator, geom=geom,
+        train_denominator=train_denominator)))
     block.append((f'{t}_self_connection_outro', L.SelfConnectionOutro()))
     block.append((f'{t}_equivariant_gate', L.EquivariantGate(gate_spec)))
     return block
@@ -212,6 +216,7 @@ def build_e3_equivariant_model(config: Dict[str, Any]) -> SevenNetModel:
             act_radial=config[KEY.ACTIVATION_RADIAL],
             bias_in_linear=use_bias, num_species=num_species,
             geom=geom_spec,
+            train_denominator=bool(config[KEY.TRAIN_DENOMINTAOR]),
         ))
         irreps_x = irreps_out
 

@@ -8,7 +8,11 @@ parameter pytree (``w0``, ``weight_nn/w2``, ``si2/w1``, ...), which is
 how ``checkpoint.params_from_numpy`` state maps onto the model.
 
 Forces come from autograd with respect to positions; no parameter takes
-a gradient on this path, hence buffers rather than ``nn.Parameter``s.
+a gradient on that path, hence buffers rather than ``nn.Parameter``s (the
+trainer sets ``requires_grad`` on the trainable ones). ``init(generator)``
+draws a layer's parameters as the JAX ``init(key)`` does, same
+distributions and scales (not the same bits), and returns them with the
+trainable mask in the ``param_tree`` layout.
 """
 
 from __future__ import annotations
@@ -21,7 +25,12 @@ from torch import nn
 
 from .. import _keys as KEY
 from ..irreps import Irreps
-from ..ops.fused_conv import CG_MODE_KEY, FusedConv, GeomSpec
+from ..ops.fused_conv import (
+    CG_MODE_KEY,
+    USE_KERNELS_KEY,
+    FusedConv,
+    GeomSpec,
+)
 from ..ops.radial import BesselBasis
 from ..ops.scatter import (
     gather_rev,
@@ -52,15 +61,28 @@ class ParamGroup(nn.Module):
     def as_dict(self) -> Dict[str, torch.Tensor]:
         return dict(self.named_buffers(recurse=False))
 
+    def init(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """Weights (``w*``) from N(0, 1), biases (``b*``) zero: the JAX
+        ``LinearSpec``, ``FullyConnectedTPSpec`` and
+        ``FullyConnectedNetSpec.init``."""
+        return {name: (torch.zeros(b.shape) if name.startswith('b')
+                       else torch.randn(b.shape, generator=generator))
+                for name, b in self.as_dict().items()}
+
+
+def _linear_init(group: ParamGroup, generator: torch.Generator):
+    p = group.init(generator)
+    return p, {k: True for k in p}
+
 
 def geom_packed_ok(model) -> bool:
     """Whether a model can run its convolutions geometry-fused: every
-    convolution carries a GeomSpec and takes the fused conv. Engines ask
-    once per instance."""
+    convolution carries a GeomSpec and its kernels take it on the dense
+    grid. Engines ask once per instance."""
     convs = [layer for layer in model.layers.values()
              if isinstance(layer, IrrepsConvolution)]
     return bool(convs) and all(
-        layer.geom is not None and layer._fused_eligible()
+        layer.geom is not None and layer.kernel_refusal(1) is None
         for layer in convs)
 
 
@@ -80,6 +102,9 @@ class EdgeEmbedding(nn.Module):
 
     def param_tree(self):
         return {'coeffs': self.coeffs}
+
+    def init(self, generator):
+        return self.basis.init(), {'coeffs': self.basis.trainable}
 
     @property
     def irreps_out(self) -> Irreps:
@@ -135,6 +160,9 @@ class IrrepsLinear(nn.Module):
     def param_tree(self):
         return self.p.as_dict()
 
+    def init(self, generator):
+        return _linear_init(self.p, generator)
+
     def forward(self, data: Data) -> Data:
         data[self.key_out or self.key_in] = self.spec.apply(
             self.p.as_dict(), data[self.key_in])
@@ -153,6 +181,9 @@ class SelfConnectionIntro(nn.Module):
     def param_tree(self):
         return self.p.as_dict()
 
+    def init(self, generator):
+        return _linear_init(self.p, generator)
+
     def forward(self, data: Data) -> Data:
         data[KEY.SELF_CONNECTION_TEMP] = self.spec.apply(
             self.p.as_dict(), data[KEY.NODE_FEATURE], data[KEY.NODE_ATTR])
@@ -170,6 +201,9 @@ class SelfConnectionLinearIntro(nn.Module):
 
     def param_tree(self):
         return self.p.as_dict()
+
+    def init(self, generator):
+        return _linear_init(self.p, generator)
 
     def forward(self, data: Data) -> Data:
         data[KEY.SELF_CONNECTION_TEMP] = self.spec.apply(
@@ -265,9 +299,14 @@ class IrrepsConvolution(nn.Module):
     Reference semantics (sevenn/nn/convolution.py:29-137 and
     interaction_blocks.py:78-84): msg = TP(x[src], Y(r); MLP(radial)),
     x' = linear(sum over the atom's edges of msg / denominator).
-    With an si2 linear, a 2-hidden-layer MLP and no si2 bias, the block
-    runs as one fused call (``ops/fused_conv``: CUDA kernels on the
-    card, the plain chain on the CPU); otherwise as the plain chain.
+    With an si2 linear, a 2-hidden-layer MLP and no si2 bias (the JAX
+    rule), and a layer the kernels take (``FusedConv.kernel_refusal``,
+    decided from the shapes when the conv is built), the block runs as
+    one fused call (``ops/fused_conv``: CUDA kernels on the card, the
+    plain chain on the CPU); otherwise as the plain chain, on any device.
+    ``USE_KERNELS_KEY`` = False in the data sends every layer down the
+    plain chain (the trainer: it needs gradients of gradients, which only
+    the plain chain has). ``kernel_refusal`` says why a layer is refused.
 
     With EDGE_REV and EDGE_DENSE_D in the data the edges follow the dense
     grid (the MD engine), and the sum over an atom's edges is a
@@ -279,7 +318,8 @@ class IrrepsConvolution(nn.Module):
     and EDGE_BESSEL_COEFFS instead of EDGE_ATTR and EDGE_EMBEDDING;
     EDGE_HALF + EDGE_PAIR run the radial MLP once per edge pair on the
     half list, outside the fused conv, which then takes the weights
-    ready-made (``_half_mlp_w``, ``_rows_to_nodes_extw``). The chunked
+    ready-made (``_half_mlp_w``, ``_rows_to_nodes_extw``; its own refusal,
+    ``kernel_refusal(dd, ext_w=True)``, decides this branch). The chunked
     path does not consult the half list (as in the JAX package).
     ``CG_MODE_KEY`` = 'terms' makes the fused conv launch its independently
     derived ``terms`` kernels (dense grid, chunked with shared sh/emb, or
@@ -293,10 +333,12 @@ class IrrepsConvolution(nn.Module):
 
     def __init__(self, tp: UVUTensorProductSpec,
                  weight_nn: FullyConnectedNetSpec, si2: Optional[LinearSpec],
-                 denominator: float, geom: Optional[GeomSpec] = None):
+                 denominator: float, geom: Optional[GeomSpec] = None,
+                 train_denominator: bool = False):
         super().__init__()
         self.tp, self.weight_nn, self.si2 = tp, weight_nn, si2
         self.geom = geom
+        self.train_denominator = bool(train_denominator)
         self.register_buffer('denominator',
                              torch.tensor([denominator], dtype=torch.float32))
         self.weight_nn_p = ParamGroup(weight_nn.param_shapes())
@@ -310,13 +352,31 @@ class IrrepsConvolution(nn.Module):
             tree['si2'] = self.si2_p.as_dict()
         return tree
 
+    def init(self, generator):
+        p = {'weight_nn': self.weight_nn_p.init(generator),
+             'denominator': self.denominator.detach().clone()}
+        mask = {'weight_nn': {k: True for k in p['weight_nn']},
+                'denominator': self.train_denominator}
+        if self.si2_p is not None:
+            p['si2'] = self.si2_p.init(generator)
+            mask['si2'] = {k: True for k in p['si2']}
+        return p, mask
+
     def _fused_eligible(self) -> bool:
         return (self.si2 is not None and len(self.weight_nn.hs) == 4
                 and not self.si2.biases)
 
-    def _geom_eligible(self, data: Data) -> bool:
-        return (self.geom is not None and KEY.EDGE_BESSEL_COEFFS in data
-                and KEY.EDGE_VEC in data and self._fused_eligible())
+    def kernel_refusal(self, dd: int = 0, cg_mode: str = 'cmshared',
+                       ext_w: bool = False) -> Optional[str]:
+        """Why this convolution runs the plain chain on a grid of degree
+        ``dd`` (0: the plain edge list) under ``cg_mode``, or with
+        ``ext_w`` on the half list, or None when the fused conv takes it:
+        the JAX rule, then the kernels' own (``FusedConv.kernel_refusal``).
+        From the shapes alone."""
+        if not self._fused_eligible():
+            return ('no fused conv: it needs an si2 linear without bias and '
+                    'a radial MLP of two hidden layers')
+        return self._conv(dd, ext_w, cg_mode).kernel_refusal
 
     def _conv(self, dd: int, ext_w: bool = False,
               cg_mode: str = 'cmshared') -> FusedConv:
@@ -335,8 +395,8 @@ class IrrepsConvolution(nn.Module):
         return (tuple(mlp[f'w{i}'] for i in range(len(mlp))),
                 tuple(si2[f'w{n}'] for n in range(len(si2))))
 
-    def _rows_to_nodes(self, xg, sh, emb, scale, dd, cg_mode='cmshared'):
-        if self._fused_eligible():
+    def _rows_to_nodes(self, xg, sh, emb, scale, dd, cg_mode, fused):
+        if fused:
             return self._conv(dd, cg_mode=cg_mode)(
                 xg, sh.contiguous(), emb.contiguous(), scale.contiguous(),
                 *self._weights())
@@ -376,10 +436,11 @@ class IrrepsConvolution(nn.Module):
             *self._weights())
 
     def _rows_to_nodes_chunked(self, x, src, rev, feats, coeffs, scale, dd,
-                               chunk_rows, cg_mode='cmshared'):
-        if not self._fused_eligible():
+                               chunk_rows, cg_mode, fused):
+        if not fused:
             raise NotImplementedError(
-                'the chunked convolution runs the fused conv only')
+                'the chunked convolution runs the fused conv only: '
+                + (self.kernel_refusal(dd, cg_mode) or 'use_kernels is off'))
         if chunk_rows % dd:
             raise ValueError(f'chunk of {chunk_rows} rows is not a whole '
                              f'number of atoms (D = {dd})')
@@ -390,14 +451,14 @@ class IrrepsConvolution(nn.Module):
             len(mlp_ws), x, *(f.contiguous() for f in feats), *mlp_ws,
             *si2_ws)
 
-    def _edge_list(self, x, edge_dst, edge_src, sh, emb, scale,
-                   cg_mode='cmshared'):
+    def _edge_list(self, x, edge_dst, edge_src, sh, emb, scale, cg_mode,
+                   fused):
         """The plain edge-list branch: edge rows, then a scatter-add onto
         the destination atoms (``index_add_``; on CUDA by atomics, in no
         fixed order)."""
         xg = x[edge_src]
         n = x.shape[0]
-        if self._fused_eligible():
+        if fused:
             y = self._conv(0, cg_mode=cg_mode)(
                 xg, sh.contiguous(), emb.contiguous(), scale.contiguous(),
                 *self._weights())
@@ -425,7 +486,12 @@ class IrrepsConvolution(nn.Module):
         if cg_mode == 'terms' and (geom or half):
             raise ValueError("cg_mode 'terms' runs neither geometry-fused "
                              'nor on the half list')
-        if geom and not (dense and self._geom_eligible(data)):
+        kernels = bool(data.get(USE_KERNELS_KEY, True))
+        fused = (kernels
+                 and self.kernel_refusal(dd if dense else 0, cg_mode) is None)
+        if geom and not (dense and fused and self.geom is not None
+                         and KEY.EDGE_BESSEL_COEFFS in data
+                         and KEY.EDGE_VEC in data):
             raise ValueError('EDGE_GEOM_PACKED is set but this convolution '
                              'cannot run geometry-fused')
         coeffs = data[KEY.EDGE_BESSEL_COEFFS].to(x.dtype) if geom else None
@@ -438,20 +504,22 @@ class IrrepsConvolution(nn.Module):
                                  'neighbor grid (EDGE_REV + EDGE_DENSE_D)')
             out = self._rows_to_nodes_chunked(x, edge_idx[1], rev, feats,
                                               coeffs, scale, dd, chunk_rows,
-                                              cg_mode)
+                                              cg_mode, fused)
         elif dense:
             xg = gather_rev(x, edge_idx[1], rev, dd)
             if geom:
                 out = self._rows_to_nodes_geom(xg, feats[0], coeffs, scale,
                                                dd)
-            elif half and self._fused_eligible():
+            elif half and kernels and self.kernel_refusal(
+                    dd, ext_w=True) is None:
                 w_eff = self._half_mlp_w(data, feats[1], scale, rev)
                 out = self._rows_to_nodes_extw(xg, feats[0], w_eff, dd)
             else:
-                out = self._rows_to_nodes(xg, *feats, scale, dd, cg_mode)
+                out = self._rows_to_nodes(xg, *feats, scale, dd, cg_mode,
+                                          fused)
         else:
             out = self._edge_list(x, edge_idx[0], edge_idx[1], *feats, scale,
-                                  cg_mode)
+                                  cg_mode, fused)
         out = out[:x.shape[0]]
         if self.si2 is not None:
             bias = self.si2.bias_vector(self.si2_p.as_dict(), out.dtype)
@@ -476,13 +544,18 @@ class EquivariantGate(nn.Module):
 class Rescale(nn.Module):
     """atomic_E = scaled * scale + shift (reference sevenn/nn/scale.py)."""
 
-    def __init__(self, shift: float, scale: float):
+    def __init__(self, shift: float, scale: float,
+                 train_shift_scale: bool = False):
         super().__init__()
         self.register_buffer('shift', torch.tensor([shift]))
         self.register_buffer('scale', torch.tensor([scale]))
+        self.train_shift_scale = bool(train_shift_scale)
 
     def param_tree(self):
         return {'shift': self.shift, 'scale': self.scale}
+
+    def init(self, generator):
+        return _shift_scale_init(self)
 
     def forward(self, data: Data) -> Data:
         data[KEY.ATOMIC_ENERGY] = (data[KEY.SCALED_ATOMIC_ENERGY]
@@ -494,13 +567,17 @@ class SpeciesWiseRescale(nn.Module):
     """Per-species shift/scale indexed by ATOM_TYPE
     (reference sevenn/nn/scale.py:60-161)."""
 
-    def __init__(self, shift, scale):
+    def __init__(self, shift, scale, train_shift_scale: bool = False):
         super().__init__()
         self.register_buffer('shift', torch.tensor(list(shift)))
         self.register_buffer('scale', torch.tensor(list(scale)))
+        self.train_shift_scale = bool(train_shift_scale)
 
     def param_tree(self):
         return {'shift': self.shift, 'scale': self.scale}
+
+    def init(self, generator):
+        return _shift_scale_init(self)
 
     def forward(self, data: Data) -> Data:
         idx = data[KEY.ATOM_TYPE].long()
@@ -508,6 +585,14 @@ class SpeciesWiseRescale(nn.Module):
             data[KEY.SCALED_ATOMIC_ENERGY] * self.scale[idx][..., None]
             + self.shift[idx][..., None])
         return data
+
+
+def _shift_scale_init(layer):
+    """The built shift and scale (the dataset statistics), trainable with
+    ``train_shift_scale``."""
+    p = {'shift': layer.shift.detach().clone(),
+         'scale': layer.scale.detach().clone()}
+    return p, {k: layer.train_shift_scale for k in p}
 
 
 class AtomReduce(nn.Module):

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from .. import _keys as KEY
+from ..ops.fused_conv import USE_KERNELS_KEY
 from ..ops.scatter import scatter_sum
 
 Data = Dict[str, Any]
@@ -40,15 +41,43 @@ class SevenNetModel(nn.Module):
         self.register_buffer('z_to_onehot', torch.from_numpy(lut))
 
     # -- parameters ----------------------------------------------------
+    def init(self, generator: torch.Generator) -> Tuple[Dict, Dict]:
+        """(params, trainable_mask) trees keyed by layer name, drawn from
+        ``generator`` (CPU float32 tensors; JAX ``SevenNetModel.init``).
+        ``load_state(flatten(params))`` puts them into the model."""
+        params, mask = {}, {}
+        for name, layer in self.layers.items():
+            if hasattr(layer, 'init'):
+                params[name], mask[name] = layer.init(generator)
+        return params, mask
+
     def param_tree(self) -> Dict[str, Any]:
         """Parameter buffers in the JAX pytree layout {layer: {...}}."""
         return {name: layer.param_tree()
                 for name, layer in self.layers.items()
                 if hasattr(layer, 'param_tree')}
 
+    def conv_routes(self, agg_d: int = 0,
+                    use_kernels: bool = True) -> List[Dict[str, Any]]:
+        """One entry per convolution: its ``route`` on a grid of degree
+        ``agg_d`` (0: the plain edge list of the calculator and the
+        trainer), 'kernel' (the fused conv: its kernels on the card) or
+        'plain' (the plain chain on any device), and the ``refusal`` that
+        sends it down the plain chain (None on the kernel route)."""
+        from .layers import IrrepsConvolution
+        out = []
+        for name, layer in self.layers.items():
+            if not isinstance(layer, IrrepsConvolution):
+                continue
+            why = (layer.kernel_refusal(agg_d) if use_kernels
+                   else 'use_kernels is off')
+            out.append({'layer': name, 'route': 'plain' if why else 'kernel',
+                        'refusal': why})
+        return out
+
     def state(self) -> Dict[str, torch.Tensor]:
         """Flat {'layer/sub/key': tensor} view of ``param_tree``."""
-        return _flatten(self.param_tree())
+        return flatten(self.param_tree())
 
     @torch.no_grad()
     def load_state(self, state: Dict[str, torch.Tensor]):
@@ -116,7 +145,8 @@ class SevenNetModel(nn.Module):
                                ge[1, 2], ge[2, 0]]) / vol
         return e.detach(), -g, stress.to(pos.dtype)
 
-    def apply(self, data: Data, compute_stress: bool = True) -> Data:
+    def apply(self, data: Data, compute_stress: bool = True,
+              create_graph: bool = False) -> Data:
         """Energy + forces (+ stress) from one gradient with respect to
         EDGE_VEC (reference force_output.py:167-224):
 
@@ -130,15 +160,34 @@ class SevenNetModel(nn.Module):
         on a plain edge list they are two ``index_add_`` scatters. The
         per-graph virial is summed in float64 (as ``AtomReduce`` sums the
         energies): tens of thousands of float32 terms of both signs into
-        six numbers."""
+        six numbers.
+
+        ``create_graph``: energy, forces and stress stay differentiable
+        with respect to the parameters that require a gradient (the
+        trainer's loss). Then the data must be a plain edge list with
+        ``USE_KERNELS_KEY`` False: the dense grid's gathers and the fused
+        conv have first-order backwards only."""
         edge_vec0 = data[KEY.EDGE_VEC]
+        if create_graph and (KEY.EDGE_REV in data
+                             or data.get(USE_KERNELS_KEY, True)):
+            raise ValueError('create_graph runs the plain chain on the plain '
+                             'edge list: no EDGE_REV, USE_KERNELS_KEY False')
         with torch.enable_grad():
             edge_vec = edge_vec0.detach().requires_grad_(True)
             out = self.apply_energy(dict(data, **{KEY.EDGE_VEC: edge_vec}))
             energy = torch.sum(out[KEY.PRED_TOTAL_ENERGY])
-            (fij,) = torch.autograd.grad(energy, edge_vec)
-        out = {k: v.detach() if torch.is_tensor(v) else v
-               for k, v in out.items()}
+            (fij,) = torch.autograd.grad(energy, edge_vec,
+                                         create_graph=create_graph)
+        if not create_graph:
+            out = {k: v.detach() if torch.is_tensor(v) else v
+                   for k, v in out.items()}
+        with torch.set_grad_enabled(create_graph):
+            return self._forces_stress(data, out, edge_vec0, fij,
+                                       compute_stress)
+
+    @staticmethod
+    def _forces_stress(data: Data, out: Data, edge_vec0, fij,
+                       compute_stress: bool) -> Data:
         edge_idx = data[KEY.EDGE_IDX]
         n_nodes = data[KEY.ATOMIC_NUMBERS].shape[0]
         rev, dd = data.get(KEY.EDGE_REV), data.get(KEY.EDGE_DENSE_D)
@@ -165,12 +214,13 @@ class SevenNetModel(nn.Module):
         return out
 
 
-def _flatten(tree, prefix=''):
+def flatten(tree, prefix=''):
+    """{'layer': {'sub': {'key': leaf}}} -> {'layer/sub/key': leaf}."""
     out = {}
     for k, v in tree.items():
         key = f'{prefix}{k}'
         if isinstance(v, dict):
-            out.update(_flatten(v, key + '/'))
+            out.update(flatten(v, key + '/'))
         else:
             out[key] = v
     return out

@@ -30,6 +30,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
 SOURCES = {
     'fused_conv': 'fused_conv.cu',
     'fused_conv_geom': 'fused_conv_geom.cu',
+    'fused_conv_geom_ssp': 'fused_conv_geom.cu',
     'fused_conv_terms': 'fused_conv_terms.cu',
     'fused_tp': 'fused_tp.cu',
     'bench_pieces': 'bench_pieces.cu',
@@ -39,6 +40,11 @@ SOURCES = {
     'bench_layout': 'bench_layout.cu',
     'bench_tile': 'bench_tile.cu',
 }
+
+# the macros of a library built from a shared source: the shifted-softplus
+# instances of the conv kernels are a library of their own, so that a
+# model without that activation never compiles them
+DEFINES = {'fused_conv_geom_ssp': ('-DFUSED_CONV_SSP=1',)}
 
 # the micro-benchmark kernels, by variant (tools/bench_*.py)
 BENCH_KERNELS = (
@@ -99,8 +105,8 @@ def _start(name: str):
         return out, None, None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f'{out}.{os.getpid()}.tmp'
-    cmd = [nvcc_path(), *NVCC_FLAGS, '-Xptxas', '-v', '-o', tmp,
-           source_path(name)]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *DEFINES.get(name, ()), '-Xptxas',
+           '-v', '-o', tmp, source_path(name)]
     return out, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                       stderr=subprocess.PIPE, text=True)
 

@@ -54,7 +54,14 @@ first use into ``_build/``); on CPU tensors it runs the plain version, the
 XLA-path chain of ``model/layers.py::_rows_to_nodes`` (MLP -> TP ->
 reshape-sum -> si2). Any other device raises. The kernels of
 ``fused_conv_geom.cu`` read an instruction's SH block at ``l2^2`` and take
-at most 16 SH components and 15 x entries (``dense_unsupported``).
+at most 16 SH components and 15 x entries (``dense_unsupported``), hidden
+widths of 64 and the activations of ``_ACT_CODE``: silu and tanh in the
+library ``fused_conv_geom``, ssp in ``fused_conv_geom_ssp``, the same
+source built with the shifted softplus (``_geom_ssp_lib``), at a model's
+first launch. The external-weight kernels read no activation. ``kernel_refusal``, decided from the layer's shapes
+when the conv is built, says why the kernels do not take a layer; the
+model then runs that layer as the plain chain (``model/layers.py``), and
+a kernel launched on such a conv raises.
 """
 
 from __future__ import annotations
@@ -90,13 +97,18 @@ _H = 64          # radial MLP hidden width
 _MAXD = 8        # offsets per key in an instruction record (irrep dim <= 7)
 _I_STRIDE = 10 + 3 * _MAXD    # ints per instruction record
 _G_STRIDE = 6                 # ints per si2 group record
-_ACT_CODE = {'silu': 0, 'tanh': 1}
+_ACT_CODE = {'silu': 0, 'tanh': 1, 'ssp': 2}
 
 CG_MODES = ('cmshared', 'terms')
 # data-dict key under which the engine or the calculator names the mode per
 # call (the JAX package's module switch set_cg_mode; absent = 'cmshared').
 # It is the port's own, so it stays out of _keys.py, a copy of the JAX file
 CG_MODE_KEY = 'conv_cg_mode'
+# data-dict key of the switch that sends every convolution down the plain
+# chain (the JAX package's pallas_tp.disabled() / use_pallas=False; absent
+# = True): the trainer sets it, the calculator and the engine carry their
+# ``use_kernels`` argument in it
+USE_KERNELS_KEY = 'conv_use_kernels'
 
 
 # ---------------------------------------------------------------------
@@ -319,8 +331,15 @@ def _lib():
 @functools.lru_cache(maxsize=None)
 def _geom_lib():
     """The dense-grid pair, its edge-row form and the geometry-fused pair,
-    csrc/fused_conv_geom.cu."""
+    csrc/fused_conv_geom.cu, for the activations silu and tanh."""
     return bind_edge(bind_dense(bind_geom(cuda_build.load('fused_conv_geom'))))
+
+
+@functools.lru_cache(maxsize=None)
+def _geom_ssp_lib():
+    """The same kernels for the shifted softplus (activation code 2)."""
+    return bind_edge(bind_dense(bind_geom(
+        cuda_build.load('fused_conv_geom_ssp'))))
 
 
 def bind_edge(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -437,10 +456,29 @@ class FusedConv:
         self._tables: Dict[torch.device, _Tables] = {}
         self._geom_tables: Dict[torch.device, tuple] = {}
         self._packed: Dict[tuple, tuple] = {}
-        # why the kernels cannot take this plan (None: they can)
-        self._unsupported: Optional[str] = (
-            dense_unsupported(tp_spec) if agg_d > 0
-            else edge_unsupported(self))
+        # why the kernels cannot take this layer (None: they can), from its
+        # shapes alone; the model sends a refused layer down the plain chain
+        self.kernel_refusal: Optional[str] = self._refusal()
+
+    def _refusal(self) -> Optional[str]:
+        """The rules of ``_dims``, the tables, ``dense_unsupported`` and
+        ``edge_unsupported`` for the grid degree and mode this conv was
+        built for: the first that refuses the layer, or None."""
+        why = self.kernel_tables(torch.device('cpu')).unsupported
+        if self.ext_w:
+            # the radial MLP runs outside the external-weight kernels
+            return why
+        act = self.mlp.act
+        if act not in _ACT_CODE:
+            return f'fused conv kernel: activation {act!r}'
+        if self.mlp.hs[1] != _H or self.mlp.hs[2] != _H:
+            return (f'fused conv kernel: hidden widths must be {_H}; got '
+                    f'{list(self.mlp.hs[1:3])}')
+        if why or self._terms is not None:
+            # the terms kernels take any such table
+            return why
+        return (dense_unsupported(self.tp) if self.agg_d > 0
+                else edge_unsupported(self))
 
     # -- plain version ------------------------------------------------
     def plain_forward(self, xg, sh, emb, ms, mlp_ws, si2_ws) -> Tensor:
@@ -620,13 +658,10 @@ class FusedConv:
         return got[1]
 
     def _dims(self, t: _Tables, rows: int):
-        if t.unsupported:
-            raise ValueError(t.unsupported)
-        act = self.mlp.act
-        if act not in _ACT_CODE:
-            raise ValueError(f'fused conv kernel: activation {act!r}')
-        if self.mlp.hs[1] != _H or self.mlp.hs[2] != _H:
-            raise ValueError('fused conv kernel: hidden widths must be 64')
+        if self.kernel_refusal:
+            raise ValueError(self.kernel_refusal)
+        # the external-weight kernels read no activation
+        act = 'silu' if self.ext_w else self.mlp.act
         return [rows // self.group, self.group, self.d1, self.f, self.nb,
                 self.w_numel, self.d_out, t.n_ins, t.n_active, t.n_grp,
                 t.n_xent, t.agg_dim, t.n_nz, _ACT_CODE[act],
@@ -667,11 +702,16 @@ class FusedConv:
         """(name, C entry point) of kernel 1 or 2 (``which``: fwd | bwd) in
         csrc/fused_conv_geom.cu: the dense-grid kernel, or with ``agg_d =
         0`` its edge-row form."""
-        if self._unsupported:
-            raise ValueError(self._unsupported)
+        if self.kernel_refusal:
+            raise ValueError(self.kernel_refusal)
         name = (f'fused_conv_edge_{which}' if self.agg_d == 0
                 else f'fused_conv_{which}')
-        return name, getattr(_geom_lib(), name)
+        return name, getattr(self._geom_kernels(), name)
+
+    def _geom_kernels(self) -> ctypes.CDLL:
+        """The library of csrc/fused_conv_geom.cu built for this layer's
+        activation."""
+        return _geom_ssp_lib() if self.mlp.act == 'ssp' else _geom_lib()
 
     def kernel_forward(self, xg, sh, emb, ms, mlp_ws, si2_ws) -> Tensor:
         """Launch ``fused_conv_fwd``, or ``fused_conv_edge_fwd`` with
@@ -755,7 +795,7 @@ class FusedConv:
         out = torch.empty((rows // self.group, self.d_out),
                           dtype=xg.dtype, device=xg.device)
         P = self._ptr
-        err = _geom_lib().fused_conv_geom_fwd(
+        err = self._geom_kernels().fused_conv_geom_fwd(
             P(xg), P(vec), P(ms), P(w0), P(w1), P(w2), P(si2),
             *self._table_ptrs(t), *self._dims(t, rows), *geom_args, P(out),
             ctypes.c_void_p(torch.cuda.current_stream(xg.device).cuda_stream))
@@ -778,7 +818,7 @@ class FusedConv:
         w0, w1, w1t, w2, w2t, _, si2t = self._pack(mlp_ws, si2_ws)
         dvec = torch.empty_like(vec)
         P = self._ptr
-        err = _geom_lib().fused_conv_geom_bwd(
+        err = self._geom_kernels().fused_conv_geom_bwd(
             P(g), P(xg), P(vec), P(ms), P(w0), P(w1), P(w1t), P(w2),
             P(w2t), P(si2t), *self._table_ptrs(t), *self._dims(t, rows),
             *geom_args, P(dxg), P(dvec),

@@ -37,7 +37,7 @@ from .tensor_product import (
 Tensor = torch.Tensor
 
 _H = 64
-_ACT_CODE = {'silu': 0, 'tanh': 1}
+_ACT_CODE = {'silu': 0, 'tanh': 1, 'ssp': 2}
 _POOL = TermPool('fused_conv_terms', 'fused_conv_terms')
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_long,
                   ctypes.c_float)

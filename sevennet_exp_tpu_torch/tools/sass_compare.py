@@ -19,7 +19,10 @@ its template switch).
 ``count(NAME)`` gives the static opcode counts of one source's kernels
 instead (``chip_smoke.py`` checks with it that the micro-benchmarks'
 repeated passes and dense products are all issued, and that the fp32 dot
-kernels use no tensor-core opcode).
+kernels use no tensor-core opcode); ``count_and_digests(NAMES)`` gives
+both for several libraries, compiled together. A library is compiled with
+its macros (``cuda_build.DEFINES``: ``fused_conv_geom_ssp`` is
+``csrc/fused_conv_geom.cu``'s shifted-softplus build).
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
-from typing import Dict
+from typing import Dict, Iterable, Tuple
 
 from ..ops import cuda_build
 
@@ -155,12 +158,20 @@ def opcode_counts(sass: str) -> Dict[str, Dict[str, int]]:
     return out
 
 
-def _cubin(src: str, out_dir: str, tag: str) -> str:
+def _cubin_cmd(src: str, out_dir: str, tag: str):
+    """(nvcc command, cubin path) of SRC with the port's flags and the
+    macros of library TAG, if it has any."""
     flags = [f for f in cuda_build.NVCC_FLAGS
              if f not in ('-shared', '-Xcompiler', '-fPIC')]
     out = os.path.join(out_dir, f'{tag}.cubin')
-    subprocess.run([cuda_build.nvcc_path(), *flags, '-cubin', '-o', out, src],
-                   check=True, capture_output=True, text=True)
+    return ([cuda_build.nvcc_path(), *flags,
+             *cuda_build.DEFINES.get(tag, ()), '-cubin', '-o', out, src],
+            out)
+
+
+def _cubin(src: str, out_dir: str, tag: str) -> str:
+    cmd, out = _cubin_cmd(src, out_dir, tag)
+    subprocess.run(cmd, check=True, capture_output=True, text=True)
     return out
 
 
@@ -175,8 +186,9 @@ def run(other: str, name: str = 'fused_conv') -> Dict:
     """Compile both sources and compare them; a = OTHER, b = csrc/'s."""
     with tempfile.TemporaryDirectory() as tmp:
         texts = []
-        for tag, src in (('a', other), ('b', cuda_build.source_path(name))):
-            cubin = _cubin(src, tmp, tag)
+        for side, src in (('a', other), ('b', cuda_build.source_path(name))):
+            os.makedirs(os.path.join(tmp, side))
+            cubin = _cubin(src, os.path.join(tmp, side), name)
             texts.append((_cuobjdump('-sass', cubin),
                           _cuobjdump('-res-usage', cubin)))
     res = compare(texts[0][0], texts[1][0], texts[0][1], texts[1][1])
@@ -190,6 +202,29 @@ def count(name: str) -> Dict[str, Dict[str, int]]:
     with tempfile.TemporaryDirectory() as tmp:
         cubin = _cubin(cuda_build.source_path(name), tmp, name)
         return opcode_counts(_cuobjdump('-sass', cubin))
+
+
+def count_and_digests(names: Iterable[str]) -> Dict[
+        str, Tuple[Dict[str, Dict[str, int]], Dict[str, str]]]:
+    """{name: (``count(name)``, ``digests(name)``)} of libraries NAMES,
+    one nvcc each, all started together."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = []
+        for name in names:
+            cmd, cubin = _cubin_cmd(cuda_build.source_path(name), tmp, name)
+            jobs.append((name, cubin, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        for name, cubin, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode:
+                raise RuntimeError(f'nvcc failed on {name}:\n{err}')
+            sass = _cuobjdump('-sass', cubin)
+            out[name] = (opcode_counts(sass), {
+                k: hashlib.sha1(v.encode()).hexdigest()[:12]
+                for k, v in split_functions(sass).items()})
+    return out
 
 
 def digests(name: str, src: str = None) -> Dict[str, str]:

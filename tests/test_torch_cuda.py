@@ -299,18 +299,22 @@ def test_geom_launch_shape_matches_python_mirror(cuda, model):
 def _geom_source_instances(pair):
     """{label: opcode counts} of csrc/fused_conv_geom.cu's kernel instances
     of one pair ('geom': rows 5-6; 'dense': kernels 1-2; 'edge': their
-    edge-row form), labelled fwd, bwd4, bwd9, bwd16."""
+    edge-row form; with '_ssp', of the shifted-softplus build), labelled
+    fwd, bwd4, bwd9, bwd16."""
     from sevennet_exp_tpu_torch.tools import sass_compare
+    base = pair.removesuffix('_ssp')
+    lib = 'fused_conv_geom_ssp' if base != pair else 'fused_conv_geom'
     return {sass_compare.geom_label(k): v
-            for k, v in sass_compare.count('fused_conv_geom').items()
-            if sass_compare.geom_pair(k) == pair}
+            for k, v in sass_compare.count(lib).items()
+            if sass_compare.geom_pair(k) == base}
 
 
-@pytest.mark.parametrize('pair', ['geom', 'dense', 'edge'])
+@pytest.mark.parametrize('pair', ['geom', 'dense', 'edge', 'geom_ssp',
+                                  'dense_ssp', 'edge_ssp'])
 def test_geom_kernels_sass_fp32_cuda_cores_no_local_memory(cuda, pair):
     """Rows 5-6, kernels 1-2 and their edge-row form: FFMA on the CUDA
     cores, no tensor-core opcode, nothing in local memory (no spill, no
-    stack array), in every instance."""
+    stack array), in every instance, the shifted-softplus ones too."""
     from sevennet_exp_tpu_torch.tools import sass_compare
     counts = _geom_source_instances(pair)
     # forward, backward at 4, 9, 16 SH
@@ -353,6 +357,24 @@ def test_dense_instances_sass_identical_to_parent(cuda):
            sass_compare.digests('fused_conv_geom').items()
            if sass_compare.geom_pair(k) == 'dense'}
     assert got == PARENT_DENSE_SASS
+
+
+# SASS digests of the edge pair (kernels 1-2 at agg_d = 0) built from the
+# tree before the shifted softplus joined csrc/fused_conv_geom.cu, by
+# label, same nvcc on the card machine
+PARENT_EDGE_SASS = {'fwd': '1bd8cca68cf4', 'bwd4': '2b2ea3b3dae0',
+                    'bwd9': '785447e4d5fa', 'bwd16': '3d5b2d34c0c5'}
+
+
+def test_edge_instances_sass_identical_to_parent(cuda):
+    """The shifted softplus is a build of its own: each edge instance of
+    the silu / tanh build keeps the earlier kernel's SASS digest (the dense
+    and geom ones: the two tests above)."""
+    from sevennet_exp_tpu_torch.tools import sass_compare
+    got = {sass_compare.geom_label(k): v for k, v in
+           sass_compare.digests('fused_conv_geom').items()
+           if sass_compare.geom_pair(k) == 'edge'}
+    assert got == PARENT_EDGE_SASS
 
 
 # SASS digests (tools/sass_compare.digests) of the conv kernels whose code
@@ -961,3 +983,135 @@ def test_bench_tile_kernels_match_plain(cuda, variant):
         ref2 = bt.plain(variant, x, s, T)
         assert (got2 - ref2).abs().max() <= 1e-4 * ref2.abs().max()
         assert (got2 - got).abs().max() > 1e-3
+
+
+# -- refused layers and the shifted softplus ----------------------------------
+
+def _tiny_config(**over):
+    """A small 7net-0-style config (chemical species given, so no dataset
+    statistics are needed)."""
+    from sevennet_exp_tpu_torch.util import chemical_species_preprocess
+    config = {
+        'cutoff': 4.0, 'channel': 4,
+        'radial_basis': {'radial_basis_name': 'bessel'},
+        'cutoff_function': {'cutoff_function_name': 'poly_cut'},
+        'lmax': 2, 'is_parity': True, 'num_convolution_layer': 2,
+        'weight_nn_hidden_neurons': [64, 64], 'act_radial': 'silu',
+        'conv_denominator': 30.0, 'self_connection_type': 'linear',
+        'shift': -10.0, 'scale': 10.0,
+    }
+    config.update(chemical_species_preprocess(['Na', 'Cl']))
+    config.update(over)
+    return config
+
+
+def _random_model(config, seed, device):
+    from sevennet_exp_tpu_torch.model.build import build_e3_equivariant_model
+    from sevennet_exp_tpu_torch.model.model import flatten
+    model = build_e3_equivariant_model(config)
+    params, _ = model.init(torch.Generator().manual_seed(seed))
+    model.load_state(flatten(params))
+    return model.to(device)
+
+
+@pytest.mark.parametrize('use_kernels', [True, False])
+@pytest.mark.parametrize('hidden', [[32, 32], [64, 64]])
+def test_refused_and_switched_off_layers_run_plain_on_the_card(
+        cuda, hidden, use_kernels):
+    """A model whose radial MLP the kernels refuse (hidden [32, 32]), and
+    any model with use_kernels=False, runs the plain chain on the card:
+    no conv kernel launches, and E/F match the CPU to 1e-4 eV, 1e-4 eV/A."""
+    import copy
+    from sevennet_exp_tpu_torch.calculator import SevenNetCalculator
+    from sevennet_exp_tpu_torch.data.graph import build_nacl
+    from sevennet_exp_tpu_torch.ops import fused_conv as fc
+    model = _random_model(_tiny_config(weight_nn_hidden_neurons=hidden), 3,
+                          'cpu')
+    plain = hidden != [64, 64] or not use_kernels
+    routes = model.conv_routes(0, use_kernels=use_kernels)
+    assert {r['route'] for r in routes} == {'plain' if plain else 'kernel'}
+    at = build_nacl(64, rattle=0.1, seed=2)
+    at.pos = at.pos * (3.4 / 5.63)
+    at.cell = at.cell * (3.4 / 5.63)
+    ref = SevenNetCalculator(copy.deepcopy(model), device='cpu',
+                             use_kernels=use_kernels).calculate(at)
+    fc.reset_launch_counts()
+    res = SevenNetCalculator(model, device=cuda,
+                             use_kernels=use_kernels).calculate(at)
+    launched = sum(v for k, v in fc.launch_counts.items()
+                   if k.startswith('fused_conv'))
+    assert launched == (0 if plain else 4)
+    assert abs(res['energy'] - ref['energy']) <= 1e-4
+    assert np.abs(res['forces'] - ref['forces']).max() <= 1e-4
+
+
+@pytest.mark.parametrize('mode', ['dense', 'edge', 'geom', 'terms16',
+                                  'terms0'])
+def test_ssp_kernels_match_plain(cuda, model, mode):
+    """A radial MLP with the shifted softplus runs the kernels (activation
+    code 2: the library fused_conv_geom_ssp, the terms pair's third
+    branch) and matches the plain version to 1e-4 of its largest entry."""
+    from sevennet_exp_tpu_torch.ops import fused_conv as fc
+    from sevennet_exp_tpu_torch.ops.tensor_product import (
+        FullyConnectedNetSpec)
+    cl = model.layers['1_convolution']
+    mlp = FullyConnectedNetSpec(cl.weight_nn.hs, 'ssp')
+    degree = 0 if mode in ('edge', 'terms0') else 16
+    conv = fc.FusedConv(cl.tp, mlp, cl.si2, degree,
+                        geom=cl.geom if mode == 'geom' else None,
+                        cg_mode='terms' if 'terms' in mode else 'cmshared')
+    assert conv.kernel_refusal is None
+    mlp_ws, si2_ws = cl._weights()
+    fc.reset_launch_counts()
+    if mode == 'geom':
+        _assert_geom_kernels_match_plain(
+            conv, _geom_inputs(conv, 11, 16, cuda, 5), mlp_ws, si2_ws)
+        assert fc.launch_counts['fused_conv_geom_fwd'] == 1
+        return
+    xg, sh, emb, ms, g, pad = _plain_inputs(conv, 11 * 16, cuda, 6)
+    y_k = conv.forward(xg, sh, emb, ms, mlp_ws, si2_ws)
+    d_k = conv.backward(g, xg, sh, emb, ms, mlp_ws, si2_ws)
+    assert sum(fc.launch_counts.values()) == 2
+    y_p = conv.plain_forward(xg, sh, emb, ms, mlp_ws, si2_ws)
+    d_p = conv.plain_backward(g, xg, sh, emb, ms, mlp_ws, si2_ws)
+    torch.cuda.synchronize()
+    assert (y_k - y_p).abs().max() <= 1e-4 * y_p.abs().max()
+    for a, b in zip(d_k, d_p):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max() <= 1e-4 * max(b.abs().max(), 1e-6)
+
+
+def test_training_step_on_the_card_matches_cpu(cuda):
+    """One loss and its gradients of the trainer on the card (plain chain,
+    second order) against the CPU: loss to 1e-5 relative, each gradient
+    leaf to 1e-4 of its largest entry; no conv kernel launches."""
+    from sevennet_exp_tpu_torch.data.graph import (
+        atoms_to_graph, build_nacl, collate_graphs)
+    from sevennet_exp_tpu_torch.ops import fused_conv as fc
+    from sevennet_exp_tpu_torch.train.trainer import Trainer
+    config = _tiny_config(is_train_stress=True, loss='huber',
+                          loss_param={'delta': 0.01}, force_loss_weight=25.0,
+                          stress_loss_weight=0.01)
+    rng = np.random.default_rng(0)
+    graphs = []
+    for seed in range(3):
+        at = build_nacl(64, rattle=0.1, seed=seed)
+        at.pos, at.cell = at.pos * (3.4 / 5.63), at.cell * (3.4 / 5.63)
+        at.energy = float(rng.normal(-200, 1))
+        at.forces = rng.normal(size=(64, 3))
+        at.stress = rng.normal(size=6) * 1e-3
+        graphs.append(atoms_to_graph(at, config['cutoff']))
+    got = {}
+    for dev in ('cpu', cuda):
+        model = _random_model(config, 4, 'cpu')
+        params, mask = model.init(torch.Generator().manual_seed(4))
+        trainer = Trainer(model, params, mask, config, device=dev)
+        fc.reset_launch_counts()
+        got[str(dev)] = trainer.loss_and_grads(trainer.batch_to_device(
+            collate_graphs(graphs)))
+        assert sum(fc.launch_counts.values()) == 0
+    (l_c, g_c), (l_g, g_g) = got['cpu'], got[str(cuda)]
+    assert abs(float(l_g) - float(l_c)) <= 1e-5 * abs(float(l_c))
+    for k in g_c:
+        lim = 1e-4 * max(float(g_c[k].abs().max()), 1e-12)
+        assert float((g_g[k].cpu() - g_c[k]).abs().max()) <= lim, k

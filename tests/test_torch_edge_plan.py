@@ -238,8 +238,9 @@ def test_edge_replay_reproduces_plain(checkpoint_convs, which, rows, tail):
 
 
 def test_edge_kernels_refuse_plans_they_cannot_hold():
-    """The edge pair takes what the dense pair takes; the plain version
-    still takes the rest."""
+    """The edge pair takes what the dense pair takes; the conv reports the
+    rest as its ``kernel_refusal`` when it is built, and the model sends
+    such a layer down the plain chain (tests/test_torch_conv_routes.py)."""
     from sevennet_exp_tpu_torch.irreps import Irreps, infer_irreps_out
     from sevennet_exp_tpu_torch.ops.tensor_product import (
         FullyConnectedNetSpec, LinearSpec, UVUTensorProductSpec)
@@ -250,6 +251,7 @@ def test_edge_kernels_refuse_plans_they_cannot_hold():
     si2 = LinearSpec(tp.irreps_out, x)
     conv = pfc.FusedConv(tp, mlp, si2, 0)
     assert 'l2^2' in pfc.edge_unsupported(conv)
+    assert conv.kernel_refusal == pfc.edge_unsupported(conv)
     # a plan it takes
     tp, mlp, si2, _ = _tiny_plans()[0]
     assert pfc.edge_unsupported(pfc.FusedConv(tp, mlp, si2, 0)) is None

@@ -147,3 +147,28 @@ def test_digests_agree_with_compare(monkeypatch):
     res = sass_compare.compare(texts['a'], texts['c'])
     assert res['kernels']['_Z3barPf']['sha1'] == [d['a']['_Z3barPf'],
                                                   d['c']['_Z3barPf']]
+
+
+def test_count_and_digests_of_several_libraries(monkeypatch):
+    """One compile per library, started together, gives each library's
+    ``count`` and ``digests``; a library's macros reach its nvcc."""
+    texts = {'fused_conv_geom': SASS.replace('{OP}', 'NOP ;'),
+             'fused_conv_geom_ssp': SASS.replace('{OP}', 'LDL R0, [R1] ;')}
+    monkeypatch.setattr(sass_compare.cuda_build, 'nvcc_path', lambda: 'nvcc')
+    cmd, _ = sass_compare._cubin_cmd('x.cu', '/tmp', 'fused_conv_geom_ssp')
+    assert '-DFUSED_CONV_SSP=1' in cmd
+    assert not any(f.startswith('-D') for f in sass_compare._cubin_cmd(
+        'x.cu', '/tmp', 'fused_conv_geom')[0])
+    monkeypatch.setattr(sass_compare, '_cubin_cmd',
+                        lambda src, out_dir, tag: (['true'], tag))
+    monkeypatch.setattr(sass_compare, '_cubin',
+                        lambda src, out_dir, tag: tag)
+    monkeypatch.setattr(sass_compare, '_cuobjdump',
+                        lambda flag, cubin: texts[cubin])
+    got = sass_compare.count_and_digests(tuple(texts))
+    assert set(got) == set(texts)
+    for name, (counts, digests) in got.items():
+        assert counts == sass_compare.count(name)
+        assert digests == sass_compare.digests(name)
+    assert got['fused_conv_geom_ssp'][0]['_Z3barPf']['LDL'] == 1
+    assert got['fused_conv_geom'][1] != got['fused_conv_geom_ssp'][1]
