@@ -25,8 +25,10 @@ Phases (any failure raises, exits non-zero and prints no result):
      (csrc/*.cu, one nvcc per source, all started together; ptxas' report);
      per layer, the registers, local bytes and blocks an SM of kernels 1-2
      as launched (at least three forward and two backward blocks, no local
-     memory) and of their edge-row form, the edge pair (at least two each
-     way, no local memory);
+     memory), of their edge-row form, the edge pair (at least two each
+     way, no local memory), and of the two redesigned backwards, the terms
+     backward (both forms) and the external-weight backward (at least two
+     blocks, no local memory);
   2. each kernel against its plain PyTorch version on the 1k path's real
      inputs (trained checkpoint; kernels 1-2 on all five layers, their pad
      rows' gradients exactly zero and a second launch bit-identical; the
@@ -92,7 +94,9 @@ Phases (any failure raises, exits non-zero and prints no result):
      ``fused_conv_geom_ssp``, the shifted softplus), compiled together: no
      tensor-core and no local-memory opcode, and the silu / tanh instances
      at the SASS they had before the shifted softplus joined
-     (``PARENT_GEOM_SASS``); the
+     (``PARENT_GEOM_SASS``); the external-weight backward's three instances
+     (the build ``fused_conv_geom_extw``) and the terms backward's two,
+     compiled with them: no tensor-core and no local-memory opcode; the
      entries of the twelve kernels above (the six kernels, the edge-row
      form of kernels 1-2, the terms pair and the tensor-product pair);
  15. the micro-benchmarks at their default sizes through their entry
@@ -1130,6 +1134,30 @@ def main():
             report['edge_resources'].append(dict(layer=li, kernel=k,
                                                  **r._asdict()))
 
+    # the redesigned backwards as launched at each layer: the terms pair's
+    # (both forms) and the external-weight one
+    report['bwd_resources'] = []
+    for li in range(5):
+        cl = model.layers[f'{li}_convolution']
+        for kind, dd in (('terms', md.deg_cap), ('terms', 0),
+                         ('extw', md.deg_cap)):
+            if kind == 'terms':
+                conv = FC(cl.tp, cl.weight_nn, cl.si2, dd, cg_mode='terms')
+                regs, local, per_sm = conv._terms.bwd_resources(dd)
+                smem = 4 * conv._terms.bwd_plan(dd).words
+            else:
+                conv = FC(cl.tp, cl.weight_nn, cl.si2, dd, ext_w=True)
+                regs, local, per_sm, smem = conv.extw_resources(dev)
+            print(f'{kind} backward (agg_d {dd}), layer {li}: {regs} '
+                  f'registers, {local} local bytes, {per_sm} blocks an SM at '
+                  f'{smem} shared bytes', flush=True)
+            if local or per_sm < 2:
+                raise AssertionError(f'{kind} backward agg_d {dd} layer {li}:'
+                                     f' {regs}, {local}, {per_sm}')
+            report['bwd_resources'].append(dict(
+                layer=li, kernel=kind, agg_d=dd, registers=regs,
+                local_bytes=local, blocks_per_sm=per_sm, smem=smem))
+
     nl = md._grid()
     with recorded() as (records, _):
         e_k, f_k = md._ef_fn(md.state.pos, nl)
@@ -1762,8 +1790,25 @@ def main():
     # the template's geom, dense and edge instances): fp32 on the CUDA
     # cores, nothing in local memory
     from sevennet_exp_tpu_torch.tools import sass_compare
-    builds = sass_compare.count_and_digests(('fused_conv_geom',
-                                             'fused_conv_geom_ssp'))
+    builds = sass_compare.count_and_digests(
+        ('fused_conv_geom', 'fused_conv_geom_ssp', 'fused_conv_geom_extw',
+         'fused_conv_terms'))
+    # the redesigned backwards: the external-weight backward at 4, 9, 16
+    # SH, the terms backward's two forms
+    for lib, want in (('fused_conv_geom_extw', 3), ('fused_conv_terms', 2)):
+        # (the terms forward, not redesigned, keeps two LDL: ROADMAP B)
+        counts = {k: v for k, v in builds.pop(lib)[0].items() if 'bwd' in k}
+        if len(counts) != want:
+            raise AssertionError(f'{lib}: {len(counts)} kernel instances, '
+                                 f'want {want}')
+        for k, v in counts.items():
+            bad = {op: v[op] for op in (*sass_compare.TENSOR_CORE_OPS,
+                                        *sass_compare.LOCAL_OPS) if v[op]}
+            print(f'{lib} {k}: SASS {v}', flush=True)
+            if bad or not v['FFMA']:
+                raise AssertionError(f'{lib} {k}: tensor-core or local-memory'
+                                     f' opcodes {bad}, {v["FFMA"]} FFMA')
+        report[f'{lib}_sass'] = counts
     geom_sass = {}
     for lib, (counts, _) in builds.items():
         got = {k: v for k, v in counts.items() if sass_compare.geom_label(k)}
@@ -1840,7 +1885,13 @@ def main():
         b_ms, b_by = bound(total(f'{k}_flops', extw_layers),
                            total(f'{k}_bytes', extw_layers))
         kernels.append({
-            'name': name, 'route': 'cuda', 'source': source,
+            'name': name, 'route': 'cuda',
+            'source': source if k == 'fwd' else
+            'sevennet_exp_tpu_torch/csrc/fused_conv_geom.cu',
+            **({} if k == 'fwd' else {
+                'status': 'redesigned for Hopper on the dense backward\'s '
+                          'class pass, weights streamed as whole rows: '
+                          'csrc/fused_conv_geom.cu (fused_conv_geom_extw)'}),
             'replaces': f'sevennet_exp_tpu/ops/pallas_conv.py:{line}',
             'launches': report['nvt_half_mlp']['launches'][name],
             'max_abs_err': max(errs),
@@ -1880,6 +1931,10 @@ def main():
         kernels.append({
             'name': name, 'route': 'cuda',
             'source': 'sevennet_exp_tpu_torch/csrc/fused_conv_terms.cu',
+            **({} if k == 'fwd' else {
+                'status': 'redesigned for Hopper: the CG folded with the '
+                          'message cotangent, register-blocked MLP '
+                          'products, 16-row tiles, a persistent grid'}),
             'replaces': f'sevennet_exp_tpu/ops/pallas_conv.py:{line}',
             'launches': report['npt_terms']['launches'][name],
             'max_abs_err': max(errs),

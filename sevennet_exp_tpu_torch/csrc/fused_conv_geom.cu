@@ -164,6 +164,11 @@ constexpr int K_DENSE = 0, K_GEOM = 1, K_EDGE = 2;
 #ifndef FUSED_CONV_SSP
 #define FUSED_CONV_SSP 0
 #endif
+// the external-weight backward (row 8) is a build of its own,
+// fused_conv_geom_extw (-DFUSED_CONV_EXTW=1), compiling that kernel only
+#ifndef FUSED_CONV_EXTW
+#define FUSED_CONV_EXTW 0
+#endif
 constexpr bool SSP_BUILD = FUSED_CONV_SSP != 0;
 constexpr int ACT_SSP = 2;
 
@@ -1826,6 +1831,349 @@ int resources_of(const Plan& P, bool bwd, int* out) {
                    Reserved<true, 16, MODE>::bytes, out);
 }
 
+#if FUSED_CONV_EXTW
+// ---------------------------------------------------------------------
+// the external-weight backward (fused_conv_extw_bwd, row 8)
+// ---------------------------------------------------------------------
+//
+// Replaces make_fused_conv(agg_d > 0, ext_w).bwd_kernel_cm_w
+// (sevennet_exp_tpu/ops/pallas_conv.py, _cm_bwd_core): from the node
+// cotangent g, the rows' xg, sh and weights weff (already scaled by the
+// mask), dxg, dsh and dweff; no MLP. Built only in the library
+// fused_conv_geom_extw (-DFUSED_CONV_EXTW=1, ops/cuda_build.py), which
+// compiles nothing else of this file, so the 12 instances of the default
+// build keep their code.
+//
+// What bounds it on this card: bytes. A mid layer reads ~4.3 kB a row (xg,
+// sh, 576 live weights) and writes as much (dxg, dsh, dweff) for ~13k
+// multiply-adds: ~1.5 flop/byte, far under the fp32 ridge. Its first design
+// (fused_conv_body.cuh, bwd_body<M_EXTW>) ran at ~8 % of that bound: three
+// table-driven CG passes per 8-row tile (dweff, dxg scanning every x entry
+// per column, dsh), two table and two operand loads per multiply-add, one
+// block per atom and a scattered store of every dead weight column.
+// What this design does:
+//  - The CG is the class pass of the backward above (bwd_class_item: per
+//    (x entry, row, channel) every live instruction that reads the entry,
+//    unrolled per (l1, l2, l3) from cg_patterns.cuh, operands in registers,
+//    dsh summed over the warp by the butterfly), one pass for all three
+//    cotangents; w comes from weff and dw goes back to dweff.
+//  - weff and dweff move as whole rows: the tile's rows are one contiguous
+//    block, read by 16-byte loads (four in flight a thread) into the live
+//    columns' slots (a per-block map from weight column to live column)
+//    and written back by 16-byte streaming stores, dead columns as zeros;
+//    dsh rows the same way.
+//  - Tiles of up to 32 rows (a whole atom at D = 32, two blocks an SM), a
+//    persistent grid, and gm = alpha W^T g once an atom with one 16-byte
+//    load of W^T per 4 multiply-adds.
+// A row whose live weights are all zero is a pad: its dxg, dsh and dweff
+// rows are exact zeros. Sums run in a fixed order (no atomics).
+
+constexpr int TX = 32;       // rows per tile at most
+constexpr int OX = 32;       // per-atom W^T g: o a lane, about
+
+// shared words of one block at T rows (the C entry holds the caller's
+// number against it)
+__host__ __device__ inline int extw_words(const Plan& P, int T) {
+  auto r4 = [](int n) { return (n + 3) & ~3; };
+  const int nap = r4(P.n_active);
+  return table_words(P) + r4(P.n_ins) + r4((P.n_xent + 1) * 5) + r4(P.wn)
+         + r4(P.d_out) + r4(P.agg_dim) + T * nap + NW * T * SHP + T * SHP
+         + r4(T);
+}
+
+template <int NSH>
+__global__ void __launch_bounds__(NT, 2)
+fused_conv_extw_bwd_kernel(const float* __restrict__ gout,
+                           const float* __restrict__ xg,
+                           const float* __restrict__ sh,
+                           const float* __restrict__ weff,
+                           const float* __restrict__ si2wt, Plan P, int T,
+                           float* __restrict__ dxg, float* __restrict__ dsh,
+                           float* __restrict__ dweff) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  auto r4 = [](int n) { return (n + 3) & ~3; };
+  int* ins_s = reinterpret_cast<int*>(smem);
+  int* nzi_s = ins_s + P.n_ins * I_STRIDE;
+  float* nzc_s = reinterpret_cast<float*>(nzi_s + P.n_nz);
+  float* next_s = smem + table_words(P);
+  auto take = [&next_s](int n) {
+    float* q = next_s; next_s += n; return q;
+  };
+  const int nap = r4(P.n_active);
+  float* sc_s = take(r4(P.n_ins));
+  XClass* cls_s = reinterpret_cast<XClass*>(take(r4((P.n_xent + 1) * 5)));
+  int* wc_s = reinterpret_cast<int*>(take(r4(P.wn)));  // weight -> live col
+  float* g_s = take(r4(P.d_out));
+  float* gm_s = take(r4(P.agg_dim));
+  float* w_s = take(T * nap);                          // w, then dw
+  float* dshp_s = take(NW * T * SHP);                  // dsh per warp
+  float* sh_s = take(T * SHP);
+  float* ms_s = take(r4(T));                           // 1: a live row
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  load_tables(P, ins_s, nzi_s, nzc_s);
+  for (int i = tid; i < P.wn; i += NT) wc_s[i] = -1;
+  __syncthreads();
+  for (int c = tid; c < P.n_active; c += NT) wc_s[__ldg(P.col_w + c)] = c;
+  for (int i = tid; i < P.n_ins; i += NT) {
+    const int* I = ins_s + i * I_STRIDE;
+    float sc = 0.f;
+    switch (shape_key(I)) {
+#define EXTW_SCALE_CASE(a, b, c) \
+      case a * 16 + b * 4 + c: sc = pattern_scale<a, b, c>(I, nzc_s); break;
+      CG_SHAPES(EXTW_SCALE_CASE)
+#undef EXTW_SCALE_CASE
+    }
+    sc_s[i] = sc;
+  }
+  // the i1 classes (x entries): item ranges for T rows, each padded to a
+  // warp, every x entry (a thread writes its dxg columns)
+  if (tid == 0) {
+    int n_items = 0;
+    for (int xe = 0; xe < P.n_xent; ++xe) {
+      const int* X = P.xent + xe * X_STRIDE;
+      const int mul = X[X_MUL];
+      XClass C;
+      C.lanes = mul % 32 == 0 ? 32 : mul;
+      C.uit = mul % 32 == 0 ? mul / 32 : 1;
+      C.start = n_items;
+      C.xe = xe;
+      C.l1 = (X[X_DIM] - 1) / 2;
+      cls_s[xe] = C;
+      n_items += (T * C.lanes + 31) & ~31;
+    }
+    cls_s[P.n_xent].start = n_items;     // end marker
+    cls_s[P.n_xent].xe = -1;
+  }
+  __syncthreads();
+  const int n_items = cls_s[P.n_xent].start;
+  const bool g4 = (reinterpret_cast<size_t>(si2wt) & 15) == 0;
+
+  for (int atom = blockIdx.x; atom < P.n_atoms; atom += gridDim.x) {
+    __syncthreads();
+    for (int i = tid; i < P.d_out; i += NT)
+      g_s[i] = gout[(long)atom * P.d_out + i];
+    __syncthreads();
+    // gm[p][r] = alpha sum_o W^T[o][r] g[p][o], once per atom. A unit is
+    // (si2 group, component p, 4 consecutive r); its o range is cut into L
+    // parts (L a power of two, at most 8, a part about OX o) run by L
+    // neighbouring lanes and summed by an xor butterfly; each group's lanes
+    // start on a warp. One 16-byte load of W^T per 4 FMA.
+    {
+      auto lanes_of = [](int mo) {
+        const int np = (mo + OX - 1) / OX;
+        return np > 4 ? 8 : np > 2 ? 4 : np;
+      };
+      auto n_slots = [&](const int* Gr) {
+        return (Gr[G_DIM3] * ((Gr[G_K] + 3) / 4) * lanes_of(Gr[G_MO]) + 31)
+               & ~31;
+      };
+      int total = 0;
+      for (int g = 0; g < P.n_grp; ++g) total += n_slots(P.grp + g * G_STRIDE);
+      for (int s0 = warp * 32; s0 < total; s0 += NT) {
+        int g = 0, base = 0;
+        while (s0 >= base + n_slots(P.grp + g * G_STRIDE)) {
+          base += n_slots(P.grp + g * G_STRIDE);
+          ++g;
+        }
+        const int* Gr = P.grp + g * G_STRIDE;
+        const int K = Gr[G_K], mo = Gr[G_MO], kq = (K + 3) / 4;
+        const int L = lanes_of(mo), slot = s0 + lane - base, j = slot % L;
+        const int unit = slot / L;
+        const bool on = unit < Gr[G_DIM3] * kq;
+        const int r = 4 * (unit % kq), p = unit / kq;
+        const int len = (mo + L - 1) / L;
+        const int o0 = on ? j * len : 0, o1 = on ? min(mo, o0 + len) : 0;
+        const float* WT = si2wt + Gr[G_WOFF] + r;   // (mo, K)
+        const bool v4 = g4 && ((Gr[G_WOFF] | K) & 3) == 0;
+        const float* gp = g_s + Gr[G_OUT] + p * mo;
+        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll 4
+        for (int o = o0; o < o1; ++o) {
+          const float* wr = WT + (long)o * K;
+          float4 w;
+          if (v4) {
+            w = __ldg(reinterpret_cast<const float4*>(wr));
+          } else {
+            w = make_float4(__ldg(wr), r + 1 < K ? __ldg(wr + 1) : 0.f,
+                            r + 2 < K ? __ldg(wr + 2) : 0.f,
+                            r + 3 < K ? __ldg(wr + 3) : 0.f);
+          }
+          const float gv = gp[o];
+          a0 = fmaf(w.x, gv, a0); a1 = fmaf(w.y, gv, a1);
+          a2 = fmaf(w.z, gv, a2); a3 = fmaf(w.w, gv, a3);
+        }
+        for (int off = L / 2; off > 0; off >>= 1) {
+          a0 += __shfl_xor_sync(0xffffffffu, a0, off);
+          a1 += __shfl_xor_sync(0xffffffffu, a1, off);
+          a2 += __shfl_xor_sync(0xffffffffu, a2, off);
+          a3 += __shfl_xor_sync(0xffffffffu, a3, off);
+        }
+        if (on && j == 0) {
+          const float alpha = P.grp_alpha[g];
+          float* gm = gm_s + Gr[G_AGG] + p * K + r;
+          gm[0] = a0 * alpha;
+          if (r + 1 < K) gm[1] = a1 * alpha;
+          if (r + 2 < K) gm[2] = a2 * alpha;
+          if (r + 3 < K) gm[3] = a3 * alpha;
+        }
+      }
+    }
+
+    for (int t0 = 0; t0 < P.D; t0 += T) {
+      const long row0 = (long)atom * P.D + t0;
+      const int rows = min(T, P.D - t0);
+      __syncthreads();
+      for (int i = tid; i < T; i += NT) ms_s[i] = 0.f;
+      for (int i = tid; i < NW * T * SHP; i += NT) dshp_s[i] = 0.f;
+      load_block(sh + row0 * P.f, rows * P.f, [&](int i, float v) {
+        const int e = i / P.f;
+        sh_s[e * SHP + i - e * P.f] = v;
+      });
+      for (int i = tid; i < rows * (SHP - P.f); i += NT) {
+        const int e = i / (SHP - P.f);
+        sh_s[e * SHP + P.f + i - e * (SHP - P.f)] = 0.f;
+      }
+      __syncthreads();
+      // the rows' weights, one contiguous block: four 16-byte loads in
+      // flight a thread, each value into its live column's slot; a row
+      // with a nonzero live weight is marked live (every writer stores 1)
+      {
+        const float* src = weff + row0 * P.wn;
+        const int n = rows * P.wn;
+        auto put = [&](int i, float v) {
+          const int e = i / P.wn, c = wc_s[i - e * P.wn];
+          if (c >= 0) {
+            w_s[e * nap + c] = v;
+            if (v != 0.f) ms_s[e] = 1.f;
+          }
+        };
+        const int head = min(
+            n, (int)(((16 - (reinterpret_cast<size_t>(src) & 15)) & 15) >> 2));
+        const int n4 = (n - head) >> 2;
+        const float4* s4 = reinterpret_cast<const float4*>(src + head);
+        for (int i = tid; i < n4; i += 4 * NT) {
+          float4 v[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (i + k * NT < n4) v[k] = __ldcs(s4 + i + k * NT);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if (i + k * NT < n4) {
+              const int j = head + 4 * (i + k * NT);
+              put(j, v[k].x); put(j + 1, v[k].y);
+              put(j + 2, v[k].z); put(j + 3, v[k].w);
+            }
+          }
+        }
+        for (int i = tid; i < head; i += NT) put(i, __ldcs(src + i));
+        for (int i = head + 4 * n4 + tid; i < n; i += NT)
+          put(i, __ldcs(src + i));
+      }
+      // a tile of pads only: zero rows, nothing else
+      __syncthreads();
+      if (!__syncthreads_or(tid < rows && ms_s[tid] != 0.f)) {
+        auto zero = [](int) { return 0.f; };
+        store_block(dxg + row0 * P.d1, rows * P.d1, zero);
+        store_block(dsh + row0 * P.f, rows * P.f, zero);
+        store_block(dweff + row0 * P.wn, rows * P.wn, zero);
+        continue;
+      }
+      // the CG backward by i1 class: dxg, dw (in place of w), dsh partials
+      for (int j0 = warp * 32; j0 < n_items; j0 += NT) {
+        int k = 0;
+        while (cls_s[k + 1].xe >= 0 && cls_s[k + 1].start <= j0) ++k;
+        const XClass C = cls_s[k];
+        const int loc = j0 + lane - C.start;
+        const int e = loc / C.lanes, lane_u = loc - e * C.lanes;
+        const bool valid = e < rows;
+        float dshv[NSH];
+#pragma unroll
+        for (int n = 0; n < NSH; ++n) dshv[n] = 0.f;
+        if (valid) {
+          const int* X = P.xent + C.xe * X_STRIDE;
+          float sv[(NSH + 3) & ~3];
+#pragma unroll
+          for (int n = 0; n < ((NSH + 3) & ~3); n += 4) {
+            const float4 s4 =
+                *reinterpret_cast<const float4*>(sh_s + e * SHP + n);
+            sv[n] = s4.x; sv[n + 1] = s4.y; sv[n + 2] = s4.z; sv[n + 3] = s4.w;
+          }
+          switch (C.l1) {
+#define EXTW_CLASS_CASE(l)                                                 \
+            case l:                                                        \
+              bwd_class_item<NSH, l>(P, X, ins_s, sc_s, gm_s, xg, dxg,     \
+                                     row0 + e, ms_s[e], sv,                \
+                                     w_s + e * nap, lane_u, C.uit, dshv);  \
+              break;
+            EXTW_CLASS_CASE(0) EXTW_CLASS_CASE(1) EXTW_CLASS_CASE(2)
+            EXTW_CLASS_CASE(3)
+#undef EXTW_CLASS_CASE
+          }
+        }
+        if (C.lanes == 32) {
+          const float tot = butterfly16(dshv, lane);
+          if (valid && !(lane & 1))
+            dshp_s[(warp * T + e) * SHP + butterfly_index(lane)] += tot;
+        } else {
+          for (int l = 0; l < 32; ++l) {
+            if (lane == l && valid) {
+#pragma unroll
+              for (int n = 0; n < NSH; ++n)
+                dshp_s[(warp * T + e) * SHP + n] += dshv[n];
+            }
+            __syncwarp();
+          }
+        }
+      }
+      __syncthreads();
+      // the rows' dsh and dweff: 16-byte streaming stores, zeros in the
+      // dead weight columns (and everywhere on pad rows)
+      store_block(dsh + row0 * P.f, rows * P.f, [&](int i) {
+        const int e = i / P.f, j = i - e * P.f;
+        float s = 0.f;
+        for (int w = 0; w < NW; ++w) s += dshp_s[(w * T + e) * SHP + j];
+        return s;
+      });
+      store_block(dweff + row0 * P.wn, rows * P.wn, [&](int i) {
+        const int e = i / P.wn, c = wc_s[i - e * P.wn];
+        return c >= 0 ? w_s[e * nap + c] : 0.f;
+      });
+    }
+  }
+}
+
+// rows per tile: the largest of 32, 16, 8 (not past D rounded up to 8)
+// whose block fits two an SM, else the smallest that fits one; 0 if none
+int extw_tile(const Plan& P) {
+  const int dmax = ((P.D + 7) & ~7) < TX ? ((P.D + 7) & ~7) : TX;
+  for (int T = dmax; T >= 8; T /= 2)
+    if ((size_t)4 * extw_words(P, T) <= TWO_PER_SM) return T;
+  return (size_t)4 * extw_words(P, 8) <= 232448 ? 8 : 0;
+}
+
+template <int NSH>
+int launch_extw_bwd(const float* g, const float* xg, const float* sh,
+                    const float* weff, const float* si2wt, const Plan& P,
+                    int T, float* dxg, float* dsh, float* dweff,
+                    void* stream) {
+  const size_t smem = 4 * (size_t)extw_words(P, T);
+  cudaError_t err = reserve_smem(fused_conv_extw_bwd_kernel<NSH>, smem,
+                                 Reserved<true, NSH, 3>::bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (P.n_atoms > 0) {
+    int grid = 0;
+    err = persistent_grid(fused_conv_extw_bwd_kernel<NSH>, smem, P.n_atoms,
+                          &grid);
+    if (err != cudaSuccess) return (int)err;
+    fused_conv_extw_bwd_kernel<NSH><<<grid, NT, smem, (cudaStream_t)stream>>>(
+        g, xg, sh, weff, si2wt, P, T, dxg, dsh, dweff);
+  }
+  return (int)cudaGetLastError();
+}
+#endif  // FUSED_CONV_EXTW
+
 // the edge pair's plan: the C entries get one "atom" per row (D = 1); the
 // backward takes tiles of TE rows as its atoms, the last one cut at n_rows,
 // and the forward walks tiles of its own rows over n_rows (edge_fwd_tiles)
@@ -1840,6 +2188,7 @@ Plan edge_tiles(Plan P) {
 
 }  // namespace
 
+#if !FUSED_CONV_EXTW
 #define GEOM_ARGS                                                          \
   const float *coeffs, const int *sh_idx, const float *sh_coef,            \
       const int *sh_off, int n_terms, int env_kind, int normalize,         \
@@ -1950,3 +2299,44 @@ extern "C" int fused_conv_edge_bwd(const float* g, const float* xg,
                                 si2wt, edge_tiles(P), R, dxg, nullptr,
                                 stream);
 }
+#endif  // !FUSED_CONV_EXTW
+
+#if FUSED_CONV_EXTW
+// the external-weight backward (row 8): T and the shared words as the
+// caller planned them (ops/fused_conv_geom.py::extw_tile, extw_words),
+// refused unless they are this file's (extw_tile, extw_words)
+extern "C" int fused_conv_extw_bwd(const float* g, const float* xg,
+                                   const float* sh, const float* weff,
+                                   const float* si2wt, PLAN_ARGS, int T,
+                                   int words, float* dxg, float* dsh,
+                                   float* dweff, void* stream) {
+  const Plan P = PLAN_CALL;
+  if (P.f > SHP || T != extw_tile(P) || words != extw_words(P, T))
+    return (int)cudaErrorInvalidValue;
+  if (P.f <= 4)
+    return launch_extw_bwd<4>(g, xg, sh, weff, si2wt, P, T, dxg, dsh, dweff,
+                              stream);
+  if (P.f <= 9)
+    return launch_extw_bwd<9>(g, xg, sh, weff, si2wt, P, T, dxg, dsh, dweff,
+                              stream);
+  return launch_extw_bwd<16>(g, xg, sh, weff, si2wt, P, T, dxg, dsh, dweff,
+                             stream);
+}
+
+// the instance a layer launches: registers, local bytes a thread, blocks an
+// SM and dynamic shared bytes (on the current device)
+extern "C" int fused_conv_extw_resources(PLAN_ARGS, int* out) {
+  const Plan P = PLAN_CALL;
+  const int T = extw_tile(P);
+  if (P.f > SHP || T == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = 4 * (size_t)extw_words(P, T);
+  if (P.f <= 4)
+    return resources(fused_conv_extw_bwd_kernel<4>, smem,
+                     Reserved<true, 4, 3>::bytes, out);
+  if (P.f <= 9)
+    return resources(fused_conv_extw_bwd_kernel<9>, smem,
+                     Reserved<true, 9, 3>::bytes, out);
+  return resources(fused_conv_extw_bwd_kernel<16>, smem,
+                   Reserved<true, 16, 3>::bytes, out);
+}
+#endif  // FUSED_CONV_EXTW

@@ -31,6 +31,7 @@ SOURCES = {
     'fused_conv': 'fused_conv.cu',
     'fused_conv_geom': 'fused_conv_geom.cu',
     'fused_conv_geom_ssp': 'fused_conv_geom.cu',
+    'fused_conv_geom_extw': 'fused_conv_geom.cu',
     'fused_conv_terms': 'fused_conv_terms.cu',
     'fused_tp': 'fused_tp.cu',
     'bench_pieces': 'bench_pieces.cu',
@@ -43,8 +44,10 @@ SOURCES = {
 
 # the macros of a library built from a shared source: the shifted-softplus
 # instances of the conv kernels are a library of their own, so that a
-# model without that activation never compiles them
-DEFINES = {'fused_conv_geom_ssp': ('-DFUSED_CONV_SSP=1',)}
+# model without that activation never compiles them; the external-weight
+# backward is one too, compiled without the file's other kernels
+DEFINES = {'fused_conv_geom_ssp': ('-DFUSED_CONV_SSP=1',),
+           'fused_conv_geom_extw': ('-DFUSED_CONV_EXTW=1',)}
 
 # the micro-benchmark kernels, by variant (tools/bench_*.py)
 BENCH_KERNELS = (

@@ -317,14 +317,31 @@ def _bind_rows_pair(fwd, bwd):
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    """The external-weight pair, csrc/fused_conv.cu."""
+    """The external-weight forward, csrc/fused_conv.cu."""
     lib = cuda_build.load('fused_conv')
     lib.fused_conv_extw_fwd.argtypes = ([_P] * 4 + _TABLE_ARGS + _DIM_ARGS
                                         + [_P, _P])
     lib.fused_conv_extw_fwd.restype = _I
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _extw_lib():
+    """The external-weight backward, csrc/fused_conv_geom.cu built as
+    ``fused_conv_geom_extw``."""
+    return bind_extw(cuda_build.load('fused_conv_geom_extw'))
+
+
+def bind_extw(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry ``fused_conv_extw_bwd`` (and its resources) of a
+    library with this ABI (the port's; ``tools/bwd_ab.py --extw`` binds an
+    earlier tree's own)."""
     lib.fused_conv_extw_bwd.argtypes = ([_P] * 5 + _TABLE_ARGS + _DIM_ARGS
-                                        + [_P, _I, _P, _P, _P, _P])
+                                        + [_I, _I, _P, _P, _P, _P])
     lib.fused_conv_extw_bwd.restype = _I
+    lib.fused_conv_extw_resources.argtypes = (_TABLE_ARGS + _DIM_ARGS
+                                              + [_P])
+    lib.fused_conv_extw_resources.restype = _I
     return lib
 
 
@@ -467,7 +484,7 @@ class FusedConv:
         why = self.kernel_tables(torch.device('cpu')).unsupported
         if self.ext_w:
             # the radial MLP runs outside the external-weight kernels
-            return why
+            return why or extw_unsupported(self)
         act = self.mlp.act
         if act not in _ACT_CODE:
             return f'fused conv kernel: activation {act!r}'
@@ -475,8 +492,7 @@ class FusedConv:
             return (f'fused conv kernel: hidden widths must be {_H}; got '
                     f'{list(self.mlp.hs[1:3])}')
         if why or self._terms is not None:
-            # the terms kernels take any such table
-            return why
+            return why or self._terms.refusal(self.agg_d)
         return (dense_unsupported(self.tp) if self.agg_d > 0
                 else edge_unsupported(self))
 
@@ -719,6 +735,8 @@ class FusedConv:
         (CUDA tensors only)."""
         self._check_inputs(xg, sh, emb, ms)
         if self._terms is not None:
+            if self.kernel_refusal:
+                raise ValueError(self.kernel_refusal)
             w0, w1, _, w2, _, si2, _ = self._pack(mlp_ws, si2_ws)
             return self._terms.forward(self.agg_d, xg, sh, emb, ms, w0, w1,
                                        w2, si2)
@@ -747,9 +765,11 @@ class FusedConv:
         if tuple(g.shape) != (rows // self.group, self.d_out):
             raise ValueError(f'g: shape {tuple(g.shape)}')
         if self._terms is not None:
-            w0, w1, w1t, w2, w2t, _, si2t = self._pack(mlp_ws, si2_ws)
+            if self.kernel_refusal:
+                raise ValueError(self.kernel_refusal)
+            w0, w1, w1t, w2, _, _, si2t = self._pack(mlp_ws, si2_ws)
             return self._terms.backward(self.agg_d, g, xg, sh, emb, ms, w0,
-                                        w1, w1t, w2, w2t, si2t)
+                                        w1, w1t, w2, si2t)
         t = self.kernel_tables(xg.device)
         w0, w1, w1t, w2, w2t, _, si2t = self._pack(mlp_ws, si2_ws)
         dxg = torch.empty_like(xg)
@@ -864,14 +884,27 @@ class FusedConv:
         dsh = torch.empty_like(sh)
         dweff = torch.empty_like(weff)
         P = self._ptr
-        err = _lib().fused_conv_extw_bwd(
+        dims = _fcg.extw_dims(self)
+        T = _fcg.extw_tile(dims)
+        err = _extw_lib().fused_conv_extw_bwd(
             P(g), P(xg), P(sh), P(weff), P(si2t), *self._table_ptrs(t),
-            *self._dims(t, rows), P(t.dead_w), t.n_dead,
+            *self._dims(t, rows), T, _fcg.extw_words(dims, T),
             P(dxg), P(dsh), P(dweff),
             ctypes.c_void_p(torch.cuda.current_stream(xg.device).cuda_stream))
         _check(err, 'fused_conv_extw_bwd')
         launch_counts['fused_conv_extw_bwd'] += 1
         return dxg, dsh, dweff
+
+    def extw_resources(self, device) -> _fcg.Resources:
+        """The external-weight backward this layer launches: registers,
+        local bytes a thread, blocks an SM and dynamic shared bytes (on the
+        current card)."""
+        t = self.kernel_tables(device)
+        out = (ctypes.c_int * 4)()
+        _check(_extw_lib().fused_conv_extw_resources(
+            *self._table_ptrs(t), *self._dims(t, self.group), out),
+            'fused_conv_extw_resources')
+        return _fcg.Resources(*out)
 
     # -- dispatch -----------------------------------------------------
     @staticmethod
@@ -988,21 +1021,45 @@ class _FusedConvGeomFn(torch.autograd.Function):
         return (None, None, dxg, dvec, None, None) + (None,) * len(ws)
 
 
-def dense_unsupported(tp_spec: UVUTensorProductSpec) -> Optional[str]:
-    """Why the dense-grid and geometry-fused kernels cannot take this tensor
-    product, or None: they keep an instruction's SH operands in registers
-    at the offset ``l2^2``, at most 16 of them, and the backward's table of
-    x entries has 15 rows."""
+def filter_unsupported(tp_spec: UVUTensorProductSpec,
+                       kernel: str) -> Optional[str]:
+    """Why the kernels built on the dense backward's class pass (rows 1-2,
+    5-6 and 8) cannot take this filter, or None: they keep an instruction's
+    SH operands in registers at the offset ``l2^2``, at most 16 of them."""
     plan, _ = _tp_plan(tp_spec)
     if tp_spec.irreps_in2.dim > SHP:
-        return (f'dense-grid conv kernel takes at most {SHP} SH components;'
+        return (f'{kernel} conv kernel takes at most {SHP} SH components;'
                 f' got {tp_spec.irreps_in2.dim}')
     if any(p['sh_off'] != (p['dim2'] // 2) ** 2 for p in plan):
-        return ('dense-grid conv kernel reads an instruction\'s SH block '
+        return (f'{kernel} conv kernel reads an instruction\'s SH block '
                 'at l2^2: the filter irreps are not 1x0+1x1+...')
+    return None
+
+
+def dense_unsupported(tp_spec: UVUTensorProductSpec) -> Optional[str]:
+    """Why the dense-grid and geometry-fused kernels cannot take this tensor
+    product, or None: ``filter_unsupported``, and the backward's table of x
+    entries has 15 rows."""
+    why = filter_unsupported(tp_spec, 'dense-grid')
+    if why:
+        return why
     if len(tp_spec.irreps_in1) >= MAX_XENT:
         return (f'dense-grid conv kernel takes fewer than {MAX_XENT} x '
                 f'entries; got {len(tp_spec.irreps_in1)}')
+    return None
+
+
+def extw_unsupported(conv: 'FusedConv') -> Optional[str]:
+    """Why the external-weight backward cannot take this layer, or None: it
+    runs the dense backward's class pass (``filter_unsupported``; any number
+    of x entries: its class table is sized by the plan), and needs a tile of
+    8 rows in one block's shared memory."""
+    why = filter_unsupported(conv.tp, 'external-weight')
+    if why:
+        return why
+    if _fcg.extw_tile(_fcg.extw_dims(conv)) == 0:
+        return ('external-weight conv kernel: not 8 rows of a tile in '
+                f'{_fcg.MAX_SMEM} shared bytes')
     return None
 
 

@@ -61,6 +61,7 @@ TEF = 16          # edge forward: rows per tile (at most)
 KS_MAX = 8        # edge products: threads that share one block
 RB = 8            # edge products: rows of a thread's block
 EDGE_FWD_WORDS = TWO_PER_SM // 4   # edge forward: shared words a block
+TX = 32           # external-weight backward: rows per tile at most
 
 
 class Shape(NamedTuple):
@@ -262,6 +263,39 @@ def layer_dims(conv, D: int) -> Dict[str, int]:
     return dict(D=D, d1=conv.d1, nb=conv.nb, d_out=conv.d_out,
                 n_ins=t.n_ins, n_active=t.n_active, agg_dim=t.agg_dim,
                 n_nz=t.n_nz)
+
+
+def extw_dims(conv) -> Dict[str, int]:
+    """``layer_dims`` at the conv's grid degree with what the external-weight
+    backward's shared words read besides: the x entries and the weight
+    width."""
+    t = conv.kernel_tables(_cpu())
+    return dict(layer_dims(conv, conv.agg_d), n_xent=t.n_xent,
+                wn=conv.w_numel)
+
+
+def extw_words(dims: Dict[str, int], T: int) -> int:
+    """Shared words of one block of the external-weight backward at T rows
+    (the tables, the pattern scales, the x-entry classes, the weight-column
+    map, g, gm, w / dw, the dsh partials per warp, sh and the live
+    marks)."""
+    d = dims
+    return (_table_words(d['n_ins'], d['n_nz']) + _r4(d['n_ins'])
+            + _r4((d['n_xent'] + 1) * 5) + _r4(d['wn']) + _r4(d['d_out'])
+            + _r4(d['agg_dim']) + T * _r4(d['n_active']) + NW * T * SHP
+            + T * SHP + _r4(T))
+
+
+def extw_tile(dims: Dict[str, int]) -> int:
+    """Rows per tile of the external-weight backward: the largest of 32, 16
+    and 8 (not past D rounded up to 8) whose block fits two an SM, else 8
+    if one fits, else 0 (refused)."""
+    T = min(TX, (dims['D'] + 7) & ~7)
+    while T >= 8:
+        if 4 * extw_words(dims, T) <= TWO_PER_SM:
+            return T
+        T //= 2
+    return 8 if 4 * extw_words(dims, 8) <= MAX_SMEM else 0
 
 
 def _cpu():

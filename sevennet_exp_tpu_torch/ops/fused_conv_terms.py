@@ -1,6 +1,14 @@
 """The ``terms`` kernels of the fused convolution: plan, tables and
 launchers of ``csrc/fused_conv_terms.cu``.
 
+The backward's launch (``terms_bwd_plan``) is planned here: tiles of
+``T`` rows (16 at ``agg_d > 0`` when two blocks fit on an SM, else 8), the
+w pass's rows per item ``R``, the CG items by x entry, the compact message
+cotangent and the words of the folded CG ``Q``; the C entry holds the
+shared words against its own layout and refuses a plan that differs. The
+SH operands sit at ``l2^2`` in the kernel's registers: a filter that is not
+``1x0+1x1+...`` of ``l <= 3`` is refused (``terms_unsupported``).
+
 Counterpart of ``sevennet_exp_tpu/ops/pallas_conv.py::make_fused_conv``
 under ``set_cg_mode('terms')`` (``fwd_kernel`` / ``bwd_kernel``): the same
 function as the default kernels of ``ops/fused_conv.py``, derived
@@ -19,7 +27,7 @@ import ctypes
 import functools
 import math
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -42,6 +50,15 @@ _POOL = TermPool('fused_conv_terms', 'fused_conv_terms')
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_long,
                   ctypes.c_float)
 _TERMS_ARGS = [_P] * 7 + [_I] * 4 + [_L] + [_I] * 8 + [_F] * 4
+_BWD_ARGS = [_P] * 4 + [_I] * 10
+
+NT = 256                 # threads per block
+NW = NT // 32            # warps per block
+SHS = 16                 # sh row stride in the backward's shared memory
+KS = 4                   # pass D: parts of the live columns
+B_STRIDE, X_STRIDE, G_STRIDE = 9, 8, 6     # backward table records
+TWO_PER_SM = (233472 - 2 * 1024) // 2      # shared bytes a block, 2 an SM
+MAX_SMEM = 232448                          # shared bytes a block at most
 
 
 @functools.lru_cache(maxsize=None)
@@ -49,8 +66,11 @@ def _lib():
     lib = cuda_build.load('fused_conv_terms')
     lib.fused_conv_terms_fwd.argtypes = [_P] * 8 + _TERMS_ARGS + [_P, _P]
     lib.fused_conv_terms_fwd.restype = _I
-    lib.fused_conv_terms_bwd.argtypes = [_P] * 11 + _TERMS_ARGS + [_P] * 4
+    lib.fused_conv_terms_bwd.argtypes = ([_P] * 11 + _TERMS_ARGS
+                                         + _BWD_ARGS + [_P] * 4)
     lib.fused_conv_terms_bwd.restype = _I
+    lib.fused_conv_terms_bwd_resources.argtypes = [_I, _I, _P]
+    lib.fused_conv_terms_bwd_resources.restype = _I
     return lib
 
 
@@ -104,6 +124,142 @@ def terms_plan(tp: UVUTensorProductSpec, si2: LinearSpec) -> TermsPlan:
         msg_path=msg_path, d_msg=d_msg, d_out=d_out)
 
 
+def _r4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+@dataclass
+class TermsBwdPlan:
+    """The backward's tables and launch numbers for one layer and form (see
+    csrc/fused_conv_terms.cu): records of the live instructions (``bins``,
+    term offsets relative to the plan's terms), of the x entries
+    (``xcls``) with their users, of the si2 paths with their compact
+    message offsets (``gpaths``); the live message elements ``n_msg``, the
+    words of Q ``n_q``, the live columns rounded up to 4 ``nls``, the CG
+    items of a tile (or a row) ``n_items``, the tile ``T``, the w pass's
+    rows per item ``R`` and the shared words of a block."""
+    bins: np.ndarray
+    xcls: np.ndarray
+    users: np.ndarray
+    gpaths: np.ndarray
+    n_msg: int
+    n_q: int
+    nls: int
+    n_items: int
+    T: int
+    R: int
+    words: int
+    agg: bool
+
+
+def terms_unsupported(tp: UVUTensorProductSpec) -> Optional[str]:
+    """Why the ``terms`` pair cannot take this tensor product, or None: its
+    backward keeps an instruction's SH operands in registers at ``l2^2``,
+    at most 16 of them, and runs x and SH irreps of l <= 3."""
+    plan, _, _ = _plan(tp)
+    if tp.irreps_in2.dim > SHS:
+        return (f'terms conv kernel takes at most {SHS} SH components; got '
+                f'{tp.irreps_in2.dim}')
+    if any(p['sh_off'] != (p['dim2'] // 2) ** 2 for p in plan):
+        return ("terms conv kernel reads an instruction's SH block at "
+                'l2^2: the filter irreps are not 1x0+1x1+...')
+    if any(max(p['dim1'], p['dim2']) > 7 for p in plan):
+        return 'terms conv kernel takes x and SH irreps of l <= 3'
+    return None
+
+
+def bwd_words(n_bins: int, n_x: int, n_users: int, n_paths: int,
+              d_out: int, nb: int, T: int, nls: int, n_msg: int, n_q: int,
+              agg: bool) -> int:
+    """Shared words of one backward block (the C side's bwd_layout)."""
+    tcg = T if agg else 1
+    words = (_r4(n_bins * B_STRIDE) + _r4(n_x * X_STRIDE) + _r4(n_users)
+             + _r4(n_paths * G_STRIDE))
+    if agg:
+        words += _r4(d_out) + T * nls
+    else:
+        words += max(T * nls, T * _r4(d_out))
+    words += _r4((1 if agg else T) * n_msg) + _r4(n_q)
+    words += max(2 * _H * T + NW * tcg * SHS, KS * _H * T)
+    # AGG keeps the tile's dsh rows; else each row's is stored at once
+    return (words + 2 * _H * T + (2 if agg else 1) * T * SHS + _r4(nb * T)
+            + _r4(T))
+
+
+def w_pass_rows(nls: int, T: int) -> int:
+    """Rows per item of the w pass (4, 8 or 16, dividing T): the fewest
+    rounds of the block's threads, a 16-byte w2 load counted as two rows of
+    work; ties to the larger."""
+    best = None
+    for R in (4, 8, 16):
+        if T % R:
+            continue
+        items = (nls // 4) * (T // R)
+        cost = -(-items // NT) * (R + 2)
+        if best is None or cost <= best[0]:
+            best = (cost, R)
+    return best[1]
+
+
+def terms_bwd_plan(tp: UVUTensorProductSpec, plan: TermsPlan, nb: int,
+                   agg_d: int) -> Optional[TermsBwdPlan]:
+    """The backward's plan at ``agg_d`` (None when no tile fits a block's
+    shared memory). Tiles: 16 rows at ``agg_d > 8`` when two blocks fit on
+    an SM, else 8; at ``agg_d = 0`` 8 rows."""
+    agg = agg_d > 0
+    full, _, _ = _plan(tp)
+    live = [p for p in full if plan.msg_path[p['out_off']] >= 0]
+    cin, c = [], 0
+    for in_off, mi, mo, dim, out_off, w_off in plan.paths.tolist():
+        cin.append(c)
+        c += dim * mi
+    n_msg = c
+    gpaths = np.asarray([[cin[i], mi, mo, dim, out_off, w_off] for i, (
+        in_off, mi, mo, dim, out_off, w_off) in enumerate(
+            plan.paths.tolist())], np.int32).reshape(-1, G_STRIDE)
+    bins, col0, q = [], 0, 0
+    for a, p in enumerate(live):
+        pth = int(plan.msg_path[p['out_off']])
+        in_off, mi, _, dim = plan.paths[pth, :4].tolist()
+        if p['out_off'] + p['dim3'] * p['mul'] > in_off + dim * mi:
+            raise ValueError('terms plan: an instruction spans two si2 '
+                             'inputs')
+        l1, l2 = p['dim1'] // 2, p['dim2'] // 2
+        bins.append([p['x_off'], p['mul'], l1, l2, col0,
+                     p['out_off'] - in_off + cin[pth], q,
+                     *plan.ins[a, 8:10].tolist()])
+        col0 += p['mul']
+        q += p['mul'] * p['dim1'] * p['dim2']
+    nls = _r4(col0)
+    xcls, users, start = [], [], 0
+    cands = [16, 8] if agg_d > 8 else [8]
+
+    def words(T):
+        return bwd_words(len(bins), len(tp.irreps_in1), len(live),
+                         plan.paths.shape[0], plan.d_out, nb, T, nls, n_msg,
+                         q, agg)
+
+    fits = [t for t in cands if 4 * words(t) <= TWO_PER_SM] or \
+        [t for t in cands[::-1] if 4 * words(t) <= MAX_SMEM]
+    if not fits:
+        return None
+    T = fits[0]
+    tcg = T if agg else 1
+    for (mul, ir), sl in zip(tp.irreps_in1, tp.irreps_in1.slices()):
+        us = [a for a, p in enumerate(live) if p['x_off'] == sl.start]
+        lanes = 32 if mul % 32 == 0 else mul
+        xcls.append([start, lanes, mul // lanes, sl.start, mul,
+                     ir.dim // 2, len(us), len(users)])
+        users.extend(us)
+        start += -(-tcg * mul // 32) * 32
+    return TermsBwdPlan(
+        bins=np.asarray(bins, np.int32).reshape(-1, B_STRIDE),
+        xcls=np.asarray(xcls, np.int32).reshape(-1, X_STRIDE),
+        users=np.asarray(users, np.int32), gpaths=gpaths, n_msg=n_msg,
+        n_q=q, nls=nls, n_items=start, T=T, R=w_pass_rows(nls, T),
+        words=words(T), agg=agg)
+
+
 class TermsKernels:
     """Launchers of the ``terms`` pair for one layer's specs."""
 
@@ -114,6 +270,23 @@ class TermsKernels:
         self.d1, self.f = tp.irreps_in1.dim, tp.irreps_in2.dim
         self.nb, self.wn = mlp.hs[0], mlp.hs[-1]
         self._tables: Dict[torch.device, tuple] = {}
+        self._bwd: Dict[int, Optional[TermsBwdPlan]] = {}
+        self._bwd_tables: Dict[tuple, tuple] = {}
+        self._w2l = None          # (w2, its version, w2l, w2l^T)
+
+    def bwd_plan(self, agg_d: int) -> Optional[TermsBwdPlan]:
+        if agg_d not in self._bwd:
+            self._bwd[agg_d] = terms_bwd_plan(self.tp, self.plan, self.nb,
+                                              agg_d)
+        return self._bwd[agg_d]
+
+    def refusal(self, agg_d: int) -> Optional[str]:
+        """Why the pair cannot take this layer at ``agg_d``, or None."""
+        why = terms_unsupported(self.tp)
+        if why is None and self.bwd_plan(agg_d) is None:
+            why = (f'terms conv kernel: no backward tile fits {MAX_SMEM} '
+                   'shared bytes')
+        return why
 
     def _device_tables(self, device):
         t = self._tables.get(device)
@@ -163,21 +336,59 @@ class TermsKernels:
         launch_counts['fused_conv_terms_fwd'] += 1
         return out
 
-    def backward(self, agg_d, g, xg, sh, emb, ms, w0, w1, w1t, w2, w2t,
-                 si2t):
+    def _bwd_device_tables(self, device, agg_d: int):
+        key = (device, agg_d)
+        t = self._bwd_tables.get(key)
+        if t is None:
+            b = self.bwd_plan(agg_d)
+            bins = b.bins.copy()
+            bins[:, 7:9] += _POOL.place(device, self.plan.idx, self.plan.coef)
+            t = self._bwd_tables[key] = tuple(
+                torch.tensor(a.reshape(-1) if a.size else np.zeros(1, a.dtype),
+                             device=device)
+                for a in (bins, b.xcls, b.users, b.gpaths))
+        return t
+
+    def _live_w2(self, w2: Tensor):
+        """w2's live columns packed, zeros up to a multiple of 4, and its
+        transpose (cached for the last w2 seen)."""
+        c = self._w2l
+        if c is None or c[0] is not w2 or c[1] != w2._version:
+            nls = _r4(self.plan.live_cols.size)
+            w2l = w2.new_zeros((_H, nls))
+            w2l[:, :self.plan.live_cols.size] = w2[:, torch.tensor(
+                self.plan.live_cols, dtype=torch.long, device=w2.device)]
+            c = self._w2l = (w2, w2._version, w2l, w2l.t().contiguous())
+        return c[2], c[3]
+
+    def backward(self, agg_d, g, xg, sh, emb, ms, w0, w1, w1t, w2, si2t):
         """Launch ``fused_conv_terms_bwd``; returns (dxg, dsh, demb), every
         row written. ``si2t``: the transposed path weights flat."""
+        b = self.bwd_plan(agg_d)
         dxg, dsh, demb = (torch.empty_like(t) for t in (xg, sh, emb))
         P = _ptr
         with torch.cuda.device(xg.device):
+            w2l, w2lt = self._live_w2(w2)
+            tables = self._bwd_device_tables(xg.device, agg_d)
             err = _lib().fused_conv_terms_bwd(
                 P(g), P(xg), P(sh), P(emb), P(ms), P(w0), P(w1), P(w1t),
-                P(w2), P(w2t), P(si2t),
+                P(w2l), P(w2lt), P(si2t),
                 *self._args(xg.device, xg.shape[0], agg_d),
-                P(dxg), P(dsh), P(demb), _stream(xg))
+                *[P(t) for t in tables], b.bins.shape[0], b.xcls.shape[0],
+                b.users.size, b.n_msg, b.n_q, b.nls, b.n_items, b.T, b.R,
+                b.words, P(dxg), P(dsh), P(demb), _stream(xg))
         cuda_build.check(err, 'fused_conv_terms_bwd')
         launch_counts['fused_conv_terms_bwd'] += 1
         return dxg, dsh, demb
+
+    def bwd_resources(self, agg_d: int):
+        """(registers, local bytes a thread, blocks an SM) of the backward
+        instance at this layer's plan (on the current device)."""
+        out = (ctypes.c_int * 3)()
+        cuda_build.check(_lib().fused_conv_terms_bwd_resources(
+            int(agg_d > 0), self.bwd_plan(agg_d).words, out),
+            'fused_conv_terms_bwd_resources')
+        return tuple(out)
 
 
 def _ptr(t: Tensor):

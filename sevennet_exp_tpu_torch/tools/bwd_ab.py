@@ -1,0 +1,383 @@
+"""Same-call A/B of the two redesigned backward kernels against an earlier
+build: with ``--terms`` the ``terms`` backward (``fused_conv_terms_bwd``,
+both forms), with ``--extw`` the external-weight backward
+(``fused_conv_extw_bwd``).
+
+    python -m sevennet_exp_tpu_torch.tools.bwd_ab OTHER_CSRC [STEPS] [OUT.json] --terms | --extw
+
+OTHER_CSRC is an earlier tree's ``csrc`` directory unpacked with ``git
+archive`` (its ``fused_conv_terms.cu``, or its ``fused_conv.cu`` with the
+headers beside it, where these kernels had the earlier C entries:
+``fused_conv_terms_bwd`` with w2 and w2^T, ``fused_conv_extw_bwd`` with the
+dead weight columns). It is compiled with the port's nvcc flags and bound by
+``other_launcher``; then, on one card, the two builds run in turns (other,
+this, this, other):
+
+  - ``--terms``: the backward on the 1k grid's shape (1,000 atoms x 32 rows,
+    6 pad rows an atom, sh and emb of random edge vectors, seed 0) and on
+    the 1k calculator's 31,232 rows (the last 5,232 pads), the checkpoint's
+    five layers each; the 1k NPT engine's force call (``_efs_fn``, the terms
+    kernels' launches timed by CUDA events, and the host clock), the 1k
+    calculator call under ``cg_mode='terms'``, and 1k NPT (1 GPa,
+    ``pdamp_fs = 0.02``) in ms/step over STEPS (default 100) steps;
+  - ``--extw``: the backward on the 1k ``half_mlp`` grid's shape (the
+    weights MLP(emb) * ms of the same rows), the five layers; the 1k
+    ``half_mlp`` force call and 1k ``half_mlp`` NVT in ms/step.
+
+After the turns, each layer's outputs of the two builds are compared
+(relative to max|other|). Prints one line per turn and the means of each
+side; writes them to OUT.json when given. Needs a card (exits 2 without
+one).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from ..ops import cuda_build
+from ..ops import fused_conv as fc
+from ..ops import fused_conv_geom as fcg
+from ..ops import fused_conv_terms as fct
+from .geom_ab import CHECKPOINT, D, dense_inputs, edge_inputs
+from .timing import card, cuda_ms, require_card
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+NPT_KW = dict(dt_fs=2.0, temperature_K=300.0, ensemble='npt',
+              pressure_gpa=1.0, pdamp_fs=0.02, rebuild_every=20, seed=0)
+NVT_KW = dict(dt_fs=2.0, temperature_K=300.0, ensemble='nvt',
+              rebuild_every=20, seed=0)
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(t):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def build(src: str, out: str, defines=()) -> ctypes.CDLL:
+    """SRC compiled with the port's nvcc flags (and DEFINES) into OUT."""
+    subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS,
+                    *defines, '-o', out, src], check=True,
+                   capture_output=True, text=True)
+    return ctypes.CDLL(out)
+
+
+class LibPool:
+    """The constant term pool of one library of ``fused_conv_terms.cu``:
+    each plan's terms uploaded once, at the offset it keeps."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        self.lib, self.used, self.placed = lib, 0, {}
+        lib.fused_conv_terms_upload.argtypes = [_I, _I, _P, _P]
+        lib.fused_conv_terms_upload.restype = _I
+
+    def place(self, plan) -> int:
+        key = (plan.idx.tobytes(), plan.coef.tobytes())
+        if key not in self.placed:
+            idx = np.ascontiguousarray(plan.idx, np.int32)
+            coef = np.ascontiguousarray(plan.coef, np.float32)
+            cuda_build.check(self.lib.fused_conv_terms_upload(
+                self.used, idx.size, idx.ctypes.data, coef.ctypes.data),
+                'fused_conv_terms_upload')
+            self.placed[key] = self.used
+            self.used += idx.size
+        return self.placed[key]
+
+
+def _terms_tables(tk, pool: LibPool, dev):
+    """The terms plan's device tables with the term offsets of POOL."""
+    p = tk.plan
+    base = pool.place(p)
+    ins = p.ins.copy()
+    ins[:, 6:10] += base
+
+    def dt(a):
+        a = a.reshape(-1)
+        return torch.tensor(a if a.size else np.zeros(1, a.dtype), device=dev)
+
+    return base, [dt(a) for a in (ins, p.slices, p.live_cols, p.paths,
+                                  p.path_alpha, p.col_path, p.msg_path)]
+
+
+def _terms_args(tk, tables, rows, agg_d):
+    """The TERMS_ARGS of a launch, tables first."""
+    args = tk._args(tables[0].device, rows, agg_d)
+    return [_ptr(t) for t in tables] + args[7:]
+
+
+def terms_launcher(lib: ctypes.CDLL, parent: bool):
+    """A function with ``TermsKernels.backward``'s signature that launches
+    LIB's ``fused_conv_terms_bwd``: the port's ABI, or with PARENT the
+    earlier one (w2 and w2^T, no backward plan)."""
+    pool = LibPool(lib)
+    fn = lib.fused_conv_terms_bwd
+    base_args = [_P] * 11 + fct._TERMS_ARGS
+    fn.argtypes = base_args + ([] if parent else fct._BWD_ARGS) + [_P] * 4
+    fn.restype = _I
+    cache = {}
+
+    def backward(tk, agg_d, g, xg, sh, emb, ms, w0, w1, w1t, w2, si2t):
+        key = (id(tk), agg_d, xg.device)
+        if key not in cache:
+            base, tables = _terms_tables(tk, pool, xg.device)
+            extra = []
+            if not parent:
+                b = tk.bwd_plan(agg_d)
+                bins = b.bins.copy()
+                bins[:, 7:9] += base
+                extra = [torch.tensor(a.reshape(-1) if a.size else
+                                      np.zeros(1, np.int32), device=xg.device)
+                         for a in (bins, b.xcls, b.users, b.gpaths)]
+            cache[key] = (tables, extra)
+        tables, extra = cache[key]
+        dxg, dsh, demb = (torch.empty_like(t) for t in (xg, sh, emb))
+        if parent:
+            w2b, w2c = w2, w2.t().contiguous()
+        else:
+            w2b, w2c = tk._live_w2(w2)
+        tail = []
+        if not parent:
+            b = tk.bwd_plan(agg_d)
+            tail = [_ptr(t) for t in extra] + [
+                b.bins.shape[0], b.xcls.shape[0], b.users.size, b.n_msg,
+                b.n_q, b.nls, b.n_items, b.T, b.R, b.words]
+        err = fn(_ptr(g), _ptr(xg), _ptr(sh), _ptr(emb), _ptr(ms), _ptr(w0),
+                 _ptr(w1), _ptr(w1t), _ptr(w2b), _ptr(w2c), _ptr(si2t),
+                 *_terms_args(tk, tables, xg.shape[0], agg_d), *tail,
+                 _ptr(dxg), _ptr(dsh), _ptr(demb), _stream(xg))
+        cuda_build.check(err, 'fused_conv_terms_bwd')
+        fc.launch_counts['fused_conv_terms_bwd'] += 1
+        return dxg, dsh, demb
+    return backward
+
+
+def extw_launcher(lib: ctypes.CDLL, parent: bool):
+    """A function with ``FusedConv.kernel_extw_backward``'s signature that
+    launches LIB's ``fused_conv_extw_bwd``: the port's ABI, or with PARENT
+    the earlier one (the dead weight columns as a table)."""
+    fn = lib.fused_conv_extw_bwd
+    fn.argtypes = ([_P] * 5 + fc._TABLE_ARGS + fc._DIM_ARGS
+                   + [_P if parent else _I, _I] + [_P] * 4)
+    fn.restype = _I
+
+    def backward(conv, g, xg, sh, weff, si2_ws):
+        g = g.contiguous()
+        t = conv.kernel_tables(xg.device)
+        _, si2t = conv._pack((), si2_ws)
+        dxg, dsh, dweff = (torch.empty_like(a) for a in (xg, sh, weff))
+        if parent:
+            mid = [_ptr(t.dead_w), t.n_dead]
+        else:
+            dims = fcg.extw_dims(conv)
+            T = fcg.extw_tile(dims)
+            mid = [T, fcg.extw_words(dims, T)]
+        err = fn(_ptr(g), _ptr(xg), _ptr(sh), _ptr(weff), _ptr(si2t),
+                 *conv._table_ptrs(t), *conv._dims(t, xg.shape[0]), *mid,
+                 _ptr(dxg), _ptr(dsh), _ptr(dweff), _stream(xg))
+        cuda_build.check(err, 'fused_conv_extw_bwd')
+        fc.launch_counts['fused_conv_extw_bwd'] += 1
+        return dxg, dsh, dweff
+    return backward
+
+
+def port_launcher(kind: str):
+    """The port's own backward, unpatched."""
+    return (fct.TermsKernels.backward if kind == 'terms'
+            else fc.FusedConv.kernel_extw_backward)
+
+
+def install(kind: str, launcher):
+    """Make LAUNCHER the backward every conv of KIND launches."""
+    if kind == 'terms':
+        fct.TermsKernels.backward = launcher
+    else:
+        fc.FusedConv.kernel_extw_backward = launcher
+
+
+def other_launcher(other_csrc: str, kind: str, out_dir: str):
+    name = 'fused_conv_terms.cu' if kind == 'terms' else 'fused_conv.cu'
+    lib = build(os.path.join(other_csrc, name),
+                os.path.join(out_dir, f'lib_other_{kind}.so'))
+    return (terms_launcher if kind == 'terms' else extw_launcher)(lib, True)
+
+
+def layer_inputs(model, kind: str, dev):
+    """{(layer, agg_d): (conv, weights, inputs)} at the 1k shapes: the
+    grid (and for terms the calculator's rows); extw: (xg, sh, weff, g)
+    with weff = MLP(emb) * ms."""
+    out = {}
+    for layer in range(5):
+        cl = model.layers[f'{layer}_convolution']
+        mlp_ws, si2_ws = cl._weights()
+        if kind == 'terms':
+            for dd in (D, 0):
+                conv = fc.FusedConv(cl.tp, cl.weight_nn, cl.si2, dd,
+                                    cg_mode='terms')
+                ins = (edge_inputs(conv, cl.geom, dev) if dd == 0 else
+                       dense_inputs(conv, cl.geom, dev, 1000))
+                out[layer, dd] = (conv, (mlp_ws, si2_ws), ins)
+        else:
+            conv = fc.FusedConv(cl.tp, cl.weight_nn, cl.si2, D, ext_w=True)
+            xg, sh, emb, ms, g = dense_inputs(conv, cl.geom, dev, 1000)
+            weff = (conv.mlp.apply({f'w{i}': w for i, w in
+                                    enumerate(mlp_ws)}, emb) * ms
+                    ).contiguous()
+            out[layer, D] = (conv, (mlp_ws, si2_ws), (xg, sh, weff, g))
+    return out
+
+
+def call_bwd(kind, conv, ws, ins):
+    mlp_ws, si2_ws = ws
+    if kind == 'terms':
+        xg, sh, emb, ms, g = ins
+        return conv.kernel_backward(g, xg, sh, emb, ms, mlp_ws, si2_ws)
+    xg, sh, weff, g = ins
+    return conv.kernel_extw_backward(g, xg, sh, weff, si2_ws)
+
+
+def timed_call(fn, names):
+    """(kernel ms of the NAMES launches, host-clock ms) of one fn()."""
+    pairs = []
+    saved = {}
+    for owner, attr in names:
+        orig = getattr(owner, attr)
+        saved[owner, attr] = orig
+
+        def wrapped(*args, _orig=orig):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = _orig(*args)
+            b.record()
+            pairs.append((a, b))
+            return out
+        setattr(owner, attr, wrapped)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+    finally:
+        for (owner, attr), orig in saved.items():
+            setattr(owner, attr, orig)
+    return sum(a.elapsed_time(b) for a, b in pairs), host
+
+
+def md_ms_per_step(md, steps):
+    md.run(5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    md.run(steps)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def run(other_csrc: str, kind: str, steps: int = 100):
+    from ..calculator import SevenNetCalculator
+    from ..checkpoint import SevenNetCheckpoint
+    from ..data.graph import build_nacl
+    from ..md.engine import MolecularDynamics
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device('cuda')
+    res = {'card': card(), 'other': os.path.abspath(other_csrc),
+           'kind': kind, 'turns': []}
+    port = port_launcher(kind)
+    with tempfile.TemporaryDirectory() as tmp:
+        launchers = {'other': other_launcher(other_csrc, kind, tmp),
+                     'this': port}
+        try:
+            model, _ = SevenNetCheckpoint(CHECKPOINT).build_model(device=dev)
+            convs = layer_inputs(model, kind, dev)
+            atoms = build_nacl(1000)
+            if kind == 'terms':
+                md = MolecularDynamics(model, atoms, device=dev,
+                                       cg_mode='terms', **NPT_KW)
+                calc = SevenNetCalculator(model, device=dev, cg_mode='terms')
+                calc.calculate(atoms)
+                names = [(fct.TermsKernels, 'backward')]
+            else:
+                md = MolecularDynamics(model, atoms, device=dev,
+                                       half_mlp=True, **NVT_KW)
+                names = [(fc.FusedConv, 'kernel_extw_backward')]
+            for side in ('other', 'this', 'this', 'other'):
+                install(kind, launchers[side])
+                turn = {'side': side}
+                for (layer, dd), (conv, ws, ins) in convs.items():
+                    turn[f'layer{layer}_{dd}_bwd_ms'] = cuda_ms(
+                        lambda: call_bwd(kind, conv, ws, ins))
+                pos, nl = md.state.pos, md._grid()
+                if kind == 'terms':
+                    cell = md.state.cell
+                    fn = lambda: md._efs_fn(pos, nl, cell)   # noqa: E731
+                    fn()
+                    (turn['force_call_bwd_ms'],
+                     turn['force_call_host_ms']) = timed_call(fn, names)
+                    (turn['calculator_bwd_ms'],
+                     turn['calculator_host_ms']) = timed_call(
+                        lambda: calc.calculate(atoms), names)
+                else:
+                    fn = lambda: md._ef_fn(pos, nl)   # noqa: E731
+                    fn()
+                    (turn['force_call_bwd_ms'],
+                     turn['force_call_host_ms']) = timed_call(fn, names)
+                turn['md_ms_per_step'] = md_ms_per_step(md, steps)
+                print(json.dumps({k: (round(v, 4) if isinstance(v, float)
+                                      else v) for k, v in turn.items()}),
+                      flush=True)
+                res['turns'].append(turn)
+            for (layer, dd), (conv, ws, ins) in convs.items():
+                outs = {}
+                for side in ('other', 'this'):
+                    install(kind, launchers[side])
+                    outs[side] = call_bwd(kind, conv, ws, ins)
+                key = f'layer{layer}_{dd}_rel_diff'
+                res[key] = [float((a - b).abs().max()
+                                  / max(float(b.abs().max()), 1e-30))
+                            for a, b in zip(outs['this'], outs['other'])]
+                print(f'layer {layer} agg_d {dd}: the two builds differ by '
+                      f'{res[key]} of max|other|', flush=True)
+        finally:
+            install(kind, port)
+    for side in ('other', 'this'):
+        turns = [t for t in res['turns'] if t['side'] == side]
+        res[f'{side}_mean'] = {k: statistics.mean(t[k] for t in turns)
+                               for k in turns[0] if k != 'side'}
+        print(side, json.dumps({k: round(v, 4) for k, v in
+                                res[f'{side}_mean'].items()}), flush=True)
+    return res
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    kinds = [k for k in ('terms', 'extw') if f'--{k}' in argv]
+    pos = [a for a in argv if not a.startswith('--')]
+    if len(kinds) != 1 or not pos:
+        print(__doc__.strip().splitlines()[5].strip(), file=sys.stderr)
+        return 2
+    if not require_card('bwd_ab'):
+        return 2
+    steps = int(pos[1]) if len(pos) > 1 and pos[1].isdigit() else 100
+    res = run(pos[0], kinds[0], steps)
+    out = [a for a in pos if a.endswith('.json')]
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out[0])), exist_ok=True)
+        with open(out[0], 'w') as fh:
+            json.dump(res, fh, indent=1)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

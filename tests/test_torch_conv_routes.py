@@ -287,10 +287,13 @@ def test_sass_pair_names_of_the_ssp_instances():
     instances carry the other build's names."""
     src = cuda_build.SOURCES
     assert src['fused_conv_geom_ssp'] == src['fused_conv_geom']
+    assert src['fused_conv_geom_extw'] == src['fused_conv_geom']
     assert cuda_build.DEFINES == {
-        'fused_conv_geom_ssp': ('-DFUSED_CONV_SSP=1',)}
-    assert (cuda_build.library_path('fused_conv_geom_ssp')
-            != cuda_build.library_path('fused_conv_geom'))
+        'fused_conv_geom_ssp': ('-DFUSED_CONV_SSP=1',),
+        'fused_conv_geom_extw': ('-DFUSED_CONV_EXTW=1',)}
+    paths = {cuda_build.library_path(n) for n in
+             ('fused_conv_geom', 'fused_conv_geom_ssp', 'fused_conv_geom_extw')}
+    assert len(paths) == 3
     with open(cuda_build.source_path('fused_conv_geom')) as fh:
         assert '#ifndef FUSED_CONV_SSP' in fh.read()
     base = '_ZN12_GLOBAL__N_126fused_conv_geom_{}_kernelI{}EEvPKf'

@@ -378,15 +378,14 @@ def test_edge_instances_sass_identical_to_parent(cuda):
 
 
 # SASS digests (tools/sass_compare.digests) of the conv kernels whose code
-# the redesigns of the geometry-fused, dense and edge pairs did not touch,
+# the redesigns of the geometry-fused, dense and edge pairs (and of the
+# external-weight backward, which left csrc/fused_conv.cu) did not touch,
 # from a build of the parent tree's csrc/fused_conv.cu and
 # csrc/bench_pieces.cu with the same nvcc on the card machine.
 # bench_pieces_full is the code of the first dense-grid forward (kernel 1
 # before its redesign), bench_pieces_noagg that of the first edge-row
 # forward (its digest, d22176e6071b, was the edge-row kernel 1's).
 PARENT_SASS = {
-    '_ZN46_GLOBAL__N__13_fused_conv_cu_97ac331b26fused_conv_extw_bwd_kernelEPKfS1_S1_S1_S1_NS_4PlanEPKiiPfS5_S5_':
-        '18e133ee3965',
     '_ZN46_GLOBAL__N__13_fused_conv_cu_97ac331b26fused_conv_extw_fwd_kernelEPKfS1_S1_S1_NS_4PlanEPf':
         '126d4c70bb14',
     '_ZN48_GLOBAL__N__15_bench_pieces_cu_2586ebd423bench_pieces_now_kernelEPKfS1_S1_S1_S1_S1_S1_S1_NS_4PlanEPf':
@@ -413,7 +412,7 @@ def _without_file_hash(name):
 
 
 def test_untouched_conv_kernels_sass_identical_to_parent(cuda):
-    """Kernels 7-8 and bench_pieces compile to the SASS of the tree before
+    """Kernel 7 and bench_pieces compile to the SASS of the tree before
     the geometry-fused kernels left fused_conv_body.cuh."""
     from sevennet_exp_tpu_torch.tools import sass_compare
     got = {}
@@ -759,6 +758,149 @@ def test_terms_wrapper_routes_cuda_tensors_to_the_kernel(cuda, model):
     want = dict.fromkeys(fc.launch_counts, 0)
     want['fused_conv_terms_fwd'] = want['fused_conv_terms_bwd'] = 1
     assert fc.launch_counts == want and xg.grad is not None
+
+
+# -- the redesigned backwards: terms (row 4) and external-weight (row 8) ----
+
+def _small_layer(cuda, seed, x='4x0e+4x1o+4x2e+4x3o',
+                 sh='1x0e+1x1o+1x2e+1x3o', lmax=3, act='silu', out=None):
+    """Specs and weights of a layer with multiplicities under 32 and, by
+    default, 16 SH components; si2 maps onto ``out`` (default x)."""
+    from sevennet_exp_tpu_torch.irreps import Irreps, infer_irreps_out
+    from sevennet_exp_tpu_torch.ops.tensor_product import (
+        FullyConnectedNetSpec, LinearSpec, UVUTensorProductSpec)
+    x, sh = Irreps(x), Irreps(sh)
+    tp = UVUTensorProductSpec(x, sh, infer_irreps_out(x, sh, lmax, 'full'))
+    mlp = FullyConnectedNetSpec((8, 64, 64, tp.weight_numel), act)
+    si2 = LinearSpec(tp.irreps_out, Irreps(out) if out else x)
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.tensor(rng.normal(size=shape) * 0.5,
+                            dtype=torch.float32, device=cuda)
+
+    mlp_ws = tuple(t(*s) for s in mlp.param_shapes().values())
+    si2_ws = tuple(t(*si2.param_shapes()[f'w{n}'])
+                   for n in range(len(si2.paths)))
+    return tp, mlp, si2, mlp_ws, si2_ws
+
+
+def _layer_specs(model, which, cuda):
+    if which == 'small':
+        return _small_layer(cuda, 3)
+    if which == 'tanh':
+        return _small_layer(cuda, 4, '8x0e+8x1o', '1x0e+1x1o', 1, 'tanh')
+    if which == 'ssp':
+        return _small_layer(cuda, 5, '32x0e+16x1e', '1x0e+1x1o+1x2e', 2,
+                            'ssp')
+    cl = model.layers[f'{which[-1]}_convolution']
+    return (cl.tp, cl.weight_nn, cl.si2, *cl._weights())
+
+
+def _pad_atoms(ms, group, atoms=(1, 4)):
+    """Rows of whole atoms (or tiles) made pads."""
+    for a in atoms:
+        ms[a * group:(a + 1) * group] = 0.0
+    return ms
+
+
+@pytest.mark.parametrize('which,degree', [
+    ('layer1', 32), ('layer1', 20), ('layer1', 40), ('layer0', 32),
+    ('layer4', 24), ('small', 16), ('small', 0), ('tanh', 12), ('tanh', 0),
+    ('ssp', 32), ('ssp', 0), ('layer1', 0), ('layer0', 0)])
+def test_terms_backward_edges_of_the_tiling(cuda, model, which, degree):
+    """The redesigned terms backward against its plain version where the
+    tiling has edges: D not a multiple of the 16-row tile (20, 40, 24, 12),
+    atoms (and at agg_d = 0 tiles) of pad rows only, multiplicities under 32,
+    16 SH components (lmax 3), tanh and ssp; pad rows exactly zero and two
+    launches bit-equal."""
+    from sevennet_exp_tpu_torch.ops.fused_conv import FusedConv
+    tp, mlp, si2, mlp_ws, si2_ws = _layer_specs(model, which, cuda)
+    conv = FusedConv(tp, mlp, si2, degree, cg_mode='terms')
+    assert conv.kernel_refusal is None
+    rows = 13 * degree if degree else 301
+    xg, sh, emb, ms, g, _ = _plain_inputs(conv, rows, cuda, 11)
+    ms = _pad_atoms(ms, degree or 8)
+    pad = (ms == 0).reshape(-1)
+    d_k = conv.kernel_backward(g, xg, sh, emb, ms, mlp_ws, si2_ws)
+    d_2 = conv.kernel_backward(g, xg, sh, emb, ms, mlp_ws, si2_ws)
+    d_p = conv.plain_backward(g, xg, sh, emb, ms, mlp_ws, si2_ws)
+    torch.cuda.synchronize()
+    for a, b, c in zip(d_k, d_p, d_2):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max() <= 1e-4 * max(b.abs().max(), 1e-6)
+        assert a[pad].abs().max() == 0
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize('which,degree', [
+    ('layer1', 32), ('layer1', 20), ('layer1', 40), ('layer0', 32),
+    ('layer4', 24), ('small', 16), ('x16', 12), ('ssp', 32)])
+def test_extw_backward_edges_of_the_tiling(cuda, model, which, degree):
+    """The redesigned external-weight backward against its plain version:
+    D not a multiple of the tile, atoms of pad rows only, multiplicities
+    under 32, 16 SH components, 16 x entries (over the dense pair's class
+    table), dead weight columns (layer 0) as zeros; two launches bit-equal."""
+    from sevennet_exp_tpu_torch.ops.fused_conv import FusedConv
+    if which == 'x16':
+        # si2 onto one entry an irrep: the kernels' tables take one si2
+        # path per input entry (ROADMAP C)
+        spec = _small_layer(cuda, 6, '+'.join(['2x0e', '2x1o'] * 8),
+                            '1x0e+1x1o', 1, out='16x0e+16x1o')
+    else:
+        spec = _layer_specs(model, which, cuda)
+    tp, mlp, si2, mlp_ws, si2_ws = spec
+    conv = FusedConv(tp, mlp, si2, degree, ext_w=True)
+    assert conv.kernel_refusal is None
+    xg, sh, weff, g, pad = _extw_inputs(conv, 13, degree, cuda, 21, mlp_ws)
+    for a in (1, 4):
+        weff[a * degree:(a + 1) * degree] = 0.0
+        pad[a * degree:(a + 1) * degree] = True
+    d_k = conv.kernel_extw_backward(g, xg, sh, weff, si2_ws)
+    d_2 = conv.kernel_extw_backward(g, xg, sh, weff, si2_ws)
+    d_p = conv.plain_extw_backward(g, xg, sh, weff, si2_ws)
+    torch.cuda.synchronize()
+    for a, b, c in zip(d_k, d_p, d_2):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max() <= 1e-4 * max(b.abs().max(), 1e-6)
+        assert a[pad].abs().max() == 0
+        assert torch.equal(a, c)
+    t = conv.kernel_tables(xg.device)
+    if t.n_dead:
+        assert d_k[2][:, t.dead_w.long()].abs().max() == 0
+
+
+def test_redesigned_backwards_resources(cuda, model):
+    """No local memory; the checkpoint's mid layer at two blocks an SM:
+    the terms backward both forms, the external-weight backward."""
+    from sevennet_exp_tpu_torch.ops import fused_conv as fc
+    from sevennet_exp_tpu_torch.ops import fused_conv_geom as fcg
+    cl = model.layers['1_convolution']
+    for dd in (32, 0):
+        conv = fc.FusedConv(cl.tp, cl.weight_nn, cl.si2, dd, cg_mode='terms')
+        regs, local, per_sm = conv._terms.bwd_resources(dd)
+        assert local == 0 and per_sm >= 2 and regs <= 128, (dd, regs)
+    conv = fc.FusedConv(cl.tp, cl.weight_nn, cl.si2, 32, ext_w=True)
+    regs, local, per_sm, smem = conv.extw_resources(cuda)
+    d = fcg.extw_dims(conv)
+    assert local == 0 and per_sm >= 2
+    assert smem == 4 * fcg.extw_words(d, fcg.extw_tile(d))
+
+
+@pytest.mark.parametrize('lib', ['fused_conv_terms', 'fused_conv_geom_extw'])
+def test_redesigned_backwards_sass_no_local_memory(cuda, lib):
+    """Every instance of the terms backward (both forms) and of the
+    external-weight backward: FFMA on the CUDA cores, no tensor-core
+    opcode, no LDL / STL. (The terms forward, not redesigned, keeps two
+    LDL: ROADMAP B.)"""
+    from sevennet_exp_tpu_torch.tools import sass_compare
+    counts = {k: v for k, v in sass_compare.count(lib).items()
+              if 'bwd' in k}
+    assert len(counts) == (2 if lib == 'fused_conv_terms' else 3)
+    for k, v in counts.items():
+        assert v['FFMA'] > 0, k
+        for op in (*sass_compare.TENSOR_CORE_OPS, *sass_compare.LOCAL_OPS):
+            assert v[op] == 0, (k, op, v[op])
 
 
 def test_engine_with_terms_matches_default_on_the_card(cuda, model):

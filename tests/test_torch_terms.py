@@ -18,7 +18,8 @@ at atol 1e-5 relative to max|ref|, against
       1e-4 eV/A, 1e-5 eV/A^3), whole-array and chunked.
 
 ``test_kernel_tables_reproduce_plain`` replays the arithmetic of
-csrc/fused_conv_terms.cu from the tables the kernels read -- an independent
+csrc/fused_conv_terms.cu from the tables the kernels read (the backward by
+``tests/test_torch_terms_plan.py::replay_terms_bwd``) -- an independent
 derivation from the two specs, sharing nothing with the default kernels'
 tables -- so the table contract is covered here; the kernels themselves run
 only on the card (tests/test_torch_cuda.py, chip_smoke.py).
@@ -48,6 +49,7 @@ from sevennet_exp_tpu_torch.ops.tensor_product import (
     UVUTensorProductSpec,
 )
 from test_torch_fused_tp import replay_tp_tables
+from test_torch_terms_plan import replay_terms_bwd
 
 torch.set_num_threads(2)
 CKPT = 'trained_nacl/checkpoint_best.pth.sevennet'
@@ -222,7 +224,7 @@ def _replay(conv, xg, sh, emb, ms, mlp_ws, si2_ws, g):
         wt = si2t[w_off + r + mi * torch.arange(mo)]
         gm[:, i] = alpha[pth] * (
             g[:, out_off + q * mo:out_off + (q + 1) * mo] @ wt)
-    msg, dxg, dsh, dw = replay_tp_tables(
+    msg, _, _, _ = replay_tp_tables(
         P.ins, P.idx.tolist(), P.coef.tolist(), xg, sh, w_live,
         gm.repeat_interleave(group, 0), P.d_msg)
     pad = (ms == 0).reshape(-1)
@@ -238,9 +240,8 @@ def _replay(conv, xg, sh, emb, ms, mlp_ws, si2_ws, g):
         wcol = si2[w_off + o + mo * torch.arange(mi)]
         out[:, c] = alpha[pth] * (
             agg[:, in_off + q * mi:in_off + (q + 1) * mi] @ wcol)
-    emb_ = emb.detach().requires_grad_(True)
-    (demb,) = torch.autograd.grad(conv.mlp.apply(mlp_p, emb_), emb_, dw * ms)
-    return out, (dxg, dsh, demb)
+    # the backward: csrc/fused_conv_terms.cu's folded CG (Q) from its plan
+    return out, replay_terms_bwd(conv, xg, sh, emb, ms, mlp_ws, si2_ws, g)
 
 
 @pytest.mark.parametrize('which', ['tiny1', 'checkpoint0', 'checkpoint1',
