@@ -26,9 +26,9 @@ Phases (any failure raises, exits non-zero and prints no result):
      per layer, the registers, local bytes and blocks an SM of kernels 1-2
      as launched (at least three forward and two backward blocks, no local
      memory), of their edge-row form, the edge pair (at least two each
-     way, no local memory), and of the two redesigned backwards, the terms
-     backward (both forms) and the external-weight backward (at least two
-     blocks, no local memory);
+     way, no local memory), and of the redesigned terms pair (both forms)
+     and external-weight pair, each way (at most 128 registers, at least
+     two blocks, no local memory);
   2. each kernel against its plain PyTorch version on the 1k path's real
      inputs (trained checkpoint; kernels 1-2 on all five layers, their pad
      rows' gradients exactly zero and a second launch bit-identical; the
@@ -57,7 +57,8 @@ Phases (any failure raises, exits non-zero and prints no result):
      5 x chunks geom forward and backward kernels and none of kernels 1-2;
   7. the external-weight kernels against their plain versions on the 1k
      path's real inputs with ``half_mlp`` (all five layers; pad rows of
-     dxg, dsh and dweff exactly zero), median times, the bound;
+     dxg, dsh and dweff exactly zero, a second launch bit-identical),
+     median times, the bound;
   8. 1k energy and forces with ``half_mlp`` against the default kernel
      path; both force-call times in turns and both peak memories; then 100
      timed NVT steps with ``half_mlp``: every force call must have launched
@@ -73,7 +74,8 @@ Phases (any failure raises, exits non-zero and prints no result):
  10. the ``terms`` kernels against their plain versions and against kernels
      1-2, per layer, on the 1k grid's real inputs (``agg_d = 32``) and on
      the calculator's padded edge list (``agg_d = 0``); pad rows exactly
-     zero; the times of both pairs side by side;
+     zero (at ``agg_d = 0`` the outputs' too), a second launch
+     bit-identical; the times of both pairs side by side;
  11. 1k energy, forces and stress of the engine's NPT potential
      (``_efs_fn``): ``cg_mode='terms'`` against ``'cmshared'`` and against
      the plain path, and the engine's stress against the calculator's;
@@ -94,11 +96,13 @@ Phases (any failure raises, exits non-zero and prints no result):
      ``fused_conv_geom_ssp``, the shifted softplus), compiled together: no
      tensor-core and no local-memory opcode, and the silu / tanh instances
      at the SASS they had before the shifted softplus joined
-     (``PARENT_GEOM_SASS``); the external-weight backward's three instances
-     (the build ``fused_conv_geom_extw``) and the terms backward's two,
-     compiled with them: no tensor-core and no local-memory opcode; the
-     entries of the twelve kernels above (the six kernels, the edge-row
-     form of kernels 1-2, the terms pair and the tensor-product pair);
+     (``PARENT_GEOM_SASS``); the external-weight pair's four instances
+     (the build ``fused_conv_geom_extw``: the backward at 4, 9, 16 SH, at
+     the SASS of its redesign, ``EXTW_BWD_SASS``, and the forward) and the
+     terms pair's four, compiled with them: no tensor-core and no
+     local-memory opcode; the entries of the twelve kernels above (the six
+     kernels, the edge-row form of kernels 1-2, the terms pair and the
+     tensor-product pair);
  15. the micro-benchmarks at their default sizes through their entry
      points (``bench_cgmxu`` at i1 = 1 and 2), every counter reset just
      before: each prints its times and (``bench_pieces``) its piece costs;
@@ -175,6 +179,11 @@ PARENT_GEOM_SASS = {
     ('edge', 'fwd'): '1bd8cca68cf4', ('edge', 'bwd4'): '2b2ea3b3dae0',
     ('edge', 'bwd9'): '785447e4d5fa', ('edge', 'bwd16'): '3d5b2d34c0c5',
 }
+
+# SASS digests of the external-weight backward's three instances (16, 9, 4
+# SH) as redesigned, before the external-weight forward joined its build
+# (tests/test_torch_cuda.py holds them too)
+EXTW_BWD_SASS = ('5455282fa6b2', '9fa855366a9d', 'd8cf526f5ab8')
 
 MD_KW = dict(dt_fs=2.0, temperature_K=300.0, ensemble='nvt',
              rebuild_every=20, seed=0)
@@ -1059,17 +1068,17 @@ def main():
         if any(float(d[pad].abs().max()) != 0.0 for d in d_k):
             raise AssertionError(
                 f'pad rows of {"/".join(names)} are not zero')
-        if (not kind and conv.cg_mode == 'cmshared' and conv.agg_d == 0
-                and float(y_k[pad].abs().max())):
+        if not kind and conv.agg_d == 0 and float(y_k[pad].abs().max()):
             raise AssertionError('pad rows of the edge rows are not zero')
         row['pad_rows'] = int(pad.sum())
-        if not kind and conv.cg_mode == 'cmshared':
-            # kernels 1-2 (either form) sum in a fixed order: a second
-            # launch, same bits
+        if kind != 'geom':
+            # kernels 1-4 (either form) and 7-8 sum in a fixed order: a
+            # second launch, same bits
             again = (kf(*args), *kb(g, *args))
             if not all(torch.equal(a, b) for a, b in zip(again,
                                                           (y_k, *d_k))):
-                raise AssertionError('kernels 1-2: two launches differ')
+                raise AssertionError(f'{kind or conv.cg_mode} kernels: two '
+                                     'launches differ')
             row['bit_identical'] = True
             del again
         del y_k, y_p, d_k, d_p
@@ -1134,27 +1143,37 @@ def main():
             report['edge_resources'].append(dict(layer=li, kernel=k,
                                                  **r._asdict()))
 
-    # the redesigned backwards as launched at each layer: the terms pair's
-    # (both forms) and the external-weight one
-    report['bwd_resources'] = []
+    # the redesigned terms pair (both forms) and external-weight pair as
+    # launched at each layer: at most 128 registers, no local memory, at
+    # least two blocks an SM
+    report['bwd_resources'], report['fwd_resources'] = [], []
     for li in range(5):
         cl = model.layers[f'{li}_convolution']
-        for kind, dd in (('terms', md.deg_cap), ('terms', 0),
-                         ('extw', md.deg_cap)):
+        for kind, dd, way in (('terms', md.deg_cap, 'bwd'),
+                              ('terms', 0, 'bwd'),
+                              ('extw', md.deg_cap, 'bwd'),
+                              ('terms', md.deg_cap, 'fwd'),
+                              ('terms', 0, 'fwd'),
+                              ('extw', md.deg_cap, 'fwd')):
             if kind == 'terms':
                 conv = FC(cl.tp, cl.weight_nn, cl.si2, dd, cg_mode='terms')
-                regs, local, per_sm = conv._terms.bwd_resources(dd)
-                smem = 4 * conv._terms.bwd_plan(dd).words
+                tk = conv._terms
+                regs, local, per_sm = (tk.fwd_resources(dd) if way == 'fwd'
+                                       else tk.bwd_resources(dd))
+                smem = 4 * (tk.fwd_plan(dd) if way == 'fwd'
+                            else tk.bwd_plan(dd)).words
             else:
                 conv = FC(cl.tp, cl.weight_nn, cl.si2, dd, ext_w=True)
-                regs, local, per_sm, smem = conv.extw_resources(dev)
-            print(f'{kind} backward (agg_d {dd}), layer {li}: {regs} '
+                regs, local, per_sm, smem = conv.extw_resources(
+                    dev, fwd=way == 'fwd')
+            name = 'forward' if way == 'fwd' else 'backward'
+            print(f'{kind} {name} (agg_d {dd}), layer {li}: {regs} '
                   f'registers, {local} local bytes, {per_sm} blocks an SM at '
                   f'{smem} shared bytes', flush=True)
-            if local or per_sm < 2:
-                raise AssertionError(f'{kind} backward agg_d {dd} layer {li}:'
+            if local or per_sm < 2 or regs > 128:
+                raise AssertionError(f'{kind} {name} agg_d {dd} layer {li}:'
                                      f' {regs}, {local}, {per_sm}')
-            report['bwd_resources'].append(dict(
+            report[f'{way}_resources'].append(dict(
                 layer=li, kernel=kind, agg_d=dd, registers=regs,
                 local_bytes=local, blocks_per_sm=per_sm, smem=smem))
 
@@ -1793,14 +1812,21 @@ def main():
     builds = sass_compare.count_and_digests(
         ('fused_conv_geom', 'fused_conv_geom_ssp', 'fused_conv_geom_extw',
          'fused_conv_terms'))
-    # the redesigned backwards: the external-weight backward at 4, 9, 16
-    # SH, the terms backward's two forms
-    for lib, want in (('fused_conv_geom_extw', 3), ('fused_conv_terms', 2)):
-        # (the terms forward, not redesigned, keeps two LDL: ROADMAP B)
-        counts = {k: v for k, v in builds.pop(lib)[0].items() if 'bwd' in k}
-        if len(counts) != want:
+    # the redesigned pairs: the external-weight pair (the backward at 4, 9,
+    # 16 SH, the forward), the terms pair's two forms each way; the
+    # external-weight backward at the SASS of its redesign
+    for lib in ('fused_conv_geom_extw', 'fused_conv_terms'):
+        counts, digests = builds.pop(lib)
+        if len(counts) != 4:
             raise AssertionError(f'{lib}: {len(counts)} kernel instances, '
-                                 f'want {want}')
+                                 'want 4')
+        if lib == 'fused_conv_geom_extw':
+            got = {k: v for k, v in digests.items() if 'bwd' in k}
+            print(f'external-weight backward against its redesign\'s SASS: '
+                  f'{got}', flush=True)
+            if sorted(got.values()) != sorted(EXTW_BWD_SASS):
+                raise AssertionError(f'external-weight backward SASS moved: '
+                                     f'{got}')
         for k, v in counts.items():
             bad = {op: v[op] for op in (*sass_compare.TENSOR_CORE_OPS,
                                         *sass_compare.LOCAL_OPS) if v[op]}
@@ -1841,7 +1867,6 @@ def main():
     def total(key, rows=None):
         return sum(r[key] for r in (layers if rows is None else rows))
 
-    source = 'sevennet_exp_tpu_torch/csrc/fused_conv.cu'
     kernels = []
     for name, k, line in (('fused_conv_fwd', 'fwd', 792),
                           ('fused_conv_bwd', 'bwd', 886)):
@@ -1886,12 +1911,13 @@ def main():
                            total(f'{k}_bytes', extw_layers))
         kernels.append({
             'name': name, 'route': 'cuda',
-            'source': source if k == 'fwd' else
-            'sevennet_exp_tpu_torch/csrc/fused_conv_geom.cu',
-            **({} if k == 'fwd' else {
-                'status': 'redesigned for Hopper on the dense backward\'s '
-                          'class pass, weights streamed as whole rows: '
-                          'csrc/fused_conv_geom.cu (fused_conv_geom_extw)'}),
+            'source': 'sevennet_exp_tpu_torch/csrc/fused_conv_geom.cu',
+            'status': 'redesigned for Hopper: csrc/fused_conv_geom.cu '
+                      '(fused_conv_geom_extw), ' + (
+                          'the dense forward\'s CG, the live weight runs '
+                          'by 16-byte loads' if k == 'fwd' else
+                          'the dense backward\'s class pass, weights '
+                          'streamed as whole rows'),
             'replaces': f'sevennet_exp_tpu/ops/pallas_conv.py:{line}',
             'launches': report['nvt_half_mlp']['launches'][name],
             'max_abs_err': max(errs),
@@ -1931,10 +1957,10 @@ def main():
         kernels.append({
             'name': name, 'route': 'cuda',
             'source': 'sevennet_exp_tpu_torch/csrc/fused_conv_terms.cu',
-            **({} if k == 'fwd' else {
-                'status': 'redesigned for Hopper: the CG folded with the '
-                          'message cotangent, register-blocked MLP '
-                          'products, 16-row tiles, a persistent grid'}),
+            'status': 'redesigned for Hopper: the CG folded with the ' + (
+                'SH per row, si2 at agg_d = 0 a product over the tile'
+                if k == 'fwd' else 'message cotangent') + ', register-'
+                'blocked MLP products, 16-row tiles, a persistent grid',
             'replaces': f'sevennet_exp_tpu/ops/pallas_conv.py:{line}',
             'launches': report['npt_terms']['launches'][name],
             'max_abs_err': max(errs),

@@ -4,7 +4,8 @@ PyTorch port of ``sevennet_exp_tpu``: the 7net-0 network, its checkpoint
 loader and single-device NVE/NVT molecular dynamics on the dense
 per-atom neighbor grid. The fused convolution (radial MLP + uvu tensor
 product + aggregation + self-interaction linear) and its force backward
-run as hand-written CUDA kernels (``csrc/fused_conv.cu``) on the card;
+run as hand-written CUDA kernels (``csrc/fused_conv_geom.cu``; the
+``terms`` cross-check ``csrc/fused_conv_terms.cu``) on the card;
 every other piece is plain PyTorch.
 
 The package imports ``torch`` and ``numpy`` only -- never ``jax``, optax

@@ -1,5 +1,5 @@
-// Per-piece cost of the fused conv forward (kernel 1 of fused_conv.cu) on
-// NVIDIA Hopper (sm_90a), fp32: the same body with one piece at a time
+// Per-piece cost of the fused conv forward (kernel 1's first design, the
+// body of fused_conv_body.cuh) on NVIDIA Hopper (sm_90a), fp32: the same body with one piece at a time
 // replaced by a near-free stand-in, so that full - variant is what the piece
 // costs inside the real kernel (its scheduling and occupancy included).
 //
@@ -37,7 +37,7 @@ bench_pieces_full_kernel(const float* __restrict__ xg,
                          const float* __restrict__ w2,
                          const float* __restrict__ si2w, Plan P,
                          float* __restrict__ out) {
-  fwd_body<M_PLAIN>(xg, sh, emb, ms, nullptr, w0, w1, w2, si2w, P,
+  fwd_body<M_PLAIN>(xg, sh, emb, ms, w0, w1, w2, si2w, P,
                     out);
 }
 
@@ -51,7 +51,7 @@ bench_pieces_nomlp_kernel(const float* __restrict__ xg,
                           const float* __restrict__ w2,
                           const float* __restrict__ si2w, Plan P,
                           float* __restrict__ out) {
-  fwd_body<M_PLAIN, S_MLP>(xg, sh, emb, ms, nullptr, w0, w1, w2,
+  fwd_body<M_PLAIN, S_MLP>(xg, sh, emb, ms, w0, w1, w2,
                            si2w, P, out);
 }
 
@@ -65,7 +65,7 @@ bench_pieces_nocg_kernel(const float* __restrict__ xg,
                          const float* __restrict__ w2,
                          const float* __restrict__ si2w, Plan P,
                          float* __restrict__ out) {
-  fwd_body<M_PLAIN, S_CG>(xg, sh, emb, ms, nullptr, w0, w1, w2,
+  fwd_body<M_PLAIN, S_CG>(xg, sh, emb, ms, w0, w1, w2,
                           si2w, P, out);
 }
 
@@ -79,7 +79,7 @@ bench_pieces_now_kernel(const float* __restrict__ xg,
                         const float* __restrict__ w2,
                         const float* __restrict__ si2w, Plan P,
                         float* __restrict__ out) {
-  fwd_body<M_PLAIN, S_W>(xg, sh, emb, ms, nullptr, w0, w1, w2, si2w,
+  fwd_body<M_PLAIN, S_W>(xg, sh, emb, ms, w0, w1, w2, si2w,
                          P, out);
 }
 
@@ -93,7 +93,7 @@ bench_pieces_noagg_kernel(const float* __restrict__ xg,
                           const float* __restrict__ w2,
                           const float* __restrict__ si2w, Plan P,
                           float* __restrict__ out) {
-  fwd_body<M_EDGE>(xg, sh, emb, ms, nullptr, w0, w1, w2, si2w, P, out);
+  fwd_body<M_EDGE>(xg, sh, emb, ms, w0, w1, w2, si2w, P, out);
 }
 
 __global__ void __launch_bounds__(NT, 2)
@@ -106,7 +106,7 @@ bench_pieces_nosi2_kernel(const float* __restrict__ xg,
                           const float* __restrict__ w2,
                           const float* __restrict__ si2w, Plan P,
                           float* __restrict__ out) {
-  fwd_body<M_PLAIN, S_SI2>(xg, sh, emb, ms, nullptr, w0, w1, w2,
+  fwd_body<M_PLAIN, S_SI2>(xg, sh, emb, ms, w0, w1, w2,
                            si2w, P, out);
 }
 

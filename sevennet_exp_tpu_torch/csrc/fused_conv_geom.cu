@@ -2172,6 +2172,225 @@ int launch_extw_bwd(const float* g, const float* xg, const float* sh,
   }
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------
+// the external-weight forward (fused_conv_extw_fwd, row 7)
+// ---------------------------------------------------------------------
+//
+// Replaces make_fused_conv(agg_d > 0, ext_w).fwd_kernel_cm_w
+// (sevennet_exp_tpu/ops/pallas_conv.py, _cm_fwd_core on given weights): per
+// atom A = sum over its D rows of weff (x) CG(xg, sh), then y = si2(A); no
+// MLP. Built, like the backward above, only in fused_conv_geom_extw.
+//
+// What bounds it on this card: bytes. A mid layer reads ~4.3 kB a row (xg,
+// sh, 576 live of 960 weights) for ~5k multiply-adds. Its first design
+// (fwd_body<M_EXTW> of fused_conv_body.cuh) ran at ~10 % of that bound: a
+// block per atom on 32-row tiles staged by 4-byte loads, a thread per live
+// column with one weight load in flight, the CG table-driven with four
+// shared table loads per term. What this design does:
+//  - The dense forward's CG (fwd_cg: unrolled per (l1, l2, l3) from
+//    cg_patterns.cuh, one (live column, row group) a thread, the row
+//    groups' partial aggregates summed in a fixed order), with w read from
+//    the tile's weights where the dense forward computes it.
+//  - The weights: only the live column runs (an instruction's columns are
+//    the contiguous [w_off, w_off + mul)), by 16-byte streaming loads, four
+//    in flight a thread, into the packed live columns of the tile (single
+//    loads when a run is not 16-byte aligned); sh rows by 16-byte loads.
+//    xg is read by the CG's coalesced loads, once per instruction, as the
+//    dense forward reads it.
+//  - Tiles of up to 16 rows at three blocks an SM (tile and row groups:
+//    extw_fwd_shape), a persistent grid, si2 once per atom.
+// A row whose live weights are all zero is a pad: it sends nothing (the CG
+// skips a zero weight). Sums run in a fixed order (no atomics).
+
+// shared words of one forward block at T rows and s row groups (the C entry
+// holds the caller's number against it)
+__host__ __device__ inline int extw_fwd_words(const Plan& P, int T, int s) {
+  auto r4 = [](int n) { return (n + 3) & ~3; };
+  const int nap = r4(P.n_active);
+  return table_words(P) + r4(P.n_ins) + nap + T * SHP + T * nap
+         + s * r4(P.agg_dim) + r4(P.d_out);
+}
+
+// rows per tile and CG row groups: the most rows, D rounded up to 4 at most
+// 16, whose block fits three an SM (else two, else one) with one row
+// group; then the row groups (1, 2 or 4, each a multiple of 4 rows) that
+// take the fewest rounds of the block's threads, a column's start counted
+// as 4 rows, within the same blocks an SM. T = 0: no tile fits.
+void extw_fwd_shape(const Plan& P, int* T_out, int* s_out) {
+  const size_t fits[3] = {(233472 - 3 * 1024) / 3, TWO_PER_SM, 232448};
+  *T_out = *s_out = 0;
+  for (size_t lim : fits) {
+    for (int T = tile_rows(P.D, TF); T >= 4; T -= 4) {
+      if ((size_t)4 * extw_fwd_words(P, T, 1) > lim) continue;
+      long best = -1;
+      for (int s = 1; s <= 4; s *= 2) {
+        if (T % (4 * s) || (size_t)4 * extw_fwd_words(P, T, s) > lim) break;
+        const long cost = (((long)P.n_active * s + NT - 1) / NT) * (T / s + 4);
+        if (best < 0 || cost < best) { best = cost; *s_out = s; }
+      }
+      *T_out = T;
+      return;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(NT, 3)
+fused_conv_extw_fwd_kernel(const float* __restrict__ xg,
+                           const float* __restrict__ sh,
+                           const float* __restrict__ weff,
+                           const float* __restrict__ si2w, Plan P, int T,
+                           int s, float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  auto r4 = [](int n) { return (n + 3) & ~3; };
+  int* ins_s = reinterpret_cast<int*>(smem);
+  int* nzi_s = ins_s + P.n_ins * I_STRIDE;
+  float* nzc_s = reinterpret_cast<float*>(nzi_s + P.n_nz);
+  float* next_s = smem + table_words(P);
+  auto take = [&next_s](int n) {
+    float* q = next_s; next_s += n; return q;
+  };
+  const int nap = r4(P.n_active);
+  float* sc_s = take(r4(P.n_ins));
+  int* src_s = reinterpret_cast<int*>(take(nap));   // live col -> weight col
+  float* sh_s = take(T * SHP);
+  float* w_s = take(T * nap);
+  float* aggp_s = take(s * r4(P.agg_dim));
+  float* out_s = take(r4(P.d_out));
+
+  const int tid = threadIdx.x;
+  load_tables(P, ins_s, nzi_s, nzc_s);
+  for (int c = tid; c < P.n_active; c += NT) src_s[c] = __ldg(P.col_w + c);
+  __syncthreads();
+  for (int i = tid; i < P.n_ins; i += NT) {
+    const int* I = ins_s + i * I_STRIDE;
+    float sc = 0.f;
+    switch (shape_key(I)) {
+#define EXTW_FWD_SCALE_CASE(a, b, c) \
+      case a * 16 + b * 4 + c: sc = pattern_scale<a, b, c>(I, nzc_s); break;
+      CG_SHAPES(EXTW_FWD_SCALE_CASE)
+#undef EXTW_FWD_SCALE_CASE
+    }
+    sc_s[i] = sc;
+  }
+  // the live columns in aligned runs of four (every run's start and length
+  // a multiple of 4, 16-byte weight rows): 16-byte loads, else single ones
+  bool run4 = (P.n_active & 3) == 0 && (P.wn & 3) == 0
+              && (reinterpret_cast<size_t>(weff) & 15) == 0;
+  for (int c = tid; c < P.n_active && run4; c += NT)
+    run4 = (c & 3) ? src_s[c] == src_s[c - 1] + 1 : (src_s[c] & 3) == 0;
+  const bool vec = __syncthreads_and(run4);
+  const int nq = P.n_active / 4, R = T / s;
+
+  for (int atom = blockIdx.x; atom < P.n_atoms; atom += gridDim.x) {
+    __syncthreads();
+    for (int i = tid; i < s * r4(P.agg_dim); i += NT) aggp_s[i] = 0.f;
+    for (int t0 = 0; t0 < P.D; t0 += T) {
+      const long row0 = (long)atom * P.D + t0;
+      const int rows = min(T, P.D - t0);
+      __syncthreads();
+      load_block(sh + row0 * P.f, rows * P.f, [&](int i, float v) {
+        const int e = i / P.f;
+        sh_s[e * SHP + i - e * P.f] = v;
+      });
+      for (int i = tid; i < rows * (SHP - P.f); i += NT) {
+        const int e = i / (SHP - P.f);
+        sh_s[e * SHP + P.f + i - e * (SHP - P.f)] = 0.f;
+      }
+      const float* wrow = weff + row0 * P.wn;
+      if (vec) {
+        for (int i = tid; i < rows * nq; i += 4 * NT) {
+          float4 v[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int j = i + k * NT, e = j / nq;
+            if (j < rows * nq)
+              v[k] = __ldcs(reinterpret_cast<const float4*>(
+                  wrow + (long)e * P.wn + src_s[4 * (j - e * nq)]));
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int j = i + k * NT, e = j / nq;
+            if (j < rows * nq)
+              *reinterpret_cast<float4*>(w_s + e * nap + 4 * (j - e * nq)) =
+                  v[k];
+          }
+        }
+      } else {
+        for (int i = tid; i < rows * P.n_active; i += NT) {
+          const int e = i / P.n_active, c = i - e * P.n_active;
+          w_s[e * nap + c] = __ldcs(wrow + (long)e * P.wn + src_s[c]);
+        }
+      }
+      __syncthreads();
+      const float* xr = xg + row0 * P.d1;
+      for (int j = tid; j < P.n_active * s; j += NT) {
+        const int c = j % P.n_active, g = j / P.n_active;
+        const int e0 = g * R, e1 = min(e0 + R, rows);
+        if (e0 >= e1) continue;
+        const int ii = __ldg(P.col_ins + c);
+        const int* I = ins_s + ii * I_STRIDE;
+        const int u = c - I[I_COL0];
+        float* aggp = aggp_s + g * r4(P.agg_dim);
+        switch (shape_key(I)) {
+#define EXTW_FWD_CASE(A, B, C)                                              \
+          case A * 16 + B * 4 + C:                                          \
+            fwd_cg<A, B, C>(P, I, u, c, sc_s[ii], xr, sh_s, w_s, nap, e0,   \
+                            e1, aggp);                                      \
+            break;
+          CG_SHAPES(EXTW_FWD_CASE)
+#undef EXTW_FWD_CASE
+        }
+      }
+    }
+    __syncthreads();
+    // the row groups' partial aggregates, summed in a fixed order
+    for (int i = tid; i < P.agg_dim; i += NT) {
+      float a = aggp_s[i];
+      for (int g = 1; g < s; ++g) a += aggp_s[g * r4(P.agg_dim) + i];
+      aggp_s[i] = a;
+    }
+    for (int i = tid; i < P.d_out; i += NT) out_s[i] = 0.f;
+    __syncthreads();
+    // per-atom self-interaction 2 over the aggregate
+    for (int g = 0; g < P.n_grp; ++g) {
+      const int* Gr = P.grp + g * G_STRIDE;
+      const int K = Gr[G_K], mo = Gr[G_MO], n = Gr[G_DIM3] * mo;
+      const float alpha = P.grp_alpha[g];
+      const float* W = si2w + Gr[G_WOFF];
+      const float* a = aggp_s + Gr[G_AGG];
+      for (int t = tid; t < n; t += NT) {
+        const int p = t / mo, o = t - p * mo;
+        const float* ap = a + p * K;
+        float acc = 0.f;
+        for (int r = 0; r < K; ++r)
+          acc = fmaf(ap[r], __ldg(W + (long)r * mo + o), acc);
+        out_s[Gr[G_OUT] + p * mo + o] = acc * alpha;
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < P.d_out; i += NT)
+      __stcs(out + (long)atom * P.d_out + i, out_s[i]);
+  }
+}
+
+int launch_extw_fwd(const float* xg, const float* sh, const float* weff,
+                    const float* si2w, const Plan& P, int T, int s,
+                    float* out, void* stream) {
+  const size_t smem = 4 * (size_t)extw_fwd_words(P, T, s);
+  cudaError_t err = reserve_smem(fused_conv_extw_fwd_kernel, smem,
+                                 Reserved<false, 0, 3>::bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (P.n_atoms > 0) {
+    int grid = 0;
+    err = persistent_grid(fused_conv_extw_fwd_kernel, smem, P.n_atoms, &grid);
+    if (err != cudaSuccess) return (int)err;
+    fused_conv_extw_fwd_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
+        xg, sh, weff, si2w, P, T, s, out);
+  }
+  return (int)cudaGetLastError();
+}
 #endif  // FUSED_CONV_EXTW
 
 // the edge pair's plan: the C entries get one "atom" per row (D = 1); the
@@ -2323,7 +2542,35 @@ extern "C" int fused_conv_extw_bwd(const float* g, const float* xg,
                              stream);
 }
 
-// the instance a layer launches: registers, local bytes a thread, blocks an
+// the external-weight forward (row 7): T, the row groups s and the shared
+// words as the caller planned them (ops/fused_conv_geom.py::extw_fwd_shape,
+// extw_fwd_words), refused unless they are this file's
+extern "C" int fused_conv_extw_fwd(const float* xg, const float* sh,
+                                   const float* weff, const float* si2w,
+                                   PLAN_ARGS, int T, int s, int words,
+                                   float* out, void* stream) {
+  const Plan P = PLAN_CALL;
+  int T_own = 0, s_own = 0;
+  extw_fwd_shape(P, &T_own, &s_own);
+  if (P.f > SHP || T_own == 0 || T != T_own || s != s_own
+      || words != extw_fwd_words(P, T, s))
+    return (int)cudaErrorInvalidValue;
+  return launch_extw_fwd(xg, sh, weff, si2w, P, T, s, out, stream);
+}
+
+// the forward a layer launches: registers, local bytes a thread, blocks an
+// SM and dynamic shared bytes (on the current device)
+extern "C" int fused_conv_extw_fwd_resources(PLAN_ARGS, int* out) {
+  const Plan P = PLAN_CALL;
+  int T = 0, s = 0;
+  extw_fwd_shape(P, &T, &s);
+  if (P.f > SHP || T == 0) return (int)cudaErrorInvalidValue;
+  return resources(fused_conv_extw_fwd_kernel,
+                   4 * (size_t)extw_fwd_words(P, T, s),
+                   Reserved<false, 0, 3>::bytes, out);
+}
+
+// the backward a layer launches: registers, local bytes a thread, blocks an
 // SM and dynamic shared bytes (on the current device)
 extern "C" int fused_conv_extw_resources(PLAN_ARGS, int* out) {
   const Plan P = PLAN_CALL;

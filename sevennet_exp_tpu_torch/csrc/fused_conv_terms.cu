@@ -6,8 +6,8 @@
 //                           fwd_kernel (_cg_acc, _mlp_forward)
 //   fused_conv_terms_bwd <- the same, bwd_kernel (_act_grad)
 //
-// It computes what csrc/fused_conv.cu's kernels 1-2 compute and shares no
-// code and no table with them: it exists to cross-check them. Per row e:
+// It computes what kernels 1-2 (csrc/fused_conv_geom.cu) compute and shares
+// no code and no table with them: it exists to cross-check them. Per row e:
 //   w[e]   = MLP(emb[e]) * ms[e]                 radial MLP nb -> 64 -> 64 -> wn
 //   msg[e] = uvu tensor product of xg[e] and sh[e] weighted by w[e], laid
 //            out exactly as UVUTensorProductSpec.apply returns it (entry k
@@ -19,24 +19,45 @@
 // group = 1 (agg_d = 0, the plain edge list) every row has its own output.
 // The backward recomputes the MLP and returns dxg, dsh, demb; weights and the
 // mask scale get no gradient. Rows with ms == 0 (pads) contribute nothing and
-// get zero gradients; output columns no si2 path feeds are zeros.
+// get zero gradients; output columns no si2 path feeds are zeros. An si2
+// input entry that feeds several output entries is refused on the host
+// (ops/fused_conv_terms.py, si2_unsupported): the plan keeps one path per
+// input entry.
 //
 // What "terms" means here: on the TPU the mode is a Python-unrolled list of
 // (m, n, p, c) products with the coefficients as immediates. Here the list
-// sits in __constant__ memory: lanes run over the channel u of ONE
-// instruction, so a warp reads every term at one address (a broadcast from
-// the constant cache) and spends no shared-memory bandwidth on tables,
-// where kernels 1-2 pay four shared-memory table loads per multiply-add.
+// sits in __constant__ memory and both kernels fold it once per row (the
+// forward, into the SH) or per output row (the backward, into the message
+// cotangent), so the run-time indexing of its operands is paid once per
+// (row, instruction), where kernels 1-2 unroll the CG per (l1, l2, l3).
 //
 // What bounds it on this card: operations, like kernels 1-2 (a mid layer does
-// ~41k multiply-adds of MLP and ~4.3k of CG per row against ~2 kB of input;
-// the backward twice the MLP's).
+// ~37k multiply-adds of MLP output layer, ~5k of CG and, at agg_d = 0, ~107k
+// of si2 per row against ~2 kB of input; the backward twice the MLP's).
 //
-// The forward, the first design: the MLP's output for a tile of 8 rows is
-// staged in shared memory (a thread owns an output column and reads its 64
-// weights once per tile, 8 rows per weight); a thread owns one (instruction,
-// channel) and sums the tile's rows in registers, so the sum over an atom's
-// rows needs no atomics.
+// The forward, redesigned for this card (its first design, a block per
+// atom or per 8 rows, the MLP's output layer with a load per 8
+// multiply-adds, the CG term by term with two run-time-indexed shared loads
+// per term and row, si2 a thread per column, ran at ~6 % of its bound):
+//  - The SH is folded into the CG once per row and live instruction,
+//    B_a[m][p] = sum of c sh[n] over a's terms (m, n, p, c), by items
+//    (instruction, p, row) whose lanes walk a term run of the constant pool;
+//    then msg_p[u] = w_a[u] sum_m B_a[m][p] x_m[u] is a dense D1 x D3
+//    product per channel in registers, one instance per (l1, l3), x loaded
+//    once a row and B by 16-byte broadcasts.
+//  - The w pass is the backward's (w_pass: 4 columns x R rows of sums a
+//    thread, one 16-byte load of w2's packed live columns per 4R
+//    multiply-adds).
+//  - Tiles of 16 rows (8 at agg_d = 0 where a mid layer's 16 rows of
+//    messages do not fit two blocks an SM), a persistent grid.
+//  - At agg_d = D each CG unit sums its row group's rows in registers and
+//    adds them to the group's partial message; an atom's partials are
+//    summed in a fixed order and si2 runs once per atom (the backward's gm
+//    product on the path table with rows and columns swapped). At
+//    agg_d = 0 si2 is a product over the tile's rows (~107k multiply-adds
+//    a mid-layer row, si2_rows): a thread holds 8 rows x 4 output columns,
+//    a warp reads whole rows of W by 16-byte loads, once a tile, and the
+//    rows' message elements by broadcasts.
 //
 // The backward, redesigned for this card (its first design, table-driven
 // with every operand in shared memory, 8-row tiles and one block per atom,
@@ -77,36 +98,21 @@ namespace {
 constexpr int H = 64;            // radial MLP hidden width
 constexpr int NT = 256;          // threads per block
 constexpr int NW = NT / 32;      // warps per block
-constexpr int RT = 8;            // forward rows per tile
 constexpr int TERM_POOL = 4096;  // CG terms all loaded plans may hold
-
-// instruction record (int32), live instructions only
-enum {
-  I_XOFF = 0, I_MUL, I_SHOFF, I_WOFF, I_MSGOFF, I_DIM3,
-  I_TF0, I_TF1,   // forward terms [TF0, TF1) of the pool, sorted by p
-  I_TB0, I_TB1,   // backward terms, sorted by n
-  I_STRIDE
-};
-// si2 path record: offset of the input entry in the message, mi, mo,
-// components, offset in the output row, offset in the flat weights
-enum { P_IN = 0, P_MI, P_MO, P_DIM, P_OUT, P_W, P_STRIDE };
 
 // term: m | n << 8 | p << 16, and its coefficient
 __constant__ int c_idx[TERM_POOL];
 __constant__ float c_coef[TERM_POOL];
 
+// the layer's launch: the CG units (the plan's slices: live instruction,
+// first of its 32 channels), the si2 paths' alphas, the shapes
 struct Args {
-  const int* ins;           // n_ins * I_STRIDE
-  const int* slices;        // n_slices * 2: instruction, first channel
-  const int* live_cols;     // n_live MLP output columns a live instruction reads
-  const int* paths;         // n_paths * P_STRIDE
+  const int* slices;        // n_slices * 2: live instruction, first channel
   const float* path_alpha;  // n_paths
-  const int* col_path;      // d_out: path that writes the column, or -1
-  const int* msg_path;      // d_msg: path that reads the element, or -1
-  int n_ins, n_slices, n_live, n_paths;
+  int n_slices, n_live, n_paths;   // units; live MLP columns; si2 paths
   long n_rows;
   int group;                // input rows per output row
-  int d1, f, nb, wn, d_msg, d_out;
+  int d1, f, nb, d_out;
   int act;                  // 0 silu, 1 tanh, 2 ssp
   float act_cst, s0, s1, s2;
 };
@@ -129,221 +135,6 @@ __device__ __forceinline__ float act_df(float x, int act) {
   if (act == 2) return 1.f / (1.f + expf(-x));
   const float t = tanhf(x);
   return 1.f - t * t;
-}
-
-__host__ __device__ inline int table_words(const Args& A) {
-  return (A.n_ins * I_STRIDE + 2 * A.n_slices + 3) & ~3;
-}
-
-// the buffers of one tile of RT rows (floats)
-struct Tile {
-  float* x;     // RT * d1
-  float* sh;    // RT * f
-  float* emb;   // RT * nb
-  float* ms;    // RT
-  float* h0;    // RT * H
-  float* h1;    // RT * H
-  float* w;     // RT * wn
-};
-
-__host__ __device__ inline int tile_words(const Args& A) {
-  return RT * (A.d1 + A.f + A.nb + 1 + 2 * H + A.wn);
-}
-
-__device__ __forceinline__ Tile carve_tile(const Args& A, float* p) {
-  Tile T;
-  T.x = p; p += RT * A.d1;
-  T.sh = p; p += RT * A.f;
-  T.emb = p; p += RT * A.nb;
-  T.ms = p; p += RT;
-  T.h0 = p; p += RT * H;
-  T.h1 = p; p += RT * H;
-  T.w = p;
-  return T;
-}
-
-__device__ __forceinline__ void load_tables(const Args& A, int* ins_s,
-                                            int* sl_s) {
-  for (int i = threadIdx.x; i < A.n_ins * I_STRIDE; i += NT)
-    ins_s[i] = A.ins[i];
-  for (int i = threadIdx.x; i < 2 * A.n_slices; i += NT)
-    sl_s[i] = A.slices[i];
-}
-
-// stage `rows` rows starting at r0 (not synced)
-__device__ __forceinline__ void stage_tile(const Args& A, const Tile& T,
-                                           long r0, int rows,
-                                           const float* __restrict__ xg,
-                                           const float* __restrict__ sh,
-                                           const float* __restrict__ emb,
-                                           const float* __restrict__ ms) {
-  const float* xs = xg + r0 * A.d1;
-  for (int i = threadIdx.x; i < rows * A.d1; i += NT) T.x[i] = xs[i];
-  const float* ss = sh + r0 * A.f;
-  for (int i = threadIdx.x; i < rows * A.f; i += NT) T.sh[i] = ss[i];
-  const float* es = emb + r0 * A.nb;
-  for (int i = threadIdx.x; i < rows * A.nb; i += NT) T.emb[i] = es[i];
-  for (int i = threadIdx.x; i < RT; i += NT)
-    T.ms[i] = i < rows ? ms[r0 + i] : 0.f;
-}
-
-// radial MLP of a staged tile: h0, h1 (and the activations' derivatives
-// times the normalisation constant when d0/d1 are given), then
-// w = (h1 @ w2) * s2 * ms in the live columns. Ends synchronised.
-__device__ void mlp_tile(const Args& A, const Tile& T, int rows,
-                         const float* __restrict__ w0,
-                         const float* __restrict__ w1,
-                         const float* __restrict__ w2, float* d0, float* d1) {
-  for (int i = threadIdx.x; i < RT * H; i += NT) {
-    const int r = i / H, j = i - r * H;
-    float h = 0.f, d = 0.f;
-    if (r < rows) {
-      float s = 0.f;
-      for (int b = 0; b < A.nb; ++b)
-        s = fmaf(T.emb[r * A.nb + b], __ldg(w0 + b * H + j), s);
-      s *= A.s0;
-      h = act_f(s, A.act) * A.act_cst;
-      d = act_df(s, A.act) * A.act_cst;
-    }
-    T.h0[i] = h;
-    if (d0) d0[i] = d;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < RT * H; i += NT) {
-    const int r = i / H, j = i - r * H;
-    float h = 0.f, d = 0.f;
-    if (r < rows) {
-      const float* hr = T.h0 + r * H;
-      float s = 0.f;
-#pragma unroll 8
-      for (int k = 0; k < H; ++k) s = fmaf(hr[k], __ldg(w1 + k * H + j), s);
-      s *= A.s1;
-      h = act_f(s, A.act) * A.act_cst;
-      d = act_df(s, A.act) * A.act_cst;
-    }
-    T.h1[i] = h;
-    if (d1) d1[i] = d;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < A.n_live; i += NT) {
-    const int c = __ldg(A.live_cols + i);
-    float acc[RT];
-#pragma unroll
-    for (int r = 0; r < RT; ++r) acc[r] = 0.f;
-    for (int k = 0; k < H; ++k) {
-      const float wv = __ldg(w2 + (size_t)k * A.wn + c);
-#pragma unroll
-      for (int r = 0; r < RT; ++r) acc[r] = fmaf(T.h1[r * H + k], wv, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < RT; ++r) T.w[r * A.wn + c] = acc[r] * A.s2 * T.ms[r];
-  }
-  __syncthreads();
-}
-
-// AGG: a block owns one output row and walks its `group` input rows tile by
-// tile, one message buffer. Not AGG (group = 1): a block owns RT rows, one
-// message buffer each.
-template <bool AGG>
-__global__ void __launch_bounds__(NT)
-terms_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ sh,
-                 const float* __restrict__ emb, const float* __restrict__ ms,
-                 const float* __restrict__ w0, const float* __restrict__ w1,
-                 const float* __restrict__ w2, const float* __restrict__ si2w,
-                 Args A, float* __restrict__ out) {
-  constexpr int NS = AGG ? 1 : RT;      // message buffers
-  extern __shared__ float smem[];
-  int* ins_s = reinterpret_cast<int*>(smem);
-  int* sl_s = ins_s + A.n_ins * I_STRIDE;
-  float* p = smem + table_words(A);
-  const Tile T = carve_tile(A, p);
-  float* msg_s = p + tile_words(A);     // NS * d_msg
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-
-  long row_begin, row_end, out_row0;
-  if (AGG) {
-    row_begin = (long)blockIdx.x * A.group;
-    row_end = row_begin + A.group;
-    out_row0 = blockIdx.x;
-  } else {
-    row_begin = (long)blockIdx.x * RT;
-    row_end = row_begin + RT < A.n_rows ? row_begin + RT : A.n_rows;
-    out_row0 = row_begin;
-  }
-  const int n_slots = AGG ? 1 : (int)(row_end - row_begin);
-
-  load_tables(A, ins_s, sl_s);
-  for (int i = threadIdx.x; i < NS * A.d_msg; i += NT) msg_s[i] = 0.f;
-  __syncthreads();
-
-  for (long r0 = row_begin; r0 < row_end; r0 += RT) {
-    const int rows = row_end - r0 < RT ? (int)(row_end - r0) : RT;
-    stage_tile(A, T, r0, rows, xg, sh, emb, ms);
-    __syncthreads();
-    mlp_tile(A, T, rows, w0, w1, w2, nullptr, nullptr);
-    // CG: a warp takes 32 channels of one instruction at a time; a thread
-    // sums its channel over the tile's rows
-    for (int s = warp; s < A.n_slices; s += NW) {
-      const int* I = ins_s + sl_s[2 * s] * I_STRIDE;
-      const int u = sl_s[2 * s + 1] + lane;
-      const int mul = I[I_MUL];
-      if (u >= mul) continue;
-      const int xo = I[I_XOFF] + u, so = I[I_SHOFF], wo = I[I_WOFF] + u;
-      float* me = msg_s + I[I_MSGOFF] + u;
-      int t = I[I_TF0];
-      const int t1 = I[I_TF1];
-      for (int pc = 0; pc < I[I_DIM3]; ++pc) {
-        int te = t;
-        while (te < t1 && ((c_idx[te] >> 16) & 0xff) == pc) ++te;
-        float tot = 0.f;
-        for (int r = 0; r < rows; ++r) {
-          if (T.ms[r] == 0.f) continue;
-          const float* xr = T.x + r * A.d1 + xo;
-          const float* sr = T.sh + r * A.f + so;
-          float acc = 0.f;
-          for (int tt = t; tt < te; ++tt) {
-            const int id = c_idx[tt];
-            acc = fmaf(c_coef[tt] * xr[(id & 0xff) * mul],
-                       sr[(id >> 8) & 0xff], acc);
-          }
-          const float v = acc * T.w[r * A.wn + wo];
-          if (AGG) tot += v;
-          else me[(size_t)r * A.d_msg + pc * mul] = v;
-        }
-        if (AGG) me[pc * mul] += tot;
-        t = te;
-      }
-    }
-    __syncthreads();
-  }
-
-  // si2: a thread owns one output column; the message elements it needs are
-  // the same for neighbouring columns (a broadcast), the weights coalesced
-  for (int c = threadIdx.x; c < A.d_out; c += NT) {
-    const int pth = __ldg(A.col_path + c);
-    float acc[NS];
-#pragma unroll
-    for (int s = 0; s < NS; ++s) acc[s] = 0.f;
-    float alpha = 0.f;
-    if (pth >= 0) {
-      const int* P = A.paths + pth * P_STRIDE;
-      const int mi = __ldg(P + P_MI), mo = __ldg(P + P_MO);
-      const int rel = c - __ldg(P + P_OUT);
-      const int q = rel / mo, o = rel - q * mo;
-      const float* W = si2w + __ldg(P + P_W) + o;
-      const float* m = msg_s + __ldg(P + P_IN) + q * mi;
-      alpha = __ldg(A.path_alpha + pth);
-      for (int r = 0; r < mi; ++r) {
-        const float wv = __ldg(W + (size_t)r * mo);
-#pragma unroll
-        for (int s = 0; s < NS; ++s)
-          acc[s] = fmaf(m[(size_t)s * A.d_msg + r], wv, acc[s]);
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < NS; ++s)
-      if (s < n_slots) out[(out_row0 + s) * A.d_out + c] = acc[s] * alpha;
-  }
 }
 
 // ---------------------------------------------------------------------
@@ -424,12 +215,13 @@ __host__ __device__ inline BLay bwd_layout(const Args& A, const BArgs& B,
   return L;
 }
 
-// gm = alpha W^T g of rows [0, groups * RB) of a tile into the compact
-// cotangent (row e at e * n_msg). A unit is (path, row group, component q,
-// 4 consecutive entries r); its o range is cut into L parts (L a power of
-// two, at most 8, so that a part is about OC o) run by L neighbouring lanes
-// and summed by an xor butterfly, so that no path's long o range runs on a
-// few threads alone. Per o one 16-byte load of W^T (row o: mi entries;
+// gm = alpha W^T g of rows [0, groups * RB) of a tile, handed to
+// put(row, entry, value) (the compact cotangent; the forward's si2 per atom
+// with the path table's rows and columns swapped: see terms_fwd_kernel). A
+// unit is (path, row group, component q, 4 consecutive entries r); its o
+// range is cut into L parts (L a power of two, at most 8, so that a part is
+// about OC o) run by L neighbouring lanes and summed by an xor butterfly,
+// so that no path's long o range runs on a few threads alone. Per o one 16-byte load of W^T (row o: mi entries;
 // single guarded loads where rows are not 16-byte aligned) and RB rows of g
 // (row-minor, stride ts; 16-byte loads with RB a multiple of 4). Each
 // path's lanes start on a warp, so a warp is one path. Not synced.
@@ -440,9 +232,9 @@ __device__ __forceinline__ int gm_lanes(int mo) {
   return np > 4 ? 8 : np > 2 ? 4 : np;
 }
 
-template <int RB>
+template <int RB, typename Put>
 __device__ void gm_product(const Args& A, const int* gp, const float* gT,
-                           int ts, int groups, float* gm, int n_msg,
+                           int ts, int groups, Put put,
                            const float* __restrict__ si2wt) {
   const bool al = (reinterpret_cast<size_t>(si2wt) & 15) == 0;
   const int lane = threadIdx.x & 31;
@@ -518,12 +310,12 @@ __device__ void gm_product(const Args& A, const int* gp, const float* gT,
           acc[e][t] += __shfl_xor_sync(0xffffffffu, acc[e][t], off);
     if (on && j == 0) {
       const float alpha = __ldg(A.path_alpha + pth);
-      float* out = gm + (long)rg * RB * n_msg + G[G_CIN] + q * mi + r;
+      const int c = G[G_CIN] + q * mi + r;
 #pragma unroll
       for (int e = 0; e < RB; ++e)
 #pragma unroll
         for (int t = 0; t < 4; ++t)
-          if (r + t < mi) out[(long)e * n_msg + t] = acc[e][t] * alpha;
+          if (r + t < mi) put(rg * RB + e, c + t, acc[e][t] * alpha);
     }
   }
 }
@@ -723,10 +515,10 @@ __device__ void cg_pass(const Args& A, const BArgs& B, const int* xcls,
 // sums in registers, per k one 16-byte load of w2l (the live columns of w2,
 // packed) and R / 4 16-byte loads of h1 (row-minor). Not synced.
 template <int R>
-__device__ void w_pass(const Args& A, const BArgs& B, int T,
-                       const float* h1T, const float* ms_s,
-                       const float* __restrict__ w2l, float* w_s) {
-  const int nq = B.nls / 4, items = nq * (T / R);
+__device__ void w_pass(const Args& A, int nls, int T, const float* h1T,
+                       const float* ms_s, const float* __restrict__ w2l,
+                       float* w_s) {
+  const int nq = nls / 4, items = nq * (T / R);
   const float4* w4p = reinterpret_cast<const float4*>(w2l);
   for (int it = threadIdx.x; it < items; it += NT) {
     const int cq = it % nq, rg = it / nq;
@@ -757,7 +549,7 @@ __device__ void w_pass(const Args& A, const BArgs& B, int T,
     for (int e = 0; e < R; ++e) {
       const int er = rg * R + e;
       const float sc = A.s2 * ms_s[er];
-      *reinterpret_cast<float4*>(w_s + er * B.nls + 4 * cq) = make_float4(
+      *reinterpret_cast<float4*>(w_s + er * nls + 4 * cq) = make_float4(
           acc[e][0] * sc, acc[e][1] * sc, acc[e][2] * sc, acc[e][3] * sc);
     }
   }
@@ -854,7 +646,8 @@ terms_bwd_kernel(const float* __restrict__ gout,
       // the atom's message cotangent and Q, once for its rows
       for (int i = tid; i < A.d_out; i += NT) g_s[i] = gout[wk * A.d_out + i];
       __syncthreads();
-      gm_product<1>(A, gp, g_s, 1, 1, gm_s, B.n_msg, si2wt);
+      gm_product<1>(A, gp, g_s, 1, 1,
+                    [&](int, int c, float v) { gm_s[c] = v; }, si2wt);
       __syncthreads();
       build_q(A, B, bins, gm_s, q_s);
     }
@@ -876,7 +669,10 @@ terms_bwd_kernel(const float* __restrict__ gout,
           g_s[c * T + e] = e < rows ? gout[(row0 + e) * A.d_out + c] : 0.f;
         }
         __syncthreads();
-        gm_product<8>(A, gp, g_s, T, T / 8, gm_s, B.n_msg, si2wt);
+        gm_product<8>(A, gp, g_s, T, T / 8,
+                      [&](int e, int c, float v) {
+                        gm_s[(long)e * B.n_msg + c] = v;
+                      }, si2wt);
       }
       for (int i = tid; i < T * SHS; i += NT) {
         const int e = i / SHS, j = i - e * SHS;
@@ -922,9 +718,9 @@ terms_bwd_kernel(const float* __restrict__ gout,
       }
       __syncthreads();
       switch (B.R) {
-        case 4: w_pass<4>(A, B, T, h1T, ms_s, w2l, w_s); break;
-        case 8: w_pass<8>(A, B, T, h1T, ms_s, w2l, w_s); break;
-        default: w_pass<16>(A, B, T, h1T, ms_s, w2l, w_s); break;
+        case 4: w_pass<4>(A, B.nls, T, h1T, ms_s, w2l, w_s); break;
+        case 8: w_pass<8>(A, B.nls, T, h1T, ms_s, w2l, w_s); break;
+        default: w_pass<16>(A, B.nls, T, h1T, ms_s, w2l, w_s); break;
       }
       __syncthreads();
       if constexpr (AGG) {
@@ -1010,9 +806,429 @@ terms_bwd_kernel(const float* __restrict__ gout,
   }
 }
 
-size_t fwd_smem(const Args& A, bool agg) {
-  return sizeof(float) * ((size_t)table_words(A) + tile_words(A)
-                          + (size_t)(agg ? 1 : RT) * A.d_msg);
+// ---------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------
+
+// forward instruction record (int32), live instructions in plan order: x
+// offset, mul, l1, l3, offset of its block in a row's folded CG B, first
+// live column, offset in the compact message
+enum { F_XOFF = 0, F_MUL, F_L1, F_L3, F_B, F_COL0, F_CM, F_STRIDE };
+// fold entry (instruction, output component p): offset of B[0][p] in a
+// row's B, the stride of m (D3 rounded up to 4) and D1, the instruction's
+// SH offset, its terms of component p, [T0, T1) of the pool
+enum { O_B = 0, O_D3, O_D1, O_SH, O_T0, O_T1, O_STRIDE };
+
+struct FArgs {
+  const int* fins;      // n_fins * F_STRIDE
+  const int* folds;     // n_folds * O_STRIDE
+  const int* fpaths;    // n_paths * G_STRIDE: the si2 paths, rows and
+                        // columns swapped (see terms_fwd_kernel)
+  const int* unfed;     // n_unfed output columns no path writes
+  int n_fins, n_folds, n_unfed;
+  int n_msg;            // live message elements (the compact message)
+  int nB;               // words of a row's folded CG
+  int nls;              // live columns rounded up to 4 (row stride of w)
+  int T, R, s;          // rows per tile; rows per w-pass item; CG row groups
+};
+
+// word offsets of the forward's shared buffers (host and device)
+struct FLay {
+  int fins, folds, units, fp, sh, emb, ms, h0, h1, w, b, msg, total;
+};
+
+// AGG: the message is the output row's, one partial sum per CG row group;
+// else the tile's rows' messages, row-minor (element c of row e at c T + e)
+__host__ __device__ inline FLay fwd_layout(const Args& A, const FArgs& F,
+                                           bool agg) {
+  const int T = F.T;
+  FLay L;
+  int o = 0;
+  L.fins = o; o += r4i(F.n_fins * F_STRIDE);
+  L.folds = o; o += r4i(F.n_folds * O_STRIDE);
+  L.units = o; o += r4i(2 * A.n_slices);
+  L.fp = o; o += r4i(A.n_paths * G_STRIDE);
+  L.sh = o; o += T * SHS;
+  L.emb = o; o += r4i(A.nb * T);
+  L.ms = o; o += r4i(T);
+  L.h0 = o; o += H * T;
+  L.h1 = o; o += H * T;
+  L.w = o; o += T * F.nls;
+  L.b = o; o += T * F.nB;
+  L.msg = o; o += agg ? F.s * r4i(F.n_msg) : T * F.n_msg;
+  L.total = o;
+  return L;
+}
+
+// the hidden layers of a staged tile, row-minor (h[k][e] at k T + e): h0
+// a thread per (hidden unit, row), h1 per (hidden unit, 4 rows) from
+// 16-byte loads of h0. Ends synchronised.
+__device__ void hidden_fwd(const Args& A, int T, const float* embT,
+                           const float* __restrict__ w0,
+                           const float* __restrict__ w1, float* h0T,
+                           float* h1T) {
+  for (int i = threadIdx.x; i < H * T; i += NT) {
+    const int j = i / T, e = i - j * T;
+    float s = 0.f;
+    for (int b = 0; b < A.nb; ++b)
+      s = fmaf(embT[b * T + e], __ldg(w0 + b * H + j), s);
+    h0T[i] = act_f(s * A.s0, A.act) * A.act_cst;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < H * (T / 4); i += NT) {
+    const int j = i % H, e0 = (i / H) * 4;
+    float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+    for (int k = 0; k < H; ++k) {
+      const float4 h = *reinterpret_cast<const float4*>(h0T + k * T + e0);
+      const float wv = __ldg(w1 + k * H + j);
+      a[0] = fmaf(h.x, wv, a[0]); a[1] = fmaf(h.y, wv, a[1]);
+      a[2] = fmaf(h.z, wv, a[2]); a[3] = fmaf(h.w, wv, a[3]);
+    }
+    *reinterpret_cast<float4*>(h1T + j * T + e0) = make_float4(
+        act_f(a[0] * A.s1, A.act) * A.act_cst,
+        act_f(a[1] * A.s1, A.act) * A.act_cst,
+        act_f(a[2] * A.s1, A.act) * A.act_cst,
+        act_f(a[3] * A.s1, A.act) * A.act_cst);
+  }
+  __syncthreads();
+}
+
+// The SH folded into the CG, per row e and live instruction a:
+//   B[e][a][m][p] = sum over a's terms (m, n, p, c) of c sh[e][n]
+// (row e's B at e * nB). An item is (fold entry (a, p), row), rows fastest,
+// so the lanes of a warp walk at most two term runs of the constant pool.
+// Not synced.
+__device__ void fold_sh(const FArgs& F, const int* folds, int T,
+                        const float* sh_s, float* b_s) {
+  for (int i = threadIdx.x; i < F.n_folds * T; i += NT) {
+    const int f = i / T, e = i - f * T;
+    const int* O = folds + f * O_STRIDE;
+    const int d3 = O[O_D3], d1 = O[O_D1], t1 = O[O_T1];
+    float* b = b_s + e * F.nB + O[O_B];
+    const float* s = sh_s + e * SHS + O[O_SH];
+    for (int m = 0; m < d1; ++m) b[m * d3] = 0.f;
+    for (int t = O[O_T0]; t < t1; ++t) {
+      const int id = c_idx[t];
+      const int m = id & 0xff, n = (id >> 8) & 0xff;
+      b[m * d3] = fmaf(c_coef[t], s[n], b[m * d3]);
+    }
+  }
+}
+
+// The CG of one unit (instruction, channel u) over rows [e0, e1) of a tile
+// (`rows` of them real), a dense D1 x D3 product a row from registers: x of
+// four rows loaded together (past the tile's real rows, its last one's),
+// B of a row (its rows m padded to D3P, a multiple of 4) by 16-byte
+// broadcasts, msg_p = w sum_m B[m][p] x_m. AGG: summed over the rows into
+// the row group's partial message (msg); else each row's message, four
+// rows to a 16-byte store (msg row-minor, stride T). A pad row (w = 0)
+// sends exact zeros whatever its x.
+template <bool AGG, int L1, int L3>
+__device__ __forceinline__ void cg_fwd(const int* Fi, int u, int e0, int e1,
+                                       int rows, int T, int d1, int nB,
+                                       int nls, const float* b_s,
+                                       const float* w_s,
+                                       const float* __restrict__ xrow,
+                                       float* msg) {
+  constexpr int D1 = 2 * L1 + 1, D3 = 2 * L3 + 1, D3P = (D3 + 3) & ~3;
+  const int mul = Fi[F_MUL], c = Fi[F_COL0] + u;
+  const float* xb = xrow + Fi[F_XOFF] + u;
+  const float* bb = b_s + Fi[F_B];
+  // component p of the unit's message at mb + p * pstride
+  float* mb = msg + (AGG ? Fi[F_CM] + u : (long)(Fi[F_CM] + u) * T);
+  const long pstride = AGG ? mul : (long)mul * T;
+  float acc[D3];
+#pragma unroll
+  for (int p = 0; p < D3; ++p) acc[p] = 0.f;
+  for (int e4 = e0; e4 < e1; e4 += 4) {
+    float x[4][D1];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const long er = min(e4 + j, rows - 1);
+#pragma unroll
+      for (int m = 0; m < D1; ++m) x[j][m] = __ldg(xb + er * d1 + m * mul);
+    }
+    float v[D3][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int e = e4 + j;
+      const float w = w_s[e * nls + c];
+      const float* br = bb + e * nB;
+      float s[D3];
+#pragma unroll
+      for (int p = 0; p < D3; ++p) s[p] = 0.f;
+#pragma unroll
+      for (int m = 0; m < D1; ++m) {
+#pragma unroll
+        for (int k = 0; k < D3P / 4; ++k) {
+          const float4 q =
+              *reinterpret_cast<const float4*>(br + m * D3P + 4 * k);
+          const float qv[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (4 * k + i < D3)
+              s[4 * k + i] = fmaf(qv[i], x[j][m], s[4 * k + i]);
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < D3; ++p) {
+        const float t = w != 0.f ? w * s[p] : 0.f;
+        if constexpr (AGG) acc[p] += t;
+        else v[p][j] = t;
+      }
+    }
+    if constexpr (!AGG) {
+#pragma unroll
+      for (int p = 0; p < D3; ++p)
+        *reinterpret_cast<float4*>(mb + p * pstride + e4) =
+            make_float4(v[p][0], v[p][1], v[p][2], v[p][3]);
+    }
+  }
+  if constexpr (AGG) {
+#pragma unroll
+    for (int p = 0; p < D3; ++p) mb[p * pstride] += acc[p];
+  }
+}
+
+// The CG pass of a tile: items (unit, row group), a unit being 32 channels
+// of one live instruction (the plan's slices) on a warp, a row group T / s
+// rows. AGG: row group g adds into partial message g. Not synced.
+template <bool AGG>
+__device__ void cg_fwd_pass(const Args& A, const FArgs& F, const int* fins,
+                            const int* units, const float* b_s,
+                            const float* w_s, const float* __restrict__ xg,
+                            long row0, int rows, float* msg) {
+  const int lane = threadIdx.x & 31, T = F.T, R = T / F.s;
+  const int msw = r4i(F.n_msg);
+  for (int j0 = threadIdx.x & ~31; j0 < 32 * A.n_slices * F.s; j0 += NT) {
+    const int unit = (j0 >> 5) % A.n_slices, g = (j0 >> 5) / A.n_slices;
+    const int* Fi = fins + units[2 * unit] * F_STRIDE;
+    const int u = units[2 * unit + 1] + lane;
+    if (u >= Fi[F_MUL]) continue;
+    const int e0 = g * R, e1 = e0 + R;
+    float* m = AGG ? msg + g * msw : msg;
+    const float* xrow = xg + row0 * A.d1;
+    switch (Fi[F_L1] * 4 + Fi[F_L3]) {
+#define TERMS_FWD_CASE(a, c)                                                \
+      case a * 4 + c:                                                       \
+        cg_fwd<AGG, a, c>(Fi, u, e0, e1, rows, T, A.d1, F.nB, F.nls, b_s,   \
+                          w_s, xrow, m);                                    \
+        break;
+#define TERMS_FWD_L1(a) TERMS_FWD_CASE(a, 0) TERMS_FWD_CASE(a, 1)           \
+      TERMS_FWD_CASE(a, 2) TERMS_FWD_CASE(a, 3)
+      TERMS_FWD_L1(0) TERMS_FWD_L1(1) TERMS_FWD_L1(2) TERMS_FWD_L1(3)
+#undef TERMS_FWD_L1
+#undef TERMS_FWD_CASE
+    }
+  }
+}
+
+// si2 of a tile's rows at agg_d = 0, y = alpha M W per path and component
+// q: a thread holds RB rows x 4 output columns, reading per reduction index
+// k one 16-byte load of W's row k (row-major mi x mo) and the RB rows' k-th
+// message elements by 16-byte broadcasts (msgT row-minor, stride T). Lanes
+// run over the column groups so that a warp reads whole rows of W: C lanes
+// (the path's groups of 4 columns, rounded up to a power of two in
+// [8, 32], halved for every path while the tile has fewer warp units than
+// the block has warps, down to 8) by 32 / C parts of k interleaved (part j
+// takes k = j mod 32/C, so the warp's rows are consecutive), the parts
+// summed by an xor butterfly. Warp units (path, q, row block, column block) back to back.
+// Each output column a path writes goes through put(row, column, value)
+// once. Not synced.
+__device__ __forceinline__ int si2_lanes(int mo, int shift) {
+  const int nc4 = (mo + 3) / 4;
+  const int c = nc4 > 16 ? 32 : nc4 > 8 ? 16 : 8;
+  return c >> shift > 8 ? c >> shift : 8;
+}
+
+template <int RB, typename Put>
+__device__ void si2_rows(const Args& A, const int* fp, const float* msgT,
+                         int T, Put put, const float* __restrict__ si2w) {
+  const bool al = (reinterpret_cast<size_t>(si2w) & 15) == 0;
+  const int lane = threadIdx.x & 31, nrb = T / RB;
+  // warp units of a path: components x row blocks x column blocks
+  int shift = 0, total = 0;
+  auto n_units = [&](const int* G) {
+    const int C = si2_lanes(G[G_MI], shift);
+    return G[G_DIM] * nrb * (((G[G_MI] + 3) / 4 + C - 1) / C);
+  };
+  for (;; ++shift) {
+    total = 0;
+    for (int pth = 0; pth < A.n_paths; ++pth)
+      total += n_units(fp + pth * G_STRIDE);
+    if (total >= NW || shift == 2) break;
+  }
+  for (int w0 = threadIdx.x >> 5; w0 < total; w0 += NW) {
+    int pth = 0, base = 0;
+    while (w0 >= base + n_units(fp + pth * G_STRIDE)) {
+      base += n_units(fp + pth * G_STRIDE);
+      ++pth;
+    }
+    // the swapped path record: output offset, mo, mi, components, message
+    // offset, weights
+    const int* G = fp + pth * G_STRIDE;
+    const int mo = G[G_MI], mi = G[G_MO], C = si2_lanes(mo, shift);
+    const int KS = 32 / C;
+    const int ncb = ((mo + 3) / 4 + C - 1) / C;
+    int u = w0 - base;
+    const int cb = u % ncb;
+    u /= ncb;
+    const int rb = u % nrb, q = u / nrb;
+    const int j = lane / C, c = 4 * (cb * C + lane % C);
+    const bool on = c < mo;
+    const bool vec = al && ((G[G_W] | mo) & 3) == 0;
+    const float* W = si2w + G[G_W] + c;
+    const float* mq = msgT + (long)(G[G_OUT] + q * mi) * T + rb * RB;
+    float acc[RB][4];
+#pragma unroll
+    for (int e = 0; e < RB; ++e)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) acc[e][t] = 0.f;
+    if (on) {
+#pragma unroll 4
+      for (int k = j; k < mi; k += KS) {
+        float4 w4;
+        const float* wr = W + (long)k * mo;
+        if (vec) {
+          w4 = __ldg(reinterpret_cast<const float4*>(wr));
+        } else {
+          w4 = make_float4(__ldg(wr), c + 1 < mo ? __ldg(wr + 1) : 0.f,
+                           c + 2 < mo ? __ldg(wr + 2) : 0.f,
+                           c + 3 < mo ? __ldg(wr + 3) : 0.f);
+        }
+#pragma unroll
+        for (int h = 0; h < RB / 4; ++h) {
+          const float4 a =
+              *reinterpret_cast<const float4*>(mq + (long)k * T + 4 * h);
+          const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[4 * h + i][0] = fmaf(av[i], w4.x, acc[4 * h + i][0]);
+            acc[4 * h + i][1] = fmaf(av[i], w4.y, acc[4 * h + i][1]);
+            acc[4 * h + i][2] = fmaf(av[i], w4.z, acc[4 * h + i][2]);
+            acc[4 * h + i][3] = fmaf(av[i], w4.w, acc[4 * h + i][3]);
+          }
+        }
+      }
+    }
+    for (int off = C; off < 32; off <<= 1)
+#pragma unroll
+      for (int e = 0; e < RB; ++e)
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          acc[e][t] += __shfl_xor_sync(0xffffffffu, acc[e][t], off);
+    if (on && j == 0) {
+      const float alpha = __ldg(A.path_alpha + pth);
+      const int oc = G[G_CIN] + q * mo + c;
+#pragma unroll
+      for (int e = 0; e < RB; ++e)
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          if (c + t < mo) put(rb * RB + e, oc + t, acc[e][t] * alpha);
+    }
+  }
+}
+
+// AGG: a block walks output rows (atoms) persistently: per atom the partial
+// messages zeroed, its `group` rows in tiles of T, then the partials summed
+// in a fixed order and si2 once. Not AGG (group = 1): tiles of T edge rows,
+// si2 as a product over the tile's rows. Per tile: the staged rows, the
+// hidden layers, the w pass (w_pass, as the backward's) and the SH fold,
+// the CG. si2 reads the path table with rows and columns swapped (fpaths:
+// output offset, mo, mi, components, compact message offset, weights): out
+// = alpha M W per component, once an atom by gm_product, or per tile by
+// si2_rows.
+template <bool AGG>
+__global__ void __launch_bounds__(NT, 2)
+terms_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ sh,
+                 const float* __restrict__ emb, const float* __restrict__ ms,
+                 const float* __restrict__ w0, const float* __restrict__ w1,
+                 const float* __restrict__ w2l,
+                 const float* __restrict__ si2w, Args A, FArgs F,
+                 float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const FLay L = fwd_layout(A, F, AGG);
+  int* fins = reinterpret_cast<int*>(sm + L.fins);
+  int* folds = reinterpret_cast<int*>(sm + L.folds);
+  int* units = reinterpret_cast<int*>(sm + L.units);
+  int* fp = reinterpret_cast<int*>(sm + L.fp);
+  float *sh_s = sm + L.sh, *embT = sm + L.emb, *ms_s = sm + L.ms;
+  float *h0T = sm + L.h0, *h1T = sm + L.h1, *w_s = sm + L.w;
+  float *b_s = sm + L.b, *msg_s = sm + L.msg;
+  const int tid = threadIdx.x, T = F.T, msw = r4i(F.n_msg);
+  for (int i = tid; i < F.n_fins * F_STRIDE; i += NT) fins[i] = F.fins[i];
+  for (int i = tid; i < F.n_folds * O_STRIDE; i += NT) folds[i] = F.folds[i];
+  for (int i = tid; i < 2 * A.n_slices; i += NT) units[i] = A.slices[i];
+  for (int i = tid; i < A.n_paths * G_STRIDE; i += NT) fp[i] = F.fpaths[i];
+
+  const long n_work = AGG ? A.n_rows / A.group : (A.n_rows + T - 1) / T;
+  for (long wk = blockIdx.x; wk < n_work; wk += gridDim.x) {
+    __syncthreads();
+    if constexpr (AGG)
+      for (int i = tid; i < F.s * msw; i += NT) msg_s[i] = 0.f;
+    for (int t0 = 0; t0 < A.group; t0 += T) {
+      const long row0 = AGG ? wk * A.group + t0 : wk * T;
+      const int rows = (int)min((long)T, AGG ? (long)(A.group - t0)
+                                             : A.n_rows - row0);
+      __syncthreads();
+      for (int i = tid; i < T; i += NT)
+        ms_s[i] = i < rows ? ms[row0 + i] : 0.f;
+      if (!__syncthreads_or(tid < rows && ms_s[tid] != 0.f)) {
+        if constexpr (!AGG)       // a tile of pads: zero rows
+          for (int i = tid; i < rows * A.d_out; i += NT)
+            __stcs(out + row0 * A.d_out + i, 0.f);
+        continue;
+      }
+      for (int i = tid; i < T * SHS; i += NT) {
+        const int e = i / SHS, j = i - e * SHS;
+        sh_s[i] = e < rows && j < A.f ? sh[(row0 + e) * A.f + j] : 0.f;
+      }
+      for (int i = tid; i < A.nb * T; i += NT) {
+        const int b = i / T, e = i - b * T;
+        embT[i] = e < rows ? emb[(row0 + e) * A.nb + b] : 0.f;
+      }
+      __syncthreads();
+      hidden_fwd(A, T, embT, w0, w1, h0T, h1T);
+      switch (F.R) {
+        case 4: w_pass<4>(A, F.nls, T, h1T, ms_s, w2l, w_s); break;
+        case 8: w_pass<8>(A, F.nls, T, h1T, ms_s, w2l, w_s); break;
+        default: w_pass<16>(A, F.nls, T, h1T, ms_s, w2l, w_s); break;
+      }
+      fold_sh(F, folds, T, sh_s, b_s);
+      __syncthreads();
+      cg_fwd_pass<AGG>(A, F, fins, units, b_s, w_s, xg, row0, rows, msg_s);
+      if constexpr (!AGG) {
+        // si2 per row over the tile; the columns no path writes are zeros
+        __syncthreads();
+        si2_rows<8>(A, fp, msg_s, T,
+                    [&](int e, int c, float v) {
+                      if (e < rows) __stcs(out + (row0 + e) * A.d_out + c, v);
+                    }, si2w);
+        for (int i = tid; i < rows * F.n_unfed; i += NT) {
+          const int e = i / F.n_unfed, c = __ldg(F.unfed + i - e * F.n_unfed);
+          __stcs(out + (row0 + e) * A.d_out + c, 0.f);
+        }
+      }
+    }
+    if constexpr (AGG) {
+      // the row groups' partial messages, summed in a fixed order; si2 once
+      __syncthreads();
+      for (int i = tid; i < F.n_msg; i += NT) {
+        float v = msg_s[i];
+        for (int g = 1; g < F.s; ++g) v += msg_s[g * msw + i];
+        msg_s[i] = v;
+      }
+      __syncthreads();
+      gm_product<1>(A, fp, msg_s, 1, 1,
+                    [&](int, int c, float v) {
+                      __stcs(out + wk * A.d_out + c, v);
+                    }, si2w);
+      for (int i = tid; i < F.n_unfed; i += NT)
+        __stcs(out + wk * A.d_out + __ldg(F.unfed + i), 0.f);
+    }
+  }
 }
 
 template <typename Kernel>
@@ -1042,26 +1258,22 @@ cudaError_t persistent_grid(Kernel kernel, size_t smem, long work,
 }  // namespace
 
 #define TERMS_ARGS                                                          \
-  const int *ins, const int *slices, const int *live_cols, const int *paths, \
-      const float *path_alpha, const int *col_path, const int *msg_path,    \
-      int n_ins, int n_slices, int n_live, int n_paths, long n_rows,        \
-      int agg_d, int d1, int f, int nb, int wn, int d_msg, int d_out,       \
-      int act, float act_cst, float s0, float s1, float s2
+  const int *slices, const float *path_alpha, int n_slices, int n_live,    \
+      int n_paths, long n_rows, int agg_d, int d1, int f, int nb,           \
+      int d_out, int act, float act_cst, float s0, float s1, float s2
 
 static Args make_args(TERMS_ARGS) {
   Args A;
-  A.ins = ins; A.slices = slices; A.live_cols = live_cols; A.paths = paths;
-  A.path_alpha = path_alpha; A.col_path = col_path; A.msg_path = msg_path;
-  A.n_ins = n_ins; A.n_slices = n_slices; A.n_live = n_live;
-  A.n_paths = n_paths; A.n_rows = n_rows; A.group = agg_d > 0 ? agg_d : 1;
-  A.d1 = d1; A.f = f; A.nb = nb; A.wn = wn; A.d_msg = d_msg; A.d_out = d_out;
+  A.slices = slices; A.path_alpha = path_alpha;
+  A.n_slices = n_slices; A.n_live = n_live; A.n_paths = n_paths;
+  A.n_rows = n_rows; A.group = agg_d > 0 ? agg_d : 1;
+  A.d1 = d1; A.f = f; A.nb = nb; A.d_out = d_out;
   A.act = act; A.act_cst = act_cst; A.s0 = s0; A.s1 = s1; A.s2 = s2;
   return A;
 }
 #define TERMS_CALL                                                          \
-  make_args(ins, slices, live_cols, paths, path_alpha, col_path, msg_path,  \
-            n_ins, n_slices, n_live, n_paths, n_rows, agg_d, d1, f, nb, wn, \
-            d_msg, d_out, act, act_cst, s0, s1, s2)
+  make_args(slices, path_alpha, n_slices, n_live, n_paths, n_rows, agg_d,   \
+            d1, f, nb, d_out, act, act_cst, s0, s1, s2)
 
 #define TERMS_BWD_ARGS                                                      \
   const int *bins, const int *xcls, const int *users, const int *gpaths,    \
@@ -1101,28 +1313,61 @@ extern "C" int fused_conv_terms_upload(int offset, int n, const int* idx,
 
 extern "C" int fused_conv_terms_pool_size() { return TERM_POOL; }
 
+#define TERMS_FWD_ARGS                                                      \
+  const int *fins, const int *folds, const int *fpaths, const int *unfed,   \
+      int n_fins, int n_folds, int n_unfed, int n_msg, int nB, int nls,     \
+      int T, int R, int s, int words
+
+static FArgs make_fargs(TERMS_FWD_ARGS) {
+  FArgs F;
+  F.fins = fins; F.folds = folds; F.fpaths = fpaths; F.unfed = unfed;
+  F.n_fins = n_fins; F.n_folds = n_folds; F.n_unfed = n_unfed;
+  F.n_msg = n_msg; F.nB = nB; F.nls = nls; F.T = T; F.R = R; F.s = s;
+  (void)words;
+  return F;
+}
+
+// the forward plan's launch numbers as the kernel reads them: tiles of 8
+// or 16 rows, w-pass items of 4, 8 or 16 rows and CG row groups of at
+// least 4 rows dividing the tile, 16-byte B rows, SH within 16 words, and
+// the caller's shared words equal to the kernel's layout
+static bool fwd_plan_ok(const Args& A, const FArgs& F, bool agg, int words) {
+  return (F.T == 8 || F.T == 16) && (F.R == 4 || F.R == 8 || F.R == 16)
+         && F.T % F.R == 0 && (F.s == 1 || F.s == 2 || F.s == 4)
+         && F.T % (4 * F.s) == 0 && A.f <= SHS && F.nls % 4 == 0
+         && F.nls >= A.n_live && F.nB % 4 == 0
+         && words == fwd_layout(A, F, agg).total;
+}
+
 extern "C" int fused_conv_terms_fwd(const float* xg, const float* sh,
                                     const float* emb, const float* ms,
                                     const float* w0, const float* w1,
-                                    const float* w2, const float* si2w,
-                                    TERMS_ARGS, float* out, void* stream) {
+                                    const float* w2l, const float* si2w,
+                                    TERMS_ARGS, TERMS_FWD_ARGS, float* out,
+                                    void* stream) {
   const Args A = TERMS_CALL;
+  const FArgs F = make_fargs(fins, folds, fpaths, unfed, n_fins, n_folds,
+                             n_unfed, n_msg, nB, nls, T, R, s, words);
   const bool agg = agg_d > 0;
-  const size_t smem = fwd_smem(A, agg);
+  if (!fwd_plan_ok(A, F, agg, words)) return (int)cudaErrorInvalidValue;
+  const size_t smem = 4 * (size_t)words;
   const cudaError_t err =
       agg ? reserve_smem(terms_fwd_kernel<true>, smem)
           : reserve_smem(terms_fwd_kernel<false>, smem);
   if (err != cudaSuccess) return (int)err;
   if (n_rows > 0) {
+    const long work = agg ? n_rows / agg_d : (n_rows + T - 1) / T;
+    int grid = 0;
+    const cudaError_t e2 =
+        agg ? persistent_grid(terms_fwd_kernel<true>, smem, work, &grid)
+            : persistent_grid(terms_fwd_kernel<false>, smem, work, &grid);
+    if (e2 != cudaSuccess) return (int)e2;
     if (agg)
-      terms_fwd_kernel<true>
-          <<<(unsigned)(n_rows / agg_d), NT, smem, (cudaStream_t)stream>>>(
-              xg, sh, emb, ms, w0, w1, w2, si2w, A, out);
+      terms_fwd_kernel<true><<<grid, NT, smem, (cudaStream_t)stream>>>(
+          xg, sh, emb, ms, w0, w1, w2l, si2w, A, F, out);
     else
-      terms_fwd_kernel<false>
-          <<<(unsigned)((n_rows + RT - 1) / RT), NT, smem,
-             (cudaStream_t)stream>>>(xg, sh, emb, ms, w0, w1, w2, si2w, A,
-                                     out);
+      terms_fwd_kernel<false><<<grid, NT, smem, (cudaStream_t)stream>>>(
+          xg, sh, emb, ms, w0, w1, w2l, si2w, A, F, out);
   }
   return (int)cudaGetLastError();
 }
@@ -1164,23 +1409,31 @@ extern "C" int fused_conv_terms_bwd(const float* g, const float* xg,
   return (int)cudaGetLastError();
 }
 
-// the backward instance a plan launches: registers, local bytes a thread,
-// blocks an SM at `words` shared words (on the current device)
-extern "C" int fused_conv_terms_bwd_resources(int agg, int words, int* out) {
+// registers, local bytes a thread, blocks an SM of a kernel instance at
+// `smem` shared bytes (on the current device)
+template <typename Kernel>
+static int resources(Kernel kernel, size_t smem, int* out) {
   cudaFuncAttributes a;
   int per_sm = 0;
-  const size_t smem = 4 * (size_t)words;
-  cudaError_t err = agg ? reserve_smem(terms_bwd_kernel<true>, smem)
-                        : reserve_smem(terms_bwd_kernel<false>, smem);
+  cudaError_t err = reserve_smem(kernel, smem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, kernel);
   if (err == cudaSuccess)
-    err = agg ? cudaFuncGetAttributes(&a, terms_bwd_kernel<true>)
-              : cudaFuncGetAttributes(&a, terms_bwd_kernel<false>);
-  if (err == cudaSuccess)
-    err = agg ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                    &per_sm, terms_bwd_kernel<true>, NT, smem)
-              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                    &per_sm, terms_bwd_kernel<false>, NT, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT,
+                                                        smem);
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs; out[1] = (int)a.localSizeBytes; out[2] = per_sm;
   return 0;
+}
+
+// the backward / forward instance a plan launches at `words` shared words
+extern "C" int fused_conv_terms_bwd_resources(int agg, int words, int* out) {
+  const size_t smem = 4 * (size_t)words;
+  return agg ? resources(terms_bwd_kernel<true>, smem, out)
+             : resources(terms_bwd_kernel<false>, smem, out);
+}
+
+extern "C" int fused_conv_terms_fwd_resources(int agg, int words, int* out) {
+  const size_t smem = 4 * (size_t)words;
+  return agg ? resources(terms_fwd_kernel<true>, smem, out)
+             : resources(terms_fwd_kernel<false>, smem, out);
 }

@@ -28,7 +28,6 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
 
 # the sources, by the name their library carries
 SOURCES = {
-    'fused_conv': 'fused_conv.cu',
     'fused_conv_geom': 'fused_conv_geom.cu',
     'fused_conv_geom_ssp': 'fused_conv_geom.cu',
     'fused_conv_geom_extw': 'fused_conv_geom.cu',
@@ -45,7 +44,7 @@ SOURCES = {
 # the macros of a library built from a shared source: the shifted-softplus
 # instances of the conv kernels are a library of their own, so that a
 # model without that activation never compiles them; the external-weight
-# backward is one too, compiled without the file's other kernels
+# pair is one too, compiled without the file's other kernels
 DEFINES = {'fused_conv_geom_ssp': ('-DFUSED_CONV_SSP=1',),
            'fused_conv_geom_extw': ('-DFUSED_CONV_EXTW=1',)}
 

@@ -47,12 +47,12 @@ the plain contract, for either ``agg_d``, for the independently derived
 pair of ``csrc/fused_conv_terms.cu`` (``ops/fused_conv_terms.py``).
 
 On CUDA tensors the wrapper launches the kernels of
-``csrc/fused_conv_geom.cu`` for the dense-grid pair (``agg_d > 0``), its
-edge-row form (``agg_d = 0``) and the geometry-fused pair, and those of
-``csrc/fused_conv.cu`` for the external-weight pair (built with nvcc at
-first use into ``_build/``); on CPU tensors it runs the plain version, the
-XLA-path chain of ``model/layers.py::_rows_to_nodes`` (MLP -> TP ->
-reshape-sum -> si2). Any other device raises. The kernels of
+``csrc/fused_conv_geom.cu`` (built with nvcc at first use into
+``_build/``): the dense-grid pair (``agg_d > 0``), its edge-row form
+(``agg_d = 0``), the geometry-fused pair, and, in the build
+``fused_conv_geom_extw``, the external-weight pair; on CPU tensors it runs
+the plain version, the XLA-path chain of ``model/layers.py::_rows_to_nodes``
+(MLP -> TP -> reshape-sum -> si2). Any other device raises. The kernels of
 ``fused_conv_geom.cu`` read an instruction's SH block at ``l2^2`` and take
 at most 16 SH components and 15 x entries (``dense_unsupported``), hidden
 widths of 64 and the activations of ``_ACT_CODE``: silu and tanh in the
@@ -80,7 +80,7 @@ from .cuda_build import check as _check
 from .cuda_build import launch_counts, reset_launch_counts  # noqa: F401
 from . import fused_conv_geom as _fcg
 from .fused_conv_geom import MAX_XENT, SHP
-from .fused_conv_terms import TermsKernels
+from .fused_conv_terms import TermsKernels, si2_unsupported
 from .normalize import NORMALIZE2MOM_CST
 from .spherical import _monomials, sh_coefficients, spherical_harmonics
 from .tensor_product import (
@@ -92,7 +92,7 @@ from .wigner import wigner_3j
 
 Tensor = torch.Tensor
 
-# table layout and constants shared with csrc/fused_conv.cu
+# table layout and constants shared with csrc/fused_conv_body.cuh (Plan)
 _H = 64          # radial MLP hidden width
 _MAXD = 8        # offsets per key in an instruction record (irrep dim <= 7)
 _I_STRIDE = 10 + 3 * _MAXD    # ints per instruction record
@@ -269,6 +269,8 @@ def _si2_plan(tp_spec: UVUTensorProductSpec, si2: LinearSpec):
         consumed += mul_k
     path_by_entry = {}
     for n, (i, j, mi, mo, alpha) in enumerate(si2.paths):
+        # FusedConv refuses such an si2 before planning (si2_unsupported)
+        assert i not in path_by_entry, 'si2: an input entry feeds two outputs'
         path_by_entry[i] = (n, j, mi, mo, alpha)
     per_k = {}
     for k, (mul_k, ir_k) in enumerate(tp_spec.irreps_out):
@@ -285,13 +287,6 @@ def _si2_plan(tp_spec: UVUTensorProductSpec, si2: LinearSpec):
 # ---------------------------------------------------------------------
 # kernel build and binding (nvcc -> shared library -> ctypes)
 # ---------------------------------------------------------------------
-
-def build(verbose: bool = False) -> str:
-    """Compile csrc/fused_conv.cu for sm_90a (once per source hash) and
-    return the shared library's path; verbose prints ptxas' register and
-    shared-memory report."""
-    return cuda_build.build('fused_conv', verbose)
-
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -316,32 +311,26 @@ def _bind_rows_pair(fwd, bwd):
 
 
 @functools.lru_cache(maxsize=None)
-def _lib():
-    """The external-weight forward, csrc/fused_conv.cu."""
-    lib = cuda_build.load('fused_conv')
-    lib.fused_conv_extw_fwd.argtypes = ([_P] * 4 + _TABLE_ARGS + _DIM_ARGS
-                                        + [_P, _P])
-    lib.fused_conv_extw_fwd.restype = _I
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
 def _extw_lib():
-    """The external-weight backward, csrc/fused_conv_geom.cu built as
+    """The external-weight pair, csrc/fused_conv_geom.cu built as
     ``fused_conv_geom_extw``."""
     return bind_extw(cuda_build.load('fused_conv_geom_extw'))
 
 
 def bind_extw(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C entry ``fused_conv_extw_bwd`` (and its resources) of a
-    library with this ABI (the port's; ``tools/bwd_ab.py --extw`` binds an
-    earlier tree's own)."""
+    """Declare the C entries ``fused_conv_extw_fwd`` / ``_bwd`` (and their
+    resources) of a library with this ABI (the port's; ``tools/bwd_ab.py
+    --extw`` binds an earlier tree's own)."""
+    lib.fused_conv_extw_fwd.argtypes = ([_P] * 4 + _TABLE_ARGS + _DIM_ARGS
+                                        + [_I, _I, _I, _P, _P])
+    lib.fused_conv_extw_fwd.restype = _I
     lib.fused_conv_extw_bwd.argtypes = ([_P] * 5 + _TABLE_ARGS + _DIM_ARGS
                                         + [_I, _I, _P, _P, _P, _P])
     lib.fused_conv_extw_bwd.restype = _I
-    lib.fused_conv_extw_resources.argtypes = (_TABLE_ARGS + _DIM_ARGS
-                                              + [_P])
-    lib.fused_conv_extw_resources.restype = _I
+    for res in (lib.fused_conv_extw_resources,
+                lib.fused_conv_extw_fwd_resources):
+        res.argtypes = _TABLE_ARGS + _DIM_ARGS + [_P]
+        res.restype = _I
     return lib
 
 
@@ -363,7 +352,7 @@ def bind_edge(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entries ``fused_conv_edge_fwd`` / ``_bwd`` of the
     edge-row pair (kernels 1-2 at ``agg_d = 0``) of a library: the port's,
     or another build with the same ABI for an A/B (``tools/geom_ab.py
-    --edge``, an earlier tree's ``csrc/fused_conv.cu``)."""
+    --edge``, an earlier tree's ``csrc/fused_conv_geom.cu``)."""
     _bind_rows_pair(lib.fused_conv_edge_fwd, lib.fused_conv_edge_bwd)
     return lib
 
@@ -395,7 +384,7 @@ def bind_geom(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 @dataclass
 class _Tables:
-    """Device tables of one layer's plan (see csrc/fused_conv.cu)."""
+    """Device tables of one layer's plan (see csrc/fused_conv_body.cuh)."""
     ins: Tensor
     col_ins: Tensor
     col_w: Tensor
@@ -426,8 +415,8 @@ class FusedConv:
     the call is ``fused(xg, sh, weff, si2_ws)``.
 
     ``cg_mode`` (the JAX package's ``set_cg_mode``) picks the kernels of
-    the plain contract on the card: ``'cmshared'`` (default) the kernels of
-    ``csrc/fused_conv.cu``, ``'terms'`` the independently derived pair of
+    the plain contract on the card: ``'cmshared'`` (default) kernels 1-2 of
+    ``csrc/fused_conv_geom.cu``, ``'terms'`` the independently derived pair of
     ``csrc/fused_conv_terms.cu``, for either ``agg_d``. The function and
     its plain version are the same. Under ``'terms'`` the geometry-fused
     and the external-weight contracts do not exist."""
@@ -447,6 +436,10 @@ class FusedConv:
         self.cg_mode = cg_mode
         self._terms = (TermsKernels(tp_spec, mlp_spec, si2_spec)
                        if cg_mode == 'terms' else None)
+        # an si2 input entry that feeds several output entries (fault C.3)
+        # is refused before any table is built: the tables keep one path
+        # per input entry
+        self._si2_refusal = si2_unsupported(si2_spec)
         self.tp, self.mlp, self.si2 = tp_spec, mlp_spec, si2_spec
         self.agg_d = agg_d
         self.group = max(agg_d, 1)     # input rows per output row
@@ -466,7 +459,8 @@ class FusedConv:
                                     for p in self.plan):
             # the kernels read an instruction's SH block at l2^2
             raise ValueError('geom: the filter irreps are not 1x0+1x1+...')
-        self.groups, self.d_out = _si2_groups(tp_spec, si2_spec)
+        self.groups, self.d_out = ((), si2_spec.irreps_out.dim) \
+            if self._si2_refusal else _si2_groups(tp_spec, si2_spec)
         self.d1 = tp_spec.irreps_in1.dim
         self.f = tp_spec.irreps_in2.dim
         self.nb = mlp_spec.hs[0]
@@ -480,7 +474,10 @@ class FusedConv:
     def _refusal(self) -> Optional[str]:
         """The rules of ``_dims``, the tables, ``dense_unsupported`` and
         ``edge_unsupported`` for the grid degree and mode this conv was
-        built for: the first that refuses the layer, or None."""
+        built for: the first that refuses the layer, or None. An si2 input
+        entry that feeds several output entries refuses every form."""
+        if self._si2_refusal:
+            return self._si2_refusal
         why = self.kernel_tables(torch.device('cpu')).unsupported
         if self.ext_w:
             # the radial MLP runs outside the external-weight kernels
@@ -858,9 +855,12 @@ class FusedConv:
         out = torch.empty((rows // self.group, self.d_out),
                           dtype=xg.dtype, device=xg.device)
         P = self._ptr
-        err = _lib().fused_conv_extw_fwd(
+        dims = _fcg.extw_dims(self)
+        T, s = _fcg.extw_fwd_shape(dims)
+        err = _extw_lib().fused_conv_extw_fwd(
             P(xg), P(sh), P(weff), P(si2), *self._table_ptrs(t),
-            *self._dims(t, rows), P(out),
+            *self._dims(t, rows), T, s, _fcg.extw_fwd_words(dims, T, s),
+            P(out),
             ctypes.c_void_p(torch.cuda.current_stream(xg.device).cuda_stream))
         _check(err, 'fused_conv_extw_fwd')
         launch_counts['fused_conv_extw_fwd'] += 1
@@ -895,15 +895,16 @@ class FusedConv:
         launch_counts['fused_conv_extw_bwd'] += 1
         return dxg, dsh, dweff
 
-    def extw_resources(self, device) -> _fcg.Resources:
-        """The external-weight backward this layer launches: registers,
-        local bytes a thread, blocks an SM and dynamic shared bytes (on the
-        current card)."""
+    def extw_resources(self, device, fwd: bool = False) -> _fcg.Resources:
+        """The external-weight backward (``fwd``: forward) this layer
+        launches: registers, local bytes a thread, blocks an SM and dynamic
+        shared bytes (on the current card)."""
         t = self.kernel_tables(device)
         out = (ctypes.c_int * 4)()
-        _check(_extw_lib().fused_conv_extw_resources(
-            *self._table_ptrs(t), *self._dims(t, self.group), out),
-            'fused_conv_extw_resources')
+        name = ('fused_conv_extw_fwd_resources' if fwd
+                else 'fused_conv_extw_resources')
+        _check(getattr(_extw_lib(), name)(
+            *self._table_ptrs(t), *self._dims(t, self.group), out), name)
         return _fcg.Resources(*out)
 
     # -- dispatch -----------------------------------------------------
@@ -1050,15 +1051,17 @@ def dense_unsupported(tp_spec: UVUTensorProductSpec) -> Optional[str]:
 
 
 def extw_unsupported(conv: 'FusedConv') -> Optional[str]:
-    """Why the external-weight backward cannot take this layer, or None: it
-    runs the dense backward's class pass (``filter_unsupported``; any number
-    of x entries: its class table is sized by the plan), and needs a tile of
-    8 rows in one block's shared memory."""
+    """Why the external-weight pair cannot take this layer, or None: they
+    run the dense pair's CG (``filter_unsupported``; any number of x
+    entries: the backward's class table is sized by the plan), and need a
+    tile of 8 rows (backward) and of 4 (forward) in one block's shared
+    memory."""
     why = filter_unsupported(conv.tp, 'external-weight')
     if why:
         return why
-    if _fcg.extw_tile(_fcg.extw_dims(conv)) == 0:
-        return ('external-weight conv kernel: not 8 rows of a tile in '
+    dims = _fcg.extw_dims(conv)
+    if _fcg.extw_tile(dims) == 0 or _fcg.extw_fwd_shape(dims)[0] == 0:
+        return ('external-weight conv kernel: no tile in '
                 f'{_fcg.MAX_SMEM} shared bytes')
     return None
 

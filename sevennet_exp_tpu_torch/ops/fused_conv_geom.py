@@ -298,6 +298,37 @@ def extw_tile(dims: Dict[str, int]) -> int:
     return 8 if 4 * extw_words(dims, 8) <= MAX_SMEM else 0
 
 
+def extw_fwd_words(dims: Dict[str, int], T: int, s: int) -> int:
+    """Shared words of one block of the external-weight forward at T rows
+    and s row groups (the tables, the pattern scales, the live columns'
+    weight columns, sh, w, the partial aggregates and the output row)."""
+    d = dims
+    nap = _r4(d['n_active'])
+    return (_table_words(d['n_ins'], d['n_nz']) + _r4(d['n_ins']) + nap
+            + T * SHP + T * nap + s * _r4(d['agg_dim']) + _r4(d['d_out']))
+
+
+def extw_fwd_shape(dims: Dict[str, int]):
+    """(T, s) of the external-weight forward: the most rows, D rounded up to
+    4 at most 16, whose block fits three an SM (else two, else one) with one
+    row group; then the row groups (1, 2 or 4, each a multiple of 4 rows)
+    with the fewest rounds of the block's threads, a column's start counted
+    as 4 rows, within the same blocks an SM. (0, 0): no tile fits."""
+    for lim in (THREE_PER_SM, TWO_PER_SM, MAX_SMEM):
+        for T in range(tile_rows(dims['D'], TF), 3, -4):
+            if 4 * extw_fwd_words(dims, T, 1) > lim:
+                continue
+            best = None
+            for s in (1, 2, 4):
+                if T % (4 * s) or 4 * extw_fwd_words(dims, T, s) > lim:
+                    break
+                cost = -(-dims['n_active'] * s // NT) * (T // s + 4)
+                if best is None or cost < best[0]:
+                    best = (cost, s)
+            return T, best[1]
+    return 0, 0
+
+
 def _cpu():
     import torch
     return torch.device('cpu')

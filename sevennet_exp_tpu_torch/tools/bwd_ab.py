@@ -1,17 +1,20 @@
-"""Same-call A/B of the two redesigned backward kernels against an earlier
-build: with ``--terms`` the ``terms`` backward (``fused_conv_terms_bwd``,
-both forms), with ``--extw`` the external-weight backward
-(``fused_conv_extw_bwd``).
+"""Same-call A/B of the redesigned conv kernels against an earlier build:
+with ``--terms`` the ``terms`` backward (``fused_conv_terms_bwd``, both
+forms), with ``--extw`` the external-weight backward
+(``fused_conv_extw_bwd``), with ``--terms-fwd`` / ``--extw-fwd`` the two
+forwards (``fused_conv_terms_fwd``, both forms; ``fused_conv_extw_fwd``).
 
-    python -m sevennet_exp_tpu_torch.tools.bwd_ab OTHER_CSRC [STEPS] [OUT.json] --terms | --extw
+    python -m sevennet_exp_tpu_torch.tools.bwd_ab OTHER_CSRC [STEPS] [OUT.json] --terms | --extw | --terms-fwd | --extw-fwd
 
 OTHER_CSRC is an earlier tree's ``csrc`` directory unpacked with ``git
 archive`` (its ``fused_conv_terms.cu``, or its ``fused_conv.cu`` with the
 headers beside it, where these kernels had the earlier C entries:
 ``fused_conv_terms_bwd`` with w2 and w2^T, ``fused_conv_extw_bwd`` with the
-dead weight columns). It is compiled with the port's nvcc flags and bound by
-``other_launcher``; then, on one card, the two builds run in turns (other,
-this, this, other):
+dead weight columns, ``fused_conv_terms_fwd`` with all of w2 and no plan,
+``fused_conv_extw_fwd`` with no tile). It is compiled with the port's nvcc
+flags and bound by ``other_launcher``; then, on one card, the two builds
+run in turns (other, this, this, other); a forward kind times the forward
+where the list below says backward, on the same inputs and paths:
 
   - ``--terms``: the backward on the 1k grid's shape (1,000 atoms x 32 rows,
     6 pad rows an atom, sh and emb of random edge vectors, seed 0) and on
@@ -52,6 +55,7 @@ from .geom_ab import CHECKPOINT, D, dense_inputs, edge_inputs
 from .timing import card, cuda_ms, require_card
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+_F = ctypes.c_float
 NPT_KW = dict(dt_fs=2.0, temperature_K=300.0, ensemble='npt',
               pressure_gpa=1.0, pdamp_fs=0.02, rebuild_every=20, seed=0)
 NVT_KW = dict(dt_fs=2.0, temperature_K=300.0, ensemble='nvt',
@@ -96,25 +100,38 @@ class LibPool:
         return self.placed[key]
 
 
-def _terms_tables(tk, pool: LibPool, dev):
-    """The terms plan's device tables with the term offsets of POOL."""
+# the earlier trees' TERMS_ARGS: seven tables (the instruction records with
+# their term offsets, slices, live columns, si2 paths, alphas, column and
+# message paths), then the counts and shapes with n_ins, wn and d_msg
+_PARENT_TERMS_ARGS = [_P] * 7 + [_I] * 4 + [_L] + [_I] * 8 + [_F] * 4
+
+
+def _terms_tables(tk, pool: LibPool, dev, parent: bool):
+    """(base, tables): the plan's terms placed in POOL at base, and the
+    device tables of the port's TERMS_ARGS or (PARENT) the earlier ones."""
     p = tk.plan
     base = pool.place(p)
-    ins = p.ins.copy()
-    ins[:, 6:10] += base
 
     def dt(a):
         a = a.reshape(-1)
         return torch.tensor(a if a.size else np.zeros(1, a.dtype), device=dev)
 
+    if not parent:
+        return base, [dt(p.slices), dt(p.path_alpha)]
+    ins = p.ins.copy()
+    ins[:, 6:10] += base
     return base, [dt(a) for a in (ins, p.slices, p.live_cols, p.paths,
                                   p.path_alpha, p.col_path, p.msg_path)]
 
 
-def _terms_args(tk, tables, rows, agg_d):
+def _terms_args(tk, tables, rows, agg_d, parent: bool):
     """The TERMS_ARGS of a launch, tables first."""
-    args = tk._args(tables[0].device, rows, agg_d)
-    return [_ptr(t) for t in tables] + args[7:]
+    sc = tk.scalars(rows, agg_d)
+    if parent:
+        n_slices, n_live, n_paths, *mid, d_out = sc[:9]
+        sc = [tk.plan.ins.shape[0], n_slices, n_live, n_paths, *mid, tk.wn,
+              tk.plan.d_msg, d_out, *sc[9:]]
+    return [_ptr(t) for t in tables] + sc
 
 
 def terms_launcher(lib: ctypes.CDLL, parent: bool):
@@ -123,15 +140,16 @@ def terms_launcher(lib: ctypes.CDLL, parent: bool):
     earlier one (w2 and w2^T, no backward plan)."""
     pool = LibPool(lib)
     fn = lib.fused_conv_terms_bwd
-    base_args = [_P] * 11 + fct._TERMS_ARGS
-    fn.argtypes = base_args + ([] if parent else fct._BWD_ARGS) + [_P] * 4
+    fn.argtypes = ([_P] * 11
+                   + (_PARENT_TERMS_ARGS if parent else fct._TERMS_ARGS)
+                   + ([] if parent else fct._BWD_ARGS) + [_P] * 4)
     fn.restype = _I
     cache = {}
 
     def backward(tk, agg_d, g, xg, sh, emb, ms, w0, w1, w1t, w2, si2t):
         key = (id(tk), agg_d, xg.device)
         if key not in cache:
-            base, tables = _terms_tables(tk, pool, xg.device)
+            base, tables = _terms_tables(tk, pool, xg.device, parent)
             extra = []
             if not parent:
                 b = tk.bwd_plan(agg_d)
@@ -155,12 +173,81 @@ def terms_launcher(lib: ctypes.CDLL, parent: bool):
                 b.n_q, b.nls, b.n_items, b.T, b.R, b.words]
         err = fn(_ptr(g), _ptr(xg), _ptr(sh), _ptr(emb), _ptr(ms), _ptr(w0),
                  _ptr(w1), _ptr(w1t), _ptr(w2b), _ptr(w2c), _ptr(si2t),
-                 *_terms_args(tk, tables, xg.shape[0], agg_d), *tail,
+                 *_terms_args(tk, tables, xg.shape[0], agg_d, parent), *tail,
                  _ptr(dxg), _ptr(dsh), _ptr(demb), _stream(xg))
         cuda_build.check(err, 'fused_conv_terms_bwd')
         fc.launch_counts['fused_conv_terms_bwd'] += 1
         return dxg, dsh, demb
     return backward
+
+
+def terms_fwd_launcher(lib: ctypes.CDLL, parent: bool):
+    """A function with ``TermsKernels.forward``'s signature that launches
+    LIB's ``fused_conv_terms_fwd``: the port's ABI, or with PARENT the
+    earlier one (all of w2, no forward plan)."""
+    pool = LibPool(lib)
+    fn = lib.fused_conv_terms_fwd
+    fn.argtypes = ([_P] * 8
+                   + (_PARENT_TERMS_ARGS if parent else fct._TERMS_ARGS)
+                   + ([] if parent else fct._FWD_ARGS) + [_P, _P])
+    fn.restype = _I
+    cache = {}
+
+    def forward(tk, agg_d, xg, sh, emb, ms, w0, w1, w2, si2):
+        key = (id(tk), agg_d, xg.device)
+        if key not in cache:
+            base, tables = _terms_tables(tk, pool, xg.device, parent)
+            extra = []
+            if not parent:
+                f = tk.fwd_plan(agg_d)
+                folds = f.folds.copy()
+                folds[:, 4:6] += base
+                extra = [torch.tensor(a.reshape(-1) if a.size else
+                                      np.zeros(1, np.int32), device=xg.device)
+                         for a in (f.fins, folds, f.fpaths, f.unfed)]
+            cache[key] = (tables, extra)
+        tables, extra = cache[key]
+        rows = xg.shape[0]
+        out = torch.empty((rows // max(agg_d, 1), tk.plan.d_out),
+                          dtype=xg.dtype, device=xg.device)
+        w2b = w2 if parent else tk._live_w2(w2)[0]
+        tail = [] if parent else tk.fwd_args(agg_d, extra)
+        err = fn(_ptr(xg), _ptr(sh), _ptr(emb), _ptr(ms), _ptr(w0), _ptr(w1),
+                 _ptr(w2b), _ptr(si2),
+                 *_terms_args(tk, tables, rows, agg_d, parent), *tail,
+                 _ptr(out), _stream(xg))
+        cuda_build.check(err, 'fused_conv_terms_fwd')
+        fc.launch_counts['fused_conv_terms_fwd'] += 1
+        return out
+    return forward
+
+
+def extw_fwd_launcher(lib: ctypes.CDLL, parent: bool):
+    """A function with ``FusedConv.kernel_extw_forward``'s signature that
+    launches LIB's ``fused_conv_extw_fwd``: the port's ABI, or with PARENT
+    the earlier one (no tile and row groups)."""
+    fn = lib.fused_conv_extw_fwd
+    fn.argtypes = ([_P] * 4 + fc._TABLE_ARGS + fc._DIM_ARGS
+                   + ([] if parent else [_I, _I, _I]) + [_P, _P])
+    fn.restype = _I
+
+    def forward(conv, xg, sh, weff, si2_ws):
+        t = conv.kernel_tables(xg.device)
+        si2, _ = conv._pack((), si2_ws)
+        out = torch.empty((xg.shape[0] // conv.group, conv.d_out),
+                          dtype=xg.dtype, device=xg.device)
+        mid = []
+        if not parent:
+            dims = fcg.extw_dims(conv)
+            T, s = fcg.extw_fwd_shape(dims)
+            mid = [T, s, fcg.extw_fwd_words(dims, T, s)]
+        err = fn(_ptr(xg), _ptr(sh), _ptr(weff), _ptr(si2),
+                 *conv._table_ptrs(t), *conv._dims(t, xg.shape[0]), *mid,
+                 _ptr(out), _stream(xg))
+        cuda_build.check(err, 'fused_conv_extw_fwd')
+        fc.launch_counts['fused_conv_extw_fwd'] += 1
+        return out
+    return forward
 
 
 def extw_launcher(lib: ctypes.CDLL, parent: bool):
@@ -192,25 +279,39 @@ def extw_launcher(lib: ctypes.CDLL, parent: bool):
     return backward
 
 
+# the method each kind's launcher takes the place of, and its launcher
+SLOTS = {'terms': (fct.TermsKernels, 'backward', terms_launcher),
+         'extw': (fc.FusedConv, 'kernel_extw_backward', extw_launcher),
+         'terms_fwd': (fct.TermsKernels, 'forward', terms_fwd_launcher),
+         'extw_fwd': (fc.FusedConv, 'kernel_extw_forward', extw_fwd_launcher)}
+KINDS = tuple(SLOTS)
+_PORT = {kind: getattr(owner, attr) for kind, (owner, attr, _) in
+         SLOTS.items()}
+
+
+def launcher(kind: str, lib: ctypes.CDLL, parent: bool):
+    """KIND's kernel of LIB, with the port's ABI or (PARENT) the earlier
+    one."""
+    return SLOTS[kind][2](lib, parent)
+
+
 def port_launcher(kind: str):
-    """The port's own backward, unpatched."""
-    return (fct.TermsKernels.backward if kind == 'terms'
-            else fc.FusedConv.kernel_extw_backward)
+    """The port's own kernel of KIND, unpatched."""
+    return _PORT[kind]
 
 
-def install(kind: str, launcher):
-    """Make LAUNCHER the backward every conv of KIND launches."""
-    if kind == 'terms':
-        fct.TermsKernels.backward = launcher
-    else:
-        fc.FusedConv.kernel_extw_backward = launcher
+def install(kind: str, fn):
+    """Make FN the kernel every conv of KIND launches."""
+    owner, attr, _ = SLOTS[kind]
+    setattr(owner, attr, fn)
 
 
 def other_launcher(other_csrc: str, kind: str, out_dir: str):
-    name = 'fused_conv_terms.cu' if kind == 'terms' else 'fused_conv.cu'
+    name = ('fused_conv.cu' if kind.startswith('extw')
+            else 'fused_conv_terms.cu')
     lib = build(os.path.join(other_csrc, name),
                 os.path.join(out_dir, f'lib_other_{kind}.so'))
-    return (terms_launcher if kind == 'terms' else extw_launcher)(lib, True)
+    return launcher(kind, lib, True)
 
 
 def layer_inputs(model, kind: str, dev):
@@ -221,7 +322,7 @@ def layer_inputs(model, kind: str, dev):
     for layer in range(5):
         cl = model.layers[f'{layer}_convolution']
         mlp_ws, si2_ws = cl._weights()
-        if kind == 'terms':
+        if kind.startswith('terms'):
             for dd in (D, 0):
                 conv = fc.FusedConv(cl.tp, cl.weight_nn, cl.si2, dd,
                                     cg_mode='terms')
@@ -238,12 +339,17 @@ def layer_inputs(model, kind: str, dev):
     return out
 
 
-def call_bwd(kind, conv, ws, ins):
+def call(kind, conv, ws, ins):
+    """KIND's kernel on one layer's inputs (through the conv's wrapper)."""
     mlp_ws, si2_ws = ws
-    if kind == 'terms':
+    if kind.startswith('terms'):
         xg, sh, emb, ms, g = ins
+        if kind == 'terms_fwd':
+            return conv.kernel_forward(xg, sh, emb, ms, mlp_ws, si2_ws),
         return conv.kernel_backward(g, xg, sh, emb, ms, mlp_ws, si2_ws)
     xg, sh, weff, g = ins
+    if kind == 'extw_fwd':
+        return conv.kernel_extw_forward(xg, sh, weff, si2_ws),
     return conv.kernel_extw_backward(g, xg, sh, weff, si2_ws)
 
 
@@ -294,6 +400,7 @@ def run(other_csrc: str, kind: str, steps: int = 100):
     dev = torch.device('cuda')
     res = {'card': card(), 'other': os.path.abspath(other_csrc),
            'kind': kind, 'turns': []}
+    way = 'fwd' if kind.endswith('_fwd') else 'bwd'
     port = port_launcher(kind)
     with tempfile.TemporaryDirectory() as tmp:
         launchers = {'other': other_launcher(other_csrc, kind, tmp),
@@ -302,36 +409,35 @@ def run(other_csrc: str, kind: str, steps: int = 100):
             model, _ = SevenNetCheckpoint(CHECKPOINT).build_model(device=dev)
             convs = layer_inputs(model, kind, dev)
             atoms = build_nacl(1000)
-            if kind == 'terms':
+            names = [SLOTS[kind][:2]]
+            if kind.startswith('terms'):
                 md = MolecularDynamics(model, atoms, device=dev,
                                        cg_mode='terms', **NPT_KW)
                 calc = SevenNetCalculator(model, device=dev, cg_mode='terms')
                 calc.calculate(atoms)
-                names = [(fct.TermsKernels, 'backward')]
             else:
                 md = MolecularDynamics(model, atoms, device=dev,
                                        half_mlp=True, **NVT_KW)
-                names = [(fc.FusedConv, 'kernel_extw_backward')]
             for side in ('other', 'this', 'this', 'other'):
                 install(kind, launchers[side])
                 turn = {'side': side}
                 for (layer, dd), (conv, ws, ins) in convs.items():
-                    turn[f'layer{layer}_{dd}_bwd_ms'] = cuda_ms(
-                        lambda: call_bwd(kind, conv, ws, ins))
+                    turn[f'layer{layer}_{dd}_{way}_ms'] = cuda_ms(
+                        lambda: call(kind, conv, ws, ins))
                 pos, nl = md.state.pos, md._grid()
-                if kind == 'terms':
+                if kind.startswith('terms'):
                     cell = md.state.cell
                     fn = lambda: md._efs_fn(pos, nl, cell)   # noqa: E731
                     fn()
-                    (turn['force_call_bwd_ms'],
+                    (turn[f'force_call_{way}_ms'],
                      turn['force_call_host_ms']) = timed_call(fn, names)
-                    (turn['calculator_bwd_ms'],
+                    (turn[f'calculator_{way}_ms'],
                      turn['calculator_host_ms']) = timed_call(
                         lambda: calc.calculate(atoms), names)
                 else:
                     fn = lambda: md._ef_fn(pos, nl)   # noqa: E731
                     fn()
-                    (turn['force_call_bwd_ms'],
+                    (turn[f'force_call_{way}_ms'],
                      turn['force_call_host_ms']) = timed_call(fn, names)
                 turn['md_ms_per_step'] = md_ms_per_step(md, steps)
                 print(json.dumps({k: (round(v, 4) if isinstance(v, float)
@@ -342,7 +448,7 @@ def run(other_csrc: str, kind: str, steps: int = 100):
                 outs = {}
                 for side in ('other', 'this'):
                     install(kind, launchers[side])
-                    outs[side] = call_bwd(kind, conv, ws, ins)
+                    outs[side] = call(kind, conv, ws, ins)
                 key = f'layer{layer}_{dd}_rel_diff'
                 res[key] = [float((a - b).abs().max()
                                   / max(float(b.abs().max()), 1e-30))
@@ -362,7 +468,7 @@ def run(other_csrc: str, kind: str, steps: int = 100):
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    kinds = [k for k in ('terms', 'extw') if f'--{k}' in argv]
+    kinds = [k for k in KINDS if f'--{k.replace("_", "-")}' in argv]
     pos = [a for a in argv if not a.startswith('--')]
     if len(kinds) != 1 or not pos:
         print(__doc__.strip().splitlines()[5].strip(), file=sys.stderr)

@@ -1,11 +1,12 @@
-"""Per-pass cost of the two redesigned backward kernels and of their
-earlier designs, measured by stubbing one pass at a time and timing each
-build: with ``--terms`` the ``terms`` backward on the 1k grid's shape
-(1,000 atoms x 32 rows, 6 pad rows an atom) and on the 1k calculator's
-31,232 rows, with ``--extw`` the external-weight backward on the 1k
+"""Per-pass cost of the redesigned conv kernels (the terms pair and the
+external-weight pair) and of their earlier designs, measured by stubbing
+one pass at a time and timing each build: with ``--terms`` the ``terms``
+backward (``--terms-fwd``: forward) on the 1k grid's shape (1,000 atoms x
+32 rows, 6 pad rows an atom) and on the 1k calculator's 31,232 rows, with
+``--extw`` the external-weight backward (``--extw-fwd``: forward) on the 1k
 ``half_mlp`` grid's shape, at checkpoint layer 1.
 
-    python -m sevennet_exp_tpu_torch.tools.bwd_passes [OTHER_CSRC] [OUT.json] --terms | --extw
+    python -m sevennet_exp_tpu_torch.tools.bwd_passes [OTHER_CSRC] [OUT.json] --terms | --extw | --terms-fwd | --extw-fwd
 
 Each pass gets a ``-DSTUB_<PASS>`` switch, inserted into a temporary copy of
 the source (the stand-in keeps its result live, so the compiler keeps the
@@ -16,22 +17,28 @@ stubbed) / rows in ns a row. Without OTHER_CSRC the source is the port's
 (``csrc/fused_conv_terms.cu``, or ``csrc/fused_conv_geom.cu`` built as
 ``fused_conv_geom_extw``); with it, an earlier tree's ``csrc`` directory
 (its ``fused_conv_terms.cu``, or its ``fused_conv.cu`` whose
-``fused_conv_body.cuh`` holds the first external-weight backward). Needs a
-card (exits 2 without one).
+``fused_conv_body.cuh`` holds the first external-weight pair: each
+kind's earlier switches fit a tree that still has that kernel's first
+design). Needs a card (exits 2 without one).
 
 The stand-ins (what each switch leaves of its pass):
-  SI2   gm = alpha W^T g from one o instead of the sum
+  SI2   gm = alpha W^T g from one o instead of the sum; forwards: y = alpha
+        M W from one r
   HID   the hidden layers from one input each (one basis, one hidden unit)
   W     the radial weight from one w2 row, not the 64-term sum
   CG    terms: (earlier) the last term of each instruction only, (new) T
         and V from one SH component; extw: (earlier) passes A-C from one
-        product each, (new) the class pass runs no instruction
+        product each, (new) the class pass runs no instruction; terms
+        forward: (earlier) one term per component, (new) B x from one x
+        component; extw forward: (earlier) one term per component, (new)
+        one product per row
   Q     (new terms) Q from one term of each instruction
+  FOLD  (new terms forward) B from one term per component
   RED   (new) dsh summed without the 16-value halving (one value)
   D     dh1 from one column group instead of all live columns
   EF    passes E and F with one hidden unit
-  WLOAD (earlier extw) the tile's weights not loaded (a function of the
-        column)
+  WLOAD (earlier extw, both forwards) the tile's weights not loaded (a
+        function of the column or of the row's place in its atom)
   STORE (new extw) the dweff rows not written
 """
 
@@ -294,6 +301,139 @@ NEW_EXTW: Stubs = [
 ]
 
 
+# the earlier terms forward (csrc/fused_conv_terms.cu before its redesign):
+# its hidden layers and output layer are the earlier backward's mlp_tile
+OLD_TERMS_FWD: Stubs = OLD_TERMS[1:4] + [
+    ('CG', """          for (int tt = t; tt < te; ++tt) {""",
+     """#ifdef STUB_CG
+          for (int tt = t; tt < min(te, t + 1); ++tt) {
+#else
+          for (int tt = t; tt < te; ++tt) {
+#endif"""),
+    ('SI2', """      for (int r = 0; r < mi; ++r) {
+        const float wv = __ldg(W + (size_t)r * mo);""",
+     """#ifdef STUB_SI2
+      for (int r = 0; r < min(mi, 1); ++r) {
+#else
+      for (int r = 0; r < mi; ++r) {
+#endif
+        const float wv = __ldg(W + (size_t)r * mo);"""),
+]
+
+# the redesigned terms forward; its w pass and si2 product are the
+# backward's code (the same switches)
+NEW_TERMS_FWD: Stubs = [
+    ('HID', """    for (int b = 0; b < A.nb; ++b)
+      s = fmaf(embT[b * T + e], __ldg(w0 + b * H + j), s);
+    h0T[i] = act_f(s * A.s0, A.act) * A.act_cst;""",
+     """#ifdef STUB_HID
+    for (int b = 0; b < 1; ++b)
+#else
+    for (int b = 0; b < A.nb; ++b)
+#endif
+      s = fmaf(embT[b * T + e], __ldg(w0 + b * H + j), s);
+    h0T[i] = act_f(s * A.s0, A.act) * A.act_cst;"""),
+    ('HID', """#pragma unroll 8
+    for (int k = 0; k < H; ++k) {
+      const float4 h = *reinterpret_cast<const float4*>(h0T + k * T + e0);""",
+     """#ifdef STUB_HID
+    for (int k = 0; k < 1; ++k) {
+#else
+#pragma unroll 8
+    for (int k = 0; k < H; ++k) {
+#endif
+      const float4 h = *reinterpret_cast<const float4*>(h0T + k * T + e0);"""),
+    NEW_TERMS[4],     # W
+    ('FOLD', """    for (int t = O[O_T0]; t < t1; ++t) {""",
+     """#ifdef STUB_FOLD
+    for (int t = O[O_T0]; t < min(t1, O[O_T0] + 1); ++t) {
+#else
+    for (int t = O[O_T0]; t < t1; ++t) {
+#endif"""),
+    ('CG', """      for (int m = 0; m < D1; ++m) {
+#pragma unroll
+        for (int k = 0; k < D3P / 4; ++k) {""",
+     """#ifdef STUB_CG
+      for (int m = 0; m < 1; ++m) {
+#else
+      for (int m = 0; m < D1; ++m) {
+#endif
+#pragma unroll
+        for (int k = 0; k < D3P / 4; ++k) {"""),
+    NEW_TERMS[0],     # SI2 once an atom (agg_d = D)
+    ('SI2', """#pragma unroll 4
+      for (int k = j; k < mi; k += KS) {""",
+     """#ifdef STUB_SI2
+      for (int k = j; k < min(mi, j + 1); k += KS) {
+#else
+#pragma unroll 4
+      for (int k = j; k < mi; k += KS) {
+#endif"""),
+]
+
+# the earlier external-weight forward (fwd_body<M_EXTW> of
+# fused_conv_body.cuh)
+OLD_EXTW_FWD: Stubs = [
+    ('WLOAD', """          if (e + 1 < rows) w_next = __ldg(wg + (long)(e + 1) * P.wn);""",
+     """#ifdef STUB_WLOAD
+          if (e + 1 < rows)
+            w_next = (row0 + e + 1) % P.D < P.D - 6 ? 0.01f : 0.f;
+#else
+          if (e + 1 < rows) w_next = __ldg(wg + (long)(e + 1) * P.wn);
+#endif"""),
+    ('CG', """          } else {
+            const int q1 = I[I_POFF + p + 1];
+            for (int q = I[I_POFF + p]; q < q1; ++q) {""",
+     """          } else {
+            const int q1 = I[I_POFF + p + 1];
+#ifdef STUB_CG
+            for (int q = I[I_POFF + p]; q < min(q1, I[I_POFF + p] + 1); ++q) {
+#else
+            for (int q = I[I_POFF + p]; q < q1; ++q) {
+#endif"""),
+    ('SI2', """      for (int r = 0; r < K; ++r)
+        s = fmaf(ap[r], __ldg(W + (long)r * mo + o), s);""",
+     """#ifdef STUB_SI2
+      for (int r = 0; r < min(K, 1); ++r)
+#else
+      for (int r = 0; r < K; ++r)
+#endif
+        s = fmaf(ap[r], __ldg(W + (long)r * mo + o), s);"""),
+]
+
+# the redesigned external-weight forward (fused_conv_geom.cu's extw build)
+NEW_EXTW_FWD: Stubs = [
+    ('WLOAD', """              v[k] = __ldcs(reinterpret_cast<const float4*>(
+                  wrow + (long)e * P.wn + src_s[4 * (j - e * nq)]));""",
+     """#ifdef STUB_WLOAD
+              v[k] = (row0 + e) % P.D < P.D - 6
+                         ? make_float4(0.01f, 0.01f, 0.01f, 0.01f)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+#else
+              v[k] = __ldcs(reinterpret_cast<const float4*>(
+                  wrow + (long)e * P.wn + src_s[4 * (j - e * nq)]));
+#endif"""),
+    ('CG', """    for (int p = 0; p < D3; ++p) s[p] = 0.f;
+    CgPattern<L1, L2, L3>::each(""",
+     """    for (int p = 0; p < D3; ++p) s[p] = 0.f;
+#ifdef STUB_CG
+    s[0] = xv[0] * sv[0];
+    if (false)
+#endif
+    CgPattern<L1, L2, L3>::each("""),
+    ('SI2', """        for (int r = 0; r < K; ++r)
+          acc = fmaf(ap[r], __ldg(W + (long)r * mo + o), acc);""",
+     """#ifdef STUB_SI2
+        for (int r = 0; r < min(K, 1); ++r)
+#else
+        for (int r = 0; r < K; ++r)
+#endif
+          acc = fmaf(ap[r], __ldg(W + (long)r * mo + o), acc);"""),
+]
+
+KINDS = ('terms', 'extw', 'terms_fwd', 'extw_fwd')
+
+
 def apply(text: str, stubs: Stubs) -> str:
     """Insert every stub switch; each text must occur exactly once."""
     for _, old, new in stubs:
@@ -305,19 +445,23 @@ def apply(text: str, stubs: Stubs) -> str:
 
 
 def plan(kind: str, other: str = None):
-    """(source directory, file to patch, file to compile, stubs, macros)."""
+    """(source directory, file to patch, file to compile, stubs, macros) of
+    KIND (one of ``KINDS``) in the port's csrc or in OTHER."""
+    extw = kind.startswith('extw')
+    fwd = kind.endswith('_fwd')
     if other is None:
-        src = cuda_build.source_path('fused_conv_terms' if kind == 'terms'
-                                     else 'fused_conv_geom_extw')
+        src = cuda_build.source_path('fused_conv_geom_extw' if extw
+                                     else 'fused_conv_terms')
         name = os.path.basename(src)
-        return (os.path.dirname(src), name, name,
-                NEW_TERMS if kind == 'terms' else NEW_EXTW,
-                cuda_build.DEFINES.get('fused_conv_geom_extw', ())
-                if kind == 'extw' else ())
-    if kind == 'terms':
-        return other, 'fused_conv_terms.cu', 'fused_conv_terms.cu', \
-            OLD_TERMS, ()
-    return other, 'fused_conv_body.cuh', 'fused_conv.cu', OLD_EXTW, ()
+        stubs = {'terms': NEW_TERMS, 'extw': NEW_EXTW,
+                 'terms_fwd': NEW_TERMS_FWD, 'extw_fwd': NEW_EXTW_FWD}[kind]
+        return (os.path.dirname(src), name, name, stubs,
+                cuda_build.DEFINES['fused_conv_geom_extw'] if extw else ())
+    if not extw:
+        return (other, 'fused_conv_terms.cu', 'fused_conv_terms.cu',
+                OLD_TERMS_FWD if fwd else OLD_TERMS, ())
+    return (other, 'fused_conv_body.cuh', 'fused_conv.cu',
+            OLD_EXTW_FWD if fwd else OLD_EXTW, ())
 
 
 def build(kind: str, other: str, out_dir: str):
@@ -340,13 +484,12 @@ def build(kind: str, other: str, out_dir: str):
              *flags, '-o', so, os.path.join(work, main)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     out = {}
-    make = bwd_ab.terms_launcher if kind == 'terms' else bwd_ab.extw_launcher
     import ctypes
     for v, (so, p) in procs.items():
         o, e = p.communicate()
         if p.returncode:
             raise RuntimeError(f'nvcc failed on variant {v}:\n{o}\n{e}')
-        out[v] = make(ctypes.CDLL(so), other is not None)
+        out[v] = bwd_ab.launcher(kind, ctypes.CDLL(so), other is not None)
     return out
 
 
@@ -357,6 +500,7 @@ def run(kind: str, other: str = None) -> Dict:
     res = {'card': card(), 'kind': kind,
            'source': other or 'csrc', 'shapes': {}}
     port = bwd_ab.port_launcher(kind)
+    key = 'fwd_ms' if kind.endswith('_fwd') else 'bwd_ms'
     with tempfile.TemporaryDirectory() as tmp:
         launchers = build(kind, other, tmp)
         try:
@@ -369,12 +513,11 @@ def run(kind: str, other: str = None) -> Dict:
                 out = {}
                 for v, fn in launchers.items():
                     bwd_ab.install(kind, fn)
-                    out[v] = {'bwd_ms': cuda_ms(
-                        lambda: bwd_ab.call_bwd(kind, conv, ws, ins),
+                    out[v] = {key: cuda_ms(
+                        lambda: bwd_ab.call(kind, conv, ws, ins),
                         reps=20, warm=1)}
                     out[v]['ns_per_row_saved'] = (
-                        (out['full']['bwd_ms'] - out[v]['bwd_ms']) * 1e6
-                        / rows)
+                        (out['full'][key] - out[v][key]) * 1e6 / rows)
                     print(f'layer 1 agg_d {dd} {v}: ' + json.dumps(
                         {k: round(x, 4) for k, x in out[v].items()}),
                         flush=True)
@@ -386,7 +529,7 @@ def run(kind: str, other: str = None) -> Dict:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    kinds = [k for k in ('terms', 'extw') if f'--{k}' in argv]
+    kinds = [k for k in KINDS if f'--{k.replace("_", "-")}' in argv]
     if len(kinds) != 1:
         print(__doc__.strip().splitlines()[8].strip(), file=sys.stderr)
         return 2

@@ -3,7 +3,7 @@ by kernel.
 
     python -m sevennet_exp_tpu_torch.tools.sass_compare OTHER.cu [NAME] [OUT.json]
 
-Compiles ``csrc/`` 's source of library NAME (default ``fused_conv``) and
+Compiles ``csrc/`` 's source of library NAME (default ``fused_conv_geom``) and
 OTHER.cu (for example the same file from an earlier commit, unpacked with
 ``git archive``) to sm_90a cubins with the port's nvcc flags, disassembles
 both with ``cuobjdump -sass`` and reads the registers with ``cuobjdump
@@ -182,7 +182,7 @@ def _cuobjdump(*args) -> str:
                           text=True).stdout
 
 
-def run(other: str, name: str = 'fused_conv') -> Dict:
+def run(other: str, name: str = 'fused_conv_geom') -> Dict:
     """Compile both sources and compare them; a = OTHER, b = csrc/'s."""
     with tempfile.TemporaryDirectory() as tmp:
         texts = []
@@ -243,7 +243,7 @@ def main(argv=None) -> int:
     if not argv:
         print(__doc__.strip().splitlines()[2].strip(), file=sys.stderr)
         return 2
-    res = run(argv[0], argv[1] if len(argv) > 1 else 'fused_conv')
+    res = run(argv[0], argv[1] if len(argv) > 1 else 'fused_conv_geom')
     for k, v in res['kernels'].items():
         print(f'{k}: registers {v["registers"][0]} / {v["registers"][1]}, '
               f'instructions {v["instructions"][0]} / '

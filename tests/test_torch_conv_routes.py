@@ -3,10 +3,14 @@ CPU, and the port against the JAX XLA path where the kernels refuse a
 layer:
 
   - the route is decided from the layer's shapes when the conv is built:
-    hidden widths other than 64, a filter not in 1x0+1x1+... order and 16
-    x entries (the kernels' table holds 15) are refused with their reason (``kernel_refusal``) and run
-    the plain chain; the shifted softplus is taken (activation code 2);
-    a layer outside the JAX rule (no si2, si2 bias) is refused too;
+    hidden widths other than 64, a filter not in 1x0+1x1+... order, 16
+    x entries (the kernels' table holds 15) and an si2 input entry that
+    feeds several output entries (fault C.3: the tables keep one path per
+    input entry; every form) are refused with their reason
+    (``kernel_refusal``) and run the plain chain; the shifted softplus is
+    taken (activation code 2); a layer outside the JAX rule (no si2, si2
+    bias) is refused too; no layer of the three committed checkpoints is
+    refused;
   - ``use_kernels=False`` (calculator, engine, data dict) sends every
     convolution of ``trained_nacl`` down the plain chain, with the same
     E/F; the chunked path and geometry fusion refuse it;
@@ -14,8 +18,9 @@ layer:
     and of an ssp model against the JAX calculator
     (``use_pallas=False``): 1e-4 eV (against the float64 sum of JAX's
     atomic energies, as ``test_torch_calculator.py``), 1e-4 eV/A; a
-    refused filter layer
-    (``1x1o+1x0e``) against the JAX layer: 1e-5 of its largest output.
+    refused filter layer (``1x1o+1x0e``) and a refused si2 (onto
+    ``2x0e+2x1o+2x0e``) against the JAX layer: 1e-5 of its largest
+    output.
 """
 
 import copy
@@ -48,6 +53,7 @@ from sevennet_exp_tpu_torch.model import layers as L
 from sevennet_exp_tpu_torch.model.build import build_e3_equivariant_model
 from sevennet_exp_tpu_torch.ops import cuda_build
 from sevennet_exp_tpu_torch.ops import fused_conv as fc
+from sevennet_exp_tpu_torch.ops import fused_conv_terms as fct
 from sevennet_exp_tpu_torch.ops.tensor_product import (
     FullyConnectedNetSpec,
     LinearSpec,
@@ -58,14 +64,21 @@ from sevennet_exp_tpu_torch.tools import sass_compare
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NACL = os.path.join(ROOT, 'trained_nacl', 'checkpoint_best.pth.sevennet')
 X16 = '+'.join(['2x0e', '2x1o'] * 8)    # 16 entries: MAX_XENT
+# si2 of the X16 layers: onto simplified irreps, so that the 16-entry cap
+# and nothing else refuses them (si2 onto X16 itself is fault C.3)
+X16_OUT = '16x0e+16x1o'
+# si2 onto irreps that repeat 0e as a separate entry: the TP's 0e entry
+# feeds two output entries (fault C.3)
+FANOUT = '2x0e+2x1o+2x0e'
 
 
 def _layer(x='4x0e+4x1o', sh='1x0e+1x1o', hidden=(64, 64), act='silu',
-           si2=True, bias=False):
+           si2=True, bias=False, out=None):
     x, sh = Irreps(x), Irreps(sh)
     tp = UVUTensorProductSpec(x, sh, infer_irreps_out(x, sh, 1, 'full'))
     mlp = FullyConnectedNetSpec((8, *hidden, tp.weight_numel), act)
-    lin = LinearSpec(tp.irreps_out, x, biases=bias) if si2 else None
+    lin = (LinearSpec(tp.irreps_out, x if out is None else Irreps(out),
+                      biases=bias) if si2 else None)
     return L.IrrepsConvolution(tp, mlp, lin, 10.0)
 
 
@@ -73,10 +86,11 @@ def _layer(x='4x0e+4x1o', sh='1x0e+1x1o', hidden=(64, 64), act='silu',
     (dict(hidden=(32, 32)), 'hidden widths must be 64'),
     (dict(hidden=(64, 48)), 'hidden widths must be 64'),
     (dict(sh='1x1o+1x0e'), 'l2^2'),
-    (dict(x=X16), 'x entries'),
+    (dict(x=X16, out=X16_OUT), 'x entries'),
     (dict(act='relu'), "activation 'relu'"),
     (dict(si2=False), 'no fused conv'),
     (dict(bias=True), 'no fused conv'),
+    (dict(out=FANOUT), 'feeds 2 output entries'),
 ])
 @pytest.mark.parametrize('dd', [0, 16])
 def test_refused_layers_carry_their_reason(kw, why, dd):
@@ -86,7 +100,8 @@ def test_refused_layers_carry_their_reason(kw, why, dd):
     if layer._fused_eligible():
         conv = layer._conv(dd)
         assert conv.kernel_refusal == got
-        with pytest.raises(ValueError, match='must be 64|l2|x entries|act'):
+        with pytest.raises(ValueError,
+                           match='must be 64|l2|x entries|act|feeds'):
             conv._dims(conv.kernel_tables(torch.device('cpu')), 16)
 
 
@@ -129,7 +144,8 @@ def _edge_data(layer, rng, n=7, e=40):
 
 @pytest.mark.parametrize('kw,fused', [
     (dict(), True), (dict(act='ssp'), True), (dict(hidden=(32, 32)), False),
-    (dict(sh='1x1o+1x0e'), False), (dict(x=X16), False)])
+    (dict(sh='1x1o+1x0e'), False), (dict(x=X16, out=X16_OUT), False),
+    (dict(out=FANOUT), False)])
 def test_layer_routes_by_refusal(monkeypatch, kw, fused):
     """A taken layer calls the fused conv; a refused one never does, and
     gives what the plain chain gives; use_kernels=False never calls it."""
@@ -154,8 +170,19 @@ def test_layer_routes_by_refusal(monkeypatch, kw, fused):
 def test_refused_filter_layer_equals_jax():
     """The 1x1o+1x0e filter (refused: its SH block is not at l2^2) on the
     plain chain against the JAX layer's XLA path."""
-    x, sh = '4x0e+4x1o', '1x1o+1x0e'
-    layer = _layer(x=x, sh=sh)
+    _refused_layer_equals_jax('1x1o+1x0e', None)
+
+
+def test_si2_fanout_layer_equals_jax():
+    """Fault C.3: si2 onto 2x0e+2x1o+2x0e (the TP's 0e entry feeds two
+    output entries), refused, on the plain chain against the JAX layer's
+    XLA path."""
+    _refused_layer_equals_jax('1x0e+1x1o', FANOUT)
+
+
+def _refused_layer_equals_jax(filt, out):
+    x, sh = '4x0e+4x1o', filt
+    layer = _layer(x=x, sh=sh, out=out)
     jx_, jsh = JIrreps(x), JIrreps(sh)
     jtp_spec = jtp.UVUTensorProductSpec(jx_, jsh,
                                         jinfer(jx_, jsh, 1, 'full'))
@@ -163,7 +190,9 @@ def test_refused_filter_layer_equals_jax():
         tp=jtp_spec,
         weight_nn=jtp.FullyConnectedNetSpec(
             (8, 64, 64, jtp_spec.weight_numel), 'silu'),
-        si2=jtp.LinearSpec(jtp_spec.irreps_out, jx_), denominator=10.0)
+        si2=jtp.LinearSpec(jtp_spec.irreps_out,
+                           jx_ if out is None else JIrreps(out)),
+        denominator=10.0)
     jparams, _ = jlayer.init(jax.random.PRNGKey(4))
     state = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
     for k, v in state.items():
@@ -223,6 +252,45 @@ def test_refused_tiny_models_equal_jax(over, route):
                - np.asarray(want['energies']).astype(np.float64).sum()
                ) <= 1e-4
     assert np.abs(got['forces'] - np.asarray(want['forces'])).max() <= 1e-4
+
+
+@pytest.mark.parametrize('dd', [0, 16])
+def test_si2_fanout_is_refused_on_every_form(dd):
+    """Fault C.3: an si2 input entry that feeds several output entries is
+    refused by every kernel form (dense or edge, terms, external weights)
+    with its reason, before any table is planned: ``terms_plan`` raises on
+    it and the default plan never sees it."""
+    layer = _layer(out=FANOUT)
+    whys = [layer.kernel_refusal(dd), layer.kernel_refusal(dd, 'terms'),
+            layer.kernel_refusal(dd, ext_w=True)]
+    assert all(w is not None and 'feeds 2 output entries' in w
+               for w in whys), whys
+    conv = layer._conv(dd, cg_mode='terms')
+    assert conv._terms.refusal(dd) == whys[1] and conv._terms.plan is None
+    with pytest.raises(ValueError, match='feeds 2 output entries'):
+        fct.terms_plan(layer.tp, layer.si2)
+    with pytest.raises(AssertionError, match='feeds two outputs'):
+        fc._si2_plan(layer.tp, layer.si2)
+    assert conv.d_out == layer.si2.irreps_out.dim == 10
+    # one entry an irrep: taken
+    assert _layer(out='4x0e+2x1o').kernel_refusal(dd) is None
+
+
+@pytest.mark.parametrize('name', ['trained_nacl', 'trained_hfo2',
+                                  'trained_hfo2_v2'])
+def test_committed_checkpoints_keep_the_kernel_route(name):
+    """No committed checkpoint has a refused layer: every convolution takes
+    the kernels on the grid and the edge list, under both CG modes and on
+    the half list."""
+    model = SevenNetCheckpoint(os.path.join(
+        ROOT, name, 'checkpoint_best.pth.sevennet')).build_model('cpu')[0]
+    for dd in (0, 24):
+        assert {r['route'] for r in model.conv_routes(dd)} == {'kernel'}
+    for li in range(5):
+        cl = model.layers[f'{li}_convolution']
+        assert cl.kernel_refusal(24, 'terms') is None
+        assert cl.kernel_refusal(0, 'terms') is None
+        assert cl.kernel_refusal(24, ext_w=True) is None
 
 
 @pytest.fixture(scope='module')
@@ -324,8 +392,8 @@ def test_external_weight_kernels_take_any_radial_mlp():
     activation do not refuse them, the table still does."""
     for kw in (dict(hidden=(32, 32)), dict(act='relu')):
         assert _layer(**kw).kernel_refusal(16, ext_w=True) is None
-    assert 'x entries' in _layer(x=X16).kernel_refusal(16)
-    assert _layer(x=X16).kernel_refusal(16, ext_w=True) is None
+    assert 'x entries' in _layer(x=X16, out=X16_OUT).kernel_refusal(16)
+    assert _layer(x=X16, out=X16_OUT).kernel_refusal(16, ext_w=True) is None
 
 
 @pytest.mark.parametrize('over', [

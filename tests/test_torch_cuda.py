@@ -377,17 +377,14 @@ def test_edge_instances_sass_identical_to_parent(cuda):
     assert got == PARENT_EDGE_SASS
 
 
-# SASS digests (tools/sass_compare.digests) of the conv kernels whose code
-# the redesigns of the geometry-fused, dense and edge pairs (and of the
-# external-weight backward, which left csrc/fused_conv.cu) did not touch,
-# from a build of the parent tree's csrc/fused_conv.cu and
+# SASS digests (tools/sass_compare.digests) of the micro-benchmark kernels
+# on the first dense-grid forward's body (csrc/fused_conv_body.cuh), whose
+# code the redesigns of the conv kernels did not touch, from a build of
 # csrc/bench_pieces.cu with the same nvcc on the card machine.
 # bench_pieces_full is the code of the first dense-grid forward (kernel 1
 # before its redesign), bench_pieces_noagg that of the first edge-row
 # forward (its digest, d22176e6071b, was the edge-row kernel 1's).
 PARENT_SASS = {
-    '_ZN46_GLOBAL__N__13_fused_conv_cu_97ac331b26fused_conv_extw_fwd_kernelEPKfS1_S1_S1_NS_4PlanEPf':
-        '126d4c70bb14',
     '_ZN48_GLOBAL__N__15_bench_pieces_cu_2586ebd423bench_pieces_now_kernelEPKfS1_S1_S1_S1_S1_S1_S1_NS_4PlanEPf':
         'd18e332ac461',
     '_ZN48_GLOBAL__N__15_bench_pieces_cu_2586ebd424bench_pieces_full_kernelEPKfS1_S1_S1_S1_S1_S1_S1_NS_4PlanEPf':
@@ -405,18 +402,20 @@ PARENT_SASS = {
 
 def _without_file_hash(name):
     """A kernel's name without the hash nvcc puts after the file name in
-    its anonymous namespace (fused_conv.cu's moved when kernels 1-2 left
-    it; the code did not)."""
+    its anonymous namespace (it moves with the source's text; the code
+    need not)."""
     import re
     return re.sub(r'(_cu_)[0-9a-f]{8}', r'\1', name)
 
 
 def test_untouched_conv_kernels_sass_identical_to_parent(cuda):
-    """Kernel 7 and bench_pieces compile to the SASS of the tree before
-    the geometry-fused kernels left fused_conv_body.cuh."""
+    """bench_pieces compiles to the SASS of the tree before the
+    geometry-fused kernels left fused_conv_body.cuh (the first
+    external-weight pair, which shared that body, was redesigned into
+    csrc/fused_conv_geom.cu)."""
     from sevennet_exp_tpu_torch.tools import sass_compare
     got = {}
-    for name in ('fused_conv', 'bench_pieces'):
+    for name in ('bench_pieces',):
         got.update(sass_compare.digests(name))
     got = {_without_file_hash(k): v for k, v in got.items()}
     want = {_without_file_hash(k): v for k, v in PARENT_SASS.items()}
@@ -793,6 +792,8 @@ def _layer_specs(model, which, cuda):
     if which == 'ssp':
         return _small_layer(cuda, 5, '32x0e+16x1e', '1x0e+1x1o+1x2e', 2,
                             'ssp')
+    if which == 'odd':          # multiplicities not a multiple of 4
+        return _small_layer(cuda, 7, '3x0e+5x1o', '1x0e+1x1o', 1)
     cl = model.layers[f'{which[-1]}_convolution']
     return (cl.tp, cl.weight_nn, cl.si2, *cl._weights())
 
@@ -889,18 +890,168 @@ def test_redesigned_backwards_resources(cuda, model):
 
 @pytest.mark.parametrize('lib', ['fused_conv_terms', 'fused_conv_geom_extw'])
 def test_redesigned_backwards_sass_no_local_memory(cuda, lib):
-    """Every instance of the terms backward (both forms) and of the
-    external-weight backward: FFMA on the CUDA cores, no tensor-core
-    opcode, no LDL / STL. (The terms forward, not redesigned, keeps two
-    LDL: ROADMAP B.)"""
+    """Every instance of the terms pair (both forms, both ways) and of the
+    external-weight pair (the backward at 4, 9, 16 SH, the forward): FFMA
+    on the CUDA cores, no tensor-core opcode, no LDL / STL."""
     from sevennet_exp_tpu_torch.tools import sass_compare
-    counts = {k: v for k, v in sass_compare.count(lib).items()
-              if 'bwd' in k}
-    assert len(counts) == (2 if lib == 'fused_conv_terms' else 3)
+    counts = sass_compare.count(lib)
+    assert len(counts) == 4
+    assert sum('fwd' in k for k in counts) == (2 if 'terms' in lib else 1)
     for k, v in counts.items():
         assert v['FFMA'] > 0, k
         for op in (*sass_compare.TENSOR_CORE_OPS, *sass_compare.LOCAL_OPS):
             assert v[op] == 0, (k, op, v[op])
+
+
+# SASS digests of the external-weight backward's instances (4, 9, 16 SH) as
+# redesigned, before the external-weight forward joined their build
+PARENT_EXTW_BWD_SASS = {'4': 'd8cf526f5ab8', '9': '9fa855366a9d',
+                        '16': '5455282fa6b2'}
+
+
+def test_extw_backward_keeps_its_sass(cuda):
+    """The external-weight forward joined the build fused_conv_geom_extw
+    behind the preprocessor gate: the backward's three instances keep the
+    SASS of their redesign."""
+    import re
+    from sevennet_exp_tpu_torch.tools import sass_compare
+    got = {re.search(r'ILi(\d+)E', k).group(1): v for k, v in
+           sass_compare.digests('fused_conv_geom_extw').items()
+           if 'extw_bwd' in k}
+    assert got == PARENT_EXTW_BWD_SASS
+
+
+# -- the redesigned forwards: terms (row 3) and external-weight (row 7) -----
+
+@pytest.mark.parametrize('which,degree', [
+    ('layer1', 32), ('layer1', 20), ('layer1', 40), ('layer0', 32),
+    ('layer4', 24), ('small', 16), ('small', 0), ('tanh', 12), ('tanh', 0),
+    ('ssp', 32), ('ssp', 0), ('layer1', 0), ('layer0', 0), ('layer4', 0),
+    ('odd', 8), ('odd', 0)])
+def test_terms_forward_edges_of_the_tiling(cuda, model, which, degree):
+    """The redesigned terms forward against its plain version where the
+    tiling has edges: D not a multiple of the 16-row tile (20, 40, 24, 12),
+    row counts not a multiple of the tile at agg_d = 0 (301), atoms (and
+    tiles) of pad rows only, multiplicities under 32, f = 4 (tanh), 9 (ssp)
+    and 16 (small, lmax 3); pad rows' outputs exactly zero at agg_d = 0 and
+    two launches bit-equal."""
+    from sevennet_exp_tpu_torch.ops.fused_conv import FusedConv
+    tp, mlp, si2, mlp_ws, si2_ws = _layer_specs(model, which, cuda)
+    conv = FusedConv(tp, mlp, si2, degree, cg_mode='terms')
+    assert conv.kernel_refusal is None
+    rows = 13 * degree if degree else 301
+    xg, sh, emb, ms, _, _ = _plain_inputs(conv, rows, cuda, 12)
+    ms = _pad_atoms(ms, degree or 16)
+    y_k = conv.kernel_forward(xg, sh, emb, ms, mlp_ws, si2_ws)
+    y_2 = conv.kernel_forward(xg, sh, emb, ms, mlp_ws, si2_ws)
+    y_p = conv.plain_forward(xg, sh, emb, ms, mlp_ws, si2_ws)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y_k).all() and torch.equal(y_k, y_2)
+    assert (y_k - y_p).abs().max() <= 1e-4 * y_p.abs().max()
+    if degree == 0:
+        assert y_k[(ms == 0).reshape(-1)].abs().max() == 0
+    else:
+        for a in (1, 4):
+            assert y_k[a].abs().max() == 0           # an atom of pads
+
+
+@pytest.mark.parametrize('which,degree', [
+    ('layer1', 32), ('layer1', 20), ('layer1', 40), ('layer0', 32),
+    ('layer4', 24), ('small', 16), ('x16', 12), ('ssp', 32), ('tanh', 6),
+    ('odd', 8)])
+def test_extw_forward_edges_of_the_tiling(cuda, model, which, degree):
+    """The redesigned external-weight forward against its plain version: D
+    not a multiple of the tile, atoms of pad rows only, multiplicities
+    under 32 and not a multiple of 4 (odd: weights read one column at a
+    time), 16 SH components, 16 x entries, dead weight columns (layer 0);
+    two launches bit-equal."""
+    from sevennet_exp_tpu_torch.ops.fused_conv import FusedConv
+    if which == 'x16':
+        spec = _small_layer(cuda, 6, '+'.join(['2x0e', '2x1o'] * 8),
+                            '1x0e+1x1o', 1, out='16x0e+16x1o')
+    else:
+        spec = _layer_specs(model, which, cuda)
+    tp, mlp, si2, mlp_ws, si2_ws = spec
+    conv = FusedConv(tp, mlp, si2, degree, ext_w=True)
+    assert conv.kernel_refusal is None
+    xg, sh, weff, _, _ = _extw_inputs(conv, 13, degree, cuda, 22, mlp_ws)
+    for a in (1, 4):
+        weff[a * degree:(a + 1) * degree] = 0.0
+    y_k = conv.kernel_extw_forward(xg, sh, weff, si2_ws)
+    y_2 = conv.kernel_extw_forward(xg, sh, weff, si2_ws)
+    y_p = conv.plain_extw_forward(xg, sh, weff, si2_ws)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y_k).all() and torch.equal(y_k, y_2)
+    assert (y_k - y_p).abs().max() <= 1e-4 * y_p.abs().max()
+    assert y_k[1].abs().max() == 0 and y_k[4].abs().max() == 0
+
+
+def test_redesigned_forwards_resources(cuda, model):
+    """At most 128 registers, no local memory and at least two blocks an SM
+    at every layer of the checkpoint: the terms forward both forms and the
+    external-weight forward, at the shared bytes their plans give."""
+    from sevennet_exp_tpu_torch.ops import fused_conv as fc
+    from sevennet_exp_tpu_torch.ops import fused_conv_geom as fcg
+    for li in range(5):
+        cl = model.layers[f'{li}_convolution']
+        for dd in (32, 0):
+            conv = fc.FusedConv(cl.tp, cl.weight_nn, cl.si2, dd,
+                                cg_mode='terms')
+            regs, local, per_sm = conv._terms.fwd_resources(dd)
+            assert local == 0 and per_sm >= 2 and regs <= 128, (li, dd)
+        conv = fc.FusedConv(cl.tp, cl.weight_nn, cl.si2, 32, ext_w=True)
+        regs, local, per_sm, smem = conv.extw_resources(cuda, fwd=True)
+        d = fcg.extw_dims(conv)
+        T, s = fcg.extw_fwd_shape(d)
+        assert local == 0 and per_sm >= 2 and regs <= 128, li
+        assert smem == 4 * fcg.extw_fwd_words(d, T, s)
+
+
+def test_si2_fanout_layer_runs_plain_on_the_card(cuda):
+    """Fault C.3: a layer whose si2 input entry feeds two output entries
+    (si2 onto 2x0e+2x1o+2x0e) is refused by every kernel form, launches no
+    conv kernel on the card and gives the CPU's output (1e-5 of its
+    largest entry), under both CG modes."""
+    from sevennet_exp_tpu_torch import _keys as KEY
+    from sevennet_exp_tpu_torch.irreps import Irreps, infer_irreps_out
+    from sevennet_exp_tpu_torch.model import layers as L
+    from sevennet_exp_tpu_torch.ops import fused_conv as fc
+    from sevennet_exp_tpu_torch.ops.tensor_product import (
+        FullyConnectedNetSpec, LinearSpec, UVUTensorProductSpec)
+    x, sh = Irreps('4x0e+4x1o'), Irreps('1x0e+1x1o')
+    tp = UVUTensorProductSpec(x, sh, infer_irreps_out(x, sh, 1, 'full'))
+    layer = L.IrrepsConvolution(
+        tp, FullyConnectedNetSpec((8, 64, 64, tp.weight_numel), 'silu'),
+        LinearSpec(tp.irreps_out, Irreps('2x0e+2x1o+2x0e')), 10.0)
+    params, _ = layer.init(torch.Generator().manual_seed(3))
+    for group, vals in ((layer.weight_nn_p, params['weight_nn']),
+                        (layer.si2_p, params['si2'])):
+        for k, v in vals.items():
+            getattr(group, k).copy_(v)
+    for dd in (0, 16):
+        for kw in ({}, {'cg_mode': 'terms'}, {'ext_w': True}):
+            assert 'feeds 2 output entries' in layer.kernel_refusal(dd, **kw)
+    rng = np.random.default_rng(4)
+    n, e = 9, 60
+    data = {KEY.NODE_FEATURE: rng.normal(size=(n, x.dim)),
+            KEY.EDGE_IDX: rng.integers(0, n, size=(2, e)),
+            KEY.EDGE_ATTR: rng.normal(size=(e, sh.dim)),
+            KEY.EDGE_EMBEDDING: rng.normal(size=(e, 8)),
+            KEY.EDGE_MASK: rng.uniform(size=e) > 0.2}
+    ref = layer(dict((k, torch.tensor(v, dtype=torch.long if k ==
+                                      KEY.EDGE_IDX else torch.float32))
+                     for k, v in data.items()))[KEY.NODE_FEATURE]
+    layer.to(cuda)
+    for mode in ('cmshared', 'terms'):
+        dev_data = {k: torch.tensor(v, device=cuda, dtype=torch.long if k ==
+                                    KEY.EDGE_IDX else torch.float32)
+                    for k, v in data.items()}
+        dev_data[fc.CG_MODE_KEY] = mode
+        fc.reset_launch_counts()
+        out = layer(dev_data)[KEY.NODE_FEATURE]
+        torch.cuda.synchronize()
+        assert not any(fc.launch_counts.values()), mode
+        assert (out.cpu() - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
 def test_engine_with_terms_matches_default_on_the_card(cuda, model):

@@ -17,7 +17,8 @@ at fault: the fused kernel's node rows rotate with their inputs, the XLA
 chain's (and the port's) do not.
 
 ``test_kernel_tables_reproduce_plain`` runs the CUDA kernels' arithmetic
-as written in csrc/fused_conv.cu -- driven by the same device tables --
+as the first design wrote it (csrc/fused_conv_body.cuh) -- driven by the
+same device tables --
 in vectorised torch on the CPU, so the table contract is covered here;
 the kernels themselves run only on the card (chip_smoke.py).
 """
@@ -221,7 +222,7 @@ def test_layer1_rotation_equivariance(tiny_layers, checkpoint_layers,
 
 def _emulate(conv, xg, sh, emb, ms, mlp_ws, si2_ws, g):
     """Forward node rows and (dxg, dsh, demb) computed the way
-    csrc/fused_conv.cu does, from conv.kernel_tables('cpu')."""
+    csrc/fused_conv_body.cuh does, from conv.kernel_tables('cpu')."""
     t = conv.kernel_tables(torch.device('cpu'))
     S = pfc._I_STRIDE
     ins = t.ins.reshape(t.n_ins, S).tolist()

@@ -5,7 +5,7 @@
     at atol 1e-5, VJP at atol 1e-4, for both envelopes and lmax 1-3, on
     rows inside r_on, rows near the cutoff and the (1, 0, 0) pad vector;
   - the arithmetic the CUDA kernels run -- the SH term table and the
-    geometry VJP written out by hand in csrc/fused_conv.cu -- replayed in
+    geometry VJP written out by hand in csrc/fused_conv_geom.cu -- replayed in
     torch from the same device tables, against autograd of ``geom_rows``;
   - ``plain_geom_forward`` / ``plain_geom_backward`` and the autograd
     wrapper ``apply_geom`` against ``_geom_fm`` followed by the JAX XLA
@@ -102,7 +102,7 @@ def test_geom_rows_matches_jax_geom_fm(kind, lmax):
 # -- the kernels' geometry arithmetic, from their tables ------------------
 
 def _emulate_geometry(conv, vec, coeffs, demb, dsh):
-    """(emb, sh, dvec) computed the way csrc/fused_conv.cu does:
+    """(emb, sh, dvec) computed the way csrc/fused_conv_geom.cu does:
     ``radial_of`` and ``geom_rows_fwd`` for the values, ``geom_rows_bwd``
     for the VJP, driven by ``conv.geom_tables``."""
     g = conv.geom

@@ -18,8 +18,10 @@ at atol 1e-5 relative to max|ref|, against
       1e-4 eV/A, 1e-5 eV/A^3), whole-array and chunked.
 
 ``test_kernel_tables_reproduce_plain`` replays the arithmetic of
-csrc/fused_conv_terms.cu from the tables the kernels read (the backward by
-``tests/test_torch_terms_plan.py::replay_terms_bwd``) -- an independent
+csrc/fused_conv_terms.cu from the tables the kernels read
+(``tests/test_torch_terms_plan.py::replay_terms_fwd`` and
+``replay_terms_bwd``; the forward's replay is also held against the JAX
+``terms`` forward kernel in interpret mode) -- an independent
 derivation from the two specs, sharing nothing with the default kernels'
 tables -- so the table contract is covered here; the kernels themselves run
 only on the card (tests/test_torch_cuda.py, chip_smoke.py).
@@ -48,8 +50,7 @@ from sevennet_exp_tpu_torch.ops.tensor_product import (
     LinearSpec,
     UVUTensorProductSpec,
 )
-from test_torch_fused_tp import replay_tp_tables
-from test_torch_terms_plan import replay_terms_bwd
+from test_torch_terms_plan import replay_terms_bwd, replay_terms_fwd
 
 torch.set_num_threads(2)
 CKPT = 'trained_nacl/checkpoint_best.pth.sevennet'
@@ -201,47 +202,12 @@ def test_terms_mode_has_no_geom_and_no_ext_w(tiny_layers):
 
 def _replay(conv, xg, sh, emb, ms, mlp_ws, si2_ws, g):
     """Output rows and (dxg, dsh, demb) computed the way
-    csrc/fused_conv_terms.cu does, from ``terms_plan``'s host tables."""
-    P = terms_plan(conv.tp, conv.si2)
-    group = max(conv.agg_d, 1)
-    rows, n_out = xg.shape[0], xg.shape[0] // group
-    mlp_p = {f'w{i}': w for i, w in enumerate(mlp_ws)}
-    w = conv.mlp.apply(mlp_p, emb) * ms
-    live = torch.zeros(w.shape[1], dtype=torch.bool)
-    live[torch.tensor(P.live_cols, dtype=torch.long)] = True
-    w_live = w * live                      # the kernel computes these only
-    si2 = torch.cat([v.reshape(-1) for v in si2_ws])
-    si2t = torch.cat([v.t().reshape(-1) for v in si2_ws])
-    alpha = P.path_alpha.tolist()
-    # message cotangent, one thread per message element
-    gm = xg.new_zeros((n_out, P.d_msg))
-    for i in range(P.d_msg):
-        pth = int(P.msg_path[i])
-        if pth < 0:
-            continue
-        in_off, mi, mo, dim, out_off, w_off = P.paths[pth].tolist()
-        q, r = divmod(i - in_off, mi)
-        wt = si2t[w_off + r + mi * torch.arange(mo)]
-        gm[:, i] = alpha[pth] * (
-            g[:, out_off + q * mo:out_off + (q + 1) * mo] @ wt)
-    msg, _, _, _ = replay_tp_tables(
-        P.ins, P.idx.tolist(), P.coef.tolist(), xg, sh, w_live,
-        gm.repeat_interleave(group, 0), P.d_msg)
-    pad = (ms == 0).reshape(-1)
-    assert float(msg[pad].abs().max()) == 0.0
-    agg = msg.reshape(n_out, group, P.d_msg).sum(1)
-    out = xg.new_zeros((n_out, P.d_out))
-    for c in range(P.d_out):               # one thread per output column
-        pth = int(P.col_path[c])
-        if pth < 0:
-            continue
-        in_off, mi, mo, dim, out_off, w_off = P.paths[pth].tolist()
-        q, o = divmod(c - out_off, mo)
-        wcol = si2[w_off + o + mo * torch.arange(mi)]
-        out[:, c] = alpha[pth] * (
-            agg[:, in_off + q * mi:in_off + (q + 1) * mi] @ wcol)
-    # the backward: csrc/fused_conv_terms.cu's folded CG (Q) from its plan
-    return out, replay_terms_bwd(conv, xg, sh, emb, ms, mlp_ws, si2_ws, g)
+    csrc/fused_conv_terms.cu does, from the plans' host tables: the forward
+    by ``tests/test_torch_terms_plan.py::replay_terms_fwd`` (the SH folded
+    into the CG), the backward by ``replay_terms_bwd`` (the CG folded with
+    the message cotangent)."""
+    return (replay_terms_fwd(conv, xg, sh, emb, ms, mlp_ws, si2_ws),
+            replay_terms_bwd(conv, xg, sh, emb, ms, mlp_ws, si2_ws, g))
 
 
 @pytest.mark.parametrize('which', ['tiny1', 'checkpoint0', 'checkpoint1',
@@ -263,6 +229,29 @@ def test_kernel_tables_reproduce_plain(tiny_layers, checkpoint_layers, which,
     for a, b in zip(grads, ref_grads):
         _close(a.numpy(), b.numpy())
         assert float(a[(ms == 0).reshape(-1)].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize('li', [0, 2])
+@pytest.mark.parametrize('agg_d', [D, 0], ids=['grid', 'edge_rows'])
+def test_fwd_tables_match_jax_terms_kernel(tiny_layers, li, agg_d):
+    """The terms forward's tables, replayed (the SH folded into the CG per
+    row), against the JAX ``terms`` forward kernel in interpret mode, on
+    the layers whose si2 input merges no l > 0 entries."""
+    layer, lp = tiny_layers[li]
+    pallas_conv.set_cg_mode('terms')
+    pallas_conv.make_fused_conv.cache_clear()
+    fused, _ = pallas_conv.make_fused_conv(layer.tp, layer.weight_nn,
+                                           layer.si2, block_e=256,
+                                           agg_d=agg_d)
+    ins, mlp, si2, _ = _inputs(layer, lp, 20 + li, agg_d)
+    j_out = np.asarray(fused(*(jnp.asarray(x) for x in ins),
+                             tuple(jnp.asarray(w) for w in mlp),
+                             tuple(jnp.asarray(w) for w in si2)))
+    out = replay_terms_fwd(_port_conv(layer, agg_d),
+                           *(torch.tensor(x) for x in ins),
+                           tuple(torch.tensor(w) for w in mlp),
+                           tuple(torch.tensor(w) for w in si2))
+    _close(out.numpy(), j_out)
 
 
 def test_terms_plan_is_independent_of_the_default_tables(checkpoint_layers):

@@ -1,8 +1,14 @@
-"""The launch plans of the two backward kernels redesigned for Hopper, on
-the CPU: the ``terms`` backward (``ops/fused_conv_terms.py::terms_bwd_plan``,
-csrc/fused_conv_terms.cu) and the external-weight backward
-(``ops/fused_conv_geom.py::extw_tile`` / ``extw_words``, the
+"""The launch plans of the kernels redesigned for Hopper, on the CPU: the
+``terms`` pair (``ops/fused_conv_terms.py::terms_fwd_plan`` and
+``terms_bwd_plan``, csrc/fused_conv_terms.cu) and the external-weight
+backward (``ops/fused_conv_geom.py::extw_tile`` / ``extw_words``, the
 ``fused_conv_geom_extw`` build of csrc/fused_conv_geom.cu).
+
+``replay_terms_fwd`` runs the ``terms`` forward's arithmetic from its plan's
+tables: the hidden layers by the kernel's activation code, w over the live
+columns, the SH folded into the CG per row (B), msg = w B x per CG unit into
+the compact message, the sum over an output row's rows and si2 by the
+swapped path table.
 
 ``replay_terms_bwd`` runs the ``terms`` backward's arithmetic the way the
 kernel does, from the plan's tables: the message cotangent gm = alpha W^T g
@@ -124,6 +130,67 @@ def replay_terms_bwd(conv, xg, sh, emb, ms, mlp_ws, si2_ws, g):
     return dxg, dsh, demb
 
 
+def _act(x, code):
+    """The kernels' activation codes (csrc/fused_conv_terms.cu act_f)."""
+    if code == 0:
+        return x * torch.sigmoid(x)
+    if code == 2:
+        return (torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+                - 0.693147180559945309)
+    return torch.tanh(x)
+
+
+def replay_terms_fwd(conv, xg, sh, emb, ms, mlp_ws, si2_ws):
+    """Output rows the way the terms forward computes them, from
+    ``terms_fwd_plan``'s tables and the launch's scalars (activation code,
+    its constant, the layer scales): the hidden layers, w over the live
+    columns, the SH folded into the CG per row and fold entry (B), per CG
+    unit msg = w B x into the compact message (each element written once),
+    the sum over an output row's rows and si2 by the swapped path table."""
+    tk = conv._terms
+    P, f = tk.plan, tk.fwd_plan(conv.agg_d)
+    group, rows = max(conv.agg_d, 1), xg.shape[0]
+    n_out = rows // group
+    code, cst, s0, s1, s2 = tk.scalars(rows, conv.agg_d)[-5:]
+    w0, w1, w2 = mlp_ws
+    h = _act(emb @ w0 * s0, code) * cst
+    h = _act(h @ w1 * s1, code) * cst
+    live = torch.tensor(P.live_cols, dtype=torch.long)
+    wl = (h @ w2[:, live]) * s2 * ms
+    shp = torch.nn.functional.pad(sh, (0, fct.SHS - sh.shape[1]))
+    B = xg.new_zeros((rows, f.nB))
+    idx, coef = P.idx.tolist(), P.coef.tolist()
+    for b0, d3, d1, sh_off, t0, t1 in f.folds.tolist():
+        for t in range(t0, t1):
+            m, n = idx[t] & 0xff, (idx[t] >> 8) & 0xff
+            B[:, b0 + m * d3] += coef[t] * shp[:, sh_off + n]
+    msg = xg.new_zeros((rows, f.n_msg))
+    written = np.zeros(f.n_msg, np.int64)
+    for a, u0 in P.slices.tolist():
+        xoff, mul, l1, l3, b0, col0, cm = f.fins[a].tolist()
+        d1, d3 = 2 * l1 + 1, 2 * l3 + 1
+        u = torch.arange(u0, min(u0 + 32, mul))
+        x = xg[:, xoff:xoff + d1 * mul].reshape(rows, d1, mul)[:, :, u]
+        Bb = B[:, b0:b0 + d1 * fct._r4(d3)].reshape(rows, d1, -1)[..., :d3]
+        val = wl[:, col0 + u][:, None] * torch.einsum('rmp,rmu->rpu', Bb, x)
+        for pc in range(d3):
+            msg[:, cm + pc * mul + u] = val[:, pc]
+            written[(cm + pc * mul + u).numpy()] += 1
+    assert (written == 1).all()
+    agg = msg.reshape(n_out, group, f.n_msg).sum(1)
+    si2 = torch.cat([w.reshape(-1) for w in si2_ws])
+    out = xg.new_zeros((n_out, conv.d_out))
+    for pth, (ocol, mo, mi, dim, cin, w_off) in enumerate(f.fpaths.tolist()):
+        W = si2[w_off:w_off + mi * mo].reshape(mi, mo)
+        for q in range(dim):
+            out[:, ocol + q * mo:ocol + (q + 1) * mo] = float(
+                P.path_alpha[pth]) * (agg[:, cin + q * mi:cin + (q + 1) * mi]
+                                      @ W)
+    assert float(out[:, torch.tensor(f.unfed, dtype=torch.long)].abs().sum()
+                 ) == 0.0 if f.unfed.size else True
+    return out
+
+
 def _close(a, b):
     np.testing.assert_allclose(
         a.numpy(), b.numpy(), rtol=0,
@@ -144,6 +211,87 @@ def test_bwd_replay_reproduces_plain(ckpt_layers, which, agg_d):
     for a, b in zip(got, want):
         _close(a, b)
         assert float(a[pad].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize('which', ['small', 'small_ssp', 'layer0', 'layer1',
+                                   'layer2', 'layer3', 'layer4'])
+@pytest.mark.parametrize('agg_d', [20, 0], ids=['grid', 'edge_rows'])
+def test_fwd_replay_reproduces_plain(ckpt_layers, which, agg_d):
+    """The terms forward's tables (the sh fold B, the CG units, the swapped
+    si2 paths) and activation code against the plain chain."""
+    if which == 'small_ssp':
+        tp, mlp, si2 = _small()
+        conv = pfc.FusedConv(tp, FullyConnectedNetSpec(mlp.hs, 'ssp'), si2,
+                             agg_d, cg_mode='terms')
+        assert fct._ACT_CODE[conv.mlp.act] == 2
+    else:
+        conv = _conv(which, ckpt_layers, agg_d, cg_mode='terms')
+    assert conv.kernel_refusal is None
+    xg, sh, emb, ms, mlp_ws, si2_ws, _ = _inputs(
+        conv, 6 if agg_d else 90, agg_d, 5)
+    ref = conv.plain_forward(xg, sh, emb, ms, mlp_ws, si2_ws)
+    out = replay_terms_fwd(conv, xg, sh, emb, ms, mlp_ws, si2_ws)
+    _close(out, ref)
+    if not agg_d:
+        assert float(out[(ms == 0).reshape(-1)].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize('which', ['small', 'layer0', 'layer1', 'layer4'])
+@pytest.mark.parametrize('agg_d', [32, 0], ids=['grid', 'edge_rows'])
+def test_fwd_tables_are_consistent(ckpt_layers, which, agg_d):
+    """Fold entries: one per (live instruction, p), inside the instruction's
+    B block, term runs of its p only; B blocks 16-byte aligned and a row's
+    B an odd number of 16 bytes; the compact message is what the paths
+    read; tiles, row groups and shared words as the plan's rules say."""
+    conv = _conv(which, ckpt_layers, agg_d, cg_mode='terms')
+    tk = conv._terms
+    P, f = tk.plan, tk.fwd_plan(agg_d)
+    assert f.fins.shape[0] == P.ins.shape[0]
+    folds = f.folds.tolist()
+    k = 0
+    for a, (xoff, mul, l1, l3, b0, col0, cm) in enumerate(f.fins.tolist()):
+        d1, d3 = 2 * l1 + 1, 2 * l3 + 1
+        assert b0 % 4 == 0 and mul == P.ins[a, 1] and xoff == P.ins[a, 0]
+        for pc in range(d3):
+            bp, fd3, fd1, sh_off, t0, t1 = folds[k]
+            k += 1
+            assert (bp, fd3, fd1, sh_off) == (b0 + pc, fct._r4(d3), d1,
+                                              P.ins[a, 2])
+            assert P.ins[a, 6] <= t0 <= t1 <= P.ins[a, 7]
+            assert all((int(P.idx[t]) >> 16) & 0xff == pc
+                       for t in range(t0, t1))
+        assert sum(1 for t in range(P.ins[a, 6], P.ins[a, 7])) == sum(
+            fo[5] - fo[4] for fo in folds[k - d3:k])
+    assert k == len(folds)
+    assert f.nB % 4 == 0 and f.nB % 8 == 4
+    assert f.n_msg == int((P.msg_path >= 0).sum())
+    assert f.nls == fct._r4(P.live_cols.size)
+    assert f.T in (8, 16) and f.s in (1, 2, 4) and f.T % (4 * f.s) == 0
+    assert f.T % f.R == 0
+    assert 4 * f.words <= (fct.TWO_PER_SM if f.T == 16 else fct.MAX_SMEM)
+    if which != 'small':       # the checkpoint: two blocks an SM
+        assert 4 * f.words <= fct.TWO_PER_SM
+    if which == 'layer1':      # a mid layer's edge-row messages: 8 rows
+        assert f.T == (16 if agg_d else 8)
+
+
+@pytest.mark.parametrize('which', ['small', 'layer0', 'layer1', 'layer4'])
+def test_fwd_si2_product_covers_every_column_once(ckpt_layers, which):
+    """The agg_d = 0 si2 product's work mapping (``si2_rows``): every output
+    column a path writes is stored once per row of the tile, its sum over
+    every reduction index exactly once (the lanes' parts), and no other
+    column is stored (the unfed ones are zeroed apart)."""
+    conv = _conv(which, ckpt_layers, 0, cg_mode='terms')
+    f = conv._terms.fwd_plan(0)
+    writes, reads = fct.si2_row_work(f, conv.d_out)
+    fed = np.zeros(writes.shape[1], bool)
+    for ocol, mo, mi, dim, *_ in f.fpaths.tolist():
+        fed[ocol:ocol + dim * mo] = True
+    assert (writes[:, fed] == 1).all() and (writes[:, ~fed] == 0).all()
+    for (pth, q, e, c), ks in reads.items():
+        assert sorted(ks) == list(range(int(f.fpaths[pth, 2])))
+    assert not set(f.unfed.tolist()) & set(np.nonzero(fed)[0].tolist())
+    assert f.unfed.size + int(fed.sum()) == conv.d_out
 
 
 def _items(b, tcg):
@@ -268,23 +416,14 @@ def test_extw_refuses_filters_off_l2_squared():
 
 # -- the card tools of the two backwards --------------------------------------
 
-@pytest.mark.parametrize('case', ['terms', 'extw', 'extw_first_design'])
+@pytest.mark.parametrize('case', ['terms', 'extw', 'terms_fwd', 'extw_fwd'])
 def test_pass_stubs_apply_to_the_sources(case):
     """tools/bwd_passes.py inserts every switch of its stub list exactly
-    once: into the port's two sources, and (OLD_EXTW) into
-    csrc/fused_conv_body.cuh, which still holds the first external-weight
-    backward, ``bwd_body<M_EXTW>``."""
-    from sevennet_exp_tpu_torch.ops import cuda_build
+    once into the port's two sources: the terms pair's and the
+    external-weight build of csrc/fused_conv_geom.cu."""
     from sevennet_exp_tpu_torch.tools import bwd_passes
-    stubs, src = {
-        'terms': (bwd_passes.NEW_TERMS,
-                  cuda_build.source_path('fused_conv_terms')),
-        'extw': (bwd_passes.NEW_EXTW,
-                 cuda_build.source_path('fused_conv_geom_extw')),
-        'extw_first_design': (bwd_passes.OLD_EXTW,
-                              cuda_build.CSRC_DIR + '/fused_conv_body.cuh'),
-    }[case]
-    with open(src) as fh:
+    src_dir, target, _, stubs, _ = bwd_passes.plan(case)
+    with open(f'{src_dir}/{target}') as fh:
         out = bwd_passes.apply(fh.read(), stubs)
     for p, _, _ in stubs:
         assert f'STUB_{p}' in out
@@ -298,8 +437,9 @@ def test_bwd_card_tools_exit_2_without_a_card():
     assert bwd_ab.main(['csrc', '--terms', '--extw']) == 2
     assert bwd_passes.main([]) == 2
     assert bwd_passes.main(['csrc', '--terms', '--extw']) == 2
+    assert bwd_passes.main(['--terms-fwd', '--extw-fwd']) == 2
     if not torch.cuda.is_available():
-        assert bwd_ab.main(['csrc', '--terms']) == 2
-        assert bwd_ab.main(['csrc', '--extw']) == 2
-        assert bwd_passes.main(['--terms']) == 2
-        assert bwd_passes.main(['csrc', '--extw']) == 2
+        for kind in ('--terms', '--extw', '--terms-fwd', '--extw-fwd'):
+            assert bwd_ab.main(['csrc', kind]) == 2
+            assert bwd_passes.main([kind]) == 2
+            assert bwd_passes.main(['csrc', kind]) == 2
