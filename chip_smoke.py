@@ -98,18 +98,21 @@ Phases (any failure raises, exits non-zero and prints no result):
      at the SASS they had before the shifted softplus joined
      (``PARENT_GEOM_SASS``); the external-weight pair's four instances
      (the build ``fused_conv_geom_extw``: the backward at 4, 9, 16 SH, at
-     the SASS of its redesign, ``EXTW_BWD_SASS``, and the forward) and the
-     terms pair's four, compiled with them: no tensor-core and no
-     local-memory opcode; the entries of the twelve kernels above (the six
-     kernels, the edge-row form of kernels 1-2, the terms pair and the
-     tensor-product pair);
+     the SASS of its redesign, ``EXTW_BWD_SASS``, and the forward), the
+     terms pair's four and ``bench_pieces``' six (the same source built
+     with its stub mask; checked in phase 15), compiled with them: no
+     tensor-core and no local-memory opcode; the entries of the twelve
+     kernels above (the six kernels, the edge-row form of kernels 1-2, the
+     terms pair and the tensor-product pair);
  15. the micro-benchmarks at their default sizes through their entry
      points (``bench_cgmxu`` at i1 = 1 and 2), every counter reset just
      before: each prints its times and (``bench_pieces``) its piece costs;
      then each of the twenty-one kernels against its plain version on the
-     tool's inputs (``bench_pieces`` ``full``, kernel 1's first design,
-     against kernel 1 at the kernels' limit and at that design's SASS
-     digest;
+     tool's inputs (``bench_pieces``: ``full`` is kernel 1 and ``-agg`` the
+     edge-row kernel 1, by their SASS digests (``PARENT_GEOM_SASS``) and
+     their outputs against those kernels' on the same inputs, none with
+     local memory, the other four at kernel 1's blocks an SM, each variant
+     timed beside its production kernel in turns;
      bf16 ``bench_dot`` against the fp32 product of the rounded inputs,
      1e-5 x K x max|plain|; ``bench_layout`` row-major against transpose,
      ``bench_tile`` a, b and c against d within 1e-3), plain and library
@@ -165,9 +168,6 @@ E_TOL_PER_ATOM = 1e-5  # eV/atom
 S_TOL = 1e-5           # eV/A^3, each of the six stress components
 
 N_LARGE = 97336        # 8 x 23^3: the large leg
-# SASS digest (tools/sass_compare.digests) of kernel 1 before its redesign,
-# which bench_pieces' full variant still compiles to
-FIRST_KERNEL_1_SASS = '9363ad0df108'
 # SASS digests of csrc/fused_conv_geom.cu's run-time-activation instances
 # (silu, tanh) by (pair, label), before the shifted softplus joined the
 # source (tests/test_torch_cuda.py holds them too)
@@ -228,12 +228,14 @@ def check_ef(what, n, e_a, f_a, e_b, f_b):
             'energy_other': float(e_b)}
 
 
-def micro_benchmarks(report, dev, cuda_ms, show):
+def micro_benchmarks(report, dev, cuda_ms, show, pieces_sass):
     """Phase 15: the six micro-benchmark tools at their default sizes, run
     through their entry points with every launch counter at 0 before them;
     then each kernel against its plain version on the tool's own inputs
-    (bench_pieces ``full`` against kernel 1 at REL_TOL and at the SASS digest
-    of kernel 1's first design, which it still is), the plain and the
+    (bench_pieces: ``full`` against kernel 1 and ``-agg`` against the
+    edge-row kernel 1 at REL_TOL and at those kernels' SASS digests, from
+    pieces_sass, phase 14's (opcode counts, digests) of the build; each
+    variant timed beside the kernel it is or stubs), the plain and the
     library times, the bounds, and the static FFMA counts of bench_layout's
     and bench_tile's kernels. Returns the kernels' entries."""
     import torch
@@ -293,20 +295,48 @@ def micro_benchmarks(report, dev, cuda_ms, show):
             'library_ms': library_ms})
         show(kernels[-1])
 
-    # bench_pieces: one launch of each variant on E = 32,768 rows
+    # bench_pieces: one launch of each variant on E = 32,768 rows. full is
+    # kernel 1 and -agg the edge-row kernel 1 (their SASS, their outputs on
+    # the same inputs); the other four stub one piece of kernel 1 and keep
+    # its launch (no local memory, its blocks an SM)
     conv, ins = pieces['conv'], pieces['inputs']
-    full_k = conv.kernel_forward(*ins)
-    torch.cuda.synchronize()
-    # kernel 1 sums in its redesigned order now: the same limit as plain
-    full_err = check_close('bench_pieces full vs kernel 1',
-                           pieces['out']['full'], full_k)[0]
-    (full_digest,) = [v for k, v in sass_compare.digests(
-        'bench_pieces').items() if 'bench_pieces_full_kernel' in k]
-    print(f'bench_pieces full vs kernel 1: |err| {full_err:.3e}; SASS digest '
-          f'{full_digest} (kernel 1 before its redesign: '
-          f'{FIRST_KERNEL_1_SASS})', flush=True)
-    if full_digest != FIRST_KERNEL_1_SASS:
-        raise AssertionError('bench_pieces full is not the first kernel 1')
+    E = ins[0].shape[0]
+    counts, digests = pieces_sass
+    by_variant = {bench_pieces.variant_of(k): (counts[k], digests[k])
+                  for k in counts}
+    if set(by_variant) != set(bench_pieces.VARIANTS):
+        raise AssertionError(f'bench_pieces build: {sorted(counts)}')
+    production = {'full': (('dense', 'fwd'), conv),
+                  '-agg': (('edge', 'fwd'), bench_pieces.edge_conv(conv))}
+    same = {}
+    for v, (key, other) in production.items():
+        ref = other.kernel_forward(*ins)
+        torch.cuda.synchronize()
+        err = check_close(f'bench_pieces {v} vs {key[0]} kernel 1',
+                          pieces['out'][v], ref)[0]
+        same[v] = bool(torch.equal(pieces['out'][v], ref))
+        print(f'bench_pieces {v} vs the {key[0]} kernel 1: |err| {err:.3e}, '
+              f'bit-identical {same[v]}; SASS digest {by_variant[v][1]} (the '
+              f'{key[0]} forward: {PARENT_GEOM_SASS[key]})', flush=True)
+        if by_variant[v][1] != PARENT_GEOM_SASS[key]:
+            raise AssertionError(f'bench_pieces {v} is not the {key[0]} '
+                                 'kernel 1')
+        del ref
+    # the stubbed four at kernel 1's blocks an SM (its shared bytes), -agg
+    # at the edge forward's two
+    res = {v: bench_pieces.resources(conv, v, E, dev)
+           for v in bench_pieces.VARIANTS}
+    for v in bench_pieces.VARIANTS:
+        c, r = by_variant[v][0], res[v]
+        bad = {op: c[op] for op in (*sass_compare.TENSOR_CORE_OPS,
+                                    *sass_compare.LOCAL_OPS) if c[op]}
+        print(f'bench_pieces {v}: {r.registers} registers, {r.local_bytes} '
+              f'local bytes, {r.blocks_per_sm} blocks an SM at {r.smem} '
+              f'shared bytes; SASS {by_variant[v][1]} {c}', flush=True)
+        want = 2 if v == '-agg' else res['full'].blocks_per_sm
+        if bad or r.local_bytes or r.blocks_per_sm < want:
+            raise AssertionError(f'bench_pieces {v}: {r}, opcodes {bad}')
+    prod = bench_pieces.production_ms(pieces)
     for v in bench_pieces.VARIANTS:
         ref = bench_pieces.plain_variant(conv, v, *ins)
         err, lim = check_close(f'bench_pieces {v}', pieces['out'][v], ref)
@@ -317,10 +347,13 @@ def micro_benchmarks(report, dev, cuda_ms, show):
                      'ms': pieces['ms'][v], 'piece_ns_per_row':
                      pieces['piece_ns'].get(v), 'err': err, 'lim': lim,
                      'plain_ms': plain_ms, 'flops': cost[0],
-                     'bytes': cost[1]})
-        entry(bench_pieces.COUNTER[v], 'bench_pieces.cu', 'bench_pieces.py:232',
-              [err], pieces['ms'][v], plain_ms, [cost], None)
-    del full_k, pieces, conv, ins
+                     'bytes': cost[1], 'sass': by_variant[v][1],
+                     'bit_identical': same.get(v), **res[v]._asdict(),
+                     **prod[v]})
+        entry(bench_pieces.COUNTER[v], 'fused_conv_geom.cu',
+              'bench_pieces.py:232', [err], pieces['ms'][v], plain_ms,
+              [cost], None)
+    del pieces, conv, ins
     # static opcode counts of each kernel's SASS (its loops fully unrolled):
     # the repeated passes of bench_layout and bench_tile and the dense
     # products of the dots instances must all be issued, and the fp32 dot
@@ -1811,7 +1844,8 @@ def main():
     from sevennet_exp_tpu_torch.tools import sass_compare
     builds = sass_compare.count_and_digests(
         ('fused_conv_geom', 'fused_conv_geom_ssp', 'fused_conv_geom_extw',
-         'fused_conv_terms'))
+         'fused_conv_terms', 'bench_pieces'))
+    pieces_sass = builds.pop('bench_pieces')
     # the redesigned pairs: the external-weight pair (the backward at 4, 9,
     # 16 SH, the forward), the terms pair's two forms each way; the
     # external-weight backward at the SASS of its redesign
@@ -1990,7 +2024,7 @@ def main():
     # -- phase 15 ------------------------------------------------------
     phase('15 micro-benchmarks: bench_pieces, bench_cgmxu (i1 = 1, 2), '
           'bench_dot, bench_cg, bench_layout, bench_tile')
-    kernels += micro_benchmarks(report, dev, cuda_ms, show)
+    kernels += micro_benchmarks(report, dev, cuda_ms, show, pieces_sass)
     if len(kernels) != 33 or any(not kr['launches'] > 0 for kr in kernels):
         raise AssertionError('a kernel of the path was never launched')
     report['kernels'] = kernels

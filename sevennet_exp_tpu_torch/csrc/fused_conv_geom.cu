@@ -43,14 +43,14 @@
 // backward, against ~2 kB read per row: far above the fp32 ridge (67
 // TFLOP/s / 3.35 TB/s = 20 flop/byte).
 //
-// What held the first kernels of this pair (then a mode of
-// fused_conv_body.cuh) at 5-8 % of that bound, measured on an H100 by
-// stubbing one pass at a time (tools/geom_passes.py; PERF.md, "Inside
-// kernels 5-6"): the CG, table-driven with four shared
-// loads and a dependent chain per term, run three times in the backward
-// (26 of 52 ns a row), the backward's dw @ w2^T with one shared load per
-// FFMA (7.2), the hidden layers (4.0), and tiles of 8 rows. What this design
-// does about each:
+// What held the first kernels of this pair (then a mode of the first
+// design's body in fused_conv_body.cuh, since removed) at 5-8 % of that
+// bound, measured on an H100 by stubbing one pass at a time
+// (tools/geom_passes.py; PERF.md, "Inside kernels 5-6"): the CG,
+// table-driven with four shared loads and a dependent chain per term, run
+// three times in the backward (26 of 52 ns a row), the backward's dw @
+// w2^T with one shared load per FFMA (7.2), the hidden layers (4.0), and
+// tiles of 8 rows. What this design does about each:
 //  - The CG is unrolled at compile time for the instruction's shape
 //    (l1, l2, l3): cg_patterns.cuh (generated from the port's own tables)
 //    lists each shape's nonzero terms with their coefficients as immediates,
@@ -169,8 +169,32 @@ constexpr int K_DENSE = 0, K_GEOM = 1, K_EDGE = 2;
 #ifndef FUSED_CONV_EXTW
 #define FUSED_CONV_EXTW 0
 #endif
+// the micro-benchmark bench_pieces (tools/bench_pieces.py) is a third,
+// -DFUSED_CONV_PIECES=1: the dense forward and the edge forward with one
+// piece at a time replaced by a stand-in (the bench_pieces_fwd entry at the
+// end); everything of it sits behind this gate, so the other builds compile
+// the text they compiled before it
+#ifndef FUSED_CONV_PIECES
+#define FUSED_CONV_PIECES 0
+#endif
 constexpr bool SSP_BUILD = FUSED_CONV_SSP != 0;
 constexpr int ACT_SSP = 2;
+#if FUSED_CONV_PIECES
+// the stub mask of the bench_pieces build, in the forward's MODE above the
+// pair (MODE = K_DENSE | S_*): the piece each instance replaces
+//   S_MLP  no hidden layers and no w pass: w = emb[:, 0] * ms, every column
+//   S_CG   each component's CG sum is the instruction's x entry m = 0 (no
+//          path normalisation: the stand-in has none)
+//   S_W    the w pass kept, the CG adds its sums unweighted on every row
+//          whose w is not 0 (the pads' w is 0)
+//   S_SI2  the per-atom si2 a copy of the aggregate into its group's output
+//          columns, truncated or zero-padded
+constexpr int S_MLP = 16, S_CG = 32, S_W = 64, S_SI2 = 128;
+// fwd_cg's stub mask, where the forward calls it
+#define PIECES_ARG , MODE
+#else
+#define PIECES_ARG
+#endif
 
 // geometry of the geometry-fused kernels (see ops/fused_conv.py::GeomSpec)
 struct Geom {
@@ -806,7 +830,12 @@ __device__ __forceinline__ void w_rows(const Plan& P, const Shape& S,
 
 // the CG of one (live column, row group) of the forward: its partial
 // aggregate over rows [e0, e1) of the tile, added to its own slots of aggp
+// (the bench_pieces build: MODE's stub mask replaces the CG or the weight)
+#if FUSED_CONV_PIECES
+template <int L1, int L2, int L3, int MODE>
+#else
 template <int L1, int L2, int L3>
+#endif
 __device__ __forceinline__ void fwd_cg(const Plan& P, const int* I, int u,
                                        int c, float sc,
                                        const float* __restrict__ xr,
@@ -830,16 +859,32 @@ __device__ __forceinline__ void fwd_cg(const Plan& P, const int* I, int u,
     for (int n = 0; n < D2; ++n) sv[n] = sb[e * SHP + n];
 #pragma unroll
     for (int p = 0; p < D3; ++p) s[p] = 0.f;
+#if FUSED_CONV_PIECES
+    if constexpr ((MODE & S_CG) != 0) {
+#pragma unroll
+      for (int p = 0; p < D3; ++p) s[p] = xv[0];
+    } else
+#endif
     CgPattern<L1, L2, L3>::each([&](auto m, auto n, auto p, float cf) {
       s[decltype(p)::value] = fmaf(cf * xv[decltype(m)::value],
                                    sv[decltype(n)::value],
                                    s[decltype(p)::value]);
     });
+#if FUSED_CONV_PIECES
+    if constexpr ((MODE & S_W) != 0) {
+#pragma unroll
+      for (int p = 0; p < D3; ++p) acc[p] += s[p];
+      continue;
+    }
+#endif
 #pragma unroll
     for (int p = 0; p < D3; ++p) acc[p] = fmaf(w, s[p], acc[p]);
   }
   float* ab = aggp + I[I_AGG] + u;
   const int K = I[I_K];
+#if FUSED_CONV_PIECES
+  if constexpr ((MODE & S_CG) != 0) sc = 1.f;
+#endif
 #pragma unroll
   for (int p = 0; p < D3; ++p) ab[p * K] += acc[p] * sc;
 }
@@ -1122,8 +1167,19 @@ fused_conv_geom_fwd_kernel(const float* __restrict__ xg,
         stage_rows(P, G, T, rows, row0, embT_s, sh_s);
       }
       __syncthreads();
+#if FUSED_CONV_PIECES
+      if constexpr ((MODE & S_MLP) != 0) {
+        for (int i = tid; i < rows * P.n_active; i += NT) {
+          const int e = i / P.n_active;
+          w_s[e * S.nap + i - e * P.n_active] = embT_s[e] * ms_s[e];
+        }
+      } else {
+#endif
       hidden_rm(P, T, embT_s, w0, w1, h0T_s, h1T_s, nullptr, nullptr);
       w_rows(P, S, rows, h1T_s, ms_s, w2, w_s);
+#if FUSED_CONV_PIECES
+      }
+#endif
       __syncthreads();
       for (int j = tid; j < P.n_active * S.s; j += NT) {
         const int c = j % P.n_active, g = j / P.n_active;
@@ -1136,8 +1192,8 @@ fused_conv_geom_fwd_kernel(const float* __restrict__ xg,
         switch (shape_key(I)) {
 #define GEOM_FWD_CASE(A, B, C)                                              \
           case A * 16 + B * 4 + C:                                          \
-            fwd_cg<A, B, C>(P, I, u, c, sc_s[ii], xr, sh_s, w_s, S.nap,     \
-                            e0, e1, aggp);                                  \
+            fwd_cg<A, B, C PIECES_ARG>(P, I, u, c, sc_s[ii], xr, sh_s, w_s, \
+                                       S.nap, e0, e1, aggp);                \
             break;
           CG_SHAPES(GEOM_FWD_CASE)
 #undef GEOM_FWD_CASE
@@ -1163,6 +1219,12 @@ fused_conv_geom_fwd_kernel(const float* __restrict__ xg,
       for (int t = tid; t < n; t += NT) {
         const int p = t / mo, o = t - p * mo;
         const float* ap = a + p * K;
+#if FUSED_CONV_PIECES
+        if constexpr ((MODE & S_SI2) != 0) {
+          out_s[Gr[G_OUT] + p * mo + o] = o < K ? ap[o] : 0.f;
+          continue;
+        }
+#endif
         float s = 0.f;
         for (int r = 0; r < K; ++r)
           s = fmaf(ap[r], __ldg(W + (long)r * mo + o), s);
@@ -1847,10 +1909,11 @@ int resources_of(const Plan& P, bool bwd, int* out) {
 // What bounds it on this card: bytes. A mid layer reads ~4.3 kB a row (xg,
 // sh, 576 live weights) and writes as much (dxg, dsh, dweff) for ~13k
 // multiply-adds: ~1.5 flop/byte, far under the fp32 ridge. Its first design
-// (fused_conv_body.cuh, bwd_body<M_EXTW>) ran at ~8 % of that bound: three
-// table-driven CG passes per 8-row tile (dweff, dxg scanning every x entry
-// per column, dsh), two table and two operand loads per multiply-add, one
-// block per atom and a scattered store of every dead weight column.
+// (bwd_body<M_EXTW>, once in fused_conv_body.cuh) ran at ~8 % of that
+// bound: three table-driven CG passes per 8-row tile (dweff, dxg scanning
+// every x entry per column, dsh), two table and two operand loads per
+// multiply-add, one block per atom and a scattered store of every dead
+// weight column.
 // What this design does:
 //  - The CG is the class pass of the backward above (bwd_class_item: per
 //    (x entry, row, channel) every live instruction that reads the entry,
@@ -2184,10 +2247,10 @@ int launch_extw_bwd(const float* g, const float* xg, const float* sh,
 //
 // What bounds it on this card: bytes. A mid layer reads ~4.3 kB a row (xg,
 // sh, 576 live of 960 weights) for ~5k multiply-adds. Its first design
-// (fwd_body<M_EXTW> of fused_conv_body.cuh) ran at ~10 % of that bound: a
-// block per atom on 32-row tiles staged by 4-byte loads, a thread per live
-// column with one weight load in flight, the CG table-driven with four
-// shared table loads per term. What this design does:
+// (fwd_body<M_EXTW>, once in fused_conv_body.cuh) ran at ~10 % of that
+// bound: a block per atom on 32-row tiles staged by 4-byte loads, a thread
+// per live column with one weight load in flight, the CG table-driven with
+// four shared table loads per term. What this design does:
 //  - The dense forward's CG (fwd_cg: unrolled per (l1, l2, l3) from
 //    cg_patterns.cuh, one (live column, row group) a thread, the row
 //    groups' partial aggregates summed in a fixed order), with w read from
@@ -2407,7 +2470,7 @@ Plan edge_tiles(Plan P) {
 
 }  // namespace
 
-#if !FUSED_CONV_EXTW
+#if !FUSED_CONV_EXTW && !FUSED_CONV_PIECES
 #define GEOM_ARGS                                                          \
   const float *coeffs, const int *sh_idx, const float *sh_coef,            \
       const int *sh_off, int n_terms, int env_kind, int normalize,         \
@@ -2518,7 +2581,7 @@ extern "C" int fused_conv_edge_bwd(const float* g, const float* xg,
                                 si2wt, edge_tiles(P), R, dxg, nullptr,
                                 stream);
 }
-#endif  // !FUSED_CONV_EXTW
+#endif  // !FUSED_CONV_EXTW && !FUSED_CONV_PIECES
 
 #if FUSED_CONV_EXTW
 // the external-weight backward (row 8): T and the shared words as the
@@ -2587,3 +2650,77 @@ extern "C" int fused_conv_extw_resources(PLAN_ARGS, int* out) {
                    Reserved<true, 16, 3>::bytes, out);
 }
 #endif  // FUSED_CONV_EXTW
+
+#if FUSED_CONV_PIECES
+// ---------------------------------------------------------------------
+// bench_pieces (tools/bench_pieces.py): the forwards with pieces stubbed
+// ---------------------------------------------------------------------
+//
+// Replaces the TPU kernels of tools/bench_pieces.py (make_kernel(skip),
+// run through pl.pallas_call): the production forward fwd_kernel_cm with
+// the pieces 'mlp', 'cg', 'w', 'agg' and 'si2' replaced by stand-ins, so
+// that full - variant is what a piece costs inside the real kernel. Here
+// the production forwards are this file's: full is the dense forward
+// itself (kernel 1, MODE K_DENSE), -agg the edge forward itself (kernel 1
+// at agg_d = 0, K_EDGE: si2 on every row, no sum over D), and the other
+// four the dense forward with one stub of S_* in MODE, each launched as
+// kernel 1 is (tile, row groups, shared bytes and persistent grid of
+// geom_shape). What bounds them is what bounds kernel 1 (the note at the
+// top).
+
+// f(Ix<MODE>) of the variant: 0 full, 1 -mlp, 2 -cg, 3 -w, 4 -agg, 5 -si2
+// (tools/bench_pieces.py VARIANTS and MODES)
+template <typename F>
+static int with_piece(int variant, F f) {
+  switch (variant) {
+    case 0: return f(Ix<K_DENSE>());
+    case 1: return f(Ix<K_DENSE | S_MLP>());
+    case 2: return f(Ix<K_DENSE | S_CG>());
+    case 3: return f(Ix<K_DENSE | S_W>());
+    case 4: return f(Ix<K_EDGE>());
+    case 5: return f(Ix<K_DENSE | S_SI2>());
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// the plan the variant launches with: kernel 1's, and for -agg its rows
+// as the edge list (one "atom" a row) regrouped into the edge forward's
+// tiles, as fused_conv_edge_fwd takes them
+static Plan piece_plan(Plan P, int mode) {
+  if (mode != K_EDGE) return P;
+  P.n_atoms = (int)P.n_rows;
+  P.D = 1;
+  return edge_tiles(P);
+}
+
+// the outputs: n_atoms rows of d_out, for -agg n_atoms * D
+extern "C" int bench_pieces_fwd(int variant, const float* xg,
+                                const float* sh, const float* emb,
+                                const float* ms, const float* w0,
+                                const float* w1, const float* w2,
+                                const float* si2w, PLAN_ARGS, float* out,
+                                void* stream) {
+  const Plan P = PLAN_CALL;
+  if (P.n_rows > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const Dense R = {sh, emb, nullptr, nullptr};
+  return with_piece(variant, [&](auto m) {
+    constexpr int MODE = decltype(m)::value;
+    return launch_fwd<MODE>(xg, nullptr, ms, w0, w1, w2, si2w,
+                            piece_plan(P, MODE), R, out, stream);
+  });
+}
+
+// the variant's registers, local bytes a thread, blocks an SM and dynamic
+// shared bytes as launched (on the current device)
+extern "C" int bench_pieces_resources(int variant, PLAN_ARGS, int* out) {
+  const Plan P = PLAN_CALL;
+  return with_piece(variant, [&](auto m) {
+    constexpr int MODE = decltype(m)::value;
+    const Plan Q = piece_plan(P, MODE);
+    const Shape S = geom_shape(Q, false, MODE);
+    return resources(fused_conv_geom_fwd_kernel<MODE>,
+                     4 * words(Q, S, false, MODE),
+                     Reserved<false, 0, MODE>::bytes, out);
+  });
+}
+#endif  // FUSED_CONV_PIECES

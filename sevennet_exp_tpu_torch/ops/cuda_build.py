@@ -33,7 +33,7 @@ SOURCES = {
     'fused_conv_geom_extw': 'fused_conv_geom.cu',
     'fused_conv_terms': 'fused_conv_terms.cu',
     'fused_tp': 'fused_tp.cu',
-    'bench_pieces': 'bench_pieces.cu',
+    'bench_pieces': 'fused_conv_geom.cu',
     'bench_cgmxu': 'bench_cgmxu.cu',
     'bench_dot': 'bench_dot.cu',
     'bench_cg': 'bench_cg.cu',
@@ -44,9 +44,11 @@ SOURCES = {
 # the macros of a library built from a shared source: the shifted-softplus
 # instances of the conv kernels are a library of their own, so that a
 # model without that activation never compiles them; the external-weight
-# pair is one too, compiled without the file's other kernels
+# pair is one too, compiled without the file's other kernels, and so are
+# the micro-benchmark bench_pieces' forwards with pieces stubbed
 DEFINES = {'fused_conv_geom_ssp': ('-DFUSED_CONV_SSP=1',),
-           'fused_conv_geom_extw': ('-DFUSED_CONV_EXTW=1',)}
+           'fused_conv_geom_extw': ('-DFUSED_CONV_EXTW=1',),
+           'bench_pieces': ('-DFUSED_CONV_PIECES=1',)}
 
 # the micro-benchmark kernels, by variant (tools/bench_*.py)
 BENCH_KERNELS = (

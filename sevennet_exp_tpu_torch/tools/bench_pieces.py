@@ -2,19 +2,26 @@
 
     python -m sevennet_exp_tpu_torch.tools.bench_pieces [E] [block]
 
-Counterpart of ``tools/bench_pieces.py``. Runs stripped variants of kernel 1
-as it was first designed (``csrc/fused_conv_body.cuh::fwd_body``, the
-table-driven CG; ``full`` still compiles to that kernel's SASS, while the
-model's kernel 1 now runs the geometry-fused pair's template in
-``csrc/fused_conv_geom.cu``) on the 7net-0 mid layer
-(``sevennet_0_config(species=['Na', 'Cl'])``, third convolution), each piece
-replaced by a near-free stand-in (``csrc/bench_pieces.cu``), and reports
-the time each piece costs inside the real kernel:
+Counterpart of ``tools/bench_pieces.py``. Runs stripped variants of the
+production forward kernels on the 7net-0 mid layer
+(``sevennet_0_config(species=['Na', 'Cl'])``, third convolution), each
+piece replaced by a near-free stand-in, and reports the time each piece
+costs inside the real kernel. The variants are instances of
+``csrc/fused_conv_geom.cu``'s forward template built as the library
+``bench_pieces`` (``-DFUSED_CONV_PIECES=1``, a stub mask in the template's
+``MODE``, ``MODES`` below): ``full`` is kernel 1 itself (the dense forward,
+its SASS), ``-agg`` the edge-row kernel 1 itself (the edge forward that the
+calculator runs), and the other four the dense forward with one piece
+stubbed, each launched as its production kernel is (tile, row groups,
+shared bytes and persistent grid of ``ops/fused_conv_geom.py::shape``):
 
-  full   the production body (MLP + CG + w + agg + si2)
-  -mlp   radial weights = first emb column broadcast (times ms), no MLP
+  full   the production kernel (MLP + CG + w + agg + si2)
+  -mlp   radial weights = first emb column broadcast (times ms): no hidden
+         layers, no w pass
   -cg    each component's CG sum = the instruction's x entry m = 0
-  -w     no radial-weight multiply
+  -w     no radial-weight multiply: the w pass kept, the CG adds its sums
+         with weight 1 on every row whose weight is not 0 (ms != 0, unless
+         the MLP returns an exact 0 there)
   -agg   no sum over the atom's D rows: si2 on every row, (E, 576) edge
          rows out (the edge-row form of kernel 1)
   -si2   no si2: each group's aggregate written straight into its output
@@ -22,14 +29,16 @@ the time each piece costs inside the real kernel:
 
 E rows (default 32768) of D = 32 per atom, random weights, ``ms = 1``;
 prints each variant's ms and ns per row (CUDA events), then after each
-stripped variant its piece cost, full minus variant, in ns per row.
+stripped variant its piece cost, full minus variant, in ns per row; then
+(``production_ms``) the production kernel each variant is or stubs, timed
+beside it on the same inputs.
 
 Where it differs from the JAX tool: the inputs come from a seeded
 ``torch.Generator`` on the card (the JAX PRNG stream cannot be reproduced);
 ``block`` (default 256) only has to divide E as the JAX grid's block did,
-since each variant takes one atom of D rows per block; ``-transpose``, named in
-the JAX docstring, is never run there and has no counterpart for a kernel
-that reads rows as they lie; and the JAX ``-agg`` stores (block, 576) into a
+since the kernels walk the atoms with persistent blocks; ``-transpose``,
+named in the JAX docstring, is never run there and has no counterpart for
+a kernel that reads rows as they lie; and the JAX ``-agg`` stores (block, 576) into a
 (block / 32, 576) output block, which cannot hold it, where this ``-agg``
 writes the edge rows its docstring describes. The aggregate keeps the
 XLA path's layout as every kernel of the port does (ROADMAP C), so ``-si2``
@@ -43,6 +52,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import re
 import sys
 from typing import Dict, Tuple
 
@@ -53,6 +63,7 @@ from ..model.layers import IrrepsConvolution
 from ..ops import cuda_build
 from ..ops.fused_conv import (_DIM_ARGS, _TABLE_ARGS, FusedConv, conv_bytes,
                               conv_cost)
+from ..ops.fused_conv_geom import Resources
 from ..presets import sevennet_0_config
 from .timing import card, cuda_ms, require_card
 
@@ -63,6 +74,18 @@ VARIANTS = ('full', '-mlp', '-cg', '-w', '-agg', '-si2')
 COUNTER = {'full': 'bench_pieces_full', '-mlp': 'bench_pieces_nomlp',
            '-cg': 'bench_pieces_nocg', '-w': 'bench_pieces_now',
            '-agg': 'bench_pieces_noagg', '-si2': 'bench_pieces_nosi2'}
+# the forward template's MODE of each variant (csrc/fused_conv_geom.cu:
+# K_DENSE 0, K_EDGE 2, the stub mask S_MLP 16, S_CG 32, S_W 64, S_SI2 128)
+MODES = {'full': 0, '-mlp': 16, '-cg': 32, '-w': 64, '-agg': 2, '-si2': 128}
+_KERNEL = re.compile(r'fused_conv_geom_fwd_kernelILi(\d+)EE')
+
+
+def variant_of(kernel: str):
+    """The variant whose instance a (mangled) kernel name of the
+    ``bench_pieces`` build is, or None."""
+    m = _KERNEL.search(kernel)
+    by_mode = {v: k for k, v in MODES.items()}
+    return by_mode.get(int(m.group(1))) if m else None
 
 
 def mid_layer_conv(agg_d: int = D) -> FusedConv:
@@ -169,18 +192,23 @@ def plain_variant(conv: FusedConv, variant: str, xg, sh, emb, ms, mlp_ws,
 
 @functools.lru_cache(maxsize=None)
 def _lib():
+    """csrc/fused_conv_geom.cu built as ``bench_pieces``."""
     lib = cuda_build.load('bench_pieces')
     P = ctypes.c_void_p
     lib.bench_pieces_fwd.argtypes = ([ctypes.c_int] + [P] * 8 + _TABLE_ARGS
                                      + _DIM_ARGS + [P, P])
     lib.bench_pieces_fwd.restype = ctypes.c_int
+    lib.bench_pieces_resources.argtypes = ([ctypes.c_int] + _TABLE_ARGS
+                                           + _DIM_ARGS + [P])
+    lib.bench_pieces_resources.restype = ctypes.c_int
     return lib
 
 
 def kernel_variant(conv: FusedConv, variant: str, xg, sh, emb, ms, mlp_ws,
                    si2_ws) -> Tensor:
-    """Launch the variant's kernel of csrc/bench_pieces.cu (CUDA tensors
-    only): the tables, weights and arguments kernel 1 takes, on the same
+    """Launch the variant (CUDA tensors only) with the tables, weights and
+    plan kernel 1 takes (the C entry hands ``-agg`` the plan's rows as the
+    edge list, as ``fused_conv_edge_fwd`` takes them), on the same
     inputs."""
     conv._check_inputs(xg, sh, emb, ms)
     t = conv.kernel_tables(xg.device)
@@ -196,6 +224,19 @@ def kernel_variant(conv: FusedConv, variant: str, xg, sh, emb, ms, mlp_ws,
     cuda_build.check(err, COUNTER[variant])
     cuda_build.launch_counts[COUNTER[variant]] += 1
     return out
+
+
+def resources(conv: FusedConv, variant: str, rows: int,
+              device) -> Resources:
+    """The variant's compiled kernel as launched on ``rows`` rows of the
+    current card: registers, local bytes, blocks an SM, shared bytes."""
+    t = conv.kernel_tables(torch.device(device))
+    out = (ctypes.c_int * 4)()
+    err = _lib().bench_pieces_resources(
+        VARIANTS.index(variant), *conv._table_ptrs(t),
+        *conv._dims(t, rows), out)
+    cuda_build.check(err, 'bench_pieces_resources')
+    return Resources(*out)
 
 
 def variant_forward(conv: FusedConv, variant: str, *args) -> Tensor:
@@ -265,6 +306,37 @@ def run(E: int = 32768, block: int = 256, reps: int = 20) -> Dict:
     return res
 
 
+def edge_conv(conv: FusedConv) -> FusedConv:
+    """The same layer on the edge list (``agg_d = 0``): the conv whose
+    kernel 1 is the edge-row form that ``-agg`` is."""
+    return FusedConv(conv.tp, conv.mlp, conv.si2, 0)
+
+
+def production_ms(res: Dict, reps: int = 20) -> Dict:
+    """The production kernel each variant of ``run``'s result is or stubs,
+    timed beside it on the same inputs in turns (production, variant,
+    variant, production; the means of the two): kernel 1
+    (``conv.kernel_forward``) for the dense variants, the edge-row kernel 1
+    (``edge_conv``) for ``-agg``. Prints both and their ratio; returns
+    {variant: {'production', 'production_ms', 'turns_ms'}}."""
+    conv, ins = res['conv'], res['inputs']
+    edge = edge_conv(conv)
+    prod = {'kernel 1': lambda: conv.kernel_forward(*ins),
+            'edge kernel 1': lambda: edge.kernel_forward(*ins)}
+    out = {}
+    for v in VARIANTS:
+        name = 'edge kernel 1' if v == '-agg' else 'kernel 1'
+        times = [cuda_ms(fn, reps=reps) for fn in (
+            prod[name], lambda: variant_forward(conv, v, *ins),
+            lambda: variant_forward(conv, v, *ins), prod[name])]
+        p_ms, v_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+        out[v] = {'production': name, 'production_ms': p_ms,
+                  'turns_ms': v_ms}
+        print(f'{v:12s}: {v_ms:8.3f} ms beside {name} {p_ms:8.3f} ms '
+              f'(x{v_ms / p_ms:.3f}; in turns, CUDA events)', flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not require_card('bench_pieces'):
@@ -273,7 +345,7 @@ def main(argv=None) -> int:
     block = int(argv[1]) if len(argv) > 1 else 256
     torch.backends.cuda.matmul.allow_tf32 = False
     print(card(), flush=True)
-    run(E, block)
+    production_ms(run(E, block))
     return 0
 
 

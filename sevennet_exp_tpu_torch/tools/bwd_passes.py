@@ -413,14 +413,20 @@ NEW_EXTW_FWD: Stubs = [
               v[k] = __ldcs(reinterpret_cast<const float4*>(
                   wrow + (long)e * P.wn + src_s[4 * (j - e * nq)]));
 #endif"""),
-    ('CG', """    for (int p = 0; p < D3; ++p) s[p] = 0.f;
-    CgPattern<L1, L2, L3>::each(""",
-     """    for (int p = 0; p < D3; ++p) s[p] = 0.f;
-#ifdef STUB_CG
+    ('CG', """    CgPattern<L1, L2, L3>::each([&](auto m, auto n, auto p, float cf) {
+      s[decltype(p)::value] = fmaf(cf * xv[decltype(m)::value],
+                                   sv[decltype(n)::value],
+                                   s[decltype(p)::value]);
+    });""",
+     """#ifdef STUB_CG
     s[0] = xv[0] * sv[0];
-    if (false)
-#endif
-    CgPattern<L1, L2, L3>::each("""),
+#else
+    CgPattern<L1, L2, L3>::each([&](auto m, auto n, auto p, float cf) {
+      s[decltype(p)::value] = fmaf(cf * xv[decltype(m)::value],
+                                   sv[decltype(n)::value],
+                                   s[decltype(p)::value]);
+    });
+#endif"""),
     ('SI2', """        for (int r = 0; r < K; ++r)
           acc = fmaf(ap[r], __ldg(W + (long)r * mo + o), acc);""",
      """#ifdef STUB_SI2

@@ -10,15 +10,25 @@ two atoms of D = 32 rows, numpy inputs and weights:
 - each stripped variant equals its stand-in as ``tools/bench_pieces.py``
   defines it (``:100-155``), written here in jnp on the JAX layer's specs
   (its aggregate read as the XLA chain's si2 reads it, ROADMAP C);
-- the kernels' own arithmetic for each variant, replayed from
-  ``FusedConv.kernel_tables`` the way ``csrc/fused_conv_body.cuh`` runs it
-  with the SKIP flags, equals the plain version, so the stand-ins of the
-  CUDA kernels and of the plain versions cannot drift apart unseen.
+- the kernels' own arithmetic for each variant -- the forward template of
+  ``csrc/fused_conv_geom.cu`` with the ``bench_pieces`` build's stub mask,
+  replayed in numpy in its loop order from ``FusedConv.kernel_tables``
+  (``tests/test_torch_geom_plan.py::_Replay``: the dense forward with the
+  stand-in of one piece, and for ``-agg`` the edge forward) -- equals the
+  plain version, with ``ms = 1`` and with a fifth of the rows pads, so the
+  stand-ins of the CUDA kernels and of the plain versions cannot drift
+  apart unseen;
+- the ``bench_pieces`` library is that source built with
+  ``-DFUSED_CONV_PIECES=1``: everything of it sits behind the gate, so the
+  other builds of the source never see it, and its variants' ``MODE``s are
+  the template's.
 
 The CUDA kernels are held against the plain versions on the card
-(tests/test_torch_cuda.py; chip_smoke.py, where ``full`` must equal kernel
-1 bit for bit).
+(tests/test_torch_cuda.py; chip_smoke.py, where ``full`` is kernel 1 and
+``-agg`` the edge-row kernel 1 by their SASS digests).
 """
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,8 +39,10 @@ from sevennet_exp_tpu.model import layers as JL
 from sevennet_exp_tpu.model.build import build_e3_equivariant_model
 from sevennet_exp_tpu.ops import pallas_conv
 from sevennet_exp_tpu.presets import sevennet_0_config
+from sevennet_exp_tpu_torch.ops import cuda_build
 from sevennet_exp_tpu_torch.ops import fused_conv as pfc
 from sevennet_exp_tpu_torch.tools import bench_pieces as bp
+from test_torch_geom_plan import _Replay
 
 torch.set_num_threads(2)
 D, N_ATOMS = 32, 2
@@ -142,59 +154,129 @@ def test_stripped_variants_match_jax_stand_ins(conv, jax_mid_conv, inputs,
 
 
 def _replay(conv, variant, xg, sh, emb, ms, mlp_ws, si2_ws):
-    """The forward of csrc/fused_conv_body.cuh (fwd_body with SKIP, or the
-    M_EDGE body for -agg) from the kernel tables, vectorised over rows."""
-    t = conv.kernel_tables(torch.device('cpu'))
-    ins = t.ins.reshape(t.n_ins, pfc._I_STRIDE).tolist()
-    grp = t.grp.reshape(t.n_grp, pfc._G_STRIDE).tolist()
-    nz_idx, coef = t.nz_idx.tolist(), t.nz_coef.tolist()
-    rows = xg.shape[0]
-    d = 1 if variant == '-agg' else conv.group
-    n = rows // d
-    if variant == '-mlp':
-        w_full = emb[:, :1].expand(-1, conv.w_numel) * ms
-    else:
-        w_full = conv.mlp.apply({f'w{i}': w for i, w in enumerate(mlp_ws)},
-                                emb) * ms
-    weff = w_full[:, t.col_w.long()]
-    if variant == '-w':                 # live rows add s itself
-        weff = (ms != 0).to(xg.dtype).expand_as(weff)
-    agg = xg.new_zeros((n, t.agg_dim))
-    for I in ins:
-        x_off, mul, sh_off, _, d1, d2, d3, a, stride, col0 = I[:10]
-        u = torch.arange(mul)
-        we = weff[:, col0:col0 + mul]
-        for p in range(d3):
-            if variant == '-cg':
-                s = xg[:, x_off + u]
-            else:
-                lo, hi = I[10 + p], I[10 + p + 1]
-                s = sum(coef[q] * xg[:, x_off + (nz_idx[q] & 0xff) * mul + u]
-                        * sh[:, sh_off + ((nz_idx[q] >> 8) & 0xff)][:, None]
-                        for q in range(lo, hi))
-            agg[:, a + p * stride + u] += (we * s).reshape(n, d, mul).sum(1)
-    si2 = torch.cat([w.reshape(-1) for w in si2_ws])
-    out = xg.new_zeros((n, conv.d_out))
-    for (K, mo, d3, o_off, a_off, w_off), alpha in zip(
-            grp, t.grp_alpha.tolist()):
-        a3 = agg[:, a_off:a_off + d3 * K].reshape(n, d3, K)
-        o = out[:, o_off:o_off + d3 * mo].view(n, d3, mo)
-        if variant == '-si2':
-            c = min(K, mo)
-            o[:, :, :c] = a3[:, :, :c]
-        else:
-            o[:] = alpha * a3 @ si2[w_off:w_off + K * mo].reshape(K, mo)
-    return out
+    """The variant's kernel in numpy, in the forward template's loop order:
+    the dense forward (kernel 1) with the variant's stand-in, or for -agg
+    the edge forward on the rows as the edge list."""
+    rep = _Replay(conv, D, mlp_ws, si2_ws, geom=False)
+    xg, sh, emb, ms = (a.numpy() for a in (xg, sh, emb, ms))
+    if variant == '-agg':
+        return rep.forward_edge(xg, emb, sh, ms)
+    return rep.forward_rows(xg, emb, sh, ms,
+                            skip=None if variant == 'full' else variant[1:])
 
 
+@pytest.mark.parametrize('pads', [False, True], ids=['ms1', 'pads'])
 @pytest.mark.parametrize('variant', bp.VARIANTS)
-def test_kernel_tables_reproduce_each_variant(conv, inputs, variant):
+def test_kernel_tables_reproduce_each_variant(conv, inputs, variant, pads):
     (xg, sh, emb, ms), mlp, si2 = inputs
+    if pads:
+        ms = ms.copy()
+        ms[np.random.default_rng(7).uniform(size=ms.shape[0]) < 0.2] = 0.0
+        assert (ms == 0).any()
     args = [torch.tensor(a) for a in (xg, sh, emb, ms)] + [
         tuple(torch.tensor(w) for w in mlp),
         tuple(torch.tensor(w) for w in si2)]
-    _close(_replay(conv, variant, *args).numpy(),
+    _close(_replay(conv, variant, *args),
            bp.plain_variant(conv, variant, *args).numpy())
+
+
+# -- the build: csrc/fused_conv_geom.cu with -DFUSED_CONV_PIECES=1 ------------
+
+_DIRECTIVE = re.compile(r'^\s*#\s*(if|ifdef|ifndef|elif|else|endif|define)\b'
+                        r'\s*(.*)$')
+
+
+def _active(text, defines):
+    """The lines of ``text`` the C preprocessor keeps under the -D macros
+    ``defines`` ({name: int}): the file's #if / #ifdef / #ifndef / #else /
+    #endif on its macros (!, &&, ||), each #define of an int seen while
+    active; the conditional directives and the // comments dropped."""
+    macros, stack, out = dict(defines), [], []
+    on = True
+
+    def value(cond):
+        expr = re.sub(r'\b[A-Za-z_]\w*\b',
+                      lambda m: str(int(macros.get(m.group(0), 0))), cond)
+        expr = (expr.replace('&&', ' and ').replace('||', ' or ')
+                .replace('!', ' not '))
+        return bool(eval(expr))
+
+    for line in text.splitlines():
+        m = _DIRECTIVE.match(line)
+        kind, arg = (m.group(1), m.group(2).split('//')[0].strip()) if m \
+            else (None, '')
+        if kind in ('if', 'ifdef', 'ifndef'):
+            cond = (value(arg) if kind == 'if' else
+                    (arg in macros) == (kind == 'ifdef'))
+            stack.append((on, cond))
+            on = on and cond
+        elif kind == 'elif':
+            raise AssertionError('#elif: not handled here')
+        elif kind == 'else':
+            parent, cond = stack[-1]
+            stack[-1] = (parent, not cond)
+            on = parent and not cond
+        elif kind == 'endif':
+            on = stack.pop()[0]
+        elif on:
+            if kind == 'define':
+                name, _, val = arg.partition(' ')
+                if re.fullmatch(r'\d+', val.strip()):
+                    macros[name] = int(val)
+            out.append(line.split('//')[0])
+    assert not stack
+    return '\n'.join(out)
+
+
+# what only the bench_pieces build may compile
+PIECES_ONLY = {'S_MLP', 'S_CG', 'S_W', 'S_SI2', 'with_piece', 'piece_plan',
+               'bench_pieces_fwd', 'bench_pieces_resources'}
+
+
+@pytest.mark.parametrize('build', ['fused_conv_geom', 'fused_conv_geom_ssp',
+                                   'fused_conv_geom_extw', 'bench_pieces'])
+def test_pieces_gate_is_invisible_to_the_other_builds(build):
+    """The stub mask, its branches and the bench_pieces entries sit behind
+    FUSED_CONV_PIECES: the default, ssp and extw builds see none of them
+    (so they compile the text they did before), and the bench_pieces build
+    compiles its two C entries and no other."""
+    with open(cuda_build.source_path('fused_conv_geom')) as fh:
+        text = _active(fh.read(), {
+            d[2:].split('=')[0]: int(d.split('=')[1])
+            for d in cuda_build.DEFINES.get(build, ())})
+    words = set(re.findall(r'\w+', text))
+    entries = set(re.findall(r'extern "C" int (\w+)\(', text))
+    if build == 'bench_pieces':
+        assert PIECES_ONLY <= words
+        assert entries == {'bench_pieces_fwd', 'bench_pieces_resources'}
+        assert re.search(r'#define PIECES_ARG , MODE$', text, re.M)
+    else:
+        assert not PIECES_ONLY & words
+        assert not any(e.startswith('bench_pieces') for e in entries)
+        assert re.search(r'#define PIECES_ARG$', text, re.M)
+    if build == 'fused_conv_geom':
+        assert {'fused_conv_fwd', 'fused_conv_edge_fwd'} <= entries
+
+
+def test_variant_modes_are_the_templates():
+    """VARIANTS[i] launches the forward template's instance MODES[v]: the
+    C entry's switch and the stub mask against the tool's mirror."""
+    with open(cuda_build.source_path('fused_conv_geom')) as fh:
+        src = fh.read()
+    consts = {k: int(v) for k, v in re.findall(
+        r'\b(K_DENSE|K_GEOM|K_EDGE|S_MLP|S_CG|S_W|S_SI2) = (\d+)', src)}
+    cases = re.findall(r'case (\d): return f\(Ix<([\w |]+)>\(\)\);', src)
+    assert [int(i) for i, _ in cases] == list(range(len(bp.VARIANTS)))
+    for i, expr in cases:
+        mode = 0
+        for name in expr.split('|'):
+            mode |= consts[name.strip()]
+        assert bp.MODES[bp.VARIANTS[int(i)]] == mode
+    names = {f'_ZN12fused_conv_geom_fwd_kernelILi{m}EEvPKf': v
+             for v, m in bp.MODES.items()}
+    assert {bp.variant_of(k): v for k, v in names.items()} == {
+        v: v for v in bp.VARIANTS}
+    assert bp.variant_of('fused_conv_geom_bwd_kernelILi9ELi0EEv') is None
 
 
 def test_variant_costs(conv, inputs):

@@ -90,6 +90,26 @@ def test_library_path_follows_included_headers(tmp_path, monkeypatch):
     assert cuda_build.library_path('bench_dot') != after['bench_dot']
 
 
+def test_bench_pieces_library_follows_the_geom_source_and_its_headers(
+        tmp_path, monkeypatch):
+    """bench_pieces is csrc/fused_conv_geom.cu built with its own macro: an
+    edit of that source or of any header it includes builds it anew, and
+    the library is not the default build's."""
+    csrc = tmp_path / 'csrc'
+    shutil.copytree(cuda_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(cuda_build, 'CSRC_DIR', str(csrc))
+    assert cuda_build.SOURCES['bench_pieces'] == 'fused_conv_geom.cu'
+    assert cuda_build.DEFINES['bench_pieces'] == ('-DFUSED_CONV_PIECES=1',)
+    paths = [cuda_build.library_path('bench_pieces')]
+    assert paths[0] != cuda_build.library_path('fused_conv_geom')
+    for name in ('fused_conv_geom.cu', 'fused_conv_body.cuh',
+                 'cg_patterns.cuh'):
+        with open(csrc / name, 'a') as fh:
+            fh.write('// edited\n')
+        paths.append(cuda_build.library_path('bench_pieces'))
+    assert len(set(paths)) == len(paths)
+
+
 def test_every_micro_benchmark_kernel_has_a_counter():
     names = (list(bench_pieces.COUNTER.values())
              + list(bench_cgmxu.COUNTER.values())

@@ -358,7 +358,8 @@ def test_sass_pair_names_of_the_ssp_instances():
     assert src['fused_conv_geom_extw'] == src['fused_conv_geom']
     assert cuda_build.DEFINES == {
         'fused_conv_geom_ssp': ('-DFUSED_CONV_SSP=1',),
-        'fused_conv_geom_extw': ('-DFUSED_CONV_EXTW=1',)}
+        'fused_conv_geom_extw': ('-DFUSED_CONV_EXTW=1',),
+        'bench_pieces': ('-DFUSED_CONV_PIECES=1',)}
     paths = {cuda_build.library_path(n) for n in
              ('fused_conv_geom', 'fused_conv_geom_ssp', 'fused_conv_geom_extw')}
     assert len(paths) == 3

@@ -377,50 +377,32 @@ def test_edge_instances_sass_identical_to_parent(cuda):
     assert got == PARENT_EDGE_SASS
 
 
-# SASS digests (tools/sass_compare.digests) of the micro-benchmark kernels
-# on the first dense-grid forward's body (csrc/fused_conv_body.cuh), whose
-# code the redesigns of the conv kernels did not touch, from a build of
-# csrc/bench_pieces.cu with the same nvcc on the card machine.
-# bench_pieces_full is the code of the first dense-grid forward (kernel 1
-# before its redesign), bench_pieces_noagg that of the first edge-row
-# forward (its digest, d22176e6071b, was the edge-row kernel 1's).
-PARENT_SASS = {
-    '_ZN48_GLOBAL__N__15_bench_pieces_cu_2586ebd423bench_pieces_now_kernelEPKfS1_S1_S1_S1_S1_S1_S1_NS_4PlanEPf':
-        'd18e332ac461',
-    '_ZN48_GLOBAL__N__15_bench_pieces_cu_2586ebd424bench_pieces_full_kernelEPKfS1_S1_S1_S1_S1_S1_S1_NS_4PlanEPf':
-        '9363ad0df108',
-    '_ZN48_GLOBAL__N__15_bench_pieces_cu_2586ebd424bench_pieces_nocg_kernelEPKfS1_S1_S1_S1_S1_S1_S1_NS_4PlanEPf':
-        'eb3b90fec497',
-    '_ZN48_GLOBAL__N__15_bench_pieces_cu_2586ebd425bench_pieces_noagg_kernelEPKfS1_S1_S1_S1_S1_S1_S1_NS_4PlanEPf':
-        'd22176e6071b',
-    '_ZN48_GLOBAL__N__15_bench_pieces_cu_2586ebd425bench_pieces_nomlp_kernelEPKfS1_S1_S1_S1_S1_S1_S1_NS_4PlanEPf':
-        '54b06e6b7930',
-    '_ZN48_GLOBAL__N__15_bench_pieces_cu_2586ebd425bench_pieces_nosi2_kernelEPKfS1_S1_S1_S1_S1_S1_S1_NS_4PlanEPf':
-        'a75cad855539',
-}
+# SASS digests (tools/sass_compare.digests) of bench_pieces' four stubbed
+# variants (csrc/fused_conv_geom.cu built as bench_pieces: the dense
+# forward with one piece stubbed), by variant, from the first card run of
+# the tree that moved them onto that template (nvcc of CUDA 12.8 on the
+# card machine; full and -agg are kernel 1 and its edge form:
+# test_bench_pieces_full_and_agg_are_kernel_1_and_its_edge_form)
+PARENT_SASS = {'-mlp': '158b216f454f', '-cg': '6d28988a5e79',
+               '-w': '6f903b70728b', '-si2': 'cb98b85c9b37'}
 
 
-def _without_file_hash(name):
-    """A kernel's name without the hash nvcc puts after the file name in
-    its anonymous namespace (it moves with the source's text; the code
-    need not)."""
-    import re
-    return re.sub(r'(_cu_)[0-9a-f]{8}', r'\1', name)
+def _pieces_digests():
+    """{variant: SASS digest} of the bench_pieces build."""
+    from sevennet_exp_tpu_torch.tools import bench_pieces as bp
+    from sevennet_exp_tpu_torch.tools import sass_compare
+    got = {bp.variant_of(k): v for k, v in
+           sass_compare.digests('bench_pieces').items()}
+    assert set(got) == set(bp.VARIANTS)
+    return got
 
 
 def test_untouched_conv_kernels_sass_identical_to_parent(cuda):
-    """bench_pieces compiles to the SASS of the tree before the
-    geometry-fused kernels left fused_conv_body.cuh (the first
-    external-weight pair, which shared that body, was redesigned into
-    csrc/fused_conv_geom.cu)."""
-    from sevennet_exp_tpu_torch.tools import sass_compare
-    got = {}
-    for name in ('bench_pieces',):
-        got.update(sass_compare.digests(name))
-    got = {_without_file_hash(k): v for k, v in got.items()}
-    want = {_without_file_hash(k): v for k, v in PARENT_SASS.items()}
-    assert set(got) == set(want)
-    assert got == want
+    """bench_pieces' stubbed variants compile to the SASS they had when
+    they moved onto the production forward (an edit of the template that
+    moves them shows here)."""
+    got = _pieces_digests()
+    assert {v: got[v] for v in PARENT_SASS} == PARENT_SASS
 
 
 # -- the external-weight pair ------------------------------------------------
@@ -1148,19 +1130,19 @@ def test_bench_pieces_kernels_match_plain(cuda, variant, pads):
     torch.cuda.synchronize()
     assert got.shape == ref.shape
     assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
-    if variant == 'full':
-        # kernel 1 now sums in the redesigned order: held at the same limit
-        kern = conv.kernel_forward(*ins)
-        assert (got - kern).abs().max() <= 1e-4 * ref.abs().max()
+    if variant in ('full', '-agg'):
+        # the production kernel itself, launched as the model launches it:
+        # the same bits
+        other = bp.edge_conv(conv) if variant == '-agg' else conv
+        assert torch.equal(got, other.kernel_forward(*ins))
 
 
-def test_bench_pieces_full_is_the_first_kernel_1(cuda):
-    """bench_pieces full is still the code of kernel 1 before its redesign:
-    the SASS digest of that kernel."""
-    from sevennet_exp_tpu_torch.tools import sass_compare
-    (digest,) = [v for k, v in sass_compare.digests('bench_pieces').items()
-                 if 'bench_pieces_full_kernel' in k]
-    assert digest == '9363ad0df108'
+def test_bench_pieces_full_and_agg_are_kernel_1_and_its_edge_form(cuda):
+    """bench_pieces full is kernel 1 and -agg the edge-row kernel 1: the
+    SASS digests of the default build's dense and edge forwards."""
+    got = _pieces_digests()
+    assert got['full'] == PARENT_DENSE_SASS['fwd']
+    assert got['-agg'] == PARENT_EDGE_SASS['fwd']
 
 
 @pytest.mark.parametrize('mode', ['st', 'outer', 'dots'])

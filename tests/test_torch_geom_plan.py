@@ -284,9 +284,14 @@ class _Replay:
     def forward(self, xg, vec, ms, coeffs):
         return self.forward_rows(xg, *self.geometry(vec, coeffs), ms)
 
-    def forward_rows(self, xg, emb, sh, ms):
+    def forward_rows(self, xg, emb, sh, ms, skip=None):
         """The forward on the tile's emb and sh rows (the geometry's, or
-        the dense pair's staged inputs)."""
+        the dense pair's staged inputs). skip: one piece replaced by its
+        stand-in as the ``bench_pieces`` build's stub mask replaces it --
+        'mlp' (w = emb[:, 0] * ms), 'cg' (every component's sum the x
+        entry m = 0, no path normalisation), 'w' (weight 1 where the
+        kernel's w is not 0) or 'si2' (the aggregate copied into the
+        group's output columns)."""
         n = xg.shape[0] // self.D
         X = xg.astype(np.float64).reshape(n, self.D, -1)
         emb = emb.astype(np.float64).reshape(n, self.D, -1)
@@ -304,16 +309,25 @@ class _Replay:
                     ii = self.col_ins[c]
                     rec = self.ins[ii]
                     u = c - rec[9]
-                    w = (h1[:, e0:e1] @ self.w2[:, self.col_w[c]]) \
-                        * (self.sc[ii] * self.s2) * M[:, sl][:, e0:e1]
+                    sc = 1.0 if skip == 'cg' else self.sc[ii]
+                    if skip == 'mlp':
+                        w = emb[:, sl][:, e0:e1, 0] * sc * M[:, sl][:, e0:e1]
+                    else:
+                        w = (h1[:, e0:e1] @ self.w2[:, self.col_w[c]]) \
+                            * (sc * self.s2) * M[:, sl][:, e0:e1]
+                    if skip == 'w':
+                        w = (w != 0) * sc
                     xr = X[:, sl][:, e0:e1]
                     sr = sh[:, sl][:, e0:e1]
                     l2 = (rec[5] - 1) // 2
                     s = np.zeros((n, e1 - e0, rec[6]))
-                    for m, nn, p, cf in self.pat[ii]:
-                        s[..., p] += (np.float64(cf)
-                                      * xr[..., rec[0] + m * rec[1] + u]
-                                      * sr[..., l2 * l2 + nn])
+                    if skip == 'cg':
+                        s[...] = xr[..., rec[0] + u, None]
+                    else:
+                        for m, nn, p, cf in self.pat[ii]:
+                            s[..., p] += (np.float64(cf)
+                                          * xr[..., rec[0] + m * rec[1] + u]
+                                          * sr[..., l2 * l2 + nn])
                     acc = np.einsum('ae,aep->ap', w, s)
                     g = e0 // R
                     for p in range(rec[6]):
@@ -324,9 +338,12 @@ class _Replay:
             K, mo, d3, o_off, a_off, w_off = G
             W = self.si2_flat[w_off:w_off + K * mo].reshape(K, mo)
             a = agg[:, a_off:a_off + d3 * K].reshape(n, d3, K)
+            if skip == 'si2':
+                W, alpha = np.eye(K, mo), 1.0
+            else:
+                alpha = self.alpha[gi]
             out[:, o_off:o_off + d3 * mo] = (
-                np.einsum('apk,ko->apo', a, W) * self.alpha[gi]
-            ).reshape(n, -1)
+                np.einsum('apk,ko->apo', a, W) * alpha).reshape(n, -1)
         return out
 
     def backward(self, g, xg, vec, ms, coeffs):
