@@ -107,6 +107,8 @@ Phases (any failure raises, exits non-zero and prints no result):
  15. the micro-benchmarks at their default sizes through their entry
      points (``bench_cgmxu`` at i1 = 1 and 2), every counter reset just
      before: each prints its times and (``bench_pieces``) its piece costs;
+     the redesigned bf16 ``bench_dot`` and ``outer`` kernels carry a
+     ``status`` in the kernels line;
      then each of the twenty-one kernels against its plain version on the
      tool's inputs (``bench_pieces``: ``full`` is kernel 1 and ``-agg`` the
      edge-row kernel 1, by their SASS digests (``PARENT_GEOM_SASS``) and
@@ -121,8 +123,12 @@ Phases (any failure raises, exits non-zero and prints no result):
      the SASS of ``bench_layout`` and ``bench_tile`` must issue every
      repeated pass (cuobjdump: 24 x 16 FFMA per output, and 8 x 4 per
      output, the fifth product of each pass being the FMUL that starts
-     it), each dots instance d3tot x K FFMA per column a thread owns, and
-     the fp32 ``bench_dot`` kernels no tensor-core opcode;
+     it), each dots and outer instance d3tot x K FFMA per column a thread
+     owns (outer and the bf16 ``bench_dot`` instances nothing in local
+     memory, the bf16 ones HMMA), the fp32 ``bench_dot`` kernels no
+     tensor-core opcode, and those and the st and dots kernels the SASS
+     they had before bf16 and outer were redesigned
+     (``PARENT_MICRO_SASS``);
  16. fault C.1 on the card: a tiny model with hidden [32, 32] routes every
      conv to the plain chain, launches no conv kernel and gives the CPU's
      E/F; a 1x1o+1x0e filter layer is refused and matches the CPU; a tiny
@@ -184,6 +190,35 @@ PARENT_GEOM_SASS = {
 # SH) as redesigned, before the external-weight forward joined its build
 # (tests/test_torch_cuda.py holds them too)
 EXTW_BWD_SASS = ('5455282fa6b2', '9fa855366a9d', 'd8cf526f5ab8')
+
+# SASS digests of the micro-benchmark kernels beside the bf16 dot and the
+# outer CG (the fp32 bench_dot kernels; bench_cgmxu's st and dots), as they
+# were before those two were redesigned for Hopper (tests/test_torch_cuda.py
+# holds them too)
+PARENT_MICRO_SASS = {
+    'bench_dot': ('4539c5e9a7f6', '43900b2b462c', 'cffb86f3b49f',
+                  '40053fb204ef', 'e6250dfce0f8', 'e61ab816330d',
+                  '24ccc4e63ba3', '24a040861ee6', '20ebae4a7d96',
+                  '5d330983afe7', '2cde1487ece9'),
+    'bench_cgmxu': ('c4aa6d2956b8', '5e3d3e051d91', '40b05ac7fb83',
+                    '73a9cda46545'),
+}
+
+# the micro-benchmark kernels redesigned for Hopper: their status in the
+# kernels line
+REDESIGNED = {
+    'bench_dot_bf16': 'redesigned for Hopper: csrc/bench_dot.cu::'
+                      'dot_bf16_kernel<KS, NT8>, a persistent grid over the '
+                      'N tiles of all of M (Z read once), C^T rounded once '
+                      'into mma.sync A fragments held in registers, Z through '
+                      'a 4- or 8-stage cp.async ring rounded once a piece and '
+                      'read by ldmatrix.trans, full-line streaming stores',
+    'bench_cgmxu_outer': 'redesigned for Hopper: csrc/bench_cgmxu.cu::'
+                         'cgmxu_outer_kernel<D1, F, D3>, the class at compile '
+                         'time, 4 edges a thread, Z built in registers, C as '
+                         'LDS.128 broadcasts in the loop\'s order, the weight '
+                         'fused, 512-byte streaming stores a warp',
+}
 
 MD_KW = dict(dt_fs=2.0, temperature_K=300.0, ensemble='nvt',
              rebuild_every=20, seed=0)
@@ -288,6 +323,7 @@ def micro_benchmarks(report, dev, cuda_ms, show, pieces_sass):
         kernels.append({
             'name': name, 'route': 'cuda',
             'source': f'sevennet_exp_tpu_torch/csrc/{source}',
+            **({'status': REDESIGNED[name]} if name in REDESIGNED else {}),
             'replaces': f'tools/{line}',
             'launches': launches[name], 'max_abs_err': max(errs),
             'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms,
@@ -356,11 +392,23 @@ def micro_benchmarks(report, dev, cuda_ms, show, pieces_sass):
     del pieces, conv, ins
     # static opcode counts of each kernel's SASS (its loops fully unrolled):
     # the repeated passes of bench_layout and bench_tile and the dense
-    # products of the dots instances must all be issued, and the fp32 dot
-    # kernels must use no tensor-core opcode
-    sass = {name: sass_compare.count(name)
-            for name in ('bench_cgmxu', 'bench_dot', 'bench_layout',
-                         'bench_tile')}
+    # products of the dots and outer instances must all be issued, the fp32
+    # dot kernels must use no tensor-core opcode and the bf16 ones must,
+    # the redesigned kernels nothing in local memory; the kernels beside
+    # them keep the SASS they had before (PARENT_MICRO_SASS)
+    builds = sass_compare.count_and_digests(
+        ('bench_cgmxu', 'bench_dot', 'bench_layout', 'bench_tile'))
+    sass = {name: counts for name, (counts, _) in builds.items()}
+    for name, stems in (('bench_dot', ('dot_fp32_',)),
+                        ('bench_cgmxu', ('cgmxu_st_', 'cgmxu_dots_'))):
+        got = sorted(v for k, v in builds[name][1].items()
+                     if any(stem in k for stem in stems))
+        print(f'{name} {stems}: SASS digests {got} (before: '
+              f'{sorted(PARENT_MICRO_SASS[name])})', flush=True)
+        if got != sorted(PARENT_MICRO_SASS[name]):
+            raise AssertionError(f'{name} {stems}: SASS moved')
+    report['micro_sass_digests'] = {name: d for name, (_, d) in
+                                    builds.items()}
 
     def sass_of(name, stem, want):
         """The kernel's static opcode counts; its FFMAs must cover every
@@ -376,6 +424,26 @@ def micro_benchmarks(report, dev, cuda_ms, show, pieces_sass):
         'bench_cgmxu', f'cgmxu_dots_kernelILi{K}ELi{d3}E',
         d3 * K * bench_cgmxu.DOTS_EDGES)
         for K, d3 in bench_cgmxu.DOTS_SHAPES}
+    # outer: every multiply-add of the dense d3tot x d1 f product per
+    # column a thread owns, nothing in local memory
+    outer_sass = {}
+    for d1, f, d3 in bench_cgmxu.OUTER_SHAPES:
+        c = outer_sass[f'{d1}x{f}x{d3}'] = sass_of(
+            'bench_cgmxu', f'cgmxu_outer_kernelILi{d1}ELi{f}ELi{d3}E',
+            d1 * f * d3 * bench_cgmxu.DOTS_EDGES)
+        if any(c[op] for op in sass_compare.LOCAL_OPS):
+            raise AssertionError(f'outer {d1}x{f}x{d3}: local memory {c}')
+    # bf16 dot: mma.sync (HMMA) in every instance, nothing in local memory
+    bf16_sass = {k: v for k, v in sass['bench_dot'].items()
+                 if 'dot_bf16_' in k}
+    for k, v in bf16_sass.items():
+        if not v['HMMA'] or any(v[op] for op in sass_compare.LOCAL_OPS):
+            raise AssertionError(f'bench_dot bf16 kernel {k}: {v}')
+    if len(bf16_sass) != len(bench_dot.BF16_KS) * 2:
+        raise AssertionError(f'bench_dot: {len(bf16_sass)} bf16 instances')
+    print(f'bench_dot bf16: {len(bf16_sass)} kernels, HMMA '
+          f'{sorted(v["HMMA"] for v in bf16_sass.values())}, no LDL/STL',
+          flush=True)
     # fp32 dot: FFMA on the CUDA cores, no tensor-core opcode
     dot_sass = {k: v for k, v in sass['bench_dot'].items()
                 if 'dot_fp32_' in k}
@@ -436,6 +504,12 @@ def micro_benchmarks(report, dev, cuda_ms, show, pieces_sass):
                       f'({row["share_of_bound"]:.1%}), torch.matmul '
                       f'{row["library_ms"]:.4f} ms (x{row["vs_library"]:.2f})',
                       flush=True)
+            if mode == 'outer':
+                row.update(share_of_bound=row['bound_ms'] / row['ms'],
+                           sass=outer_sass[f'{cls.d1}x{cls.f}x{cls.d3tot}'])
+                print(f'bench_cgmxu outer i1={i1}: {row["ms"]:.4f} ms, bound '
+                      f'{row["bound_ms"]:.4f} ms ({row["share_of_bound"]:.1%})',
+                      flush=True)
             rows.append(row)
             errs.append(err)
             ms += res['ms'][mode]
@@ -453,8 +527,7 @@ def micro_benchmarks(report, dev, cuda_ms, show, pieces_sass):
             ms = dots[shape][dtype]
             b_ms, by = bound(*bench_dot.cost(*shape, dtype)[:2], peak)
             lib = dots[shape]['cublas_fp32'] if dtype == 'fp32' else None
-            p = bench_dot.plan(*shape, bench_dot.G, n_sm) \
-                if dtype == 'fp32' else None
+            p = bench_dot.plan(*shape, bench_dot.G, n_sm, dtype)
             rows.append({'tool': 'bench_dot', 'shape': list(shape),
                          'dtype': dtype, 'ms': ms,
                          'cublas_fp32_ms': dots[shape]['cublas_fp32'],
@@ -463,12 +536,17 @@ def micro_benchmarks(report, dev, cuda_ms, show, pieces_sass):
                          'bound_ms': b_ms, 'bound_by': by,
                          'share_of_bound': b_ms / ms,
                          'vs_library': ms / lib if lib else None,
+                         'vs_fp32': ms / dots[shape]['fp32'],
                          'plan': p})
             print(f'bench_dot {shape} {dtype}: {ms:.4f} ms, bound '
                   f'{b_ms:.4f} ms by {by} ({b_ms / ms:.1%})'
                   + (f', torch.bmm {lib:.4f} ms (x{ms / lib:.2f}), '
                      f'{p["cls"]} tm={p["tm"]} bn={p["bn"]} kc={p["kc"]}'
-                     if lib else ''), flush=True)
+                     if lib else
+                     f', fp32 x{ms / dots[shape]["fp32"]:.2f}, cuBLAS on '
+                     f'bf16 inputs {dots[shape]["cublas_bf16"]:.4f} ms, '
+                     f'ks={p["ks"]} strips={p["strips"]} bn={p["bn"]} '
+                     f'kc={p["kc"]}'), flush=True)
         entry(bench_dot.COUNTER[dtype], 'bench_dot.cu', 'bench_dot.py:46',
               [dot_rows[(s, dtype)]['err'] for s in dots],
               sum(dots[s][dtype] for s in dots),

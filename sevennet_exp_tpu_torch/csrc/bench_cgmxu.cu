@@ -13,9 +13,8 @@
 //                sh[so + n] (the JAX St = CT^T sh, without its copy per
 //                channel u), then per p the product with x and the sum
 //                over m, then x the radial weight
-//   cgmxu_outer  Z[(m, n), (u, b)] = x[(m, u), b] sh[n, b] built in shared
-//                memory, then the one dense CG product C (d3tot, d1 f) @ Z,
-//                then x w
+//   cgmxu_outer  Z[(m, n), (u, b)] = x[(m, u), b] sh[n, b], then the one
+//                dense CG product C (d3tot, d1 f) @ Z, then x w
 //   cgmxu_dots   the product alone: Z at no build cost (x[0, b] in every
 //                row and channel), C @ Z, and the JAX write pattern -- all
 //                zeros but rows 0..d3tot-1 = out0(u = 0) + out0(u = mul-1)
@@ -26,14 +25,13 @@
 // owns 32 consecutive edges of one channel u, so every load and store of a
 // row is one 128-byte line; the 8 warps of a block take 8 channels of the
 // same edges, so sh (and for st, the tables) is read once per block into L1
-// or shared memory. A thread of st and outer owns one (u, edge) column and
-// keeps its d3tot sums in registers (outer: a tile product 1 x d3tot per
-// thread, C from shared memory as a broadcast, one 4-byte shared load per
-// multiply-add). dots is bound by the bytes it writes at i1 = 1 (168 MB,
-// 0.050 ms) and by its multiply-adds at i1 = 2 (0.031 ms at 67 TFLOP/s);
-// its redesign takes the shared load off the multiply-add: the class's
-// shape at compile time, 4 edges a thread, C as 16-byte broadcasts (below).
-// All fp32 on the CUDA cores (no TF32, no tensor cores).
+// or shared memory. A thread of st owns one (u, edge) column and keeps its
+// d3tot sums in registers. dots is bound by the bytes it writes at i1 = 1
+// (168 MB, 0.050 ms) and by its multiply-adds at i1 = 2 (0.031 ms at 67
+// TFLOP/s); its redesign takes the shared load off the multiply-add: the
+// class's shape at compile time, 4 edges a thread, C as 16-byte broadcasts
+// (below). outer, redesigned the same way, adds the Z build and the weight
+// to that product. All fp32 on the CUDA cores (no TF32, no tensor cores).
 
 #include <cuda_runtime.h>
 
@@ -87,50 +85,6 @@ cgmxu_st_kernel(const float* __restrict__ xT, const float* __restrict__ shT,
       out[((long)(row + p) * C.mul + u) * C.E + b] = acc * w;
     }
   }
-}
-
-__global__ void __launch_bounds__(NT)
-cgmxu_outer_kernel(const float* __restrict__ xT,
-                   const float* __restrict__ shT,
-                   const float* __restrict__ wT,
-                   const int* __restrict__ row_ins,
-                   const float* __restrict__ cg, Cls C,
-                   float* __restrict__ out) {
-  extern __shared__ float sm[];
-  const int K = C.d1 * C.f;
-  float* c_s = sm;                                       // d3tot * K
-  int* ri_s = reinterpret_cast<int*>(c_s + C.d3tot * K);    // d3tot
-  float* z_s = reinterpret_cast<float*>(ri_s + C.d3tot);    // K columns of NT
-  const int tid = threadIdx.x, lane = tid & 31, slot = tid >> 5;
-  const long b = (long)blockIdx.x * EB + lane;
-  const int u = blockIdx.y * US + slot;
-  for (int i = tid; i < C.d3tot * K; i += NT) c_s[i] = cg[i];
-  for (int i = tid; i < C.d3tot; i += NT) ri_s[i] = row_ins[i];
-  float sh[MAXF];
-#pragma unroll
-  for (int n = 0; n < MAXF; ++n)
-    if (n < C.f) sh[n] = shT[n * C.E + b];
-  for (int m = 0; m < C.d1; ++m) {
-    const float x = xT[((long)m * C.mul + u) * C.E + b];
-#pragma unroll
-    for (int n = 0; n < MAXF; ++n)
-      if (n < C.f) z_s[(m * C.f + n) * NT + tid] = x * sh[n];
-  }
-  __syncthreads();
-  float acc[MAXR];
-#pragma unroll
-  for (int r = 0; r < MAXR; ++r) acc[r] = 0.f;
-  for (int j = 0; j < K; ++j) {
-    const float z = z_s[j * NT + tid];
-#pragma unroll
-    for (int r = 0; r < MAXR; ++r)
-      if (r < C.d3tot) acc[r] = fmaf(c_s[r * K + j], z, acc[r]);
-  }
-#pragma unroll
-  for (int r = 0; r < MAXR; ++r)
-    if (r < C.d3tot)
-      out[((long)r * C.mul + u) * C.E + b] =
-          acc[r] * wT[((long)ri_s[r] * C.mul + u) * C.E + b];
 }
 
 // dots, redesigned for Hopper: the class's shape is a template parameter,
@@ -218,6 +172,118 @@ cgmxu_dots_kernel(const float* __restrict__ xT, const float* __restrict__ cg,
   }
 }
 
+// outer, redesigned for Hopper: the dots kernel's layout (the class's shape
+// (D1, F, D3) a template parameter, DE = 4 consecutive edges of one channel
+// u a thread, 8 channels a block, 128 edges a warp) with Z built in
+// registers: for each x row m (one float4) and sh row n, z = x[m] sh[n]
+// feeds every row r of the product. The block's sh rows (the same for its 8
+// channels) are staged in shared memory by float4 loads. C is staged
+// transposed, c_s[(m F + n) D3P + r] = C[r][m F + n], so each LDS.128
+// broadcast gives 4 rows' coefficients, each feeding the DE columns: every
+// multiply-add of the dense D3 x D1 F product, C's zeros included. The
+// rows go in passes of OUTER_ROWS, Z rebuilt in each, a warp barrier
+// between passes: with all D3 x 4 sums live at once (88 at i1 = 2) ptxas
+// spilled in every loop order tried, and unbarriered passes were
+// interleaved and spilled more. Each pass's sums are multiplied by their
+// instruction's radial weight (float4 loads, the repeats of an instruction
+// from L1) and leave as one 512-byte float4 streaming store a warp and row.
+constexpr int OUTER_ROWS = 8;
+
+template <int D1, int F, int D3>
+__global__ void __launch_bounds__(NT, 2)
+cgmxu_outer_kernel(const float* __restrict__ xT,
+                   const float* __restrict__ shT,
+                   const float* __restrict__ wT,
+                   const int* __restrict__ row_ins,
+                   const float* __restrict__ cg, int mul, long E,
+                   float* __restrict__ out) {
+  constexpr int K = D1 * F, D3P = (D3 + 3) / 4 * 4;
+  constexpr int RP = OUTER_ROWS < D3P ? OUTER_ROWS : D3P;
+  __shared__ __align__(16) float c_s[K * D3P];
+  __shared__ float4 sh_s[F * EB];          // sh_s[n EB + l]: lane l's edges
+  __shared__ int ri_s[D3];
+  const int tid = threadIdx.x, lane = tid & 31, slot = tid >> 5;
+  const long b0 = (long)blockIdx.x * DEB, b = b0 + DE * lane;
+  const int u = blockIdx.y * US + slot;
+  for (int i = tid; i < K * D3P; i += NT) {
+    const int j = i / D3P, r = i % D3P;
+    c_s[i] = r < D3 ? cg[r * K + j] : 0.f;
+  }
+  for (int i = tid; i < D3; i += NT) ri_s[i] = row_ins[i];
+  for (int i = tid; i < F * EB; i += NT) {
+    const long bb = b0 + DE * (i % EB);
+    if (bb < E)
+      sh_s[i] = *reinterpret_cast<const float4*>(shT + (i / EB) * E + bb);
+  }
+  __syncthreads();
+  if (b >= E) return;     // a thread's four edges are all in or all out
+  const float* xu = xT + (long)u * E + b;  // row m at + m mul E
+#pragma unroll
+  for (int r0 = 0; r0 < D3; r0 += RP) {
+    // the passes one after the other: no load of a later pass moves into
+    // an earlier one
+    if (r0 > 0) __syncwarp(__activemask());
+    // each sum starts at x * 0 (+-0), so that nvcc keeps the first product
+    // an FFMA: the SASS then shows all D3 K FFMAs a column
+    float acc[RP][DE];
+    {
+      const float4 x0 = *reinterpret_cast<const float4*>(xu);
+      const float xz[DE] = {x0.x * 0.f, x0.y * 0.f, x0.z * 0.f, x0.w * 0.f};
+#pragma unroll
+      for (int r = 0; r < RP; ++r)
+#pragma unroll
+        for (int c = 0; c < DE; ++c) acc[r][c] = xz[c];
+    }
+#pragma unroll
+    for (int m = 0; m < D1; ++m) {
+      const float4 xq =
+          *reinterpret_cast<const float4*>(xu + (long)m * mul * E);
+      const float x[DE] = {xq.x, xq.y, xq.z, xq.w};
+#pragma unroll
+      for (int n = 0; n < F; ++n) {
+        const float4 sq = sh_s[n * EB + lane];
+        const float z[DE] = {x[0] * sq.x, x[1] * sq.y, x[2] * sq.z,
+                             x[3] * sq.w};
+        const float* cj = c_s + (m * F + n) * D3P + r0;
+#pragma unroll
+        for (int r = 0; r < RP; r += 4) {
+          if (r0 + r < D3) {
+            const float4 cv = *reinterpret_cast<const float4*>(cj + r);
+            const float cr[4] = {cv.x, cv.y, cv.z, cv.w};
+#pragma unroll
+            for (int rr = 0; rr < 4; ++rr)
+              if (r0 + r + rr < D3)
+#pragma unroll
+                for (int c = 0; c < DE; ++c)
+                  acc[r + rr][c] = fmaf(cr[rr], z[c], acc[r + rr][c]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RP; ++r) {
+      if (r0 + r < D3) {
+        const float4 w = *reinterpret_cast<const float4*>(
+            wT + ((long)ri_s[r0 + r] * mul + u) * E + b);
+        float* o = out + ((long)(r0 + r) * mul + u) * E + b;
+        __stcs(reinterpret_cast<float4*>(o),
+               make_float4(acc[r][0] * w.x, acc[r][1] * w.y, acc[r][2] * w.z,
+                           acc[r][3] * w.w));
+      }
+    }
+  }
+}
+
+template <int D1, int F, int D3>
+cudaError_t launch_outer(const float* xT, const float* shT, const float* wT,
+                         const int* row_ins, const float* cg, int mul, long E,
+                         float* out, cudaStream_t stream) {
+  const dim3 grid((unsigned)((E + DEB - 1) / DEB), mul / US);
+  cgmxu_outer_kernel<D1, F, D3><<<grid, NT, 0, stream>>>(
+      xT, shT, wT, row_ins, cg, mul, E, out);
+  return cudaGetLastError();
+}
+
 template <int K, int D3>
 cudaError_t launch_dots(const float* xT, const float* cg, int mul, long E,
                         float* out, cudaStream_t stream) {
@@ -227,7 +293,7 @@ cudaError_t launch_dots(const float* xT, const float* cg, int mul, long E,
 }
 
 constexpr int MAX_DEVICES = 64;
-size_t reserved[2][MAX_DEVICES];
+size_t reserved[1][MAX_DEVICES];
 
 template <typename Kernel>
 cudaError_t reserve_smem(Kernel kernel, size_t bytes, size_t* res) {
@@ -275,20 +341,24 @@ extern "C" int cgmxu_st(const float* xT, const float* shT, const float* wT,
   return (int)cudaGetLastError();
 }
 
+// the classes the outer kernel is instantiated for, (d1, f, d3tot): those
+// of the dots kernel (tools/bench_cgmxu.py::OUTER_SHAPES)
 extern "C" int cgmxu_outer(const float* xT, const float* shT, const float* wT,
                            const int* row_ins, const float* cg, CLS_ARGS,
                            float* out, void* stream) {
   const Cls C = CLS_CALL(0);
   if (!valid(C)) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)d3tot * (d1 * f + 1) +
-                                       (size_t)d1 * f * NT);
-  const cudaError_t err =
-      reserve_smem(cgmxu_outer_kernel, smem, reserved[1]);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(E / EB), mul / US);
-  cgmxu_outer_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      xT, shT, wT, row_ins, cg, C, out);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (d1 == 1 && f == 9 && d3tot == 9)
+    return (int)launch_outer<1, 9, 9>(xT, shT, wT, row_ins, cg, mul, E, out,
+                                      s);
+  if (d1 == 3 && f == 9 && d3tot == 20)
+    return (int)launch_outer<3, 9, 20>(xT, shT, wT, row_ins, cg, mul, E, out,
+                                       s);
+  if (d1 == 5 && f == 9 && d3tot == 22)
+    return (int)launch_outer<5, 9, 22>(xT, shT, wT, row_ins, cg, mul, E, out,
+                                       s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // the classes the dots kernel is instantiated for, (d1 f, d3tot): i1 = 0,

@@ -31,13 +31,26 @@
 //             vectors (C^T broadcast within each quarter warp, Z
 //             conflict-free) for 64 FFMA; a row of C in one 16-byte copy
 //             when M % 4 == 0. One tile a block.
-//   dot_bf16  a 32 x 128 tile on mma.sync.m16n8k16 (bf16 x bf16 -> fp32):
-//             fp32 tiles staged in shared memory, rounded to bf16 (nearest
-//             even) as each fragment is built, K in steps of 16; 8 warps of
-//             2 x 2 mma tiles each. Z is read once per 32 rows of M.
+//   dot_bf16  (redesigned for Hopper) mma.sync.m16n8k16 bf16 x bf16 -> fp32
+//             on a persistent grid that walks the (slice, N tile) tiles of
+//             one 128-row block of M, which it holds whole, so Z is read
+//             once (M <= 128). C^T is rounded to bf16 once per block and
+//             kept as A fragments in registers for the whole walk (K <= 128:
+//             KS k16 steps). Z's kc x bn pieces (at most 16 KB) stream
+//             through a cp.async ring of 4 stages (two blocks an SM) or, for
+//             tiles of one or two pieces and K <= 64, of 8 (one block an
+//             SM: more bytes in flight); each landed piece is rounded to
+//             bf16 once, into a padded layout that ldmatrix.trans reads as
+//             B fragments with no bank conflict, one barrier an item. The 8
+//             warps own M16 strips where M allows and split the tile's
+//             columns otherwise (32 or 64 a warp). A warp's sums go out
+//             through its staging tile, 8 rows of up to 64 columns at a
+//             time, as whole 128-byte lines of float4 streaming stores,
+//             beside the ring's loads of the next tiles.
+//             tools/bench_dot.py::plan(..., dtype='bf16') gives the launch.
 //
 // No TF32, no fast math: the fp32 kernels are FFMA on the CUDA cores.
-// N must be a multiple of 128.
+// N must be a multiple of 128; the bf16 kernel takes K <= 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,10 +60,7 @@
 namespace {
 
 constexpr int NT = 256;
-constexpr int BM = 32, BN = 128;
-constexpr int BK16 = 16;         // bf16: K per mma
-constexpr int CS = BM + 4;       // bf16 tile strides, padded so that the
-constexpr int ZS = BN + 4;       // fragment loads hit distinct banks
+constexpr int BN = 128;          // N must be a multiple of this
 
 // -- cp.async: 16 bytes (L2 only) or 4 bytes, zero-filled when !pred ------
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -306,76 +316,217 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__global__ void __launch_bounds__(NT)
+// -- bf16 class: mma.sync on Z streamed once ------------------------------
+constexpr int NW = NT / 32;             // warps a block
+// stages of the Z ring: a tile of one or two items (K chunks) of K <= 64
+// runs one block an SM on the deep ring (more bytes in flight an SM), a
+// longer tile, or K > 64 (A fragments of 8 k16 steps), two blocks on the
+// short one
+constexpr int BF_STAGES = 4, BF_DEEP = 8;
+constexpr int BF_STAGE_BYTES = 16 * 1024;
+constexpr int BF_MT = 128;              // rows of M a block holds
+constexpr int SWMAX = 64;               // most columns a staging pass
+
+// four 8 x 8 bf16 matrices of shared memory, transposed: lanes 8 i .. 8 i
+// + 7 give the rows of matrix i, register i holds its fragment
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// d += A B: A m16 x k16 (a[0..3]), B k16 x n8 (b0, b1), fp32 sums
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// shared memory: `stages` stages of kc x bn floats of Z (the ring), the
+// warps' staging tiles (8 rows x OSP floats each), then BF_PIECES landed
+// pieces in bf16, each kcp = kc rounded up to 16 rows of bn + 8 (the pad
+// puts the 8 rows of an ldmatrix on 8 distinct 16-byte bank groups). One
+// barrier an item: after it, item it + 1's stage is rounded into its piece
+// while the warps multiply item it's, rounded the item before. Two pieces
+// suffice: the piece rounded in item it was last read in item it - 1,
+// before that barrier, and is read next after the barrier of item it + 1.
+// Warp w owns the M16 strip w / wn and the 8 NT8 columns (w % wn) 8 NT8 of
+// each tile: its n8 sums acc[j] are the mma D fragments (rows gid, gid + 8;
+// columns 2 tig, 2 tig + 1). Rows k >= K of A and of a piece are zeros.
+// The walk's indices are 32-bit cursors stepped an item at a time.
+constexpr int BF_PIECES = 2;
+
+struct Cursor {
+  int g, nt, ch;          // slice, N tile, K chunk of an item
+};
+
+template <int KS, int NT8>
+__global__ void __launch_bounds__(NT, 2)
 dot_bf16_kernel(const float* __restrict__ C, const float* __restrict__ Z,
-                int K, int M, long N, float* __restrict__ out) {
-  __shared__ __align__(16) float c_s[BK16][CS];   // c_s[k][m] = C[k][m]
-  __shared__ __align__(16) float z_s[BK16][ZS];
+                int G, int K, int M, long N, int wn, int kc, int stages,
+                float* __restrict__ out) {
+  constexpr int WN = 8 * NT8;           // columns a warp
+  constexpr int SW = WN < SWMAX ? WN : SWMAX, OSP = SW + 8;
+  extern __shared__ __align__(16) float sm[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
-  const int m0 = blockIdx.x * BM;
-  const long n0 = (long)blockIdx.y * BN;
-  const float* Zg = Z + (long)blockIdx.z * K * N;
-  float acc[2][2][4] = {};       // [m16 tile][n8 tile][fragment]
-  for (int k0 = 0; k0 < K; k0 += BK16) {
-    for (int i = tid; i < BK16 * BM; i += NT) {
-      const int kk = i / BM, mm = i % BM, k = k0 + kk, m = m0 + mm;
-      c_s[kk][mm] = (k < K && m < M) ? C[(long)k * M + m] : 0.f;
+  const int bn = wn * WN, zp = bn + 8, stage = kc * bn;
+  const int lq = 31 - __clz(bn / 4);      // a row of a stage: 1 << lq float4
+  const int piece = ((kc + 15) & ~15) * zp;
+  float* ost = sm + stages * stage + warp * 8 * OSP;
+  __nv_bfloat16* zb =
+      reinterpret_cast<__nv_bfloat16*>(sm + stages * stage + NW * 8 * OSP);
+  const int m0 = blockIdx.y * BF_MT + 16 * (warp / wn);
+  const int c0 = (warp % wn) * WN;
+  // A = C^T (m rows, k columns), rounded once: fragment q of step ks holds
+  // rows gid (+8 for q odd), columns 16 ks + 2 tig (+1) (+8 for q >= 2)
+  uint32_t a[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int k = 16 * ks + 2 * tig + 8 * (q >> 1);
+      const int m = m0 + gid + 8 * (q & 1);
+      const bool in = m < M;
+      a[ks][q] = pack_bf16(in && k < K ? C[(long)k * M + m] : 0.f,
+                           in && k + 1 < K ? C[(long)(k + 1) * M + m] : 0.f);
     }
-    for (int i = tid; i < BK16 * BN / 4; i += NT) {
-      const int kk = i / (BN / 4), c4 = i % (BN / 4), k = k0 + kk;
+  // the block's tiles: blockIdx.x, + gridDim.x, ... of the G x ntn (slice,
+  // N tile) pairs, each as nkc items (K chunks) in order
+  const int ntn = (int)((N + bn - 1) / bn), tiles = G * ntn;
+  const int nkc = (K + kc - 1) / kc, bx = blockIdx.x, nb = gridDim.x;
+  const int items = bx < tiles ? ((tiles - 1 - bx) / nb + 1) * nkc : 0;
+  const int step_g = nb / ntn, step_n = nb % ntn;
+  auto advance = [&](Cursor& c) {
+    if (++c.ch == nkc) {
+      c.ch = 0;
+      c.g += step_g;
+      c.nt += step_n;
+      if (c.nt >= ntn) {
+        c.nt -= ntn;
+        ++c.g;
+      }
+    }
+  };
+  Cursor ci = {bx / ntn, bx % ntn, 0};    // the item issued next
+  Cursor cm = ci;                         // the item multiplied next
+  auto issue = [&](int item) {
+    if (item < items) {
+      const int k0 = ci.ch * kc, kl = min(kc, K - k0);
+      const long n0 = (long)ci.nt * bn;
+      const float* src = Z + ((long)ci.g * K + k0) * N + n0;
+      float* dst = sm + (item & (stages - 1)) * stage;
+      for (int q = tid; q < (kl << lq); q += NT) {
+        const int row = q >> lq, c4 = q & ((1 << lq) - 1);
+        const bool in = n0 + 4 * c4 < N;  // the last tile may be half
+        cp_async16(dst + row * bn + 4 * c4,
+                   in ? src + (long)row * N + 4 * c4 : Z, in);
+      }
+      advance(ci);
+    }
+    cp_async_commit();
+  };
+  // item's landed stage rounded to bf16 once (nearest even) into its
+  // piece, zero past the chunk's kl rows up to a whole k16 step
+  auto round_piece = [&](int item, int ch) {
+    const int kl = min(kc, K - ch * kc), rows = (kl + 15) & ~15;
+    const float* zs = sm + (item & (stages - 1)) * stage;
+    __nv_bfloat16* zd = zb + (item % BF_PIECES) * piece;
+    for (int q = tid; q < (rows << lq); q += NT) {
+      const int row = q >> lq, c4 = q & ((1 << lq) - 1);
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k < K)
-        v = *reinterpret_cast<const float4*>(Zg + (long)k * N + n0 + 4 * c4);
-      *reinterpret_cast<float4*>(&z_s[kk][4 * c4]) = v;
+      if (row < kl)
+        v = *reinterpret_cast<const float4*>(zs + row * bn + 4 * c4);
+      *reinterpret_cast<uint2*>(zd + row * zp + 4 * c4) =
+          make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
     }
-    __syncthreads();
-    // A = C^T (m rows, k columns): rows gid / gid + 8, columns 2 tig (+1)
-    // and 2 tig + 8 (+1); B = Z (k rows, n columns): rows 2 tig (+1) and
-    // 2 tig + 8 (+1), column gid
-    uint32_t a[2][4], b[2][2];
+  };
+  const bool deep = stages == BF_DEEP;
+  for (int s = 0; s < stages - 1; ++s) issue(s);
+  if (deep)                               // item 0 has landed
+    cp_async_wait<BF_DEEP - 2>();
+  else
+    cp_async_wait<BF_STAGES - 2>();
+  __syncthreads();
+  if (items > 0) round_piece(0, 0);
+  float acc[NT8][4];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const int m = 16 * mt + gid;
-      a[mt][0] = pack_bf16(c_s[2 * tig][m], c_s[2 * tig + 1][m]);
-      a[mt][1] = pack_bf16(c_s[2 * tig][m + 8], c_s[2 * tig + 1][m + 8]);
-      a[mt][2] = pack_bf16(c_s[2 * tig + 8][m], c_s[2 * tig + 9][m]);
-      a[mt][3] = pack_bf16(c_s[2 * tig + 8][m + 8], c_s[2 * tig + 9][m + 8]);
-    }
+  for (int j = 0; j < NT8; ++j)
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      const int n = 16 * warp + 8 * nt + gid;
-      b[nt][0] = pack_bf16(z_s[2 * tig][n], z_s[2 * tig + 1][n]);
-      b[nt][1] = pack_bf16(z_s[2 * tig + 8][n], z_s[2 * tig + 9][n]);
-    }
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  // this lane's row address of each ldmatrix: matrices (k 0-7, n 0-7),
+  // (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15) of a column pair
+  const int mat = lane >> 3;
+  const int lrow = ((mat & 1) * 8 + (lane & 7)) * zp + c0 + (mat >> 1) * 8;
+  // piece it's offset, flipped an item at a time: `(it % BF_PIECES) *
+  // piece` here cost the (8, 8) instance a spill (ptxas, 128 registers)
+  int poff = 0;
+  for (int it = 0; it < items; ++it) {
+    if (deep)                             // item it + 1 has landed
+      cp_async_wait<BF_DEEP - 3>();
+    else
+      cp_async_wait<BF_STAGES - 3>();
+    __syncthreads();                      // ... for all; piece it is rounded,
+                                          // stage it - 1 and piece it - 1 free
+    issue(it + stages - 1);               // into item it - 1's stage
+    const int ch = cm.ch, nks = (min(kc, K - ch * kc) + 15) / 16;
+    const int ks0 = ch * kc / 16;
+    if (it + 1 < items) round_piece(it + 1, ch + 1 == nkc ? 0 : ch + 1);
+    const __nv_bfloat16* zl = zb + poff + lrow;
+    poff = piece - poff;
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int ks = 0; ks < KS; ++ks) {
+      if (ks >= ks0 && ks < ks0 + nks) {
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        float* d = acc[mt][nt];
-        asm volatile(
-            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-            "{%0, %1, %2, %3};\n"
-            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-            : "r"(a[mt][0]), "r"(a[mt][1]), "r"(a[mt][2]), "r"(a[mt][3]),
-              "r"(b[nt][0]), "r"(b[nt][1]));
+        for (int p = 0; p < NT8 / 2; ++p) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, zl + (ks - ks0) * 16 * zp + 16 * p);
+          mma_bf16(acc[2 * p], a[ks], b[0], b[1]);
+          mma_bf16(acc[2 * p + 1], a[ks], b[2], b[3]);
+        }
       }
-    __syncthreads();
+    }
+    if (ch == nkc - 1) {
+      // the tile's sums: 8 rows x SW columns at a time through the warp's
+      // staging tile, out as rows of SW floats (SW / 4 lanes a row, whole
+      // 128-byte lines), streaming stores (written once, never read here)
+      constexpr int LR = SW / 4, RI = 32 / LR;   // lanes a row, rows a store
+      const long n0 = (long)cm.nt * bn + c0;
+      if (n0 < N) {                       // a warp's columns are all in or out
+        float* o = out + (long)cm.g * M * N + n0 + 4 * (lane % LR);
+#pragma unroll
+        for (int s = 0; s < WN / SW; ++s)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+#pragma unroll
+            for (int j = 0; j < SW / 8; ++j)
+              *reinterpret_cast<float2*>(ost + gid * OSP + 8 * j + 2 * tig) =
+                  make_float2(acc[SW / 8 * s + j][2 * h],
+                              acc[SW / 8 * s + j][2 * h + 1]);
+            __syncwarp();
+#pragma unroll
+            for (int i = 0; i < 8 / RI; ++i) {
+              const int r = RI * i + lane / LR, m = m0 + 8 * h + r;
+              const float4 v = *reinterpret_cast<const float4*>(
+                  ost + r * OSP + 4 * (lane % LR));
+              if (m < M)
+                __stcs(reinterpret_cast<float4*>(o + (long)m * N + SW * s), v);
+            }
+            __syncwarp();
+          }
+      }
+#pragma unroll
+      for (int j = 0; j < NT8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    }
+    advance(cm);
   }
-  // D: rows gid (fragments 0, 1) and gid + 8 (2, 3), columns 2 tig (+1)
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + 16 * mt + gid + 8 * h;
-        const long n = n0 + 16 * warp + 8 * nt + 2 * tig;
-        if (m < M)
-          *reinterpret_cast<float2*>(out + ((long)blockIdx.z * M + m) * N + n) =
-              make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-      }
 }
 
 constexpr int MAX_DEVICES = 64;
@@ -407,6 +558,52 @@ cudaError_t launch_stream(int slot, const float* C, const float* Z, int G,
   if (err != cudaSuccess) return err;
   dot_fp32_stream_kernel<TM, CW><<<grid, NT, smem, stream>>>(
       C, Z, G, K, M, N, bn, kc, out);
+  return cudaGetLastError();
+}
+
+// the bf16 kernel's launch as its own arithmetic gives it (mirrored by
+// tools/bench_dot.py::plan): ks k16 steps (1, 2, 3, 4 or 8), strips of
+// M16 (1, 2, 4 or 8 a block), nt8 n8 sums a warp, wn warps across N, bn
+// columns a tile, kc rows of K a stage, the ring's stages, dynamic shared
+// bytes
+struct Bf16Plan {
+  int ks, nt8, wn, bn, kc, stages, smem;
+};
+
+bool bf16_plan(int K, int M, Bf16Plan* p) {
+  if (K < 1 || K > 128 || M < 1) return false;
+  const int kt = (K + 15) / 16;
+  p->ks = kt <= 4 ? kt : 8;
+  int strips = 1;
+  while (strips * 16 < (M < BF_MT ? M : BF_MT)) strips *= 2;
+  p->nt8 = strips == 1 ? 4 : 8;
+  p->wn = NW / strips;
+  p->bn = p->wn * 8 * p->nt8;
+  p->kc = (int)sizeof(float) * K * p->bn <= BF_STAGE_BYTES
+              ? K
+              : BF_STAGE_BYTES / ((int)sizeof(float) * p->bn) / 16 * 16;
+  const int kcp = (p->kc + 15) / 16 * 16;
+  const int sw = 8 * p->nt8 < SWMAX ? 8 * p->nt8 : SWMAX;
+  const bool deep = (K + p->kc - 1) / p->kc <= 2 && p->ks <= 4;
+  p->stages = deep ? BF_DEEP : BF_STAGES;
+  p->smem = (int)sizeof(float) *
+                (p->stages * p->kc * p->bn + NW * 8 * (sw + 8)) +
+            (int)sizeof(__nv_bfloat16) * BF_PIECES * kcp * (p->bn + 8);
+  return true;
+}
+
+constexpr int N_BF16 = 10;       // the bf16 kernel's instances
+size_t reserved_bf16[N_BF16][MAX_DEVICES];
+
+template <int KS, int NT8>
+cudaError_t launch_bf16(int slot, const float* C, const float* Z, int G,
+                        int K, int M, long N, const Bf16Plan& p, dim3 grid,
+                        float* out, cudaStream_t stream) {
+  const cudaError_t err = reserve_smem(dot_bf16_kernel<KS, NT8>, p.smem,
+                                       reserved_bf16[slot]);
+  if (err != cudaSuccess) return err;
+  dot_bf16_kernel<KS, NT8><<<grid, NT, p.smem, stream>>>(
+      C, Z, G, K, M, N, p.wn, p.kc, p.stages, out);
   return cudaGetLastError();
 }
 
@@ -449,11 +646,31 @@ extern "C" int dot_fp32(const float* C, const float* Z, int G, int K, int M,
   return (int)cudaErrorInvalidValue;
 }
 
+// C (K, M), Z (G, K, N) -> out (G, M, N) with C and Z rounded to bf16;
+// N a multiple of 128, K <= 128, G <= 65535. The launch is
+// tools/bench_dot.py::plan(..., dtype='bf16')'s: k16 steps (ks), n8 sums a
+// warp (nt8), warps across N (wn), columns a tile (bn), rows of K a stage
+// (kc), blocks across the tiles (grid; one row of them per 128 rows of M)
+// and dynamic shared bytes. Numbers that do not match the kernel's own
+// arithmetic (bf16_plan) are refused.
 extern "C" int dot_bf16(const float* C, const float* Z, int G, int K, int M,
-                        long N, float* out, void* stream) {
-  if (N % BN || G < 1 || G > 65535 || K < 1 || M < 1)
+                        long N, int ks, int nt8, int wn, int bn, int kc,
+                        long grid, int smem, float* out, void* stream) {
+  Bf16Plan p;
+  if (N % BN || G < 1 || G > 65535 || !bf16_plan(K, M, &p) || ks != p.ks ||
+      nt8 != p.nt8 || wn != p.wn || bn != p.bn || kc != p.kc ||
+      smem != p.smem || grid < 1 || grid > G * ((N + bn - 1) / bn) ||
+      G * ((N + bn - 1) / bn) * ((K + kc - 1) / kc) > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((M + BM - 1) / BM, (unsigned)(N / BN), G);
-  dot_bf16_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(C, Z, K, M, N, out);
-  return (int)cudaGetLastError();
+  const dim3 g2((unsigned)grid, (M + BF_MT - 1) / BF_MT);
+  const cudaStream_t s = (cudaStream_t)stream;
+#define BF16(slot, S, W)                                                    \
+  case S * 100 + W:                                                        \
+    return (int)launch_bf16<S, W>(slot, C, Z, G, K, M, N, p, g2, out, s);
+  switch (ks * 100 + nt8) {
+    BF16(0, 1, 4) BF16(1, 2, 4) BF16(2, 3, 4) BF16(3, 4, 4) BF16(4, 8, 4)
+    BF16(5, 1, 8) BF16(6, 2, 8) BF16(7, 3, 8) BF16(8, 4, 8) BF16(9, 8, 8)
+  }
+#undef BF16
+  return (int)cudaErrorInvalidValue;
 }

@@ -12,8 +12,10 @@ weighted message block in the feature-major layout of the JAX tool (rows
 
   st     the current formulation: per-instruction CT tables (St = CT^T sh),
          per-p products with x and sums over m, x the radial weight
-  outer  Z = x (x) sh, (d1 f, mul E), built in shared memory; ONE dense CG
-         product C (d3tot, d1 f) @ Z; x the radial weight
+  outer  Z = x (x) sh, (d1 f, mul E), built in registers; ONE dense CG
+         product C (d3tot, d1 f) @ Z; x the radial weight; a kernel per
+         class (``OUTER_SHAPES``, the classes of ``DOTS_SHAPES``), launched
+         as ``outer_plan`` says
   dots   the product alone (Z at no build cost), with the JAX write pattern;
          a kernel per class (``DOTS_SHAPES``: i1 = 0, 1, 2), launched as
          ``dots_plan`` says
@@ -47,7 +49,10 @@ MODES = ('st', 'outer', 'dots')
 COUNTER = {m: f'bench_cgmxu_{m}' for m in MODES}
 # the classes (d1 f, d3tot) the dots kernel is compiled for: i1 = 0, 1, 2
 DOTS_SHAPES = ((9, 9), (27, 20), (45, 22))
-# dots: threads a block, edges a thread (one float4), edges a block
+# the same classes as (d1, f, d3tot): those the outer kernel is compiled for
+OUTER_SHAPES = ((1, 9, 9), (3, 9, 20), (5, 9, 22))
+# dots and outer: threads a block, edges a thread (one float4), edges a
+# block
 DOTS_THREADS, DOTS_EDGES, DOTS_BLOCK_EDGES = 256, 4, 128
 
 
@@ -227,8 +232,14 @@ def oracle(cls: CgClass, xT, shT, wT, B: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------
-# the dots kernel's launch plan
+# the dots and outer kernels' launch plans
 # ---------------------------------------------------------------------
+
+def _check_edges(cls: CgClass, E: int, mode: str):
+    if E < 1 or E % 32 or cls.mul % 8 or cls.d3tot > cls.mul:
+        raise ValueError(f'bench_cgmxu {mode} takes E % 32 == 0, mul % 8 == 0 '
+                         'and d3tot <= mul')
+
 
 def dots_plan(cls: CgClass, E: int) -> Dict:
     """The dots kernel's launch: a template instance per class (K = d1 f,
@@ -240,9 +251,7 @@ def dots_plan(cls: CgClass, E: int) -> Dict:
         raise ValueError(f'bench_cgmxu dots: no kernel for the class (K, '
                          f'd3tot) = ({K}, {cls.d3tot}); compiled for '
                          f'{DOTS_SHAPES}')
-    if E < 1 or E % 32 or cls.mul % 8 or cls.d3tot > cls.mul:
-        raise ValueError('bench_cgmxu dots takes E % 32 == 0, mul % 8 == 0 '
-                         'and d3tot <= mul')
+    _check_edges(cls, E, 'dots')
     warps = DOTS_THREADS // 32
     return {'K': K, 'd3tot': cls.d3tot, 'threads': DOTS_THREADS,
             'edges_per_thread': DOTS_EDGES,
@@ -250,22 +259,54 @@ def dots_plan(cls: CgClass, E: int) -> Dict:
             'channels_per_block': warps}
 
 
-def dots_columns(cls: CgClass, E: int) -> np.ndarray:
-    """The (u, b) columns each dots thread owns, as the kernel indexes
-    them: (n, 2) for every live (block, thread, edge); the first slots of a
-    block take u = 4 blockIdx.y + slot, the others mul - 1 - that."""
-    plan = dots_plan(cls, E)
+def outer_plan(cls: CgClass, E: int) -> Dict:
+    """The outer kernel's launch: a template instance per class (d1, f,
+    d3tot), the dots kernel's threads and grid (4 consecutive edges of one
+    channel a thread, u = 8 blockIdx.y + warp). Raises on a class the kernel
+    is not compiled for and on E % 32 or mul % 8."""
+    if (cls.d1, cls.f, cls.d3tot) not in OUTER_SHAPES:
+        raise ValueError(f'bench_cgmxu outer: no kernel for the class (d1, '
+                         f'f, d3tot) = ({cls.d1}, {cls.f}, {cls.d3tot}); '
+                         f'compiled for {OUTER_SHAPES}')
+    _check_edges(cls, E, 'outer')
+    warps = DOTS_THREADS // 32
+    return {'K': cls.d1 * cls.f, 'd1': cls.d1, 'f': cls.f,
+            'd3tot': cls.d3tot, 'threads': DOTS_THREADS,
+            'edges_per_thread': DOTS_EDGES,
+            'grid': (-(-E // DOTS_BLOCK_EDGES), cls.mul // warps),
+            'channels_per_block': warps}
+
+
+def _columns(E: int, plan: Dict, u_of) -> np.ndarray:
+    """(u, b) of every live (block, thread, edge) of a dots-layout launch,
+    u = u_of(blockIdx.y, warp)."""
     gx, gy = plan['grid']
-    half = plan['channels_per_block'] // 2
     bx, by, tid, c = np.meshgrid(np.arange(gx), np.arange(gy),
                                  np.arange(DOTS_THREADS),
                                  np.arange(DOTS_EDGES), indexing='ij')
     lane, slot = tid % 32, tid // 32
     b = bx * DOTS_BLOCK_EDGES + DOTS_EDGES * lane
-    u = np.where(slot < half, half * by + slot,
-                 cls.mul - 1 - (half * by + slot - half))
+    u = u_of(by, slot)
     live = b < E            # a thread's four edges are all in or all out
     return np.stack([u[live], (b + c)[live]], axis=1)
+
+
+def dots_columns(cls: CgClass, E: int) -> np.ndarray:
+    """The (u, b) columns each dots thread owns, as the kernel indexes
+    them: (n, 2) for every live (block, thread, edge); the first slots of a
+    block take u = 4 blockIdx.y + slot, the others mul - 1 - that."""
+    plan = dots_plan(cls, E)
+    half = plan['channels_per_block'] // 2
+    return _columns(E, plan, lambda by, slot: np.where(
+        slot < half, half * by + slot, cls.mul - 1 - (half * by + slot - half)))
+
+
+def outer_columns(cls: CgClass, E: int) -> np.ndarray:
+    """The (u, b) columns each outer thread owns, as the kernel indexes
+    them: u = 8 blockIdx.y + slot."""
+    plan = outer_plan(cls, E)
+    return _columns(E, plan, lambda by, slot:
+                    plan['channels_per_block'] * by + slot)
 
 
 # ---------------------------------------------------------------------
@@ -310,6 +351,7 @@ def kernel(cls: CgClass, mode: str, xT, shT, wT) -> Tensor:
         err = lib.cgmxu_st(P(xT), P(shT), P(wT), P(recs), P(tab), tab.numel(),
                            *dims, P(out), stream)
     elif mode == 'outer':
+        outer_plan(cls, E)
         err = lib.cgmxu_outer(P(xT), P(shT), P(wT), P(row_ins), P(C), *dims,
                               P(out), stream)
     elif mode == 'dots':
@@ -392,11 +434,11 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not require_card('bench_cgmxu'):
         return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(card(), flush=True)
     i1 = int(argv[0]) if len(argv) > 0 else 1
     E = int(argv[1]) if len(argv) > 1 else 32768
     B = int(argv[2]) if len(argv) > 2 else 256
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(card(), flush=True)
     run(i1, E, B)
     return 0
 

@@ -11,8 +11,13 @@ accumulation). ``fp32`` is one of two kernels that ``plan`` picks per
 shape: ``stream`` for the shapes bound by bytes (a block holds all of M for
 its N tile, so Z is read once, and streams Z through a cp.async ring) and
 ``tile`` for those bound by operations (a register-blocked 128 x 128
-SGEMM). Prints per shape and type the microseconds per dot (one
-launch over G) and the rate in Tmac/s, as the JAX tool does, and beside them
+SGEMM). ``bf16`` is bound by bytes on every shape; ``plan(..., dtype=
+'bf16')`` gives its launch: a persistent grid over the N tiles of all of M
+(at most 128 rows a block, so Z is read once), C^T rounded once and kept
+in registers as A fragments, Z streamed through a 4- or 8-stage cp.async
+ring and rounded once per landed piece, sums stored as full lines. Prints
+per shape and type the microseconds per dot (one launch over G) and the
+rate in Tmac/s, as the JAX tool does, and beside them
 cuBLAS's time for the same function (``torch.bmm`` in fp32) and for the
 same product on inputs already in bf16. Times are CUDA events. The inputs
 come from a seeded ``torch.Generator`` on the card. Needs a card: without
@@ -77,7 +82,7 @@ def library(C, Z) -> Tensor:
 
 
 # ---------------------------------------------------------------------
-# the fp32 kernels' launch plan
+# the kernels' launch plans
 # ---------------------------------------------------------------------
 
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
@@ -98,6 +103,20 @@ TILE_BM, TILE_BN, TILE_BK, TILE_STAGES = 128, 128, 8, 4
 # 8 columns a thread where the FFMAs take at least this share of the time
 # the bytes take (fewer shared loads per FFMA; (64, 64) alone of the ten)
 CW8_FROM = 0.5
+# bf16: the kernel's instances by k16 steps (C^T held in registers, so K <=
+# 128), its ring's stages (a tile of at most BF16_DEEP_ITEMS K chunks and
+# K <= 64 runs one block an SM on the deep ring, any other two blocks on
+# the short ring),
+# the landed pieces in bf16 (one barrier an item), the most bytes of Z one
+# stage holds, the rows of M a block holds, the most columns a warp stages
+# at a time (its staging rows are 8 floats wider)
+BF16_KS = (1, 2, 3, 4, 8)
+BF16_STAGES, BF16_DEEP, BF16_DEEP_ITEMS = 4, 8, 2
+BF16_PIECES = 2
+BF16_STAGE_BYTES = 16 * 1024
+BF16_MT = 128
+BF16_SW = 64
+WARPS = THREADS // 32
 
 
 def tm_pad(tm: int) -> int:
@@ -147,22 +166,72 @@ def _tile_plan(K: int, M: int, N: int, g: int):
             'smem': 4 * TILE_STAGES * TILE_BK * (TILE_BM + TILE_BN)}
 
 
+def _bf16_plan(K: int, M: int, N: int, g: int, n_sm: int):
+    """The bf16 kernel's launch (``csrc/bench_dot.cu::bf16_plan``)."""
+    if K > 16 * BF16_KS[-1]:
+        raise ValueError(f'bench_dot bf16 holds C^T in registers: K <= '
+                         f'{16 * BF16_KS[-1]}, got {K}')
+    ks = next(k for k in BF16_KS if 16 * k >= K)
+    strips = 1
+    while strips * 16 < min(M, BF16_MT):
+        strips *= 2
+    nt8 = 4 if strips == 1 else 8
+    wn = WARPS // strips
+    bn = wn * 8 * nt8
+    kc = K if 4 * K * bn <= BF16_STAGE_BYTES else \
+        BF16_STAGE_BYTES // (4 * bn) // 16 * 16
+    kcp = -(-kc // 16) * 16
+    nkc = -(-K // kc)
+    deep = nkc <= BF16_DEEP_ITEMS and ks <= 4
+    stages = BF16_DEEP if deep else BF16_STAGES
+    sw = min(8 * nt8, BF16_SW)
+    smem = 4 * (stages * kc * bn + WARPS * 8 * (sw + 8)) + \
+        2 * BF16_PIECES * kcp * (bn + 8)
+    per_sm = 1 if deep else min(2, SMEM_SM // (smem + SMEM_RESERVED))
+    ntiles = g * -(-N // bn)              # (slice, N tile) of one M block
+    mtiles = -(-M // BF16_MT)
+    return {'cls': 'bf16', 'ks': ks, 'nt8': nt8, 'strips': strips,
+            'wn': wn, 'mp': 16 * strips, 'mtiles': mtiles, 'bn': bn, 'sw': sw,
+            'kc': kc, 'kcp': kcp, 'nkc': nkc, 'stages': stages,
+            'tiles': ntiles * mtiles,
+            'grid': (min(ntiles, n_sm * per_sm), mtiles, 1),
+            'threads': THREADS, 'smem': smem}
+
+
 @functools.lru_cache(maxsize=None)
-def plan(K: int, M: int, N: int, g: int = G, n_sm: int = N_SM) -> Dict:
-    """The fp32 kernel and its launch for C (K, M), Z (g, K, N): 'stream'
-    where the shape is bound by bytes (``cost``) and all of M fits one
-    block (at most 16 rows a thread), else 'tile'. Returns the class, the
-    tile (rows ``tm`` and columns ``cw`` a thread, thread groups across M
-    ``tmg``, padded M ``mp``, N tile ``bn``, K step ``kc`` and steps
-    ``nkc``), the ring's stages, the output tiles, the grid (stream:
-    persistent blocks, two an SM; tile: one block a tile), the threads and
-    the dynamic shared bytes a block. Raises on N % 128, g outside
-    1..65535, K or M < 1."""
+def plan(K: int, M: int, N: int, g: int = G, n_sm: int = N_SM,
+         dtype: str = 'fp32') -> Dict:
+    """The kernel and its launch for C (K, M), Z (g, K, N).
+
+    fp32: 'stream' where the shape is bound by bytes (``cost``) and all of
+    M fits one block (at most 16 rows a thread), else 'tile'. Returns the
+    class, the tile (rows ``tm`` and columns ``cw`` a thread, thread
+    groups across M ``tmg``, padded M ``mp``, N tile ``bn``, K step ``kc``
+    and steps ``nkc``), the ring's stages, the output tiles, the grid
+    (stream: persistent blocks, two an SM; tile: one block a tile), the
+    threads and the dynamic shared bytes a block.
+
+    bf16 (class 'bf16'): the k16 steps ``ks`` (C^T's A fragments a thread
+    holds), the M16 ``strips`` of a 128-row block of M (``mp`` rows) and
+    its ``mtiles`` blocks, the n8 sums a warp ``nt8``, the warps across N
+    ``wn``, the N tile ``bn``, the K rows a stage ``kc`` (``kcp`` rounded up
+    to 16) and chunks ``nkc``, the ring's stages (8 and one block an SM for
+    a tile of at most two chunks and K <= 64, else 4 and two blocks), the
+    tiles ((slice, N tile) for each block of M), the grid (persistent
+    blocks across the tiles, times ``mtiles``), the threads and the
+    dynamic shared bytes.
+
+    Raises on N % 128, g outside 1..65535, K or M < 1, an unknown dtype,
+    and for bf16 on K > 128."""
     if N < 128 or N % 128:
         raise ValueError(f'N = {N} is not a multiple of 128')
     if not 1 <= g <= 65535 or K < 1 or M < 1:
         raise ValueError(f'bench_dot: want 1 <= G <= 65535, K, M >= 1; got '
                          f'G = {g}, K = {K}, M = {M}')
+    if dtype == 'bf16':
+        return _bf16_plan(K, M, N, g, n_sm)
+    if dtype != 'fp32':
+        raise ValueError(dtype)
     flops, nbytes, peak = cost(K, M, N, 'fp32', g)
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     if t_bytes >= t_ops:
@@ -187,12 +256,39 @@ def stream_c(p: Dict, C) -> Tensor:
 def walk(p: Dict, C, Z) -> Tensor:
     """The planned launch replayed on the CPU, block by block with the
     plan's tiles, offsets and padding (the kernels' sums in their order of
-    k, as products of the staged pieces); raises if a tile is visited
-    twice or never."""
+    k, as products of the staged pieces; bf16: of the pieces rounded to
+    bf16); raises if a tile is visited twice or never."""
     g, K, N = Z.shape
     M = C.shape[1]
     out = torch.full((g, M, N), float('nan'), dtype=C.dtype)
     seen = torch.zeros(p['tiles'], dtype=torch.int64)
+    if p['cls'] == 'bf16':
+        bn, kc, P = p['bn'], p['kc'], p['grid'][0]
+        ntn = -(-N // bn)
+        for my in range(p['mtiles']):
+            m0 = my * BF16_MT
+            rows = min(BF16_MT, M - m0)
+            # A: C^T of the block's rows, rounded, zero past M and past K
+            a = C.new_zeros(16 * p['ks'], p['mp'])
+            a[:K, :rows] = C[:, m0:m0 + rows].bfloat16().float()
+            for b in range(P):
+                for t in range(b, ntn * g, P):
+                    seen[my * ntn * g + t] += 1
+                    gi, n0 = t // ntn, (t % ntn) * bn
+                    acc = C.new_zeros(p['mp'], bn)
+                    for ch in range(p['nkc']):
+                        k0 = ch * kc
+                        kl = min(kc, K - k0)
+                        kp = -(-kl // 16) * 16
+                        # the landed piece, zero past kl and past N
+                        piece = Z.new_zeros(kp, bn)
+                        cols = min(bn, N - n0)
+                        piece[:kl, :cols] = Z[gi, k0:k0 + kl, n0:n0 + cols]
+                        acc += a[k0:k0 + kp].t() @ piece.bfloat16().float()
+                    cols = min(bn, N - n0)
+                    out[gi, m0:m0 + rows, n0:n0 + cols] = acc[:rows, :cols]
+        assert bool((seen == 1).all()), 'a tile is walked twice or never'
+        return out
     if p['cls'] == 'stream':
         bn, kc, P = p['bn'], p['kc'], p['grid'][0]
         c_s = stream_c(p, C)[:, :, :p['tm']].reshape(K, p['mp'])
@@ -240,7 +336,8 @@ def _lib():
     lib = cuda_build.load('bench_dot')
     lib.dot_fp32.argtypes = [_P, _P, _I, _I, _I, _L] + [_I] * 5 + [_L, _I,
                                                                   _P, _P]
-    lib.dot_bf16.argtypes = [_P, _P, _I, _I, _I, _L, _P, _P]
+    lib.dot_bf16.argtypes = [_P, _P, _I, _I, _I, _L] + [_I] * 5 + [_L, _I,
+                                                                  _P, _P]
     for fn in (lib.dot_fp32, lib.dot_bf16):
         fn.restype = _I
     return lib
@@ -253,7 +350,7 @@ def _n_sm(index: int) -> int:
 
 def kernel(dtype: str, C, Z) -> Tensor:
     """Launch the dtype's kernel of csrc/bench_dot.cu (CUDA tensors only;
-    N a multiple of 128)."""
+    N a multiple of 128; bf16: K <= 128)."""
     if C.dim() != 2 or Z.dim() != 3 or Z.shape[1] != C.shape[0]:
         raise ValueError(f'C {tuple(C.shape)}, Z {tuple(Z.shape)}: want '
                          '(K, M) and (G, K, N)')
@@ -273,13 +370,14 @@ def kernel(dtype: str, C, Z) -> Tensor:
             g, K, M, N)
     tail = (ctypes.c_void_p(out.data_ptr()),
             ctypes.c_void_p(torch.cuda.current_stream(C.device).cuda_stream))
+    p = plan(K, M, N, g, _n_sm(C.device.index or 0), dtype)
     if dtype == 'fp32':
-        p = plan(K, M, N, g, _n_sm(C.device.index or 0))
         err = _lib().dot_fp32(*ptrs, CLS_ID[p['cls']], p['tm'], p['cw'],
                               p['bn'], p['kc'], math.prod(p['grid']),
                               p['smem'], *tail)
     else:
-        err = _lib().dot_bf16(*ptrs, *tail)
+        err = _lib().dot_bf16(*ptrs, p['ks'], p['nt8'], p['wn'], p['bn'],
+                              p['kc'], p['grid'][0], p['smem'], *tail)
     cuda_build.check(err, COUNTER[dtype])
     cuda_build.launch_counts[COUNTER[dtype]] += 1
     return out
@@ -336,6 +434,7 @@ def run(reps: int = 20, check: Optional[Callable] = None) -> Dict:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not require_card('bench_dot'):
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -1,10 +1,10 @@
-"""Same-call A/B of the redesigned conv kernels against an earlier build:
-with ``--terms`` the ``terms`` backward (``fused_conv_terms_bwd``, both
-forms), with ``--extw`` the external-weight backward
-(``fused_conv_extw_bwd``), with ``--terms-fwd`` / ``--extw-fwd`` the two
-forwards (``fused_conv_terms_fwd``, both forms; ``fused_conv_extw_fwd``).
+"""Same-call A/B of the redesigned kernels against an earlier build: with
+``--terms`` the ``terms`` backward (``fused_conv_terms_bwd``, both forms),
+with ``--extw`` the external-weight backward (``fused_conv_extw_bwd``),
+with ``--terms-fwd`` / ``--extw-fwd`` the two forwards; with ``--dot-bf16``
+/ ``--outer`` the micro-benchmark kernels ``dot_bf16`` / ``cgmxu_outer``.
 
-    python -m sevennet_exp_tpu_torch.tools.bwd_ab OTHER_CSRC [STEPS] [OUT.json] --terms | --extw | --terms-fwd | --extw-fwd
+    python -m sevennet_exp_tpu_torch.tools.bwd_ab OTHER_CSRC [STEPS] [OUT.json] --terms | --extw | --terms-fwd | --extw-fwd | --dot-bf16 | --outer
 
 OTHER_CSRC is an earlier tree's ``csrc`` directory unpacked with ``git
 archive`` (its ``fused_conv_terms.cu``, or its ``fused_conv.cu`` with the
@@ -27,10 +27,17 @@ where the list below says backward, on the same inputs and paths:
     weights MLP(emb) * ms of the same rows), the five layers; the 1k
     ``half_mlp`` force call and 1k ``half_mlp`` NVT in ms/step.
 
-After the turns, each layer's outputs of the two builds are compared
-(relative to max|other|). Prints one line per turn and the means of each
-side; writes them to OUT.json when given. Needs a card (exits 2 without
-one).
+  - ``--dot-bf16``: OTHER_CSRC's ``bench_dot.cu``, whose ``dot_bf16`` took
+    no plan, on the ten ``bench_dot`` shapes; ``--outer``: its
+    ``bench_cgmxu.cu`` (the same ``cgmxu_outer`` entry) at i1 = 1 and 2,
+    E = 32,768. Each build's output is first held to the tool's plain
+    version (bf16: 1e-5 K max|plain|, phase 15's limit; outer: 1e-4
+    max|plain|), then both are timed in turns (CUDA events, 20 reps).
+
+After the turns of a conv kind, each layer's outputs of the two builds are
+compared (relative to max|other|). Prints one line per turn and the means
+of each side; writes them to OUT.json when given. Needs a card (exits 2
+without one).
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ from ..ops import cuda_build
 from ..ops import fused_conv as fc
 from ..ops import fused_conv_geom as fcg
 from ..ops import fused_conv_terms as fct
+from . import bench_cgmxu, bench_dot
 from .geom_ab import CHECKPOINT, D, dense_inputs, edge_inputs
 from .timing import card, cuda_ms, require_card
 
@@ -466,17 +474,98 @@ def run(other_csrc: str, kind: str, steps: int = 100):
     return res
 
 
+# the micro-benchmark kinds: a bench tool's kernel from OTHER_CSRC against
+# this tree's on the tool's own inputs (no model), and the source it is in
+MICRO = {'dot_bf16': 'bench_dot.cu', 'outer': 'bench_cgmxu.cu'}
+
+
+def micro_cases(kind: str, lib: ctypes.CDLL):
+    """(label, other, this, ref, lim) for each input of KIND on the card:
+    LIB's launch, this tree's, the plain version's output and the limit on
+    max|out - ref|."""
+    if kind == 'dot_bf16':
+        fn = lib.dot_bf16
+        fn.argtypes = [_P, _P, _I, _I, _I, _L, _P, _P]
+        fn.restype = _I
+        for K, M, N in bench_dot.SHAPES:
+            C, Z = bench_dot.make_inputs(K, M, N, 'cuda')
+
+            def other(C=C, Z=Z):
+                g, K, N = Z.shape
+                out = Z.new_empty((g, C.shape[1], N))
+                cuda_build.check(fn(_ptr(C), _ptr(Z), g, K, C.shape[1], N,
+                                    _ptr(out), _stream(C)), 'other dot_bf16')
+                return out
+            ref = bench_dot.plain('bf16', C, Z)
+            yield ((K, M, N), other,
+                   lambda C=C, Z=Z: bench_dot.forward('bf16', C, Z), ref,
+                   1e-5 * K * float(ref.abs().max()))
+        return
+    fn = lib.cgmxu_outer
+    fn.argtypes = [_P] * 5 + bench_cgmxu._CLS + [_P, _P]
+    fn.restype = _I
+    for i1 in (1, 2):
+        cls = bench_cgmxu.cg_class(i1)
+        ins = bench_cgmxu.make_inputs(cls, 32768, 'cuda')
+        _, _, row_ins, C = cls.device_tables(ins[0].device)
+
+        def other(cls=cls, ins=ins, row_ins=row_ins, C=C):
+            E = ins[0].shape[1]
+            out = ins[0].new_empty((cls.wide, E))
+            cuda_build.check(fn(*map(_ptr, (*ins, row_ins, C)), cls.mul,
+                                cls.d1, cls.f, len(cls.instrs), cls.d3tot, E,
+                                _ptr(out), _stream(out)), 'other outer')
+            return out
+        ref = bench_cgmxu.plain(cls, 'outer', *ins)
+        yield (f'i1={i1}', other,
+               lambda cls=cls, ins=ins: bench_cgmxu.forward(cls, 'outer',
+                                                            *ins),
+               ref, 1e-4 * float(ref.abs().max()))
+
+
+def run_micro(other_csrc: str, kind: str, reps: int = 20):
+    res = {'card': card(), 'other': os.path.abspath(other_csrc),
+           'kind': kind, 'cases': {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = build(os.path.join(other_csrc, MICRO[kind]),
+                    os.path.join(tmp, f'lib_other_{kind}.so'))
+        for label, other, this, ref, lim in micro_cases(kind, lib):
+            row = res['cases'][str(label)] = {'other': [], 'this': []}
+            for side, fn in (('other', other), ('this', this)):
+                err = float((fn() - ref).abs().max())
+                if not err <= lim:
+                    raise AssertionError(f'{kind} {label} {side}: |err| '
+                                         f'{err:.3e} > {lim:.3e}')
+                row[f'err_{side}'] = err
+            del ref
+            for side, fn in (('other', other), ('this', this),
+                             ('this', this), ('other', other)):
+                row[side].append(cuda_ms(fn, reps=reps))
+            print(f'{kind} {label}: other {row["other"][0]:.4f} / '
+                  f'{row["other"][1]:.4f} ms, this {row["this"][0]:.4f} / '
+                  f'{row["this"][1]:.4f} ms', flush=True)
+    for side in ('other', 'this'):
+        res[f'{side}_sum'] = sum(statistics.mean(r[side])
+                                 for r in res['cases'].values())
+        print(f'{kind} summed, {side}: {res[f"{side}_sum"]:.4f} ms',
+              flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    kinds = [k for k in KINDS if f'--{k.replace("_", "-")}' in argv]
+    kinds = [k for k in (*KINDS, *MICRO)
+             if f'--{k.replace("_", "-")}' in argv]
     pos = [a for a in argv if not a.startswith('--')]
     if len(kinds) != 1 or not pos:
-        print(__doc__.strip().splitlines()[5].strip(), file=sys.stderr)
+        print(next(ln.strip() for ln in __doc__.splitlines()
+                   if 'python -m' in ln), file=sys.stderr)
         return 2
     if not require_card('bwd_ab'):
         return 2
     steps = int(pos[1]) if len(pos) > 1 and pos[1].isdigit() else 100
-    res = run(pos[0], kinds[0], steps)
+    res = (run_micro(pos[0], kinds[0]) if kinds[0] in MICRO else
+           run(pos[0], kinds[0], steps))
     out = [a for a in pos if a.endswith('.json')]
     if out:
         os.makedirs(os.path.dirname(os.path.abspath(out[0])), exist_ok=True)

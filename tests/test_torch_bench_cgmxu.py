@@ -168,38 +168,62 @@ def test_library_einsum_matches_jax_oracle(jax_mid_conv, i1):
                                atol=1e-5 * np.abs(ref).max())
 
 
+# the kernels planned in Python, by mode: their plan and their columns
+PLANS = {'dots': bench_cgmxu.dots_plan, 'outer': bench_cgmxu.outer_plan}
+COLUMNS = {'dots': bench_cgmxu.dots_columns,
+           'outer': bench_cgmxu.outer_columns}
+
+
 @pytest.fixture(scope='module')
 def classes():
     return {i1: bench_cgmxu.cg_class(i1) for i1 in (0, 1, 2)}
 
 
+@pytest.mark.parametrize('mode', ['dots', 'outer'])
 @pytest.mark.parametrize('E', [320, 32768])
 @pytest.mark.parametrize('i1', [0, 1, 2])
-def test_dots_plan_covers_every_column_once(classes, i1, E):
-    """The dots kernel's threads (4 edges of one channel each, 128 edges
-    a block, 8 channels a block with u = 0 and mul - 1 in block row 0) own
-    every (u, b) column exactly once, the ragged last block at E = 320
-    included."""
+def test_dots_plan_covers_every_column_once(classes, i1, E, mode):
+    """The threads of the dots and outer kernels (4 edges of one channel
+    each, 128 edges a block, 8 channels a block; dots with u = 0 and mul -
+    1 in block row 0, outer with u = 8 blockIdx.y + warp) own every (u, b)
+    column exactly once, the ragged last block at E = 320 included."""
     cls = classes[i1]
-    p = bench_cgmxu.dots_plan(cls, E)
+    p = PLANS[mode](cls, E)
     assert (p['K'], p['d3tot']) in bench_cgmxu.DOTS_SHAPES
+    if mode == 'outer':
+        assert (p['d1'], p['f'], p['d3tot']) in bench_cgmxu.OUTER_SHAPES
     assert p['grid'] == (-(-E // 128), cls.mul // 8)
-    cols = bench_cgmxu.dots_columns(cls, E)
+    cols = COLUMNS[mode](cls, E)
     flat = cols[:, 0].astype(np.int64) * E + cols[:, 1]
     assert len(flat) == cls.mul * E == len(np.unique(flat))
     assert cols[:, 0].min() == 0 and cols[:, 0].max() == cls.mul - 1
     assert cols[:, 1].min() == 0 and cols[:, 1].max() == E - 1
-    # block row 0 holds both channels whose sums make rows 0..d3tot-1
-    first = bench_cgmxu.dots_columns(cls, 128)
-    assert {0, cls.mul - 1} <= set(first[:len(first) // (cls.mul // 8),
-                                         0].tolist())
+    first = COLUMNS[mode](cls, 128)
+    row0 = set(first[:len(first) // (cls.mul // 8), 0].tolist())
+    if mode == 'dots':
+        # block row 0 holds both channels whose sums make rows 0..d3tot-1
+        assert {0, cls.mul - 1} <= row0
+    else:
+        # block row 0 holds channels 0..7, each thread 4 consecutive edges
+        assert row0 == set(range(8))
+        b = cols[:, 1].reshape(-1, 4)
+        assert (np.diff(b, axis=1) == 1).all() and (b[:, 0] % 4 == 0).all()
 
 
-def test_dots_plan_raises_off_its_classes(classes):
+@pytest.mark.parametrize('mode', ['dots', 'outer'])
+def test_dots_plan_raises_off_its_classes(classes, mode):
     import dataclasses
     cls = classes[1]
+    plan = PLANS[mode]
     other = dataclasses.replace(cls, d3s=cls.d3s[:-1], instrs=cls.instrs[:-1])
     with pytest.raises(ValueError, match='no kernel for the class'):
-        bench_cgmxu.dots_plan(other, 320)
+        plan(other, 320)
     with pytest.raises(ValueError):
-        bench_cgmxu.dots_plan(cls, 336 + 8)
+        plan(cls, 336 + 8)
+    if mode == 'outer':
+        # the class's (K, d3tot) alone does not pick an instance: (d1, f)
+        # must match too
+        wide = dataclasses.replace(cls, d1=9, f=3)
+        assert (wide.d1 * wide.f, wide.d3tot) in bench_cgmxu.DOTS_SHAPES
+        with pytest.raises(ValueError, match='no kernel for the class'):
+            plan(wide, 320)

@@ -68,8 +68,8 @@ def test_cost_counts_the_shape():
     assert bench_dot.cost(27, 20, 16384, 'bf16')[2] == 989e12
 
 
-# -- the fp32 launch plan (bench_dot.plan) --------------------------------
-# the kernels cannot run here; the plan, the staged C layout and a walk of
+# -- the launch plans (bench_dot.plan) -------------------------------------
+# the kernels cannot run here; the plans, the staged C layout and a walk of
 # the planned tiles can
 
 RAGGED = [(1, 1, 128), (33, 17, 384), (127, 129, 256), (128, 8, 128)]
@@ -87,62 +87,114 @@ def test_plan_class_follows_the_bound(shape):
                                       >= flops / peak)
 
 
-@pytest.mark.parametrize('shape', THIN)
-def test_stream_plan_reads_z_once(shape):
+@pytest.mark.parametrize('shape,dtype', [(s, 'fp32') for s in THIN]
+                         + [(s, 'bf16') for s in bench_dot.SHAPES])
+def test_stream_plan_reads_z_once(shape, dtype):
     """A stream block holds all of M for its N tile (one tile per (slice,
     N range), none per M range), pads M by less than a row per thread group
-    and K not at all."""
+    and K not at all. The bf16 kernel (every shape bound by bytes) holds
+    all of M too, in M16 strips, and cuts K only into whole k16 steps."""
     K, M, N = shape
-    p = bench_dot.plan(*shape)
+    p = bench_dot.plan(*shape, dtype=dtype)
+    assert p['kc'] * (p['nkc'] - 1) < K <= p['kc'] * p['nkc']
+    if dtype == 'bf16':
+        # persistent: one block an SM on the deep ring where a tile is one
+        # or two K chunks of K <= 64, else two on the short ring, walk the
+        # tiles
+        deep = p['nkc'] <= 2 and K <= 64
+        assert deep == (shape not in ((45, 22, 8192), (128, 128, 16384),
+                                      (128, 8, 16384)))
+        assert p['stages'] == (8 if deep else 4)
+        assert p['cls'] == 'bf16' and p['mtiles'] == 1
+        assert p['grid'] == ((1 if deep else 2) * bench_dot.N_SM, 1, 1)
+        assert p['tiles'] == bench_dot.G * N // p['bn'] and N % p['bn'] == 0
+        assert p['mp'] == 16 * p['strips'] >= M > p['mp'] // 2 or \
+            p['strips'] == 1
+        assert p['strips'] * p['wn'] == bench_dot.WARPS
+        assert p['bn'] == p['wn'] * 8 * p['nt8'] and p['nt8'] * 8 >= 32
+        assert 16 * p['ks'] >= K and p['ks'] in bench_dot.BF16_KS
+        assert p['nkc'] == 1 or p['kc'] % 16 == 0
+        assert 4 * p['kc'] * p['bn'] <= bench_dot.BF16_STAGE_BYTES
+        # C^T's A fragments and the sums fit a thread's registers
+        assert 4 * (p['ks'] + p['nt8']) <= 64
+        return
+    # persistent: two blocks an SM walk the tiles
+    assert p['grid'] == (2 * bench_dot.N_SM, 1, 1)
     assert p['tiles'] == bench_dot.G * N // p['bn'] and N % p['bn'] == 0
     assert p['mp'] == p['tm'] * p['tmg'] >= M and p['mp'] - M < p['tmg']
     assert p['tmg'] * p['bn'] // p['cw'] == p['threads'] == 256
-    assert p['kc'] * (p['nkc'] - 1) < K <= p['kc'] * p['nkc']
     assert 4 * p['kc'] * p['bn'] <= bench_dot.STAGE_BYTES
-    # persistent: two blocks an SM walk the tiles
-    assert p['grid'] == (2 * bench_dot.N_SM, 1, 1)
     assert p['tm'] in (bench_dot.STREAM_TMS_CW8 if p['cw'] == 8
                        else bench_dot.STREAM_TMS)
     # 8 columns a thread only where the FFMAs near the bytes' time
     assert (p['cw'] == 8) == (shape == (64, 64, 16384))
 
 
+@pytest.mark.parametrize('dtype', bench_dot.DTYPES)
 @pytest.mark.parametrize('shape', list(bench_dot.SHAPES) + RAGGED)
-def test_plan_shared_memory_fits(shape):
-    p = bench_dot.plan(*shape)
+def test_plan_shared_memory_fits(shape, dtype):
+    p = bench_dot.plan(*shape, dtype=dtype)
     assert 0 < p['smem'] <= bench_dot.SMEM_BLOCK
     if p['cls'] == 'stream':
         K = shape[0]
         c_len = -(-K * p['tmg'] * bench_dot.tm_pad(p['tm']) // 4) * 4
         assert p['smem'] == 4 * (c_len + p['stages'] * p['kc'] * p['bn'])
+    elif p['cls'] == 'bf16':
+        # the ring, the warps' staging tiles (8 rows of sw + 8 floats, sw
+        # the columns a warp stages at a time), two landed pieces in bf16
+        assert p['sw'] == min(8 * p['nt8'], 64)
+        assert p['smem'] == 4 * (p['stages'] * p['kc'] * p['bn']
+                                 + 8 * 8 * (p['sw'] + 8)) \
+            + 2 * 2 * p['kcp'] * (p['bn'] + 8)
+        assert p['kcp'] % 16 == 0 and p['kc'] <= p['kcp'] < p['kc'] + 16
+        # the short ring fits two blocks an SM
+        blocks = 1 if p['stages'] == 8 else 2
+        assert blocks * (p['smem'] + bench_dot.SMEM_RESERVED) <= \
+            bench_dot.SMEM_SM
     else:
         assert p['smem'] == 4 * bench_dot.TILE_STAGES * 8 * (128 + 128)
 
 
+@pytest.mark.parametrize('dtype', bench_dot.DTYPES)
 @pytest.mark.parametrize('bad', [(27, 20, 200), (27, 20, 64), (27, 20, 0),
                                  (0, 20, 128), (27, 0, 128)])
-def test_plan_raises(bad):
+def test_plan_raises(bad, dtype):
     with pytest.raises(ValueError):
-        bench_dot.plan(*bad)
+        bench_dot.plan(*bad, dtype=dtype)
     with pytest.raises(ValueError):
-        bench_dot.plan(27, 20, 128, 0)
+        bench_dot.plan(27, 20, 128, 0, dtype=dtype)
+    with pytest.raises(ValueError):
+        bench_dot.plan(27, 20, 128, dtype='fp16')
+    if dtype == 'bf16':
+        # C^T is held in registers: K <= 128
+        bench_dot.plan(128, 20, 128, dtype=dtype)
+        with pytest.raises(ValueError, match='K <= 128'):
+            bench_dot.plan(129, 20, 128, dtype=dtype)
 
 
+@pytest.mark.parametrize('dtype', bench_dot.DTYPES)
 @pytest.mark.parametrize('shape', RAGGED + [(45, 22, 256), (64, 64, 256)])
-def test_walk_of_the_plan_equals_plain(shape):
+def test_walk_of_the_plan_equals_plain(shape, dtype):
     """The planned tiles, replayed on the CPU with the plan's padding and
     offsets (every tile exactly once), give the plain product; a ragged
-    shape of each class and the stream's K chunks (128, 8) and (64, 64)."""
+    shape of each class and the stream's K chunks (128, 8) and (64, 64).
+    bf16: the replay rounds C and Z to bf16 as the kernel does, (127, 129)
+    takes two blocks of M, and the last N tile of (33, 17, 384) is half."""
     K, M, N = shape
     rng = np.random.default_rng(K * 7 + M)
     C = torch.tensor(rng.normal(size=(K, M)).astype(np.float32))
     Z = torch.tensor(rng.normal(size=(G, K, N)).astype(np.float32))
-    p = bench_dot.plan(K, M, N, G)
-    assert p['cls'] == ('tile' if shape == (127, 129, 256) else 'stream')
+    p = bench_dot.plan(K, M, N, G, dtype=dtype)
+    if dtype == 'bf16':
+        assert p['cls'] == 'bf16'
+        assert p['mtiles'] == (2 if shape == (127, 129, 256) else 1)
+    else:
+        assert p['cls'] == ('tile' if shape == (127, 129, 256) else 'stream')
     got = bench_dot.walk(p, C, Z)
-    ref = bench_dot.plain('fp32', C, Z)
-    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0,
-                               atol=1e-5 * K ** 0.5 * float(ref.abs().max()))
+    ref = bench_dot.plain(dtype, C, Z)
+    atol = (1e-5 * float(ref.abs().max()) if dtype == 'bf16' else
+            1e-5 * K ** 0.5 * float(ref.abs().max()))
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=atol)
 
 
 def test_stream_c_layout():
@@ -157,4 +209,3 @@ def test_stream_c_layout():
             m = mg * p['tm'] + i
             want = C[:, m] if i < p['tm'] and m < 17 else torch.zeros(5)
             assert torch.equal(cs[:, mg, i], want)
-

@@ -1172,6 +1172,76 @@ def test_bench_cgmxu_dots_sass_has_every_multiply_add(cuda):
         assert c['FFMA'] >= d3 * K * bc.DOTS_EDGES
 
 
+@pytest.mark.parametrize('i1', [0, 1, 2])
+def test_bench_cgmxu_outer_matches_plain_on_ragged_edges(cuda, i1):
+    """The outer kernel at E = 32 x 37 (a multiple of 32, not of 128: the
+    last block's threads past E own no edges) against its plain version."""
+    from sevennet_exp_tpu_torch.tools import bench_cgmxu as bc
+    cls = bc.cg_class(i1)
+    ins = bc.make_inputs(cls, 32 * 37, cuda, seed=i1)
+    got = bc.forward(cls, 'outer', *ins)
+    ref = bc.plain(cls, 'outer', *ins)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+def test_bench_cgmxu_outer_sass_has_every_multiply_add(cuda):
+    """Each outer instance issues at least d3tot d1 f FFMA per column it
+    owns (4 edges a thread): the dense product, C's zeros included, is
+    neither folded nor cut; and nothing goes to local memory."""
+    from sevennet_exp_tpu_torch.tools import bench_cgmxu as bc
+    from sevennet_exp_tpu_torch.tools import sass_compare
+    counts = sass_compare.count('bench_cgmxu')
+    for d1, f, d3 in bc.OUTER_SHAPES:
+        (c,) = [v for k, v in counts.items()
+                if f'cgmxu_outer_kernelILi{d1}ELi{f}ELi{d3}E' in k]
+        assert c['FFMA'] >= d1 * f * d3 * bc.DOTS_EDGES
+        assert not any(c[op] for op in sass_compare.LOCAL_OPS)
+
+
+# SASS digests of the micro-benchmark kernels that the redesign of the bf16
+# dot and the outer CG left alone, as they were before it (chip_smoke.py
+# holds them too)
+PARENT_MICRO_SASS = {
+    'bench_dot': ('4539c5e9a7f6', '43900b2b462c', 'cffb86f3b49f',
+                  '40053fb204ef', 'e6250dfce0f8', 'e61ab816330d',
+                  '24ccc4e63ba3', '24a040861ee6', '20ebae4a7d96',
+                  '5d330983afe7', '2cde1487ece9'),
+    'bench_cgmxu': ('c4aa6d2956b8', '5e3d3e051d91', '40b05ac7fb83',
+                    '73a9cda46545'),
+}
+
+
+def test_untouched_micro_kernels_keep_their_sass(cuda):
+    """The fp32 bench_dot kernels and the st and dots kernels of
+    bench_cgmxu compile to the SASS they had before the bf16 and outer
+    kernels beside them were redesigned."""
+    from sevennet_exp_tpu_torch.tools import sass_compare
+    for name, stems in (('bench_dot', ('dot_fp32_',)),
+                        ('bench_cgmxu', ('cgmxu_st_', 'cgmxu_dots_'))):
+        got = sorted(v for k, v in sass_compare.digests(name).items()
+                     if any(stem in k for stem in stems))
+        assert got == sorted(PARENT_MICRO_SASS[name])
+
+
+@pytest.mark.parametrize('shape', [(27, 20, 384), (45, 22, 384),
+                                   (27, 22, 384), (45, 20, 384),
+                                   (8, 128, 384)])
+def test_bench_dot_bf16_ragged_shapes(cuda, shape):
+    """The bf16 kernel on CG-sized K and M that fill no k16 step or M16
+    strip (K = 27, 45; M = 20, 22; K = 8 with all 128 rows of M), N = 3 x
+    128 (the last N tile of two warps' width is half), G = 3 slices,
+    against the fp32 product of the rounded inputs."""
+    from sevennet_exp_tpu_torch.tools import bench_dot as bd
+    K, M, N = shape
+    C, Z = bd.make_inputs(K, M, N, cuda, g=3, seed=K + M)
+    got = bd.forward('bf16', C, Z)
+    ref = bd.plain('bf16', C, Z)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max() <= 1e-5 * K * ref.abs().max()
+    assert torch.isfinite(got).all()
+
+
 @pytest.mark.parametrize('dtype', ['fp32', 'bf16'])
 @pytest.mark.parametrize('shape', [(27, 20, 256), (45, 22, 128),
                                    (128, 128, 256), (8, 128, 128),
@@ -1193,7 +1263,8 @@ def test_bench_dot_kernels_match_plain(cuda, shape, dtype):
 
 def test_bench_dot_fp32_has_no_tensor_core_op(cuda):
     """The fp32 kernels multiply on the CUDA cores: FFMA, no HMMA (bf16's
-    kernel, the check's control, has its mma.sync)."""
+    kernels, the check's control, have their mma.sync, and nothing in local
+    memory)."""
     from sevennet_exp_tpu_torch.tools import bench_dot as bd
     from sevennet_exp_tpu_torch.tools import sass_compare
     counts = sass_compare.count('bench_dot')
@@ -1203,8 +1274,11 @@ def test_bench_dot_fp32_has_no_tensor_core_op(cuda):
     for v in fp32.values():
         assert v['FFMA'] > 0
         assert not any(v[op] for op in sass_compare.TENSOR_CORE_OPS)
-    (bf16,) = [v for k, v in counts.items() if 'dot_bf16_kernel' in k]
-    assert bf16['HMMA'] > 0
+    bf16 = [v for k, v in counts.items() if 'dot_bf16_kernel' in k]
+    assert len(bf16) == 2 * len(bd.BF16_KS)
+    for v in bf16:
+        assert v['HMMA'] > 0
+        assert not any(v[op] for op in sass_compare.LOCAL_OPS)
 
 
 @pytest.mark.parametrize('variant', ['a:per-term', 'b:3d-reshape',

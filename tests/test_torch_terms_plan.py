@@ -22,6 +22,8 @@ of 32-lane items is one row, pass D's parts cover the live columns once, the
 shared words fit, and the refusals.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -435,6 +437,10 @@ def test_bwd_card_tools_exit_2_without_a_card():
     from sevennet_exp_tpu_torch.tools import bwd_ab, bwd_passes
     assert bwd_ab.main([]) == 2
     assert bwd_ab.main(['csrc', '--terms', '--extw']) == 2
+    assert bwd_ab.main(['csrc', '--dot-bf16', '--outer']) == 2
+    csrc = os.path.join(os.path.dirname(bwd_ab.__file__), '..', 'csrc')
+    for src in bwd_ab.MICRO.values():
+        assert os.path.exists(os.path.join(csrc, src))
     assert bwd_passes.main([]) == 2
     assert bwd_passes.main(['csrc', '--terms', '--extw']) == 2
     assert bwd_passes.main(['--terms-fwd', '--extw-fwd']) == 2
@@ -443,3 +449,5 @@ def test_bwd_card_tools_exit_2_without_a_card():
             assert bwd_ab.main(['csrc', kind]) == 2
             assert bwd_passes.main([kind]) == 2
             assert bwd_passes.main(['csrc', kind]) == 2
+        for kind in ('--dot-bf16', '--outer'):
+            assert bwd_ab.main(['csrc', kind]) == 2
