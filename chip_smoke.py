@@ -51,6 +51,12 @@ Phases (any failure raises, exits non-zero and prints no result):
      the chunked kernel path against the chunked plain path, each kernel
      launch of the force call timed (ms a launch and share of the bound at
      layers 0, 1-3 and 4); peak memory;
+  5b. fault C.4: the chunked convolution on the plain chain
+     (``use_kernels=False``, every chunk under checkpointing): a 1k force
+     call in chunks of 96 atoms and a 97k force call (a new engine with
+     the switch, on phase 5's grid and positions) against the kernel path
+     (F_TOL, E_TOL_PER_ATOM), no kernel launched; the 97k call's time and
+     peak memory;
   6. 97k NVT, same settings: a 10-step warm-up (in which the engine
      settles its rebuild cadence), then 10 timed steps with the
      counters reset just before them; every force call must have launched
@@ -107,8 +113,8 @@ Phases (any failure raises, exits non-zero and prints no result):
  15. the micro-benchmarks at their default sizes through their entry
      points (``bench_cgmxu`` at i1 = 1 and 2), every counter reset just
      before: each prints its times and (``bench_pieces``) its piece costs;
-     the redesigned bf16 ``bench_dot`` and ``outer`` kernels carry a
-     ``status`` in the kernels line;
+     the redesigned bf16 ``bench_dot``, ``outer``, ``st`` and ``bench_cg``
+     c kernels carry a ``status`` in the kernels line;
      then each of the twenty-one kernels against its plain version on the
      tool's inputs (``bench_pieces``: ``full`` is kernel 1 and ``-agg`` the
      edge-row kernel 1, by their SASS digests (``PARENT_GEOM_SASS``) and
@@ -124,11 +130,15 @@ Phases (any failure raises, exits non-zero and prints no result):
      repeated pass (cuobjdump: 24 x 16 FFMA per output, and 8 x 4 per
      output, the fifth product of each pass being the FMUL that starts
      it), each dots and outer instance d3tot x K FFMA per column a thread
-     owns (outer and the bf16 ``bench_dot`` instances nothing in local
+     owns, each st instance every multiply of its dense tables and
+     products (FFMA + FMUL), c its tiling product as HMMA.1688.F32.TF32
+     (outer, st, c and the bf16 ``bench_dot`` instances nothing in local
      memory, the bf16 ones HMMA), the fp32 ``bench_dot`` kernels no
-     tensor-core opcode, and those and the st and dots kernels the SASS
-     they had before bf16 and outer were redesigned
-     (``PARENT_MICRO_SASS``);
+     tensor-core opcode, and those, the dots kernels and ``bench_cg``'s a
+     and b the SASS they had before bf16, outer, st and c were redesigned
+     (``PARENT_MICRO_SASS``); st (i1 = 1, 2) and c also against their
+     plain versions on a ragged E (1,184 and 1,003 rows), c within 1e-4
+     of a there;
  16. fault C.1 on the card: a tiny model with hidden [32, 32] routes every
      conv to the plain chain, launches no conv kernel and gives the CPU's
      E/F; a 1x1o+1x0e filter layer is refused and matches the CPU; a tiny
@@ -191,18 +201,22 @@ PARENT_GEOM_SASS = {
 # (tests/test_torch_cuda.py holds them too)
 EXTW_BWD_SASS = ('5455282fa6b2', '9fa855366a9d', 'd8cf526f5ab8')
 
-# SASS digests of the micro-benchmark kernels beside the bf16 dot and the
-# outer CG (the fp32 bench_dot kernels; bench_cgmxu's st and dots), as they
-# were before those two were redesigned for Hopper (tests/test_torch_cuda.py
-# holds them too)
+# SASS digests of the micro-benchmark kernels beside the redesigned ones
+# (the fp32 bench_dot kernels, bench_cgmxu's dots, bench_cg's a and b), as
+# they were before bf16, outer, st and c were redesigned for Hopper, by the
+# kernel-name stems they are read under (tests/test_torch_cuda.py holds them
+# too)
 PARENT_MICRO_SASS = {
     'bench_dot': ('4539c5e9a7f6', '43900b2b462c', 'cffb86f3b49f',
                   '40053fb204ef', 'e6250dfce0f8', 'e61ab816330d',
                   '24ccc4e63ba3', '24a040861ee6', '20ebae4a7d96',
                   '5d330983afe7', '2cde1487ece9'),
-    'bench_cgmxu': ('c4aa6d2956b8', '5e3d3e051d91', '40b05ac7fb83',
-                    '73a9cda46545'),
+    'bench_cgmxu': ('5e3d3e051d91', '40b05ac7fb83', '73a9cda46545'),
+    'bench_cg': ('a450a1e2efb4', '09bc131a86bb'),
 }
+MICRO_SASS_STEMS = {'bench_dot': ('dot_fp32_',),
+                    'bench_cgmxu': ('cgmxu_dots_',),
+                    'bench_cg': ('cg_a_', 'cg_b_')}
 
 # the micro-benchmark kernels redesigned for Hopper: their status in the
 # kernels line
@@ -218,6 +232,19 @@ REDESIGNED = {
                          'time, 4 edges a thread, Z built in registers, C as '
                          'LDS.128 broadcasts in the loop\'s order, the weight '
                          'fused, 512-byte streaming stores a warp',
+    'bench_cgmxu_st': 'redesigned for Hopper: csrc/bench_cgmxu.cu::'
+                      'cgmxu_st_kernel<D1, F, D3>, the class and its '
+                      'instruction list at compile time, 4 edges a thread, '
+                      'the tables staged in loop order as LDS.128 '
+                      'broadcasts, S and the products in registers, the '
+                      'weight fused, 512-byte streaming stores a warp',
+    'bench_cg_c': 'redesigned for Hopper: csrc/bench_cg.cu::cg_c_kernel, '
+                  'the tiling product St = S @ T on the tensor cores '
+                  '(mma.sync m16n8k8 TF32, S in three TF32 pieces: exact '
+                  'against T\'s 0/1; the pieces of S\'s column 24 in one k8 '
+                  'step), St in the accumulators, the sum over m in '
+                  'registers, x by 16-byte cp.async under the previous '
+                  'tile\'s mma, out as whole 32-byte sectors',
 }
 
 MD_KW = dict(dt_fs=2.0, temperature_K=300.0, ensemble='nvt',
@@ -397,17 +424,17 @@ def micro_benchmarks(report, dev, cuda_ms, show, pieces_sass):
     # the redesigned kernels nothing in local memory; the kernels beside
     # them keep the SASS they had before (PARENT_MICRO_SASS)
     builds = sass_compare.count_and_digests(
-        ('bench_cgmxu', 'bench_dot', 'bench_layout', 'bench_tile'))
-    sass = {name: counts for name, (counts, _) in builds.items()}
-    for name, stems in (('bench_dot', ('dot_fp32_',)),
-                        ('bench_cgmxu', ('cgmxu_st_', 'cgmxu_dots_'))):
+        ('bench_cgmxu', 'bench_dot', 'bench_cg', 'bench_layout',
+         'bench_tile'), texts=True)
+    sass = {name: counts for name, (counts, _, _) in builds.items()}
+    for name, stems in MICRO_SASS_STEMS.items():
         got = sorted(v for k, v in builds[name][1].items()
                      if any(stem in k for stem in stems))
         print(f'{name} {stems}: SASS digests {got} (before: '
               f'{sorted(PARENT_MICRO_SASS[name])})', flush=True)
         if got != sorted(PARENT_MICRO_SASS[name]):
             raise AssertionError(f'{name} {stems}: SASS moved')
-    report['micro_sass_digests'] = {name: d for name, (_, d) in
+    report['micro_sass_digests'] = {name: d for name, (_, d, _) in
                                     builds.items()}
 
     def sass_of(name, stem, want):
@@ -433,6 +460,30 @@ def micro_benchmarks(report, dev, cuda_ms, show, pieces_sass):
             d1 * f * d3 * bench_cgmxu.DOTS_EDGES)
         if any(c[op] for op in sass_compare.LOCAL_OPS):
             raise AssertionError(f'outer {d1}x{f}x{d3}: local memory {c}')
+    # st: every multiply-add of its dense tables and products per column a
+    # thread owns (the first of each sum an FMUL), nothing in local memory
+    st_sass = {}
+    for (d1, f, d3), ins in bench_cgmxu.ST_CLASSES.items():
+        want = bench_cgmxu.DOTS_EDGES * sum(
+            d3k * d1 * (d2 + 1) for _, d2, d3k in ins)
+        (c,) = [v for k, v in sass['bench_cgmxu'].items()
+                if f'cgmxu_st_kernelILi{d1}ELi{f}ELi{d3}E' in k]
+        st_sass[f'{d1}x{f}x{d3}'] = c
+        print(f'st {d1}x{f}x{d3}: SASS {c} (want FFMA + FMUL >= {want})',
+              flush=True)
+        if c['FFMA'] + c['FMUL'] < want or any(c[op] for op in
+                                               sass_compare.LOCAL_OPS):
+            raise AssertionError(f'st {d1}x{f}x{d3}: {c}')
+    # c: the tiling product as HMMA.1688.F32.TF32 (three k8 steps a piece
+    # and column 24's step, five m a step), nothing in local memory
+    (cg_c_name,) = [k for k in sass['bench_cg'] if 'cg_c_kernel' in k]
+    cg_c_sass = dict(sass['bench_cg'][cg_c_name])
+    cg_c_sass['HMMA.1688.F32.TF32'] = builds['bench_cg'][2][
+        cg_c_name].count('HMMA.1688.F32.TF32')
+    print(f'bench_cg c: SASS {cg_c_sass}', flush=True)
+    if (cg_c_sass['HMMA.1688.F32.TF32'] < 50 or any(
+            cg_c_sass[op] for op in sass_compare.LOCAL_OPS)):
+        raise AssertionError(f'bench_cg c: {cg_c_sass}')
     # bf16 dot: mma.sync (HMMA) in every instance, nothing in local memory
     bf16_sass = {k: v for k, v in sass['bench_dot'].items()
                  if 'dot_bf16_' in k}
@@ -504,12 +555,23 @@ def micro_benchmarks(report, dev, cuda_ms, show, pieces_sass):
                       f'({row["share_of_bound"]:.1%}), torch.matmul '
                       f'{row["library_ms"]:.4f} ms (x{row["vs_library"]:.2f})',
                       flush=True)
-            if mode == 'outer':
+            if mode in ('outer', 'st'):
+                key = f'{cls.d1}x{cls.f}x{cls.d3tot}'
                 row.update(share_of_bound=row['bound_ms'] / row['ms'],
-                           sass=outer_sass[f'{cls.d1}x{cls.f}x{cls.d3tot}'])
-                print(f'bench_cgmxu outer i1={i1}: {row["ms"]:.4f} ms, bound '
-                      f'{row["bound_ms"]:.4f} ms ({row["share_of_bound"]:.1%})',
-                      flush=True)
+                           sass=(outer_sass if mode == 'outer'
+                                 else st_sass)[key])
+                print(f'bench_cgmxu {mode} i1={i1}: {row["ms"]:.4f} ms, '
+                      f'bound {row["bound_ms"]:.4f} ms '
+                      f'({row["share_of_bound"]:.1%})', flush=True)
+            if mode == 'st':
+                # a ragged E (a multiple of 32, not of 128), outside the
+                # counted run
+                rag = bench_cgmxu.make_inputs(cls, 32 * 37, dev, seed=i1)
+                row['ragged_err'], _ = check_close(
+                    f'bench_cgmxu {i1} st, E = {32 * 37}',
+                    bench_cgmxu.forward(cls, 'st', *rag),
+                    bench_cgmxu.plain(cls, 'st', *rag))
+                del rag
             rows.append(row)
             errs.append(err)
             ms += res['ms'][mode]
@@ -574,6 +636,27 @@ def micro_benchmarks(report, dev, cuda_ms, show, pieces_sass):
                      'formulation_flops':
                      bench_cg.formulation_flops(v, x.shape[0]),
                      'bound_ms': bound(*c)[0]})
+        if v == 'c:full-width':
+            # a ragged E (the last 16-row tile part full), outside the
+            # counted run, against plain c and within 1e-4 of a
+            xr, yr = bench_cg.make_inputs(1003, dev, seed=3)
+            got = bench_cg.forward(v, xr, yr)
+            rows[-1]['ragged_err'], _ = check_close(
+                f'bench_cg {v}, E = 1003', got, bench_cg.plain(v, xr, yr))
+            rows[-1]['ragged_vs_a'] = float(
+                (got - bench_cg.plain(bench_cg.VARIANTS[0], xr, yr))
+                .abs().max())
+            if not rows[-1]['ragged_vs_a'] < bench_cg.CROSS_TOL:
+                raise AssertionError(f'bench_cg c vs a at E = 1003: '
+                                     f'{rows[-1]["ragged_vs_a"]:.3e}')
+            rows[-1].update(sass=cg_c_sass,
+                            share_of_bound=rows[-1]['bound_ms'] / cgs['ms'][v])
+            print(f'bench_cg c: {cgs["ms"][v]:.4f} ms, bound '
+                  f'{rows[-1]["bound_ms"]:.4f} ms '
+                  f'({rows[-1]["share_of_bound"]:.1%}); ragged E = 1003 '
+                  f'|err| {rows[-1]["ragged_err"]:.3e}, vs a '
+                  f'{rows[-1]["ragged_vs_a"]:.3e}', flush=True)
+            del xr, yr, got
         entry(bench_cg.COUNTER[v], 'bench_cg.cu', 'bench_cg.py:99', [err],
               cgs['ms'][v], p_ms, [c], lib_ms)
     del cgs, x, y
@@ -1528,7 +1611,62 @@ def main():
         'geom_kernel_by_layer': geom_by_layer,
         'geom_plain_ms': plain_ms, 'peak_memory_bytes': peak,
         'peak_memory_plain_bytes': peak_plain}
-    e_p = f_p = e_k = f_k = None
+    e_p = f_p = None
+    torch.cuda.empty_cache()
+
+    # -- phase 5b ------------------------------------------------------
+    phase(f'5b fault C.4: the chunked plain chain (use_kernels=False), 1k '
+          f'and {N_LARGE} atoms')
+    report['c4'] = c4 = {}
+    md1 = MolecularDynamics(model, atoms_1k, device=dev, **MD_KW)
+    nl1 = md1._grid()
+    e1, f1 = md1._ef_fn(md1.state.pos, nl1)
+    md1p = MolecularDynamics(model, atoms_1k, device=dev, use_kernels=False,
+                             conv_chunk_atoms=96, **MD_KW)
+    assert md1p.n % 96 and md1p.conv_chunk_rows == 96 * md1.deg_cap
+    fc.reset_launch_counts()
+    e1p, f1p = md1p._ef_fn(md1.state.pos, nl1)
+    torch.cuda.synchronize()
+    if any(fc.launch_counts.values()):
+        raise AssertionError(f'the chunked plain chain launched '
+                             f'{fc.launch_counts}')
+    c4['1k'] = check_ef('1k, chunks of 96 atoms on the plain chain '
+                        '(use_kernels=False), vs the kernel path', n, e1p,
+                        f1p, e1, f1)
+    md1 = md1p = nl1 = e1 = f1 = e1p = f1p = None
+    t0 = time.perf_counter()
+    big_p = MolecularDynamics(model, atoms_big, device=dev,
+                              use_kernels=False, **MD_KW)
+    torch.cuda.synchronize()
+    t_engine_p = time.perf_counter() - t0
+    assert (big_p.deg_cap, big_p.conv_chunk_rows) == (big.deg_cap,
+                                                      chunk_rows)
+    fc.reset_launch_counts()
+    calls_ms = []
+    for _ in range(2):         # the first call warms the allocator
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        e_pl, f_pl = big_p._ef_fn(pos, nl)
+        torch.cuda.synchronize()
+        calls_ms.append((time.perf_counter() - t0) * 1e3)
+    peak_pl = torch.cuda.max_memory_allocated()
+    if any(fc.launch_counts.values()):
+        raise AssertionError(f'the 97k plain chain launched '
+                             f'{fc.launch_counts}')
+    c4['97k'] = check_ef(f'{N_LARGE} atoms, {chunks} chunks of '
+                         f'{chunk_rows} rows on the plain chain '
+                         '(use_kernels=False), vs the kernel path', big.n,
+                         e_pl, f_pl, e_k, f_k)
+    c4['97k'].update(engine_startup_s=t_engine_p, force_call_ms=calls_ms,
+                     peak_memory_bytes=peak_pl, chunk_rows=chunk_rows,
+                     chunks=chunks)
+    print(f'97k plain chain (use_kernels=False): force call '
+          f'{calls_ms[1]:.1f} ms on the host clock (first {calls_ms[0]:.1f}'
+          f' ms), peak memory {peak_pl / 2 ** 30:.2f} GiB (the kernel path: '
+          f'{peak / 2 ** 30:.2f} GiB), engine start-up {t_engine_p:.2f} s',
+          flush=True)
+    big_p = e_pl = f_pl = e_k = f_k = None
     torch.cuda.empty_cache()
 
     # -- phase 6 -------------------------------------------------------

@@ -20,18 +20,16 @@
 //                zeros but rows 0..d3tot-1 = out0(u = 0) + out0(u = mul-1)
 //
 // What bounds them: bytes. A row of i1 = 1 reads 585 floats and writes 1,280
-// against 50 CG terms per channel (st) or 540 dense multiply-adds (outer);
-// at E = 32,768 that is ~244 MB, ~0.07 ms at 3.35 TB/s. The design: a warp
-// owns 32 consecutive edges of one channel u, so every load and store of a
-// row is one 128-byte line; the 8 warps of a block take 8 channels of the
-// same edges, so sh (and for st, the tables) is read once per block into L1
-// or shared memory. A thread of st owns one (u, edge) column and keeps its
-// d3tot sums in registers. dots is bound by the bytes it writes at i1 = 1
-// (168 MB, 0.050 ms) and by its multiply-adds at i1 = 2 (0.031 ms at 67
-// TFLOP/s); its redesign takes the shared load off the multiply-add: the
-// class's shape at compile time, 4 edges a thread, C as 16-byte broadcasts
-// (below). outer, redesigned the same way, adds the Z build and the weight
-// to that product. All fp32 on the CUDA cores (no TF32, no tensor cores).
+// against 50 CG terms per channel (st: 270 multiply-adds of its dense
+// tables and products; outer: 540 of the dense product); at E = 32,768 that
+// is ~244 MB, ~0.07 ms at 3.35 TB/s. The design of all three: the class's
+// shape at compile time, a thread owns 4 consecutive edges of one channel
+// u (float4 loads and stores, 512 bytes a warp and row), the 8 warps of a
+// block take 8 channels of the same 128 edges, so sh and the tables are
+// read once per block into shared memory, and the coefficients are 16-byte
+// broadcasts. dots is bound by the bytes it writes at i1 = 1 (168 MB, 0.050
+// ms) and by its multiply-adds at i1 = 2 (0.031 ms at 67 TFLOP/s). All fp32
+// on the CUDA cores (no TF32, no tensor cores).
 
 #include <cuda_runtime.h>
 
@@ -42,6 +40,8 @@ constexpr int EB = 32;         // edges per block: one warp's lanes
 constexpr int US = NT / EB;    // channels u per block: one per warp
 constexpr int MAXR = 32;       // most (instruction, component) rows
 constexpr int MAXF = 16;       // most filter components
+constexpr int DE = 4;          // edges per thread (one float4)
+constexpr int DEB = EB * DE;   // edges per block: 128
 // instruction record of st: sh offset, d2, d3, first row r, table offset
 enum { R_SO = 0, R_D2, R_D3, R_ROW, R_TAB, R_STRIDE };
 
@@ -50,41 +50,164 @@ struct Cls {
   long E;
 };
 
-__global__ void __launch_bounds__(NT)
-cgmxu_st_kernel(const float* __restrict__ xT, const float* __restrict__ shT,
-                const float* __restrict__ wT, const int* __restrict__ ins,
-                const float* __restrict__ tab, Cls C,
-                float* __restrict__ out) {
-  extern __shared__ float sm[];
-  float* tab_s = sm;                                    // tab_len
-  int* ins_s = reinterpret_cast<int*>(tab_s + C.tab_len);   // n_ins records
-  float* x_s = reinterpret_cast<float*>(ins_s + C.n_ins * R_STRIDE);
-  float* sh_s = x_s + C.d1 * NT;                        // this thread: [i * NT]
-  const int tid = threadIdx.x, lane = tid & 31, slot = tid >> 5;
-  const long b = (long)blockIdx.x * EB + lane;
-  const int u = blockIdx.y * US + slot;
-  for (int i = tid; i < C.tab_len; i += NT) tab_s[i] = tab[i];
-  for (int i = tid; i < C.n_ins * R_STRIDE; i += NT) ins_s[i] = ins[i];
-  for (int m = 0; m < C.d1; ++m)
-    x_s[m * NT + tid] = xT[((long)m * C.mul + u) * C.E + b];
-  for (int n = 0; n < C.f; ++n) sh_s[n * NT + tid] = shT[n * C.E + b];
-  __syncthreads();
-  for (int k = 0; k < C.n_ins; ++k) {
-    const int* R = ins_s + k * R_STRIDE;
-    const int so = R[R_SO], d2 = R[R_D2], d3 = R[R_D3], row = R[R_ROW];
-    const float* T = tab_s + R[R_TAB];                  // [n][p][m]
-    const float w = wT[((long)k * C.mul + u) * C.E + b];
-    for (int p = 0; p < d3; ++p) {
-      float acc = 0.f;
-      for (int m = 0; m < C.d1; ++m) {
-        float s = 0.f;
-        for (int n = 0; n < d2; ++n)
-          s = fmaf(T[(n * d3 + p) * C.d1 + m], sh_s[(so + n) * NT + tid], s);
-        acc = fmaf(x_s[m * NT + tid], s, acc);
-      }
-      out[((long)(row + p) * C.mul + u) * C.E + b] = acc * w;
-    }
+// st, redesigned for Hopper (the outer kernel's layout, below): the class
+// is a template parameter (D1, F, D3) and its instructions a compile-time
+// list, ST_CLASS_<D1>_<F>_<D3> (sh offset so, d2, d3, first row, table
+// offset; tools/bench_cgmxu.py::ST_CLASSES, which the C entry holds the
+// records passed to it against), so every loop unrolls. A thread owns DE =
+// 4 consecutive edges of one channel u (float4 loads of x, w and out, 128
+// edges a warp, 8 channels a block); it keeps its D1 x rows and the F sh
+// rows in registers, the sh rows staged once a block in shared memory for
+// the 8 channels. The tables (each instruction's CT without its copy per
+// channel, T[n][p][m], an input as in JAX) are staged once a block in the
+// loop's order [p][m][n] and read as LDS.128 broadcasts, 4 coefficients a
+// load, each feeding the 4 edges. Per instruction and p: S[m] = sum over n
+// of T[p][m][n] sh[so + n] (the dense table, its zeros included, in
+// registers), the sum over m of x[m] S[m], times the instruction's weight,
+// one 512-byte streaming store a warp and row. A warp barrier between
+// instructions keeps ptxas from hoisting a later instruction's table loads
+// into an earlier one.
+#define ST_CLASS_1_9_9(I) \
+  I(0, 0, 1, 1, 0, 0) I(1, 1, 3, 3, 1, 1) I(2, 4, 5, 5, 4, 10)
+#define ST_CLASS_3_9_20(I) \
+  I(0, 1, 3, 1, 0, 0) I(1, 0, 1, 3, 1, 9) I(2, 1, 3, 3, 4, 18) \
+  I(3, 4, 5, 3, 7, 45) I(4, 1, 3, 5, 10, 90) I(5, 4, 5, 5, 15, 135)
+#define ST_CLASS_5_9_22(I) \
+  I(0, 4, 5, 1, 0, 0) I(1, 1, 3, 3, 1, 25) I(2, 4, 5, 3, 4, 70) \
+  I(3, 0, 1, 5, 7, 145) I(4, 1, 3, 5, 12, 170) I(5, 4, 5, 5, 17, 245)
+
+template <int D1, int F, int D3> struct StClass;
+#define ST_TAB_LEN(K, SO, D2, D3_, ROW, TAB) +D1 * (D2) * (D3_)
+#define ST_N_INS(K, SO, D2, D3_, ROW, TAB) +1
+#define ST_TRAITS(D1_, F_, D3T)                                           \
+  template <> struct StClass<D1_, F_, D3T> {                              \
+    static constexpr int D1 = D1_;                                        \
+    static constexpr int tab_len = 0 ST_CLASS_##D1_##_##F_##_##D3T(ST_TAB_LEN); \
+    static constexpr int n_ins = 0 ST_CLASS_##D1_##_##F_##_##D3T(ST_N_INS); \
+  };
+ST_TRAITS(1, 9, 9)
+ST_TRAITS(3, 9, 20)
+ST_TRAITS(5, 9, 22)
+
+// the records of the compiled class, as tools/bench_cgmxu.py::st_tables
+// writes them
+#define ST_REC(K, SO, D2, D3_, ROW, TAB) SO, D2, D3_, ROW, TAB,
+
+// one instruction's table from the record layout T[(n d3 + p) d1 + m]
+// into the loop's order [p][m][n], at the same offset
+template <int D1, int D2, int D3, int TAB>
+__device__ __forceinline__ void st_stage(const float* __restrict__ tab,
+                                         float* t_s, int tid) {
+  for (int i = tid; i < D1 * D2 * D3; i += NT) {
+    const int n = i / (D3 * D1), p = (i / D1) % D3, m = i % D1;
+    t_s[TAB + (p * D1 + m) * D2 + n] = tab[TAB + i];
   }
+}
+
+template <int J>
+__device__ __forceinline__ float st_coef(const float4* t4) {
+  const float4 q = t4[J >> 2];
+  return (J & 3) == 0 ? q.x : (J & 3) == 1 ? q.y : (J & 3) == 2 ? q.z : q.w;
+}
+
+// the coefficients of (p, m) for n = 0..D2-1 times the sh rows, summed
+template <int D2, int SO, int J, int N = 0>
+__device__ __forceinline__ void st_s(const float4* t4, const float4 (&sh)[MAXF],
+                                     float (&s)[DE]) {
+  if constexpr (N < D2) {
+    const float t = st_coef<J + N>(t4);
+    const float4 q = sh[SO + N];
+    if constexpr (N == 0) {
+      s[0] = t * q.x; s[1] = t * q.y; s[2] = t * q.z; s[3] = t * q.w;
+    } else {
+      s[0] = fmaf(t, q.x, s[0]); s[1] = fmaf(t, q.y, s[1]);
+      s[2] = fmaf(t, q.z, s[2]); s[3] = fmaf(t, q.w, s[3]);
+    }
+    st_s<D2, SO, J, N + 1>(t4, sh, s);
+  }
+}
+
+// sum over m of x[m] S[p][m] for one p
+template <int D1, int D2, int SO, int J0, int M = 0>
+__device__ __forceinline__ void st_p(const float4* t4, const float4 (&sh)[MAXF],
+                                     const float4 (&x)[MAXF], float (&acc)[DE]) {
+  if constexpr (M < D1) {
+    float s[DE];
+    st_s<D2, SO, J0 + M * D2>(t4, sh, s);
+    const float4 xm = x[M];
+    if constexpr (M == 0) {
+      acc[0] = xm.x * s[0]; acc[1] = xm.y * s[1];
+      acc[2] = xm.z * s[2]; acc[3] = xm.w * s[3];
+    } else {
+      acc[0] = fmaf(xm.x, s[0], acc[0]); acc[1] = fmaf(xm.y, s[1], acc[1]);
+      acc[2] = fmaf(xm.z, s[2], acc[2]); acc[3] = fmaf(xm.w, s[3], acc[3]);
+    }
+    st_p<D1, D2, SO, J0, M + 1>(t4, sh, x, acc);
+  }
+}
+
+// instruction K's rows ROW .. ROW + D3 - 1, p by p
+template <int D1, int K, int SO, int D2, int D3, int ROW, int TAB, int P = 0>
+__device__ __forceinline__ void st_ins(const float4* t4,
+                                       const float4 (&sh)[MAXF],
+                                       const float4 (&x)[MAXF], float4 w,
+                                       float* __restrict__ out, int mul,
+                                       long E, int u, long b) {
+  if constexpr (P < D3) {
+    float acc[DE];
+    st_p<D1, D2, SO, TAB + P * D1 * D2>(t4, sh, x, acc);
+    __stcs(reinterpret_cast<float4*>(out + ((long)(ROW + P) * mul + u) * E + b),
+           make_float4(acc[0] * w.x, acc[1] * w.y, acc[2] * w.z,
+                       acc[3] * w.w));
+    st_ins<D1, K, SO, D2, D3, ROW, TAB, P + 1>(t4, sh, x, w, out, mul, E, u,
+                                                b);
+  }
+}
+
+template <int D1, int F, int D3>
+__global__ void __launch_bounds__(NT, 2)
+cgmxu_st_kernel(const float* __restrict__ xT, const float* __restrict__ shT,
+                const float* __restrict__ wT, const float* __restrict__ tab,
+                int mul, long E, float* __restrict__ out) {
+  using C = StClass<D1, F, D3>;
+  constexpr int TP = (C::tab_len + 3) / 4 * 4;
+  __shared__ __align__(16) float t_s[TP];
+  __shared__ float4 sh_s[F * EB];          // sh_s[n EB + l]: lane l's edges
+  const int tid = threadIdx.x, lane = tid & 31, slot = tid >> 5;
+  const long b0 = (long)blockIdx.x * DEB, b = b0 + DE * lane;
+  const int u = blockIdx.y * US + slot;
+#define ST_STAGE(K, SO, D2, D3_, ROW, TAB) \
+  st_stage<D1, D2, D3_, TAB>(tab, t_s, tid);
+  if constexpr (D1 == 1) { ST_CLASS_1_9_9(ST_STAGE) }
+  if constexpr (D1 == 3) { ST_CLASS_3_9_20(ST_STAGE) }
+  if constexpr (D1 == 5) { ST_CLASS_5_9_22(ST_STAGE) }
+#undef ST_STAGE
+  for (int i = C::tab_len + tid; i < TP; i += NT) t_s[i] = 0.f;
+  for (int i = tid; i < F * EB; i += NT) {
+    const long bb = b0 + DE * (i % EB);
+    if (bb < E)
+      sh_s[i] = *reinterpret_cast<const float4*>(shT + (i / EB) * E + bb);
+  }
+  __syncthreads();
+  if (b >= E) return;     // a thread's four edges are all in or all out
+  float4 sh[MAXF], x[MAXF];
+#pragma unroll
+  for (int n = 0; n < F; ++n) sh[n] = sh_s[n * EB + lane];
+#pragma unroll
+  for (int m = 0; m < D1; ++m)
+    x[m] = *reinterpret_cast<const float4*>(xT + ((long)m * mul + u) * E + b);
+  const float4* t4 = reinterpret_cast<const float4*>(t_s);
+#define ST_INS(K, SO, D2, D3_, ROW, TAB)                                      \
+  {                                                                          \
+    if (K > 0) __syncwarp(__activemask());                                   \
+    const float4 w = *reinterpret_cast<const float4*>(                       \
+        wT + ((long)(K) * mul + u) * E + b);                                 \
+    st_ins<D1, K, SO, D2, D3_, ROW, TAB>(t4, sh, x, w, out, mul, E, u, b);   \
+  }
+  if constexpr (D1 == 1) { ST_CLASS_1_9_9(ST_INS) }
+  if constexpr (D1 == 3) { ST_CLASS_3_9_20(ST_INS) }
+  if constexpr (D1 == 5) { ST_CLASS_5_9_22(ST_INS) }
+#undef ST_INS
 }
 
 // dots, redesigned for Hopper: the class's shape is a template parameter,
@@ -97,9 +220,6 @@ cgmxu_st_kernel(const float* __restrict__ xT, const float* __restrict__ shT,
 // take u = US/2 * blockIdx.y + i, the others mul - 1 - that, so that u = 0
 // and u = mul - 1 meet in block row 0. E a multiple of 32: a thread's four
 // edges are all in or all out, and the last block may be ragged.
-constexpr int DE = 4;                 // edges per thread (one float4)
-constexpr int DEB = EB * DE;          // edges per block: 128
-
 template <int K, int D3>
 __global__ void __launch_bounds__(NT, 2)
 cgmxu_dots_kernel(const float* __restrict__ xT, const float* __restrict__ cg,
@@ -292,21 +412,6 @@ cudaError_t launch_dots(const float* xT, const float* cg, int mul, long E,
   return cudaGetLastError();
 }
 
-constexpr int MAX_DEVICES = 64;
-size_t reserved[1][MAX_DEVICES];
-
-template <typename Kernel>
-cudaError_t reserve_smem(Kernel kernel, size_t bytes, size_t* res) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < MAX_DEVICES && bytes <= res[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess && dev < MAX_DEVICES) res[dev] = bytes;
-  return err;
-}
-
 Cls make_cls(int mul, int d1, int f, int n_ins, int d3tot, int tab_len,
              long E) {
   Cls C;
@@ -325,20 +430,48 @@ bool valid(const Cls& C) {
 #define CLS_ARGS int mul, int d1, int f, int n_ins, int d3tot, long E
 #define CLS_CALL(tab_len) make_cls(mul, d1, f, n_ins, d3tot, tab_len, E)
 
-// E a multiple of 32, mul of 8, d3tot <= min(32, mul), f <= 16
+// the classes the st kernel is instantiated for, (d1, f, d3tot), with their
+// instruction lists (tools/bench_cgmxu.py::ST_CLASSES): records ins (n_ins
+// x [sh offset, d2, d3, first row, table offset]) and a table of tab_len
+// floats that are not the compiled class's are refused; E a multiple of 32,
+// mul of 8, d3tot <= mul
+template <int D1, int F, int D3>
+int launch_st(const float* xT, const float* shT, const float* wT,
+              const int* ins, const float* tab, int tab_len, const Cls& C,
+              float* out, cudaStream_t stream, const int* want) {
+  using S = StClass<D1, F, D3>;
+  if (C.n_ins != S::n_ins || tab_len != S::tab_len)
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < S::n_ins * R_STRIDE; ++i)
+    if (ins[i] != want[i]) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((C.E + DEB - 1) / DEB), C.mul / US);
+  cgmxu_st_kernel<D1, F, D3><<<grid, NT, 0, stream>>>(xT, shT, wT, tab,
+                                                       C.mul, C.E, out);
+  return (int)cudaGetLastError();
+}
+
+// ins is a host array, as tools/bench_cgmxu.py passes it
 extern "C" int cgmxu_st(const float* xT, const float* shT, const float* wT,
                         const int* ins, const float* tab, int tab_len,
                         CLS_ARGS, float* out, void* stream) {
   const Cls C = CLS_CALL(tab_len);
   if (!valid(C)) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)tab_len + n_ins * R_STRIDE +
-                                       (size_t)(d1 + f) * NT);
-  const cudaError_t err = reserve_smem(cgmxu_st_kernel, smem, reserved[0]);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(E / EB), mul / US);
-  cgmxu_st_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(xT, shT, wT, ins,
-                                                            tab, C, out);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (d1 == 1 && f == 9 && d3tot == 9) {
+    static const int want[] = {ST_CLASS_1_9_9(ST_REC)};
+    return launch_st<1, 9, 9>(xT, shT, wT, ins, tab, tab_len, C, out, s, want);
+  }
+  if (d1 == 3 && f == 9 && d3tot == 20) {
+    static const int want[] = {ST_CLASS_3_9_20(ST_REC)};
+    return launch_st<3, 9, 20>(xT, shT, wT, ins, tab, tab_len, C, out, s,
+                               want);
+  }
+  if (d1 == 5 && f == 9 && d3tot == 22) {
+    static const int want[] = {ST_CLASS_5_9_22(ST_REC)};
+    return launch_st<5, 9, 22>(xT, shT, wT, ins, tab, tab_len, C, out, s,
+                               want);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // the classes the outer kernel is instantiated for, (d1, f, d3tot): those

@@ -145,8 +145,8 @@ class MolecularDynamics:
         cross-check pair; not with ``geom_dense`` or ``half_mlp``; chunks
         then run with shared sh/emb whatever ``geom_fused`` says).
         use_kernels: False runs every convolution as the plain chain (JAX
-        ``use_pallas=False``): whole-array path only, no geometry fusion
-        and no half list; the chunked path raises."""
+        ``use_pallas=False``), whole-array or chunk by chunk; no geometry
+        fusion and no half list."""
         if ensemble not in ENSEMBLES:
             raise ValueError(f'ensemble {ensemble!r}: one of {ENSEMBLES}')
         if cg_mode not in CG_MODES:
@@ -192,9 +192,6 @@ class MolecularDynamics:
         self.grid = choose_grid(cell_np, self.build_cutoff)
         self.use_cell_list = all(g >= 3 for g in self.grid) and n > 512
         self._size_capacities(np.asarray(atoms.pos, np.float64), cell_np)
-        if not self.use_kernels and self.conv_chunk_rows:
-            raise ValueError('the chunked convolution runs the fused conv '
-                             'only: not with use_kernels=False')
 
         self.generator = torch.Generator(device=dev).manual_seed(seed)
         if velocities is None:

@@ -22,6 +22,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import _keys as KEY
 from ..irreps import Irreps
@@ -312,9 +313,11 @@ class IrrepsConvolution(nn.Module):
     grid (the MD engine), and the sum over an atom's edges is a
     reshape-sum. Switches in the data select the execution there (the
     engine sets them), in this order of priority:
-    CONV_CHUNK_ROWS > 0 runs the fused conv chunk by chunk
-    (``_ChunkedConvFn``: large systems, the gathered rows of one chunk at
-    a time); EDGE_GEOM_PACKED runs it geometry-fused, from EDGE_VEC
+    CONV_CHUNK_ROWS > 0 runs the convolution chunk by chunk (large
+    systems, the gathered rows of one chunk at a time: the fused conv by
+    ``_ChunkedConvFn``, a refused layer or any layer under
+    ``USE_KERNELS_KEY`` False the plain chain under checkpointing);
+    EDGE_GEOM_PACKED runs it geometry-fused, from EDGE_VEC
     and EDGE_BESSEL_COEFFS instead of EDGE_ATTR and EDGE_EMBEDDING;
     EDGE_HALF + EDGE_PAIR run the radial MLP once per edge pair on the
     half list, outside the fused conv, which then takes the weights
@@ -435,15 +438,31 @@ class IrrepsConvolution(nn.Module):
             xg, vec.contiguous(), scale.contiguous(), coeffs,
             *self._weights())
 
+    def _plain_chunk(self, x, src_c, sh_c, emb_c, scale_c, dd):
+        return self._rows_to_nodes(x[src_c], sh_c, emb_c, scale_c, dd,
+                                   'cmshared', False)
+
     def _rows_to_nodes_chunked(self, x, src, rev, feats, coeffs, scale, dd,
                                chunk_rows, cg_mode, fused):
-        if not fused:
-            raise NotImplementedError(
-                'the chunked convolution runs the fused conv only: '
-                + (self.kernel_refusal(dd, cg_mode) or 'use_kernels is off'))
+        """The convolution chunk by chunk: the fused conv
+        (``_ChunkedConvFn``), or, for a layer the kernels refuse or with
+        ``use_kernels`` off, the plain chain (JAX's per-chunk scan of
+        ``jax.checkpoint`` pieces): per chunk of whole atoms, the gather
+        and the plain chain under ``torch.utils.checkpoint``, so that one
+        chunk's activations live at a time; the backward runs each chunk
+        again, and x's gradient goes through the gather's own backward
+        (autograd to any order, as the whole-array plain chain)."""
         if chunk_rows % dd:
             raise ValueError(f'chunk of {chunk_rows} rows is not a whole '
                              f'number of atoms (D = {dd})')
+        if not fused:
+            sh, emb = feats
+            return torch.cat([
+                checkpoint(self._plain_chunk, x, src[c0:c0 + chunk_rows],
+                           sh[c0:c0 + chunk_rows], emb[c0:c0 + chunk_rows],
+                           scale[c0:c0 + chunk_rows], dd,
+                           use_reentrant=False)
+                for c0 in range(0, src.shape[0], chunk_rows)])
         mlp_ws, si2_ws = self._weights()
         return _ChunkedConvFn.apply(
             self._conv(dd, cg_mode=cg_mode), chunk_rows, src, rev,

@@ -12,6 +12,8 @@ instruction at mul = 32, x (E, 160), y (E, 5) -> out (E, 160), E rows
                   x (5, 32) times S (5, 5)
   c:full-width    St = S @ T, the S row tiled to (800,) by the (25, 800)
                   table T, then one (160,) product per p and the group sum
+                  (the kernel: St on the tensor cores from S split into
+                  three TF32 pieces, ``tf32_split``, exact against T's 0/1)
 
 C and T are built as ``bench_cg.py:59-69``. Each variant is held against
 the first within 1e-4, as the JAX tool holds them, then timed (CUDA
@@ -63,6 +65,25 @@ def tables():
         for p in range(D3):
             T[m * D3 + p, p * W + m * MUL:p * W + (m + 1) * MUL] = 1.0
     return C, T
+
+
+def tf32_round(v: Tensor) -> Tensor:
+    """fp32 -> the nearest TF32 value (10 mantissa bits, ties away from
+    zero), as the kernel's ``cvt.rna.tf32.f32`` with its low 13 bits
+    cleared; finite inputs."""
+    bits = v.contiguous().view(torch.int32)
+    rounded = (bits + 0x1000) & ~0x1fff        # ties away: magnitude bits
+    return rounded.view(torch.float32)
+
+
+def tf32_split(s: Tensor):
+    """(hi, mid, lo): the three TF32 pieces of fp32 ``s`` the c kernel
+    feeds its tiling product, hi = tf32(s), mid = tf32(s - hi), lo =
+    tf32(s - hi - mid); hi + mid + lo = s."""
+    hi = tf32_round(s)
+    r1 = s - hi
+    mid = tf32_round(r1)
+    return hi, mid, tf32_round(r1 - mid)
 
 
 def make_inputs(E: int, device, seed: int = 0):
@@ -161,6 +182,9 @@ def kernel(variant: str, x, y) -> Tensor:
         if variant == 'b:3d-reshape':
             err = lib.cg_b(P(x), P(y), P(C), E, P(out), stream)
         elif variant == 'c:full-width':
+            if x.data_ptr() % 16 or y.data_ptr() % 16:
+                raise ValueError('bench_cg c: x and y must be 16-byte '
+                                 'aligned (its cp.async copies)')
             err = lib.cg_c(P(x), P(y), P(C), P(T), E, P(out), stream)
         else:
             raise ValueError(variant)

@@ -11,7 +11,9 @@ weighted message block in the feature-major layout of the JAX tool (rows
 (k, p, u), columns are edges):
 
   st     the current formulation: per-instruction CT tables (St = CT^T sh),
-         per-p products with x and sums over m, x the radial weight
+         per-p products with x and sums over m, x the radial weight; a
+         kernel per class (``ST_CLASSES``: its instructions at compile
+         time), launched as ``st_plan`` says
   outer  Z = x (x) sh, (d1 f, mul E), built in registers; ONE dense CG
          product C (d3tot, d1 f) @ Z; x the radial weight; a kernel per
          class (``OUTER_SHAPES``, the classes of ``DOTS_SHAPES``), launched
@@ -51,7 +53,18 @@ COUNTER = {m: f'bench_cgmxu_{m}' for m in MODES}
 DOTS_SHAPES = ((9, 9), (27, 20), (45, 22))
 # the same classes as (d1, f, d3tot): those the outer kernel is compiled for
 OUTER_SHAPES = ((1, 9, 9), (3, 9, 20), (5, 9, 22))
-# dots and outer: threads a block, edges a thread (one float4), edges a
+# the classes (d1, f, d3tot) the st kernel is compiled for, each with its
+# instructions (sh offset, d2, d3) in plan order: csrc/bench_cgmxu.cu's
+# ST_CLASS_* lists, which also carry each instruction's first row and table
+# offset (``CgClass.st_tables``)
+ST_CLASSES = {
+    (1, 9, 9): ((0, 1, 1), (1, 3, 3), (4, 5, 5)),
+    (3, 9, 20): ((1, 3, 1), (0, 1, 3), (1, 3, 3), (4, 5, 3), (1, 3, 5),
+                 (4, 5, 5)),
+    (5, 9, 22): ((4, 5, 1), (1, 3, 3), (4, 5, 3), (0, 1, 5), (1, 3, 5),
+                 (4, 5, 5)),
+}
+# dots, outer and st: threads a block, edges a thread (one float4), edges a
 # block
 DOTS_THREADS, DOTS_EDGES, DOTS_BLOCK_EDGES = 256, 4, 128
 
@@ -99,6 +112,14 @@ class CgClass:
             row += d3
         return (np.asarray(recs, np.int32).reshape(-1),
                 np.concatenate(tabs).astype(np.float32))
+
+    def host_records(self) -> np.ndarray:
+        """The st records in host memory, made once (the st C entry checks
+        them against its compiled class)."""
+        got = self._dev.get('host')
+        if got is None:
+            got = self._dev['host'] = self.st_tables()[0]
+        return got
 
     def device_tables(self, device):
         """(st records, st table, row_ins, C) on ``device``, made once."""
@@ -277,6 +298,27 @@ def outer_plan(cls: CgClass, E: int) -> Dict:
             'channels_per_block': warps}
 
 
+def st_plan(cls: CgClass, E: int) -> Dict:
+    """The st kernel's launch: a template instance per class (d1, f,
+    d3tot) whose instructions (``ST_CLASSES``) are compiled in, the dots
+    kernel's threads and grid (4 consecutive edges of one channel a thread,
+    u = 8 blockIdx.y + warp). Raises on a class or an instruction list the
+    kernel is not compiled for and on E % 32 or mul % 8."""
+    key = (cls.d1, cls.f, cls.d3tot)
+    ins = tuple((p['sh_off'], p['dim2'], p['dim3']) for p in cls.instrs)
+    if ST_CLASSES.get(key) != ins:
+        raise ValueError(f'bench_cgmxu st: no kernel for the class (d1, f, '
+                         f'd3tot) = {key} with instructions {ins}; compiled '
+                         f'for {sorted(ST_CLASSES)}')
+    _check_edges(cls, E, 'st')
+    warps = DOTS_THREADS // 32
+    return {'K': cls.d1 * cls.f, 'd1': cls.d1, 'f': cls.f,
+            'd3tot': cls.d3tot, 'instructions': ins,
+            'threads': DOTS_THREADS, 'edges_per_thread': DOTS_EDGES,
+            'grid': (-(-E // DOTS_BLOCK_EDGES), cls.mul // warps),
+            'channels_per_block': warps}
+
+
 def _columns(E: int, plan: Dict, u_of) -> np.ndarray:
     """(u, b) of every live (block, thread, edge) of a dots-layout launch,
     u = u_of(blockIdx.y, warp)."""
@@ -305,6 +347,14 @@ def outer_columns(cls: CgClass, E: int) -> np.ndarray:
     """The (u, b) columns each outer thread owns, as the kernel indexes
     them: u = 8 blockIdx.y + slot."""
     plan = outer_plan(cls, E)
+    return _columns(E, plan, lambda by, slot:
+                    plan['channels_per_block'] * by + slot)
+
+
+def st_columns(cls: CgClass, E: int) -> np.ndarray:
+    """The (u, b) columns each st thread owns, as the kernel indexes them:
+    u = 8 blockIdx.y + slot, as outer."""
+    plan = st_plan(cls, E)
     return _columns(E, plan, lambda by, slot:
                     plan['channels_per_block'] * by + slot)
 
@@ -348,7 +398,10 @@ def kernel(cls: CgClass, mode: str, xT, shT, wT) -> Tensor:
     stream = ctypes.c_void_p(torch.cuda.current_stream(xT.device).cuda_stream)
     lib = _lib()
     if mode == 'st':
-        err = lib.cgmxu_st(P(xT), P(shT), P(wT), P(recs), P(tab), tab.numel(),
+        st_plan(cls, E)
+        err = lib.cgmxu_st(P(xT), P(shT), P(wT),
+                           cls.host_records().ctypes.data_as(_P), P(tab),
+                           tab.numel(),
                            *dims, P(out), stream)
     elif mode == 'outer':
         outer_plan(cls, E)

@@ -2,9 +2,10 @@
 ``--terms`` the ``terms`` backward (``fused_conv_terms_bwd``, both forms),
 with ``--extw`` the external-weight backward (``fused_conv_extw_bwd``),
 with ``--terms-fwd`` / ``--extw-fwd`` the two forwards; with ``--dot-bf16``
-/ ``--outer`` the micro-benchmark kernels ``dot_bf16`` / ``cgmxu_outer``.
+/ ``--outer`` / ``--st`` / ``--cg-c`` the micro-benchmark kernels
+``dot_bf16`` / ``cgmxu_outer`` / ``cgmxu_st`` / ``cg_c``.
 
-    python -m sevennet_exp_tpu_torch.tools.bwd_ab OTHER_CSRC [STEPS] [OUT.json] --terms | --extw | --terms-fwd | --extw-fwd | --dot-bf16 | --outer
+    python -m sevennet_exp_tpu_torch.tools.bwd_ab OTHER_CSRC [STEPS] [OUT.json] --terms | --extw | --terms-fwd | --extw-fwd | --dot-bf16 | --outer | --st | --cg-c
 
 OTHER_CSRC is an earlier tree's ``csrc`` directory unpacked with ``git
 archive`` (its ``fused_conv_terms.cu``, or its ``fused_conv.cu`` with the
@@ -30,9 +31,13 @@ where the list below says backward, on the same inputs and paths:
   - ``--dot-bf16``: OTHER_CSRC's ``bench_dot.cu``, whose ``dot_bf16`` took
     no plan, on the ten ``bench_dot`` shapes; ``--outer``: its
     ``bench_cgmxu.cu`` (the same ``cgmxu_outer`` entry) at i1 = 1 and 2,
-    E = 32,768. Each build's output is first held to the tool's plain
-    version (bf16: 1e-5 K max|plain|, phase 15's limit; outer: 1e-4
-    max|plain|), then both are timed in turns (CUDA events, 20 reps).
+    E = 32,768; ``--st``: its ``cgmxu_st`` (the same arguments; an earlier
+    tree's kernel reads the instruction records from the card, this one's
+    from the host) at i1 = 1 and 2, E = 32,768; ``--cg-c``: its
+    ``bench_cg.cu`` (the same ``cg_c`` entry) at E = 32,768. Each build's
+    output is first held to the tool's plain version (bf16: 1e-5 K
+    max|plain|, phase 15's limit; outer, st and c: 1e-4 max|plain|), then
+    both are timed in turns (CUDA events, 20 reps).
 
 After the turns of a conv kind, each layer's outputs of the two builds are
 compared (relative to max|other|). Prints one line per turn and the means
@@ -58,7 +63,7 @@ from ..ops import cuda_build
 from ..ops import fused_conv as fc
 from ..ops import fused_conv_geom as fcg
 from ..ops import fused_conv_terms as fct
-from . import bench_cgmxu, bench_dot
+from . import bench_cg, bench_cgmxu, bench_dot
 from .geom_ab import CHECKPOINT, D, dense_inputs, edge_inputs
 from .timing import card, cuda_ms, require_card
 
@@ -476,7 +481,8 @@ def run(other_csrc: str, kind: str, steps: int = 100):
 
 # the micro-benchmark kinds: a bench tool's kernel from OTHER_CSRC against
 # this tree's on the tool's own inputs (no model), and the source it is in
-MICRO = {'dot_bf16': 'bench_dot.cu', 'outer': 'bench_cgmxu.cu'}
+MICRO = {'dot_bf16': 'bench_dot.cu', 'outer': 'bench_cgmxu.cu',
+         'st': 'bench_cgmxu.cu', 'cg_c': 'bench_cg.cu'}
 
 
 def micro_cases(kind: str, lib: ctypes.CDLL):
@@ -501,25 +507,49 @@ def micro_cases(kind: str, lib: ctypes.CDLL):
                    lambda C=C, Z=Z: bench_dot.forward('bf16', C, Z), ref,
                    1e-5 * K * float(ref.abs().max()))
         return
-    fn = lib.cgmxu_outer
-    fn.argtypes = [_P] * 5 + bench_cgmxu._CLS + [_P, _P]
+    if kind == 'cg_c':
+        fn = lib.cg_c
+        fn.argtypes = [_P] * 4 + [_L, _P, _P]
+        fn.restype = _I
+        v = 'c:full-width'
+        x, y = bench_cg.make_inputs(32768, 'cuda')
+        C, T = bench_cg._device_tables(x.device)
+
+        def other_c():
+            out = x.new_empty((x.shape[0], bench_cg.D3 * bench_cg.MUL))
+            cuda_build.check(fn(*map(_ptr, (x, y, C, T)), x.shape[0],
+                                _ptr(out), _stream(out)), 'other cg_c')
+            return out
+        ref = bench_cg.plain(v, x, y)
+        yield ('E=32768', other_c, lambda: bench_cg.forward(v, x, y), ref,
+               1e-4 * float(ref.abs().max()))
+        return
+    mode = kind
+    if mode == 'st':
+        fn = lib.cgmxu_st
+        fn.argtypes = [_P] * 5 + [_I] + bench_cgmxu._CLS + [_P, _P]
+    else:
+        fn = lib.cgmxu_outer
+        fn.argtypes = [_P] * 5 + bench_cgmxu._CLS + [_P, _P]
     fn.restype = _I
     for i1 in (1, 2):
         cls = bench_cgmxu.cg_class(i1)
         ins = bench_cgmxu.make_inputs(cls, 32768, 'cuda')
-        _, _, row_ins, C = cls.device_tables(ins[0].device)
+        recs, tab, row_ins, C = cls.device_tables(ins[0].device)
+        tables = ((recs, tab), (tab.numel(),)) if mode == 'st' else \
+            ((row_ins, C), ())
 
-        def other(cls=cls, ins=ins, row_ins=row_ins, C=C):
+        def other(cls=cls, ins=ins, tables=tables):
             E = ins[0].shape[1]
             out = ins[0].new_empty((cls.wide, E))
-            cuda_build.check(fn(*map(_ptr, (*ins, row_ins, C)), cls.mul,
-                                cls.d1, cls.f, len(cls.instrs), cls.d3tot, E,
-                                _ptr(out), _stream(out)), 'other outer')
+            cuda_build.check(fn(*map(_ptr, (*ins, *tables[0])), *tables[1],
+                                cls.mul, cls.d1, cls.f, len(cls.instrs),
+                                cls.d3tot, E, _ptr(out), _stream(out)),
+                             f'other {mode}')
             return out
-        ref = bench_cgmxu.plain(cls, 'outer', *ins)
+        ref = bench_cgmxu.plain(cls, mode, *ins)
         yield (f'i1={i1}', other,
-               lambda cls=cls, ins=ins: bench_cgmxu.forward(cls, 'outer',
-                                                            *ins),
+               lambda cls=cls, ins=ins: bench_cgmxu.forward(cls, mode, *ins),
                ref, 1e-4 * float(ref.abs().max()))
 
 

@@ -204,10 +204,11 @@ def count(name: str) -> Dict[str, Dict[str, int]]:
         return opcode_counts(_cuobjdump('-sass', cubin))
 
 
-def count_and_digests(names: Iterable[str]) -> Dict[
+def count_and_digests(names: Iterable[str], texts: bool = False) -> Dict[
         str, Tuple[Dict[str, Dict[str, int]], Dict[str, str]]]:
     """{name: (``count(name)``, ``digests(name)``)} of libraries NAMES,
-    one nvcc each, all started together."""
+    one nvcc each, all started together; with ``texts``, each tuple adds
+    {kernel: its SASS text} (full opcodes with their modifiers)."""
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         jobs = []
@@ -221,9 +222,10 @@ def count_and_digests(names: Iterable[str]) -> Dict[
             if proc.returncode:
                 raise RuntimeError(f'nvcc failed on {name}:\n{err}')
             sass = _cuobjdump('-sass', cubin)
+            funcs = split_functions(sass)
             out[name] = (opcode_counts(sass), {
                 k: hashlib.sha1(v.encode()).hexdigest()[:12]
-                for k, v in split_functions(sass).items()})
+                for k, v in funcs.items()}) + ((funcs,) if texts else ())
     return out
 
 

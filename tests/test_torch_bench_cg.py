@@ -89,3 +89,45 @@ def test_library_einsum_matches_jax_per_term():
     assert tuple(got.shape) == (E, 160)
     np.testing.assert_allclose(got.numpy(), _jax_per_term(x, y), rtol=0,
                                atol=1e-5)
+
+
+def test_tf32_split_reproduces_s():
+    """The c kernel's three TF32 pieces of S (hi, mid, lo: each a TF32
+    value, its low 13 mantissa bits zero) sum to S: hi + mid exactly, and
+    with lo to within an ulp of S (here exactly), on seeded S of wide
+    magnitudes."""
+    rng = np.random.default_rng(11)
+    s = torch.tensor(rng.normal(size=(4096, 25))
+                     * np.exp(rng.normal(size=(4096, 25)) * 4),
+                     dtype=torch.float32)
+    pieces = bench_cg.tf32_split(s)
+    for p in pieces:
+        assert not (p.view(torch.int32) & 0x1fff).any()
+    hi, mid, lo = pieces
+    assert bool(((hi + mid) - hi == mid).all())
+    total = (hi + mid) + lo
+    ulp = torch.abs(torch.nextafter(s, torch.full_like(s, np.inf)) - s)
+    assert bool(((total - s).abs() <= ulp).all())
+    # hi alone is a TF32 rounding: within half a TF32 ulp, not exact
+    assert float((hi - s).abs().max()) > 0
+
+
+def test_three_pieces_times_t_equal_s_times_t():
+    """The pieces' products with the 0/1 table T, accumulated in fp32 in
+    the kernel's order (hi, mid, lo), equal S @ T to within an ulp; S = y
+    @ C on seeded inputs."""
+    C, T = (torch.tensor(a) for a in bench_cg.tables())
+    assert set(np.unique(T.numpy()).tolist()) == {0.0, 1.0}
+    _, y = bench_cg.make_inputs(512, 'cpu', seed=4)
+    s = y @ C
+    hi, mid, lo = bench_cg.tf32_split(s)
+    acc = hi @ T
+    acc = acc + mid @ T
+    acc = acc + lo @ T
+    ref = s @ T
+    ulp = torch.abs(torch.nextafter(ref, torch.full_like(ref, np.inf)) - ref)
+    assert bool(((acc - ref).abs() <= ulp).all())
+    # in one product, as the kernel's step for S's column 24 sums its
+    # pieces: [hi | mid | lo] @ [T; T; T]
+    stacked = torch.cat([hi, mid, lo], 1) @ torch.cat([T, T, T], 0)
+    assert bool(((stacked - ref).abs() <= ulp).all())

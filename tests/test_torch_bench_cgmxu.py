@@ -169,9 +169,11 @@ def test_library_einsum_matches_jax_oracle(jax_mid_conv, i1):
 
 
 # the kernels planned in Python, by mode: their plan and their columns
-PLANS = {'dots': bench_cgmxu.dots_plan, 'outer': bench_cgmxu.outer_plan}
+PLANS = {'dots': bench_cgmxu.dots_plan, 'outer': bench_cgmxu.outer_plan,
+         'st': bench_cgmxu.st_plan}
 COLUMNS = {'dots': bench_cgmxu.dots_columns,
-           'outer': bench_cgmxu.outer_columns}
+           'outer': bench_cgmxu.outer_columns,
+           'st': bench_cgmxu.st_columns}
 
 
 @pytest.fixture(scope='module')
@@ -179,19 +181,23 @@ def classes():
     return {i1: bench_cgmxu.cg_class(i1) for i1 in (0, 1, 2)}
 
 
-@pytest.mark.parametrize('mode', ['dots', 'outer'])
+@pytest.mark.parametrize('mode', ['dots', 'outer', 'st'])
 @pytest.mark.parametrize('E', [320, 32768])
 @pytest.mark.parametrize('i1', [0, 1, 2])
 def test_dots_plan_covers_every_column_once(classes, i1, E, mode):
-    """The threads of the dots and outer kernels (4 edges of one channel
-    each, 128 edges a block, 8 channels a block; dots with u = 0 and mul -
-    1 in block row 0, outer with u = 8 blockIdx.y + warp) own every (u, b)
-    column exactly once, the ragged last block at E = 320 included."""
+    """The threads of the dots, outer and st kernels (4 edges of one
+    channel each, 128 edges a block, 8 channels a block; dots with u = 0
+    and mul - 1 in block row 0, outer and st with u = 8 blockIdx.y + warp)
+    own every (u, b) column exactly once, the ragged last block at E = 320
+    included."""
     cls = classes[i1]
     p = PLANS[mode](cls, E)
     assert (p['K'], p['d3tot']) in bench_cgmxu.DOTS_SHAPES
-    if mode == 'outer':
+    if mode in ('outer', 'st'):
         assert (p['d1'], p['f'], p['d3tot']) in bench_cgmxu.OUTER_SHAPES
+    if mode == 'st':
+        assert p['instructions'] == bench_cgmxu.ST_CLASSES[
+            p['d1'], p['f'], p['d3tot']]
     assert p['grid'] == (-(-E // 128), cls.mul // 8)
     cols = COLUMNS[mode](cls, E)
     flat = cols[:, 0].astype(np.int64) * E + cols[:, 1]
@@ -210,7 +216,7 @@ def test_dots_plan_covers_every_column_once(classes, i1, E, mode):
         assert (np.diff(b, axis=1) == 1).all() and (b[:, 0] % 4 == 0).all()
 
 
-@pytest.mark.parametrize('mode', ['dots', 'outer'])
+@pytest.mark.parametrize('mode', ['dots', 'outer', 'st'])
 def test_dots_plan_raises_off_its_classes(classes, mode):
     import dataclasses
     cls = classes[1]
@@ -220,10 +226,44 @@ def test_dots_plan_raises_off_its_classes(classes, mode):
         plan(other, 320)
     with pytest.raises(ValueError):
         plan(cls, 336 + 8)
-    if mode == 'outer':
+    if mode == 'st':
+        # the class's shape alone does not pick st's instance: its
+        # instruction list (compiled in) must match too
+        swapped = dataclasses.replace(cls, instrs=cls.instrs[::-1],
+                                      d3s=cls.d3s[::-1])
+        assert (swapped.d1, swapped.f, swapped.d3tot) in \
+            bench_cgmxu.ST_CLASSES
+        with pytest.raises(ValueError, match='no kernel for the class'):
+            plan(swapped, 320)
+    if mode in ('outer', 'st'):
         # the class's (K, d3tot) alone does not pick an instance: (d1, f)
         # must match too
         wide = dataclasses.replace(cls, d1=9, f=3)
         assert (wide.d1 * wide.f, wide.d3tot) in bench_cgmxu.DOTS_SHAPES
         with pytest.raises(ValueError, match='no kernel for the class'):
             plan(wide, 320)
+
+
+def test_st_classes_are_the_kernels_compiled_lists(classes):
+    """``ST_CLASSES`` holds the instructions (sh offset, d2, d3) of the
+    mid layer's classes, and csrc/bench_cgmxu.cu's ST_CLASS_<d1>_<f>_<d3>
+    lists carry exactly ``st_tables``' records (sh offset, d2, d3, first
+    row, table offset) in order, which the C entry holds the records passed
+    to it against."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(bench_cgmxu.__file__), '..',
+                            'csrc', 'bench_cgmxu.cu')).read()
+    assert len(bench_cgmxu.ST_CLASSES) == 3
+    for i1, cls in classes.items():
+        key = (cls.d1, cls.f, cls.d3tot)
+        assert bench_cgmxu.ST_CLASSES[key] == tuple(
+            (p['sh_off'], p['dim2'], p['dim3']) for p in cls.instrs)
+        m = re.search(r'#define ST_CLASS_%d_%d_%d\(I\)((?:[^\n]*\\\n)*'
+                      r'[^\n]*)' % key, src)
+        assert m, key
+        recs = [tuple(int(v) for v in r.split(','))
+                for r in re.findall(r'I\(([^)]*)\)', m.group(1))]
+        assert [r[0] for r in recs] == list(range(len(cls.instrs)))
+        want = cls.st_tables()[0].reshape(-1, 5)
+        assert [r[1:] for r in recs] == [tuple(r) for r in want.tolist()]

@@ -13,7 +13,8 @@ layer:
     refused;
   - ``use_kernels=False`` (calculator, engine, data dict) sends every
     convolution of ``trained_nacl`` down the plain chain, with the same
-    E/F; the chunked path and geometry fusion refuse it;
+    E/F, whole-array and chunk by chunk (fault C.4); geometry fusion
+    refuses it;
   - E/F of tiny models the kernels refuse (hidden [32, 32]; 16 x entries)
     and of an ssp model against the JAX calculator
     (``use_pallas=False``): 1e-4 eV (against the float64 sum of JAX's
@@ -328,15 +329,28 @@ def test_use_kernels_off_calculator_and_engine(monkeypatch, nacl):
     assert count.n == 5
     assert abs(float(e_on) - float(e_off)) <= 1e-4
     assert float((f_on - f_off).abs().max()) <= 1e-4
-    with pytest.raises(ValueError, match='use_kernels'):
-        MolecularDynamics(nacl, at, device='cpu', use_kernels=False,
-                          conv_chunk_atoms=16)
+    # chunked (fault C.4): the engine takes the switch, its first force
+    # call equals the whole-array one and it steps, all on the plain chain
+    md_chunk = MolecularDynamics(nacl, at, device='cpu', use_kernels=False,
+                                 conv_chunk_atoms=24)
+    assert md_chunk.conv_chunk_rows == 24 * md_chunk.deg_cap
+    count.n = 0
+    cuda_build.reset_launch_counts()
+    e_ch, f_ch = md_chunk._ef_fn(md_chunk.state.pos, md_chunk._grid())
+    assert abs(float(e_ch) - float(e_off)) <= 1e-4
+    assert float((f_ch - f_off).abs().max()) <= 1e-4
+    rows = md_chunk.run(2)
+    assert count.n == 0 and not any(cuda_build.launch_counts.values())
+    assert int(np.sum(rows['steps'])) == 2
+    assert np.isfinite(rows['energy']).all()
+    assert bool(torch.isfinite(md_chunk.state.pos).all())
 
 
-def test_refused_model_takes_no_fused_path():
-    """Geometry fusion and the chunked path run the fused conv only: a
-    model with a refused layer is not geometry-fused, and its chunked
-    convolution raises with the reason."""
+def test_refused_model_takes_no_fused_path(monkeypatch):
+    """Geometry fusion runs the fused conv only: a model with a refused
+    layer is not geometry-fused. Its chunked convolution (fault C.4) runs
+    the plain chain chunk by chunk, no fused conv call, and gives the
+    whole-array energy and forces."""
     cfg = tiny_model_config({KEY.CONVOLUTION_WEIGHT_NN_HIDDEN_NEURONS:
                              [32, 32], KEY.NUM_CONVOLUTION: 2})
     _, _, model = _models(cfg, 6)
@@ -344,9 +358,16 @@ def test_refused_model_takes_no_fused_path():
     at = build_nacl(64, rattle=0.1, seed=5)
     s = 3.4 / 5.63
     at = Atoms(at.atomic_numbers, at.pos * s * 2, at.cell * s * 2, at.pbc)
-    md = MolecularDynamics(model, at, device='cpu', conv_chunk_atoms=16)
-    with pytest.raises(NotImplementedError, match='hidden widths'):
-        md._ef_fn(md.state.pos, md._grid())
+    md = MolecularDynamics(model, at, device='cpu', conv_chunk_atoms=24)
+    assert md.n % 24 and md.conv_chunk_rows == 24 * md.deg_cap
+    count = _CountFused(monkeypatch)
+    e_c, f_c = md._ef_fn(md.state.pos, md._grid())
+    assert count.n == 0
+    whole = MolecularDynamics(model, at, device='cpu')
+    e_w, f_w = whole._ef_fn(whole.state.pos, whole._grid())
+    assert abs(float(e_c) - float(e_w)) <= 1e-4
+    assert float((f_c - f_w).abs().max()) <= 1e-4
+    assert float(f_w.abs().max()) > 1e-3
 
 
 def test_sass_pair_names_of_the_ssp_instances():

@@ -1061,6 +1061,29 @@ def test_engine_with_terms_matches_default_on_the_card(cuda, model):
         assert (s - s0).abs().max() <= 1e-6
 
 
+def test_chunked_plain_chain_on_the_card(cuda, model):
+    """Fault C.4: a 1k force call in chunks of 96 atoms with
+    use_kernels=False (every chunk on the plain chain, checkpointed)
+    launches no kernel and equals the kernel path within 1e-3 eV/A and
+    1e-5 eV/atom."""
+    from sevennet_exp_tpu_torch.data.graph import build_nacl
+    from sevennet_exp_tpu_torch.md.engine import MolecularDynamics
+    from sevennet_exp_tpu_torch.ops import fused_conv as fc
+    at = build_nacl(1000)
+    md = MolecularDynamics(model, at, device=cuda)
+    nl = md._grid()
+    e0, f0 = md._ef_fn(md.state.pos, nl)
+    mdp = MolecularDynamics(model, at, device=cuda, use_kernels=False,
+                            conv_chunk_atoms=96)
+    assert mdp.n % 96 and mdp.conv_chunk_rows == 96 * md.deg_cap
+    fc.reset_launch_counts()
+    e, f = mdp._ef_fn(md.state.pos, nl)
+    torch.cuda.synchronize()
+    assert not any(fc.launch_counts.values())
+    assert (f - f0).abs().max() <= 1e-3
+    assert abs(float(e) - float(e0)) / md.n <= 1e-5
+
+
 # -- the bare tensor product ---------------------------------------------------
 
 def _tp_inputs(op, rows, cuda, seed):
@@ -1199,29 +1222,60 @@ def test_bench_cgmxu_outer_sass_has_every_multiply_add(cuda):
         assert not any(c[op] for op in sass_compare.LOCAL_OPS)
 
 
-# SASS digests of the micro-benchmark kernels that the redesign of the bf16
-# dot and the outer CG left alone, as they were before it (chip_smoke.py
-# holds them too)
+# SASS digests of the micro-benchmark kernels that the redesigns of the
+# bf16 dot, the outer and st CG and bench_cg's c left alone, as they were
+# before them, by kernel-name stem (chip_smoke.py holds them too)
 PARENT_MICRO_SASS = {
     'bench_dot': ('4539c5e9a7f6', '43900b2b462c', 'cffb86f3b49f',
                   '40053fb204ef', 'e6250dfce0f8', 'e61ab816330d',
                   '24ccc4e63ba3', '24a040861ee6', '20ebae4a7d96',
                   '5d330983afe7', '2cde1487ece9'),
-    'bench_cgmxu': ('c4aa6d2956b8', '5e3d3e051d91', '40b05ac7fb83',
-                    '73a9cda46545'),
+    'bench_cgmxu': ('5e3d3e051d91', '40b05ac7fb83', '73a9cda46545'),
+    'bench_cg': ('a450a1e2efb4', '09bc131a86bb'),
 }
+MICRO_SASS_STEMS = {'bench_dot': ('dot_fp32_',),
+                    'bench_cgmxu': ('cgmxu_dots_',),
+                    'bench_cg': ('cg_a_', 'cg_b_')}
 
 
 def test_untouched_micro_kernels_keep_their_sass(cuda):
-    """The fp32 bench_dot kernels and the st and dots kernels of
-    bench_cgmxu compile to the SASS they had before the bf16 and outer
-    kernels beside them were redesigned."""
+    """The fp32 bench_dot kernels, the dots kernels of bench_cgmxu and
+    bench_cg's a and b compile to the SASS they had before the kernels
+    beside them (bf16, outer, st, c) were redesigned."""
     from sevennet_exp_tpu_torch.tools import sass_compare
-    for name, stems in (('bench_dot', ('dot_fp32_',)),
-                        ('bench_cgmxu', ('cgmxu_st_', 'cgmxu_dots_'))):
+    for name, stems in MICRO_SASS_STEMS.items():
         got = sorted(v for k, v in sass_compare.digests(name).items()
                      if any(stem in k for stem in stems))
         assert got == sorted(PARENT_MICRO_SASS[name])
+
+
+@pytest.mark.parametrize('E', [32768, 32 * 37])
+@pytest.mark.parametrize('i1', [0, 1, 2])
+def test_bench_cgmxu_st_matches_plain(cuda, i1, E):
+    """The st kernel at the tool's E and at E = 32 x 37 (a multiple of 32,
+    not of 128: the last block's threads past E own no edges)."""
+    from sevennet_exp_tpu_torch.tools import bench_cgmxu as bc
+    cls = bc.cg_class(i1)
+    ins = bc.make_inputs(cls, E, cuda, seed=i1)
+    got = bc.forward(cls, 'st', *ins)
+    ref = bc.plain(cls, 'st', *ins)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+def test_bench_cgmxu_st_sass_has_every_multiply(cuda):
+    """Each st instance issues every multiply of its dense tables and of
+    the products with x per column it owns (4 edges a thread; the first of
+    each sum an FMUL), and nothing goes to local memory."""
+    from sevennet_exp_tpu_torch.tools import bench_cgmxu as bc
+    from sevennet_exp_tpu_torch.tools import sass_compare
+    counts = sass_compare.count('bench_cgmxu')
+    for (d1, f, d3), ins in bc.ST_CLASSES.items():
+        (c,) = [v for k, v in counts.items()
+                if f'cgmxu_st_kernelILi{d1}ELi{f}ELi{d3}E' in k]
+        want = bc.DOTS_EDGES * sum(d3k * d1 * (d2 + 1) for _, d2, d3k in ins)
+        assert c['FFMA'] + c['FMUL'] >= want
+        assert not any(c[op] for op in sass_compare.LOCAL_OPS)
 
 
 @pytest.mark.parametrize('shape', [(27, 20, 384), (45, 22, 384),
@@ -1290,6 +1344,32 @@ def test_bench_cg_kernels_match_plain(cuda, variant):
     ref = bench_cg.plain(variant, x, y)
     torch.cuda.synchronize()
     assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.parametrize('E', [32768, 1003, 7])
+def test_bench_cg_c_matches_plain_and_a(cuda, E):
+    """c on the tensor cores at the tool's E and on ragged ones (a part
+    full last 16-row tile; fewer rows than one tile): within 1e-4 of its
+    max|plain| of the plain version, and within 1e-4 of a."""
+    from sevennet_exp_tpu_torch.tools import bench_cg
+    x, y = bench_cg.make_inputs(E, cuda, seed=E)
+    got = bench_cg.forward('c:full-width', x, y)
+    ref = bench_cg.plain('c:full-width', x, y)
+    a = bench_cg.plain('a:per-term', x, y)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+    assert (got - a).abs().max() < bench_cg.CROSS_TOL
+
+
+def test_bench_cg_c_sass_runs_tf32_mma(cuda):
+    """c's tiling product is HMMA.1688.F32.TF32 (mma.sync m16n8k8, TF32
+    inputs, fp32 sums), and nothing goes to local memory."""
+    from sevennet_exp_tpu_torch.tools import sass_compare
+    ((counts, _, texts),) = sass_compare.count_and_digests(
+        ('bench_cg',), texts=True).values()
+    (name,) = [k for k in counts if 'cg_c_kernel' in k]
+    assert texts[name].count('HMMA.1688.F32.TF32') >= 50
+    assert not any(counts[name][op] for op in sass_compare.LOCAL_OPS)
 
 
 @pytest.mark.parametrize('variant', ['rowmajor', 'colmajor', 'transpose'])
