@@ -95,7 +95,8 @@ Phases (any failure raises, exits non-zero and prints no result):
      cell symmetrically strained;
  13. the bare tensor product: ``make_fused_tp`` driven through autograd on
      the five layers' specs at the 1k grid's rows (counters reset just
-     before), then each kernel against its plain version, times, bound;
+     before), then each kernel against its plain version, times, bound
+     (the backward, redesigned, carries a ``status`` in the kernels line);
  14. the SASS of the three pairs of csrc/fused_conv_geom.cu (the geom
      kernels, kernels 1-2 and their edge-row form), 12 instances in each
      of its two builds (``fused_conv_geom``, run-time silu / tanh, and
@@ -105,16 +106,20 @@ Phases (any failure raises, exits non-zero and prints no result):
      (``PARENT_GEOM_SASS``); the external-weight pair's four instances
      (the build ``fused_conv_geom_extw``: the backward at 4, 9, 16 SH, at
      the SASS of its redesign, ``EXTW_BWD_SASS``, and the forward), the
-     terms pair's four and ``bench_pieces``' six (the same source built
-     with its stub mask; checked in phase 15), compiled with them: no
-     tensor-core and no local-memory opcode; the entries of the twelve
+     terms pair's four (at the SASS they had before the bare TP's backward
+     was redesigned, ``TERMS_SASS``) and ``bench_pieces``' six (the same
+     source built with its stub mask; checked in phase 15), compiled with
+     them: no tensor-core and no local-memory opcode; ``fused_tp``: the
+     forward at ``TP_FWD_SASS``, the backward's 16 instances with no
+     tensor-core or local-memory opcode; the entries of the twelve
      kernels above (the six kernels, the edge-row form of kernels 1-2, the
      terms pair and the tensor-product pair);
  15. the micro-benchmarks at their default sizes through their entry
      points (``bench_cgmxu`` at i1 = 1 and 2), every counter reset just
      before: each prints its times and (``bench_pieces``) its piece costs;
-     the redesigned bf16 ``bench_dot``, ``outer``, ``st`` and ``bench_cg``
-     c kernels carry a ``status`` in the kernels line;
+     the redesigned bf16 ``bench_dot``, ``outer``, ``st``, ``bench_cg``
+     c and ``bench_layout`` transpose kernels carry a ``status`` in the
+     kernels line;
      then each of the twenty-one kernels against its plain version on the
      tool's inputs (``bench_pieces``: ``full`` is kernel 1 and ``-agg`` the
      edge-row kernel 1, by their SASS digests (``PARENT_GEOM_SASS``) and
@@ -134,9 +139,11 @@ Phases (any failure raises, exits non-zero and prints no result):
      products (FFMA + FMUL), c its tiling product as HMMA.1688.F32.TF32
      (outer, st, c and the bf16 ``bench_dot`` instances nothing in local
      memory, the bf16 ones HMMA), the fp32 ``bench_dot`` kernels no
-     tensor-core opcode, and those, the dots kernels and ``bench_cg``'s a
-     and b the SASS they had before bf16, outer, st and c were redesigned
-     (``PARENT_MICRO_SASS``); st (i1 = 1, 2) and c also against their
+     tensor-core opcode, and those, the dots kernels, ``bench_cg``'s a
+     and b and ``bench_layout``'s row- and col-major kernels the SASS they
+     had before bf16, outer, st, c and transpose were redesigned
+     (``PARENT_MICRO_SASS``), no ``bench_layout`` kernel anything in local
+     memory; st (i1 = 1, 2) and c also against their
      plain versions on a ragged E (1,184 and 1,003 rows), c within 1e-4
      of a there;
  16. fault C.1 on the card: a tiny model with hidden [32, 32] routes every
@@ -201,6 +208,14 @@ PARENT_GEOM_SASS = {
 # (tests/test_torch_cuda.py holds them too)
 EXTW_BWD_SASS = ('5455282fa6b2', '9fa855366a9d', 'd8cf526f5ab8')
 
+# SASS digests of the kernels beside the redesigned bare-TP backward and
+# layout transpose, as they were before them: the bare TP's forward (row 9),
+# the terms pair's four instances (rows 3-4), bench_layout's row- and
+# col-major kernels (tests/test_torch_cuda.py holds them too)
+TP_FWD_SASS = ('f27695869423',)
+TERMS_SASS = ('58069b73147a', '90e5aa393ecc', 'caa01d830e0d', 'dc6feb1dee3b')
+LAYOUT_SASS = ('e39d08c7e3a2', '251bf32cd9a4')
+
 # SASS digests of the micro-benchmark kernels beside the redesigned ones
 # (the fp32 bench_dot kernels, bench_cgmxu's dots, bench_cg's a and b), as
 # they were before bf16, outer, st and c were redesigned for Hopper, by the
@@ -213,10 +228,12 @@ PARENT_MICRO_SASS = {
                   '5d330983afe7', '2cde1487ece9'),
     'bench_cgmxu': ('5e3d3e051d91', '40b05ac7fb83', '73a9cda46545'),
     'bench_cg': ('a450a1e2efb4', '09bc131a86bb'),
+    'bench_layout': LAYOUT_SASS,
 }
 MICRO_SASS_STEMS = {'bench_dot': ('dot_fp32_',),
                     'bench_cgmxu': ('cgmxu_dots_',),
-                    'bench_cg': ('cg_a_', 'cg_b_')}
+                    'bench_cg': ('cg_a_', 'cg_b_'),
+                    'bench_layout': ('layout_rowmajor', 'layout_colmajor')}
 
 # the micro-benchmark kernels redesigned for Hopper: their status in the
 # kernels line
@@ -238,6 +255,13 @@ REDESIGNED = {
                       'the tables staged in loop order as LDS.128 '
                       'broadcasts, S and the products in registers, the '
                       'weight fused, 512-byte streaming stores a warp',
+    'bench_layout_transpose': 'redesigned for Hopper: csrc/bench_layout.cu::'
+                              'layout_transpose_kernel, one persistent block '
+                              'an SM over 32-row tiles, a 5-stage cp.async '
+                              'ring of 32 KB pieces (a tile in flight while '
+                              'the passes run), conflict-free '
+                              'diagonal reads, the output tile as whole '
+                              '128-byte lines',
     'bench_cg_c': 'redesigned for Hopper: csrc/bench_cg.cu::cg_c_kernel, '
                   'the tiling product St = S @ T on the tensor cores '
                   '(mma.sync m16n8k8 TF32, S in three TF32 pieces: exact '
@@ -677,6 +701,8 @@ def micro_benchmarks(report, dev, cuda_ms, show, pieces_sass):
         l_ms = cuda_ms(lambda: bench_layout.library(v, *ins), reps=5)
         counts = sass_of('bench_layout', f'layout_{v}_kernel',
                          bench_layout.R * bench_layout.NSLICE)
+        if any(counts[op] for op in sass_compare.LOCAL_OPS):
+            raise AssertionError(f'bench_layout {v}: local memory {counts}')
         rows.append({'tool': 'bench_layout', 'variant': v,
                      'ms': lay['ms'][v], 'err': err, 'lim': lim,
                      'cross_err': cross if v == 'transpose' else None,
@@ -2060,8 +2086,24 @@ def main():
     from sevennet_exp_tpu_torch.tools import sass_compare
     builds = sass_compare.count_and_digests(
         ('fused_conv_geom', 'fused_conv_geom_ssp', 'fused_conv_geom_extw',
-         'fused_conv_terms', 'bench_pieces'))
+         'fused_conv_terms', 'bench_pieces', 'fused_tp'))
     pieces_sass = builds.pop('bench_pieces')
+    # the bare TP: the forward (row 9) at its SASS, the redesigned
+    # backward's 16 instances with nothing in local memory
+    counts, digests = builds.pop('fused_tp')
+    got = sorted(v for k, v in digests.items() if 'fused_tp_fwd' in k)
+    bwd = {k: v for k, v in counts.items() if 'fused_tp_bwd' in k}
+    print(f'fused_tp forward SASS {got} (before: {sorted(TP_FWD_SASS)}); '
+          f'{len(bwd)} backward instances', flush=True)
+    if got != sorted(TP_FWD_SASS):
+        raise AssertionError('fused_tp forward SASS moved')
+    for k, v in bwd.items():
+        bad = {op: v[op] for op in (*sass_compare.TENSOR_CORE_OPS,
+                                    *sass_compare.LOCAL_OPS) if v[op]}
+        if bad or not v['FFMA'] or len(bwd) != 16:
+            raise AssertionError(f'fused_tp {k}: {len(bwd)} instances, '
+                                 f'opcodes {bad}, {v["FFMA"]} FFMA')
+    report['fused_tp_sass'] = counts
     # the redesigned pairs: the external-weight pair (the backward at 4, 9,
     # 16 SH, the forward), the terms pair's two forms each way; the
     # external-weight backward at the SASS of its redesign
@@ -2070,6 +2112,9 @@ def main():
         if len(counts) != 4:
             raise AssertionError(f'{lib}: {len(counts)} kernel instances, '
                                  'want 4')
+        if lib == 'fused_conv_terms' and \
+                sorted(digests.values()) != sorted(TERMS_SASS):
+            raise AssertionError(f'terms pair SASS moved: {digests}')
         if lib == 'fused_conv_geom_extw':
             got = {k: v for k, v in digests.items() if 'bwd' in k}
             print(f'external-weight backward against its redesign\'s SASS: '
@@ -2228,6 +2273,13 @@ def main():
         kernels.append({
             'name': name, 'route': 'cuda',
             'source': 'sevennet_exp_tpu_torch/csrc/fused_tp.cu',
+            **({'status': 'redesigned for Hopper: fused_tp_bwd_kernel<NSH, '
+                          'LM>, steps of (x entry, 64 channels, '
+                          'instruction), the CG compiled in per (l1, l2, '
+                          'l3), the next two steps\' operands in a 3-stage '
+                          'cp.async ring a warp as 16-byte runs, dx and dsh '
+                          'in registers, a persistent grid'}
+               if k == 'bwd' else {}),
             'replaces': f'sevennet_exp_tpu/ops/pallas_tp.py:{line}',
             'launches': tp_launches[name],
             'max_abs_err': max(errs),

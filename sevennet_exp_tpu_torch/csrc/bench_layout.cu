@@ -18,18 +18,32 @@
 //                      b] y_cm[...]; one thread per (output row, b), a warp
 //                      along b
 //   layout_transpose   edge-major inputs, one transpose in and one out
-//                      through shared memory: a block stages 32 rows x 128
-//                      columns of x and y at a time (rows padded by one
-//                      float against bank conflicts), each thread then owns
-//                      (u, e) with a warp along e, and the (32, 32) output
-//                      tile goes back through shared memory so that it is
-//                      written along u
+//                      through shared memory: each thread owns (edge row
+//                      = lane, channel u) and reads its operands across
+//                      the staged rows, as the JAX kernel's .T; the (32,
+//                      32) output tile goes back through shared memory so
+//                      that it is written along u, as whole 128-byte lines
 //
 // What bounds them: bytes (138 MB a launch: 2 x 32768 x 512 x 4 read, 32768
 // x 32 x 4 written) against 402.7 M multiply-adds. Every x and y value is
 // read once from device memory, coalesced; the 24 passes reuse registers.
 // No fast math: the passes are not reassociated, so all 24 x 16 FFMAs of an
-// output are issued (cuobjdump -sass counts them, tools/sass_compare.py).
+// output are issued (cuobjdump -sass counts them, tools/sass_compare.py),
+// in the row-major kernel's order: transpose gives its output bit for bit.
+//
+// The transpose kernel's first form staged each block's 32 rows in 4
+// pieces behind two barriers each, with no load in flight while it ran its
+// passes or wrote its tile (1,024-thread blocks, 3.9 waves): 48.5 % of the
+// byte bound. Now one persistent block an SM walks 32-row tiles (tile
+// blockIdx.x, + gridDim.x, ...), and a 5-stage ring of pieces (32 rows x 128
+// columns of x and of y, 32 KB) is filled by cp.async, the next 4 pieces (a
+// whole tile) in flight while a tile's passes run: one barrier a piece, the
+// ring being 160 KB of the SM's shared memory (6 stages measured no faster). Stage rows are unpadded (16-byte
+// copies); a thread's channel is u = (warp + lane) mod 32, so the 32 lanes
+// of a warp read 32 rows in 32 distinct banks, and write the output tile
+// likewise. cp.async rather than TMA: a piece is 32 row segments of 512
+// bytes 2 KB apart, one 16-byte copy per thread and tensor, and the
+// threads that copy are the ones that wait, so no mbarrier is needed.
 
 #include <cuda_runtime.h>
 
@@ -39,9 +53,14 @@ constexpr int MUL = 32, NSLICE = 16, R = 24;
 constexpr int D = MUL * NSLICE;          // 512 columns
 constexpr int B = 256;                   // col-major: edges per block row
 constexpr int NT = 256;
-constexpr int TR = 32;                   // transpose: edge rows per block
-constexpr int PIECE = 4;                 // transpose: slices staged at once
+constexpr int TR = 32;                   // transpose: edge rows per tile
+constexpr int PIECE = 4;                 // transpose: slices a piece holds
 constexpr int PW = PIECE * MUL;          // 128 columns per piece
+constexpr int NPIECE = NSLICE / PIECE;   // 4 pieces a tile
+constexpr int STAGES = 5;                // ring stages (pieces)
+constexpr int STAGE_F = 2 * TR * PW;     // floats a stage: x and y
+constexpr int TT = TR * MUL;             // transpose: threads, one output each
+constexpr size_t T_SMEM = sizeof(float) * (STAGES * STAGE_F + TT);
 
 __device__ __forceinline__ float passes(const float (&xv)[NSLICE],
                                         const float (&yv)[NSLICE]) {
@@ -86,40 +105,72 @@ layout_colmajor_kernel(const float* __restrict__ x, const float* __restrict__ y,
   out[orow * B + b] = passes(xv, yv);
 }
 
-// E % 32 == 0; 1024 threads: warp w = channel u, lane = edge row in the tile
-__global__ void __launch_bounds__(TR * MUL)
-layout_transpose_kernel(const float* __restrict__ x,
-                        const float* __restrict__ y,
-                        float* __restrict__ out) {
-  __shared__ float x_s[TR][PW + 1];
-  __shared__ float y_s[TR][PW + 1];
-  __shared__ float o_s[TR][MUL + 1];
-  const int tid = threadIdx.x, lane = tid % 32, u = tid / 32;
-  const long e0 = (long)blockIdx.x * TR;
-  float xv[NSLICE], yv[NSLICE];
-#pragma unroll
-  for (int piece = 0; piece < NSLICE / PIECE; ++piece) {
-    // in: the rows' columns [128 piece, 128 piece + 128), along the row
-#pragma unroll
-    for (int k = tid; k < TR * PW; k += TR * MUL) {
-      const int row = k / PW, col = k % PW;
-      x_s[row][col] = x[(e0 + row) * D + piece * PW + col];
-      y_s[row][col] = y[(e0 + row) * D + piece * PW + col];
-    }
-    __syncthreads();
-    // transposed read: lane = edge row, column 32 s + u
-#pragma unroll
-    for (int s = 0; s < PIECE; ++s) {
-      xv[piece * PIECE + s] = x_s[lane][s * MUL + u];
-      yv[piece * PIECE + s] = y_s[lane][s * MUL + u];
-    }
-    __syncthreads();
-  }
-  o_s[lane][u] = passes(xv, yv);
-  __syncthreads();
-  // out: warp u' writes row e0 + u' along its 32 channels
-  out[(e0 + u) * MUL + lane] = o_s[u][lane];
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" :: "r"(d),
+               "l"(src));
 }
+
+// piece `piece` of tile `tile` into a ring stage: x then y, row-major
+// (TR rows of PW floats), 16-byte copies (one per thread and tensor)
+__device__ __forceinline__ void load_piece(float* st,
+                                           const float* __restrict__ x,
+                                           const float* __restrict__ y,
+                                           long tile, int piece, int tid) {
+#pragma unroll
+  for (int c = tid; c < TR * PW / 4; c += TT) {
+    const int row = c / (PW / 4), q = c % (PW / 4);
+    const long at = (tile * TR + row) * D + piece * PW + 4 * q;
+    cp_async16(st + row * PW + 4 * q, x + at);
+    cp_async16(st + TR * PW + row * PW + 4 * q, y + at);
+  }
+}
+
+// n_tiles tiles of 32 rows; TT threads: lane = edge row in the tile,
+// channel u = (warp + lane) mod 32
+__global__ void __launch_bounds__(TT, 1)
+layout_transpose_kernel(const float* __restrict__ x,
+                        const float* __restrict__ y, long n_tiles,
+                        float* __restrict__ out) {
+  extern __shared__ __align__(16) float ring[];
+  float* o_s = ring + STAGES * STAGE_F;
+  const int tid = threadIdx.x, lane = tid % 32, u = (tid / 32 + lane) % MUL;
+  const long my_tiles = (n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  const long n_pieces = my_tiles * NPIECE;
+  auto issue = [&](long j) {     // piece j of this block, or an empty group
+    if (j < n_pieces)
+      load_piece(ring + (j % STAGES) * STAGE_F, x, y,
+                 blockIdx.x + (j / NPIECE) * (long)gridDim.x,
+                 (int)(j % NPIECE), tid);
+    asm volatile("cp.async.commit_group;");
+  };
+  for (int j = 0; j < STAGES - 1; ++j) issue(j);
+  float xv[NSLICE], yv[NSLICE];
+  for (long t = 0; t < my_tiles; ++t) {
+#pragma unroll
+    for (int piece = 0; piece < NPIECE; ++piece) {
+      const long j = t * NPIECE + piece;
+      // piece j has landed, and every thread is done with stage j - 1
+      asm volatile("cp.async.wait_group %0;" :: "n"(STAGES - 2) : "memory");
+      __syncthreads();
+      issue(j + STAGES - 1);
+      // transposed read: lane = edge row, column 32 s + u
+      const float* st = ring + (j % STAGES) * STAGE_F;
+#pragma unroll
+      for (int s = 0; s < PIECE; ++s) {
+        xv[piece * PIECE + s] = st[lane * PW + s * MUL + u];
+        yv[piece * PIECE + s] = st[TR * PW + lane * PW + s * MUL + u];
+      }
+    }
+    o_s[lane * MUL + u] = passes(xv, yv);
+    __syncthreads();
+    // out: the tile's 32 rows of 32 channels, contiguous, along u
+    out[(blockIdx.x + t * gridDim.x) * (long)(TR * MUL) + tid] = o_s[tid];
+  }
+}
+
+constexpr int MAX_DEVICES = 64;
+int n_sms[MAX_DEVICES];              // 0: the device not seen yet
 
 }  // namespace
 
@@ -142,12 +193,31 @@ extern "C" int layout_colmajor(const float* x, const float* y, long G,
   return (int)cudaGetLastError();
 }
 
-// x, y (E, 512) row-major -> out (E, 32); E a multiple of 32
+// x, y (E, 512) row-major -> out (E, 32); E a multiple of 32; x, y and out
+// 16-byte aligned
 extern "C" int layout_transpose(const float* x, const float* y, long E,
                                 float* out, void* stream) {
   if (E <= 0 || E % TR || E / TR >= (1L << 31))
     return (int)cudaErrorInvalidValue;
-  layout_transpose_kernel<<<(unsigned)(E / TR), TR * MUL, 0,
-                            (cudaStream_t)stream>>>(x, y, out);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidValue;
+  if (!n_sms[dev]) {
+    err = cudaFuncSetAttribute(layout_transpose_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)T_SMEM);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n_sms[dev],
+                                   cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) {
+      n_sms[dev] = 0;
+      return (int)err;
+    }
+  }
+  const long tiles = E / TR;
+  const unsigned grid = (unsigned)(tiles < n_sms[dev] ? tiles : n_sms[dev]);
+  layout_transpose_kernel<<<grid, TT, T_SMEM, (cudaStream_t)stream>>>(
+      x, y, tiles, out);
   return (int)cudaGetLastError();
 }

@@ -15,7 +15,11 @@ reference's cuEquivariance backend); the convolutions go through
 On CUDA tensors the wrapper launches the kernels of ``csrc/fused_tp.cu``
 (built with nvcc at first use into ``_build/``); on CPU tensors it runs the
 plain version, ``UVUTensorProductSpec.apply`` and its autograd VJP. Any
-other device raises.
+other device raises. The backward kernel compiles its CG terms in per
+(l1, l2, l3) with l <= 3 and holds the sh components in registers, so it
+takes specs whose sh entries sit at offsets l^2 and whose x multiplicities
+are multiples of 4 (it copies 16-byte runs of channels): ``bwd_tables``
+refuses others, and ``kernel_backward`` raises for them.
 """
 
 from __future__ import annotations
@@ -34,6 +38,14 @@ from .tensor_product import UVUTensorProductSpec
 Tensor = torch.Tensor
 
 _I_STRIDE = 10    # ints per instruction record (see csrc/fused_tp.cu)
+# the backward's step record (csrc/fused_tp.cu: S_XOFF .. S_FLAGS)
+S_FIELDS = ('x_off', 'mul', 'u0', 'd1', 'key', 'w_off', 'out_off', 'scale',
+            'flags')
+F_FIRST, F_LAST = 1, 2    # the first / last step of an x item
+STEP_CHANNELS = 64        # channels a step: two a lane
+NO_INS = -1               # the key of an x entry no instruction reads
+_NSH = (1, 4, 9, 16)      # the backward's instances by sh components held
+LMAX_BWD = 3              # and by largest l (csrc/cg_patterns.cuh's)
 
 
 def _plan(spec: UVUTensorProductSpec):
@@ -90,6 +102,69 @@ def pack_plan(plan: Sequence[dict]):
     return (np.asarray(ins, np.int32).reshape(-1, _I_STRIDE),
             np.asarray(slices, np.int32).reshape(-1, 2),
             np.asarray(idx, np.int32), np.asarray(coef, np.float32))
+
+
+def pattern_scale(p: dict) -> float:
+    """The one factor s with ``p['nz'] = s CgPattern<l1, l2, l3>`` (the
+    instruction's path normalisation; the pattern is
+    ``tools/cg_patterns.pattern``, which csrc/cg_patterns.cuh is generated
+    from); raises if the terms do not factor so."""
+    from ..tools.cg_patterns import pattern   # its source, csrc's terms
+    ls = tuple((p[k] - 1) // 2 for k in ('dim1', 'dim2', 'dim3'))
+    pat = {(m, n, q): c for m, n, q, c in pattern(*ls)}
+    nz = {(m, n, q): c for m, n, q, c in p['nz']}
+    if set(nz) != set(pat):
+        raise ValueError(f'CG terms of {ls} are not its pattern\'s')
+    first = min(pat, key=lambda t: (t[2], t[0], t[1]))
+    scale = nz[first] / pat[first]
+    if any(abs(c - scale * pat[t]) > 1e-6 * abs(c) for t, c in nz.items()):
+        raise ValueError(f'CG terms of {ls} are not one scale times its '
+                         'pattern')
+    return scale
+
+
+def bwd_tables(spec: UVUTensorProductSpec):
+    """The backward kernel's tables: (steps, nsh, lm). ``steps`` is one
+    row's (S, 9) int32 step records (fields ``S_FIELDS``) in the order a
+    warp runs them: by x entry, then block of ``STEP_CHANNELS`` channels,
+    then the instructions that read the entry (key l1 16 + l2 4 + l3, the
+    weight and output offsets, the float32 bits of ``pattern_scale``); an
+    x entry no instruction reads is one step of key ``NO_INS`` per block.
+    ``flags`` marks an x item's first and last step. ``nsh`` is the
+    instance's sh width (the least of 1, 4, 9, 16 >= f), ``lm`` its largest
+    l of an x or output entry. Raises ValueError for a spec the kernel does
+    not take."""
+    plan, _, _ = _plan(spec)
+    f = spec.irreps_in2.dim
+    nsh = next((n for n in _NSH if n >= f), None)
+    for (mul, ir), sl in zip(spec.irreps_in2, spec.irreps_in2.slices()):
+        if mul != 1 or sl.start != ir.l ** 2:
+            nsh = None
+    if nsh is None:
+        raise ValueError('fused_tp backward: the sh entries must be 1x each '
+                         'at offset l^2, l <= 3')
+    lm = max([ir.l for _, ir in spec.irreps_in1]
+             + [(p['dim3'] - 1) // 2 for p in plan])
+    if lm > LMAX_BWD:
+        raise ValueError(f'fused_tp backward: l {lm} > {LMAX_BWD}')
+    if any(mul % 4 for mul, _ in spec.irreps_in1):
+        raise ValueError('fused_tp backward: x multiplicities must be '
+                         'multiples of 4')
+    steps = []
+    for (mul, ir), sl in zip(spec.irreps_in1, spec.irreps_in1.slices()):
+        users = [p for p in plan if p['x_off'] == sl.start]
+        for u0 in range(0, mul, STEP_CHANNELS):
+            item = [[sl.start, mul, u0, ir.dim,
+                     ((p['dim1'] - 1) // 2) * 16 + ((p['dim2'] - 1) // 2) * 4
+                     + (p['dim3'] - 1) // 2, p['w_off'], p['out_off'],
+                     int(np.float32(pattern_scale(p)).view(np.int32)), 0]
+                    for p in users] or \
+                [[sl.start, mul, u0, ir.dim, NO_INS, 0, 0, 0, 0]]
+            item[0][-1] |= F_FIRST
+            item[-1][-1] |= F_LAST
+            steps += item
+    return (np.asarray(steps, np.int32).reshape(-1, len(S_FIELDS)), nsh,
+            lm)
 
 
 class TermPool:
@@ -151,7 +226,8 @@ def _lib():
     dims = [_P, _P, _I, _I, _L, _I, _I, _I, _I]
     lib.fused_tp_fwd.argtypes = [_P] * 3 + dims + [_P, _P]
     lib.fused_tp_fwd.restype = _I
-    lib.fused_tp_bwd.argtypes = [_P] * 4 + dims + [_P] * 4
+    lib.fused_tp_bwd.argtypes = [_P] * 4 + [_P, _I, _I, _I, _L, _I, _I, _I,
+                                            _I] + [_P] * 4
     lib.fused_tp_bwd.restype = _I
     return lib
 
@@ -171,6 +247,7 @@ class FusedTP:
         self.d1 = spec.irreps_in1.dim
         self.f = spec.irreps_in2.dim
         self._tables: Dict[torch.device, tuple] = {}
+        self._bwd: Dict[torch.device, tuple] = {}
 
     # -- plain version ------------------------------------------------
     def plain_forward(self, xg, sh, w) -> Tensor:
@@ -188,6 +265,16 @@ class FusedTP:
         if t is None:
             t = self._tables[device] = device_tables(
                 _POOL, device, *pack_plan(self.plan))
+        return t
+
+    def bwd_kernel_tables(self, device):
+        """(steps on the device, n_steps, nsh, lm) of ``bwd_tables``."""
+        t = self._bwd.get(device)
+        if t is None:
+            steps, nsh, lm = bwd_tables(self.spec)
+            t = self._bwd[device] = (
+                torch.tensor(steps.reshape(-1), device=device),
+                steps.shape[0], nsh, lm)
         return t
 
     def _check(self, xg, sh, w, g=None):
@@ -228,15 +315,20 @@ class FusedTP:
 
     def kernel_backward(self, g, xg, sh, w):
         """Launch ``fused_tp_bwd`` (CUDA tensors only); returns (dxg, dsh,
-        dw), every element written."""
+        dw), every element written. Raises for a spec ``bwd_tables``
+        refuses."""
         g = g.contiguous()
         self._check(xg, sh, w, g)
+        if any(t.data_ptr() % 16 for t in (g, xg, w)):
+            raise ValueError('fused_tp backward takes g, xg and w 16-byte '
+                             'aligned')
         dxg, dsh, dw = (torch.empty_like(t) for t in (xg, sh, w))
+        steps, n_steps, nsh, lm = self.bwd_kernel_tables(xg.device)
         with torch.cuda.device(xg.device):
             err = _lib().fused_tp_bwd(
-                _ptr(g), _ptr(xg), _ptr(sh), _ptr(w),
-                *self._dims(xg.device, xg.shape[0]), _ptr(dxg), _ptr(dsh),
-                _ptr(dw), ctypes.c_void_p(
+                _ptr(g), _ptr(xg), _ptr(sh), _ptr(w), _ptr(steps), n_steps,
+                nsh, lm, xg.shape[0], self.d1, self.f, self.w_numel, self.d3,
+                _ptr(dxg), _ptr(dsh), _ptr(dw), ctypes.c_void_p(
                     torch.cuda.current_stream(xg.device).cuda_stream))
         cuda_build.check(err, 'fused_tp_bwd')
         launch_counts['fused_tp_bwd'] += 1

@@ -3,9 +3,11 @@
 with ``--extw`` the external-weight backward (``fused_conv_extw_bwd``),
 with ``--terms-fwd`` / ``--extw-fwd`` the two forwards; with ``--dot-bf16``
 / ``--outer`` / ``--st`` / ``--cg-c`` the micro-benchmark kernels
-``dot_bf16`` / ``cgmxu_outer`` / ``cgmxu_st`` / ``cg_c``.
+``dot_bf16`` / ``cgmxu_outer`` / ``cgmxu_st`` / ``cg_c``; with ``--tp-bwd``
+the bare tensor product's backward (``fused_tp_bwd``), with
+``--layout-transpose`` ``bench_layout``'s ``layout_transpose``.
 
-    python -m sevennet_exp_tpu_torch.tools.bwd_ab OTHER_CSRC [STEPS] [OUT.json] --terms | --extw | --terms-fwd | --extw-fwd | --dot-bf16 | --outer | --st | --cg-c
+    python -m sevennet_exp_tpu_torch.tools.bwd_ab OTHER_CSRC [STEPS] [OUT.json] --terms | --extw | --terms-fwd | --extw-fwd | --dot-bf16 | --outer | --st | --cg-c | --tp-bwd | --layout-transpose
 
 OTHER_CSRC is an earlier tree's ``csrc`` directory unpacked with ``git
 archive`` (its ``fused_conv_terms.cu``, or its ``fused_conv.cu`` with the
@@ -38,6 +40,16 @@ where the list below says backward, on the same inputs and paths:
     output is first held to the tool's plain version (bf16: 1e-5 K
     max|plain|, phase 15's limit; outer, st and c: 1e-4 max|plain|), then
     both are timed in turns (CUDA events, 20 reps).
+  - ``--tp-bwd``: OTHER_CSRC's ``fused_tp.cu``, whose ``fused_tp_bwd`` took
+    the forward's instruction records and term pool (a tree before the
+    backward's redesign), on chip_smoke phase 13's inputs: the checkpoint's
+    five specs at the 1k grid's 32,000 rows (xg and sh of ``dense_inputs``,
+    w = MLP(emb) ms, a seeded normal cotangent); (dxg, dsh, dw) each held
+    to ``plain_backward`` within 1e-4 of its max|plain| (phase 13's limit).
+    ``--layout-transpose``: its ``bench_layout.cu`` (the same
+    ``layout_transpose`` entry) on the tool's (32768, 512) inputs, held to
+    the plain version within 1e-4 max|plain|, and the two builds'
+    ``layout_rowmajor`` (an unchanged kernel) timed in the same turns.
 
 After the turns of a conv kind, each layer's outputs of the two builds are
 compared (relative to max|other|). Prints one line per turn and the means
@@ -55,6 +67,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -63,7 +76,8 @@ from ..ops import cuda_build
 from ..ops import fused_conv as fc
 from ..ops import fused_conv_geom as fcg
 from ..ops import fused_conv_terms as fct
-from . import bench_cg, bench_cgmxu, bench_dot
+from ..ops import fused_tp as ftp
+from . import bench_cg, bench_cgmxu, bench_dot, bench_layout
 from .geom_ab import CHECKPOINT, D, dense_inputs, edge_inputs
 from .timing import card, cuda_ms, require_card
 
@@ -92,22 +106,24 @@ def build(src: str, out: str, defines=()) -> ctypes.CDLL:
 
 
 class LibPool:
-    """The constant term pool of one library of ``fused_conv_terms.cu``:
-    each plan's terms uploaded once, at the offset it keeps."""
+    """The constant term pool of one library of ``fused_conv_terms.cu`` (or
+    of ``fused_tp.cu``: PREFIX ``fused_tp``): each plan's terms uploaded
+    once, at the offset it keeps."""
 
-    def __init__(self, lib: ctypes.CDLL):
+    def __init__(self, lib: ctypes.CDLL, prefix: str = 'fused_conv_terms'):
         self.lib, self.used, self.placed = lib, 0, {}
-        lib.fused_conv_terms_upload.argtypes = [_I, _I, _P, _P]
-        lib.fused_conv_terms_upload.restype = _I
+        self.upload = getattr(lib, f'{prefix}_upload')
+        self.upload.argtypes = [_I, _I, _P, _P]
+        self.upload.restype = _I
 
     def place(self, plan) -> int:
         key = (plan.idx.tobytes(), plan.coef.tobytes())
         if key not in self.placed:
             idx = np.ascontiguousarray(plan.idx, np.int32)
             coef = np.ascontiguousarray(plan.coef, np.float32)
-            cuda_build.check(self.lib.fused_conv_terms_upload(
+            cuda_build.check(self.upload(
                 self.used, idx.size, idx.ctypes.data, coef.ctypes.data),
-                'fused_conv_terms_upload')
+                'term pool upload')
             self.placed[key] = self.used
             self.used += idx.size
         return self.placed[key]
@@ -290,6 +306,59 @@ def extw_launcher(lib: ctypes.CDLL, parent: bool):
         fc.launch_counts['fused_conv_extw_bwd'] += 1
         return dxg, dsh, dweff
     return backward
+
+
+def tp_launcher(lib: ctypes.CDLL, parent: bool):
+    """A function (op, g, xg, sh, w) -> (dxg, dsh, dw) that launches LIB's
+    ``fused_tp_bwd``: the port's ABI (``FusedTP.bwd_kernel_tables``), or
+    with PARENT the earlier one (the forward's instruction records and
+    slices, their terms in LIB's constant pool)."""
+    fn = lib.fused_tp_bwd
+    dims = [_L, _I, _I, _I, _I]
+    fn.argtypes = [_P] * 4 + ([_P, _P, _I, _I] if parent else
+                              [_P, _I, _I, _I]) + dims + [_P] * 4
+    fn.restype = _I
+    pool = LibPool(lib, 'fused_tp') if parent else None
+    cache = {}
+
+    def backward(op, g, xg, sh, w):
+        dev = xg.device
+        if parent:
+            if (id(op), dev) not in cache:
+                ins, slices, idx, coef = ftp.pack_plan(op.plan)
+                base = pool.place(SimpleNamespace(idx=idx, coef=coef))
+                ins = ins.copy()
+                ins[:, 6:10] += base
+                cache[id(op), dev] = tuple(
+                    torch.tensor(a.reshape(-1), device=dev)
+                    for a in (ins, slices))
+            ins, slices = cache[id(op), dev]
+            tables = [_ptr(ins), _ptr(slices), len(op.plan),
+                      slices.numel() // 2]
+        else:
+            steps, n_steps, nsh, lm = op.bwd_kernel_tables(dev)
+            tables = [_ptr(steps), n_steps, nsh, lm]
+        dxg, dsh, dw = (torch.empty_like(t) for t in (xg, sh, w))
+        cuda_build.check(fn(_ptr(g), _ptr(xg), _ptr(sh), _ptr(w), *tables,
+                            xg.shape[0], op.d1, op.f, op.w_numel, op.d3,
+                            _ptr(dxg), _ptr(dsh), _ptr(dw), _stream(xg)),
+                         'fused_tp_bwd')
+        return dxg, dsh, dw
+    return backward
+
+
+def tp_inputs(model, dev, seed: int = 0):
+    """{layer: (op, (g, xg, sh, w))}: chip_smoke phase 13's inputs, the
+    checkpoint's five specs on the 1k grid's rows (xg, sh of
+    ``dense_inputs``, w = MLP(emb) ms) and a seeded normal cotangent."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    out = {}
+    for (layer, _), (conv, _, (xg, sh, w, _)) in layer_inputs(
+            model, 'extw', dev).items():
+        op = ftp.make_fused_tp(conv.tp)
+        g = torch.randn(xg.shape[0], op.d3, device=dev, generator=gen)
+        out[layer] = (op, (g, xg, sh, w))
+    return out
 
 
 # the method each kind's launcher takes the place of, and its launcher
@@ -482,13 +551,41 @@ def run(other_csrc: str, kind: str, steps: int = 100):
 # the micro-benchmark kinds: a bench tool's kernel from OTHER_CSRC against
 # this tree's on the tool's own inputs (no model), and the source it is in
 MICRO = {'dot_bf16': 'bench_dot.cu', 'outer': 'bench_cgmxu.cu',
-         'st': 'bench_cgmxu.cu', 'cg_c': 'bench_cg.cu'}
+         'st': 'bench_cgmxu.cu', 'cg_c': 'bench_cg.cu',
+         'tp_bwd': 'fused_tp.cu', 'layout_transpose': 'bench_layout.cu'}
 
 
 def micro_cases(kind: str, lib: ctypes.CDLL):
     """(label, other, this, ref, lim) for each input of KIND on the card:
     LIB's launch, this tree's, the plain version's output and the limit on
-    max|out - ref|."""
+    max|out - ref| (a tuple of each for several outputs)."""
+    if kind == 'tp_bwd':
+        from ..checkpoint import SevenNetCheckpoint
+        dev = torch.device('cuda')
+        model, _ = SevenNetCheckpoint(CHECKPOINT).build_model(device=dev)
+        other_bwd = tp_launcher(lib, parent=True)
+        for layer, (op, ins) in tp_inputs(model, dev).items():
+            ref = op.plain_backward(*ins)
+            yield (f'layer{layer}', lambda op=op, ins=ins: other_bwd(op, *ins),
+                   lambda op=op, ins=ins: op.kernel_backward(*ins), ref,
+                   tuple(1e-4 * float(r.abs().max()) for r in ref))
+        return
+    if kind == 'layout_transpose':
+        x, y = bench_layout.make_inputs('cuda')
+        for v in ('transpose', 'rowmajor'):
+            fn = getattr(lib, f'layout_{v}')
+            fn.argtypes = [_P, _P, _L, _P, _P]
+            fn.restype = _I
+
+            def other(fn=fn, v=v):
+                out = x.new_empty((x.shape[0], bench_layout.MUL))
+                cuda_build.check(fn(_ptr(x), _ptr(y), x.shape[0], _ptr(out),
+                                    _stream(x)), f'other layout_{v}')
+                return out
+            ref = bench_layout.plain(v, x, y)
+            yield (v, other, lambda v=v: bench_layout.forward(v, x, y), ref,
+                   1e-4 * float(ref.abs().max()))
+        return
     if kind == 'dot_bf16':
         fn = lib.dot_bf16
         fn.argtypes = [_P, _P, _I, _I, _I, _L, _P, _P]
@@ -562,11 +659,15 @@ def run_micro(other_csrc: str, kind: str, reps: int = 20):
         for label, other, this, ref, lim in micro_cases(kind, lib):
             row = res['cases'][str(label)] = {'other': [], 'this': []}
             for side, fn in (('other', other), ('this', this)):
-                err = float((fn() - ref).abs().max())
-                if not err <= lim:
+                outs, refs, lims = fn(), ref, lim
+                if not isinstance(refs, tuple):
+                    outs, refs, lims = (outs,), (refs,), (lims,)
+                errs = [float((o - r).abs().max())
+                        for o, r in zip(outs, refs)]
+                if not all(e <= m for e, m in zip(errs, lims)):
                     raise AssertionError(f'{kind} {label} {side}: |err| '
-                                         f'{err:.3e} > {lim:.3e}')
-                row[f'err_{side}'] = err
+                                         f'{errs} > {lims}')
+                row[f'err_{side}'] = errs if len(errs) > 1 else errs[0]
             del ref
             for side, fn in (('other', other), ('this', this),
                              ('this', this), ('other', other)):

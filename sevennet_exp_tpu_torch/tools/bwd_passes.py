@@ -4,9 +4,11 @@ one pass at a time and timing each build: with ``--terms`` the ``terms``
 backward (``--terms-fwd``: forward) on the 1k grid's shape (1,000 atoms x
 32 rows, 6 pad rows an atom) and on the 1k calculator's 31,232 rows, with
 ``--extw`` the external-weight backward (``--extw-fwd``: forward) on the 1k
-``half_mlp`` grid's shape, at checkpoint layer 1.
+``half_mlp`` grid's shape, at checkpoint layer 1; with ``--tp-bwd`` the
+bare tensor product's backward (``fused_tp_bwd``) on chip_smoke phase 13's
+layer-1 inputs (``bwd_ab.tp_inputs``, 32,000 rows).
 
-    python -m sevennet_exp_tpu_torch.tools.bwd_passes [OTHER_CSRC] [OUT.json] --terms | --extw | --terms-fwd | --extw-fwd
+    python -m sevennet_exp_tpu_torch.tools.bwd_passes [OTHER_CSRC] [OUT.json] --terms | --extw | --terms-fwd | --extw-fwd | --tp-bwd
 
 Each pass gets a ``-DSTUB_<PASS>`` switch, inserted into a temporary copy of
 the source (the stand-in keeps its result live, so the compiler keeps the
@@ -19,7 +21,8 @@ stubbed) / rows in ns a row. Without OTHER_CSRC the source is the port's
 (its ``fused_conv_terms.cu``, or its ``fused_conv.cu`` whose
 ``fused_conv_body.cuh`` holds the first external-weight pair: each
 kind's earlier switches fit a tree that still has that kernel's first
-design). Needs a card (exits 2 without one).
+design; ``--tp-bwd``: its ``fused_tp.cu``). Needs a card (exits 2 without
+one).
 
 The stand-ins (what each switch leaves of its pass):
   SI2   gm = alpha W^T g from one o instead of the sum; forwards: y = alpha
@@ -40,6 +43,15 @@ The stand-ins (what each switch leaves of its pass):
   WLOAD (earlier extw, both forwards) the tile's weights not loaded (a
         function of the column or of the row's place in its atom)
   STORE (new extw) the dweff rows not written
+  DX    (earlier tp) dx summed in a register, not read-modified-written in
+        the warp's shared-memory row per term
+  G     tp: (earlier) g read once a slice, not per term; (new) no g copied
+        into the ring (the stage keeps what it held)
+  RED   (earlier tp) dsh summed per lane, no shuffles, one shared add a
+        row; (new tp) the row's dsh not warp-summed (the lanes' own sums)
+  BODY  (earlier tp) the term walk only: no term's loads or arithmetic
+  CG    (new tp) no CG: each step one product of its operands (the
+        other g components copied but not read)
 """
 
 from __future__ import annotations
@@ -437,7 +449,89 @@ NEW_EXTW_FWD: Stubs = [
           acc = fmaf(ap[r], __ldg(W + (long)r * mo + o), acc);"""),
 ]
 
-KINDS = ('terms', 'extw', 'terms_fwd', 'extw_fwd')
+# the bare tensor product's backward, its first form
+OLD_TP: Stubs = [
+    ('DX', """        dxe[m * mul] = fmaf(gc * wv, se[n], dxe[m * mul]);""",
+     """#ifdef STUB_DX
+        dwv = fmaf(gc * wv, se[n], dwv);
+#else
+        dxe[m * mul] = fmaf(gc * wv, se[n], dxe[m * mul]);
+#endif"""),
+    ('G', """    float dwv = 0.f;
+    int t = I[I_TB0];""",
+     """    float dwv = 0.f;
+#ifdef STUB_G
+    const float g0 = on ? __ldg(ge) : 0.f;
+#endif
+    int t = I[I_TB0];"""),
+    ('G', """        const float gc = __ldg(ge + p * mul) * c_coef[t];""",
+     """#ifdef STUB_G
+        const float gc = g0 * c_coef[t] + 0 * p;
+#else
+        const float gc = __ldg(ge + p * mul) * c_coef[t];
+#endif"""),
+    ('RED', """  float* dwr = dw + row * A.wn;
+""",
+     """  float* dwr = dw + row * A.wn;
+#ifdef STUB_RED
+  float red = 0.f;
+#endif
+"""),
+    ('RED', """      sn = warp_sum(sn * wv);
+      if (lane == 0) dsh_s[I[I_SHOFF] + n] += sn;""",
+     """#ifdef STUB_RED
+      red += sn * wv;
+#else
+      sn = warp_sum(sn * wv);
+      if (lane == 0) dsh_s[I[I_SHOFF] + n] += sn;
+#endif"""),
+    ('RED', """  __syncwarp();
+  float* dxr = dxg + row * A.d1;""",
+     """#ifdef STUB_RED
+  if (lane == 0) dsh_s[0] += red;
+#endif
+  __syncwarp();
+  float* dxr = dxg + row * A.d1;"""),
+    ('BODY', """        if (!on) continue;
+        const int id = c_idx[t];""",
+     """#ifdef STUB_BODY
+        if (on) sn += 1.f;
+        continue;
+#endif
+        if (!on) continue;
+        const int id = c_idx[t];"""),
+]
+
+# the redesigned one
+NEW_TP: Stubs = [
+    ('G', """    for (int k = lane; k < d3 * Q; k += 32) {""",
+     """#ifdef STUB_G
+    for (int k = lane; k < 0 * d3; k += 32) {
+#else
+    for (int k = lane; k < d3 * Q; k += 32) {
+#endif"""),
+    ('RED', """        const float t = warp_sum(dsa[n]);""",
+     """#ifdef STUB_RED
+        const float t = dsa[n];
+#else
+        const float t = warp_sum(dsa[n]);
+#endif"""),
+    ('CG', """    float dwv[CH];
+    switch (key) {""",
+     """    float dwv[CH];
+#ifdef STUB_CG
+#pragma unroll
+    for (int h = 0; h < CH; ++h) {
+      dwv[h] = fmaf(gv[h][0] * sc, xv[h][0] * sv[0], wv[h]);
+      dx[h][0] += dwv[h];
+      dsa[0] += dwv[h];
+    }
+    if (0)
+#endif
+    switch (key) {"""),
+]
+
+KINDS = ('terms', 'extw', 'terms_fwd', 'extw_fwd', 'tp_bwd')
 
 
 def apply(text: str, stubs: Stubs) -> str:
@@ -455,6 +549,10 @@ def plan(kind: str, other: str = None):
     KIND (one of ``KINDS``) in the port's csrc or in OTHER."""
     extw = kind.startswith('extw')
     fwd = kind.endswith('_fwd')
+    if kind == 'tp_bwd':
+        src = other or os.path.dirname(cuda_build.source_path('fused_tp'))
+        return (src, 'fused_tp.cu', 'fused_tp.cu',
+                OLD_TP if other else NEW_TP, ())
     if other is None:
         src = cuda_build.source_path('fused_conv_geom_extw' if extw
                                      else 'fused_conv_terms')
@@ -495,7 +593,10 @@ def build(kind: str, other: str, out_dir: str):
         o, e = p.communicate()
         if p.returncode:
             raise RuntimeError(f'nvcc failed on variant {v}:\n{o}\n{e}')
-        out[v] = bwd_ab.launcher(kind, ctypes.CDLL(so), other is not None)
+        lib = ctypes.CDLL(so)
+        out[v] = (bwd_ab.tp_launcher(lib, other is not None)
+                  if kind == 'tp_bwd' else
+                  bwd_ab.launcher(kind, lib, other is not None))
     return out
 
 
@@ -505,12 +606,26 @@ def run(kind: str, other: str = None) -> Dict:
     dev = torch.device('cuda')
     res = {'card': card(), 'kind': kind,
            'source': other or 'csrc', 'shapes': {}}
-    port = bwd_ab.port_launcher(kind)
     key = 'fwd_ms' if kind.endswith('_fwd') else 'bwd_ms'
     with tempfile.TemporaryDirectory() as tmp:
         launchers = build(kind, other, tmp)
+        model, _ = SevenNetCheckpoint(CHECKPOINT).build_model(device=dev)
+        if kind == 'tp_bwd':
+            op, ins = bwd_ab.tp_inputs(model, dev)[1]
+            rows = ins[1].shape[0]
+            out = {}
+            for v, fn in launchers.items():
+                out[v] = {key: cuda_ms(lambda: fn(op, *ins), reps=20,
+                                       warm=1)}
+                out[v]['ns_per_row_saved'] = (
+                    (out['full'][key] - out[v][key]) * 1e6 / rows)
+                print(f'layer 1 {v}: ' + json.dumps(
+                    {k: round(x, 4) for k, x in out[v].items()}),
+                    flush=True)
+            res['shapes']['layer1'] = out
+            return res
+        port = bwd_ab.port_launcher(kind)
         try:
-            model, _ = SevenNetCheckpoint(CHECKPOINT).build_model(device=dev)
             convs = bwd_ab.layer_inputs(model, kind, dev)
             for (layer, dd), (conv, ws, ins) in convs.items():
                 if layer != 1:

@@ -112,3 +112,68 @@ def test_cost_is_bound_by_bytes():
     assert round(nbytes / 3.35e12 * 1e3, 4) == 0.0413
     assert flops == 2.0 * 402653184
     assert flops / 67e12 < nbytes / 3.35e12
+
+
+def _cu_constants():
+    """The transpose kernel's constants, read from csrc/bench_layout.cu."""
+    import re
+    path = os.path.join(ROOT, 'sevennet_exp_tpu_torch', 'csrc',
+                        'bench_layout.cu')
+    with open(path) as fh:
+        text = fh.read()
+    vals = {}
+    for name in ('MUL', 'NSLICE', 'R', 'TR', 'PIECE', 'STAGES'):
+        (v,) = re.findall(rf'\b{name} = (\d+)[,;]', text)
+        vals[name] = int(v)
+    return vals
+
+
+@pytest.mark.parametrize('grid', [132, 5])
+def test_transpose_kernel_schedule_replay(grid):
+    """Replays csrc/bench_layout.cu's layout_transpose_kernel in numpy on
+    E = 32 x 133 rows: block b walks tiles b, b + grid, ...; each tile's
+    pieces pass through the ring; thread (warp w, lane) reads row lane,
+    channel u = (w + lane) mod 32 of each staged piece (32 distinct banks a
+    warp) and writes o_s[lane][u]; every output is written once and the
+    result is the plain version's."""
+    c = _cu_constants()
+    TR, MUL, PW = c['TR'], c['MUL'], c['PIECE'] * c['MUL']
+    npiece, stages = c['NSLICE'] // c['PIECE'], c['STAGES']
+    assert (MUL, c['NSLICE'], c['R']) == (bench_layout.MUL,
+                                          bench_layout.NSLICE, bench_layout.R)
+    E = 32 * 133
+    x, y = bench_layout.make_inputs('cpu', grid=17, seed=9)
+    x, y = x[:E].numpy(), y[:E].numpy()
+    out = np.full((E, MUL), np.nan, np.float32)
+    n_tiles = E // TR
+    lane = np.arange(32)
+    for b in range(grid):
+        my_tiles = (n_tiles - b + grid - 1) // grid
+        ring = np.zeros((stages, 2, TR, PW), np.float32)
+        for t in range(my_tiles):
+            tile = b + t * grid
+            xv = np.zeros((32, 32, c['NSLICE']), np.float32)   # (w, lane, s)
+            yv = np.zeros_like(xv)
+            for piece in range(npiece):
+                j = t * npiece + piece
+                rows = slice(tile * TR, tile * TR + TR)
+                cols = slice(piece * PW, piece * PW + PW)
+                ring[j % stages] = (x[rows, cols], y[rows, cols])
+                st = ring[j % stages].reshape(2, TR * PW)
+                for w in range(32):
+                    u = (w + lane) % MUL
+                    for s in range(c['PIECE']):
+                        addr = lane * PW + s * MUL + u
+                        assert len(set(addr % 32)) == 32       # no conflict
+                        xv[w, :, piece * c['PIECE'] + s] = st[0, addr]
+                        yv[w, :, piece * c['PIECE'] + s] = st[1, addr]
+            for w in range(32):
+                u = (w + lane) % MUL
+                assert len(set((lane * MUL + u) % 32)) == 32   # o_s write
+                r = tile * TR + lane
+                assert np.isnan(out[r, u]).all()
+                out[r, u] = c['R'] * (xv[w] * yv[w]).sum(1)
+    assert not np.isnan(out).any()
+    ref = bench_layout.plain('transpose', torch.tensor(x),
+                             torch.tensor(y)).numpy()
+    assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()

@@ -1133,6 +1133,69 @@ def test_fused_tp_kernels_small_multiplicities(cuda):
     _assert_tp_matches_plain(op, 77, cuda, 3)
 
 
+@pytest.mark.parametrize('layer', [0, 1, 4])
+def test_fused_tp_backward_ragged_over_its_persistent_grid(cuda, model, layer):
+    """10,007 rows: a prime, so the warps of the persistent grid (one row
+    at a time, rows warp, warp + all warps, ...) end on different rows and
+    the last rows fall in no whole block of 8."""
+    from sevennet_exp_tpu_torch.ops.fused_tp import make_fused_tp
+    op = make_fused_tp(model.layers[f'{layer}_convolution'].tp)
+    _assert_tp_matches_plain(op, 10007, cuda, 70 + layer)
+
+
+def test_fused_tp_backward_raises_for_a_spec_it_refuses(cuda):
+    """No fallback: on the card a spec whose sh entries are not at l^2
+    raises; the forward kernel still takes it."""
+    from sevennet_exp_tpu_torch.irreps import Irreps, infer_irreps_out
+    from sevennet_exp_tpu_torch.ops import fused_tp as ftp
+    from sevennet_exp_tpu_torch.ops.tensor_product import UVUTensorProductSpec
+    x, sh = Irreps('4x0e+4x1o'), Irreps('1x0e+1x2e')
+    op = ftp.make_fused_tp(UVUTensorProductSpec(
+        x, sh, infer_irreps_out(x, sh, 2, 'full')))
+    xg, shv, w, g = _tp_inputs(op, 33, cuda, 5)
+    before = ftp.launch_counts['fused_tp_bwd']
+    with pytest.raises(ValueError):
+        op.backward(g, xg, shv, w)
+    assert ftp.launch_counts['fused_tp_bwd'] == before
+    out = op.forward(xg, shv, w)
+    torch.cuda.synchronize()
+    ref = op.plain_forward(xg, shv, w)
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+def test_fused_tp_backward_sass_no_local_memory(cuda):
+    """Every instance of the redesigned backward: fp32 on the CUDA cores,
+    nothing in local memory."""
+    from sevennet_exp_tpu_torch.tools import sass_compare
+    counts = {k: v for k, v in sass_compare.count('fused_tp').items()
+              if 'fused_tp_bwd_kernel' in k}
+    assert len(counts) == 16
+    for k, c in counts.items():
+        assert c['FFMA'] > 0, k
+        assert not any(c[op] for op in (*sass_compare.LOCAL_OPS,
+                                         *sass_compare.TENSOR_CORE_OPS)), k
+
+
+# SASS digests of the kernels beside the redesigned bare-TP backward and
+# layout transpose, as they were before them: the bare TP's forward (row
+# 9), the terms pair (rows 3-4), bench_layout's row- and col-major kernels
+# (chip_smoke.py holds them too)
+PARENT_UNTOUCHED_SASS = {
+    'fused_tp': ('fused_tp_fwd_kernel', ('f27695869423',)),
+    'fused_conv_terms': ('terms_', ('58069b73147a', '90e5aa393ecc',
+                                    'caa01d830e0d', 'dc6feb1dee3b')),
+    'bench_layout': ('layout_', ('e39d08c7e3a2', '251bf32cd9a4')),
+}
+
+
+def test_kernels_beside_the_tp_and_transpose_redesigns_keep_their_sass(cuda):
+    from sevennet_exp_tpu_torch.tools import sass_compare
+    for name, (stem, want) in PARENT_UNTOUCHED_SASS.items():
+        got = sorted(v for k, v in sass_compare.digests(name).items()
+                     if stem in k and 'transpose' not in k)
+        assert got == sorted(want), name
+
+
 # -- the micro-benchmark kernels (tools/bench_*.py) ----------------------
 
 @pytest.mark.parametrize('pads', [False, True], ids=['ms1', 'pads'])
@@ -1390,6 +1453,32 @@ def test_bench_layout_kernels_match_plain(cuda, variant):
         assert torch.equal(part, got[:100])
     if variant == 'transpose':       # the same passes in the same order
         assert torch.equal(got, bl.forward('rowmajor', x, y))
+
+
+def test_bench_layout_transpose_ragged_over_its_persistent_grid(cuda):
+    """E = 32 x 133: more 32-row tiles than the grid's blocks (one an SM),
+    so the blocks walk different numbers of tiles."""
+    from sevennet_exp_tpu_torch.tools import bench_layout as bl
+    n = 32 * 133
+    x, y = bl.make_inputs(cuda, grid=17)
+    x, y = x[:n].contiguous(), y[:n].contiguous()
+    got = bl.forward('transpose', x, y)
+    ref = bl.plain('transpose', x, y)
+    torch.cuda.synchronize()
+    assert got.shape == (n, bl.MUL)
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+    assert torch.equal(got, bl.forward('rowmajor', x, y))
+
+
+def test_bench_layout_transpose_sass(cuda):
+    """Every multiply-add of the 384 passes is issued, nothing is in local
+    memory."""
+    from sevennet_exp_tpu_torch.tools import bench_layout as bl
+    from sevennet_exp_tpu_torch.tools import sass_compare
+    (c,) = [v for k, v in sass_compare.count('bench_layout').items()
+            if 'layout_transpose_kernel' in k]
+    assert c['FFMA'] >= bl.R * bl.NSLICE
+    assert not any(c[op] for op in sass_compare.LOCAL_OPS)
 
 
 @pytest.mark.parametrize('variant', ['d:per-slice', 'a:repeat',

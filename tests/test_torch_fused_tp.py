@@ -6,11 +6,15 @@ trained checkpoint's five convolution specs, E = 256 rows. Forward atol
 tolerances, relative to max|ref| where the checkpoint's widths make the
 values large).
 
-``test_kernel_tables_reproduce_plain`` replays the arithmetic of
-csrc/fused_tp.cu from the tables the kernels read (instruction records,
-p-sorted forward terms, n-sorted backward terms), so the table contract is
-covered here; the kernels themselves run only on the card
-(tests/test_torch_cuda.py, chip_smoke.py).
+``test_kernel_tables_reproduce_plain`` replays the arithmetic of the
+forward of csrc/fused_tp.cu from the tables it reads (instruction records,
+p-sorted terms) and that of the CG stage of csrc/fused_conv_terms.cu from
+the n-sorted backward terms of the same ``pack_plan``;
+``test_bwd_tables_reproduce_plain`` replays the backward of
+csrc/fused_tp.cu from its own step records (``bwd_tables``) with the CG
+terms of csrc/cg_patterns.cuh, so the table contracts are covered here;
+the kernels themselves run only on the card (tests/test_torch_cuda.py,
+chip_smoke.py).
 """
 
 import jax.numpy as jnp
@@ -24,10 +28,11 @@ from sevennet_exp_tpu.ops.tensor_product import (
     UVUTensorProductSpec as JUVU,
 )
 from sevennet_exp_tpu_torch.checkpoint import SevenNetCheckpoint
-from sevennet_exp_tpu_torch.irreps import Irreps
+from sevennet_exp_tpu_torch.irreps import Irreps, infer_irreps_out
 from sevennet_exp_tpu_torch.model.layers import IrrepsConvolution
 from sevennet_exp_tpu_torch.ops import fused_tp as ftp
 from sevennet_exp_tpu_torch.ops.tensor_product import UVUTensorProductSpec
+from sevennet_exp_tpu_torch.tools.cg_patterns import pattern
 
 torch.set_num_threads(2)
 CKPT = 'trained_nacl/checkpoint_best.pth.sevennet'
@@ -53,6 +58,10 @@ def _spec(which, checkpoint_specs):
         return UVUTensorProductSpec(Irreps('8x0e+8x1e+8x2e'),
                                     Irreps('1x0e+1x1e+1x2e'),
                                     Irreps('1x0e+1x1e+1x2e'))
+    if which == 'mul4_l3':      # tests/test_torch_cuda.py's small multiplicities
+        x = Irreps('4x0e+4x1o+4x2e+4x3o')
+        sh = Irreps('1x0e+1x1o+1x2e+1x3o')
+        return UVUTensorProductSpec(x, sh, infer_irreps_out(x, sh, 3, 'full'))
     return checkpoint_specs[int(which[-1])]
 
 
@@ -195,3 +204,135 @@ def test_wrapper_takes_the_plain_version_on_cpu_only(checkpoint_specs):
     width = op.d1 + op.f + op.w_numel
     assert rows_f == 4.0 * E * (width + op.d3)
     assert rows_b == 4.0 * E * (2 * width + op.d3)
+
+
+def replay_bwd_steps(steps, xg, sh, w, g):
+    """(dxg, dsh, dw) computed the way the backward of csrc/fused_tp.cu
+    does, from its step records (``bwd_tables``): per step, the lanes'
+    channels u0 .. u0 + STEP_CHANNELS - 1 below mul; the CG terms those of
+    ``CgPattern<l1, l2, l3>`` (``tools/cg_patterns.pattern``, the header's
+    source) times the step's scale."""
+    dxg, dsh, dw = (torch.zeros_like(t) for t in (xg, sh, w))
+    for x_off, mul, u0, d1, key, w_off, o_off, bits, flags in steps.tolist():
+        u = torch.arange(u0, min(u0 + ftp.STEP_CHANNELS, mul))
+        if flags & ftp.F_FIRST:
+            xv = [xg[:, x_off + m * mul + u] for m in range(d1)]
+            dx = [torch.zeros_like(xv[0]) for _ in range(d1)]
+        if key != ftp.NO_INS:
+            l1, l2, l3 = key >> 4, (key >> 2) & 3, key & 3
+            assert 2 * l1 + 1 == d1
+            sc = float(np.int32(bits).view(np.float32))
+            wv = w[:, w_off + u]
+            gm = [g[:, o_off + p * mul + u] * sc for p in range(2 * l3 + 1)]
+            t = [torch.zeros_like(wv) for _ in range(d1)]
+            v = [torch.zeros_like(wv) for _ in range(2 * l2 + 1)]
+            for m, n, p, c in pattern(l1, l2, l3):
+                t[m] = t[m] + c * gm[p] * sh[:, l2 * l2 + n:l2 * l2 + n + 1]
+                v[n] = v[n] + c * gm[p] * xv[m]
+            dw[:, w_off + u] = sum(a * b for a, b in zip(xv, t))
+            for m in range(d1):
+                dx[m] = dx[m] + wv * t[m]
+            for n in range(2 * l2 + 1):
+                dsh[:, l2 * l2 + n] += (wv * v[n]).sum(1)
+        if flags & ftp.F_LAST:
+            for m in range(d1):
+                dxg[:, x_off + m * mul + u] = dx[m]
+    return dxg, dsh, dw
+
+
+BWD_SPECS = WHICH + ['mul4_l3']
+
+
+@pytest.mark.parametrize('which', BWD_SPECS)
+def test_bwd_tables_reproduce_plain(checkpoint_specs, which):
+    spec = _spec(which, checkpoint_specs)
+    op = ftp.make_fused_tp(spec)
+    steps, nsh, lm = ftp.bwd_tables(spec)
+    assert op.f <= nsh in (1, 4, 9, 16) and 0 <= lm <= 3
+    # every channel of every x entry is in one item (first .. last step),
+    # and every instruction's channels in exactly one step
+    items, ins = [], []
+    for x_off, mul, u0, _, key, w_off, _, _, flags in steps.tolist():
+        us = range(u0, min(u0 + ftp.STEP_CHANNELS, mul))
+        if flags & ftp.F_FIRST:
+            items += [(x_off, u) for u in us]
+        if key != ftp.NO_INS:
+            ins += [(w_off, u) for u in us]
+    assert sorted(items) == sorted(
+        (sl.start, u) for (mul, _), sl in zip(spec.irreps_in1,
+                                               spec.irreps_in1.slices())
+        for u in range(mul))
+    assert sorted(ins) == sorted((p['w_off'], u) for p in op.plan
+                                 for u in range(p['mul']))
+    firsts = np.cumsum(steps[:, 8] & ftp.F_FIRST)
+    lasts = np.cumsum(steps[:, 8] & ftp.F_LAST) // ftp.F_LAST
+    assert (firsts - lasts <= 1).all() and (firsts - lasts >= 0).all()
+    assert firsts[-1] == lasts[-1]
+    xg, sh, w = (torch.tensor(a) for a in _inputs(spec, 21))
+    g = torch.tensor(np.random.default_rng(22).normal(
+        size=(E, op.d3)).astype(np.float32))
+    got = replay_bwd_steps(steps, xg, sh, w, g)
+    for a, b in zip(got, op.plain_backward(g, xg, sh, w)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                   atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize('which', BWD_SPECS)
+def test_cg_nonzeros_factor_as_patterns(checkpoint_specs, which):
+    """Each instruction's ``cg_nonzeros()`` is one scale, 1 / sqrt(fan-in),
+    times the pattern the backward kernel compiles in (the generator's, and
+    so csrc/cg_patterns.cuh's)."""
+    spec = _spec(which, checkpoint_specs)
+    for (_, nz), (i1, i2, k) in zip(spec.cg_nonzeros(), spec.instructions):
+        ls = (spec.irreps_in1[i1].ir.l, spec.irreps_in2[i2].ir.l,
+              spec.irreps_out[k].ir.l)
+        pat = {t[:3]: t[3] for t in pattern(*ls)}
+        p = {'dim1': 2 * ls[0] + 1, 'dim2': 2 * ls[1] + 1,
+             'dim3': 2 * ls[2] + 1, 'nz': nz}
+        scale = ftp.pattern_scale(p)
+        assert {t[:3] for t in nz} == pat.keys()
+        np.testing.assert_allclose([t[3] for t in nz],
+                                   [scale * pat[t[:3]] for t in nz],
+                                   rtol=1e-6)
+        # the instruction's path normalisation: 1 / sqrt(fan-in)
+        fan = sum(spec.irreps_in2[j].mul for (_, j, kk) in spec.instructions
+                  if kk == k)
+        assert scale == pytest.approx(fan ** -0.5, rel=1e-6)
+
+
+def test_bwd_tables_refuse_what_the_kernel_cannot_take():
+    x = Irreps('4x0e+4x1o')
+    for sh in (Irreps('1x0e+1x2e'), Irreps('2x0e+1x1o'),
+               Irreps('1x0e+1x1o+1x2e+1x3o+1x4e')):
+        spec = UVUTensorProductSpec(x, sh, infer_irreps_out(x, sh, 4, 'full'))
+        with pytest.raises(ValueError):
+            ftp.bwd_tables(spec)
+    sh = Irreps('1x0e+1x1o')          # x multiplicities not multiples of 4
+    spec = UVUTensorProductSpec(Irreps('6x0e+4x1o'), sh,
+                                infer_irreps_out(Irreps('6x0e+4x1o'), sh, 1,
+                                                 'full'))
+    with pytest.raises(ValueError):
+        ftp.bwd_tables(spec)
+
+
+# sha256 (first 16 hex digits) of the checkpoint's five layers' tables as
+# the parent of the backward's redesign built them: rows 3-4's
+# ``terms_plan`` (ins, slices, idx, coef) and the forward's ``pack_plan``
+PACK_PLAN_SHA = {'terms_plan': '0a23d5bf2897d796',
+                 'pack_plan': 'cf06a9f5c3bcfa2e'}
+
+
+def test_pack_plan_tables_unchanged_for_rows_3_4_and_the_forward():
+    import hashlib
+    from sevennet_exp_tpu_torch.checkpoint import SevenNetCheckpoint
+    from sevennet_exp_tpu_torch.ops import fused_conv_terms as fct
+    model, _ = SevenNetCheckpoint(CKPT).build_model('cpu')
+    got = {k: hashlib.sha256() for k in PACK_PLAN_SHA}
+    for i in range(5):
+        cl = model.layers[f'{i}_convolution']
+        tp = fct.terms_plan(cl.tp, cl.si2)
+        for a in (tp.ins, tp.slices, tp.idx, tp.coef):
+            got['terms_plan'].update(np.ascontiguousarray(a).tobytes())
+        for a in ftp.pack_plan(ftp._plan(cl.tp)[0]):
+            got['pack_plan'].update(np.ascontiguousarray(a).tobytes())
+    assert {k: h.hexdigest()[:16] for k, h in got.items()} == PACK_PLAN_SHA
