@@ -110,7 +110,7 @@ Phases (any failure raises, exits non-zero and prints no result):
      was redesigned, ``TERMS_SASS``) and ``bench_pieces``' six (the same
      source built with its stub mask; checked in phase 15), compiled with
      them: no tensor-core and no local-memory opcode; ``fused_tp``: the
-     forward at ``TP_FWD_SASS``, the backward's 16 instances with no
+     forward at ``TP_FWD_SASS``, the backward's 32 instances with no
      tensor-core or local-memory opcode; the entries of the twelve
      kernels above (the six kernels, the edge-row form of kernels 1-2, the
      terms pair and the tensor-product pair);
@@ -2089,10 +2089,11 @@ def main():
          'fused_conv_terms', 'bench_pieces', 'fused_tp'))
     pieces_sass = builds.pop('bench_pieces')
     # the bare TP: the forward (row 9) at its SASS, the redesigned
-    # backward's 16 instances with nothing in local memory
+    # backward's 32 instances (16-byte and 4-byte copies) with nothing in
+    # local memory
     counts, digests = builds.pop('fused_tp')
     got = sorted(v for k, v in digests.items() if 'fused_tp_fwd' in k)
-    bwd = {k: v for k, v in counts.items() if 'fused_tp_bwd' in k}
+    bwd = {k: v for k, v in counts.items() if 'fused_tp_bwd_kernel' in k}
     print(f'fused_tp forward SASS {got} (before: {sorted(TP_FWD_SASS)}); '
           f'{len(bwd)} backward instances', flush=True)
     if got != sorted(TP_FWD_SASS):
@@ -2100,7 +2101,7 @@ def main():
     for k, v in bwd.items():
         bad = {op: v[op] for op in (*sass_compare.TENSOR_CORE_OPS,
                                     *sass_compare.LOCAL_OPS) if v[op]}
-        if bad or not v['FFMA'] or len(bwd) != 16:
+        if bad or not v['FFMA'] or len(bwd) != 32:
             raise AssertionError(f'fused_tp {k}: {len(bwd)} instances, '
                                  f'opcodes {bad}, {v["FFMA"]} FFMA')
     report['fused_tp_sass'] = counts
@@ -2277,8 +2278,11 @@ def main():
                           'LM>, steps of (x entry, 64 channels, '
                           'instruction), the CG compiled in per (l1, l2, '
                           'l3), the next two steps\' operands in a 3-stage '
-                          'cp.async ring a warp as 16-byte runs, dx and dsh '
-                          'in registers, a persistent grid'}
+                          'cp.async ring a warp as 16-byte runs (single '
+                          'channels where multiplicities or pointers forbid '
+                          'runs), dx and dsh in registers, a persistent '
+                          'grid; specs outside its instances run the first '
+                          'form, fused_tp_bwd_table_kernel'}
                if k == 'bwd' else {}),
             'replaces': f'sevennet_exp_tpu/ops/pallas_tp.py:{line}',
             'launches': tp_launches[name],

@@ -44,8 +44,14 @@
 // likewise. cp.async rather than TMA: a piece is 32 row segments of 512
 // bytes 2 KB apart, one 16-byte copy per thread and tensor, and the
 // threads that copy are the ones that wait, so no mbarrier is needed.
+// Where x or y is not 16-byte aligned the same kernel copies single floats
+// (4-byte cp.async), chosen per launch.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "launch_util.cuh"
 
 namespace {
 
@@ -111,26 +117,39 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
                "l"(src));
 }
 
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" :: "r"(d),
+               "l"(src));
+}
+
 // piece `piece` of tile `tile` into a ring stage: x then y, row-major
-// (TR rows of PW floats), 16-byte copies (one per thread and tensor)
+// (TR rows of PW floats), in copies of V floats (V = 4: one 16-byte copy
+// per thread and tensor)
+template <int V>
 __device__ __forceinline__ void load_piece(float* st,
                                            const float* __restrict__ x,
                                            const float* __restrict__ y,
                                            long tile, int piece, int tid) {
 #pragma unroll
-  for (int c = tid; c < TR * PW / 4; c += TT) {
-    const int row = c / (PW / 4), q = c % (PW / 4);
-    const long at = (tile * TR + row) * D + piece * PW + 4 * q;
-    cp_async16(st + row * PW + 4 * q, x + at);
-    cp_async16(st + TR * PW + row * PW + 4 * q, y + at);
+  for (int c = tid; c < TR * PW / V; c += TT) {
+    const int row = c / (PW / V), q = c % (PW / V);
+    const long at = (tile * TR + row) * D + piece * PW + V * q;
+    if constexpr (V == 4) {
+      cp_async16(st + row * PW + V * q, x + at);
+      cp_async16(st + TR * PW + row * PW + V * q, y + at);
+    } else {
+      cp_async4(st + row * PW + V * q, x + at);
+      cp_async4(st + TR * PW + row * PW + V * q, y + at);
+    }
   }
 }
 
 // n_tiles tiles of 32 rows; TT threads: lane = edge row in the tile,
-// channel u = (warp + lane) mod 32
+// channel u = (warp + lane) mod 32; vec: x and y 16-byte aligned
 __global__ void __launch_bounds__(TT, 1)
 layout_transpose_kernel(const float* __restrict__ x,
-                        const float* __restrict__ y, long n_tiles,
+                        const float* __restrict__ y, long n_tiles, bool vec,
                         float* __restrict__ out) {
   extern __shared__ __align__(16) float ring[];
   float* o_s = ring + STAGES * STAGE_F;
@@ -138,10 +157,14 @@ layout_transpose_kernel(const float* __restrict__ x,
   const long my_tiles = (n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
   const long n_pieces = my_tiles * NPIECE;
   auto issue = [&](long j) {     // piece j of this block, or an empty group
-    if (j < n_pieces)
-      load_piece(ring + (j % STAGES) * STAGE_F, x, y,
-                 blockIdx.x + (j / NPIECE) * (long)gridDim.x,
-                 (int)(j % NPIECE), tid);
+    if (j < n_pieces) {
+      float* st = ring + (j % STAGES) * STAGE_F;
+      const long tile = blockIdx.x + (j / NPIECE) * (long)gridDim.x;
+      if (vec)
+        load_piece<4>(st, x, y, tile, (int)(j % NPIECE), tid);
+      else
+        load_piece<1>(st, x, y, tile, (int)(j % NPIECE), tid);
+    }
     asm volatile("cp.async.commit_group;");
   };
   for (int j = 0; j < STAGES - 1; ++j) issue(j);
@@ -169,8 +192,7 @@ layout_transpose_kernel(const float* __restrict__ x,
   }
 }
 
-constexpr int MAX_DEVICES = 64;
-int n_sms[MAX_DEVICES];              // 0: the device not seen yet
+launch_util::Resident transpose_resident;
 
 }  // namespace
 
@@ -193,31 +215,18 @@ extern "C" int layout_colmajor(const float* x, const float* y, long G,
   return (int)cudaGetLastError();
 }
 
-// x, y (E, 512) row-major -> out (E, 32); E a multiple of 32; x, y and out
-// 16-byte aligned
+// x, y (E, 512) row-major -> out (E, 32); E a multiple of 32
 extern "C" int layout_transpose(const float* x, const float* y, long E,
                                 float* out, void* stream) {
   if (E <= 0 || E % TR || E / TR >= (1L << 31))
     return (int)cudaErrorInvalidValue;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidValue;
-  if (!n_sms[dev]) {
-    err = cudaFuncSetAttribute(layout_transpose_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)T_SMEM);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&n_sms[dev],
-                                   cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) {
-      n_sms[dev] = 0;
-      return (int)err;
-    }
-  }
   const long tiles = E / TR;
-  const unsigned grid = (unsigned)(tiles < n_sms[dev] ? tiles : n_sms[dev]);
+  unsigned grid = 0;
+  const cudaError_t err = launch_util::persistent_grid(
+      layout_transpose_kernel, TT, T_SMEM, tiles, transpose_resident, &grid);
+  if (err != cudaSuccess) return (int)err;
+  const bool vec = ((uintptr_t)x | (uintptr_t)y) % 16 == 0;
   layout_transpose_kernel<<<grid, TT, T_SMEM, (cudaStream_t)stream>>>(
-      x, y, tiles, out);
+      x, y, tiles, vec, out);
   return (int)cudaGetLastError();
 }

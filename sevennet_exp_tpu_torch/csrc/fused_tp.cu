@@ -51,14 +51,25 @@
 //     flight), and registers hold only the step being computed; two
 //     channels a lane halve the steps of entries of 64 channels or more.
 //     The grid is persistent: the blocks the card holds at once.
-// Instances by the sh components a lane holds (1, 4, 9, 16; sh entry l2 at
-// offset l2^2) and the largest l of an x or output entry (0..3); other specs,
-// and x multiplicities that are not multiples of 4, are refused by the
-// wrapper. No atomics anywhere, so results are reproducible bit for bit.
+// Instances by the sh components a lane holds (1, 4, 9, 16: a lane keeps sh
+// entry l2's components in slots l2^2 .. l2^2 + 2 l2, wherever the entry
+// sits in sh), the largest l of an x or output entry (0..3) and the
+// channels a copy: runs of 4 (16-byte cp.async) or, where an x multiplicity
+// is not a multiple of 4 or g, xg or w is not 16-byte aligned, single
+// channels (4-byte cp.async), chosen per launch. The sh slots are read from
+// shared memory where used: a register for them cost the instance the
+// checkpoint runs its third block an SM. A spec outside these instances (an
+// l above 3, two sh entries of one l, an sh entry of multiplicity above 1)
+// runs the first form's table-driven body, fused_tp_bwd_table_kernel, which
+// takes any spec. No atomics anywhere, so results are reproducible bit for
+// bit.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "cg_patterns.cuh"
+#include "launch_util.cuh"
 
 namespace {
 
@@ -152,6 +163,80 @@ fused_tp_fwd_kernel(const float* __restrict__ xg,
   }
 }
 
+// the backward's table-driven body (its first form), for the specs the
+// step instances do not take: per (instruction, 32 channels) slice, the
+// n-sorted terms of the instruction record walked at run time; a lane keeps
+// dw of its channel in a register, adds dx into the warp's own shared-memory
+// row (only that lane ever touches that element) and dsh is reduced over
+// the lanes by shuffles
+__global__ void __launch_bounds__(NT)
+fused_tp_bwd_table_kernel(const float* __restrict__ g,
+                          const float* __restrict__ xg,
+                          const float* __restrict__ sh,
+                          const float* __restrict__ w, Args A,
+                          float* __restrict__ dxg, float* __restrict__ dsh,
+                          float* __restrict__ dw) {
+  extern __shared__ float smem[];
+  int* ins_s = reinterpret_cast<int*>(smem);
+  int* sl_s = ins_s + A.n_ins * I_STRIDE;
+  float* rows_s = smem + table_words(A);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* x_s = rows_s + warp * 2 * (A.d1 + A.f);
+  float* sh_s = x_s + A.d1;
+  float* dx_s = sh_s + A.f;
+  float* dsh_s = dx_s + A.d1;
+  load_tables(A, ins_s, sl_s);
+  const long row = (long)blockIdx.x * NW + warp;
+  if (row < A.n_rows) {
+    const float* xr = xg + row * A.d1;
+    const float* sr = sh + row * A.f;
+    for (int i = lane; i < A.d1; i += 32) { x_s[i] = xr[i]; dx_s[i] = 0.f; }
+    for (int i = lane; i < A.f; i += 32) { sh_s[i] = sr[i]; dsh_s[i] = 0.f; }
+  }
+  __syncthreads();
+  if (row >= A.n_rows) return;
+  const float* wr = w + row * A.wn;
+  const float* grow = g + row * A.d3;
+  float* dwr = dw + row * A.wn;
+  for (int s = 0; s < A.n_slices; ++s) {
+    const int* I = ins_s + sl_s[2 * s] * I_STRIDE;
+    const int u = sl_s[2 * s + 1] + lane;
+    const int mul = I[I_MUL];
+    const bool on = u < mul;
+    const float wv = on ? wr[I[I_WOFF] + u] : 0.f;
+    const float* xe = x_s + I[I_XOFF] + u;
+    float* dxe = dx_s + I[I_XOFF] + u;
+    const float* se = sh_s + I[I_SHOFF];
+    const float* ge = grow + I[I_OUTOFF] + u;
+    float dwv = 0.f;
+    int t = I[I_TB0];
+    const int t1 = I[I_TB1];
+    while (t < t1) {          // one group of terms per filter component n
+      const int n = (c_idx[t] >> 8) & 0xff;
+      float sn = 0.f;
+      for (; t < t1 && ((c_idx[t] >> 8) & 0xff) == n; ++t) {
+        if (!on) continue;
+        const int id = c_idx[t];
+        const int m = id & 0xff, p = (id >> 16) & 0xff;
+        const float gc = __ldg(ge + p * mul) * c_coef[t];
+        const float x = xe[m * mul];
+        dxe[m * mul] = fmaf(gc * wv, se[n], dxe[m * mul]);
+        dwv = fmaf(gc * x, se[n], dwv);
+        sn = fmaf(gc, x, sn);
+      }
+      sn = warp_sum(sn * wv);
+      if (lane == 0) dsh_s[I[I_SHOFF] + n] += sn;
+    }
+    // an instruction without terms leaves its weight columns at zero
+    if (on) dwr[I[I_WOFF] + u] = dwv;
+  }
+  __syncwarp();
+  float* dxr = dxg + row * A.d1;
+  float* dsr = dsh + row * A.f;
+  for (int i = lane; i < A.d1; i += 32) dxr[i] = dx_s[i];
+  for (int i = lane; i < A.f; i += 32) dsr[i] = dsh_s[i];
+}
+
 // ---------------------------------------------------------------------
 // backward: steps of (x entry, 64 channels, instruction), CG at compile time
 // ---------------------------------------------------------------------
@@ -174,12 +259,18 @@ constexpr int KST = 3;              // stages of a warp's ring: 2 steps ahead
 
 struct BwdArgs {
   const int* steps;
+  const int* slots;    // per sh column: its slot l2^2 + n in a lane's sh
   int n_steps;
   long n_rows;
   int d1, f, wn, d3;
 };
 
-// 16 (x, g, w: 16-byte aligned runs of 4 channels) or 4 (sh) bytes into
+// the step records, then the f sh slots (at most 16), in shared memory
+__host__ __device__ inline int bwd_table_ints(int n_steps) {
+  return (n_steps * S_STRIDE + 16 + 3) & ~3;
+}
+
+// 16 (a 16-byte aligned run of 4 channels) or 4 (one channel) bytes into
 // shared memory; zeros where `on` is false
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                                            bool on) {
@@ -188,10 +279,30 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                :: "r"(d), "l"(src), "r"(on ? 16 : 0));
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool on) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" :: "r"(d),
-               "l"(src));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               :: "r"(d), "l"(src), "r"(on ? 4 : 0));
+}
+
+// `rows` rows of a step's SC channels, u0 .. u0 + SC - 1 (row stride mul in
+// memory, SC in the stage), copied by the warp in runs of V channels;
+// zeros past the entry's multiplicity (`any`: a valid address for them)
+template <int V>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src,
+                                          const float* any, int rows,
+                                          int mul, int u0, int lane) {
+  constexpr int Q = SC / V;           // runs a row
+  for (int k = lane; k < rows * Q; k += 32) {
+    const int m = k / Q, q = k % Q;
+    const bool on = u0 + V * q < mul;
+    const float* at = on ? src + m * mul + V * q : any;
+    if constexpr (V == 4)
+      cp_async16(dst + m * SC + V * q, at, on);
+    else
+      cp_async4(dst + m * SC + V * q, at, on);
+  }
 }
 
 // one ring stage of a warp: a step's x rows and g rows (component-major,
@@ -204,42 +315,30 @@ struct Stage {
 };
 
 // copy the operands of one step on row r into a stage: sh at a row's first
-// step (lanes < f), x at an item's first step, the instruction's weights
-// and cotangent; zeros past the entry's multiplicity. The lanes copy
-// consecutive 16-byte runs (mul % 4 == 0 and 16-byte aligned rows: the
-// wrapper checks both).
-template <int DM>
+// step (lane < f: its column, into its slot), x at an item's first step,
+// the instruction's weights and cotangent; zeros past the entry's
+// multiplicity. The lanes copy consecutive runs of RUN channels (RUN = 4
+// where every multiplicity is a multiple of 4 and g, xg and w are 16-byte
+// aligned: the launcher checks).
+template <int DM, int RUN>
 __device__ __forceinline__ void fetch_step(
-    const int* S, long r, bool row_start, int lane, const BwdArgs& A,
-    const float* __restrict__ g, const float* __restrict__ xg,
-    const float* __restrict__ sh, const float* __restrict__ w, float* st) {
+    const int* S, const int* slot_s, long r, bool row_start, int lane,
+    const BwdArgs& A, const float* __restrict__ g,
+    const float* __restrict__ xg, const float* __restrict__ sh,
+    const float* __restrict__ w, float* st) {
   using T = Stage<DM>;
-  constexpr int Q = SC / 4;           // 16-byte runs a component row
   const int key = S[S_KEY], mul = S[S_MUL], u0 = S[S_U0];
-  if (row_start && lane < A.f) cp_async4(st + T::SH + lane, sh + r * A.f + lane);
+  if (row_start && lane < A.f)
+    cp_async4(st + T::SH + slot_s[lane], sh + r * A.f + lane, true);
   if (key != NO_INS) {
-    if (S[S_FLAGS] & F_FIRST) {
-      const float* xr = xg + r * A.d1 + S[S_XOFF] + u0;
-      for (int k = lane; k < S[S_D1] * Q; k += 32) {
-        const int m = k / Q, q = k % Q;
-        const bool on = u0 + 4 * q < mul;
-        cp_async16(st + T::X + m * SC + 4 * q, on ? xr + m * mul + 4 * q : xg,
-                   on);
-      }
-    }
-    const float* gr = g + r * A.d3 + S[S_OUTOFF] + u0;
+    if (S[S_FLAGS] & F_FIRST)
+      copy_rows<RUN>(st + T::X, xg + r * A.d1 + S[S_XOFF] + u0, xg,
+                     S[S_D1], mul, u0, lane);
     const int d3 = 2 * (key & 3) + 1;
-    for (int k = lane; k < d3 * Q; k += 32) {
-      const int p = k / Q, q = k % Q;
-      const bool on = u0 + 4 * q < mul;
-      cp_async16(st + T::G + p * SC + 4 * q, on ? gr + p * mul + 4 * q : g,
-                 on);
-    }
-    if (lane < Q) {
-      const bool on = u0 + 4 * lane < mul;
-      cp_async16(st + T::W + 4 * lane,
-                 on ? w + r * A.wn + S[S_WOFF] + u0 + 4 * lane : w, on);
-    }
+    copy_rows<RUN>(st + T::G, g + r * A.d3 + S[S_OUTOFF] + u0, g, d3, mul,
+                   u0, lane);
+    copy_rows<RUN>(st + T::W, w + r * A.wn + S[S_WOFF] + u0, w, 1, mul, u0,
+                   lane);
   }
   asm volatile("cp.async.commit_group;");
 }
@@ -281,11 +380,12 @@ __device__ __forceinline__ void bwd_step(float sc, float wv,
   dwv = d;
 }
 
-// NSH: sh components a lane holds (1, 4, 9, 16: sh entry l2 at l2^2);
-// LM: the largest l of an x entry or an output entry. A warp owns a row at
-// a time (rows warp, warp + all warps, ...) and walks its steps; its ring
-// holds the operands of the next KST - 1 steps (across rows too) in flight.
-template <int NSH, int LM>
+// NSH: sh slots a lane holds (1, 4, 9, 16: sh entry l2 in slots l2^2 ..);
+// LM: the largest l of an x entry or an output entry; RUN: channels a copy
+// (4 or 1). A warp owns a row at a time (rows warp, warp + all warps, ...)
+// and walks its steps; its ring holds the operands of the next KST - 1
+// steps (across rows too) in flight.
+template <int NSH, int LM, int RUN>
 __global__ void __launch_bounds__(NTB)
 fused_tp_bwd_kernel(const float* __restrict__ g,
                     const float* __restrict__ xg,
@@ -296,13 +396,18 @@ fused_tp_bwd_kernel(const float* __restrict__ g,
   constexpr int DM = 2 * LM + 1;
   using T = Stage<DM>;
   extern __shared__ __align__(16) int st_s[];
-  float* ring = reinterpret_cast<float*>(st_s + ((A.n_steps * S_STRIDE + 3)
-                                                 & ~3))
+  const int* slot_s = st_s + A.n_steps * S_STRIDE;
+  float* ring = reinterpret_cast<float*>(st_s + bwd_table_ints(A.n_steps))
                 + (threadIdx.x >> 5) * KST * T::FLOATS;
+  const int lane = threadIdx.x & 31;
+  // the sh slots no column fills stay zero in every stage
+  for (int i = lane; i < KST * 16; i += 32)
+    ring[(i / 16) * T::FLOATS + T::SH + i % 16] = 0.f;
   for (int i = threadIdx.x; i < A.n_steps * S_STRIDE; i += NTB)
     st_s[i] = A.steps[i];
+  if (threadIdx.x < A.f) st_s[A.n_steps * S_STRIDE + threadIdx.x] =
+      A.slots[threadIdx.x];
   __syncthreads();
-  const int lane = threadIdx.x & 31;
   const long n_warps = (long)gridDim.x * NWB;
   long row = (long)blockIdx.x * NWB + (threadIdx.x >> 5);
   if (row >= A.n_rows) return;
@@ -310,8 +415,8 @@ fused_tp_bwd_kernel(const float* __restrict__ g,
   int fs = 0;
   auto issue = [&](int k) {        // into stage k % KST, or an empty group
     if (frow < A.n_rows) {
-      fetch_step<DM>(st_s + fs * S_STRIDE, frow, fs == 0, lane, A, g, xg, sh,
-                     w, ring + (k % KST) * T::FLOATS);
+      fetch_step<DM, RUN>(st_s + fs * S_STRIDE, slot_s, frow, fs == 0, lane,
+                          A, g, xg, sh, w, ring + (k % KST) * T::FLOATS);
       if (++fs == A.n_steps) {
         fs = 0;
         frow += n_warps;
@@ -338,7 +443,7 @@ fused_tp_bwd_kernel(const float* __restrict__ g,
     const int flags = S[S_FLAGS], key = S[S_KEY], mul = S[S_MUL];
     if (s == 0) {
 #pragma unroll
-      for (int n = 0; n < NSH; ++n) sv[n] = n < A.f ? st[T::SH + n] : 0.f;
+      for (int n = 0; n < NSH; ++n) sv[n] = st[T::SH + n];
     }
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
@@ -387,12 +492,13 @@ fused_tp_bwd_kernel(const float* __restrict__ g,
           if (m < S[S_D1]) dr[m * mul] = dx[c][m];
       }
     }
-    if (row_end) {           // the row's dsh: one warp sum per component
+    if (row_end) {           // the row's dsh: one warp sum per slot
+      const int slot = lane < A.f ? slot_s[lane] : -1;
       float mine = 0.f;
 #pragma unroll
       for (int n = 0; n < NSH; ++n) {
         const float t = warp_sum(dsa[n]);
-        if (lane == n) mine = t;
+        if (slot == n) mine = t;
         dsa[n] = 0.f;
       }
       if (lane < A.f) dsh[r * A.f + lane] = mine;
@@ -417,42 +523,20 @@ cudaError_t reserve_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-constexpr int MAX_DEVICES = 64;
-int n_sms[MAX_DEVICES];             // 0: the device not seen yet
-
-template <int NSH, int LM>
+template <int NSH, int LM, int RUN>
 cudaError_t launch_bwd(const float* g, const float* xg, const float* sh,
                        const float* w, const BwdArgs& A, float* dxg,
                        float* dsh, float* dw, cudaStream_t stream) {
-  auto kernel = fused_tp_bwd_kernel<NSH, LM>;
-  const size_t smem =
-      sizeof(int) * (((size_t)A.n_steps * S_STRIDE + 3) & ~(size_t)3) +
-      sizeof(float) * NWB * KST * Stage<2 * LM + 1>::FLOATS;
-  cudaError_t err = reserve_smem(kernel, smem);
+  static launch_util::Resident resident;    // this instance's, per device
+  auto kernel = fused_tp_bwd_kernel<NSH, LM, RUN>;
+  const size_t smem = sizeof(int) * (size_t)bwd_table_ints(A.n_steps) +
+                      sizeof(float) * NWB * KST * Stage<2 * LM + 1>::FLOATS;
+  if (A.n_rows <= 0) return cudaSuccess;
+  unsigned blocks = 0;
+  const cudaError_t err = launch_util::persistent_grid(
+      kernel, NTB, smem, (A.n_rows + NWB - 1) / NWB, resident, &blocks);
   if (err != cudaSuccess) return err;
-  int dev = 0, per_sm = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= MAX_DEVICES) return cudaErrorInvalidValue;
-  if (!n_sms[dev]) {
-    err = cudaDeviceGetAttribute(&n_sms[dev], cudaDevAttrMultiProcessorCount,
-                                 dev);
-    if (err != cudaSuccess) {
-      n_sms[dev] = 0;
-      return err;
-    }
-  }
-  // a persistent grid: the blocks the card holds at once
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NTB,
-                                                      smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  if (A.n_rows > 0) {
-    const long want = (A.n_rows + NWB - 1) / NWB;
-    const long resident = (long)per_sm * n_sms[dev];
-    const unsigned blocks = (unsigned)(want < resident ? want : resident);
-    kernel<<<blocks, NTB, smem, stream>>>(g, xg, sh, w, A, dxg, dsh, dw);
-  }
+  kernel<<<blocks, NTB, smem, stream>>>(g, xg, sh, w, A, dxg, dsh, dw);
   return cudaGetLastError();
 }
 
@@ -491,23 +575,53 @@ extern "C" int fused_tp_fwd(const float* xg, const float* sh, const float* w,
   return (int)cudaGetLastError();
 }
 
-// steps: n_steps records of S_STRIDE ints (ops/fused_tp.py::bwd_tables);
-// nsh in {1, 4, 9, 16} with f <= nsh, lm in 0..3; g, xg and w 16-byte
-// aligned, every x multiplicity a multiple of 4
+// the table-driven backward: the forward's instruction records and slices,
+// their n-sorted terms in the constant pool; any spec
+extern "C" int fused_tp_bwd_table(const float* g, const float* xg,
+                                  const float* sh, const float* w,
+                                  const int* ins, const int* slices,
+                                  int n_ins, int n_slices, long n_rows,
+                                  int d1, int f, int wn, int d3, float* dxg,
+                                  float* dsh, float* dw, void* stream) {
+  const Args A = make_args(ins, slices, n_ins, n_slices, n_rows, d1, f, wn,
+                           d3);
+  const size_t smem =
+      sizeof(float) * ((size_t)table_words(A) + (size_t)NW * 2 * (d1 + f));
+  const cudaError_t err = reserve_smem(fused_tp_bwd_table_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (n_rows > 0) {
+    const unsigned blocks = (unsigned)((n_rows + NW - 1) / NW);
+    fused_tp_bwd_table_kernel<<<blocks, NT, smem, (cudaStream_t)stream>>>(
+        g, xg, sh, w, A, dxg, dsh, dw);
+  }
+  return (int)cudaGetLastError();
+}
+
+// steps: n_steps records of S_STRIDE ints, slots: f ints
+// (ops/fused_tp.py::bwd_tables); nsh in {1, 4, 9, 16} with every slot
+// below nsh and f <= 16, lm in 0..3; run 4 only where every x multiplicity
+// is a multiple of 4 (1 otherwise), lowered to 1 here where g, xg or w is
+// not 16-byte aligned
 extern "C" int fused_tp_bwd(const float* g, const float* xg, const float* sh,
-                            const float* w, const int* steps, int n_steps,
-                            int nsh, int lm, long n_rows, int d1, int f,
-                            int wn, int d3, float* dxg, float* dsh,
-                            float* dw, void* stream) {
-  if (n_steps < 1 || f > nsh || lm < 0 || lm > 3)
+                            const float* w, const int* steps,
+                            const int* slots, int n_steps, int nsh, int lm,
+                            int run, long n_rows, int d1, int f, int wn,
+                            int d3, float* dxg, float* dsh, float* dw,
+                            void* stream) {
+  if (n_steps < 1 || f > nsh || lm < 0 || lm > 3 || (run != 1 && run != 4))
     return (int)cudaErrorInvalidValue;
   BwdArgs A;
-  A.steps = steps; A.n_steps = n_steps; A.n_rows = n_rows;
+  A.steps = steps; A.slots = slots; A.n_steps = n_steps; A.n_rows = n_rows;
   A.d1 = d1; A.f = f; A.wn = wn; A.d3 = d3;
+  const uintptr_t bases = (uintptr_t)g | (uintptr_t)xg | (uintptr_t)w;
+  const bool runs = run == 4 && bases % 16 == 0;
   const cudaStream_t st = (cudaStream_t)stream;
 #define TP_BWD_LM(N, L)                                                      \
   case L:                                                                    \
-    return (int)launch_bwd<N, L>(g, xg, sh, w, A, dxg, dsh, dw, st);
+    return (int)(runs ? launch_bwd<N, L, 4>(g, xg, sh, w, A, dxg, dsh, dw,  \
+                                            st)                             \
+                      : launch_bwd<N, L, 1>(g, xg, sh, w, A, dxg, dsh, dw,  \
+                                            st));
 #define TP_BWD_NSH(N)                                                        \
   case N:                                                                    \
     switch (lm) {                                                            \

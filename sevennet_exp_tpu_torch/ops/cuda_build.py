@@ -67,7 +67,7 @@ launch_counts: Dict[str, int] = {
     'fused_conv_extw_fwd': 0, 'fused_conv_extw_bwd': 0,
     'fused_conv_edge_fwd': 0, 'fused_conv_edge_bwd': 0,
     'fused_conv_terms_fwd': 0, 'fused_conv_terms_bwd': 0,
-    'fused_tp_fwd': 0, 'fused_tp_bwd': 0,
+    'fused_tp_fwd': 0, 'fused_tp_bwd': 0, 'fused_tp_bwd_table': 0,
     **dict.fromkeys(BENCH_KERNELS, 0)}
 
 

@@ -16,10 +16,12 @@ On CUDA tensors the wrapper launches the kernels of ``csrc/fused_tp.cu``
 (built with nvcc at first use into ``_build/``); on CPU tensors it runs the
 plain version, ``UVUTensorProductSpec.apply`` and its autograd VJP. Any
 other device raises. The backward kernel compiles its CG terms in per
-(l1, l2, l3) with l <= 3 and holds the sh components in registers, so it
-takes specs whose sh entries sit at offsets l^2 and whose x multiplicities
-are multiples of 4 (it copies 16-byte runs of channels): ``bwd_tables``
-refuses others, and ``kernel_backward`` raises for them.
+(l1, l2, l3) with l <= 3 and holds the sh components in registers, one
+slot l2^2 + n each: it takes the specs whose sh entries are single and of
+distinct l (``bwd_tables``), copying runs of 4 channels where the
+multiplicities and pointers allow and single channels elsewhere. Any other
+spec runs the table-driven backward of the same source, which walks the
+forward's instruction records and n-sorted terms (``bwd_route``).
 """
 
 from __future__ import annotations
@@ -124,32 +126,34 @@ def pattern_scale(p: dict) -> float:
 
 
 def bwd_tables(spec: UVUTensorProductSpec):
-    """The backward kernel's tables: (steps, nsh, lm). ``steps`` is one
-    row's (S, 9) int32 step records (fields ``S_FIELDS``) in the order a
-    warp runs them: by x entry, then block of ``STEP_CHANNELS`` channels,
-    then the instructions that read the entry (key l1 16 + l2 4 + l3, the
-    weight and output offsets, the float32 bits of ``pattern_scale``); an
-    x entry no instruction reads is one step of key ``NO_INS`` per block.
-    ``flags`` marks an x item's first and last step. ``nsh`` is the
-    instance's sh width (the least of 1, 4, 9, 16 >= f), ``lm`` its largest
-    l of an x or output entry. Raises ValueError for a spec the kernel does
-    not take."""
+    """The backward kernel's tables: (steps, slots, nsh, lm, run).
+    ``steps`` is one row's (S, 9) int32 step records (fields ``S_FIELDS``)
+    in the order a warp runs them: by x entry, then block of
+    ``STEP_CHANNELS`` channels, then the instructions that read the entry
+    (key l1 16 + l2 4 + l3, the weight and output offsets, the float32 bits
+    of ``pattern_scale``); an x entry no instruction reads is one step of
+    key ``NO_INS`` per block. ``flags`` marks an x item's first and last
+    step. ``slots`` gives each sh column its register slot l2^2 + n,
+    ``nsh`` is the instance's slot count (the least of 1, 4, 9, 16 above
+    every slot), ``lm`` its largest l of an x or output entry, ``run`` the
+    channels a copy (4 where every x multiplicity is a multiple of 4, else
+    1). Raises ValueError for a spec the kernel does not take: an l above
+    3, an sh entry of multiplicity above 1 or two of one l."""
     plan, _, _ = _plan(spec)
-    f = spec.irreps_in2.dim
-    nsh = next((n for n in _NSH if n >= f), None)
-    for (mul, ir), sl in zip(spec.irreps_in2, spec.irreps_in2.slices()):
-        if mul != 1 or sl.start != ir.l ** 2:
-            nsh = None
-    if nsh is None:
-        raise ValueError('fused_tp backward: the sh entries must be 1x each '
-                         'at offset l^2, l <= 3')
+    ls = [ir.l for _, ir in spec.irreps_in2]
+    if any(mul != 1 for mul, _ in spec.irreps_in2) or \
+            len(set(ls)) != len(ls):
+        raise ValueError('fused_tp backward: the sh entries must be 1x '
+                         'each, of distinct l')
     lm = max([ir.l for _, ir in spec.irreps_in1]
              + [(p['dim3'] - 1) // 2 for p in plan])
-    if lm > LMAX_BWD:
-        raise ValueError(f'fused_tp backward: l {lm} > {LMAX_BWD}')
-    if any(mul % 4 for mul, _ in spec.irreps_in1):
-        raise ValueError('fused_tp backward: x multiplicities must be '
-                         'multiples of 4')
+    if max(lm, *ls) > LMAX_BWD:
+        raise ValueError(f'fused_tp backward: l {max(lm, *ls)} > '
+                         f'{LMAX_BWD}')
+    slots = [ir.l ** 2 + n for _, ir in spec.irreps_in2
+             for n in range(ir.dim)]
+    nsh = next(n for n in _NSH if n > max(slots))
+    run = 1 if any(mul % 4 for mul, _ in spec.irreps_in1) else 4
     steps = []
     for (mul, ir), sl in zip(spec.irreps_in1, spec.irreps_in1.slices()):
         users = [p for p in plan if p['x_off'] == sl.start]
@@ -163,8 +167,18 @@ def bwd_tables(spec: UVUTensorProductSpec):
             item[0][-1] |= F_FIRST
             item[-1][-1] |= F_LAST
             steps += item
-    return (np.asarray(steps, np.int32).reshape(-1, len(S_FIELDS)), nsh,
-            lm)
+    return (np.asarray(steps, np.int32).reshape(-1, len(S_FIELDS)),
+            np.asarray(slots, np.int32), nsh, lm, run)
+
+
+def bwd_route(spec: UVUTensorProductSpec) -> str:
+    """'steps' where the step kernel takes SPEC (``bwd_tables``), else
+    'table': the table-driven backward."""
+    try:
+        bwd_tables(spec)
+    except ValueError:
+        return 'table'
+    return 'steps'
 
 
 class TermPool:
@@ -226,9 +240,11 @@ def _lib():
     dims = [_P, _P, _I, _I, _L, _I, _I, _I, _I]
     lib.fused_tp_fwd.argtypes = [_P] * 3 + dims + [_P, _P]
     lib.fused_tp_fwd.restype = _I
-    lib.fused_tp_bwd.argtypes = [_P] * 4 + [_P, _I, _I, _I, _L, _I, _I, _I,
-                                            _I] + [_P] * 4
+    lib.fused_tp_bwd.argtypes = [_P] * 4 + [_P, _P, _I, _I, _I, _I, _L, _I,
+                                            _I, _I, _I] + [_P] * 4
     lib.fused_tp_bwd.restype = _I
+    lib.fused_tp_bwd_table.argtypes = [_P] * 4 + dims + [_P] * 4
+    lib.fused_tp_bwd_table.restype = _I
     return lib
 
 
@@ -248,6 +264,7 @@ class FusedTP:
         self.f = spec.irreps_in2.dim
         self._tables: Dict[torch.device, tuple] = {}
         self._bwd: Dict[torch.device, tuple] = {}
+        self.bwd_route = bwd_route(spec)
 
     # -- plain version ------------------------------------------------
     def plain_forward(self, xg, sh, w) -> Tensor:
@@ -268,13 +285,15 @@ class FusedTP:
         return t
 
     def bwd_kernel_tables(self, device):
-        """(steps on the device, n_steps, nsh, lm) of ``bwd_tables``."""
+        """(steps on the device, slots on the device, n_steps, nsh, lm,
+        run) of ``bwd_tables`` (the 'steps' route only)."""
         t = self._bwd.get(device)
         if t is None:
-            steps, nsh, lm = bwd_tables(self.spec)
+            steps, slots, nsh, lm, run = bwd_tables(self.spec)
             t = self._bwd[device] = (
                 torch.tensor(steps.reshape(-1), device=device),
-                steps.shape[0], nsh, lm)
+                torch.tensor(slots, device=device), steps.shape[0], nsh, lm,
+                run)
         return t
 
     def _check(self, xg, sh, w, g=None):
@@ -314,24 +333,29 @@ class FusedTP:
         return out
 
     def kernel_backward(self, g, xg, sh, w):
-        """Launch ``fused_tp_bwd`` (CUDA tensors only); returns (dxg, dsh,
-        dw), every element written. Raises for a spec ``bwd_tables``
-        refuses."""
+        """Launch the backward of ``bwd_route`` (CUDA tensors only):
+        ``fused_tp_bwd`` or ``fused_tp_bwd_table``; returns (dxg, dsh, dw),
+        every element written."""
         g = g.contiguous()
         self._check(xg, sh, w, g)
-        if any(t.data_ptr() % 16 for t in (g, xg, w)):
-            raise ValueError('fused_tp backward takes g, xg and w 16-byte '
-                             'aligned')
         dxg, dsh, dw = (torch.empty_like(t) for t in (xg, sh, w))
-        steps, n_steps, nsh, lm = self.bwd_kernel_tables(xg.device)
+        stream = ctypes.c_void_p(
+            torch.cuda.current_stream(xg.device).cuda_stream)
+        if self.bwd_route == 'steps':
+            name = 'fused_tp_bwd'
+            steps, slots, n_steps, nsh, lm, run = \
+                self.bwd_kernel_tables(xg.device)
+            tables = [_ptr(steps), _ptr(slots), n_steps, nsh, lm, run,
+                      xg.shape[0], self.d1, self.f, self.w_numel, self.d3]
+        else:
+            name = 'fused_tp_bwd_table'
+            tables = self._dims(xg.device, xg.shape[0])
         with torch.cuda.device(xg.device):
-            err = _lib().fused_tp_bwd(
-                _ptr(g), _ptr(xg), _ptr(sh), _ptr(w), _ptr(steps), n_steps,
-                nsh, lm, xg.shape[0], self.d1, self.f, self.w_numel, self.d3,
-                _ptr(dxg), _ptr(dsh), _ptr(dw), ctypes.c_void_p(
-                    torch.cuda.current_stream(xg.device).cuda_stream))
-        cuda_build.check(err, 'fused_tp_bwd')
-        launch_counts['fused_tp_bwd'] += 1
+            err = getattr(_lib(), name)(
+                _ptr(g), _ptr(xg), _ptr(sh), _ptr(w), *tables, _ptr(dxg),
+                _ptr(dsh), _ptr(dw), stream)
+        cuda_build.check(err, name)
+        launch_counts[name] += 1
         return dxg, dsh, dw
 
     # -- dispatch -----------------------------------------------------

@@ -312,11 +312,12 @@ def tp_launcher(lib: ctypes.CDLL, parent: bool):
     """A function (op, g, xg, sh, w) -> (dxg, dsh, dw) that launches LIB's
     ``fused_tp_bwd``: the port's ABI (``FusedTP.bwd_kernel_tables``), or
     with PARENT the earlier one (the forward's instruction records and
-    slices, their terms in LIB's constant pool)."""
+    slices, their terms in LIB's constant pool; this tree's
+    ``fused_tp_bwd_table`` keeps it)."""
     fn = lib.fused_tp_bwd
     dims = [_L, _I, _I, _I, _I]
     fn.argtypes = [_P] * 4 + ([_P, _P, _I, _I] if parent else
-                              [_P, _I, _I, _I]) + dims + [_P] * 4
+                              [_P, _P, _I, _I, _I, _I]) + dims + [_P] * 4
     fn.restype = _I
     pool = LibPool(lib, 'fused_tp') if parent else None
     cache = {}
@@ -336,8 +337,8 @@ def tp_launcher(lib: ctypes.CDLL, parent: bool):
             tables = [_ptr(ins), _ptr(slices), len(op.plan),
                       slices.numel() // 2]
         else:
-            steps, n_steps, nsh, lm = op.bwd_kernel_tables(dev)
-            tables = [_ptr(steps), n_steps, nsh, lm]
+            steps, slots, n_steps, nsh, lm, run = op.bwd_kernel_tables(dev)
+            tables = [_ptr(steps), _ptr(slots), n_steps, nsh, lm, run]
         dxg, dsh, dw = (torch.empty_like(t) for t in (xg, sh, w))
         cuda_build.check(fn(_ptr(g), _ptr(xg), _ptr(sh), _ptr(w), *tables,
                             xg.shape[0], op.d1, op.f, op.w_numel, op.d3,

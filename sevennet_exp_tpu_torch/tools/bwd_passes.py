@@ -21,8 +21,9 @@ stubbed) / rows in ns a row. Without OTHER_CSRC the source is the port's
 (its ``fused_conv_terms.cu``, or its ``fused_conv.cu`` whose
 ``fused_conv_body.cuh`` holds the first external-weight pair: each
 kind's earlier switches fit a tree that still has that kernel's first
-design; ``--tp-bwd``: its ``fused_tp.cu``). Needs a card (exits 2 without
-one).
+design; ``--tp-bwd``: its ``fused_tp.cu``, whose backward's first form
+this tree keeps as ``fused_tp_bwd_table_kernel``, so the earlier tp
+switches fit both). Needs a card (exits 2 without one).
 
 The stand-ins (what each switch leaves of its pass):
   SI2   gm = alpha W^T g from one o instead of the sum; forwards: y = alpha
@@ -449,7 +450,9 @@ NEW_EXTW_FWD: Stubs = [
           acc = fmaf(ap[r], __ldg(W + (long)r * mo + o), acc);"""),
 ]
 
-# the bare tensor product's backward, its first form
+# the bare tensor product's backward, its first form: the parent tree's
+# fused_tp_bwd and this tree's fused_tp_bwd_table_kernel, which keeps its
+# body for the specs the step kernel does not take
 OLD_TP: Stubs = [
     ('DX', """        dxe[m * mul] = fmaf(gc * wv, se[n], dxe[m * mul]);""",
      """#ifdef STUB_DX
@@ -504,11 +507,11 @@ OLD_TP: Stubs = [
 
 # the redesigned one
 NEW_TP: Stubs = [
-    ('G', """    for (int k = lane; k < d3 * Q; k += 32) {""",
+    ('G', """    const int d3 = 2 * (key & 3) + 1;""",
      """#ifdef STUB_G
-    for (int k = lane; k < 0 * d3; k += 32) {
+    const int d3 = 0 * key;
 #else
-    for (int k = lane; k < d3 * Q; k += 32) {
+    const int d3 = 2 * (key & 3) + 1;
 #endif"""),
     ('RED', """        const float t = warp_sum(dsa[n]);""",
      """#ifdef STUB_RED

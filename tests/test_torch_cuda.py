@@ -1093,15 +1093,27 @@ def _tp_inputs(op, rows, cuda, seed):
             for d in (op.d1, op.f, op.w_numel, op.d3)]
 
 
+def _unaligned(t):
+    """A contiguous copy of T that starts 4 bytes past a 16-byte line."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 4
+    return out
+
+
 def _assert_tp_matches_plain(op, rows, cuda, seed):
     from sevennet_exp_tpu_torch.ops import fused_tp as ftp
     xg, sh, w, g = _tp_inputs(op, rows, cuda, seed)
-    ftp.launch_counts['fused_tp_fwd'] = ftp.launch_counts['fused_tp_bwd'] = 0
+    names = ('fused_tp_fwd', 'fused_tp_bwd', 'fused_tp_bwd_table')
+    for k in names:
+        ftp.launch_counts[k] = 0
     xs = [t.clone().requires_grad_(True) for t in (xg, sh, w)]
     out = op(*xs)                               # through autograd
     grads = torch.autograd.grad(out, xs, g)
-    assert ftp.launch_counts['fused_tp_fwd'] == 1
-    assert ftp.launch_counts['fused_tp_bwd'] == 1
+    bwd = 'fused_tp_bwd' if op.bwd_route == 'steps' else 'fused_tp_bwd_table'
+    assert {k: ftp.launch_counts[k] for k in names} == {
+        k: int(k in ('fused_tp_fwd', bwd)) for k in names}
     ref = op.plain_forward(xg, sh, w)
     ref_grads = op.plain_backward(g, xg, sh, w)
     torch.cuda.synchronize()
@@ -1143,33 +1155,63 @@ def test_fused_tp_backward_ragged_over_its_persistent_grid(cuda, model, layer):
     _assert_tp_matches_plain(op, 10007, cuda, 70 + layer)
 
 
-def test_fused_tp_backward_raises_for_a_spec_it_refuses(cuda):
-    """No fallback: on the card a spec whose sh entries are not at l^2
-    raises; the forward kernel still takes it."""
+# (x, sh, lmax) of specs beside the checkpoint's (tests/test_torch_fused_tp.py
+# holds their tables): the step backward at multiplicity 6 (single-channel
+# copies), with sh entries off l^2 and out of order; the table-driven
+# backward at an l of 4, an sh entry of multiplicity 2, two sh entries of
+# one l
+OTHER_TP_SPECS = {
+    'mul6': ('6x0e+6x1o+6x2e', '1x0e+1x1o+1x2e', 2, 'steps'),
+    'sh02': ('4x0e+4x1o+4x2e', '1x0e+1x2e', 2, 'steps'),
+    'sh10': ('4x0e+4x1o', '1x1o+1x0e', 1, 'steps'),
+    'l4': ('4x0e+4x4e', '1x0e+1x4e', 4, 'table'),
+    'sh_mul2': ('4x0e+4x1o', '2x0e+1x1o', 1, 'table'),
+    'dup_l': ('4x0e+4x1o', '1x1o+1x1e', 1, 'table'),
+}
+
+
+@pytest.mark.parametrize('which', list(OTHER_TP_SPECS))
+def test_fused_tp_backward_takes_every_spec(cuda, which):
+    """No spec is refused: the step kernel takes multiplicities that are
+    not multiples of 4 and sh entries anywhere, the table-driven body the
+    rest; each held to the plain version."""
     from sevennet_exp_tpu_torch.irreps import Irreps, infer_irreps_out
-    from sevennet_exp_tpu_torch.ops import fused_tp as ftp
+    from sevennet_exp_tpu_torch.ops.fused_tp import make_fused_tp
     from sevennet_exp_tpu_torch.ops.tensor_product import UVUTensorProductSpec
-    x, sh = Irreps('4x0e+4x1o'), Irreps('1x0e+1x2e')
-    op = ftp.make_fused_tp(UVUTensorProductSpec(
-        x, sh, infer_irreps_out(x, sh, 2, 'full')))
-    xg, shv, w, g = _tp_inputs(op, 33, cuda, 5)
+    x, sh, lmax, route = OTHER_TP_SPECS[which]
+    x, sh = Irreps(x), Irreps(sh)
+    op = make_fused_tp(UVUTensorProductSpec(
+        x, sh, infer_irreps_out(x, sh, lmax, 'full')))
+    assert op.bwd_route == route
+    _assert_tp_matches_plain(op, 301, cuda, 90)
+
+
+@pytest.mark.parametrize('layer', [1, 4])
+def test_fused_tp_backward_takes_unaligned_rows(cuda, model, layer):
+    """g, xg and w 4 bytes past a 16-byte line: the launch copies single
+    channels, and gives the aligned launch's bits."""
+    from sevennet_exp_tpu_torch.ops import fused_tp as ftp
+    op = ftp.make_fused_tp(model.layers[f'{layer}_convolution'].tp)
+    xg, sh, w, g = _tp_inputs(op, 301, cuda, 80 + layer)
+    ref = op.kernel_backward(g, xg, sh, w)
     before = ftp.launch_counts['fused_tp_bwd']
-    with pytest.raises(ValueError):
-        op.backward(g, xg, shv, w)
-    assert ftp.launch_counts['fused_tp_bwd'] == before
-    out = op.forward(xg, shv, w)
+    got = op.kernel_backward(*map(_unaligned, (g, xg)), sh, _unaligned(w))
+    assert ftp.launch_counts['fused_tp_bwd'] == before + 1
+    plain = op.plain_backward(g, xg, sh, w)
     torch.cuda.synchronize()
-    ref = op.plain_forward(xg, shv, w)
-    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+    for a, b, c in zip(got, ref, plain):
+        assert torch.equal(a, b)
+        assert (a - c).abs().max() <= 1e-4 * max(c.abs().max(), 1e-6)
 
 
 def test_fused_tp_backward_sass_no_local_memory(cuda):
-    """Every instance of the redesigned backward: fp32 on the CUDA cores,
-    nothing in local memory."""
+    """Every instance of the redesigned backward (16 with 16-byte copies,
+    16 with 4-byte ones): fp32 on the CUDA cores, nothing in local
+    memory."""
     from sevennet_exp_tpu_torch.tools import sass_compare
     counts = {k: v for k, v in sass_compare.count('fused_tp').items()
               if 'fused_tp_bwd_kernel' in k}
-    assert len(counts) == 16
+    assert len(counts) == 32, list(counts)
     for k, c in counts.items():
         assert c['FFMA'] > 0, k
         assert not any(c[op] for op in (*sass_compare.LOCAL_OPS,
@@ -1467,6 +1509,16 @@ def test_bench_layout_transpose_ragged_over_its_persistent_grid(cuda):
     torch.cuda.synchronize()
     assert got.shape == (n, bl.MUL)
     assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+    assert torch.equal(got, bl.forward('rowmajor', x, y))
+
+
+def test_bench_layout_transpose_takes_unaligned_inputs(cuda):
+    """x and y 4 bytes past a 16-byte line: the launch copies single
+    floats, and gives the row-major kernel's bits."""
+    from sevennet_exp_tpu_torch.tools import bench_layout as bl
+    x, y = bl.make_inputs(cuda, grid=3)
+    got = bl.forward('transpose', _unaligned(x), _unaligned(y))
+    torch.cuda.synchronize()
     assert torch.equal(got, bl.forward('rowmajor', x, y))
 
 

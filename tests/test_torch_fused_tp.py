@@ -8,11 +8,12 @@ values large).
 
 ``test_kernel_tables_reproduce_plain`` replays the arithmetic of the
 forward of csrc/fused_tp.cu from the tables it reads (instruction records,
-p-sorted terms) and that of the CG stage of csrc/fused_conv_terms.cu from
-the n-sorted backward terms of the same ``pack_plan``;
-``test_bwd_tables_reproduce_plain`` replays the backward of
-csrc/fused_tp.cu from its own step records (``bwd_tables``) with the CG
-terms of csrc/cg_patterns.cuh, so the table contracts are covered here;
+p-sorted terms) and that of its table-driven backward (and of the CG
+stage of csrc/fused_conv_terms.cu) from the n-sorted backward terms of the
+same ``pack_plan``; ``test_bwd_tables_reproduce_plain`` replays the step
+backward of csrc/fused_tp.cu from its own step records and sh slots
+(``bwd_tables``) with the CG terms of csrc/cg_patterns.cuh, so the table
+contracts are covered here;
 the kernels themselves run only on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
 """
@@ -58,11 +59,29 @@ def _spec(which, checkpoint_specs):
         return UVUTensorProductSpec(Irreps('8x0e+8x1e+8x2e'),
                                     Irreps('1x0e+1x1e+1x2e'),
                                     Irreps('1x0e+1x1e+1x2e'))
-    if which == 'mul4_l3':      # tests/test_torch_cuda.py's small multiplicities
-        x = Irreps('4x0e+4x1o+4x2e+4x3o')
-        sh = Irreps('1x0e+1x1o+1x2e+1x3o')
-        return UVUTensorProductSpec(x, sh, infer_irreps_out(x, sh, 3, 'full'))
+    if which in OTHER_SPECS:    # tests/test_torch_cuda.py's too
+        x, sh, lmax = OTHER_SPECS[which]
+        x, sh = Irreps(x), Irreps(sh)
+        return UVUTensorProductSpec(x, sh,
+                                    infer_irreps_out(x, sh, lmax, 'full'))
     return checkpoint_specs[int(which[-1])]
+
+
+# (x, sh, lmax) of specs beside the checkpoint's: the step backward's
+# small multiplicities (4, and 6: no 16-byte runs), sh entries off l^2 and
+# out of order; and specs it leaves to the table-driven backward: an l of
+# 4, an sh entry of multiplicity 2, two sh entries of one l
+OTHER_SPECS = {
+    'mul4_l3': ('4x0e+4x1o+4x2e+4x3o', '1x0e+1x1o+1x2e+1x3o', 3),
+    'mul6': ('6x0e+6x1o+6x2e', '1x0e+1x1o+1x2e', 2),
+    'sh02': ('4x0e+4x1o+4x2e', '1x0e+1x2e', 2),
+    'sh10': ('4x0e+4x1o', '1x1o+1x0e', 1),
+    'l4': ('4x0e+4x4e', '1x0e+1x4e', 4),
+    'sh_mul2': ('4x0e+4x1o', '2x0e+1x1o', 1),
+    'dup_l': ('4x0e+4x1o', '1x1o+1x1e', 1),
+}
+STEP_SPECS = ['mul4_l3', 'mul6', 'sh02', 'sh10']
+TABLE_SPECS = ['l4', 'sh_mul2', 'dup_l']
 
 
 def _jax_spec(spec):
@@ -167,7 +186,8 @@ def replay_tp_tables(ins, idx, coef, xg, sh, w, g, d_out):
     return out, dxg, dsh, dw
 
 
-@pytest.mark.parametrize('which', ['small', 'layer0', 'layer1', 'layer4'])
+@pytest.mark.parametrize('which', ['small', 'layer0', 'layer1', 'layer4']
+                         + TABLE_SPECS)
 def test_kernel_tables_reproduce_plain(checkpoint_specs, which):
     spec = _spec(which, checkpoint_specs)
     op = ftp.make_fused_tp(spec)
@@ -206,12 +226,14 @@ def test_wrapper_takes_the_plain_version_on_cpu_only(checkpoint_specs):
     assert rows_b == 4.0 * E * (2 * width + op.d3)
 
 
-def replay_bwd_steps(steps, xg, sh, w, g):
+def replay_bwd_steps(steps, slots, xg, sh, w, g):
     """(dxg, dsh, dw) computed the way the backward of csrc/fused_tp.cu
-    does, from its step records (``bwd_tables``): per step, the lanes'
-    channels u0 .. u0 + STEP_CHANNELS - 1 below mul; the CG terms those of
-    ``CgPattern<l1, l2, l3>`` (``tools/cg_patterns.pattern``, the header's
-    source) times the step's scale."""
+    does, from its step records and sh slots (``bwd_tables``): per step,
+    the lanes' channels u0 .. u0 + STEP_CHANNELS - 1 below mul; the CG
+    terms those of ``CgPattern<l1, l2, l3>`` (``tools/cg_patterns.pattern``,
+    the header's source) times the step's scale, sh component n of entry l2
+    the column in slot l2^2 + n."""
+    col = {s: c for c, s in enumerate(slots.tolist())}
     dxg, dsh, dw = (torch.zeros_like(t) for t in (xg, sh, w))
     for x_off, mul, u0, d1, key, w_off, o_off, bits, flags in steps.tolist():
         u = torch.arange(u0, min(u0 + ftp.STEP_CHANNELS, mul))
@@ -227,28 +249,33 @@ def replay_bwd_steps(steps, xg, sh, w, g):
             t = [torch.zeros_like(wv) for _ in range(d1)]
             v = [torch.zeros_like(wv) for _ in range(2 * l2 + 1)]
             for m, n, p, c in pattern(l1, l2, l3):
-                t[m] = t[m] + c * gm[p] * sh[:, l2 * l2 + n:l2 * l2 + n + 1]
+                t[m] = t[m] + c * gm[p] * sh[:, col[l2 * l2 + n]][:, None]
                 v[n] = v[n] + c * gm[p] * xv[m]
             dw[:, w_off + u] = sum(a * b for a, b in zip(xv, t))
             for m in range(d1):
                 dx[m] = dx[m] + wv * t[m]
             for n in range(2 * l2 + 1):
-                dsh[:, l2 * l2 + n] += (wv * v[n]).sum(1)
+                dsh[:, col[l2 * l2 + n]] += (wv * v[n]).sum(1)
         if flags & ftp.F_LAST:
             for m in range(d1):
                 dxg[:, x_off + m * mul + u] = dx[m]
     return dxg, dsh, dw
 
 
-BWD_SPECS = WHICH + ['mul4_l3']
+BWD_SPECS = WHICH + STEP_SPECS
 
 
 @pytest.mark.parametrize('which', BWD_SPECS)
 def test_bwd_tables_reproduce_plain(checkpoint_specs, which):
     spec = _spec(which, checkpoint_specs)
     op = ftp.make_fused_tp(spec)
-    steps, nsh, lm = ftp.bwd_tables(spec)
+    assert op.bwd_route == 'steps'
+    steps, slots, nsh, lm, run = ftp.bwd_tables(spec)
     assert op.f <= nsh in (1, 4, 9, 16) and 0 <= lm <= 3
+    assert sorted(slots.tolist()) == sorted(
+        ir.l ** 2 + n for _, ir in spec.irreps_in2 for n in range(ir.dim))
+    assert max(slots) < nsh
+    assert run == (1 if any(m % 4 for m, _ in spec.irreps_in1) else 4)
     # every channel of every x entry is in one item (first .. last step),
     # and every instruction's channels in exactly one step
     items, ins = [], []
@@ -271,7 +298,7 @@ def test_bwd_tables_reproduce_plain(checkpoint_specs, which):
     xg, sh, w = (torch.tensor(a) for a in _inputs(spec, 21))
     g = torch.tensor(np.random.default_rng(22).normal(
         size=(E, op.d3)).astype(np.float32))
-    got = replay_bwd_steps(steps, xg, sh, w, g)
+    got = replay_bwd_steps(steps, slots, xg, sh, w, g)
     for a, b in zip(got, op.plain_backward(g, xg, sh, w)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
                                    atol=1e-5 * float(b.abs().max()))
@@ -301,18 +328,32 @@ def test_cg_nonzeros_factor_as_patterns(checkpoint_specs, which):
 
 
 def test_bwd_tables_refuse_what_the_kernel_cannot_take():
+    """The step kernel refuses an l above 3, an sh entry of multiplicity 2
+    and two sh entries of one l, and those specs take the table-driven
+    backward; multiplicities that are not multiples of 4 and sh entries
+    off l^2 it takes, copying single channels for the first."""
     x = Irreps('4x0e+4x1o')
-    for sh in (Irreps('1x0e+1x2e'), Irreps('2x0e+1x1o'),
-               Irreps('1x0e+1x1o+1x2e+1x3o+1x4e')):
+    for sh in (Irreps('2x0e+1x1o'), Irreps('1x0e+1x1o+1x2e+1x3o+1x4e'),
+               Irreps('1x1o+1x1e')):
         spec = UVUTensorProductSpec(x, sh, infer_irreps_out(x, sh, 4, 'full'))
         with pytest.raises(ValueError):
             ftp.bwd_tables(spec)
-    sh = Irreps('1x0e+1x1o')          # x multiplicities not multiples of 4
+        assert ftp.make_fused_tp(spec).bwd_route == 'table'
+    for which in TABLE_SPECS:
+        with pytest.raises(ValueError):
+            ftp.bwd_tables(_spec(which, None))
+        assert ftp.make_fused_tp(_spec(which, None)).bwd_route == 'table'
+    spec = UVUTensorProductSpec(x, Irreps('1x0e+1x2e'),
+                                infer_irreps_out(x, Irreps('1x0e+1x2e'), 4,
+                                                 'full'))
+    _, slots, nsh, _, run = ftp.bwd_tables(spec)
+    assert slots.tolist() == [0, 4, 5, 6, 7, 8] and nsh == 9 and run == 4
+    sh = Irreps('1x0e+1x1o')
     spec = UVUTensorProductSpec(Irreps('6x0e+4x1o'), sh,
                                 infer_irreps_out(Irreps('6x0e+4x1o'), sh, 1,
                                                  'full'))
-    with pytest.raises(ValueError):
-        ftp.bwd_tables(spec)
+    assert ftp.bwd_tables(spec)[4] == 1
+    assert ftp.make_fused_tp(spec).bwd_route == 'steps'
 
 
 # sha256 (first 16 hex digits) of the checkpoint's five layers' tables as

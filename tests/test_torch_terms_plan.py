@@ -418,11 +418,12 @@ def test_extw_refuses_filters_off_l2_squared():
 
 # -- the card tools of the two backwards --------------------------------------
 
-@pytest.mark.parametrize('case', ['terms', 'extw', 'terms_fwd', 'extw_fwd'])
+@pytest.mark.parametrize('case', ['terms', 'extw', 'terms_fwd', 'extw_fwd',
+                                  'tp_bwd'])
 def test_pass_stubs_apply_to_the_sources(case):
     """tools/bwd_passes.py inserts every switch of its stub list exactly
-    once into the port's two sources: the terms pair's and the
-    external-weight build of csrc/fused_conv_geom.cu."""
+    once into the port's sources: the terms pair's, the external-weight
+    build of csrc/fused_conv_geom.cu and the bare TP's."""
     from sevennet_exp_tpu_torch.tools import bwd_passes
     src_dir, target, _, stubs, _ = bwd_passes.plan(case)
     with open(f'{src_dir}/{target}') as fh:
@@ -431,6 +432,23 @@ def test_pass_stubs_apply_to_the_sources(case):
         assert f'STUB_{p}' in out
     with pytest.raises(ValueError):
         bwd_passes.apply(out, stubs)
+
+
+def test_earlier_tp_stubs_fit_the_table_backward():
+    """The switches of the bare TP backward's first form (``OLD_TP``, for
+    an earlier tree) fit this tree's fused_tp_bwd_table_kernel, which
+    keeps that body: a dead anchor fails here."""
+    from sevennet_exp_tpu_torch.ops import cuda_build
+    from sevennet_exp_tpu_torch.tools import bwd_passes
+    with open(cuda_build.source_path('fused_tp')) as fh:
+        text = fh.read()
+    body = text[text.index('fused_tp_bwd_table_kernel('):
+                text.index('// backward: steps of')]
+    for _, old, _ in bwd_passes.OLD_TP:
+        assert body.count(old) == 1
+    out = bwd_passes.apply(text, bwd_passes.OLD_TP)
+    for p, _, _ in bwd_passes.OLD_TP:
+        assert f'STUB_{p}' in out
 
 
 def test_bwd_card_tools_exit_2_without_a_card():
