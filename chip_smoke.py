@@ -118,8 +118,8 @@ Phases (any failure raises, exits non-zero and prints no result):
      points (``bench_cgmxu`` at i1 = 1 and 2), every counter reset just
      before: each prints its times and (``bench_pieces``) its piece costs;
      the redesigned bf16 ``bench_dot``, ``outer``, ``st``, ``bench_cg``
-     c and ``bench_layout`` transpose kernels carry a ``status`` in the
-     kernels line;
+     c, ``bench_layout`` transpose and ``bench_tile`` b and c kernels carry
+     a ``status`` in the kernels line;
      then each of the twenty-one kernels against its plain version on the
      tool's inputs (``bench_pieces``: ``full`` is kernel 1 and ``-agg`` the
      edge-row kernel 1, by their SASS digests (``PARENT_GEOM_SASS``) and
@@ -134,18 +134,23 @@ Phases (any failure raises, exits non-zero and prints no result):
      the SASS of ``bench_layout`` and ``bench_tile`` must issue every
      repeated pass (cuobjdump: 24 x 16 FFMA per output, and 8 x 4 per
      output, the fifth product of each pass being the FMUL that starts
-     it), each dots and outer instance d3tot x K FFMA per column a thread
-     owns, each st instance every multiply of its dense tables and
-     products (FFMA + FMUL), c its tiling product as HMMA.1688.F32.TF32
-     (outer, st, c and the bf16 ``bench_dot`` instances nothing in local
-     memory, the bf16 ones HMMA), the fp32 ``bench_dot`` kernels no
-     tensor-core opcode, and those, the dots kernels, ``bench_cg``'s a
-     and b and ``bench_layout``'s row- and col-major kernels the SASS they
-     had before bf16, outer, st, c and transpose were redesigned
-     (``PARENT_MICRO_SASS``), no ``bench_layout`` kernel anything in local
-     memory; st (i1 = 1, 2) and c also against their
-     plain versions on a ragged E (1,184 and 1,003 rows), c within 1e-4
-     of a there;
+     it; ``bench_tile`` c 8 x 24 with its tiling product, b each pass's
+     whole tiled row stored to shared memory and its 5 columns loaded
+     back, >= 160 bytes each way a lane and row), each dots and outer
+     instance d3tot x K FFMA per column a thread owns, each st instance
+     every multiply of its dense tables and products (FFMA + FMUL), c its
+     tiling product as HMMA.1688.F32.TF32 (outer, st, c, ``bench_tile`` b
+     and c and the bf16 ``bench_dot`` instances nothing in local memory,
+     the bf16 ones HMMA), the fp32 ``bench_dot`` kernels no tensor-core
+     opcode, and those, the dots kernels, ``bench_cg``'s a
+     and b, ``bench_layout``'s row- and col-major kernels and
+     ``bench_tile``'s d and a the SASS they had before the kernels beside
+     them were redesigned (``PARENT_MICRO_SASS``), no ``bench_layout``
+     kernel anything in local memory; st (i1 = 1, 2) and c also against
+     their plain versions on a ragged E (1,184 and 1,003 rows), c within
+     1e-4 of a there; ``bench_tile`` b and c on E = 1, 7, 100, 1,003 and
+     32,773 against their plain versions and within 1e-3 of d (c also
+     with T altered, which must move its output);
  16. fault C.1 on the card: a tiny model with hidden [32, 32] routes every
      conv to the plain chain, launches no conv kernel and gives the CPU's
      E/F; a 1x1o+1x0e filter layer is refused and matches the CPU; a tiny
@@ -216,11 +221,16 @@ TP_FWD_SASS = ('f27695869423',)
 TERMS_SASS = ('58069b73147a', '90e5aa393ecc', 'caa01d830e0d', 'dc6feb1dee3b')
 LAYOUT_SASS = ('e39d08c7e3a2', '251bf32cd9a4')
 
+# SASS digests of bench_tile's d and a, as they were before b and c were
+# redesigned for Hopper
+TILE_SASS = ('93cfa8d49dbf', '08b3263bc8c0')
+
 # SASS digests of the micro-benchmark kernels beside the redesigned ones
-# (the fp32 bench_dot kernels, bench_cgmxu's dots, bench_cg's a and b), as
-# they were before bf16, outer, st and c were redesigned for Hopper, by the
-# kernel-name stems they are read under (tests/test_torch_cuda.py holds them
-# too)
+# (the fp32 bench_dot kernels, bench_cgmxu's dots, bench_cg's a and b,
+# bench_layout's row- and col-major, bench_tile's d and a), as they were
+# before the kernels beside them were redesigned for Hopper, by the
+# kernel-name stems they are read under (tests/test_torch_cuda.py holds
+# them too)
 PARENT_MICRO_SASS = {
     'bench_dot': ('4539c5e9a7f6', '43900b2b462c', 'cffb86f3b49f',
                   '40053fb204ef', 'e6250dfce0f8', 'e61ab816330d',
@@ -229,11 +239,13 @@ PARENT_MICRO_SASS = {
     'bench_cgmxu': ('5e3d3e051d91', '40b05ac7fb83', '73a9cda46545'),
     'bench_cg': ('a450a1e2efb4', '09bc131a86bb'),
     'bench_layout': LAYOUT_SASS,
+    'bench_tile': TILE_SASS,
 }
 MICRO_SASS_STEMS = {'bench_dot': ('dot_fp32_',),
                     'bench_cgmxu': ('cgmxu_dots_',),
                     'bench_cg': ('cg_a_', 'cg_b_'),
-                    'bench_layout': ('layout_rowmajor', 'layout_colmajor')}
+                    'bench_layout': ('layout_rowmajor', 'layout_colmajor'),
+                    'bench_tile': ('tile_d_kernel', 'tile_a_kernel')}
 
 # the micro-benchmark kernels redesigned for Hopper: their status in the
 # kernels line
@@ -269,6 +281,23 @@ REDESIGNED = {
                   'step), St in the accumulators, the sum over m in '
                   'registers, x by 16-byte cp.async under the previous '
                   'tile\'s mma, out as whole 32-byte sectors',
+    'bench_tile_b': 'redesigned for Hopper: csrc/bench_tile.cu::'
+                    'tile_b_kernel, a persistent grid of warps (48 an SM) '
+                    'walking the rows, the next row\'s x (evict-first) and s '
+                    'loads in flight under a row\'s passes; each pass still '
+                    'writes the whole tiled row to shared memory (a 16-byte '
+                    'and a 4-byte store a lane) and reads its 5 columns back, '
+                    'conflict-free, into one of two staging rows a warp '
+                    'alternating by pass (one __syncwarp a pass)',
+    'bench_tile_c': 'redesigned for Hopper: csrc/bench_tile.cu::'
+                    'tile_c_kernel, a half-warp a row (each lane on two '
+                    'channels, so it forms each s (1 + r) once for two '
+                    'columns) on a persistent grid of row pairs, 8 warps an '
+                    'SM at 184 registers, the next pair\'s x and s loads in '
+                    'flight under a pair\'s passes; each lane reads its 50 '
+                    'entries of T from device memory into registers once (no '
+                    'block barrier before the first x loads) and every pass '
+                    'forms its tiled row as (s (1 + r)) @ T',
 }
 
 MD_KW = dict(dt_fs=2.0, temperature_K=300.0, ensemble='nvt',
@@ -733,16 +762,27 @@ def micro_benchmarks(report, dev, cuda_ms, show, pieces_sass):
         p_ms = cuda_ms(bench_tile.rotate(
             lambda xi, si: bench_tile.plain(v, xi, si), copies), reps=2,
             batches=1, warm=1)
-        # the first product of each pass is an FMUL, the other four FFMAs
+        # the first product of each sum is an FMUL, the other four FFMAs: 4
+        # a pass in the group sum, and in c 20 more for its tiling product
+        per_pass = (bench_tile.D1 - 1) * (
+            bench_tile.D1 + 1 if v == 'c:mxu-tile' else 1)
         counts = sass_of('bench_tile', f'tile_{v[0]}_kernel',
-                         bench_tile.REPS * (bench_tile.D1 - 1))
-        rows.append({'tool': 'bench_tile', 'variant': v, 'ms': tile['ms'][v],
-                     'err': err, 'lim': lim, 'cross_err': cross,
-                     'plain_ms': p_ms, 'library_ms': l_ms, 'flops': c[0],
-                     'bytes': c[1], 'formulation_flops':
-                     bench_tile.formulation_flops(v, x.shape[0]),
-                     'bound_ms': bound(*c)[0], 'copies': len(copies),
-                     'sass': counts})
+                         bench_tile.REPS * per_pass)
+        row = {'tool': 'bench_tile', 'variant': v, 'ms': tile['ms'][v],
+               'err': err, 'lim': lim, 'cross_err': cross,
+               'plain_ms': p_ms, 'library_ms': l_ms, 'flops': c[0],
+               'bytes': c[1], 'formulation_flops':
+               bench_tile.formulation_flops(v, x.shape[0]),
+               'bound_ms': bound(*c)[0], 'copies': len(copies),
+               'sass': counts}
+        if v in ('b:bcast+cat', 'c:mxu-tile'):
+            row.update(tile_redesigned(v, counts, builds['bench_tile'][2]))
+            row['share_of_bound'] = row['bound_ms'] / row['ms']
+            print(f'bench_tile {v}: {row["ms"]:.4f} ms, bound '
+                  f'{row["bound_ms"]:.4f} ms ({row["share_of_bound"]:.1%}), '
+                  f'floor of its formulation {row["floor_ms"]:.4f} ms '
+                  f'({row["floor_of"]})', flush=True)
+        rows.append(row)
         entry(bench_tile.COUNTER[v], 'bench_tile.cu', 'bench_tile.py:93',
               [err], tile['ms'][v], p_ms, [c], l_ms)
     del tile, copies
@@ -753,6 +793,61 @@ def micro_benchmarks(report, dev, cuda_ms, show, pieces_sass):
     print(f'micro-benchmarks: tools {run_s:.1f} s, phase '
           f'{report["micro"]["phase_s"]:.1f} s', flush=True)
     return kernels
+
+
+def tile_redesigned(v, counts, texts):
+    """bench_tile's b or c beyond phase 15's common checks, outside the
+    counted run: no local memory; b's SASS stages every pass's whole tiled
+    row in shared memory and reads its 5 columns back (>= 160 bytes stored
+    and loaded a lane and row, in any width); b and c against their plain
+    versions and within CROSS_TOL of d on ragged E (fewer rows than the
+    persistent grid's warps, and rows not a multiple of its warps), c also
+    with T altered (it reads T, it does not assume it). Returns the
+    row's additions."""
+    import torch
+    from sevennet_exp_tpu_torch.tools import bench_tile, sass_compare
+    from sevennet_exp_tpu_torch.tools.bench_tile import D1, REPS, W
+    name = f'tile_{v[0]}_kernel'
+    if any(counts[op] for op in sass_compare.LOCAL_OPS):
+        raise AssertionError(f'bench_tile {v}: local memory {counts}')
+    add = {}
+    if v == 'b:bcast+cat':
+        (text,) = [t for k, t in texts.items() if name in k]
+        shared = add['shared_bytes'] = sass_compare.shared_bytes(text)
+        want = REPS * W * 4 // 32           # = REPS * D1 * 4 read back
+        print(f'{name}: shared bytes a lane and row {shared} (want >= '
+              f'{want} each way)', flush=True)
+        if shared['STS'] < want or shared['LDS'] < REPS * D1 * 4:
+            raise AssertionError(f'{name}: {shared}')
+        add.update(floor_ms=bench_tile.b_shared_floor_ms(32768),
+                   floor_of='its shared-memory traffic at 128 bytes a clock '
+                            'an SM, 1.98 GHz')
+    else:
+        add.update(floor_ms=bench_tile.formulation_bound_ms(v, 32768),
+                   floor_of='its fp32 arithmetic')
+    ragged = add['ragged'] = {}
+    for E in (1, 7, 100, 1003, 32768 + 5):
+        x, s = bench_tile.make_inputs(E, 'cuda', seed=E)
+        got = bench_tile.forward(v, x, s)
+        err, _ = check_close(f'bench_tile {v}, E = {E}', got,
+                             bench_tile.plain(v, x, s))
+        cross = float((got - bench_tile.plain(bench_tile.VARIANTS[0], x, s))
+                      .abs().max())
+        if not cross < bench_tile.CROSS_TOL:
+            raise AssertionError(f'bench_tile {v} vs d at E = {E}: '
+                                 f'{cross:.3e}')
+        ragged[E] = {'err': err, 'vs_d': cross}
+        if v == 'c:mxu-tile':
+            T = torch.as_tensor(bench_tile.ones_block(), device=x.device)
+            T[1, 5] = -3.0
+            got2 = bench_tile.forward(v, x, s, T)
+            ragged[E]['err_T'], _ = check_close(
+                f'bench_tile c, T altered, E = {E}', got2,
+                bench_tile.plain(v, x, s, T))
+            if not float((got2 - got).abs().max()) > 1e-3:
+                raise AssertionError('bench_tile c ignores T')
+    print(f'bench_tile {v} ragged: {ragged}', flush=True)
+    return add
 
 
 def _tiny_config(**over):

@@ -10,9 +10,19 @@ st[32 m + u] = s[e, m] (1 + r) formed four ways by the kernels of
 
   d:per-slice    the unpacked baseline: each slice times its s column
   a:repeat       a register broadcast of s[e, m] (``__shfl_sync``)
-  b:bcast+cat    the tiled row staged in shared memory
+  b:bcast+cat    the tiled row staged in shared memory: every pass writes
+                 all 160 columns and reads its 5 back (two staging rows a
+                 warp, alternating by pass)
   c:mxu-tile     the tiled row as (s (1 + r)) @ T, T the (5, 160) ones-block
-                 (``bench_tile.py:34-36``), on CUDA cores in fp32
+                 (``bench_tile.py:34-36``), on CUDA cores in fp32, T read
+                 from device memory into each lane's registers (a half-warp
+                 a row, each lane on two channels)
+
+b and c walk the rows on a persistent grid, the next row's loads in flight
+while a row's passes run. b's own floor is its staging traffic
+(``b_shared_bytes``, ``b_shared_floor_ms``), c's the arithmetic of its
+tiling product (``formulation_bound_ms``); both are printed beside the
+bound of the function, which is bytes.
 
 Each variant is held against d within 1e-3, as ``bench_tile.py:118-124``,
 and against its own plain version within 1e-4 max|plain|; a variant that
@@ -50,6 +60,12 @@ COUNTER = {v: f'bench_tile_{v[0]}' for v in VARIANTS}
 CROSS_TOL = 1e-3   # bench_tile.py:124
 REL_TOL = 1e-4     # each kernel against its plain version
 COPIES = 4         # 4 x 25.8 MB of inputs rotate through the timed launches
+# H100 SXM: 67 TFLOP/s fp32 on the CUDA cores, 3.35 TB/s (NVIDIA's data
+# sheet); 132 SMs, each with 32 shared-memory banks of 4 bytes a clock, at
+# most 1.98 GHz
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+SMS, SMEM_BYTES_PER_CLOCK, CLOCK_HZ = 132, 128, 1.98e9
 
 
 def ones_block() -> np.ndarray:
@@ -198,6 +214,27 @@ def formulation_flops(variant: str, E: int) -> float:
     return cost(E)[0] + extra
 
 
+def formulation_bound_ms(variant: str, E: int) -> float:
+    """The least time of a formulation's own arithmetic at the fp32 peak
+    (c: 0.0075 ms at E = 32,768, just under the 0.0077 ms of the
+    function's bytes)."""
+    return formulation_flops(variant, E) / PEAK_FP32 * 1e3
+
+
+def b_shared_bytes(E: int) -> float:
+    """Bytes b moves through shared memory: each of its REPS passes writes
+    the whole tiled row (W floats) and reads it back, 2 x 8 x 160 x 4 =
+    10,240 bytes a row."""
+    return 2.0 * REPS * W * 4 * E
+
+
+def b_shared_floor_ms(E: int) -> float:
+    """The least time of b's staging traffic: ``b_shared_bytes`` at 128
+    bytes a clock on each SM (0.0100 ms at E = 32,768 on 132 SMs at 1.98
+    GHz), above the 0.0077 ms of its device-memory bytes."""
+    return b_shared_bytes(E) / (SMEM_BYTES_PER_CLOCK * SMS * CLOCK_HZ) * 1e3
+
+
 def run(E: int = 32768, reps: int = 20) -> Dict:
     """Each variant once (outputs kept), held against d and against its
     plain version, then timed over rotating input copies; prints as the JAX
@@ -227,7 +264,12 @@ def run(E: int = 32768, reps: int = 20) -> Dict:
             res['cross_err'][v] = cross
         ms = res['ms'][v] = cuda_ms(
             rotate(lambda xi, si: forward(v, xi, si), copies), reps=reps)
-        print(f'{v:14s} {ms:7.3f} ms', flush=True)
+        floor = {'b:bcast+cat': ('shared memory', b_shared_floor_ms(E)),
+                 'c:mxu-tile': ('its fp32 arithmetic',
+                                formulation_bound_ms(v, E))}.get(v)
+        print(f'{v:14s} {ms:7.4f} ms' + (
+            f' (floor of {floor[0]}: {floor[1]:.4f} ms)' if floor else ''),
+            flush=True)
     return res
 
 

@@ -5,9 +5,10 @@ with ``--terms-fwd`` / ``--extw-fwd`` the two forwards; with ``--dot-bf16``
 / ``--outer`` / ``--st`` / ``--cg-c`` the micro-benchmark kernels
 ``dot_bf16`` / ``cgmxu_outer`` / ``cgmxu_st`` / ``cg_c``; with ``--tp-bwd``
 the bare tensor product's backward (``fused_tp_bwd``), with
-``--layout-transpose`` ``bench_layout``'s ``layout_transpose``.
+``--layout-transpose`` ``bench_layout``'s ``layout_transpose``, with
+``--tile-c`` / ``--tile-b`` ``bench_tile``'s c and b.
 
-    python -m sevennet_exp_tpu_torch.tools.bwd_ab OTHER_CSRC [STEPS] [OUT.json] --terms | --extw | --terms-fwd | --extw-fwd | --dot-bf16 | --outer | --st | --cg-c | --tp-bwd | --layout-transpose
+    python -m sevennet_exp_tpu_torch.tools.bwd_ab OTHER_CSRC [STEPS] [OUT.json] --terms | --extw | --terms-fwd | --extw-fwd | --dot-bf16 | --outer | --st | --cg-c | --tp-bwd | --layout-transpose | --tile-c | --tile-b
 
 OTHER_CSRC is an earlier tree's ``csrc`` directory unpacked with ``git
 archive`` (its ``fused_conv_terms.cu``, or its ``fused_conv.cu`` with the
@@ -50,6 +51,12 @@ where the list below says backward, on the same inputs and paths:
     ``layout_transpose`` entry) on the tool's (32768, 512) inputs, held to
     the plain version within 1e-4 max|plain|, and the two builds'
     ``layout_rowmajor`` (an unchanged kernel) timed in the same turns.
+  - ``--tile-c`` / ``--tile-b``: its ``bench_tile.cu`` (the same
+    ``tile_c`` / ``tile_dab`` entries) on the tool's E = 32,768 inputs,
+    each launch on the next of the tool's rotating copies (the first on
+    the copy the plain version is held to, within 1e-4 max|plain|); the
+    two builds' ``tile_d`` (an unchanged kernel) timed in the same turns.
+    The micro kinds also print each case's time ratio, other / this.
 
 After the turns of a conv kind, each layer's outputs of the two builds are
 compared (relative to max|other|). Prints one line per turn and the means
@@ -77,7 +84,7 @@ from ..ops import fused_conv as fc
 from ..ops import fused_conv_geom as fcg
 from ..ops import fused_conv_terms as fct
 from ..ops import fused_tp as ftp
-from . import bench_cg, bench_cgmxu, bench_dot, bench_layout
+from . import bench_cg, bench_cgmxu, bench_dot, bench_layout, bench_tile
 from .geom_ab import CHECKPOINT, D, dense_inputs, edge_inputs
 from .timing import card, cuda_ms, require_card
 
@@ -553,7 +560,28 @@ def run(other_csrc: str, kind: str, steps: int = 100):
 # this tree's on the tool's own inputs (no model), and the source it is in
 MICRO = {'dot_bf16': 'bench_dot.cu', 'outer': 'bench_cgmxu.cu',
          'st': 'bench_cgmxu.cu', 'cg_c': 'bench_cg.cu',
-         'tp_bwd': 'fused_tp.cu', 'layout_transpose': 'bench_layout.cu'}
+         'tp_bwd': 'fused_tp.cu', 'layout_transpose': 'bench_layout.cu',
+         'tile_c': 'bench_tile.cu', 'tile_b': 'bench_tile.cu'}
+
+
+def tile_launcher(lib: ctypes.CDLL, v: str):
+    """fn(x, s) launching variant V ('d', 'a', 'b' or 'c', c with the
+    ones-block T) of LIB, a build of a ``bench_tile.cu`` (entries
+    ``tile_dab`` and ``tile_c``)."""
+    lib.tile_dab.argtypes = [ctypes.c_char, _P, _P, _L, _P, _P]
+    lib.tile_c.argtypes = [_P, _P, _P, _L, _P, _P]
+    lib.tile_dab.restype = lib.tile_c.restype = _I
+
+    def fn(x, s):
+        out = x.new_empty((x.shape[0], bench_tile.MUL))
+        T = bench_tile._device_T(x.device)
+        args = (_ptr(x), _ptr(s), *((_ptr(T),) if v == 'c' else ()),
+                x.shape[0], _ptr(out), _stream(out))
+        err = (lib.tile_c(*args) if v == 'c' else
+               lib.tile_dab(v.encode(), *args))
+        cuda_build.check(err, f'tile_{v}')
+        return out
+    return fn
 
 
 def micro_cases(kind: str, lib: ctypes.CDLL):
@@ -586,6 +614,19 @@ def micro_cases(kind: str, lib: ctypes.CDLL):
             ref = bench_layout.plain(v, x, y)
             yield (v, other, lambda v=v: bench_layout.forward(v, x, y), ref,
                    1e-4 * float(ref.abs().max()))
+        return
+    if kind in ('tile_c', 'tile_b'):
+        copies = bench_tile.input_copies(*bench_tile.make_inputs(32768,
+                                                                 'cuda'))
+        for var in bench_tile.VARIANTS:
+            if var[0] not in (kind[-1], 'd'):
+                continue
+            # a rotation's first call runs on copies[0]: the checked one
+            ref = bench_tile.plain(var, *copies[0])
+            yield (var, bench_tile.rotate(tile_launcher(lib, var[0]), copies),
+                   bench_tile.rotate(
+                       lambda x, s, var=var: bench_tile.forward(var, x, s),
+                       copies), ref, 1e-4 * float(ref.abs().max()))
         return
     if kind == 'dot_bf16':
         fn = lib.dot_bf16
@@ -673,9 +714,12 @@ def run_micro(other_csrc: str, kind: str, reps: int = 20):
             for side, fn in (('other', other), ('this', this),
                              ('this', this), ('other', other)):
                 row[side].append(cuda_ms(fn, reps=reps))
+            row['ratio'] = statistics.mean(row['other']) / statistics.mean(
+                row['this'])
             print(f'{kind} {label}: other {row["other"][0]:.4f} / '
                   f'{row["other"][1]:.4f} ms, this {row["this"][0]:.4f} / '
-                  f'{row["this"][1]:.4f} ms', flush=True)
+                  f'{row["this"][1]:.4f} ms, other / this '
+                  f'{row["ratio"]:.3f}', flush=True)
     for side in ('other', 'this'):
         res[f'{side}_sum'] = sum(statistics.mean(r[side])
                                  for r in res['cases'].values())

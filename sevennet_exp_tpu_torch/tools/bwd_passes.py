@@ -6,9 +6,13 @@ backward (``--terms-fwd``: forward) on the 1k grid's shape (1,000 atoms x
 ``--extw`` the external-weight backward (``--extw-fwd``: forward) on the 1k
 ``half_mlp`` grid's shape, at checkpoint layer 1; with ``--tp-bwd`` the
 bare tensor product's backward (``fused_tp_bwd``) on chip_smoke phase 13's
-layer-1 inputs (``bwd_ab.tp_inputs``, 32,000 rows).
+layer-1 inputs (``bwd_ab.tp_inputs``, 32,000 rows); with ``--tile-b`` /
+``--tile-c`` ``bench_tile``'s b and c on the tool's inputs at 8, 32,768
+and 65,536 rows (``TILE_ROWS``; the port's source only), each timed over
+the tool's rotating copies, and the cost of 32,768 rows without a
+launch's fixed part (the 65,536-row launch less the 32,768-row one).
 
-    python -m sevennet_exp_tpu_torch.tools.bwd_passes [OTHER_CSRC] [OUT.json] --terms | --extw | --terms-fwd | --extw-fwd | --tp-bwd
+    python -m sevennet_exp_tpu_torch.tools.bwd_passes [OTHER_CSRC] [OUT.json] --terms | --extw | --terms-fwd | --extw-fwd | --tp-bwd | --tile-b | --tile-c
 
 Each pass gets a ``-DSTUB_<PASS>`` switch, inserted into a temporary copy of
 the source (the stand-in keeps its result live, so the compiler keeps the
@@ -53,6 +57,10 @@ The stand-ins (what each switch leaves of its pass):
   BODY  (earlier tp) the term walk only: no term's loads or arithmetic
   CG    (new tp) no CG: each step one product of its operands (the
         other g components copied but not read)
+  LOADS (tile) no loads after a warp's first row: each next row is the
+        last one's values plus one (x's first column and the s values),
+        so no pass is hoisted out of the row loop
+  PASSES (tile) one pass a row instead of eight
 """
 
 from __future__ import annotations
@@ -534,7 +542,48 @@ NEW_TP: Stubs = [
     switch (key) {"""),
 ]
 
-KINDS = ('terms', 'extw', 'terms_fwd', 'extw_fwd', 'tp_bwd')
+# bench_tile's b and c (csrc/bench_tile.cu)
+TILE_B: Stubs = [
+    ('LOADS', """    fetch(x, s, e + nw, E, u, next);""",
+     """#ifdef STUB_LOADS
+    next.x[0] += 1.f;
+    next.s0 += 1.f;
+    next.s4 += 1.f;
+#else
+    fetch(x, s, e + nw, E, u, next);
+#endif"""),
+    ('PASSES', """    for (int r = 0; r < REPS; ++r) {
+      // the whole tiled row""", """#ifdef STUB_PASSES
+    for (int r = 0; r < 1; ++r) {
+#else
+    for (int r = 0; r < REPS; ++r) {
+#endif
+      // the whole tiled row"""),
+]
+
+TILE_C: Stubs = [
+    ('LOADS', """    fetch(x, s, 2 * (p + nw) + h, E, v, next);""",
+     """#ifdef STUB_LOADS
+    next.x0[0] += 1.f;
+    next.x1[0] += 1.f;
+    for (int k = 0; k < D1; ++k) next.s[k] += 1.f;
+#else
+    fetch(x, s, 2 * (p + nw) + h, E, v, next);
+#endif"""),
+    ('PASSES', """    for (int r = 0; r < REPS; ++r) {
+      float sr[D1], st0[D1], st1[D1];""", """#ifdef STUB_PASSES
+    for (int r = 0; r < 1; ++r) {
+#else
+    for (int r = 0; r < REPS; ++r) {
+#endif
+      float sr[D1], st0[D1], st1[D1];"""),
+]
+
+KINDS = ('terms', 'extw', 'terms_fwd', 'extw_fwd', 'tp_bwd', 'tile_b',
+         'tile_c')
+# the rows bench_tile's kinds are timed at: the difference of the two
+# largest is a launch's cost of 32,768 rows without its fixed part
+TILE_ROWS = (8, 32768, 65536)
 
 
 def apply(text: str, stubs: Stubs) -> str:
@@ -552,6 +601,12 @@ def plan(kind: str, other: str = None):
     KIND (one of ``KINDS``) in the port's csrc or in OTHER."""
     extw = kind.startswith('extw')
     fwd = kind.endswith('_fwd')
+    if kind.startswith('tile_'):
+        if other is not None:
+            raise ValueError(f'{kind}: the stubs fit the port\'s source only')
+        src = cuda_build.source_path('bench_tile')
+        return (os.path.dirname(src), 'bench_tile.cu', 'bench_tile.cu',
+                TILE_B if kind == 'tile_b' else TILE_C, ())
     if kind == 'tp_bwd':
         src = other or os.path.dirname(cuda_build.source_path('fused_tp'))
         return (src, 'fused_tp.cu', 'fused_tp.cu',
@@ -597,9 +652,12 @@ def build(kind: str, other: str, out_dir: str):
         if p.returncode:
             raise RuntimeError(f'nvcc failed on variant {v}:\n{o}\n{e}')
         lib = ctypes.CDLL(so)
-        out[v] = (bwd_ab.tp_launcher(lib, other is not None)
-                  if kind == 'tp_bwd' else
-                  bwd_ab.launcher(kind, lib, other is not None))
+        if kind.startswith('tile_'):
+            out[v] = bwd_ab.tile_launcher(lib, kind[-1])
+        elif kind == 'tp_bwd':
+            out[v] = bwd_ab.tp_launcher(lib, other is not None)
+        else:
+            out[v] = bwd_ab.launcher(kind, lib, other is not None)
     return out
 
 
@@ -612,6 +670,9 @@ def run(kind: str, other: str = None) -> Dict:
     key = 'fwd_ms' if kind.endswith('_fwd') else 'bwd_ms'
     with tempfile.TemporaryDirectory() as tmp:
         launchers = build(kind, other, tmp)
+        if kind.startswith('tile_'):
+            res['shapes']['rows'] = tile_times(launchers)
+            return res
         model, _ = SevenNetCheckpoint(CHECKPOINT).build_model(device=dev)
         if kind == 'tp_bwd':
             op, ins = bwd_ab.tp_inputs(model, dev)[1]
@@ -651,11 +712,31 @@ def run(kind: str, other: str = None) -> Dict:
     return res
 
 
+def tile_times(launchers) -> Dict:
+    """{variant: {'ms_<E>': ms a launch at E rows (over the tool's
+    rotating copies), 'ms_32768_rows': the launch at 65,536 rows less the
+    one at 32,768}} for E in ``TILE_ROWS``."""
+    from . import bench_tile
+    out = {v: {} for v in launchers}
+    for E in TILE_ROWS:
+        copies = bench_tile.input_copies(*bench_tile.make_inputs(E, 'cuda'))
+        for v, fn in launchers.items():
+            out[v][f'ms_{E}'] = cuda_ms(bench_tile.rotate(fn, copies),
+                                        reps=20)
+        del copies
+    for v, t in out.items():
+        t['ms_32768_rows'] = t['ms_65536'] - t['ms_32768']
+        print(f'{v}: ' + json.dumps({k: round(x, 5) for k, x in t.items()}),
+              flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     kinds = [k for k in KINDS if f'--{k.replace("_", "-")}' in argv]
     if len(kinds) != 1:
-        print(__doc__.strip().splitlines()[8].strip(), file=sys.stderr)
+        print(next(ln.strip() for ln in __doc__.splitlines()
+                   if 'python -m' in ln), file=sys.stderr)
         return 2
     if not require_card('bwd_passes'):
         return 2

@@ -158,6 +158,26 @@ def opcode_counts(sass: str) -> Dict[str, Dict[str, int]]:
     return out
 
 
+_SHARED = re.compile(r'^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?(STS|LDS)'
+                     r'((?:\.\w+)*)\s')
+_WIDTH = {'.64': 8, '.128': 16, '.U8': 1, '.S8': 1, '.U16': 2, '.S16': 2}
+
+
+def shared_bytes(text: str) -> Dict[str, int]:
+    """{'STS': bytes, 'LDS': bytes} that one thread's static shared-memory
+    stores and loads move in one kernel's SASS (as ``split_functions``
+    gives it): 4 bytes an instruction, or its width's (``.64``, ``.128``,
+    the 8- and 16-bit forms)."""
+    out = {'STS': 0, 'LDS': 0}
+    for line in text.splitlines():
+        m = _SHARED.match(line)
+        if m:
+            mods = re.findall(r'\.\w+', m.group(2))
+            out[m.group(1)] += next((_WIDTH[x] for x in mods if x in _WIDTH),
+                                    4)
+    return out
+
+
 def _cubin_cmd(src: str, out_dir: str, tag: str):
     """(nvcc command, cubin path) of SRC with the port's flags and the
     macros of library TAG, if it has any."""

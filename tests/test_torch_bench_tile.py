@@ -169,3 +169,117 @@ def test_rotating_copies():
     for _ in range(2 * len(copies)):
         f()
     assert seen == [c[0].data_ptr() for c in copies] * 2
+
+
+def test_c_formulation_bound():
+    """c's tiling product, 25 multiply-adds a lane and pass on top of the
+    function's 5, at the fp32 peak: 0.0075 ms at E = 32,768, just under
+    the 0.0077 ms of the bytes; the other formulations add nothing."""
+    assert round(bench_tile.formulation_bound_ms('c:mxu-tile', 32768),
+                 4) == 0.0075
+    flops, nbytes = bench_tile.cost(32768)
+    assert bench_tile.formulation_bound_ms('c:mxu-tile', 32768) < \
+        nbytes / bench_tile.PEAK_BYTES * 1e3
+    for v in ('d:per-slice', 'a:repeat', 'b:bcast+cat'):
+        assert bench_tile.formulation_bound_ms(v, 32768) == \
+            flops / bench_tile.PEAK_FP32 * 1e3
+
+
+def test_b_shared_memory_floor():
+    """b writes the whole tiled row and reads it back in each of its 8
+    passes: 2 x 8 x 160 x 4 bytes a row, 0.0100 ms at E = 32,768 on 132
+    SMs at 128 bytes a clock and 1.98 GHz, above the 0.0077 ms of the
+    bytes b reads and writes in device memory."""
+    assert bench_tile.b_shared_bytes(32768) == 2 * 8 * 160 * 4 * 32768
+    floor = bench_tile.b_shared_floor_ms(32768)
+    assert round(floor, 4) == 0.0100
+    assert floor > bench_tile.cost(32768)[1] / bench_tile.PEAK_BYTES * 1e3
+
+
+def test_b_staging_writes_the_tiled_row_without_bank_conflicts():
+    """csrc/bench_tile.cu::tile_b_kernel's staging, replayed: in pass r
+    lane u writes columns 4 u .. 4 u + 3 (one 16-byte store of s[u / 8]
+    (1 + r)) and column 128 + u (s[4] (1 + r)) of its warp's staging row
+    r & 1, then reads columns 32 m + u. The row is the broadcast +
+    concatenate tile, every column written once, and each access of the
+    warp is conflict-free (a 16-byte store in four phases of 8 lanes)."""
+    rng = np.random.default_rng(6)
+    s = rng.normal(size=d1).astype(np.float32)
+    lanes = np.arange(32)
+    for r in range(reps):
+        row = np.full(W, np.nan, np.float32)
+        writes = np.zeros(W, int)
+        for u in lanes:
+            row[4 * u:4 * u + 4] = s[u // 8] * (1.0 + r)
+            writes[4 * u:4 * u + 4] += 1
+            row[4 * mul + u] = s[4] * (1.0 + r)
+            writes[4 * mul + u] += 1
+        assert (writes == 1).all()
+        want = np.concatenate([np.full(mul, s[m] * (1.0 + r), np.float32)
+                               for m in range(d1)])
+        assert np.array_equal(row, want)
+        got = np.stack([row[m * mul + lanes] for m in range(d1)])
+        assert np.array_equal(got, want.reshape(d1, mul))
+    # banks of the words each instruction touches
+    for phase in range(4):                     # the 16-byte store
+        words = np.concatenate([4 * u + np.arange(4)
+                                for u in range(8 * phase, 8 * phase + 8)])
+        assert len(set(words % 32)) == 32
+    assert len(set((4 * mul + lanes) % 32)) == 32
+    for m in range(d1):
+        assert len(set((m * mul + lanes) % 32)) == 32
+    # two staging rows a warp keep every row 16-byte aligned
+    assert (W * 4) % 16 == 0
+
+
+def test_card_tool_modes_of_c_and_b():
+    """``bwd_ab.py --tile-c`` / ``--tile-b`` build an earlier tree's
+    bench_tile.cu, ``bwd_passes.py --tile-b`` / ``--tile-c`` stub the
+    port's own (an earlier tree's is refused); one kind at a time, and a
+    card is needed."""
+    from sevennet_exp_tpu_torch.tools import bwd_ab, bwd_passes
+    assert bwd_ab.MICRO['tile_c'] == bwd_ab.MICRO['tile_b'] == 'bench_tile.cu'
+    assert bwd_ab.main(['csrc', '--tile-c', '--tile-b']) == 2
+    assert bwd_passes.main(['--tile-c', '--tile-b']) == 2
+    with pytest.raises(ValueError):
+        bwd_passes.plan('tile_b', 'other/csrc')
+    if not torch.cuda.is_available():
+        for kind in ('--tile-c', '--tile-b'):
+            assert bwd_ab.main(['csrc', kind]) == 2
+            assert bwd_passes.main([kind]) == 2
+
+
+def _bench_tile_source():
+    from sevennet_exp_tpu_torch.ops import cuda_build
+    with open(cuda_build.source_path('bench_tile')) as fh:
+        return fh.read()
+
+
+@pytest.mark.parametrize('E', [1, 7, 100, 1003, 32768 + 5])
+@pytest.mark.parametrize('grid', [1, 3, 264, 792])
+def test_b_and_c_walks_write_every_output_once(E, grid):
+    """The persistent walks of csrc/bench_tile.cu, replayed: b's warp w of
+    NW = 8 grid writes rows w, w + NW, ... (all 32 channels); c's warp w of
+    NW = 4 grid takes row pairs w, w + NW, ..., its lane l row
+    2 p + l / 16 (none past E) and channels l % 16 and l % 16 + 16. Every
+    output (row, channel) is written exactly once, also with fewer rows
+    than warps and an odd E."""
+    src = _bench_tile_source()
+    for line in ('constexpr int NTC = 128, ROWS_C = NTC / 32;',
+                 'long e = (long)blockIdx.x * ROWS + warp;',
+                 'long p = (long)blockIdx.x * ROWS_C + (threadIdx.x >> 5);',
+                 'const long pairs = (E + 1) / 2;',
+                 'const long e = 2 * p + h;'):
+        assert line in src
+    b = np.zeros((E, mul), int)
+    for w in range(8 * grid):
+        b[w:E:8 * grid] += 1
+    c = np.zeros((E, mul), int)
+    lane = np.arange(32)
+    for w in range(4 * grid):
+        for p in range(w, (E + 1) // 2, 4 * grid):
+            e, v = 2 * p + lane // 16, lane % 16
+            keep = e < E
+            np.add.at(c, (e[keep], v[keep]), 1)
+            np.add.at(c, (e[keep], v[keep] + 16), 1)
+    assert (b == 1).all() and (c == 1).all()

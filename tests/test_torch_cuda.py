@@ -1328,8 +1328,9 @@ def test_bench_cgmxu_outer_sass_has_every_multiply_add(cuda):
 
 
 # SASS digests of the micro-benchmark kernels that the redesigns of the
-# bf16 dot, the outer and st CG and bench_cg's c left alone, as they were
-# before them, by kernel-name stem (chip_smoke.py holds them too)
+# bf16 dot, the outer and st CG, bench_cg's c and bench_tile's b and c left
+# alone, as they were before them, by kernel-name stem (chip_smoke.py holds
+# them too)
 PARENT_MICRO_SASS = {
     'bench_dot': ('4539c5e9a7f6', '43900b2b462c', 'cffb86f3b49f',
                   '40053fb204ef', 'e6250dfce0f8', 'e61ab816330d',
@@ -1337,16 +1338,19 @@ PARENT_MICRO_SASS = {
                   '5d330983afe7', '2cde1487ece9'),
     'bench_cgmxu': ('5e3d3e051d91', '40b05ac7fb83', '73a9cda46545'),
     'bench_cg': ('a450a1e2efb4', '09bc131a86bb'),
+    'bench_tile': ('93cfa8d49dbf', '08b3263bc8c0'),
 }
 MICRO_SASS_STEMS = {'bench_dot': ('dot_fp32_',),
                     'bench_cgmxu': ('cgmxu_dots_',),
-                    'bench_cg': ('cg_a_', 'cg_b_')}
+                    'bench_cg': ('cg_a_', 'cg_b_'),
+                    'bench_tile': ('tile_d_kernel', 'tile_a_kernel')}
 
 
 def test_untouched_micro_kernels_keep_their_sass(cuda):
-    """The fp32 bench_dot kernels, the dots kernels of bench_cgmxu and
-    bench_cg's a and b compile to the SASS they had before the kernels
-    beside them (bf16, outer, st, c) were redesigned."""
+    """The fp32 bench_dot kernels, the dots kernels of bench_cgmxu,
+    bench_cg's a and b and bench_tile's d and a compile to the SASS they
+    had before the kernels beside them (bf16, outer, st, bench_cg's c,
+    bench_tile's b and c) were redesigned."""
     from sevennet_exp_tpu_torch.tools import sass_compare
     for name, stems in MICRO_SASS_STEMS.items():
         got = sorted(v for k, v in sass_compare.digests(name).items()
@@ -1533,12 +1537,16 @@ def test_bench_layout_transpose_sass(cuda):
     assert not any(c[op] for op in sass_compare.LOCAL_OPS)
 
 
+@pytest.mark.parametrize('E', [1, 7, 100, 1003, 32768 + 5])
 @pytest.mark.parametrize('variant', ['d:per-slice', 'a:repeat',
                                      'b:bcast+cat', 'c:mxu-tile'])
-def test_bench_tile_kernels_match_plain(cuda, variant):
+def test_bench_tile_kernels_match_plain(cuda, variant, E):
+    """Every row exactly once: fewer rows than b's and c's persistent
+    grid has warps (1, 7, 100, 1003), a last block part full, and rows not
+    a multiple of the grid's warps (32,773)."""
     from sevennet_exp_tpu_torch.ops import cuda_build
     from sevennet_exp_tpu_torch.tools import bench_tile as bt
-    x, s = bt.make_inputs(100, cuda)           # a ragged last block
+    x, s = bt.make_inputs(E, cuda, seed=E)
     before = cuda_build.launch_counts[bt.COUNTER[variant]]
     got = bt.forward(variant, x, s)
     assert cuda_build.launch_counts[bt.COUNTER[variant]] == before + 1
@@ -1553,6 +1561,26 @@ def test_bench_tile_kernels_match_plain(cuda, variant):
         ref2 = bt.plain(variant, x, s, T)
         assert (got2 - ref2).abs().max() <= 1e-4 * ref2.abs().max()
         assert (got2 - got).abs().max() > 1e-3
+
+
+def test_bench_tile_b_and_c_sass(cuda):
+    """c issues every multiply-add of its tiling product and of the group
+    sum (8 passes x (20 + 4) FFMA, the first product of each sum an FMUL);
+    b stores each pass's whole tiled row and loads its 5 columns back
+    (>= 8 x 20 bytes each way a lane and row, in any width); neither keeps
+    anything in local memory."""
+    from sevennet_exp_tpu_torch.tools import sass_compare
+    from sevennet_exp_tpu_torch.tools.bench_tile import D1, REPS, W
+    counts, _, texts = sass_compare.count_and_digests(
+        ('bench_tile',), texts=True)['bench_tile']
+    (c,) = [v for k, v in counts.items() if 'tile_c_kernel' in k]
+    assert c['FFMA'] >= REPS * (D1 - 1) * (D1 + 1) == 192
+    (b_name,) = [k for k in counts if 'tile_b_kernel' in k]
+    shared = sass_compare.shared_bytes(texts[b_name])
+    assert shared['STS'] >= REPS * W * 4 // 32 == 160
+    assert shared['LDS'] >= REPS * D1 * 4 == 160
+    for v in (c, counts[b_name]):
+        assert not any(v[op] for op in sass_compare.LOCAL_OPS)
 
 
 # -- refused layers and the shifted softplus ----------------------------------

@@ -172,3 +172,19 @@ def test_count_and_digests_of_several_libraries(monkeypatch):
         assert digests == sass_compare.digests(name)
     assert got['fused_conv_geom_ssp'][0]['_Z3barPf']['LDL'] == 1
     assert got['fused_conv_geom'][1] != got['fused_conv_geom_ssp'][1]
+
+
+@pytest.mark.parametrize('op, sts, lds', [
+    ('STS.128 [R3], R4', 16, 0), ('@P0 STS [R3+0x200], R5', 4, 0),
+    ('LDS R6, [R7]', 0, 4), ('LDS.U.128 R8, [R9]', 0, 16),
+    ('LDS.64 R8, [R9]', 0, 8), ('STS.U8 [R1], R2', 1, 0),
+    ('LDSM.16.M88.4 R8, [R9]', 0, 0), ('FFMA R5, R2, R3, R5', 0, 0)])
+def test_shared_bytes_by_width(op, sts, lds):
+    """A thread's shared-memory stores and loads by the bytes they move
+    (bench_tile's b may stage its tiled row in 16-byte stores); ldmatrix
+    is not an LDS."""
+    funcs = sass_compare.split_functions(SASS.replace('{OP}', op + ' ;'))
+    assert sass_compare.shared_bytes(funcs['_Z3barPf']) == {'STS': sts,
+                                                            'LDS': lds}
+    assert sass_compare.shared_bytes(funcs['_Z3fooPf']) == {'STS': 0,
+                                                            'LDS': 0}

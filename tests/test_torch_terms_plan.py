@@ -419,11 +419,11 @@ def test_extw_refuses_filters_off_l2_squared():
 # -- the card tools of the two backwards --------------------------------------
 
 @pytest.mark.parametrize('case', ['terms', 'extw', 'terms_fwd', 'extw_fwd',
-                                  'tp_bwd'])
+                                  'tp_bwd', 'tile_b', 'tile_c'])
 def test_pass_stubs_apply_to_the_sources(case):
     """tools/bwd_passes.py inserts every switch of its stub list exactly
     once into the port's sources: the terms pair's, the external-weight
-    build of csrc/fused_conv_geom.cu and the bare TP's."""
+    build of csrc/fused_conv_geom.cu, the bare TP's and bench_tile's."""
     from sevennet_exp_tpu_torch.tools import bwd_passes
     src_dir, target, _, stubs, _ = bwd_passes.plan(case)
     with open(f'{src_dir}/{target}') as fh:
