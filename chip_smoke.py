@@ -16,7 +16,9 @@ tensor-product kernels (``fused_tp_fwd`` / ``fused_tp_bwd``), and the
 six kernel micro-benchmarks (``tools/bench_pieces.py``,
 ``bench_cgmxu.py``, ``bench_dot.py``, ``bench_cg.py``, ``bench_layout.py``,
 ``bench_tile.py``, twenty-one kernels), and last the port's training:
-fault C.1's routes on the card and ``train_v2`` at 7net-0 width.
+fault C.1's routes on the card and ``train_v2`` at 7net-0 width, and at
+the end Grimme D3 (``SevenNetD3Calculator``, ``MolecularDynamics(d3=...)``
+at 1k and 97k) and the multi-cutoff, multi-modal and FCN-readout models.
 
     python3 chip_smoke.py            # needs one CUDA card
 
@@ -86,7 +88,7 @@ Phases (any failure raises, exits non-zero and prints no result):
      (``_efs_fn``): ``cg_mode='terms'`` against ``'cmshared'`` and against
      the plain path, and the engine's stress against the calculator's;
  12. 1k NPT with ``cg_mode='terms'`` (300 K, 2 fs, 1 GPa, a short barostat
-     time so that the cell moves in float32): warm-up, then 100 timed steps:
+     time so that the cell moves in float32): warm-up, then 50 timed steps:
      5 + 5 launches of the terms kernels per force call and none of
      kernels 1-2, the volume below the start; then the same warm-up and 100
      steps each of ``npt_aniso`` and ``langevin`` with the default kernels:
@@ -164,6 +166,27 @@ Phases (any failure raises, exits non-zero and prints no result):
      the loss falls, no conv kernel launches, and ``checkpoint_last``
      reloads in the calculator on the card; three more steps traced
      (device kernel time, idle share, launches, top kernels);
+ 17. the D3 overlay and the model's other forms, at full width: (a)
+     ``SevenNetD3Calculator`` (``damp_bj``, ``pbe``, rthr 9000, cn_thr
+     1600, on the card by default) on the 1k NaCl through the kernels
+     against the same call with ``use_kernels=False`` and against
+     ``SevenNetCalculator`` + ``D3Calculator`` summed, 5 + 5 launches of
+     the edge-row kernels 1-2 a call, ms a call; (b) 1k NVT with ``d3=`` on
+     the dense grid: the engine's first E/F against (a), 40 timed steps
+     with and 40 without D3 in the same call, 5 + 5 launches of kernels 1-2
+     a force call; (c) one 97,336-atom chunked force call with ``d3=``
+     (the tiled minimum-image sweep, its cell past the guard's 2 r_vdw)
+     against the model alone plus the tiled D3 by autograd, 5 x chunks
+     launches of the geom pair, its ms and peak memory; (d) trained_nacl's
+     config with per-layer cutoffs [5.0, 5.0, 4.5, 4.5, 4.0], with two
+     modalities and ``multi_modal.yaml``'s modal flags, and with the FCN
+     readout, weights from a seed: each layer's route (multi-cutoff and
+     FCN: the kernels, the modal convolutions without si2: the plain
+     chain), the 1k calculator through the kernels against
+     ``use_kernels=False`` (5 + 5 edge-row launches a call, none for the
+     modal model), 216 atoms on the card against the CPU, and the
+     multi-cutoff model's 1k engine force call through kernels 1-2 (5 + 5
+     launches, no geom kernel) against the plain chain;
  then a ``{"kernels": [...]}`` line (33 entries), the card line and the
  result line ``{"ok": true, "device": {...}}`` last.
 
@@ -850,6 +873,74 @@ def tile_redesigned(v, counts, texts):
     return add
 
 
+def timed_nvt(engine, warm_steps, n_steps):
+    """A warm-up of warm_steps, then n_steps timed on the host clock with
+    the launch counters reset just before them; the MD state must stay
+    finite."""
+    import numpy as np
+    import torch
+    from sevennet_exp_tpu_torch.ops import fused_conv as fc
+    t0 = time.perf_counter()
+    warm = engine.run(warm_steps)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    calls = [0]
+    which = '_efs_fn' if engine.npt else '_ef_fn'
+    ef0 = getattr(engine, which)
+
+    def counted(*args):
+        calls[0] += 1
+        return ef0(*args)
+
+    setattr(engine, which, counted)
+    fc.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = engine.run(n_steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fc.launch_counts)
+    setattr(engine, which, ef0)
+    state = engine.state
+    if not all(bool(torch.isfinite(t).all())
+               for t in (state.pos, state.vel, state.forces,
+                         state.energy) + ((state.cell,) if engine.npt
+                                          else ())):
+        raise AssertionError('NaN/inf in the MD state')
+    out = {'atoms': engine.n, 'steps': n_steps, 'warmup_s': warm_s,
+           'wall_s': wall, 'ms_per_step': wall / n_steps * 1e3,
+           'ns_per_day': n_steps / wall * 2.0 * 1e-6 * 86400.0,
+           'final_temperature_K': float(metrics['temperature'][-1]),
+           'mean_temperature_K': float(metrics['temperature'].mean()),
+           'temperature_K': metrics['temperature'].tolist(),
+           'volume': metrics.get('volume', np.zeros(0)).tolist(),
+           'force_calls': calls[0], 'launches': launches,
+           'deg_cap': engine.deg_cap,
+           'rebuild_every': engine.rebuild_every,
+           # steps of each accepted chunk, i.e. the cadence it ran at
+           # (a stale chunk re-runs: force calls - steps = re-run steps)
+           'cadence_warmup': warm['steps'].astype(int).tolist(),
+           'cadence': metrics['steps'].astype(int).tolist(),
+           'chunk_rows': engine.conv_chunk_rows,
+           'energy': metrics['energy'].tolist()}
+    print(f'{n_steps} steps in {wall:.3f} s: {out["ms_per_step"]:.3f} '
+          f'ms/step, {out["ns_per_day"]:.4f} ns/day, final T '
+          f'{out["final_temperature_K"]:.1f} K, force calls {calls[0]} '
+          f'for {n_steps} steps, launches {launches}', flush=True)
+    print(f'cadence (steps per chunk): warm-up {out["cadence_warmup"]}, '
+          f'timed {out["cadence"]}; rebuild_every now '
+          f'{engine.rebuild_every}', flush=True)
+    return out
+
+def check_launches(nvt, per_call):
+    """Every force call of a timed run launched per_call[k] of kernel k."""
+    for k, v in nvt['launches'].items():
+        want = per_call.get(k, 0) * nvt['force_calls']
+        if v != want or (per_call.get(k) and v == 0):
+            raise AssertionError(
+                f'{k}: {v} launches for {nvt["force_calls"]} force '
+                f'calls (want {per_call.get(k, 0)} per call)')
+
+
 def _tiny_config(**over):
     """A small model config with its species given (no dataset
     statistics needed)."""
@@ -1211,6 +1302,264 @@ def training(report, dev, card):
     report['training'] = out
 
 
+# the modal flags of the JAX package's presets/multi_modal.yaml (the port
+# carries no presets yet: ROADMAP A.6)
+MULTI_MODAL_FLAGS = {
+    'use_modality': True, 'use_modal_node_embedding': False,
+    'use_modal_self_inter_intro': True, 'use_modal_self_inter_outro': True,
+    'use_modal_output_block': True, 'use_modal_wise_shift': True,
+    'use_modal_wise_scale': False}
+# the three model forms of phase 17 d, each at 7net-0 width (trained_nacl's
+# config) with weights from a seed
+VARIANTS = {
+    'multi_cutoff': {'multi_cutoff': [5.0, 5.0, 4.5, 4.5, 4.0]},
+    'modal': dict(MULTI_MODAL_FLAGS, _modal_map={'pbe': 0, 'scan': 1},
+                  _number_of_modalities=2),
+    'fcn_readout': {'readout_as_fcn': True},
+}
+
+
+def variant_model(name, seed=7):
+    """trained_nacl's config in VARIANTS[name]'s form, weights drawn from
+    ``torch.Generator(seed)`` (CPU)."""
+    import torch
+    from sevennet_exp_tpu_torch.checkpoint import SevenNetCheckpoint
+    from sevennet_exp_tpu_torch.model.build import build_e3_equivariant_model
+    from sevennet_exp_tpu_torch.model.model import flatten
+    config = dict(SevenNetCheckpoint(CHECKPOINT).config, **VARIANTS[name])
+    model = build_e3_equivariant_model(config)
+    params, _ = model.init(torch.Generator().manual_seed(seed))
+    model.load_state(flatten(params))
+    return model
+
+
+def _efs_close(what, n, a, b):
+    """Calculator results a against b: E per atom, forces, stress."""
+    import numpy as np
+    d = {'dE_per_atom': abs(a['energy'] - b['energy']) / n,
+         'max_dF': float(np.abs(a['forces'] - b['forces']).max()),
+         'max_dS': float(np.abs(a['stress'] - b['stress']).max())}
+    print(f'{what}: E {a["energy"]:.6f} vs {b["energy"]:.6f} eV; |dE|/N '
+          f'{d["dE_per_atom"]:.3e} (<= {E_TOL_PER_ATOM}), max|dF| '
+          f'{d["max_dF"]:.3e} (<= {F_TOL}), max|dS| {d["max_dS"]:.3e} '
+          f'(<= {S_TOL})', flush=True)
+    if not (d['dE_per_atom'] <= E_TOL_PER_ATOM and d['max_dF'] <= F_TOL
+            and d['max_dS'] <= S_TOL
+            and all(np.isfinite(a[k]).all() for k in ('forces', 'stress'))):
+        raise AssertionError(f'{what}: results disagree')
+    return dict(d, energy=a['energy'], energy_other=b['energy'])
+
+
+def d3_and_variants(report, dev, model, atoms_1k):
+    """Phase 17: the D3 overlay in the calculator and the MD engine, and the
+    model's other forms, at full width on the card (see the docstring)."""
+    import copy
+    import numpy as np
+    import torch
+    from sevennet_exp_tpu_torch.calculator import (
+        D3Calculator, SevenNetCalculator, SevenNetD3Calculator)
+    from sevennet_exp_tpu_torch.data.graph import build_nacl
+    from sevennet_exp_tpu_torch.md.engine import MolecularDynamics
+    from sevennet_exp_tpu_torch.ops import d3 as d3mod
+    from sevennet_exp_tpu_torch.ops import fused_conv as fc
+    out = report['d3_variants'] = {}
+    n = len(atoms_1k)
+    edge = {'fused_conv_edge_fwd': 5, 'fused_conv_edge_bwd': 5}
+    dense = {'fused_conv_fwd': 5, 'fused_conv_bwd': 5}
+
+    def launched(want, what, calls=1):
+        got = {k: v for k, v in fc.launch_counts.items() if v}
+        if got != {k: v * calls for k, v in want.items()}:
+            raise AssertionError(f'{what} launched {got}, want {want} x '
+                                 f'{calls}')
+        return got
+
+    def host_ms(fn, reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    # -- a: SevenNetD3Calculator on the 1k NaCl --------------------------
+    print('-- 17a SevenNetD3Calculator (damp_bj, pbe, rthr 9000, cn_thr '
+          '1600) on the 1k NaCl', flush=True)
+    calc = SevenNetD3Calculator(model)
+    d3 = calc.d3
+    if (calc.device.type != 'cuda' or d3.device.type != 'cuda'
+            or (d3.damping.kind, d3.rthr, d3.cn_thr) != ('bj', 9000.0,
+                                                         1600.0)):
+        raise AssertionError('SevenNetD3Calculator: not the card or not '
+                             'the default D3')
+    calc.calculate(atoms_1k)                      # capacities, tables
+    fc.reset_launch_counts()
+    res = calc.calculate(atoms_1k)
+    launched(edge, 'a SevenNetD3Calculator call')
+    plain = SevenNetD3Calculator(model, use_kernels=False).calculate(
+        atoms_1k)
+    fc.reset_launch_counts()
+    alone = SevenNetCalculator(model).calculate(atoms_1k)
+    disp_calc = D3Calculator()
+    disp = disp_calc.calculate(atoms_1k)
+    launched(edge, 'SevenNetCalculator + D3Calculator')
+    summed = {k: alone[k] + disp[k] for k in ('energy', 'forces', 'stress')}
+    a = out['a'] = {
+        'kernels_vs_plain': _efs_close('kernels vs use_kernels=False', n,
+                                       res, plain),
+        'vs_sum': _efs_close('SevenNetD3Calculator vs SevenNetCalculator + '
+                             'D3Calculator', n, res, summed),
+        'd3_energy': disp['energy'], 'launches': dict(edge)}
+    if not disp['energy'] < 0:
+        raise AssertionError('D3 energy of the 1k NaCl is not attractive')
+    a['call_ms'] = host_ms(lambda: calc.calculate(atoms_1k), 5)
+    a['model_call_ms'] = host_ms(
+        lambda: SevenNetCalculator.calculate_single(calc, atoms_1k), 5)
+    a['d3_call_ms'] = host_ms(lambda: disp_calc.calculate(atoms_1k), 5)
+    print(f'SevenNetD3Calculator {a["call_ms"]:.2f} ms a call (host clock, '
+          f'after the first), of which the model {a["model_call_ms"]:.2f} '
+          f'ms; D3Calculator alone {a["d3_call_ms"]:.2f} ms; D3 energy '
+          f'{disp["energy"]:.6f} eV', flush=True)
+    calc = disp_calc = None
+
+    # -- b: 1k NVT with d3 on the dense grid -----------------------------
+    print('-- 17b 1k NVT with d3= on the dense grid, and without', flush=True)
+    md = MolecularDynamics(model, atoms_1k, device=dev,
+                           d3=d3mod.D3Dispersion(), **MD_KW)
+    md.prime()
+    b = out['b'] = {'engine_vs_calculator': check_ef(
+        'engine E/F with d3 vs SevenNetD3Calculator', n, md.state.energy,
+        md.state.forces, torch.tensor(res['energy']),
+        torch.as_tensor(res['forces'], device=dev))}
+    b['with_d3'] = timed_nvt(md, 20, 40)
+    check_launches(b['with_d3'], dense)
+    md = MolecularDynamics(model, atoms_1k, device=dev, **MD_KW)
+    b['without_d3'] = timed_nvt(md, 20, 40)
+    check_launches(b['without_d3'], dense)
+    print(f'1k NVT: {b["with_d3"]["ms_per_step"]:.3f} ms/step with D3, '
+          f'{b["without_d3"]["ms_per_step"]:.3f} without', flush=True)
+    md = None
+    torch.cuda.empty_cache()
+
+    # -- c: one 97k chunked force call with d3 ---------------------------
+    print(f'-- 17c one {N_LARGE}-atom chunked force call with d3=',
+          flush=True)
+    big = MolecularDynamics(model, build_nacl(N_LARGE), device=dev,
+                            d3=d3mod.D3Dispersion(), **MD_KW)
+    rows, chunk_rows = big.e_cap_model, big.conv_chunk_rows
+    chunks = -(-rows // chunk_rows)
+    if not (chunk_rows and big._geom_packed_ok()):
+        raise AssertionError('97k engine with d3: not the chunked '
+                             'geometry-fused path')
+    widths = np.diag(np.asarray(big.cell.cpu(), np.float64))
+    r_vdw = float(np.sqrt(9000.0)) * d3mod.AU_TO_ANG
+    nl = big._grid()
+    pos = big.state.pos
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fc.reset_launch_counts()
+    t0 = time.perf_counter()
+    e, f = big._ef_fn(pos, nl)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    launched({'fused_conv_geom_fwd': 5 * chunks,
+              'fused_conv_geom_bwd': 5 * chunks}, '97k force call with d3')
+    # the model alone, then the tiled D3 alone, by autograd
+    d3_state, big._d3 = big._d3, None
+    e_m, f_m = big._ef_fn(pos, nl)
+    big._d3 = d3_state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        p = pos.detach().requires_grad_(True)
+        e_d = big._d3_energy(p)
+        (g_d,) = torch.autograd.grad(e_d, p)
+    e_d = e_d.detach()
+    torch.cuda.synchronize()
+    d3_ms = (time.perf_counter() - t0) * 1e3
+    c = out['c'] = check_ef('97k with d3 vs the model alone + the tiled D3',
+                            big.n, e, f, e_m + e_d, f_m - g_d)
+    c.update(force_call_ms=call_ms, d3_tiled_ms=d3_ms,
+             peak_memory_bytes=peak, chunks=chunks, chunk_rows=chunk_rows,
+             cell_widths=widths.tolist(), mic_width=2 * r_vdw,
+             d3_energy=float(e_d))
+    print(f'97k force call with d3 {call_ms:.1f} ms (host clock), the tiled '
+          f'D3 alone (energy and forces) {d3_ms:.1f} ms, peak memory '
+          f'{peak / 2 ** 30:.2f} GiB; cell widths {widths.round(2).tolist()} '
+          f'A >= 2 r_vdw = {2 * r_vdw:.2f} A; D3 energy {float(e_d):.4f} eV',
+          flush=True)
+    big = nl = pos = e = f = e_m = f_m = p = g_d = None
+    torch.cuda.empty_cache()
+
+    # -- d: the model's other forms at 7net-0 width ----------------------
+    print('-- 17d the variant models at 7net-0 width (weights from a seed)',
+          flush=True)
+    small = build_nacl(216, rattle=0.05, seed=3)
+    out['d'] = {}
+    for name in VARIANTS:
+        m_cpu = variant_model(name)
+        m = copy.deepcopy(m_cpu).to(dev)
+        modals = sorted(m.modal_map) or [None]
+        routes = m.conv_routes(0)
+        grid_routes = m.conv_routes(32)
+        plain = [r for r in routes if r['route'] == 'plain']
+        if name == 'modal':
+            # the modal split: every convolution has no si2, as in JAX
+            ok = len(plain) == 5 and all('si2' in r['refusal']
+                                         for r in plain)
+            want = {}
+        else:
+            ok = not plain and all(r['route'] == 'kernel'
+                                   for r in grid_routes)
+            want = edge
+        if not ok:
+            raise AssertionError(f'{name}: conv routes {routes}')
+        row = out['d'][name] = {
+            'routes': [(r['layer'], r['route'], r['refusal']) for r in routes]}
+        for modal in modals:
+            tag = name + (f' ({modal})' if modal else '')
+            calc = SevenNetCalculator(m, modal=modal)
+            calc.calculate(atoms_1k)
+            fc.reset_launch_counts()
+            res = calc.calculate(atoms_1k)
+            launched(want, f'{tag} calculator call')
+            ref = SevenNetCalculator(m, modal=modal,
+                                     use_kernels=False).calculate(atoms_1k)
+            row[f'{modal}_kernels_vs_plain'] = _efs_close(
+                f'{tag}, 1k calculator: kernels vs use_kernels=False', n,
+                res, ref)
+            row[f'{modal}_call_ms'] = host_ms(
+                lambda: calc.calculate(atoms_1k), 3)
+            card = calc.calculate(small)
+            cpu = SevenNetCalculator(m_cpu, device='cpu',
+                                     modal=modal).calculate(small)
+            row[f'{modal}_card_vs_cpu'] = _efs_close(
+                f'{tag}, 216 atoms: card vs CPU', len(small), card, cpu)
+        if name == 'multi_cutoff':
+            # the dense grid of the MD engine: kernels 1-2, never the geom
+            # pair (a multi-cutoff model is not geometry-fused)
+            md = MolecularDynamics(m, atoms_1k, device=dev, **MD_KW)
+            nl = md._grid()
+            fc.reset_launch_counts()
+            e_k, f_k = md._ef_fn(md.state.pos, nl)
+            launched(dense, 'multi-cutoff 1k engine force call')
+            md_p = MolecularDynamics(m, atoms_1k, device=dev,
+                                     use_kernels=False, **MD_KW)
+            e_p, f_p = md_p._ef_fn(md.state.pos, nl)
+            row['engine_1k'] = check_ef(
+                'multi-cutoff 1k engine: kernels 1-2 vs plain', n, e_k, f_k,
+                e_p, f_p)
+            md = md_p = nl = None
+        print(f'{name}: conv routes ' + ', '.join(
+            f'{layer} {route}' for layer, route, _ in row['routes'])
+            + f'; {row[f"{modals[0]}_call_ms"]:.2f} ms a 1k calculator call',
+            flush=True)
+        m = m_cpu = calc = None
+        torch.cuda.empty_cache()
+
+
 def main():
     import numpy as np
     import torch
@@ -1565,66 +1914,6 @@ def main():
 
     # -- phase 4 -------------------------------------------------------
     phase('4 1k NVT 300 K, dt 2 fs, rebuild every 20')
-
-    def timed_nvt(engine, warm_steps, n_steps):
-        t0 = time.perf_counter()
-        warm = engine.run(warm_steps)
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
-        calls = [0]
-        which = '_efs_fn' if engine.npt else '_ef_fn'
-        ef0 = getattr(engine, which)
-
-        def counted(*args):
-            calls[0] += 1
-            return ef0(*args)
-
-        setattr(engine, which, counted)
-        fc.reset_launch_counts()
-        t0 = time.perf_counter()
-        metrics = engine.run(n_steps)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(fc.launch_counts)
-        setattr(engine, which, ef0)
-        state = engine.state
-        if not all(bool(torch.isfinite(t).all())
-                   for t in (state.pos, state.vel, state.forces,
-                             state.energy) + ((state.cell,) if engine.npt
-                                              else ())):
-            raise AssertionError('NaN/inf in the MD state')
-        out = {'atoms': engine.n, 'steps': n_steps, 'warmup_s': warm_s,
-               'wall_s': wall, 'ms_per_step': wall / n_steps * 1e3,
-               'ns_per_day': n_steps / wall * 2.0 * 1e-6 * 86400.0,
-               'final_temperature_K': float(metrics['temperature'][-1]),
-               'mean_temperature_K': float(metrics['temperature'].mean()),
-               'temperature_K': metrics['temperature'].tolist(),
-               'volume': metrics.get('volume', np.zeros(0)).tolist(),
-               'force_calls': calls[0], 'launches': launches,
-               'deg_cap': engine.deg_cap,
-               'rebuild_every': engine.rebuild_every,
-               # steps of each accepted chunk, i.e. the cadence it ran at
-               # (a stale chunk re-runs: force calls - steps = re-run steps)
-               'cadence_warmup': warm['steps'].astype(int).tolist(),
-               'cadence': metrics['steps'].astype(int).tolist(),
-               'chunk_rows': engine.conv_chunk_rows,
-               'energy': metrics['energy'].tolist()}
-        print(f'{n_steps} steps in {wall:.3f} s: {out["ms_per_step"]:.3f} '
-              f'ms/step, {out["ns_per_day"]:.4f} ns/day, final T '
-              f'{out["final_temperature_K"]:.1f} K, force calls {calls[0]} '
-              f'for {n_steps} steps, launches {launches}', flush=True)
-        print(f'cadence (steps per chunk): warm-up {out["cadence_warmup"]}, '
-              f'timed {out["cadence"]}; rebuild_every now '
-              f'{engine.rebuild_every}', flush=True)
-        return out
-
-    def check_launches(nvt, per_call):
-        for k, v in nvt['launches'].items():
-            want = per_call.get(k, 0) * nvt['force_calls']
-            if v != want or (per_call.get(k) and v == 0):
-                raise AssertionError(
-                    f'{k}: {v} launches for {nvt["force_calls"]} force '
-                    f'calls (want {per_call.get(k, 0)} per call)')
 
     report['nvt'] = timed_nvt(md, 40, 200)
     check_launches(report['nvt'], {'fused_conv_fwd': 5, 'fused_conv_bwd': 5})
@@ -2084,7 +2373,7 @@ def main():
     # -- phase 12 ------------------------------------------------------
     phase('12 1k NPT with the terms kernels; npt_aniso and langevin')
     v0 = float(torch.abs(torch.linalg.det(md_t.state.cell)))
-    report['npt_terms'] = timed_nvt(md_t, 40, 100)
+    report['npt_terms'] = timed_nvt(md_t, 40, 50)
     check_launches(report['npt_terms'], {'fused_conv_terms_fwd': 5,
                                          'fused_conv_terms_bwd': 5})
     v1 = report['npt_terms']['volume'][-1]
@@ -2402,6 +2691,11 @@ def main():
     conv_routes_on_card(report, dev)
     report['conv_routes']['seconds'] = time.perf_counter() - t0
     training(report, dev, card)
+
+    # -- phase 17 ------------------------------------------------------
+    phase('17 D3 in the calculator and the MD engine (1k, 1k NVT, 97k); '
+          'the multi-cutoff, modal and FCN-readout models')
+    d3_and_variants(report, dev, model, atoms_1k)
     report['script_s'] = time.perf_counter() - t_script
     ends = [t for _, t in _PHASES[1:]] + [time.perf_counter()]
     report['phase_s'] = {name: end - t for (name, t), end

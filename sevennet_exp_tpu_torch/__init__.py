@@ -6,7 +6,8 @@ per-atom neighbor grid. The fused convolution (radial MLP + uvu tensor
 product + aggregation + self-interaction linear) and its force backward
 run as hand-written CUDA kernels (``csrc/fused_conv_geom.cu``; the
 ``terms`` cross-check ``csrc/fused_conv_terms.cu``) on the card;
-every other piece is plain PyTorch.
+every other piece is plain PyTorch, Grimme D3 dispersion (``ops/d3.py``,
+``SevenNetD3Calculator``, ``MolecularDynamics(d3=...)``) included.
 
 The package imports ``torch`` and ``numpy`` only -- never ``jax``, optax
 or ``sevennet_exp_tpu``. Entry points run on ``device='cuda'`` unless the

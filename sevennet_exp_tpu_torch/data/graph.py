@@ -125,7 +125,8 @@ def collate_graphs(graphs: Sequence[Dict], n_node: Optional[int] = None,
     Pad atoms belong to the last graph with NODE_MASK 0; pad edges are
     self-edges of the last atom slot with EDGE_MASK 0 and the unit vector
     (1, 0, 0), which keeps their norms finite. Labeled graphs add ENERGY,
-    FORCE, STRESS (NaN on pads) and the per-graph data weights."""
+    FORCE, STRESS (NaN on pads) and the per-graph data weights; graphs
+    tagged with MODAL_TYPE add it per graph."""
     n_graphs = len(graphs)
     tot_nodes = int(sum(int(g[KEY.NUM_ATOMS]) for g in graphs))
     tot_edges = int(sum(g[KEY.EDGE_IDX].shape[1] for g in graphs))
@@ -209,4 +210,11 @@ def collate_graphs(graphs: Sequence[Dict], n_node: Optional[int] = None,
         out['data_weight_energy'] = w_e
         out['data_weight_force'] = w_f
         out['data_weight_stress'] = w_s
+    if graphs and KEY.MODAL_TYPE in graphs[0]:
+        # the modality of each graph (a multi-modal model's input); pad
+        # graphs take modality 0
+        mt = np.zeros(n_graph, dtype=np.int32)
+        for gi, g in enumerate(graphs):
+            mt[gi] = int(g[KEY.MODAL_TYPE])
+        out[KEY.MODAL_TYPE] = mt
     return out

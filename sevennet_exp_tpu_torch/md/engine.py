@@ -42,6 +42,17 @@ cell's strain alone does to a pair distance.
 ones: same numbers, a cross-check. It has no geometry-fused and no
 half-list form.
 
+With ``d3=`` (an ``ops/d3.D3Dispersion``) the Grimme D3 energy is added
+to the model's before the one backward pass (the reference's LAMMPS
+``pair_style hybrid/overlay e3gnn d3``), on positions wrapped into the
+cell; under NPT the strain deforms positions and lattice, so D3 enters
+the stress. The whole-array path sums replicas of the cell (the integer
+range enumerated on the host; under NPT on a cell shrunk by
+``d3_npt_margin`` and enumerated again when the barostat compresses past
+it); the chunked path sweeps the minimum-image tiles
+(``dispersion_energy_tiled``) and refuses at start-up a cell narrower
+than twice the D3 cutoff.
+
 Needs every cell width >= 2 * (cutoff + skin) (minimum image).
 """
 
@@ -57,6 +68,7 @@ from ..data.graph import Atoms
 from ..data.periodic import atomic_masses
 from ..model.layers import geom_packed_ok
 from ..model.model import SevenNetModel
+from ..ops import d3 as d3mod
 from ..ops.fused_conv import CG_MODE_KEY, CG_MODES, USE_KERNELS_KEY
 from ..ops.scatter import (
     gather_pair,
@@ -89,6 +101,8 @@ CHUNK_SWITCH_ROWS = 524288
 # 32,768 to 1,048,576 rows per chunk take 969 to 904 ms per force call and
 # 8.7 to 12.5 GB; this size is within 0.5 % of the fastest at 2 GB less
 CHUNK_ROWS = 524288
+# atoms per tile of the chunked path's D3 sweep: 64 MB a (B, B) fp32 plane
+D3_TILE_BLOCK = 4096
 
 
 def _cell_widths(cell) -> np.ndarray:
@@ -127,6 +141,7 @@ class MolecularDynamics:
         pdamp_fs: Optional[float] = None,
         cg_mode: str = 'cmshared',
         use_kernels: bool = True,
+        d3: Optional[d3mod.D3Dispersion] = None,
     ):
         """velocities: initial (N, 3) velocities in internal units; drawn
         from Maxwell-Boltzmann on a ``torch.Generator(seed)`` if None.
@@ -146,7 +161,10 @@ class MolecularDynamics:
         then run with shared sh/emb whatever ``geom_fused`` says).
         use_kernels: False runs every convolution as the plain chain (JAX
         ``use_pallas=False``), whole-array or chunk by chunk; no geometry
-        fusion and no half list."""
+        fusion and no half list.
+        d3: a ``D3Dispersion`` whose damping, functional and thresholds
+        are added to the potential (its tables are built on this engine's
+        device); None for the model alone."""
         if ensemble not in ENSEMBLES:
             raise ValueError(f'ensemble {ensemble!r}: one of {ENSEMBLES}')
         if cg_mode not in CG_MODES:
@@ -226,6 +244,83 @@ class MolecularDynamics:
             KEY.NUM_ATOMS: torch.tensor([n], device=dev),
             KEY.NODE_MASK: torch.ones(n, dtype=f32, device=dev),
         }
+        self._d3: Optional[Dict] = None
+        if d3 is not None:
+            self._setup_d3(d3, np.asarray(atoms.atomic_numbers), cell_np)
+
+    # -- D3 --------------------------------------------------------------
+    def _setup_d3(self, d3, z: np.ndarray, cell: np.ndarray):
+        """Host-side D3 set-up (JAX engine): per-type tables and type
+        indices on the device, the replica shift ranges; on the chunked
+        path the minimum-image guard."""
+        z_unique, tidx = np.unique(z, return_inverse=True)
+        self._d3 = dict(
+            engine=d3,
+            tables=d3mod.build_tables(z_unique, self.dtype, self.device),
+            tidx=torch.as_tensor(tidx.reshape(-1), device=self.device))
+        self.d3_npt_margin = 1.15
+        self._d3_enumerate_shifts(cell)
+        if self.conv_chunk_rows:
+            r_vdw = float(np.sqrt(d3.rthr)) * d3mod.AU_TO_ANG
+            if self.npt:
+                r_vdw *= self.d3_npt_margin
+            if not d3mod.mic_ok(cell, r_vdw):
+                raise ValueError(
+                    'D3 on the chunked large-system path uses minimum-image '
+                    'convention: every cell width must be >= 2*r_vdw = '
+                    f'{2 * r_vdw:.1f} A. Reduce D3Dispersion(rthr=...) '
+                    '(forces beyond ~20 A are < 1e-6 eV/A) or enlarge the '
+                    'cell.')
+
+    def _d3_enumerate_shifts(self, cell: np.ndarray):
+        """(Re)build the integer replica-shift ranges; under NPT on the
+        cell shrunk by ``d3_npt_margin``, so that the range covers the
+        barostat compressing every axis by that factor. The shift vectors
+        follow the cell at run time (tau = tau_frac @ lat)."""
+        d, eng = self._d3, self._d3['engine']
+        enum_cell = np.asarray(cell, np.float64)
+        if self.npt:
+            enum_cell = enum_cell / self.d3_npt_margin
+        lat = enum_cell / d3mod.AU_TO_ANG
+        c, pbc = eng.shift_chunk, np.ones(3, bool)
+        for key, r2 in (('shifts_vdw', eng.rthr), ('shifts_cn', eng.cn_thr)):
+            d[key] = torch.as_tensor(
+                d3mod.lattice_shifts(lat, pbc, np.sqrt(r2), c).reshape(
+                    -1, c, 3), dtype=self.dtype, device=self.device)
+        # the cell widths the enumeration covers
+        self._d3_min_widths = _cell_widths(enum_cell)
+
+    def _d3_follow_cell(self, cell):
+        """NPT, once per accepted chunk (host): enumerate the shifts again
+        when the barostat has compressed the cell past their coverage."""
+        cell_np = cell.detach().cpu().numpy().astype(np.float64)
+        if np.any(_cell_widths(cell_np) < self._d3_min_widths):
+            self._d3_enumerate_shifts(cell_np)
+
+    def _d3_energy(self, pos, cell=None, strain=None):
+        """D3 energy (eV) at unwrapped positions ``pos``: wrapped into the
+        cell (the gradient of the wrap is the identity), then, with a
+        ``strain``, positions and lattice deformed by it; the replica sum
+        on the whole-array path, the tiled minimum-image sweep on the
+        chunked path."""
+        d, eng = self._d3, self._d3['engine']
+        cell_m, inv = self._cell_pair(cell)
+        pos_w = torch.remainder(pos @ inv, 1.0) @ cell_m
+        lat = cell_m
+        if strain is not None:
+            pos_w = pos_w + pos_w @ strain
+            lat = cell_m + cell_m @ strain
+        au = d3mod.AU_TO_ANG
+        if self.conv_chunk_rows:
+            block = min(D3_TILE_BLOCK, -(-self.n // 64) * 64)
+            e = d3mod.dispersion_energy_tiled(
+                pos_w / au, lat / au, d['tidx'], d['tables'], eng.damping,
+                eng.rthr, eng.cn_thr, block=block)
+        else:
+            e = d3mod.dispersion_energy(
+                pos_w / au, lat / au, d['tidx'], d['tables'], eng.damping,
+                d['shifts_vdw'], d['shifts_cn'], eng.rthr, eng.cn_thr)
+        return e * d3mod.AU_TO_EV
 
     # -- capacities ----------------------------------------------------
     def _size_capacities(self, pos: np.ndarray, cell: np.ndarray):
@@ -391,17 +486,23 @@ class MolecularDynamics:
         })
 
     def _energy_fn(self, pos, nl: NeighborState):
-        return self.model.energy(self._graph(pos, nl))
+        e = self.model.energy(self._graph(pos, nl))
+        if self._d3 is not None:
+            e = e + self._d3_energy(pos)
+        return e
 
     def _ef_fn(self, pos, nl: NeighborState):
+        extra = None if self._d3 is None else self._d3_energy
         return self.model.energy_and_forces(
-            pos, lambda p: self._graph(p, nl))
+            pos, lambda p: self._graph(p, nl), extra=extra)
 
     def _efs_fn(self, pos, nl: NeighborState, cell):
         """(energy, forces, stress Voigt) on an explicit cell (the NPT
         path); stress = -virial/V in the model convention."""
+        extra = (None if self._d3 is None else
+                 lambda p, strain: self._d3_energy(p, cell, strain))
         return self.model.energy_forces_stress(
-            pos, cell, lambda p: self._graph(p, nl, cell))
+            pos, cell, lambda p: self._graph(p, nl, cell), extra=extra)
 
     def _make_step(self):
         if self.ensemble == 'nve':
@@ -553,6 +654,8 @@ class MolecularDynamics:
                 continue
             self.state = state
             done += k
+            if self.npt and self._d3 is not None:
+                self._d3_follow_cell(state.cell)
             rows.append({
                 'energy': float(state.energy),
                 'temperature': float(integrate.temperature(state,

@@ -5,14 +5,18 @@ sevenn/model_build.py:384-576) for the NequIP-type networks of the
 7net-0 family: the same layer names, irreps and parameter shapes, so a
 JAX parameter pytree maps onto the port's buffers one to one.
 
-edge_embedding -> onehot_idx_to_onehot -> onehot_to_feature_x ->
-[T x (self_connection_intro | self_interaction_1 -> convolution (with
-self_interaction_2 fused in) | self_connection_outro -> equivariant_gate)]
--> reduce_input_to_hidden -> reduce_hidden_to_energy ->
+edge_embedding -> onehot_idx_to_onehot [-> one_hot_modality] ->
+onehot_to_feature_x -> [T x (self_connection_intro | self_interaction_1 ->
+convolution (with self_interaction_2 fused in, or followed by a separate
+modal self_interaction_2) | self_connection_outro -> equivariant_gate)]
+-> reduce_input_to_hidden -> reduce_hidden_to_energy (or readout_FCN) ->
 rescale_atomic_energy -> reduce_total_enegy.
 
-Not in this port yet (the build raises): multi_cutoff, modalities and
-the FCN readout.
+The family's other forms: per-layer cutoffs (``multi_cutoff``: a
+``MultiCutoffEdgeEmbedding``, each convolution on its cutoff's embedding
+and mask, never geometry-fused), modalities (``use_modality``: the modal
+one-hot appended to the linears the ``use_modal_*`` flags name, and a
+``ModalWiseRescale``) and the FCN readout (``readout_as_fcn``).
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from . import layers as L
 from .model import SevenNetModel
 
 
-def init_edge_embedding(config) -> L.EdgeEmbedding:
+def init_edge_embedding(config):
     cutoff = config[KEY.CUTOFF]
     env_cfg = dict(config[KEY.CUTOFF_FUNCTION])
     env_name = env_cfg.pop(KEY.CUTOFF_FUNCTION_NAME)
@@ -60,7 +64,28 @@ def init_edge_embedding(config) -> L.EdgeEmbedding:
         lmax_edge = config[KEY.LMAX_EDGE]
     parity = -1 if config[KEY.IS_PARITY] else 1
     if config.get(KEY.MULTI_CUTOFF):
-        raise NotImplementedError('multi_cutoff is not in the port yet')
+        # per-layer cutoff radii (reference model_build.py:87-103): one
+        # static edge list at the global cutoff, a mask per cutoff
+        cutoffs = sorted(set(float(c) for c in config[KEY.MULTI_CUTOFF]))
+        if cutoffs[-1] > float(cutoff) + 1e-9:
+            raise ValueError(
+                f'multi_cutoff {cutoffs[-1]} exceeds cutoff {cutoff}; '
+                f'set cutoff to the largest per-layer value')
+        bases, envs = [], []
+        for c in cutoffs:
+            bases.append(BesselBasis(
+                cutoff=c, num_basis=rbf_cfg.get(KEY.BESSEL_BASIS_NUM, 8),
+                trainable=rbf_cfg.get('trainable_coeff', True)))
+            if env_name == 'XPLOR':
+                # the reference sets r_on = cutoff - 1 per sub-cutoff
+                envs.append(XPLORCutoff(cutoff=c, cutoff_on=c - 1.0))
+            else:
+                envs.append(PolynomialCutoff(
+                    cutoff=c, p=env_cfg.get(KEY.POLY_CUT_P, 6)))
+        return L.MultiCutoffEdgeEmbedding(
+            bases=bases, cutoff_fns=envs, lmax_edge=lmax_edge,
+            parity=parity,
+            normalize_sph=config.get(KEY._NORMALIZE_SPH, True))
     return L.EdgeEmbedding(basis=basis, cutoff_fn=env, lmax_edge=lmax_edge,
                            parity=parity,
                            normalize_sph=config.get(KEY._NORMALIZE_SPH, True))
@@ -87,13 +112,45 @@ def init_shift_scale(config):
             raise ValueError(f'bad shift/scale length {len(s)}')
         raise ValueError(f'bad shift/scale {s!r}')
 
-    if config.get(KEY.USE_MODALITY, False):
-        raise NotImplementedError('modalities are not in the port yet')
     train = bool(config.get(KEY.TRAIN_SHIFT_SCALE, False))
+    modal_shift = config.get(KEY.USE_MODAL_WISE_SHIFT, False)
+    modal_scale = config.get(KEY.USE_MODAL_WISE_SCALE, False)
+    if config.get(KEY.USE_MODALITY, False) and (modal_shift or modal_scale):
+        modal_map = config[KEY.MODAL_MAP]
+        n_modal = len(modal_map)
+
+        def _modal(s, use_mw):
+            if isinstance(s, dict):
+                s = [s[k] for k in sorted(s, key=lambda x: modal_map[x])]
+            if hasattr(s, 'tolist'):
+                s = s.tolist()
+            if not use_mw:
+                return _as_list(s)
+            if isinstance(s, (int, float)):
+                return [[float(s)] * n_types for _ in range(n_modal)]
+            if isinstance(s, list) and len(s) == n_modal and all(
+                    isinstance(v, (int, float)) for v in s):
+                return [[float(v)] * n_types for v in s]
+            if isinstance(s, list):
+                if all(isinstance(v, list) for v in s):
+                    return [_as_list(v) for v in s]
+                return [_as_list(s) for _ in range(n_modal)]
+            raise ValueError(f'bad modal shift/scale {s!r}')
+
+        return L.ModalWiseRescale(
+            shift=_modal(shift, modal_shift),
+            scale=_modal(scale, modal_scale),
+            use_modal_wise_shift=modal_shift,
+            use_modal_wise_scale=modal_scale, train_shift_scale=train)
     if isinstance(shift, float) and isinstance(scale, float):
         return L.Rescale(shift=shift, scale=scale, train_shift_scale=train)
     return L.SpeciesWiseRescale(shift=_as_list(shift), scale=_as_list(scale),
                                 train_shift_scale=train)
+
+
+def _with_modal(irreps: Irreps, n_modal: int) -> Irreps:
+    """A linear's input with the modal one-hot appended (n > 1)."""
+    return irreps + Irreps(f'{n_modal}x0e') if n_modal > 1 else irreps
 
 
 def nequip_interaction_block(
@@ -103,8 +160,15 @@ def nequip_interaction_block(
     act_gate: Dict[int, str], act_radial: str, bias_in_linear: bool,
     num_species: int, geom: Optional[GeomSpec] = None,
     train_denominator: bool = False,
+    si1_modal: int = 0, si2_modal: int = 0,
+    key_weight_input: str = KEY.EDGE_EMBEDDING,
+    key_mask: str = KEY.EDGE_MASK,
 ) -> List[Tuple[str, Any]]:
-    """One NequIP block (reference sevenn/nn/interaction_blocks.py)."""
+    """One NequIP block (reference sevenn/nn/interaction_blocks.py).
+    key_weight_input / key_mask: the layer's cutoff under multi_cutoff.
+    si1_modal / si2_modal: modalities whose one-hot self_interaction_1 /
+    self_interaction_2 take (0: none); with the modal self_interaction_2
+    the convolution has no si2 and a node-level linear follows it."""
     block: List[Tuple[str, Any]] = []
     gate_spec = GateSpec(irreps_out, act_scalar, act_gate)
     irreps_for_gate_in = gate_spec.irreps_in
@@ -120,17 +184,30 @@ def nequip_interaction_block(
     else:
         raise ValueError(self_connection_type)
     block.append((f'{t}_self_interaction_1', L.IrrepsLinear(
-        LinearSpec(irreps_x, irreps_x, biases=bias_in_linear),
-        key_in=KEY.NODE_FEATURE)))
+        LinearSpec(_with_modal(irreps_x, si1_modal), irreps_x,
+                   biases=bias_in_linear),
+        key_in=KEY.NODE_FEATURE, num_modalities=si1_modal)))
     tp_spec = UVUTensorProductSpec(irreps_x, irreps_filter, irreps_out_tp)
     weight_nn = FullyConnectedNetSpec(
         hs=tuple(weight_nn_layers + [tp_spec.weight_numel]), act=act_radial)
-    si2_spec = LinearSpec(tp_spec.irreps_out, irreps_for_gate_in,
-                          biases=bias_in_linear)
-    block.append((f'{t}_convolution', L.IrrepsConvolution(
-        tp=tp_spec, weight_nn=weight_nn, si2=si2_spec,
-        denominator=conv_denominator, geom=geom,
-        train_denominator=train_denominator)))
+    conv_kw = dict(tp=tp_spec, weight_nn=weight_nn,
+                   denominator=conv_denominator,
+                   train_denominator=train_denominator,
+                   key_weight_input=key_weight_input, key_mask=key_mask)
+    if si2_modal > 1:
+        # the modal one-hot is per atom: self_interaction_2 stays a node
+        # level linear, and the convolution has no si2 to fuse
+        block.append((f'{t}_convolution',
+                      L.IrrepsConvolution(si2=None, **conv_kw)))
+        block.append((f'{t}_self_interaction_2', L.IrrepsLinear(
+            LinearSpec(_with_modal(tp_spec.irreps_out, si2_modal),
+                       irreps_for_gate_in, biases=bias_in_linear),
+            key_in=KEY.NODE_FEATURE, num_modalities=si2_modal)))
+    else:
+        si2_spec = LinearSpec(tp_spec.irreps_out, irreps_for_gate_in,
+                              biases=bias_in_linear)
+        block.append((f'{t}_convolution', L.IrrepsConvolution(
+            si2=si2_spec, geom=geom, **conv_kw)))
     block.append((f'{t}_self_connection_outro', L.SelfConnectionOutro()))
     block.append((f'{t}_equivariant_gate', L.EquivariantGate(gate_spec)))
     return block
@@ -142,10 +219,11 @@ def build_e3_equivariant_model(config: Dict[str, Any]) -> SevenNetModel:
     cfg = dict(_const.model_defaults(config))
     cfg.update(config)
     config = cfg
-    if config.get(KEY.USE_MODALITY, False):
-        raise NotImplementedError('modalities are not in the port yet')
-    if config.get(KEY.READOUT_AS_FCN, False):
-        raise NotImplementedError('the FCN readout is not in the port yet')
+    use_modality = bool(config.get(KEY.USE_MODALITY, False))
+    num_modalities = config.get(KEY.NUM_MODALITIES, 0)
+
+    def modal_n(flag):
+        return num_modalities if use_modality and config.get(flag) else 0
 
     layers: List[Tuple[str, Any]] = []
     num_species = config[KEY.NUM_SPECIES]
@@ -170,12 +248,17 @@ def build_e3_equivariant_model(config: Dict[str, Any]) -> SevenNetModel:
 
     edge_embedding = init_edge_embedding(config)
     irreps_filter = edge_embedding.irreps_out
+    multi = isinstance(edge_embedding, L.MultiCutoffEdgeEmbedding)
+    num_basis = (edge_embedding.bases[0] if multi
+                 else edge_embedding.basis).num_basis
     layers.append(('edge_embedding', edge_embedding))
     # geometry-fused convs (ops/fused_conv.GeomSpec): Bessel, cutoff and SH
     # computed inside the conv kernels. Single-cutoff embedding with
-    # normalised SH only, up to the kernels' lmax of 3.
+    # normalised SH only, up to the kernels' lmax of 3; multi-cutoff
+    # layers keep the edge pipeline (JAX build.py:326-331).
     geom_spec = None
-    if edge_embedding.normalize_sph and edge_embedding.lmax_edge <= 3:
+    if (not multi and edge_embedding.normalize_sph
+            and edge_embedding.lmax_edge <= 3):
         env = edge_embedding.cutoff_fn
         geom_spec = GeomSpec(
             cutoff=float(edge_embedding.basis.cutoff),
@@ -188,11 +271,18 @@ def build_e3_equivariant_model(config: Dict[str, Any]) -> SevenNetModel:
                 if irreps_manual is None else irreps_manual[0])
     layers.append(('onehot_idx_to_onehot',
                    L.OnehotEmbedding(num_classes=num_species)))
+    if use_modality:
+        layers.append(('one_hot_modality', L.OnehotEmbedding(
+            num_classes=num_modalities, key_x=KEY.MODAL_TYPE,
+            key_out=KEY.MODAL_ATTR, key_save=None, key_additional=None)))
+    ne_modal = modal_n(KEY.USE_MODAL_NODE_EMBEDDING)
     layers.append(('onehot_to_feature_x', L.IrrepsLinear(
-        LinearSpec(Irreps(f'{num_species}x0e'), irreps_x, biases=use_bias),
-        key_in=KEY.NODE_FEATURE)))
-    weight_nn_layers = [edge_embedding.basis.num_basis] + list(
+        LinearSpec(_with_modal(Irreps(f'{num_species}x0e'), ne_modal),
+                   irreps_x, biases=use_bias),
+        key_in=KEY.NODE_FEATURE, num_modalities=ne_modal)))
+    weight_nn_layers = [num_basis] + list(
         config[KEY.CONVOLUTION_WEIGHT_NN_HIDDEN_NEURONS])
+    multi_cutoff = config.get(KEY.MULTI_CUTOFF)
 
     for t in range(num_conv):
         parity_mode = 'full'
@@ -217,19 +307,34 @@ def build_e3_equivariant_model(config: Dict[str, Any]) -> SevenNetModel:
             bias_in_linear=use_bias, num_species=num_species,
             geom=geom_spec,
             train_denominator=bool(config[KEY.TRAIN_DENOMINTAOR]),
+            si1_modal=modal_n(KEY.USE_MODAL_SELF_INTER_INTRO),
+            si2_modal=modal_n(KEY.USE_MODAL_SELF_INTER_OUTRO),
+            key_weight_input=(KEY.EDGE_EMBEDDING + str(float(multi_cutoff[t]))
+                              if multi_cutoff else KEY.EDGE_EMBEDDING),
+            key_mask=(KEY.EDGE_MASK + str(float(multi_cutoff[t]))
+                      if multi_cutoff else KEY.EDGE_MASK),
         ))
         irreps_x = irreps_out
 
-    hidden_irreps = Irreps([(irreps_x.dim // 2, Irrep(0, 1))])
-    layers.append(('reduce_input_to_hidden', L.IrrepsLinear(
-        LinearSpec(irreps_x, hidden_irreps, biases=use_bias),
-        key_in=KEY.NODE_FEATURE)))
-    layers.append(('reduce_hidden_to_energy', L.IrrepsLinear(
-        LinearSpec(hidden_irreps, Irreps([(1, Irrep(0, 1))]),
-                   biases=use_bias),
-        key_in=KEY.NODE_FEATURE, key_out=KEY.SCALED_ATOMIC_ENERGY)))
+    if not config.get(KEY.READOUT_AS_FCN, False):
+        hidden_irreps = Irreps([(irreps_x.dim // 2, Irrep(0, 1))])
+        ro_modal = modal_n(KEY.USE_MODAL_OUTPUT_BLOCK)
+        layers.append(('reduce_input_to_hidden', L.IrrepsLinear(
+            LinearSpec(_with_modal(irreps_x, ro_modal), hidden_irreps,
+                       biases=use_bias),
+            key_in=KEY.NODE_FEATURE, num_modalities=ro_modal)))
+        layers.append(('reduce_hidden_to_energy', L.IrrepsLinear(
+            LinearSpec(hidden_irreps, Irreps([(1, Irrep(0, 1))]),
+                       biases=use_bias),
+            key_in=KEY.NODE_FEATURE, key_out=KEY.SCALED_ATOMIC_ENERGY)))
+    else:
+        layers.append(('readout_FCN', L.FCNReadout(FullyConnectedNetSpec(
+            hs=tuple([irreps_x.dim]
+                     + list(config[KEY.READOUT_FCN_HIDDEN_NEURONS]) + [1]),
+            act=config[KEY.READOUT_FCN_ACTIVATION]))))
     layers.append(('rescale_atomic_energy', init_shift_scale(config)))
     layers.append(('reduce_total_enegy', L.AtomReduce()))
     return SevenNetModel(layers=layers, config=config,
                          type_map=dict(config[KEY.TYPE_MAP]),
-                         cutoff=config[KEY.CUTOFF])
+                         cutoff=config[KEY.CUTOFF],
+                         modal_map=dict(config.get(KEY.MODAL_MAP) or {}))

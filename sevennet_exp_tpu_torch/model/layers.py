@@ -1,7 +1,8 @@
 """Model layers as ``nn.Module``s over the shared data dict.
 
-Counterpart of ``sevennet_exp_tpu/model/layers.py`` for the layers a
-7net-0 checkpoint builds. Each layer reads and writes string-keyed
+Counterpart of ``sevennet_exp_tpu/model/layers.py``: the layers a
+7net-0 checkpoint builds, and the other forms of the family (per-layer
+cutoffs, modalities, the FCN readout). Each layer reads and writes string-keyed
 tensors (the reference's AtomGraphDataType) and keeps its parameters as
 buffers; ``param_tree()`` returns them in the layout of the layer's JAX
 parameter pytree (``w0``, ``weight_nn/w2``, ``si2/w1``, ...), which is
@@ -129,33 +130,104 @@ class EdgeEmbedding(nn.Module):
         return data
 
 
+class MultiCutoffEdgeEmbedding(nn.Module):
+    """Per-layer cutoff radii (JAX ``MultiCutoffEdgeEmbedding``, reference
+    edge_embedding.py:220-257). One static edge list; per unique cutoff c
+    a masked radial embedding ``edge_embedding{c}`` and its mask
+    ``edge_mask{c}`` (r <= c, times EDGE_MASK), which the convolutions at
+    cutoff c fold into their mask scale, so a message beyond c is exactly
+    zero. The spherical harmonics (EDGE_ATTR) are shared. Such a model is
+    never geometry-fused: no convolution carries a GeomSpec."""
+
+    def __init__(self, bases, cutoff_fns, lmax_edge: int, parity: int,
+                 normalize_sph: bool = True):
+        super().__init__()
+        self.bases, self.cutoff_fns = tuple(bases), tuple(cutoff_fns)
+        self.lmax_edge, self.parity = lmax_edge, parity
+        self.normalize_sph = normalize_sph
+        for i, basis in enumerate(self.bases):
+            self.register_buffer(f'coeffs_{i}', basis.init()['coeffs'])
+
+    def _coeffs(self, i: int) -> torch.Tensor:
+        return getattr(self, f'coeffs_{i}')
+
+    def param_tree(self):
+        return {f'c{b.cutoff}': {'coeffs': self._coeffs(i)}
+                for i, b in enumerate(self.bases)}
+
+    def init(self, generator):
+        return ({f'c{b.cutoff}': b.init() for b in self.bases},
+                {f'c{b.cutoff}': {'coeffs': b.trainable}
+                 for b in self.bases})
+
+    @property
+    def irreps_out(self) -> Irreps:
+        return Irreps.spherical_harmonics(self.lmax_edge, self.parity)
+
+    def forward(self, data: Data) -> Data:
+        rvec = data[KEY.EDGE_VEC]
+        r = torch.sqrt(torch.sum(rvec * rvec, dim=-1))
+        data[KEY.EDGE_LENGTH] = r
+        base_mask = data.get(KEY.EDGE_MASK)
+        for i, (basis, env) in enumerate(zip(self.bases, self.cutoff_fns)):
+            c = basis.cutoff
+            mask = (r <= c).to(r.dtype)
+            if base_mask is not None:
+                mask = mask * base_mask
+            emb = (basis.apply({'coeffs': self._coeffs(i)}, r)
+                   * env.apply(r)[..., None] * mask[..., None])
+            data[KEY.EDGE_EMBEDDING + str(c)] = emb
+            data[KEY.EDGE_MASK + str(c)] = mask
+        data[KEY.EDGE_ATTR] = spherical_harmonics(
+            self.lmax_edge, rvec, normalize=self.normalize_sph,
+            normalization='component')
+        return data
+
+
+def _one_hot(idx: torch.Tensor, num_classes: int, dtype) -> torch.Tensor:
+    """One-hot rows; a negative index gives a row of zeros."""
+    idx = idx.long()
+    return (F.one_hot(idx.clamp(min=0), num_classes)
+            * (idx >= 0)[..., None]).to(dtype)
+
+
 class OnehotEmbedding(nn.Module):
     """Type index -> one-hot (reference sevenn/nn/node_embedding.py). A
     negative index (a pad atom of a padded batch: Z = 0 maps to -1) gives
-    a row of zeros."""
+    a row of zeros. The modality one-hot (``one_hot_modality``) is the
+    same layer on MODAL_TYPE, written to MODAL_ATTR and nowhere else."""
 
-    def __init__(self, num_classes: int):
+    def __init__(self, num_classes: int, key_x: str = KEY.NODE_FEATURE,
+                 key_out: Optional[str] = None,
+                 key_save: Optional[str] = KEY.ATOM_TYPE,
+                 key_additional: Optional[str] = KEY.NODE_ATTR):
         super().__init__()
         self.num_classes = num_classes
+        self.key_x, self.key_out = key_x, key_out
+        self.key_save, self.key_additional = key_save, key_additional
 
     def forward(self, data: Data) -> Data:
-        inp = data[KEY.NODE_FEATURE]
-        idx = inp.long()
-        embd = (F.one_hot(idx.clamp(min=0), self.num_classes)
-                * (idx >= 0)[:, None]).to(torch.float32)
-        data[KEY.NODE_FEATURE] = embd
-        data[KEY.NODE_ATTR] = embd
-        data[KEY.ATOM_TYPE] = inp
+        inp = data[self.key_x]
+        embd = _one_hot(inp, self.num_classes, torch.float32)
+        data[self.key_out or self.key_x] = embd
+        if self.key_additional is not None:
+            data[self.key_additional] = embd
+        if self.key_save is not None:
+            data[self.key_save] = inp
         return data
 
 
 class IrrepsLinear(nn.Module):
-    """e3nn o3.Linear on a data key (reference sevenn/nn/linear.py)."""
+    """e3nn o3.Linear on a data key (reference sevenn/nn/linear.py). With
+    ``num_modalities`` > 1 the structure's modality one-hot is appended to
+    the input as n x 0e (reference linear.py:65-101): per graph, spread to
+    the graph's atoms by BATCH."""
 
     def __init__(self, spec: LinearSpec, key_in: str,
-                 key_out: Optional[str] = None):
+                 key_out: Optional[str] = None, num_modalities: int = 0):
         super().__init__()
         self.spec, self.key_in, self.key_out = spec, key_in, key_out
+        self.num_modalities = int(num_modalities)
         self.p = ParamGroup(spec.param_shapes())
 
     def param_tree(self):
@@ -165,8 +237,15 @@ class IrrepsLinear(nn.Module):
         return _linear_init(self.p, generator)
 
     def forward(self, data: Data) -> Data:
+        x = data[self.key_in]
+        if self.num_modalities > 1:
+            modal = _one_hot(data[KEY.MODAL_TYPE], self.num_modalities,
+                             x.dtype)
+            if modal.ndim == x.ndim:                # per graph -> per atom
+                modal = modal[data[KEY.BATCH].long()]
+            x = torch.cat([x, modal], dim=-1)
         data[self.key_out or self.key_in] = self.spec.apply(
-            self.p.as_dict(), data[self.key_in])
+            self.p.as_dict(), x)
         return data
 
 
@@ -332,15 +411,26 @@ class IrrepsConvolution(nn.Module):
     calculator): x[src] is a plain gather, the fused conv returns one row
     per edge (``agg_d = 0``) and ``scatter_sum`` adds the rows onto the
     destination atoms.
+
+    ``key_weight_input`` / ``key_mask`` name the radial embedding and the
+    edge mask the layer reads: under per-layer cutoffs
+    (``MultiCutoffEdgeEmbedding``) its cutoff's ``edge_embedding{c}`` and
+    ``edge_mask{c}``; the mask goes into the mask scale on every branch, so
+    a message beyond c is exactly zero. With ``si2`` None (the modal split,
+    a separate node-level ``self_interaction_2`` follows) the layer is
+    refused by the kernels, as in JAX, and runs the plain chain.
     """
 
     def __init__(self, tp: UVUTensorProductSpec,
                  weight_nn: FullyConnectedNetSpec, si2: Optional[LinearSpec],
                  denominator: float, geom: Optional[GeomSpec] = None,
-                 train_denominator: bool = False):
+                 train_denominator: bool = False,
+                 key_weight_input: str = KEY.EDGE_EMBEDDING,
+                 key_mask: str = KEY.EDGE_MASK):
         super().__init__()
         self.tp, self.weight_nn, self.si2 = tp, weight_nn, si2
         self.geom = geom
+        self.key_weight_input, self.key_mask = key_weight_input, key_mask
         self.train_denominator = bool(train_denominator)
         self.register_buffer('denominator',
                              torch.tensor([denominator], dtype=torch.float32))
@@ -497,8 +587,8 @@ class IrrepsConvolution(nn.Module):
         denom = self.denominator.to(x.dtype)
         rows = edge_idx.shape[1]
         scale = x.new_ones((rows, 1)) / denom
-        if KEY.EDGE_MASK in data:
-            scale = scale * data[KEY.EDGE_MASK][..., None]
+        if self.key_mask in data:
+            scale = scale * data[self.key_mask][..., None]
         geom = bool(data.get(KEY.EDGE_GEOM_PACKED))
         cg_mode = data.get(CG_MODE_KEY, 'cmshared')
         half = data.get(KEY.EDGE_HALF) is not None
@@ -515,7 +605,7 @@ class IrrepsConvolution(nn.Module):
                              'cannot run geometry-fused')
         coeffs = data[KEY.EDGE_BESSEL_COEFFS].to(x.dtype) if geom else None
         feats = ((data[KEY.EDGE_VEC],) if geom else
-                 (data[KEY.EDGE_ATTR], data[KEY.EDGE_EMBEDDING]))
+                 (data[KEY.EDGE_ATTR], data[self.key_weight_input]))
         chunk_rows = data.get(KEY.CONV_CHUNK_ROWS)
         if chunk_rows:
             if not dense:
@@ -603,6 +693,65 @@ class SpeciesWiseRescale(nn.Module):
         data[KEY.ATOMIC_ENERGY] = (
             data[KEY.SCALED_ATOMIC_ENERGY] * self.scale[idx][..., None]
             + self.shift[idx][..., None])
+        return data
+
+
+class ModalWiseRescale(nn.Module):
+    """Per-(modality, species) shift and scale (JAX ``ModalWiseRescale``,
+    reference scale.py:165-361): ``shift`` / ``scale`` are (n_modal,
+    n_types) where modal-wise, else (n_types,); indexed by MODAL_TYPE
+    (per graph, spread to the atoms by BATCH) and ATOM_TYPE."""
+
+    def __init__(self, shift, scale, use_modal_wise_shift: bool = False,
+                 use_modal_wise_scale: bool = False,
+                 train_shift_scale: bool = False):
+        super().__init__()
+        self.register_buffer('shift', torch.tensor(shift,
+                                                   dtype=torch.float32))
+        self.register_buffer('scale', torch.tensor(scale,
+                                                   dtype=torch.float32))
+        self.use_modal_wise_shift = bool(use_modal_wise_shift)
+        self.use_modal_wise_scale = bool(use_modal_wise_scale)
+        self.train_shift_scale = bool(train_shift_scale)
+
+    def param_tree(self):
+        return {'shift': self.shift, 'scale': self.scale}
+
+    def init(self, generator):
+        return _shift_scale_init(self)
+
+    def forward(self, data: Data) -> Data:
+        atom_idx = data[KEY.ATOM_TYPE].long()
+        modal_idx = data[KEY.MODAL_TYPE].long()
+        if modal_idx.ndim > 0 and modal_idx.shape[0] != atom_idx.shape[0]:
+            modal_idx = modal_idx[data[KEY.BATCH].long()]
+        shift = (self.shift[modal_idx, atom_idx] if self.use_modal_wise_shift
+                 else self.shift[atom_idx])
+        scale = (self.scale[modal_idx, atom_idx] if self.use_modal_wise_scale
+                 else self.scale[atom_idx])
+        data[KEY.ATOMIC_ENERGY] = (data[KEY.SCALED_ATOMIC_ENERGY]
+                                   * scale[..., None] + shift[..., None])
+        return data
+
+
+class FCNReadout(nn.Module):
+    """Scalar MLP readout (JAX ``FCNReadout``, reference
+    sevenn/nn/linear.py:145-180): NODE_FEATURE -> SCALED_ATOMIC_ENERGY."""
+
+    def __init__(self, spec: FullyConnectedNetSpec):
+        super().__init__()
+        self.spec = spec
+        self.p = ParamGroup(spec.param_shapes())
+
+    def param_tree(self):
+        return self.p.as_dict()
+
+    def init(self, generator):
+        return _linear_init(self.p, generator)
+
+    def forward(self, data: Data) -> Data:
+        data[KEY.SCALED_ATOMIC_ENERGY] = self.spec.apply(
+            self.p.as_dict(), data[KEY.NODE_FEATURE])
         return data
 
 

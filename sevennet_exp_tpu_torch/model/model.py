@@ -13,7 +13,7 @@ grid (NPT).
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,12 +29,14 @@ Data = Dict[str, Any]
 class SevenNetModel(nn.Module):
     def __init__(self, layers: List[Tuple[str, nn.Module]],
                  config: Dict[str, Any], type_map: Dict[int, int],
-                 cutoff: float):
+                 cutoff: float, modal_map: Optional[Dict[str, int]] = None):
         super().__init__()
         self.layers = nn.ModuleDict(layers)
         self.config = config
         self.type_map = dict(type_map)
         self.cutoff = float(cutoff)
+        # modality name -> MODAL_TYPE index (empty: a single-modal model)
+        self.modal_map = dict(modal_map or {})
         lut = np.full(120, -1, dtype=np.int64)
         for z, idx in self.type_map.items():
             lut[z] = idx
@@ -114,16 +116,22 @@ class SevenNetModel(nn.Module):
         return torch.sum(self.apply_energy(data)[KEY.PRED_TOTAL_ENERGY])
 
     def energy_and_forces(self, pos: torch.Tensor,
-                          make_data: Callable[[torch.Tensor], Data]):
-        """(E, F = -dE/dpos); make_data(pos) builds the graph inputs."""
+                          make_data: Callable[[torch.Tensor], Data],
+                          extra: Optional[Callable] = None):
+        """(E, F = -dE/dpos); make_data(pos) builds the graph inputs.
+        extra(pos): an energy added before the backward pass (the MD
+        engine's D3)."""
         with torch.enable_grad():
             pos = pos.detach().requires_grad_(True)
             e = self.energy(make_data(pos))
+            if extra is not None:
+                e = e + extra(pos)
             (g,) = torch.autograd.grad(e, pos)
         return e.detach(), -g
 
     def energy_forces_stress(self, pos: torch.Tensor, cell: torch.Tensor,
-                             make_data: Callable[[torch.Tensor], Data]):
+                             make_data: Callable[[torch.Tensor], Data],
+                             extra: Optional[Callable] = None):
         """(E, F, stress Voigt xx yy zz xy yz zx) on the cell ``cell``, the
         stress in the model convention: -dE/d(strain)/V at zero strain,
         the strain acting on the edge vectors as ``vec + vec @ strain``
@@ -131,14 +139,25 @@ class SevenNetModel(nn.Module):
         gradients: with fij = dE/d(EDGE_VEC) of the data ``make_data(pos)``
         builds, dE/d(strain)[b, a] = sum_e vec[e, b] fij[e, a], summed in
         float64 as ``apply`` sums its virial. The six entries are taken from
-        the unsymmetrised gradient, as the JAX engine takes them."""
+        the unsymmetrised gradient, as the JAX engine takes them.
+        extra(pos, strain): an energy added before the backward pass, whose
+        strain gradient joins the model's (the MD engine's D3, on positions
+        and lattice under the strain)."""
         with torch.enable_grad():
             pos = pos.detach().requires_grad_(True)
             data = make_data(pos)
             vec = data[KEY.EDGE_VEC]
             e = self.energy(data)
-            g, fij = torch.autograd.grad(e, [pos, vec])
+            if extra is None:
+                g, fij = torch.autograd.grad(e, [pos, vec])
+            else:
+                strain = torch.zeros((3, 3), dtype=pos.dtype,
+                                     device=pos.device, requires_grad=True)
+                e = e + extra(pos, strain)
+                g, fij, g_strain = torch.autograd.grad(e, [pos, vec, strain])
         ge = vec.detach().double().T @ fij.double()
+        if extra is not None:
+            ge = ge + g_strain.double()
         c = cell.detach().double()
         vol = torch.abs(torch.dot(c[0], torch.linalg.cross(c[1], c[2])))
         stress = -torch.stack([ge[0, 0], ge[1, 1], ge[2, 2], ge[0, 1],

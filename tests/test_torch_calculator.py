@@ -213,7 +213,7 @@ def test_calculator_surface(models):
     assert f.shape == (3, 3) and calc._caps == caps
     alone = SevenNetCalculator(model, device='cpu').get_forces(small)
     np.testing.assert_allclose(f, alone, atol=1e-6, rtol=0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match='modalities'):
         SevenNetCalculator(model, device='cpu', modal='x')
     import inspect
     assert inspect.signature(SevenNetCalculator.__init__).parameters[

@@ -1713,3 +1713,124 @@ def test_training_step_on_the_card_matches_cpu(cuda):
     for k in g_c:
         lim = 1e-4 * max(float(g_c[k].abs().max()), 1e-12)
         assert float((g_g[k].cpu() - g_c[k]).abs().max()) <= lim, k
+
+
+# -- D3 and the model's other forms on the card ------------------------------
+
+def test_d3_on_the_card_matches_cpu(cuda):
+    """D3Calculator (plain PyTorch) on the card against the CPU, all four
+    dampings on a periodic cell: E 1e-6 relative, F 1e-5 eV/A, stress 1e-6
+    eV/A^3."""
+    from sevennet_exp_tpu_torch.calculator import D3Calculator
+    from sevennet_exp_tpu_torch.data.graph import build_nacl
+    at = build_nacl(64, rattle=0.1, seed=2)
+    for damping in ('damp_zero', 'damp_bj', 'damp_zerom', 'damp_bjm'):
+        kw = dict(damping=damping, rthr=1600.0, cn_thr=625.0)
+        ref = D3Calculator(device='cpu', **kw).calculate(at)
+        res = D3Calculator(**kw).calculate(at)
+        assert res['energy'] == pytest.approx(ref['energy'], rel=1e-6)
+        assert np.abs(res['forces'] - ref['forces']).max() <= 1e-5
+        assert np.abs(res['stress'] - ref['stress']).max() <= 1e-6
+
+
+def test_sevennet_d3_calculator_on_the_card(cuda, model):
+    """The trained model plus D3 on the card (edge-row kernels 1-2, 5 + 5
+    launches) against the CPU: 1e-4 eV, 1e-3 eV/A, 1e-5 eV/A^3."""
+    import copy
+    from sevennet_exp_tpu_torch.calculator import SevenNetD3Calculator
+    from sevennet_exp_tpu_torch.data.graph import build_nacl
+    from sevennet_exp_tpu_torch.ops import fused_conv as fc
+    at = build_nacl(216, rattle=0.05, seed=3)
+    ref = SevenNetD3Calculator(copy.deepcopy(model).cpu(), device='cpu',
+                               rthr=1600.0).calculate(at)
+    calc = SevenNetD3Calculator(model, rthr=1600.0)
+    fc.reset_launch_counts()
+    res = calc.calculate(at)
+    assert {k: v for k, v in fc.launch_counts.items() if v} == {
+        'fused_conv_edge_fwd': 5, 'fused_conv_edge_bwd': 5}
+    assert abs(res['energy'] - ref['energy']) <= 1e-4
+    assert np.abs(res['forces'] - ref['forces']).max() <= 1e-3
+    assert np.abs(res['stress'] - ref['stress']).max() <= 1e-5
+
+
+def test_engine_d3_replica_and_tiled_legs_agree_on_the_card(cuda, model):
+    """The engine with d3= on the card: the whole-array leg (kernels 1-2,
+    the replica sum) and the chunked leg (the geom pair, the tiled
+    minimum-image sweep) give one force call's E/F within 1e-5 eV/atom and
+    1e-3 eV/A; the whole-array leg matches the CPU engine."""
+    import copy
+    from sevennet_exp_tpu_torch.data.graph import build_nacl
+    from sevennet_exp_tpu_torch.md.engine import MolecularDynamics
+    from sevennet_exp_tpu_torch.ops import d3 as d3mod
+    from sevennet_exp_tpu_torch.ops import fused_conv as fc
+    at = build_nacl(1000, rattle=0.05, seed=3)
+    # 13 A: the 28 A cell holds the minimum image the chunked leg needs
+    d3 = d3mod.D3Dispersion(rthr=600.0, cn_thr=400.0)
+    kw = dict(ensemble='nvt', seed=0, d3=d3)
+    whole = MolecularDynamics(model, at, **kw)
+    chunked = MolecularDynamics(model, at, conv_chunk_atoms=96, **kw)
+    assert not whole.conv_chunk_rows and chunked.conv_chunk_rows
+    nl = whole._grid()
+    fc.reset_launch_counts()
+    e_w, f_w = whole._ef_fn(whole.state.pos, nl)
+    assert fc.launch_counts['fused_conv_fwd'] == 5
+    e_c, f_c = chunked._ef_fn(whole.state.pos, nl)
+    assert fc.launch_counts['fused_conv_geom_fwd'] == 5 * -(-1000 // 96)
+    assert abs(float(e_w) - float(e_c)) / 1000 <= 1e-5
+    assert float((f_w - f_c).abs().max()) <= 1e-3
+    cpu = MolecularDynamics(copy.deepcopy(model).cpu(), at, device='cpu',
+                            ensemble='nvt', seed=0,
+                            d3=d3mod.D3Dispersion(rthr=600.0, cn_thr=400.0,
+                                                  device='cpu'))
+    e_p, f_p = cpu._ef_fn(cpu.state.pos, cpu._grid())
+    assert abs(float(e_w) - float(e_p)) / 1000 <= 1e-5
+    assert float((f_w.cpu() - f_p).abs().max()) <= 1e-3
+
+
+_VARIANTS = {
+    'multi_cutoff': {'multi_cutoff': [5.0, 5.0, 4.5, 4.5, 4.0]},
+    'modal': {'use_modality': True, 'use_modal_node_embedding': False,
+              'use_modal_self_inter_intro': True,
+              'use_modal_self_inter_outro': True,
+              'use_modal_output_block': True, 'use_modal_wise_shift': True,
+              'use_modal_wise_scale': False,
+              '_modal_map': {'pbe': 0, 'scan': 1},
+              '_number_of_modalities': 2},
+    'fcn_readout': {'readout_as_fcn': True},
+}
+
+
+@pytest.mark.parametrize('name', list(_VARIANTS))
+def test_variant_models_on_the_card(cuda, name):
+    """trained_nacl's config with per-layer cutoffs, two modalities
+    (multi_modal.yaml's flags) or the FCN readout, weights from a seed:
+    the calculator on the card against the CPU (1e-4 eV, 1e-3 eV/A, 1e-5
+    eV/A^3); multi-cutoff and FCN layers launch the edge-row kernels 1-2
+    (the multi-cutoff engine's dense grid kernels 1-2, never the geom
+    pair), the modal convolutions without si2 nothing."""
+    import copy
+    from sevennet_exp_tpu_torch.calculator import SevenNetCalculator
+    from sevennet_exp_tpu_torch.checkpoint import SevenNetCheckpoint
+    from sevennet_exp_tpu_torch.data.graph import build_nacl
+    from sevennet_exp_tpu_torch.md.engine import MolecularDynamics
+    from sevennet_exp_tpu_torch.ops import fused_conv as fc
+    config = dict(SevenNetCheckpoint(CKPT).config, **_VARIANTS[name])
+    m_cpu = _random_model(config, 7, 'cpu')
+    m = copy.deepcopy(m_cpu).to(cuda)
+    modal = 'scan' if name == 'modal' else None
+    at = build_nacl(216, rattle=0.05, seed=3)
+    ref = SevenNetCalculator(m_cpu, device='cpu', modal=modal).calculate(at)
+    fc.reset_launch_counts()
+    res = SevenNetCalculator(m, modal=modal).calculate(at)
+    launched = {k: v for k, v in fc.launch_counts.items() if v}
+    assert launched == ({} if name == 'modal' else {
+        'fused_conv_edge_fwd': 5, 'fused_conv_edge_bwd': 5})
+    assert abs(res['energy'] - ref['energy']) <= 1e-4
+    assert np.abs(res['forces'] - ref['forces']).max() <= 1e-3
+    assert np.abs(res['stress'] - ref['stress']).max() <= 1e-5
+    if name == 'multi_cutoff':
+        md = MolecularDynamics(m, build_nacl(1000), ensemble='nvt')
+        fc.reset_launch_counts()
+        md._ef_fn(md.state.pos, md._grid())
+        assert {k: v for k, v in fc.launch_counts.items() if v} == {
+            'fused_conv_fwd': 5, 'fused_conv_bwd': 5}
