@@ -18,7 +18,9 @@ six kernel micro-benchmarks (``tools/bench_pieces.py``,
 ``bench_tile.py``, twenty-one kernels), and last the port's training:
 fault C.1's routes on the card and ``train_v2`` at 7net-0 width, and at
 the end Grimme D3 (``SevenNetD3Calculator``, ``MolecularDynamics(d3=...)``
-at 1k and 97k) and the multi-cutoff, multi-modal and FCN-readout models.
+at 1k and 97k) and the multi-cutoff, multi-modal and FCN-readout models,
+and last the user entry points: the native host neighbor list, batch
+inference through the edge-row kernels and continue-training.
 
     python3 chip_smoke.py            # needs one CUDA card
 
@@ -187,6 +189,19 @@ Phases (any failure raises, exits non-zero and prints no result):
      modal model), 216 atoms on the card against the CPU, and the
      multi-cutoff model's 1k engine force call through kernels 1-2 (5 + 5
      launches, no geom kernel) against the plain chain;
+ 18. the user entry points: (a) the native host neighbor list
+     (``csrc/neighbor.cpp``, built with g++ in phase 1) against the cKDTree
+     path at 1k and 8k NaCl, 5 A: the same sorted edge set, the host ms of
+     each route (median of 5), a 1k calculator call and its graph build by
+     each route, E/F/S of the two routes within the limits; (b) batch
+     inference, ``inference('7net-0-nacl-demo', ...)`` on 8 rattled 1k
+     frames labelled with the plain path, batch 4: per graph E/F/S against
+     the kernel calculator, ``errors.txt``'s force RMSE <= 1e-3 eV/A, 5 + 5
+     edge-row launches a batch and no other kernel, one set of capacities,
+     ms a batch and its host share, a padded batch's pad rows exact zeros;
+     (c) ``train_v2`` continuing from phase 16's ``checkpoint_last`` for
+     one epoch of 2 steps: the epoch after the checkpoint's, the starting
+     parameters the checkpoint's bit for bit, finite losses;
  then a ``{"kernels": [...]}`` line (33 entries), the card line and the
  result line ``{"ok": true, "device": {...}}`` last.
 
@@ -200,6 +215,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1250,6 +1266,10 @@ def training(report, dev, card):
         if fc.launch_counts['fused_conv_edge_fwd'] != len(routes):
             raise AssertionError(f'the calculator did not run the kernels: '
                                  f'{routes}')
+        # phase 18 continues from this checkpoint
+        import shutil
+        keep = tempfile.mkdtemp(prefix='chip_smoke_16_')
+        out['checkpoint_copy'] = shutil.copy(path, keep)
         out['reload'] = {'plain_dE': d_e, 'plain_max_dF': d_f,
                          'kernels': check_ef(
                              'checkpoint_last, kernels vs plain', 64,
@@ -1302,8 +1322,7 @@ def training(report, dev, card):
     report['training'] = out
 
 
-# the modal flags of the JAX package's presets/multi_modal.yaml (the port
-# carries no presets yet: ROADMAP A.6)
+# the modal flags of presets/multi_modal.yaml
 MULTI_MODAL_FLAGS = {
     'use_modality': True, 'use_modal_node_embedding': False,
     'use_modal_self_inter_intro': True, 'use_modal_self_inter_outro': True,
@@ -1560,6 +1579,284 @@ def d3_and_variants(report, dev, model, atoms_1k):
         torch.cuda.empty_cache()
 
 
+
+def _sorted_edges(res):
+    """(i, j, shift, vec) of a neighbor list, sorted by (i, j, shift)."""
+    import numpy as np
+    ei, ej, vec, shift = res
+    shift = np.asarray(shift).astype(np.int64)
+    o = np.lexsort((shift[:, 2], shift[:, 1], shift[:, 0], ej, ei))
+    return ei[o], ej[o], shift[o], np.asarray(vec)[o]
+
+
+@contextlib.contextmanager
+def neighbor_route(name):
+    """Run the host neighbor list on ``name``: 'native' (the C++ cell list)
+    or 'ckdtree' (``SEVENN_NO_NATIVE=1``)."""
+    old = os.environ.pop('SEVENN_NO_NATIVE', None)
+    if name == 'ckdtree':
+        os.environ['SEVENN_NO_NATIVE'] = '1'
+    try:
+        yield
+    finally:
+        os.environ.pop('SEVENN_NO_NATIVE', None)
+        if old is not None:
+            os.environ['SEVENN_NO_NATIVE'] = old
+
+
+def user_entry_points(report, dev, model, atoms_1k):
+    """Phase 18: (a) the native neighbor list against the cKDTree path
+    (1k and 8k NaCl at 5 A: the same sorted edge set, host ms of each
+    route, a 1k calculator call and its graph build by each route, E/F/S
+    of the two routes within the limits); (b) batch inference
+    (``inference('7net-0-nacl-demo', ...)``, 8 rattled 1k frames labelled
+    with the plain path, batch 4): per graph E/F/S against the kernel
+    calculator, ``errors.txt``'s force RMSE (the kernel-against-plain gap)
+    <= 1e-3 eV/A, 5 + 5 edge-row launches a batch and no other kernel, one
+    set of capacities for both batches, ms a batch and its host share; a
+    padded batch's pad atoms, pad graph and pad edges exact zeros through
+    the kernels; (c) ``train_v2`` continuing from phase 16's
+    ``checkpoint_last`` for one epoch of 2 steps: the first epoch is the
+    checkpoint's + 1, the starting parameters its own bit for bit, the
+    losses finite."""
+    import csv
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from sevennet_exp_tpu_torch import _keys as KEY
+    from sevennet_exp_tpu_torch.calculator import SevenNetCalculator
+    from sevennet_exp_tpu_torch.checkpoint import load_native_checkpoint
+    from sevennet_exp_tpu_torch.data import native
+    from sevennet_exp_tpu_torch.data import neighborlist as nl
+    from sevennet_exp_tpu_torch.data.extxyz import read_extxyz, write_extxyz
+    from sevennet_exp_tpu_torch.data.graph import (
+        Atoms, atoms_to_graph, build_nacl, collate_graphs,
+        unlabeled_atoms_to_graph)
+    from sevennet_exp_tpu_torch.logger import Logger
+    from sevennet_exp_tpu_torch.model.model import flatten
+    from sevennet_exp_tpu_torch.ops import fused_conv as fc
+    from sevennet_exp_tpu_torch.parse_input import read_config_yaml
+    from sevennet_exp_tpu_torch.scripts.inference import inference
+    from sevennet_exp_tpu_torch.scripts.train import train_v2
+    from sevennet_exp_tpu_torch.train.trainer import Trainer
+
+    out = {'a': {}, 'b': {}, 'c': {}}
+    work = tempfile.mkdtemp(prefix='chip_smoke_18_')
+    try:
+        # -- (a) the native neighbor list ------------------------------
+        t_a = time.perf_counter()
+        if native.get_library() is None:
+            raise AssertionError('the native neighbor list did not build')
+        out['a']['library'] = os.path.relpath(native.library_path(), HERE)
+        for n in (1000, 8000):
+            at = build_nacl(n)
+            res, ms = {}, {}
+            for r in ('native', 'ckdtree'):
+                with neighbor_route(r):
+                    times = []
+                    for _ in range(5):
+                        t0 = time.perf_counter()
+                        res[r] = nl.neighbor_list(at.pos, at.cell, at.pbc,
+                                                  5.0)
+                        times.append((time.perf_counter() - t0) * 1e3)
+                    if nl.ROUTE['last'] != r:
+                        raise AssertionError(f'{r} route not taken')
+                ms[r] = float(np.median(times))
+            a, b = _sorted_edges(res['native']), _sorted_edges(res['ckdtree'])
+            same = all(np.array_equal(x, y) for x, y in zip(a[:3], b[:3]))
+            dvec = float(np.abs(a[3] - b[3]).max()) if same else math.inf
+            print(f'{len(at)} atoms, 5 A: {len(a[0])} edges, the same '
+                  f'sorted set by both routes: {same} (max|dvec| {dvec:.1e}'
+                  f' A); host build native {ms["native"]:.2f} ms, cKDTree '
+                  f'{ms["ckdtree"]:.2f} ms (median of 5)', flush=True)
+            if not (same and dvec <= 1e-12):
+                raise AssertionError('native and cKDTree lists differ')
+            out['a'][f'{len(at)}'] = {
+                'edges': int(len(a[0])), 'max_dvec': dvec,
+                'native_ms': ms['native'], 'ckdtree_ms': ms['ckdtree']}
+        calc = SevenNetCalculator(model, device=dev)
+        n = len(atoms_1k)
+        calls = {}
+        for r in ('native', 'ckdtree'):
+            with neighbor_route(r):
+                calc.calculate(atoms_1k)
+                t_call, t_graph = [], []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    res = calc.calculate(atoms_1k)
+                    t_call.append((time.perf_counter() - t0) * 1e3)
+                    t0 = time.perf_counter()
+                    unlabeled_atoms_to_graph(atoms_1k, calc.cutoff)
+                    t_graph.append((time.perf_counter() - t0) * 1e3)
+                if nl.ROUTE['last'] != r:
+                    raise AssertionError(f'{r} route not taken')
+            calls[r] = res
+            out['a'][f'calc_1k_{r}'] = {
+                'call_ms': float(np.median(t_call)),
+                'graph_ms': float(np.median(t_graph))}
+        nat, ckd = calls['native'], calls['ckdtree']
+        out['a']['calc_1k_efs'] = check_ef(
+            '1k calculator, native vs cKDTree list', n, nat['energy'],
+            torch.tensor(nat['forces']), ckd['energy'],
+            torch.tensor(ckd['forces']))
+        d_s = float(np.abs(nat['stress'] - ckd['stress']).max())
+        out['a']['calc_1k_efs']['max_dS'] = d_s
+        if not d_s <= S_TOL:
+            raise AssertionError(f'stress by route: {d_s:.2e} > {S_TOL}')
+        for r in ('native', 'ckdtree'):
+            c = out['a'][f'calc_1k_{r}']
+            print(f'1k calculator call, {r} list: {c["call_ms"]:.2f} ms, '
+                  f'its graph build {c["graph_ms"]:.2f} ms (median of 5); '
+                  f'max|dS| by route {d_s:.1e} eV/A^3', flush=True)
+        out['a']['seconds'] = time.perf_counter() - t_a
+
+        # -- (b) batch inference ---------------------------------------
+        t_b = time.perf_counter()
+        plain = SevenNetCalculator(model, device=dev, use_kernels=False)
+        frames, kref = [], []
+        for seed in range(8):
+            at = build_nacl(1000, seed=seed)
+            r = plain.calculate(at)
+            frames.append(Atoms(at.atomic_numbers, at.pos, at.cell, at.pbc,
+                                energy=r['energy'], forces=r['forces'],
+                                stress=-r['stress'][[0, 1, 2, 5, 3, 4]]))
+            kref.append(calc.calculate(at))
+        xyz = os.path.join(work, 'frames.extxyz')
+        write_extxyz(xyz, frames)
+        res_dir = os.path.join(work, 'inference')
+        timings = []
+        fc.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = inference('7net-0-nacl-demo', [xyz], res_dir, batch_size=4,
+                        device=dev, timings=timings)
+        out['b']['inference_s'] = time.perf_counter() - t0
+        launched = {k: v for k, v in fc.launch_counts.items() if v}
+        want = {'fused_conv_edge_fwd': 5 * len(timings),
+                'fused_conv_edge_bwd': 5 * len(timings)}
+        if len(timings) != 2 or launched != want:
+            raise AssertionError(f'inference launched {launched} over '
+                                 f'{len(timings)} batches, want {want}')
+        caps = {(t['n_node'], t['n_edge']) for t in timings}
+        if len(caps) != 1:
+            raise AssertionError(f'batches padded to {caps}')
+        worst = {'dE_per_atom': 0.0, 'max_dF': 0.0, 'max_dS': 0.0}
+        for r, k in zip(res, kref):
+            raw_k = -k['stress'][[0, 1, 2, 5, 3, 4]]
+            worst['dE_per_atom'] = max(worst['dE_per_atom'], abs(
+                r['pred_energy'] - k['energy']) / r['n_atoms'])
+            worst['max_dF'] = max(worst['max_dF'], float(np.abs(
+                r['pred_forces'] - k['forces']).max()))
+            worst['max_dS'] = max(worst['max_dS'], float(np.abs(
+                r['pred_stress'] - raw_k).max()))
+        with open(os.path.join(res_dir, 'errors.txt')) as fh:
+            errors = {line.split(':')[0]: float(line.split()[2])
+                      for line in fh if line.strip()}
+        print(f'inference: {len(res)} graphs in {len(timings)} batches of '
+              f'4 padded to {caps.pop()} (atoms, edges); against the kernel '
+              f'calculator per graph: |dE|/N {worst["dE_per_atom"]:.2e} '
+              f'eV/atom, max|dF| {worst["max_dF"]:.2e} eV/A, max|dS| '
+              f'{worst["max_dS"]:.2e} eV/A^3; errors.txt force RMSE '
+              f'against the plain labels {errors["Force RMSE"]:.6f} eV/A '
+              f'(<= 1e-3); launches {launched}', flush=True)
+        if not (worst['dE_per_atom'] <= E_TOL_PER_ATOM
+                and worst['max_dF'] <= F_TOL and worst['max_dS'] <= S_TOL
+                and errors['Force RMSE'] <= 1e-3
+                and all(np.isfinite(r['pred_forces']).all() for r in res)):
+            raise AssertionError('batch inference disagrees')
+        rows = list(csv.DictReader(open(os.path.join(res_dir,
+                                                     'per_graph.csv'))))
+        if len(rows) != 8 or not all(os.path.getsize(os.path.join(
+                res_dir, f)) for f in ('per_atom.csv', 'info.csv')):
+            raise AssertionError('inference files incomplete')
+        for i, t in enumerate(timings):
+            print(f'  batch {i}: {t["total_s"] * 1e3:.2f} ms, host (collate '
+                  f'and copy) {t["host_s"] * 1e3:.2f} ms '
+                  f'({t["host_s"] / t["total_s"]:.1%})', flush=True)
+        out['b'].update(worst, errors=errors, launches=launched,
+                        batches=timings)
+        # pad rows through the kernels: one batch with room to spare
+        graphs = [atoms_to_graph(f, model.cutoff) for f in frames[:3]]
+        b = collate_graphs(graphs, n_node=3000 + 24,
+                           n_edge=sum(g[KEY.EDGE_IDX].shape[1]
+                                      for g in graphs) + 1000, n_graph=4)
+        data = {k: torch.as_tensor(
+                    v, dtype=torch.long if k in (
+                        KEY.ATOMIC_NUMBERS, KEY.BATCH, KEY.EDGE_IDX,
+                        KEY.NUM_ATOMS) else None, device=dev)
+                for k, v in b.items()}
+        data[fc.USE_KERNELS_KEY] = True
+        o = model.apply(data)
+        pads = (float(o[KEY.PRED_FORCE][3000:].abs().max()),
+                float(o[KEY.PRED_TOTAL_ENERGY][3].abs()),
+                float(o[KEY.PRED_STRESS][3].abs().max()))
+        print(f'padded batch (24 pad atoms, 1,000 pad edges, a pad graph):'
+              f' max|F| of pad atoms {pads[0]}, pad graph |E| {pads[1]}, '
+              f'max|S| {pads[2]} (exact zeros)', flush=True)
+        if any(pads):
+            raise AssertionError('pad rows are not exact zeros')
+        out['b']['seconds'] = time.perf_counter() - t_b
+
+        # -- (c) continue-training -------------------------------------
+        t_c = time.perf_counter()
+        ck = report['training']['checkpoint_copy']
+        ck_payload = load_native_checkpoint(ck)
+        data_dir = os.path.join(HERE, 'nacl_classical_data')
+        sub = {}
+        for name, count in (('train', 16), ('valid', 8)):
+            sub[name] = os.path.join(work, f'{name}16.extxyz')
+            write_extxyz(sub[name], read_extxyz(
+                os.path.join(data_dir, f'{name}.extxyz'))[:count])
+        config = read_config_yaml(os.path.join(HERE, 'trained_nacl',
+                                               'input.yaml'))
+        config[KEY.LOAD_TRAINSET] = [sub['train']]
+        config[KEY.LOAD_VALIDSET] = [sub['valid']]
+        config[KEY.CONTINUE] = {KEY.CHECKPOINT: ck}
+        config[KEY.EPOCH] = ck_payload['epoch'] + 1
+        run = os.path.join(work, 'continue')
+        os.makedirs(run)
+        losses = []
+        orig = Trainer.train_step
+
+        def step(self, batch):
+            stats = orig(self, batch)
+            losses.append(float(stats['TotalLoss'][0]))
+            return stats
+
+        Trainer.train_step = step
+        try:
+            train_v2(config, run, device=dev)
+        finally:
+            Trainer.train_step = orig
+            Logger().file.close()
+            Logger().file = None
+        start = load_native_checkpoint(os.path.join(
+            run, 'checkpoint_0.pth.sevennet'))
+        first = flatten(start['params'])
+        stored = flatten(ck_payload['params'])
+        same = set(first) == set(stored) and all(
+            np.array_equal(first[k], stored[k]) for k in stored)
+        with open(os.path.join(run, 'lc.csv')) as fh:
+            epochs = [row['epoch'] for row in csv.DictReader(fh)]
+        print(f'continue from phase 16 (epoch {ck_payload["epoch"]}): '
+              f'epochs run {epochs}, starting parameters equal the '
+              f'checkpoint bit for bit: {same} ({len(stored)} leaves), '
+              f'{len(losses)} steps, losses {losses}', flush=True)
+        if not (same and epochs == [str(ck_payload['epoch'] + 1)]
+                and start['epoch'] == ck_payload['epoch']
+                and 0 < len(losses) <= 8
+                and all(math.isfinite(v) for v in losses)):
+            raise AssertionError('continue-training failed its checks')
+        out['c'] = {'checkpoint_epoch': ck_payload['epoch'],
+                    'epochs': epochs, 'losses': losses,
+                    'seconds': time.perf_counter() - t_c}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(os.path.dirname(report['training'].get(
+            'checkpoint_copy', work)), ignore_errors=True)
+    report['entry_points'] = out
+
+
 def main():
     import numpy as np
     import torch
@@ -1598,6 +1895,12 @@ def main():
     report['build_s'] = time.perf_counter() - t0
     print(f'built {[os.path.relpath(lib, HERE) for lib in libs]} in '
           f'{report["build_s"]:.1f} s', flush=True)
+    from sevennet_exp_tpu_torch.data import native
+    t0 = time.perf_counter()
+    if native.get_library() is None:
+        raise AssertionError('the native neighbor list did not build')
+    print(f'built {os.path.relpath(native.library_path(), HERE)} (the host '
+          f'neighbor list) in {time.perf_counter() - t0:.1f} s', flush=True)
     dev = torch.device('cuda')
     report['card'] = card
     report['device'] = torch.cuda.get_device_name(0)
@@ -2696,6 +2999,11 @@ def main():
     phase('17 D3 in the calculator and the MD engine (1k, 1k NVT, 97k); '
           'the multi-cutoff, modal and FCN-readout models')
     d3_and_variants(report, dev, model, atoms_1k)
+
+    # -- phase 18 ------------------------------------------------------
+    phase('18 the user entry points: the native neighbor list, batch '
+          'inference, continue-training')
+    user_entry_points(report, dev, model, atoms_1k)
     report['script_s'] = time.perf_counter() - t_script
     ends = [t for _, t in _PHASES[1:]] + [time.perf_counter()]
     report['phase_s'] = {name: end - t for (name, t), end
@@ -2705,7 +3013,11 @@ def main():
         + f'; nvcc {report["build_s"]:.1f} of phase 1, C.1 checks '
         f'{report["conv_routes"]["seconds"]:.1f}, CPU first step '
         f'{report["training"]["first_step_cpu_s"]:.1f} and train_v2 '
-        f'{report["training"]["train_v2_s"]:.1f} of phase 16', flush=True)
+        f'{report["training"]["train_v2_s"]:.1f} of phase 16, native list '
+        f'{report["entry_points"]["a"]["seconds"]:.1f}, inference '
+        f'{report["entry_points"]["b"]["seconds"]:.1f} and continue '
+        f'{report["entry_points"]["c"]["seconds"]:.1f} of phase 18',
+        flush=True)
     print(f'whole script {report["script_s"]:.1f} s', flush=True)
     with open(os.path.join(out_dir, 'chip_smoke.json'), 'w') as fh:
         json.dump(report, fh, indent=1)

@@ -115,7 +115,9 @@ class SevenNetCalculator(_SinglePoint):
     def __init__(self, model: Union[str, SevenNetModel], device='cuda',
                  modal: Optional[str] = None, cg_mode: str = 'cmshared',
                  use_kernels: bool = True, **kwargs):
-        """model: a native checkpoint path or a built ``SevenNetModel``.
+        """model: a checkpoint (a path, native or reference ``.pth``, or a
+        pretrained keyword such as '7net-0-nacl-demo') or a built
+        ``SevenNetModel``.
         cg_mode: which kernels the fused convolutions launch on the card,
         'cmshared' (default) or the independently derived 'terms'.
         use_kernels: False runs every convolution as the plain chain.

@@ -8,16 +8,15 @@ model-build wiring needs (shift/scale/conv_denominator keywords), and
 exposes them as properties with the reference's names
 (graph_dataset.py:360-392).
 
-Not in the port yet (ROADMAP A.5, the next slice of the training path):
-VASP OUTCAR and ``structure_list`` inputs, ``dataset_type: atoms``; they
-raise ``NotImplementedError``.
+Inputs: extxyz, VASP OUTCARs and ``structure_list`` index files
+(``data/vasp.py``); ``dataset_type: atoms`` gives the lazy
+``data/atoms_dataset.py::SevenNetAtomsDataset`` instead of graphs.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
-import re
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -28,9 +27,7 @@ from ..util import chemical_species_preprocess
 from .extxyz import read_extxyz
 from .graph import Atoms, atoms_to_graph
 from .periodic import chemical_symbols
-
-_NEXT_SLICE = ('is not in the port yet: ROADMAP A.5 queues it for the '
-               'next slice of the training path')
+from .vasp import braceexpand
 
 
 def run_statistics(graph_list: Sequence[Dict]) -> Dict[str, Any]:
@@ -246,37 +243,6 @@ class SevenNetGraphDataset:
         return float(self.avg_num_neigh ** 0.5)
 
 
-def braceexpand(expr: str) -> List[str]:
-    """Bash-style brace expansion: ``{a,b}`` lists and ``{1..5}`` ranges
-    (copy of ``sevennet_exp_tpu/data/vasp.py::braceexpand``)."""
-    m = re.search(r'\{([^{}]*)\}', expr)
-    if m is None:
-        return [expr]
-    head, tail = expr[:m.start()], expr[m.end():]
-    body = m.group(1)
-    rng = re.fullmatch(r'(-?\d+)\.\.(-?\d+)(?:\.\.(-?\d+))?', body)
-    if rng:
-        a, b = int(rng.group(1)), int(rng.group(2))
-        step = int(rng.group(3) or (1 if b >= a else -1))
-        if step == 0:
-            raise ValueError(f'zero step in brace range: {expr}')
-        stop = b + (1 if step > 0 else -1)
-        width = None
-        if rng.group(1).lstrip('-').startswith('0') or \
-                rng.group(2).lstrip('-').startswith('0'):
-            width = max(len(rng.group(1)), len(rng.group(2)))
-        items = [str(v).zfill(width) if width else str(v)
-                 for v in range(a, stop, step)]
-    elif ',' in body:
-        items = body.split(',')
-    else:
-        return [head + body + t for t in braceexpand(tail)]
-    out = []
-    for item in items:
-        out.extend(braceexpand(head + item + tail))
-    return out
-
-
 def expand_dataset_paths(paths: List[str]) -> List[str]:
     """Brace + glob expansion of dataset path patterns (reference
     parse_input.py expands dataset globs; structure_list additionally
@@ -294,15 +260,24 @@ def expand_dataset_paths(paths: List[str]) -> List[str]:
 
 
 def read_structure_file(path: str) -> List[Atoms]:
-    """Format dispatch (reference graph_dataset.py:511-540): extxyz; VASP
-    structure_list index files and raw OUTCARs raise."""
+    """Format dispatch (reference graph_dataset.py:511-540): VASP
+    structure_list index files, raw OUTCARs, and extxyz."""
     base = os.path.basename(path)
     if base.startswith('structure_list') or base.endswith('.structure_list'):
-        raise NotImplementedError(f'{path}: structure_list {_NEXT_SLICE}')
+        from .vasp import structure_list_reader
+        frames: List[Atoms] = []
+        for label, lst in structure_list_reader(path).items():
+            for at in lst:
+                if at.info is None:
+                    at.info = {}
+                at.info['label'] = label
+            frames.extend(lst)
+        return frames
     if base.endswith(('.xyz', '.extxyz')):
         return read_extxyz(path)
     if 'OUTCAR' in base:
-        raise NotImplementedError(f'{path}: the OUTCAR reader {_NEXT_SLICE}')
+        from .vasp import read_outcar
+        return read_outcar(path)
     return read_extxyz(path)
 
 
@@ -330,7 +305,11 @@ def datasets_from_config(
         paths = expand_dataset_paths(paths)
         name = '_'.join(dk.split('_')[1:-1])
         if dataset_type == 'atoms':
-            raise NotImplementedError(f'dataset_type: atoms {_NEXT_SLICE}')
+            from .atoms_dataset import SevenNetAtomsDataset
+            datasets[name] = SevenNetAtomsDataset(
+                cutoff=config[KEY.CUTOFF], files=paths,
+                **config.get(KEY.DATA_FORMAT_ARGS, {}),
+            )
         elif dataset_type == 'graph':
             datasets[name] = SevenNetGraphDataset(
                 cutoff=config[KEY.CUTOFF], root=working_dir, files=paths,
@@ -361,12 +340,16 @@ def datasets_from_config(
         rng = np.random.default_rng(config.get(KEY.RANDOM_SEED, 1))
         idx = rng.permutation(len(train_set))
         n_valid = max(1, int(len(train_set) * ratio))
-        datasets['trainset'] = SevenNetGraphDataset(
-            cutoff=config[KEY.CUTOFF], root=working_dir,
-            graphs=[train_set.graphs[i] for i in idx[n_valid:]],
-        )
-        datasets['validset'] = SevenNetGraphDataset(
-            cutoff=config[KEY.CUTOFF], root=working_dir,
-            graphs=[train_set.graphs[i] for i in idx[:n_valid]],
-        )
+        if hasattr(train_set, 'subset'):  # lazy atoms dataset
+            datasets['trainset'] = train_set.subset(idx[n_valid:])
+            datasets['validset'] = train_set.subset(idx[:n_valid])
+        else:
+            datasets['trainset'] = SevenNetGraphDataset(
+                cutoff=config[KEY.CUTOFF], root=working_dir,
+                graphs=[train_set.graphs[i] for i in idx[n_valid:]],
+            )
+            datasets['validset'] = SevenNetGraphDataset(
+                cutoff=config[KEY.CUTOFF], root=working_dir,
+                graphs=[train_set.graphs[i] for i in idx[:n_valid]],
+            )
     return datasets

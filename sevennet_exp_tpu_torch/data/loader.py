@@ -5,8 +5,11 @@ batches of ``batch_size`` graphs and pads every batch to ONE global
 (n_node, n_edge, n_graph) capacity, so every train step sees the same
 shapes. The epoch order comes from ``np.random.default_rng(seed)`` as in
 the JAX loader, so both packages draw the same batches, index for index.
-Data parallelism (the JAX loader's ``shard``) is not in the port yet
-(ROADMAP A.7).
+A lazy dataset (``data/atoms_dataset.py``: ``estimated_sizes``, a graph
+built on each access) is sized from its estimate; a batch that overflows
+the estimate grows the capacities and is collated again. Data
+parallelism (the JAX loader's ``shard``) is not in the port yet (ROADMAP
+A.7).
 """
 
 from __future__ import annotations
@@ -30,9 +33,13 @@ class GraphLoader:
         n_edge: Optional[int] = None,
         drop_last: bool = False,
     ):
-        self.graphs = list(graphs)
-        sizes = [(int(g[KEY.NUM_ATOMS]), g[KEY.EDGE_IDX].shape[1])
-                 for g in self.graphs]
+        if hasattr(graphs, 'estimated_sizes'):
+            self.graphs = graphs
+            sizes = graphs.estimated_sizes()
+        else:
+            self.graphs = list(graphs)
+            sizes = [(int(g[KEY.NUM_ATOMS]), g[KEY.EDGE_IDX].shape[1])
+                     for g in self.graphs]
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.rng = np.random.default_rng(seed)
@@ -66,6 +73,16 @@ class GraphLoader:
             idx = order[i:i + self.batch_size]
             if self.drop_last and len(idx) < self.batch_size:
                 return
-            yield collate_graphs([self.graphs[j] for j in idx],
-                                 n_node=self.n_node, n_edge=self.n_edge,
-                                 n_graph=self.n_graph)
+            batch = [self.graphs[j] for j in idx]
+            try:
+                yield collate_graphs(batch, n_node=self.n_node,
+                                     n_edge=self.n_edge, n_graph=self.n_graph)
+            except ValueError:
+                # a lazy dataset's estimate undershot a dense batch
+                tot_n = sum(int(g[KEY.NUM_ATOMS]) for g in batch)
+                tot_e = sum(g[KEY.EDGE_IDX].shape[1] for g in batch)
+                self.n_node = max(self.n_node, pad_cap(tot_n, multiple=8))
+                self.n_edge = max(self.n_edge,
+                                  pad_cap(tot_e, multiple=256, margin=1.2))
+                yield collate_graphs(batch, n_node=self.n_node,
+                                     n_edge=self.n_edge, n_graph=self.n_graph)

@@ -7,9 +7,12 @@ excluded; non-periodic directions are open.
 
 Algorithm: replicate the atoms over the integer shifts whose image cell
 can reach the home cell within ``cutoff`` (bounded by the plane
-distances), then one cKDTree ball query. The MD engine does not use this:
-it builds its lists on the device (``md/neighbor.py``). The JAX package's
-optional compiled C++ routine (``data/native.py``) has no counterpart yet.
+distances), then one cKDTree ball query. As in the JAX package,
+``neighbor_list`` first asks the native C++ cell list (``data/native.py``:
+the same edge set, grouped by center but ordered by cell bin within a
+center); ``SEVENN_NO_NATIVE=1`` selects the cKDTree path. ``ROUTE`` counts
+the calls by route and names the last one. The MD engine does not use
+this: it builds its lists on the device (``md/neighbor.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,16 @@ from typing import Tuple
 
 import numpy as np
 from scipy.spatial import cKDTree
+
+from .native import native_neighbor_list
+
+# calls by route ('native' or 'ckdtree') and the last route taken
+ROUTE = {'last': None, 'native': 0, 'ckdtree': 0}
+
+
+def _took(route: str):
+    ROUTE['last'] = route
+    ROUTE[route] += 1
 
 
 def _n_repeats(cell: np.ndarray, pbc, cutoff: float) -> np.ndarray:
@@ -56,6 +69,11 @@ def neighbor_list(pos: np.ndarray, cell: np.ndarray, pbc, cutoff: float
     if len(pbc) == 1:
         pbc = pbc * 3
 
+    res = native_neighbor_list(pos, cell, pbc, cutoff)
+    if res is not None:
+        _took('native')
+        return res
+    _took('ckdtree')
     if any(pbc):
         # wrap into the home cell along the periodic axes, so that the
         # image count holds; the vectors are recomputed from pos below

@@ -6,6 +6,7 @@ Counterpart of ``sevennet_exp_tpu/logger.py`` for the calls the port's
 
 from __future__ import annotations
 
+import math
 import sys
 import time
 from typing import Dict, Optional
@@ -136,7 +137,7 @@ class Logger(metaclass=Singleton):
                 self.format_k_v(name, str(irreps), write=True)
         if params is not None:
             m = flatten(mask) if mask is not None else {}
-            n = sum(int(v.numel()) for k, v in flatten(params).items()
+            n = sum(math.prod(v.shape) for k, v in flatten(params).items()
                     if m.get(k, True))
             self.writeline(f'# learnable parameters: {n}')
         self.writeline()

@@ -113,6 +113,9 @@ class UVUTensorProductSpec:
     irreps_out: Irreps = field(default=None)  # type: ignore
     instructions: Tuple[Tuple[int, int, int], ...] = field(default=None)  # type: ignore
     weight_numel: int = field(default=None)  # type: ignore
+    # pre-sort order (the v <= 0.10 checkpoint weight layout; reference
+    # scripts/backward_compatibility.py:74-155 sort_old_convolution)
+    instructions_unsorted: Tuple[Tuple[int, int, int], ...] = field(default=None)  # type: ignore
 
     def __post_init__(self):
         irreps_x = Irreps(self.irreps_in1)
@@ -131,12 +134,14 @@ class UVUTensorProductSpec:
                         instructions.append((i, j, k))
         srt, p, _ = Irreps(irreps_mid).sort()
         instructions = [(i1, i2, p[k]) for (i1, i2, k) in instructions]
+        unsorted = tuple(instructions)
         instructions = sorted(instructions, key=lambda t: t[2])
         object.__setattr__(self, 'irreps_in1', irreps_x)
         object.__setattr__(self, 'irreps_in2', irreps_filter)
         object.__setattr__(self, 'irreps_out', srt)
         object.__setattr__(self, 'instructions', tuple(instructions))
         object.__setattr__(self, 'weight_numel', weight_numel)
+        object.__setattr__(self, 'instructions_unsorted', unsorted)
 
     def alphas(self) -> List[float]:
         """Per-instruction sqrt(alpha), e3nn component/element norm."""

@@ -3,9 +3,12 @@ train_v2): datasets -> loaders -> model -> trainer -> epoch loop.
 
 Counterpart of ``sevennet_exp_tpu/scripts/train.py`` on one device,
 without the multi-process bootstrap and the data-parallel mesh (ROADMAP
-A.7) and without continuing from a checkpoint (ROADMAP A.5's
-``processing_continue``). The model trains on the card unless the caller
-or the config says ``device: cpu``.
+A.7). With ``continue: {checkpoint: ...}`` (a native checkpoint, a
+reference ``.pth`` or a pretrained keyword) the model, its parameters and
+the first epoch come from ``processing_continue_v2``; the trainable mask
+comes from ``model.init`` on the config's seed and the optimizer starts
+fresh, as in the JAX package. The model trains on the card unless the
+caller or the config says ``device: cpu``.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from ..data.loader import GraphLoader
 from ..logger import Logger
 from ..model.build import build_e3_equivariant_model
 from ..train.trainer import Trainer
+from .processing_continue import processing_continue_v2
 from .processing_epoch import processing_epoch_v2
 
 
@@ -44,11 +48,12 @@ def train_v2(config: Dict[str, Any], working_dir: str = '.',
         {k: v for k, v in config.items() if not k.startswith('_')},
         'Configuration:',
     )
-    if config.get(KEY.CONTINUE, {}).get(KEY.CHECKPOINT):
-        raise NotImplementedError(
-            'continuing from a checkpoint is not in the port yet '
-            '(processing_continue, ROADMAP A.5)')
     device = torch.device(device or config.get('device', 'cuda'))
+
+    start_epoch, cont_state, model = 1, None, None
+    if config.get(KEY.CONTINUE, {}).get(KEY.CHECKPOINT):
+        model, cont_state = processing_continue_v2(config)
+        start_epoch = cont_state['start_epoch']
 
     log.timer_start('dataset')
     datasets = datasets_from_config(config, working_dir)
@@ -57,14 +62,20 @@ def train_v2(config: Dict[str, Any], working_dir: str = '.',
                                         is_train=(name == 'trainset'))
                for name, ds in datasets.items()}
 
-    model = build_e3_equivariant_model(config)
-    params, mask = model.init(
-        torch.Generator().manual_seed(config.get(KEY.RANDOM_SEED, 1)))
+    seed = torch.Generator().manual_seed(config.get(KEY.RANDOM_SEED, 1))
+    if model is None:
+        model = build_e3_equivariant_model(config)
+        params, mask = model.init(seed)
+    else:
+        # continued: the model was rebuilt from the checkpoint's config
+        params = cont_state['params']
+        _, mask = model.init(seed)
     log.print_model_info(model, params, mask)
     log.format_k_v('device', str(device), write=True)
 
     trainer = Trainer.from_config(model, params, mask, config, device=device)
     log.timer_start('train')
-    processing_epoch_v2(trainer, config, loaders, working_dir)
+    processing_epoch_v2(trainer, config, loaders, working_dir,
+                        start_epoch=start_epoch)
     log.timer_end('train', 'Total training')
     return trainer

@@ -199,11 +199,21 @@ def test_chunk_switch_point(full):
     assert md.conv_chunk_rows % 36 == 0 and md.conv_chunk_rows > 0
 
 
+# the only environment variables the port reads: the JAX package's two
+# user settings, by the module that reads each; neither selects a kernel
+# path (SEVENN_NO_NATIVE: the host neighbor list's cKDTree route;
+# SEVENNET_CHECKPOINT_DIR: where pretrained keywords are looked up)
+PORT_ENV = {os.path.join('data', 'native.py'): {'SEVENN_NO_NATIVE'},
+            'util.py': {'SEVENNET_CHECKPOINT_DIR'}}
+
+
 def test_port_imports_no_jax():
     """No module of the port and not chip_smoke.py imports jax or the JAX
-    package, and no environment variable selects a path in the port."""
+    package, and no environment variable selects a path in the port but
+    the JAX package's two user settings (``PORT_ENV``)."""
     pat = re.compile(r'^\s*(import|from)\s+(jax|jaxlib|optax|flax|'
                      r'sevennet_exp_tpu)(\.|\s|$)', re.M)
+    pkg = os.path.join(ROOT, 'sevennet_exp_tpu_torch')
     files = [os.path.join(ROOT, 'chip_smoke.py')]
     for base, _, names in os.walk(os.path.join(ROOT,
                                                'sevennet_exp_tpu_torch')):
@@ -214,4 +224,7 @@ def test_port_imports_no_jax():
             src = fh.read()
         assert not pat.search(src), path
         if 'sevennet_exp_tpu_torch' in path:
-            assert 'os.environ' not in src, path
+            reads = re.findall(r'os\.environ\.get\(\s*[\'"](\w+)[\'"]', src)
+            assert src.count('os.environ') == len(reads), path
+            assert set(reads) <= PORT_ENV.get(os.path.relpath(path, pkg),
+                                              set()), path

@@ -1834,3 +1834,67 @@ def test_variant_models_on_the_card(cuda, name):
         md._ef_fn(md.state.pos, md._grid())
         assert {k: v for k, v in fc.launch_counts.items() if v} == {
             'fused_conv_fwd': 5, 'fused_conv_bwd': 5}
+
+
+def test_batch_inference_on_the_card_matches_plain(cuda, model):
+    """``scripts/inference._run_model`` on the card: 5 NaCl frames of 64
+    to 216 atoms in batches of 3 (the second with a pad graph), every
+    convolution through the edge-row kernels (5 + 5 launches a batch),
+    against the calculator's plain path frame by frame (1e-5 eV/atom,
+    1e-3 eV/A, 1e-5 eV/A^3); one set of capacities for both batches; a
+    batch with pad atoms, pad edges and a pad graph gives exact zeros
+    there."""
+    from sevennet_exp_tpu_torch import _keys as KEY
+    from sevennet_exp_tpu_torch.calculator import SevenNetCalculator
+    from sevennet_exp_tpu_torch.data.graph import (
+        atoms_to_graph, build_nacl, collate_graphs)
+    from sevennet_exp_tpu_torch.ops import fused_conv as fc
+    from sevennet_exp_tpu_torch.scripts.inference import _run_model
+    frames = [build_nacl(n, rattle=0.05, seed=s)
+              for s, n in enumerate((64, 216, 64, 216, 64))]
+    graphs = [atoms_to_graph(f, model.cutoff, allow_unlabeled=True)
+              for f in frames]
+    timings = []
+    fc.reset_launch_counts()
+    res = _run_model(model, graphs, 3, timings=timings)
+    launched = {k: v for k, v in fc.launch_counts.items() if v}
+    assert launched == {'fused_conv_edge_fwd': 10, 'fused_conv_edge_bwd': 10}
+    assert len({(t['n_node'], t['n_edge']) for t in timings}) == 1
+    plain = SevenNetCalculator(model, device=cuda, use_kernels=False)
+    for r, f in zip(res, frames):
+        ref = plain.calculate(f)
+        assert abs(r['pred_energy'] - ref['energy']) / len(f) <= 1e-5
+        assert np.abs(r['pred_forces'] - ref['forces']).max() <= 1e-3
+        raw = -ref['stress'][[0, 1, 2, 5, 3, 4]]
+        assert np.abs(r['pred_stress'] - raw).max() <= 1e-5
+    b = collate_graphs(graphs[:2], n_node=280 + 24,
+                       n_edge=sum(g[KEY.EDGE_IDX].shape[1]
+                                  for g in graphs[:2]) + 500, n_graph=3)
+    ints = (KEY.ATOMIC_NUMBERS, KEY.BATCH, KEY.EDGE_IDX, KEY.NUM_ATOMS)
+    data = {k: torch.as_tensor(v, dtype=torch.long if k in ints else None,
+                               device=cuda) for k, v in b.items()}
+    data[fc.USE_KERNELS_KEY] = True
+    out = model.apply(data)
+    assert not out[KEY.PRED_FORCE][280:].any()
+    assert float(out[KEY.PRED_TOTAL_ENERGY][2]) == 0.0
+    assert not out[KEY.PRED_STRESS][2].any()
+
+
+def test_native_list_feeds_the_card_calculator(cuda, model, monkeypatch):
+    """The calculator on the card on 1k NaCl with the native host neighbor
+    list and with the cKDTree path: the route taken is the one asked for,
+    E/F/S agree (1e-5 eV/atom, 1e-3 eV/A, 1e-5 eV/A^3)."""
+    from sevennet_exp_tpu_torch.calculator import SevenNetCalculator
+    from sevennet_exp_tpu_torch.data import neighborlist as nl
+    from sevennet_exp_tpu_torch.data.graph import build_nacl
+    at = build_nacl(1000)
+    calc = SevenNetCalculator(model, device=cuda)
+    monkeypatch.delenv('SEVENN_NO_NATIVE', raising=False)
+    nat = calc.calculate(at)
+    assert nl.ROUTE['last'] == 'native'
+    monkeypatch.setenv('SEVENN_NO_NATIVE', '1')
+    ckd = calc.calculate(at)
+    assert nl.ROUTE['last'] == 'ckdtree'
+    assert abs(nat['energy'] - ckd['energy']) / len(at) <= 1e-5
+    assert np.abs(nat['forces'] - ckd['forces']).max() <= 1e-3
+    assert np.abs(nat['stress'] - ckd['stress']).max() <= 1e-5

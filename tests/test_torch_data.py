@@ -11,8 +11,10 @@
     pickle of one package loads in the other;
   - ``GraphLoader``: the same batch order and the same padded arrays as
     the JAX loader for the same seed, epoch after epoch;
-  - ``braceexpand`` equal to the JAX copy; the inputs the port does not
-    read yet raise ``NotImplementedError``.
+  - ``braceexpand`` equal to the JAX copy; the inputs that raised before
+    the port read them (OUTCAR, ``structure_list``, ``dataset_type:
+    atoms``) now dispatch to their readers (``tests/test_torch_vasp.py``
+    and ``test_torch_atoms_dataset.py`` hold them to JAX).
 """
 
 import os
@@ -232,11 +234,16 @@ def test_braceexpand_equals_jax():
 
 
 def test_inputs_not_in_the_port_yet_raise(tmp_path):
+    """These inputs raised NotImplementedError until the port read them:
+    they now reach the VASP readers and the lazy atoms dataset."""
     for name in ('OUTCAR', 'structure_list'):
         path = tmp_path / name
         path.write_text('')
-        with pytest.raises(NotImplementedError, match='A.5'):
-            pds.read_structure_file(str(path))
-    with pytest.raises(NotImplementedError, match='A.5'):
-        pds.datasets_from_config(_stat_config(dataset_type='atoms'),
-                                 str(tmp_path))
+        assert pds.read_structure_file(str(path)) == []
+        assert jds.read_structure_file(str(path)) == []
+    sets = pds.datasets_from_config(_stat_config(dataset_type='atoms'),
+                                    str(tmp_path))
+    from sevennet_exp_tpu_torch.data.atoms_dataset import (
+        SevenNetAtomsDataset)
+    assert isinstance(sets['trainset'], SevenNetAtomsDataset)
+    assert len(sets['trainset']) + len(sets['validset']) == 41
