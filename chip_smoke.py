@@ -202,8 +202,31 @@ Phases (any failure raises, exits non-zero and prints no result):
      (c) ``train_v2`` continuing from phase 16's ``checkpoint_last`` for
      one epoch of 2 steps: the epoch after the checkpoint's, the starting
      parameters the checkpoint's bit for bit, finite losses;
- then a ``{"kernels": [...]}`` line (33 entries), the card line and the
- result line ``{"ok": true, "device": {...}}`` last.
+ 19. the parallel package: (a) ``build_nacl(8000)`` (56.3 A box, 6 A build
+     cutoff) on the brick meshes (2,), (2, 2) and (2, 2, 2): E/F/S of
+     ``BrickMolecularDynamics`` against the serial engine and against the
+     plain bricks (``use_kernels=False``) within the limits, each brick's
+     occupancy and capacities, 5 + 5 launches of kernels 1-2 a brick per
+     force call, the serial 8k force call's time beside the bricks', the
+     (2, 2, 2) call traced (device kernel ms, idle share of the untraced
+     call), then the (2, 2, 2) bricks chunked at the plain bricks' 131,072
+     rows on the geom pair (rows 5-6 at the bricks' D = 40) against the
+     plain bricks, 5 x chunks launches a brick; (b) 97,336 atoms on
+     (2, 2, 2) with ``device_rebuild``: NVT 300 K, 2 fs, a warm-up, then 10
+     timed steps (one chunk, its device rebuild included, as phase 6 times
+     the serial engine) through the geom kernels (5 x chunks launches a
+     brick per force call): ms/step beside phase 6's serial figure, peak
+     memory, chunk rows, the halo bytes a step, host re-decompositions,
+     temperature and energy of each chunk, one device rebuild's ms and the
+     ms/step with it taken out, then two force calls traced (device kernel
+     ms, the geom pair's part, idle share, leading kernels);
+     (c) ``train_v2`` with ``-d`` (``IS_DDP``) on a process group the
+     script opens itself (NCCL, world size 1, 127.0.0.1): 2 steps at
+     7net-0 width whose losses and parameters equal 2 non-data-parallel
+     steps on the same batches to 1e-5 relative, the all_reduce run;
+ then a ``{"kernels": [...]}`` line (33 entries; kernels 1-2 and the geom
+ pair count phase 19's brick launches too), the card line and the result
+ line ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of JAX or of the JAX package. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -1279,44 +1302,17 @@ def training(report, dev, card):
         # the checkpoint check: they move the parameters), three untraced,
         # then three under torch.profiler; the idle share is of the
         # untraced steps on that batch
-        from torch.profiler import ProfilerActivity, profile
         b0 = trainer.batch_to_device(batch)
         trainer.train_step(b0)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            trainer.train_step(b0)
-        torch.cuda.synchronize()
-        untraced = (time.perf_counter() - t0) / 3 * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(3):
-                trainer.train_step(b0)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / 3 * 1e3
-        ev = sorted((e for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA),
-                    key=lambda e: -e.self_device_time_total)
-        dev_ms = sum(e.self_device_time_total for e in ev) / 3e3
-        out['trace'] = {
-            'traced_ms_per_step': wall, 'untraced_ms_per_step': untraced,
-            'device_kernel_ms_per_step': dev_ms,
-            'device_idle_share': 1.0 - dev_ms / untraced,
-            'launches_per_step': sum(e.count for e in ev) / 3,
-            'top_kernels': [{'name': e.key[:90],
-                             'ms_per_step': e.self_device_time_total / 3e3,
-                             'calls_per_step': e.count / 3}
-                            for e in ev[:8]]}
-        print(f'first batch: untraced step {untraced:.1f} ms, traced '
-              f'{wall:.1f} ms, device kernels {dev_ms:.1f} ms a step '
-              f'({out["trace"]["launches_per_step"]:.0f} launches): device '
-              f'idle {out["trace"]["device_idle_share"]:.1%} of the '
+        out['trace'] = tr = _trace(lambda: trainer.train_step(b0), 3, top=8)
+        print(f'first batch: untraced step {tr["untraced_ms"]:.1f} ms, '
+              f'traced {tr["traced_ms"]:.1f} ms, device kernels '
+              f'{tr["device_kernel_ms"]:.1f} ms a step ({tr["launches"]:.0f} '
+              f'launches): device idle {tr["device_idle_share"]:.1%} of the '
               f'untraced step', flush=True)
-        for k in out['trace']['top_kernels']:
-            print(f"  {k['ms_per_step']:8.2f} ms/step "
-                  f"{k['calls_per_step']:6.0f} calls  {k['name']}",
-                  flush=True)
+        for k in tr['top_kernels']:
+            print(f"  {k['ms']:8.2f} ms/step {k['calls']:6.0f} calls  "
+                  f"{k['name']}", flush=True)
         Logger().file.close()
         Logger().file = None
     report['training'] = out
@@ -1855,6 +1851,407 @@ def user_entry_points(report, dev, model, atoms_1k):
         shutil.rmtree(os.path.dirname(report['training'].get(
             'checkpoint_copy', work)), ignore_errors=True)
     report['entry_points'] = out
+
+
+def _subset_extxyz(src, dst, n_frames):
+    """The first n_frames frames of an extxyz file (count line, comment,
+    count atom lines) into dst."""
+    with open(src) as fh:
+        lines = fh.read().splitlines()
+    out, i = [], 0
+    for _ in range(n_frames):
+        n = int(lines[i])
+        out += lines[i:i + n + 2]
+        i += n + 2
+    with open(dst, 'w') as fh:
+        fh.write('\n'.join(out) + '\n')
+
+
+def _free_port():
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def _trace(fn, reps, top=6):
+    """fn() reps times untraced, then reps times under torch.profiler: ms
+    a call of the host clock both ways and of device kernels, the fused
+    conv kernels' part of it (kernels 1-2 or the geom pair), launches a
+    call, the leading kernels. The device's idle share is of the untraced
+    call (the profiler's own overhead stretches the traced one)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    untraced = (time.perf_counter() - t0) / reps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / reps * 1e3
+    ev = sorted((e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA),
+                key=lambda e: -e.self_device_time_total)
+    dev_ms = sum(e.self_device_time_total for e in ev) / reps / 1e3
+    conv_ms = sum(e.self_device_time_total for e in ev
+                  if 'fused_conv_' in e.key) / reps / 1e3
+    return {'untraced_ms': untraced, 'traced_ms': wall,
+            'device_kernel_ms': dev_ms, 'conv_kernel_ms': conv_ms,
+            'device_idle_share': 1.0 - dev_ms / untraced,
+            'launches': sum(e.count for e in ev) / reps,
+            'top_kernels': [{'name': e.key[:90],
+                             'ms': e.self_device_time_total / reps / 1e3,
+                             'calls': e.count / reps} for e in ev[:top]]}
+
+
+def parallel_package(report, dev, model, card):
+    """Phase 19: the brick engine at 8k on three meshes against the serial
+    engine and the plain bricks, 97k NVT on (2, 2, 2) with the device
+    rebuild, and data-parallel training on an NCCL group of one."""
+    import copy
+    import numpy as np
+    import torch
+    from sevennet_exp_tpu_torch import _keys as KEY
+    from sevennet_exp_tpu_torch.data.dataset import datasets_from_config
+    from sevennet_exp_tpu_torch.data.graph import build_nacl
+    from sevennet_exp_tpu_torch.logger import Logger
+    from sevennet_exp_tpu_torch.md.engine import MolecularDynamics
+    from sevennet_exp_tpu_torch.model.build import (
+        build_e3_equivariant_model)
+    from sevennet_exp_tpu_torch.ops import fused_conv as fc
+    from sevennet_exp_tpu_torch.parallel.mdbrick import (
+        BrickMolecularDynamics)
+    from sevennet_exp_tpu_torch.parse_input import read_config_yaml
+    from sevennet_exp_tpu_torch.scripts.train import (
+        loader_from_config, train_v2)
+    from sevennet_exp_tpu_torch.train.trainer import Trainer
+
+    out = report['parallel'] = {}
+    brick_launches = dict.fromkeys(('fused_conv_fwd', 'fused_conv_bwd',
+                                    'fused_conv_geom_fwd',
+                                    'fused_conv_geom_bwd'), 0)
+
+    def efs(engine):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = engine.energy_forces(return_stress=True)
+        torch.cuda.synchronize()
+        return got, (time.perf_counter() - t0) * 1e3
+
+    def close(what, n, a, b):
+        (e_a, f_a, s_a), (e_b, f_b, s_b) = a, b
+        row = check_ef(what, n, torch.tensor(e_a), torch.tensor(f_a),
+                       torch.tensor(e_b), torch.tensor(f_b))
+        d_s = float(np.abs(np.asarray(s_a) - np.asarray(s_b)).max())
+        print(f'{what}: max|dS| {d_s:.3e} eV/A^3 (<= {S_TOL})', flush=True)
+        if not d_s <= S_TOL:
+            raise AssertionError(f'{what}: stress disagrees')
+        row['max_dS'] = d_s
+        return row
+
+    # (a) 8k on slabs, pencils, bricks
+    t_a = time.perf_counter()
+    atoms = build_nacl(8000)
+    n = len(atoms)
+    serial = MolecularDynamics(model, atoms, device=dev, **MD_KW)
+    cell = torch.as_tensor(np.asarray(atoms.cell), dtype=torch.float32,
+                           device=dev)
+    grid = serial._grid()
+    e_s, f_s, s_s = serial._efs_fn(serial.state.pos, grid, cell)
+    ref = (float(e_s), f_s.cpu().numpy(), s_s.cpu().numpy())
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serial._efs_fn(serial.state.pos, grid, cell)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out['serial_8k_force_call_ms'] = float(np.median(times))
+    print(f'8k serial engine: {serial.e_cap_model} grid rows, force call '
+          f'with stress {out["serial_8k_force_call_ms"]:.1f} ms (median of '
+          f'3)', flush=True)
+    serial = grid = None
+    out['a'] = {}
+    for mesh in ((2,), (2, 2), (2, 2, 2)):
+        kw = dict(ensemble='nvt', skin=1.0, devices=[dev])
+        bk = BrickMolecularDynamics(model, atoms, mesh, **kw)
+        if bk.conv_chunk_rows:
+            raise AssertionError('the 8k bricks should run whole-array')
+        efs(bk)                                  # warm
+        fc.reset_launch_counts()
+        got, ms = efs(bk)
+        launched = {k: v for k, v in fc.launch_counts.items() if v}
+        for k in ('fused_conv_fwd', 'fused_conv_bwd'):
+            brick_launches[k] += launched.get(k, 0)
+        D = bk.n_dev
+        want = {'fused_conv_fwd': 5 * D, 'fused_conv_bwd': 5 * D}
+        if launched != want:
+            raise AssertionError(f'{mesh}: launches {launched}, want '
+                                 f'{want} (5 + 5 a brick)')
+        stats = bk.comm_stats()
+        routes = bk.conv_routes()
+        plain_layers = [r for r in routes if r['route'] != 'kernel']
+        print(f'{mesh}: {D} bricks, n_loc {stats["n_loc"]}, cap_loc '
+              f'{stats["cap_loc"]}, cap_g {stats["cap_g"]}, cap_all '
+              f'{stats["cap_all"]}, deg_cap {stats["deg_cap"]}, rows '
+              f'{stats["rows"]} a brick; {launched["fused_conv_fwd"] // D} '
+              f'+ {launched["fused_conv_bwd"] // D} launches of kernels 1-2 '
+              f'a brick per force call; force call {ms:.1f} ms; refused '
+              f'layers {plain_layers or "none"}', flush=True)
+        row = {'vs_serial': close(f'{mesh} bricks vs serial engine', n, got,
+                                  ref),
+               'force_call_ms': ms, 'launches': launched,
+               'comm': stats, 'routes': routes}
+        pl = BrickMolecularDynamics(model, atoms, mesh, use_kernels=False,
+                                    conv_chunk_rows=131072, **kw)
+        fc.reset_launch_counts()
+        got_p, ms_p = efs(pl)
+        if any(fc.launch_counts.values()):
+            raise AssertionError('the plain bricks launched a kernel')
+        row['vs_plain'] = close(f'{mesh} kernel bricks vs plain bricks', n,
+                                got, got_p)
+        row['plain_force_call_ms'] = ms_p
+        if len(mesh) == 3:
+            row['trace'] = tr = _trace(
+                lambda: bk.energy_forces(return_stress=True), 3)
+            print(f'8k (2, 2, 2) force call: untraced {tr["untraced_ms"]:.1f}'
+                  f' ms, traced {tr["traced_ms"]:.1f}, device kernels '
+                  f'{tr["device_kernel_ms"]:.1f} (kernels 1-2 '
+                  f'{tr["conv_kernel_ms"]:.1f}), device idle '
+                  f'{tr["device_idle_share"]:.1%} of the untraced call',
+                  flush=True)
+            bk = None
+            # the geom pair (rows 5-6) at the bricks' D: the same bricks
+            # chunked as the plain ones, held against them
+            ck = BrickMolecularDynamics(model, atoms, mesh,
+                                        conv_chunk_rows=131072, **kw)
+            rows_c = ck.conv_chunk_rows
+            if not (rows_c and ck._geom_ok):
+                raise AssertionError('the 8k chunked bricks did not choose '
+                                     'the geometry-fused path')
+            chunks = -(-ck.spec.rows // rows_c)
+            efs(ck)                              # warm
+            fc.reset_launch_counts()
+            got_c, ms_c = efs(ck)
+            launched_c = {k: v for k, v in fc.launch_counts.items() if v}
+            want_c = {'fused_conv_geom_fwd': 5 * chunks * D,
+                      'fused_conv_geom_bwd': 5 * chunks * D}
+            if launched_c != want_c:
+                raise AssertionError(f'{mesh} chunked: launches '
+                                     f'{launched_c}, want {want_c} (5 x '
+                                     f'{chunks} chunks a brick)')
+            for k in want_c:
+                brick_launches[k] += launched_c[k]
+            print(f'{mesh} chunked: deg_cap {ck.spec.deg_cap}, chunk rows '
+                  f'{rows_c} ({chunks} chunks a layer a brick), '
+                  f'{launched_c["fused_conv_geom_fwd"] // D} + '
+                  f'{launched_c["fused_conv_geom_bwd"] // D} launches of the '
+                  f'geom pair a brick per force call; force call {ms_c:.1f} '
+                  f'ms', flush=True)
+            row['chunked'] = {
+                'vs_plain': close(f'{mesh} chunked kernel bricks (geom pair) '
+                                  f'vs plain bricks', n, got_c, got_p),
+                'force_call_ms': ms_c, 'chunk_rows': rows_c,
+                'chunks_per_layer_brick': chunks, 'launches': launched_c}
+            ck = None
+        out['a'][str(mesh)] = row
+        bk = pl = None
+        torch.cuda.empty_cache()
+    out['a_s'] = time.perf_counter() - t_a
+
+    # (b) 97k NVT on (2, 2, 2), device rebuild
+    t_b = time.perf_counter()
+    atoms = build_nacl(N_LARGE)
+    t0 = time.perf_counter()
+    bk = BrickMolecularDynamics(model, atoms, (2, 2, 2), dt_fs=2.0,
+                                temperature_K=300.0, ensemble='nvt',
+                                skin=1.0, rebuild_every=10, seed=0,
+                                device_rebuild=True, devices=[dev])
+    torch.cuda.synchronize()
+    start_s = time.perf_counter() - t0
+    chunk_rows = bk.conv_chunk_rows
+    if not (chunk_rows and bk._geom_ok):
+        raise AssertionError('the 97k bricks did not choose the chunked '
+                             'geometry-fused path')
+    chunks = -(-bk.spec.rows // chunk_rows)
+    t0 = time.perf_counter()
+    warm = bk.run(2)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    # one whole chunk (rebuild_every steps after one device rebuild), as
+    # phase 6 times the serial engine: 10 steps at cadence 10
+    n_steps = 10
+    torch.cuda.reset_peak_memory_stats()
+    fc.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = bk.run(n_steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: v for k, v in fc.launch_counts.items() if v}
+    for k in ('fused_conv_geom_fwd', 'fused_conv_geom_bwd'):
+        brick_launches[k] += launched.get(k, 0)
+    want = {'fused_conv_geom_fwd': 5 * chunks * bk.n_dev * n_steps,
+            'fused_conv_geom_bwd': 5 * chunks * bk.n_dev * n_steps}
+    if launched != want:
+        raise AssertionError(f'97k bricks: launches {launched}, want {want}')
+    if not all(bool(torch.isfinite(t).all()) for s in bk.local
+               for t in (s.pos, s.vel, s.forces)):
+        raise AssertionError('NaN/inf in the brick MD state')
+    stats = bk.comm_stats()
+    serial_ms = report['nvt_97k']['ms_per_step']
+    row = {'atoms': N_LARGE, 'mesh': [2, 2, 2], 'start_s': start_s,
+           'warmup_s': warm_s, 'wall_s': wall, 'steps_timed': n_steps,
+           'ms_per_step': wall / n_steps * 1e3,
+           'serial_ms_per_step': serial_ms,
+           'peak_memory_bytes': torch.cuda.max_memory_allocated(),
+           'chunk_rows': chunk_rows, 'chunks_per_layer_brick': chunks,
+           'launches': launched, 'comm': stats,
+           'temperature_K': res['temperature'].tolist(),
+           'energy': res['energy'].tolist(), 'steps': res['steps'].tolist(),
+           'warm_temperature_K': warm['temperature'].tolist()}
+    out['b'] = row
+    print(f'{card}: 97k NVT on (2, 2, 2) bricks: {row["ms_per_step"]:.1f} '
+          f'ms/step (serial engine, phase 6: {serial_ms:.1f}), peak '
+          f'{row["peak_memory_bytes"] / 2 ** 30:.2f} GiB, start-up '
+          f'{start_s:.1f} s, warm-up {warm_s:.1f} s', flush=True)
+    print(f'97k bricks: cap_loc {stats["cap_loc"]}, cap_g {stats["cap_g"]}, '
+          f'cap_all {stats["cap_all"]}, deg_cap {stats["deg_cap"]}, rows '
+          f'{stats["rows"]} a brick, chunk rows {chunk_rows} ({chunks} '
+          f'chunks a layer a brick), n_loc {stats["n_loc"]}; halo '
+          f'{stats["bytes_step"] / 1e6:.2f} MB a step over the bricks; host '
+          f're-decompositions {stats["host_redecompositions"]}; launches '
+          f'{launched}', flush=True)
+    print(f'97k bricks by chunk: steps {row["steps"]}, T '
+          f'{[round(t, 2) for t in row["temperature_K"]]} K, E '
+          f'{[round(e, 4) for e in row["energy"]]} eV', flush=True)
+    # a chunk's device rebuild alone, then where a force call goes: two
+    # under torch.profiler
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if not bk._device_rebuild():
+        raise AssertionError('97k bricks: a capacity overflowed at 300 K')
+    torch.cuda.synchronize()
+    row['device_rebuild_ms'] = (time.perf_counter() - t0) * 1e3
+    row['ms_per_step_without_rebuild'] = (
+        (wall * 1e3 - row['device_rebuild_ms']) / n_steps)
+    row['trace'] = tr = _trace(lambda: bk._efs(bk.pos), 2)
+    print(f'97k bricks: one device rebuild {row["device_rebuild_ms"]:.1f} ms '
+          f'({row["ms_per_step_without_rebuild"]:.1f} ms/step with it taken '
+          f'out); a force call untraced {tr["untraced_ms"]:.1f} ms, traced '
+          f'{tr["traced_ms"]:.1f}, device kernels '
+          f'{tr["device_kernel_ms"]:.1f} (geom pair '
+          f'{tr["conv_kernel_ms"]:.1f}), device idle '
+          f'{tr["device_idle_share"]:.1%} of the untraced call', flush=True)
+    for k in tr['top_kernels']:
+        print(f'  {k["ms"]:8.2f} ms a call {k["calls"]:6.0f} launches  '
+              f'{k["name"]}', flush=True)
+    bk = None
+    torch.cuda.empty_cache()
+    out['b_s'] = time.perf_counter() - t_b
+
+    # (c) data-parallel train_v2 on an NCCL group of one
+    t_c = time.perf_counter()
+    port = _free_port()
+    torch.distributed.init_process_group(
+        'nccl', init_method=f'tcp://127.0.0.1:{port}', world_size=1, rank=0)
+    # both runs take the same operations in the same order (Adam's first
+    # steps turn a last-bit difference of a near-zero gradient into a
+    # whole step): index_add_'s atomics off while the two runs last
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    calls = {'all_reduce': 0}
+    orig_ar = torch.distributed.all_reduce
+
+    def counted(*a, **k):
+        calls['all_reduce'] += 1
+        return orig_ar(*a, **k)
+
+    try:
+        with tempfile.TemporaryDirectory() as work:
+            data = os.path.join(HERE, 'nacl_classical_data')
+            _subset_extxyz(os.path.join(data, 'train.extxyz'),
+                           os.path.join(work, 'train.extxyz'), 16)
+            _subset_extxyz(os.path.join(data, 'valid.extxyz'),
+                           os.path.join(work, 'valid.extxyz'), 8)
+            config = read_config_yaml(os.path.join(HERE, 'trained_nacl',
+                                                   'input.yaml'))
+            config[KEY.LOAD_TRAINSET] = [os.path.join(work, 'train.extxyz')]
+            config[KEY.LOAD_VALIDSET] = [os.path.join(work, 'valid.extxyz')]
+            config[KEY.EPOCH] = 1
+            # the non-data-parallel steps on the same batches
+            cfg0 = copy.deepcopy(config)
+            sets = datasets_from_config(cfg0, work)
+            loader = loader_from_config(cfg0, sets['trainset'],
+                                        is_train=True)
+            m0 = build_e3_equivariant_model(cfg0)
+            params, mask = m0.init(torch.Generator().manual_seed(
+                cfg0[KEY.RANDOM_SEED]))
+            tr = Trainer(m0, params, mask, cfg0, device=dev)
+            if tr.dp:
+                raise AssertionError('a trainer without IS_DDP went data '
+                                     'parallel')
+            ref_loss = [float(tr.train_step(tr.batch_to_device(b))
+                              ['TotalLoss'][0]) for b in loader]
+            ref_params = {k: p.detach().clone()
+                          for k, p in tr.params.items()}
+            tr = m0 = None
+            # train_v2 -d: the shard (0, 1), the averaged step
+            losses = []
+            orig = Trainer.train_step
+
+            def recorded(self, b):
+                stats = orig(self, b)
+                losses.append(float(stats['TotalLoss'][0]))
+                return stats
+
+            Trainer.train_step = recorded
+            torch.distributed.all_reduce = counted
+            try:
+                cfg = copy.deepcopy(config)
+                cfg[KEY.IS_DDP] = True
+                trainer = train_v2(cfg, work, device=dev)
+                torch.cuda.synchronize()
+            finally:
+                Trainer.train_step = orig
+                torch.distributed.all_reduce = orig_ar
+            Logger().file.close()
+            Logger().file = None
+        if trainer.dp != (0, 1) or len(losses) != 2 or len(ref_loss) != 2:
+            raise AssertionError(f'data-parallel run: dp {trainer.dp}, '
+                                 f'{len(losses)} steps (want 2), '
+                                 f'{len(ref_loss)} reference steps')
+        d_loss = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_loss))
+        d_par = max(float((trainer.params[k].detach() - v).abs().max())
+                    / max(float(v.abs().max()), 1e-30)
+                    for k, v in ref_params.items())
+        # two all_reduce a step: the gradients, the statistics
+        print(f'train_v2 -d on NCCL (world 1): losses {losses} vs '
+              f'{ref_loss} (rel {d_loss:.2e} <= 1e-5), worst parameter leaf '
+              f'{d_par:.2e} of its max (<= 1e-5), {calls["all_reduce"]} '
+              f'all_reduce calls', flush=True)
+        if not (d_loss <= 1e-5 and d_par <= 1e-5
+                and calls['all_reduce'] == 4):
+            raise AssertionError('data-parallel steps disagree with the '
+                                 'plain steps')
+        out['c'] = {'losses': losses, 'ref_losses': ref_loss,
+                    'loss_rel_err': d_loss, 'param_rel_err': d_par,
+                    'all_reduce': calls['all_reduce'],
+                    'backend': torch.distributed.get_backend()}
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.distributed.destroy_process_group()
+    out['c_s'] = time.perf_counter() - t_c
+    out['brick_launches'] = brick_launches
+    # the kernels line: kernels 1-2 and the geom pair count the bricks' too
+    for kr in report['kernels']:
+        if kr['name'] in brick_launches:
+            kr['launches'] += brick_launches[kr['name']]
+            kr['brick_launches'] = brick_launches[kr['name']]
 
 
 def main():
@@ -3004,6 +3401,11 @@ def main():
     phase('18 the user entry points: the native neighbor list, batch '
           'inference, continue-training')
     user_entry_points(report, dev, model, atoms_1k)
+
+    # -- phase 19 ------------------------------------------------------
+    phase('19 the parallel package: the brick engine at 8k on three '
+          'meshes, 97k NVT on (2, 2, 2) bricks, data-parallel train_v2')
+    parallel_package(report, dev, model, card)
     report['script_s'] = time.perf_counter() - t_script
     ends = [t for _, t in _PHASES[1:]] + [time.perf_counter()]
     report['phase_s'] = {name: end - t for (name, t), end
@@ -3016,7 +3418,10 @@ def main():
         f'{report["training"]["train_v2_s"]:.1f} of phase 16, native list '
         f'{report["entry_points"]["a"]["seconds"]:.1f}, inference '
         f'{report["entry_points"]["b"]["seconds"]:.1f} and continue '
-        f'{report["entry_points"]["c"]["seconds"]:.1f} of phase 18',
+        f'{report["entry_points"]["c"]["seconds"]:.1f} of phase 18, 8k '
+        f'bricks {report["parallel"]["a_s"]:.1f}, 97k bricks '
+        f'{report["parallel"]["b_s"]:.1f} and train_v2 -d '
+        f'{report["parallel"]["c_s"]:.1f} of phase 19',
         flush=True)
     print(f'whole script {report["script_s"]:.1f} s', flush=True)
     with open(os.path.join(out_dir, 'chip_smoke.json'), 'w') as fh:

@@ -19,8 +19,9 @@ unpickles with a restricted ``find_class``:
   - any other module outside numpy, the builtins and the standard
     containers raises, so a corrupt or foreign pickle is not swallowed.
 
-A reference checkpoint is a torch zip archive ``{config,
-model_state_dict, ...}`` (reference trainer.py:192-205).
+A reference checkpoint is a ``torch.save`` file ``{config,
+model_state_dict, ...}`` (reference trainer.py:192-205), a zip archive or
+torch's legacy non-zip pickle.
 ``convert_torch_state_dict`` writes it into the JAX tree layout as numpy
 (one conversion for both packages; ``params_from_numpy`` carries it onto
 the port's buffers), reproducing the e3nn flat weight layouts of Linear
@@ -28,8 +29,9 @@ and FullyConnectedTensorProduct and the pre-v0.11 convolution weight
 order with its w3j sign flips (reference
 scripts/backward_compatibility.py:74-176). The format is decided by the
 file's first bytes, never by trying one loader after the other: a zip
-archive goes to ``torch.load``, anything else to the native loader, whose
-errors pass through.
+archive or a pickle that opens with torch's legacy magic number goes to
+``torch.load``, anything else to the native loader, whose errors pass
+through.
 """
 
 from __future__ import annotations
@@ -133,12 +135,20 @@ def params_from_numpy(params: Dict[str, Any], device='cpu'
 # ---------------------------------------------------------------------------
 
 _ZIP_MAGIC = b'PK\x03\x04'
+# torch's legacy (non-zip) format: a protocol-2 pickle whose first object
+# is the long 0x1950a86a20f9469cfc6c (PROTO 2, LONG1 of 10 bytes, the
+# magic little-endian)
+_LEGACY_MAGIC = (b'\x80\x02\x8a\x0a'
+                 + (0x1950a86a20f9469cfc6c).to_bytes(10, 'little'))
 
 
 def is_torch_archive(path: str) -> bool:
-    """A torch zip archive (``torch.save``'s format since torch 1.6)."""
+    """A file for ``torch.load``: a torch zip archive (``torch.save``'s
+    format since torch 1.6) or torch's legacy format, decided by the first
+    bytes."""
     with open(path, 'rb') as fh:
-        return fh.read(4) == _ZIP_MAGIC
+        head = fh.read(len(_LEGACY_MAGIC))
+    return head[:4] == _ZIP_MAGIC or head == _LEGACY_MAGIC
 
 
 def load_torch_checkpoint(path: str) -> Tuple[Dict, Dict[str, np.ndarray]]:

@@ -7,9 +7,9 @@ shapes. The epoch order comes from ``np.random.default_rng(seed)`` as in
 the JAX loader, so both packages draw the same batches, index for index.
 A lazy dataset (``data/atoms_dataset.py``: ``estimated_sizes``, a graph
 built on each access) is sized from its estimate; a batch that overflows
-the estimate grows the capacities and is collated again. Data
-parallelism (the JAX loader's ``shard``) is not in the port yet (ROADMAP
-A.7).
+the estimate grows the capacities and is collated again. ``shard``
+strides the batches over the processes of a data-parallel run, as the
+JAX loader does (``parallel/distributed.py``).
 """
 
 from __future__ import annotations
@@ -32,7 +32,11 @@ class GraphLoader:
         n_node: Optional[int] = None,
         n_edge: Optional[int] = None,
         drop_last: bool = False,
+        shard: Optional[tuple] = None,
     ):
+        """shard: (offset, stride) -- yield only the batches whose index
+        is offset (mod stride). Every process builds the same capacities
+        and draws the same epoch order; each iterates its own stripe."""
         if hasattr(graphs, 'estimated_sizes'):
             self.graphs = graphs
             sizes = graphs.estimated_sizes()
@@ -59,20 +63,33 @@ class GraphLoader:
         self.n_node = n_node or pad_cap(max_nodes, multiple=8)
         self.n_edge = n_edge or pad_cap(max_edges, multiple=128)
         self.n_graph = batch_size + 1  # last slot absorbs padded nodes
+        self.shard = shard
 
-    def __len__(self):
+    @property
+    def n_batches_total(self) -> int:
+        """Batches of an epoch over all shards."""
         n = len(self.graphs)
         return (n // self.batch_size if self.drop_last
                 else (n + self.batch_size - 1) // self.batch_size)
 
+    def __len__(self):
+        total = self.n_batches_total
+        if self.shard is None:
+            return total
+        off, stride = self.shard
+        return (total - off + stride - 1) // stride
+
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         order = np.arange(len(self.graphs))
         if self.shuffle:
+            # shard-independent: every process draws the same order
             order = self.rng.permutation(order)
-        for i in range(0, len(order), self.batch_size):
+        for b, i in enumerate(range(0, len(order), self.batch_size)):
             idx = order[i:i + self.batch_size]
             if self.drop_last and len(idx) < self.batch_size:
                 return
+            if self.shard is not None and b % self.shard[1] != self.shard[0]:
+                continue
             batch = [self.graphs[j] for j in idx]
             try:
                 yield collate_graphs(batch, n_node=self.n_node,

@@ -11,8 +11,11 @@ Counterpart of ``sevennet_exp_tpu/main/cli.py``, with the same flags:
 ``train`` and ``inference`` run on the card (``--device cpu`` for the
 CPU; for ``train`` also ``device: cpu`` in the train section). A
 checkpoint argument is a path (native or reference ``.pth``) or a
-pretrained keyword. ``get_model`` and ``patch_lammps`` (deploy) and
-``-d/--distributed`` (data parallelism) are not in the port yet.
+pretrained keyword. ``train -d`` trains data parallel over the
+processes of a launcher, one a device (``torchrun --nproc_per_node=N -m
+sevennet_exp_tpu_torch.main.cli train input.yaml -d``; mpirun and srun
+with MASTER_ADDR / MASTER_PORT set). ``get_model`` and ``patch_lammps``
+(deploy) are not in the port yet.
 """
 
 from __future__ import annotations
@@ -29,6 +32,9 @@ def main_sevenn(argv=None):
     p.add_argument('-w', '--working_dir', default=os.getcwd())
     p.add_argument('-s', '--screen', action='store_true',
                    help='also print the log to stdout')
+    p.add_argument('-d', '--distributed', action='store_true',
+                   help='data parallel over the processes of a launcher '
+                        '(torchrun, mpirun, srun), one a device')
     p.add_argument('--seed', type=int, default=None)
     p.add_argument('--device', default=None,
                    help="'cuda' (default) or 'cpu'")
@@ -43,6 +49,8 @@ def main_sevenn(argv=None):
     config = read_config_yaml(args.input_yaml)
     if args.seed is not None:
         config[KEY.RANDOM_SEED] = args.seed
+    if args.distributed:
+        config[KEY.IS_DDP] = True
     os.makedirs(args.working_dir, exist_ok=True)
     train_v2(config, args.working_dir, device=args.device)
 

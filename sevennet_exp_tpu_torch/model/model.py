@@ -106,11 +106,36 @@ class SevenNetModel(nn.Module):
             data[KEY.ATOMIC_NUMBERS].long()]
         return data
 
-    def apply_energy(self, data: Data) -> Data:
+    def walk(self, data: Data):
+        """The layer sequence as a generator: before every convolution it
+        yields NODE_FEATURE and continues with the rows it is sent back;
+        it returns the output dict. ``apply_energy`` drives one walk; the
+        brick engine drives one walk a brick in lockstep, so that every
+        brick's ghost rows are refreshed from its neighbours' rows of the
+        same layer (``parallel/mdbrick.py``)."""
+        from .layers import IrrepsConvolution
         data = self.preprocess(data)
         for layer in self.layers.values():
+            if isinstance(layer, IrrepsConvolution):
+                data[KEY.NODE_FEATURE] = yield data[KEY.NODE_FEATURE]
             data = layer(data)
         return data
+
+    def apply_energy(self, data: Data, halo_refresh=None) -> Data:
+        """halo_refresh(x): refreshes the ghost rows of the node features
+        before every convolution (domain-decomposed MD; the JAX
+        ``apply_energy``'s hook, the analog of the reference's
+        between-segment forward_comm, pair_e3gnn_parallel.cpp:355-387).
+        None leaves them as they are."""
+        walk = self.walk(data)
+        x = None
+        try:
+            while True:
+                x = walk.send(x)
+                if halo_refresh is not None:
+                    x = halo_refresh(x)
+        except StopIteration as done:
+            return done.value
 
     def energy(self, data: Data) -> torch.Tensor:
         return torch.sum(self.apply_energy(data)[KEY.PRED_TOTAL_ENERGY])

@@ -32,18 +32,23 @@ def processing_epoch_v2(
     train_loader = loaders['trainset']
     valid_loader = loaders.get('validset')
 
+    # data parallel: rank 0 alone writes lc.csv and the checkpoints
+    writer = getattr(trainer, 'rank', 0) == 0
     lc_path = os.path.join(working_dir, 'lc.csv')
     recorders = {
         name: ErrorRecorder.from_config(config) for name in loaders
     }
     metric_names = [m.name for m in recorders['trainset'].metrics]
-    with open(lc_path, 'w') as f:
-        cols = ['epoch', 'lr'] + [
-            f'{split}_{m}' for split in recorders for m in metric_names
-        ]
-        f.write(','.join(cols) + '\n')
+    if writer:
+        with open(lc_path, 'w') as f:
+            cols = ['epoch', 'lr'] + [
+                f'{split}_{m}' for split in recorders for m in metric_names
+            ]
+            f.write(','.join(cols) + '\n')
 
     def write_cp(tag):
+        if not writer:
+            return
         params, aux = trainer.get_checkpoint_pieces()
         save_checkpoint(
             os.path.join(working_dir, f'checkpoint_{tag}.pth.sevennet'),
@@ -73,12 +78,14 @@ def processing_epoch_v2(
         metric_src = vals.get('validset', vals['trainset'])
         trainer.scheduler_step(metric_src.get(best_metric_name))
 
-        with open(lc_path, 'a') as f:
-            row = [str(epoch), f'{trainer.get_lr():.8g}']
-            for split in recorders:
-                for m in metric_names:
-                    row.append(f'{vals.get(split, {}).get(m, float("nan")):.8f}')
-            f.write(','.join(row) + '\n')
+        if writer:
+            with open(lc_path, 'a') as f:
+                row = [str(epoch), f'{trainer.get_lr():.8g}']
+                for split in recorders:
+                    for m in metric_names:
+                        row.append(
+                            f'{vals.get(split, {}).get(m, float("nan")):.8f}')
+                f.write(','.join(row) + '\n')
 
         log.epoch_write(
             epoch, trainer.get_lr(), vals['trainset'], vals.get('validset')

@@ -1,15 +1,25 @@
 """Trainer: the loss, its gradients and the optimizer step on one device.
 
 Counterpart of ``sevennet_exp_tpu/train/trainer.py`` (reference
-sevenn/train/trainer.py:20-230) without its data-parallel mesh (ROADMAP
-A.7). The parameters are the model's buffers, in the flat layout of
-``SevenNetModel.state``; the trainable ones require a gradient. The loss
+sevenn/train/trainer.py:20-230). The parameters are the model's buffers,
+in the flat layout of ``SevenNetModel.state``; the trainable ones require
+a gradient. The loss
 runs ``model.apply(create_graph=True)`` on the padded batch, every
 convolution on the plain chain (``USE_KERNELS_KEY`` False: the forces in
 the loss need gradients of gradients, which the fused conv does not
 have), as the JAX trainer runs its XLA path. Frozen leaves get zero
 gradients and stay in the optimizer, so ``adamw``'s weight decay moves
 them as optax's does when JAX masks only the gradients.
+
+Data parallelism (``IS_DDP`` in the config and an initialised
+``torch.distributed`` group, ``parallel/distributed.py``): one process per
+device, each on its stripe of the train batches; every step averages the
+gradients over the group by one ``all_reduce`` (JAX ``_train_step_dp``'s
+``pmean``) and sums the batch statistics (its ``psum``), so every process
+takes the same optimizer step. Every process takes the same number of
+steps: the train batches that do not fill a round of the group are
+dropped, as JAX drops a group smaller than its device count (a process
+that took one step more would wait in ``all_reduce`` for ever).
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ import torch
 from .. import _keys as KEY
 from ..model.model import SevenNetModel, flatten
 from ..ops.fused_conv import USE_KERNELS_KEY
+from ..parallel.distributed import world
 from .error_recorder import ErrorRecorder, MetricSpec, batch_metric_stats
 from .loss import loss_functions_from_config, total_loss
 from .optim import Scheduler, optim_dict, set_lr
@@ -62,6 +73,11 @@ class Trainer:
                                    **config.get(KEY.SCHEDULER_PARAM, {}))
         self.metrics: List[MetricSpec] = ErrorRecorder.from_config(
             config).metrics
+        # data parallel: (rank, world size) of the group, or None
+        group = (torch.distributed.is_available()
+                 and torch.distributed.is_initialized())
+        self.dp = world() if config.get(KEY.IS_DDP) and group else None
+        self.rank = self.dp[0] if self.dp else 0
 
     @staticmethod
     def from_config(model, params, trainable_mask, config,
@@ -104,8 +120,34 @@ class Trainer:
         for p in self.params.values():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.dp:
+            self._average_grads()
         self.optimizer.step()
-        return batch_metric_stats(self.metrics, out, tot)
+        stats = batch_metric_stats(self.metrics, out, tot)
+        return self._sum_stats(stats) if self.dp else stats
+
+    def _average_grads(self):
+        """Every gradient averaged over the group: one ``all_reduce`` of
+        the gradients packed into one buffer."""
+        grads = [p.grad for p in self.params.values()]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        torch.distributed.all_reduce(flat)
+        flat /= self.dp[1]
+        off = 0
+        for g in grads:
+            g.copy_(flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
+
+    def _sum_stats(self, stats):
+        """Batch statistics summed over the group (one ``all_reduce``)."""
+        names = sorted(stats)
+        flat = torch.stack([torch.as_tensor(v, dtype=torch.float64,
+                                            device=self.device).reshape(())
+                            for n in names for v in stats[n]])
+        torch.distributed.all_reduce(flat)
+        flat = flat.float()
+        return {n: (flat[2 * i], flat[2 * i + 1])
+                for i, n in enumerate(names)}
 
     def eval_step(self, batch) -> Dict[str, Tuple]:
         tot, _, out = self._loss_fn(batch, create_graph=False)
@@ -114,7 +156,11 @@ class Trainer:
     # -- epoch loop ----------------------------------------------------
     def run_one_epoch(self, loader: Iterable, is_train: bool = False,
                       error_recorder: Optional[ErrorRecorder] = None):
-        """``loader`` yields padded numpy batches (``GraphLoader``)."""
+        """``loader`` yields padded numpy batches (``GraphLoader``). Data
+        parallel training takes whole rounds of the group only."""
+        if is_train and self.dp and getattr(loader, 'shard', None):
+            rounds = loader.n_batches_total // self.dp[1]
+            loader = (b for _, b in zip(range(rounds), loader))
         for batch in loader:
             batch = self.batch_to_device(batch)
             stats = (self.train_step(batch) if is_train

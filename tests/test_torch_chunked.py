@@ -199,18 +199,26 @@ def test_chunk_switch_point(full):
     assert md.conv_chunk_rows % 36 == 0 and md.conv_chunk_rows > 0
 
 
-# the only environment variables the port reads: the JAX package's two
-# user settings, by the module that reads each; neither selects a kernel
-# path (SEVENN_NO_NATIVE: the host neighbor list's cKDTree route;
-# SEVENNET_CHECKPOINT_DIR: where pretrained keywords are looked up)
+# the only environment variables the port reads, by the module that reads
+# each; none selects a kernel path: the JAX package's two user settings
+# (SEVENN_NO_NATIVE: the host neighbor list's cKDTree route;
+# SEVENNET_CHECKPOINT_DIR: where pretrained keywords are looked up) and the
+# launchers' variables that the data-parallel bootstrap reads (torchrun,
+# OpenMPI, SLURM: world size, rank, local rank; the group's address)
 PORT_ENV = {os.path.join('data', 'native.py'): {'SEVENN_NO_NATIVE'},
-            'util.py': {'SEVENNET_CHECKPOINT_DIR'}}
+            'util.py': {'SEVENNET_CHECKPOINT_DIR'},
+            os.path.join('parallel', 'distributed.py'): {
+                'WORLD_SIZE', 'RANK', 'LOCAL_RANK', 'MASTER_ADDR',
+                'MASTER_PORT', 'OMPI_COMM_WORLD_SIZE', 'OMPI_COMM_WORLD_RANK',
+                'OMPI_COMM_WORLD_LOCAL_RANK', 'SLURM_NTASKS', 'SLURM_PROCID',
+                'SLURM_LOCALID'}}
 
 
 def test_port_imports_no_jax():
     """No module of the port and not chip_smoke.py imports jax or the JAX
     package, and no environment variable selects a path in the port but
-    the JAX package's two user settings (``PORT_ENV``)."""
+    the JAX package's two user settings and the launchers' variables of
+    the data-parallel bootstrap (``PORT_ENV``)."""
     pat = re.compile(r'^\s*(import|from)\s+(jax|jaxlib|optax|flax|'
                      r'sevennet_exp_tpu)(\.|\s|$)', re.M)
     pkg = os.path.join(ROOT, 'sevennet_exp_tpu_torch')

@@ -1898,3 +1898,69 @@ def test_native_list_feeds_the_card_calculator(cuda, model, monkeypatch):
     assert abs(nat['energy'] - ckd['energy']) / len(at) <= 1e-5
     assert np.abs(nat['forces'] - ckd['forces']).max() <= 1e-3
     assert np.abs(nat['stress'] - ckd['stress']).max() <= 1e-5
+
+
+@pytest.mark.parametrize('mesh', [(2,), (2, 2), (2, 2, 2)])
+@pytest.mark.parametrize('chunked', [False, True], ids=['whole', 'chunked'])
+def test_brick_kernels_match_plain_bricks(cuda, model, mesh, chunked):
+    """The brick engine on the card, 1k NaCl (28.2 A box, 6 A build
+    cutoff): the kernel bricks against the plain bricks
+    (``use_kernels=False``) within 1e-5 eV/atom, 1e-3 eV/A, 1e-5 eV/A^3;
+    per force call 5 + 5 launches of kernels 1-2 a brick on the whole
+    array, 5 x chunks + 5 x chunks of the geom pair a brick chunked, on the
+    brick grid's degree (a multiple of 4)."""
+    from sevennet_exp_tpu_torch.data.graph import build_nacl
+    from sevennet_exp_tpu_torch.ops import fused_conv as fc
+    from sevennet_exp_tpu_torch.parallel.mdbrick import (
+        BrickMolecularDynamics)
+    atoms = build_nacl(1000)
+    kw = dict(ensemble='nve', skin=1.0, devices=[cuda],
+              conv_chunk_rows=16384 if chunked else None)
+    bk = BrickMolecularDynamics(model, atoms, mesh, **kw)
+    deg, rows = bk.spec.deg_cap, bk.spec.rows
+    assert deg % 4 == 0 and rows == bk.spec.cap_all * deg
+    assert bool(bk.conv_chunk_rows) == chunked
+    fc.reset_launch_counts()
+    e, f, s = bk.energy_forces(return_stress=True)
+    torch.cuda.synchronize()
+    n_b = bk.n_dev
+    if chunked:
+        chunks = -(-rows // bk.conv_chunk_rows)
+        want = {'fused_conv_geom_fwd': 5 * chunks * n_b,
+                'fused_conv_geom_bwd': 5 * chunks * n_b}
+    else:
+        want = {'fused_conv_fwd': 5 * n_b, 'fused_conv_bwd': 5 * n_b}
+    assert {k: v for k, v in fc.launch_counts.items() if v} == want
+    pl = BrickMolecularDynamics(model, atoms, mesh, use_kernels=False, **kw)
+    fc.reset_launch_counts()
+    e_p, f_p, s_p = pl.energy_forces(return_stress=True)
+    assert not any(fc.launch_counts.values())
+    assert abs(e - e_p) / len(atoms) <= 1e-5
+    assert np.abs(f - f_p).max() <= 1e-3
+    assert np.abs(s - s_p).max() <= 1e-5
+
+
+def test_brick_md_on_the_card_migrates(cuda, model):
+    """1k NVT on (2, 2, 2) bricks with the device rebuild, 700 K: every
+    atom once after migrations, finite state, the forces then equal the
+    serial engine's (1e-5 eV/atom, 1e-3 eV/A)."""
+    from sevennet_exp_tpu_torch.data.graph import Atoms, build_nacl
+    from sevennet_exp_tpu_torch.md.engine import MolecularDynamics
+    from sevennet_exp_tpu_torch.parallel.mdbrick import (
+        BrickMolecularDynamics)
+    atoms = build_nacl(1000)
+    bk = BrickMolecularDynamics(model, atoms, (2, 2, 2), ensemble='nvt',
+                                temperature_K=700.0, skin=1.0,
+                                rebuild_every=5, devices=[cuda])
+    out = bk.run(20)
+    assert np.isfinite(out['energy']).all()
+    ids = np.concatenate([i[m > 0].cpu().numpy()
+                          for i, m in zip(bk.ids, bk.loc_mask)])
+    assert np.array_equal(np.sort(ids), np.arange(len(atoms)))
+    e, f = bk.energy_forces()
+    gp, _ = bk.gather_global()
+    md = MolecularDynamics(model, Atoms(atoms.atomic_numbers, gp, atoms.cell,
+                                        atoms.pbc), device=cuda)
+    e_s, f_s = md._ef_fn(md.state.pos, md._grid())
+    assert abs(e - float(e_s)) / len(atoms) <= 1e-5
+    assert np.abs(f - f_s.cpu().numpy()).max() <= 1e-3
