@@ -19,14 +19,20 @@ six kernel micro-benchmarks (``tools/bench_pieces.py``,
 fault C.1's routes on the card and ``train_v2`` at 7net-0 width, and at
 the end Grimme D3 (``SevenNetD3Calculator``, ``MolecularDynamics(d3=...)``
 at 1k and 97k) and the multi-cutoff, multi-modal and FCN-readout models,
-and last the user entry points: the native host neighbor list, batch
-inference through the edge-row kernels and continue-training.
+the user entry points: the native host neighbor list, batch inference
+through the edge-row kernels and continue-training, the parallel package,
+and last deploy and native serving: the AOTInductor artifact whose
+convolutions are the edge pair as dispatcher ops, run from Python, from
+the C host ``libsevenn_exec`` and from the LAMMPS pair style.
 
     python3 chip_smoke.py            # needs one CUDA card
 
 Phases (any failure raises, exits non-zero and prints no result):
   1. card name and power limit; TF32 off; build the CUDA kernels
-     (csrc/*.cu, one nvcc per source, all started together; ptxas' report);
+     (csrc/*.cu, one nvcc per source, all started together; ptxas' report)
+     and, in a thread beside them, with g++ the dispatcher ops' shim
+     (csrc/torch_ops.cpp), libsevenn_exec and its host
+     (csrc/sevenn_exec.cpp) and the LAMMPS harness;
      per layer, the registers, local bytes and blocks an SM of kernels 1-2
      as launched (at least three forward and two backward blocks, no local
      memory), of their edge-row form, the edge pair (at least two each
@@ -224,9 +230,25 @@ Phases (any failure raises, exits non-zero and prints no result):
      script opens itself (NCCL, world size 1, 127.0.0.1): 2 steps at
      7net-0 width whose losses and parameters equal 2 non-data-parallel
      steps on the same batches to 1e-5 relative, the all_reduce run;
+ 20. deploy and native serving: ``deploy(trained_nacl, device='cuda')`` at
+     n_node 1,024, n_edge 32,768 (trace, export and AOTInductor compile
+     seconds; the graph holds ``sevenn_torch::conv_edge_fwd`` / ``_bwd``
+     five times each), then on the 1k NaCl the artifact through its
+     AOTInductor package and its export file in Python, through
+     ``libsevenn_exec`` (ctypes), through the manifest host in a process
+     of its own (the directory's own ops and kernel libraries, 5 + 5
+     launches) and through the LAMMPS pair style in the mock LAMMPS
+     harness (its edge count the graph builder's), each against the
+     calculator: |dE|/N 1e-5 eV/atom, max|dF| 1e-4 eV/A, max|dS| 1e-5
+     eV/A^3; pad force rows zero; the profiler finds
+     ``fused_conv_geom_fwd_kernel<2>`` and ``fused_conv_geom_bwd_kernel<9,
+     2>`` five times each in one artifact call; the artifact call's median
+     ms over 20 calls against the calculator's model call, with the g++
+     seconds of phase 1 and the card beside them;
  then a ``{"kernels": [...]}`` line (33 entries; kernels 1-2 and the geom
- pair count phase 19's brick launches too), the card line and the result
- line ``{"ok": true, "device": {...}}`` last.
+ pair count phase 19's brick launches too, the edge pair phase 20's
+ artifact calls), the card line and the result line ``{"ok": true,
+ "device": {...}}`` last.
 
 Imports nothing of JAX or of the JAX package. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -239,6 +261,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1150,7 +1173,8 @@ def training(report, dev, card):
     repo's NaCl data, batch 8, one epoch: 47 train steps, 6 valid batches)
     in a temporary working dir. Holds: the first step's loss (1e-5
     relative) and every gradient leaf (1e-4 of the leaf's max|g|) on the
-    card against the CPU, from the same parameters and first batch; the
+    card against the CPU, from the same parameters and first batch (of 2
+    structures); the
     mean loss of the last 10 steps below that of the first 10; no conv
     kernel launched; checkpoint_last reloads in the calculator on the card
     (plain chain: E/F equal to the trainer model's within 1e-5; kernels:
@@ -1183,8 +1207,10 @@ def training(report, dev, card):
     config[KEY.LOAD_VALIDSET] = [os.path.join(data_dir, 'valid.extxyz')]
     config[KEY.EPOCH] = 1
     with tempfile.TemporaryDirectory() as work:
-        # the first step on both devices, same parameters and batch
+        # the first step on both devices, same parameters and batch; a
+        # batch of 2 structures (the CPU step at 8 took 79 s of the phase)
         cfg0 = copy.deepcopy(config)
+        cfg0[KEY.BATCH_SIZE] = 2
         t0 = time.perf_counter()
         sets = datasets_from_config(cfg0, work)
         out['dataset_s'] = time.perf_counter() - t0
@@ -2254,6 +2280,254 @@ def parallel_package(report, dev, model, card):
             kr['brick_launches'] = brick_launches[kr['name']]
 
 
+DEPLOY_CAPS = (1024, 32768)   # n_node, n_edge: 1k NaCl has ~26k edges at 5 A
+
+
+def _median_ms(fn, reps=20):
+    """Median host-clock ms of fn() with the card drained after each."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def deploy_and_serving(report, dev, model, atoms_1k, card, kernels,
+                       gxx):
+    """Phase 20: ``deploy`` of trained_nacl on the card at DEPLOY_CAPS (the
+    graph holds the edge-pair op pair for the five layers), then the
+    artifact on the 1k NaCl through (a) its AOTInductor package and its
+    export file reloaded in Python, (b) ``libsevenn_exec`` through ctypes,
+    (c) the manifest host in a process of its own, on the directory's own
+    ops and kernel libraries, (d) the LAMMPS pair style in the mock LAMMPS
+    harness, each against the calculator on the same kernels (|dE|/N, F,
+    S within the limits; the harness's edge count the graph builder's);
+    the profiler's count of the edge pair in one artifact call (5 + 5);
+    the artifact call's median ms over 20 calls against the calculator's
+    model call. The shim's launches (a)-(b) and the host's (c) join rows
+    1-2 at agg_d = 0 of the kernels line. gxx: phase 1's g++ builds,
+    {'paths': native_build.build_all()'s paths, 's': their seconds}."""
+    import ctypes
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from sevennet_exp_tpu_torch.calculator import SevenNetCalculator
+    from sevennet_exp_tpu_torch.data.graph import (
+        collate_graphs, unlabeled_atoms_to_graph)
+    from sevennet_exp_tpu_torch.ops import torch_ops
+    from sevennet_exp_tpu_torch.scripts import deploy as D
+
+    out = {'caps': list(DEPLOY_CAPS), 'gxx_s': gxx['s']}
+    n_node, n_edge = DEPLOY_CAPS
+    n = len(atoms_1k)
+    calc = SevenNetCalculator(model)
+    ref = calc.calculate(atoms_1k)
+    with tempfile.TemporaryDirectory() as tmp:
+        dep = os.path.join(tmp, 'deployed_serial')
+        timings = {}
+        t0 = time.perf_counter()
+        D.deploy(CHECKPOINT, dep, n_node=n_node, n_edge=n_edge,
+                 device='cuda', timings=timings)
+        out['deploy_s'] = time.perf_counter() - t0
+        out.update(timings)
+        ep = torch.export.load(os.path.join(dep, 'model_export.pt2'))
+        out['graph_ops'] = D.op_counts(ep.graph_module)
+        if out['graph_ops'] != [5, 5]:
+            raise AssertionError(f'deployed graph ops {out["graph_ops"]}')
+        print(f'deploy at n_node {n_node}, n_edge {n_edge}: trace '
+              f'{timings["trace_s"]:.1f} s, export {timings["export_s"]:.1f}'
+              f' s, AOTInductor compile {timings["aoti_s"]:.1f} s '
+              f'({out["deploy_s"]:.1f} s in all); g++ of the ops shim, the '
+              f'exec library, its host and the harness {gxx["s"]:.1f} s '
+              f'(phase 1, beside nvcc); graph ops (fwd, bwd) '
+              f'{out["graph_ops"]} [{card}]', flush=True)
+
+        b = collate_graphs([unlabeled_atoms_to_graph(atoms_1k, model.cutoff)],
+                           n_node=n_node, n_edge=n_edge)
+        edges = int(b['edge_mask'].sum())
+        art = D.load_deployed(dep)
+        ins = [np.ascontiguousarray(b[sp['name']].astype(sp['dtype']))
+               for sp in art.signature['inputs']]
+        dev_ins = [torch.as_tensor(a, device=dev) for a in ins]
+
+        def check(what, e, f, s):
+            """(E, F (n, 3), stress in model Voigt) against the
+            calculator."""
+            e, f = float(np.asarray(e).reshape(-1)[0]), np.asarray(f)[:n]
+            s_ase = -np.asarray(s).reshape(6)[[0, 1, 2, 4, 5, 3]]
+            d = {'dE_per_atom': abs(e - ref['energy']) / n,
+                 'max_dF': float(np.abs(f - ref['forces']).max()),
+                 'max_dS': float(np.abs(s_ase - ref['stress']).max())}
+            print(f'{what} vs calculator: |dE|/N {d["dE_per_atom"]:.3e} '
+                  f'(<= {E_TOL_PER_ATOM}), max|dF| {d["max_dF"]:.3e} '
+                  f'(<= 1e-4), max|dS| {d["max_dS"]:.3e} (<= {S_TOL})',
+                  flush=True)
+            if not (d['dE_per_atom'] <= E_TOL_PER_ATOM
+                    and d['max_dF'] <= 1e-4 and d['max_dS'] <= S_TOL
+                    and np.isfinite(f).all()):
+                raise AssertionError(f'{what}: disagrees with the '
+                                     'calculator')
+            return d
+
+        before = torch_ops.shim_launches()
+        for program in ('aoti', 'export'):
+            got = D.load_deployed(dep, program)(*dev_ins)
+            torch.cuda.synchronize()
+            pad_f = got[1][n:]
+            if torch.count_nonzero(pad_f):
+                raise AssertionError(f'{program}: pad force rows not zero')
+            out[program] = check(f'artifact ({program}, Python)',
+                                 *(t.cpu().numpy() for t in got))
+        after = torch_ops.shim_launches()
+        if [a - b for a, b in zip(after, before)] != [10, 10]:
+            raise AssertionError(f'two artifact calls launched '
+                                 f'{after} - {before} edge-pair kernels')
+
+        # (b) libsevenn_exec through ctypes, in this process (whose
+        # dispatcher holds the ops already)
+        lib = ctypes.CDLL(gxx['paths']['exec_library'])
+        if lib.sevenn_exec_init(dep.encode()) != 0:
+            raise AssertionError('sevenn_exec_init failed')
+        named = dict(zip((sp['name'] for sp in art.signature['inputs']), ins))
+        e = np.zeros(1, np.float32)
+        f = np.zeros((n_node, 3), np.float32)
+        s = np.zeros(6, np.float32)
+        P = ctypes.c_void_p
+        err = lib.sevenn_exec_run(
+            P(named['atomic_numbers'].ctypes.data),
+            P(named['edge_index'].ctypes.data),
+            P(named['edge_vec'].ctypes.data),
+            P(named['edge_mask'].ctypes.data),
+            P(named['node_mask'].ctypes.data),
+            ctypes.c_float(float(named['cell_volume'][0])),
+            P(e.ctypes.data), P(f.ctypes.data), P(s.ctypes.data))
+        lib.sevenn_exec_free()
+        if err != 0:
+            raise AssertionError(f'sevenn_exec_run returned {err}')
+        out['exec_library'] = check('libsevenn_exec (ctypes)', e, f, s)
+        in_process = [a - b for a, b in zip(torch_ops.shim_launches(),
+                                            before)]
+        if in_process != [15, 15]:
+            raise AssertionError(f'in-process launches {in_process}')
+
+        # (c) the manifest host: a process of its own, on the directory's
+        # libsevenn_torch_ops.so and kernel libraries
+        lines = []
+        for i, a in enumerate(ins):
+            a.tofile(os.path.join(dep, f'in_{i}.bin'))
+            dt = 'f32' if a.dtype == np.float32 else 's32'
+            lines.append(f'in_{i}.bin {dt} {a.ndim} '
+                         + ' '.join(map(str, a.shape)))
+        with open(os.path.join(dep, 'inputs.manifest'), 'w') as fh:
+            fh.write('\n'.join(lines) + '\n')
+        t0 = time.perf_counter()
+        r = subprocess.run([gxx['paths']['exec_host'], dep],
+                           capture_output=True, text=True, timeout=300)
+        out['host_process_s'] = time.perf_counter() - t0
+        if r.returncode != 0 or 'launches fwd=5 bwd=5' not in r.stdout:
+            raise AssertionError(f'exec host ({r.returncode}): {r.stdout}'
+                                 f'\n{r.stderr[-2000:]}')
+        res = [np.fromfile(os.path.join(dep, f'out_{i}.bin'), np.float32)
+               for i in range(3)]
+        out['exec_host'] = check('exec host (own process)', res[0],
+                                 res[1].reshape(n_node, 3), res[2])
+
+        # (d) the LAMMPS pair style in the mock LAMMPS world
+        L = np.diag(atoms_1k.cell)
+        species = sorted(set(int(z) for z in atoms_1k.atomic_numbers))
+        types = [species.index(int(z)) + 1 for z in atoms_1k.atomic_numbers]
+        pos = atoms_1k.pos % L
+        rows = [f'{n}', ' '.join(f'{v:.17g}' for v in L)]
+        rows += [f'{t} {p[0]:.17g} {p[1]:.17g} {p[2]:.17g}'
+                 for t, p in zip(types, pos)]
+        struct = os.path.join(tmp, 'struct.txt')
+        with open(struct, 'w') as fh:
+            fh.write('\n'.join(rows) + '\n')
+        res_path = os.path.join(tmp, 'harness_out.txt')
+        symbols = {11: 'Na', 17: 'Cl'}
+        t0 = time.perf_counter()
+        r = subprocess.run([gxx['paths']['harness'], dep,
+                            repr(float(model.cutoff)), struct, res_path,
+                            *(symbols[z] for z in species)],
+                           capture_output=True, text=True, timeout=300)
+        out['harness_process_s'] = time.perf_counter() - t0
+        if r.returncode != 0 or 'harness ok' not in r.stdout:
+            raise AssertionError(f'harness ({r.returncode}): {r.stdout}\n'
+                                 f'{r.stderr[-2000:]}')
+        h_edges = int(r.stdout.split('edges=')[1].split()[0])
+        if h_edges != edges:
+            raise AssertionError(f'harness {h_edges} edges, graph builder '
+                                 f'{edges}')
+        with open(res_path) as fh:
+            vals = fh.read().split('\n')
+        h_f = np.array([[float(v) for v in vals[1 + i].split()]
+                        for i in range(n)])
+        vir = np.array([float(v) for v in vals[1 + n].split()])
+        # LAMMPS virial (xx yy zz xy xz yz) = -stress (model Voigt) * V
+        s_model = -vir[[0, 1, 2, 3, 5, 4]] / float(np.prod(L))
+        out['harness'] = check('LAMMPS pair style (harness)',
+                               np.array([float(vals[0])]), h_f, s_model)
+        out['edges'] = edges
+
+        # the profiler: the edge pair in one artifact call, the active step
+        # after a warm-up step (a call traced as the profiler starts can
+        # lose its first kernels' records)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            art(*dev_ins)
+            torch.cuda.synchronize()
+            prof.step()
+            art(*dev_ins)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        out['profiled'] = {
+            'fwd': sum('fused_conv_geom_fwd_kernel<2>' in k for k in names),
+            'bwd': sum('fused_conv_geom_bwd_kernel<9, 2>' in k
+                       for k in names),
+            'kernels': len(names)}
+        print(f'profiled artifact call: {out["profiled"]["fwd"]} x '
+              'fused_conv_geom_fwd_kernel<2>, '
+              f'{out["profiled"]["bwd"]} x fused_conv_geom_bwd_kernel<9, 2> '
+              f'of {len(names)} kernels', flush=True)
+        if (out['profiled']['fwd'], out['profiled']['bwd']) != (5, 5):
+            raise AssertionError('the artifact call did not launch the edge '
+                                 'pair 5 + 5 times')
+        out['trace'] = tr = _trace(lambda: art(*dev_ins), 3)
+        batch = calc._batch(atoms_1k)
+        out['artifact_ms'] = _median_ms(lambda: art(*dev_ins))
+        out['calculator_model_ms'] = _median_ms(
+            lambda: calc.model.apply(batch))
+        out['calculator_call_ms'] = _median_ms(
+            lambda: calc.calculate(atoms_1k), reps=5)
+        out['calculator_edge_rows'] = int(batch['edge_mask'].shape[0])
+        print(f'1k NaCl ({edges} edges): artifact call '
+              f'{out["artifact_ms"]:.2f} ms (median of 20, {n_edge} edge '
+              'rows) against the '
+              f'calculator\'s model call {out["calculator_model_ms"]:.2f} ms '
+              f'({out["calculator_edge_rows"]} edge rows; whole calculator '
+              f'call {out["calculator_call_ms"]:.2f} ms); artifact device '
+              f'kernels {tr["device_kernel_ms"]:.2f} ms a call, edge pair '
+              f'{tr["conv_kernel_ms"]:.2f} ms, idle '
+              f'{tr["device_idle_share"]:.1%} [{card}]', flush=True)
+        for k in tr['top_kernels']:
+            print(f"  {k['ms']:8.3f} ms/call {k['calls']:5.0f} calls  "
+                  f"{k['name']}", flush=True)
+        # the host process's 5 + 5, checked above
+        out['launches'] = {'fused_conv_edge_fwd': in_process[0] + 5,
+                           'fused_conv_edge_bwd': in_process[1] + 5}
+    for row in kernels:
+        if row['name'] in out['launches']:
+            row['launches'] += out['launches'][row['name']]
+    report['deploy'] = out
+
+
 def main():
     import numpy as np
     import torch
@@ -2287,9 +2561,28 @@ def main():
     from sevennet_exp_tpu_torch.ops import fused_conv as fc
     from sevennet_exp_tpu_torch.ops import fused_tp as ftp
     from sevennet_exp_tpu_torch.tools.timing import cuda_ms
+    # g++ of the dispatcher ops' shim, libsevenn_exec, its host and the
+    # LAMMPS harness (phase 20) in a thread beside nvcc
+    from sevennet_exp_tpu_torch import native_build
+    gxx = {}
+
+    def build_gxx():
+        t = time.perf_counter()
+        try:
+            gxx['paths'] = native_build.build_all()
+        except Exception as err:   # raised again after the join
+            gxx['error'] = err
+        gxx['s'] = time.perf_counter() - t
+    gxx_thread = threading.Thread(target=build_gxx)
+    gxx_thread.start()
     t0 = time.perf_counter()
     libs = cuda_build.build_all(verbose=True)
     report['build_s'] = time.perf_counter() - t0
+    gxx_thread.join()
+    if 'error' in gxx:
+        raise gxx['error']
+    print(f'built {sorted(gxx["paths"])} with g++ in {gxx["s"]:.1f} s',
+          flush=True)
     print(f'built {[os.path.relpath(lib, HERE) for lib in libs]} in '
           f'{report["build_s"]:.1f} s', flush=True)
     from sevennet_exp_tpu_torch.data import native
@@ -3406,6 +3699,11 @@ def main():
     phase('19 the parallel package: the brick engine at 8k on three '
           'meshes, 97k NVT on (2, 2, 2) bricks, data-parallel train_v2')
     parallel_package(report, dev, model, card)
+
+    # -- phase 20 ------------------------------------------------------
+    phase('20 deploy and native serving: the AOTInductor artifact in '
+          'Python, libsevenn_exec, its host and the LAMMPS pair style')
+    deploy_and_serving(report, dev, model, atoms_1k, card, kernels, gxx)
     report['script_s'] = time.perf_counter() - t_script
     ends = [t for _, t in _PHASES[1:]] + [time.perf_counter()]
     report['phase_s'] = {name: end - t for (name, t), end
@@ -3421,7 +3719,8 @@ def main():
         f'{report["entry_points"]["c"]["seconds"]:.1f} of phase 18, 8k '
         f'bricks {report["parallel"]["a_s"]:.1f}, 97k bricks '
         f'{report["parallel"]["b_s"]:.1f} and train_v2 -d '
-        f'{report["parallel"]["c_s"]:.1f} of phase 19',
+        f'{report["parallel"]["c_s"]:.1f} of phase 19, AOTInductor '
+        f'compile {report["deploy"]["aoti_s"]:.1f} of phase 20',
         flush=True)
     print(f'whole script {report["script_s"]:.1f} s', flush=True)
     with open(os.path.join(out_dir, 'chip_smoke.json'), 'w') as fh:

@@ -7,6 +7,8 @@ Counterpart of ``sevennet_exp_tpu/main/cli.py``, with the same flags:
   python -m sevennet_exp_tpu_torch.main.cli graph_build SRC... CUTOFF
   python -m sevennet_exp_tpu_torch.main.cli inference CKPT TARGET...
   python -m sevennet_exp_tpu_torch.main.cli cp CKPT [--yaml | ...]
+  python -m sevennet_exp_tpu_torch.main.cli get_model CKPT [-o DIR] [-p]
+  python -m sevennet_exp_tpu_torch.main.cli patch_lammps [LAMMPS/src]
 
 ``train`` and ``inference`` run on the card (``--device cpu`` for the
 CPU; for ``train`` also ``device: cpu`` in the train section). A
@@ -14,8 +16,12 @@ checkpoint argument is a path (native or reference ``.pth``) or a
 pretrained keyword. ``train -d`` trains data parallel over the
 processes of a launcher, one a device (``torchrun --nproc_per_node=N -m
 sevennet_exp_tpu_torch.main.cli train input.yaml -d``; mpirun and srun
-with MASTER_ADDR / MASTER_PORT set). ``get_model`` and ``patch_lammps``
-(deploy) are not in the port yet.
+with MASTER_ADDR / MASTER_PORT set). ``get_model`` deploys a checkpoint
+(``scripts/deploy.py``: an AOTInductor artifact at fixed capacities
+``--n-node`` / ``--n-edge``, for the card unless ``--device cpu``;
+``-p``: the parallel payload without a program); ``patch_lammps`` prints
+the recipe of the LAMMPS pair style ``sevennet_torch`` and copies its
+sources into a LAMMPS ``src/``.
 """
 
 from __future__ import annotations
@@ -158,9 +164,84 @@ def main_cp(argv=None):
             print(f'{k}: {cfg[k]}')
 
 
+def main_get_model(argv=None):
+    p = argparse.ArgumentParser(
+        prog='sevenn_get_model',
+        description='deploy a checkpoint as a serving artifact')
+    p.add_argument('checkpoint')
+    p.add_argument('-o', '--output', default=None)
+    p.add_argument('-p', '--parallel', action='store_true')
+    p.add_argument('--n-node', type=int, default=64,
+                   help='node capacity of the exported program')
+    p.add_argument('--n-edge', type=int, default=1024,
+                   help='edge capacity of the exported program')
+    p.add_argument('--device', default='cuda',
+                   help="'cuda' (default) or 'cpu'")
+    args = p.parse_args(argv)
+
+    from ..scripts.deploy import deploy, deploy_parallel
+
+    if args.parallel:
+        out = deploy_parallel(args.checkpoint,
+                              args.output or 'deployed_parallel',
+                              device=args.device)
+    else:
+        out = deploy(args.checkpoint, args.output or 'deployed_serial',
+                     n_node=args.n_node, n_edge=args.n_edge,
+                     device=args.device)
+    print(f'deployed to {out}')
+
+
+PAIR_FILES = ('pair_sevennet_torch.cpp', 'pair_sevennet_torch.h')
+
+
+def main_patch_lammps(argv=None):
+    p = argparse.ArgumentParser(
+        prog='sevenn_patch_lammps',
+        description='stage the LAMMPS integration files (the pair style '
+                    'sevennet_torch and libsevenn_exec)')
+    p.add_argument('lammps_src', nargs='?', default=None,
+                   help='LAMMPS src/ directory to copy the pair style '
+                        'into (omit to print the recipe only)')
+    args = p.parse_args(argv)
+
+    from .. import native_build
+
+    print(
+        'To drive a deployed potential from LAMMPS (one process a rank, '
+        'serial per rank):\n'
+        '  1. python -m sevennet_exp_tpu_torch.main.cli get_model '
+        '<checkpoint> -o deployed_serial --n-node N --n-edge E\n'
+        '  2. libsevenn_exec.so: sevennet_exp_tpu_torch.native_build.'
+        'exec_library() (g++ against the installed PyTorch)\n'
+        '  3. python -m sevennet_exp_tpu_torch.main.cli patch_lammps '
+        '<lammps>/src   (copies the pair style from '
+        f'{native_build.PAIR_DIR})\n'
+        '  4. rebuild LAMMPS with libsevenn_exec.so on its link line:\n'
+        '       target_link_libraries(lammps PRIVATE '
+        '${SEVENN_EXEC_DIR}/libsevenn_exec.so)\n'
+        '     (legacy make: LIB += -L$(SEVENN_EXEC_DIR) -lsevenn_exec)\n'
+        '  then: pair_style sevennet_torch deployed_serial; '
+        'pair_coeff * * <element of each atom type>')
+    if args.lammps_src:
+        if not os.path.isdir(args.lammps_src):
+            print(f'error: {args.lammps_src} is not a directory')
+            return 1
+        import shutil
+        for fn in PAIR_FILES:
+            dst = os.path.join(args.lammps_src, fn)
+            if os.path.exists(dst):
+                shutil.copy(dst, dst + '.bak')
+                print(f'backed up existing {fn} -> {fn}.bak')
+            shutil.copy(os.path.join(native_build.PAIR_DIR, fn), dst)
+        print(f'copied {", ".join(PAIR_FILES)} to {args.lammps_src}')
+    return 0
+
+
 COMMANDS = {'train': main_sevenn, 'preset': main_preset,
             'graph_build': main_graph_build, 'inference': main_inference,
-            'cp': main_cp}
+            'cp': main_cp, 'get_model': main_get_model,
+            'patch_lammps': main_patch_lammps}
 
 
 def main(argv=None):

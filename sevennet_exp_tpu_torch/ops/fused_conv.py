@@ -50,7 +50,11 @@ On CUDA tensors the wrapper launches the kernels of
 ``csrc/fused_conv_geom.cu`` (built with nvcc at first use into
 ``_build/``): the dense-grid pair (``agg_d > 0``), its edge-row form
 (``agg_d = 0``), the geometry-fused pair, and, in the build
-``fused_conv_geom_extw``, the external-weight pair; on CPU tensors it runs
+``fused_conv_geom_extw``, the external-weight pair. The edge-row form is
+launched through the PyTorch dispatcher (``ops/torch_ops.py``: the ops
+``sevenn_torch::conv_edge_fwd`` / ``_bwd``), so that a traced and
+exported graph (``scripts/deploy.py``) launches it too; the others
+through ctypes. On CPU tensors it runs
 the plain version, the XLA-path chain of ``model/layers.py::_rows_to_nodes``
 (MLP -> TP -> reshape-sum -> si2). Any other device raises. The kernels of
 ``fused_conv_geom.cu`` read an instruction's SH block at ``l2^2`` and take
@@ -79,6 +83,7 @@ from . import cuda_build
 from .cuda_build import check as _check
 from .cuda_build import launch_counts, reset_launch_counts  # noqa: F401
 from . import fused_conv_geom as _fcg
+from . import torch_ops
 from .fused_conv_geom import MAX_XENT, SHP
 from .fused_conv_terms import TermsKernels, si2_unsupported
 from .normalize import NORMALIZE2MOM_CST
@@ -673,11 +678,10 @@ class FusedConv:
     def _dims(self, t: _Tables, rows: int):
         if self.kernel_refusal:
             raise ValueError(self.kernel_refusal)
-        # the external-weight kernels read no activation
         act = 'silu' if self.ext_w else self.mlp.act
         return [rows // self.group, self.group, self.d1, self.f, self.nb,
                 self.w_numel, self.d_out, t.n_ins, t.n_active, t.n_grp,
-                t.n_xent, t.agg_dim, t.n_nz, _ACT_CODE[act],
+                t.n_xent, t.agg_dim, t.n_nz, self.act_code,
                 NORMALIZE2MOM_CST[act], 1.0 / math.sqrt(self.nb),
                 1.0 / math.sqrt(_H), 1.0 / math.sqrt(_H)]
 
@@ -712,13 +716,11 @@ class FusedConv:
         return ctypes.c_void_p(t.data_ptr())
 
     def _entry(self, which: str):
-        """(name, C entry point) of kernel 1 or 2 (``which``: fwd | bwd) in
-        csrc/fused_conv_geom.cu: the dense-grid kernel, or with ``agg_d =
-        0`` its edge-row form."""
+        """(name, C entry point) of the dense-grid kernel 1 or 2
+        (``which``: fwd | bwd) in csrc/fused_conv_geom.cu."""
         if self.kernel_refusal:
             raise ValueError(self.kernel_refusal)
-        name = (f'fused_conv_edge_{which}' if self.agg_d == 0
-                else f'fused_conv_{which}')
+        name = f'fused_conv_{which}'
         return name, getattr(self._geom_kernels(), name)
 
     def _geom_kernels(self) -> ctypes.CDLL:
@@ -727,9 +729,9 @@ class FusedConv:
         return _geom_ssp_lib() if self.mlp.act == 'ssp' else _geom_lib()
 
     def kernel_forward(self, xg, sh, emb, ms, mlp_ws, si2_ws) -> Tensor:
-        """Launch ``fused_conv_fwd``, or ``fused_conv_edge_fwd`` with
-        ``agg_d = 0``; under ``cg_mode='terms'`` ``fused_conv_terms_fwd``
-        (CUDA tensors only)."""
+        """Launch ``fused_conv_fwd``, or with ``agg_d = 0`` the op
+        ``sevenn_torch::conv_edge_fwd`` (``fused_conv_edge_fwd``); under
+        ``cg_mode='terms'`` ``fused_conv_terms_fwd`` (CUDA tensors only)."""
         self._check_inputs(xg, sh, emb, ms)
         if self._terms is not None:
             if self.kernel_refusal:
@@ -737,6 +739,9 @@ class FusedConv:
             w0, w1, _, w2, _, si2, _ = self._pack(mlp_ws, si2_ws)
             return self._terms.forward(self.agg_d, xg, sh, emb, ms, w0, w1,
                                        w2, si2)
+        if self.agg_d == 0:
+            return torch_ops.edge_forward(self, xg, sh, emb, ms, mlp_ws,
+                                          si2_ws)
         t = self.kernel_tables(xg.device)
         w0, w1, _, w2, _, si2, _ = self._pack(mlp_ws, si2_ws)
         rows = xg.shape[0]
@@ -753,9 +758,9 @@ class FusedConv:
         return out
 
     def kernel_backward(self, g, xg, sh, emb, ms, mlp_ws, si2_ws):
-        """Launch ``fused_conv_bwd``, or ``fused_conv_edge_bwd`` with
-        ``agg_d = 0``; under ``cg_mode='terms'`` ``fused_conv_terms_bwd``
-        (CUDA tensors only)."""
+        """Launch ``fused_conv_bwd``, or with ``agg_d = 0`` the op
+        ``sevenn_torch::conv_edge_bwd`` (``fused_conv_edge_bwd``); under
+        ``cg_mode='terms'`` ``fused_conv_terms_bwd`` (CUDA tensors only)."""
         g = g.contiguous()
         self._check_inputs(xg, sh, emb, ms, g)
         rows = xg.shape[0]
@@ -767,6 +772,9 @@ class FusedConv:
             w0, w1, w1t, w2, _, _, si2t = self._pack(mlp_ws, si2_ws)
             return self._terms.backward(self.agg_d, g, xg, sh, emb, ms, w0,
                                         w1, w1t, w2, si2t)
+        if self.agg_d == 0:
+            return torch_ops.edge_backward(self, g, xg, sh, emb, ms, mlp_ws,
+                                           si2_ws)
         t = self.kernel_tables(xg.device)
         w0, w1, w1t, w2, w2t, _, si2t = self._pack(mlp_ws, si2_ws)
         dxg = torch.empty_like(xg)
@@ -784,10 +792,20 @@ class FusedConv:
         launch_counts[name] += 1
         return dxg, dsh, demb
 
+    @staticmethod
+    def table_tensors(t: _Tables):
+        """The kernel tables in the C entries' (and the ops') order."""
+        return (t.ins, t.col_ins, t.col_w, t.nz_idx, t.nz_coef, t.grp,
+                t.grp_alpha, t.xent, t.xins)
+
     def _table_ptrs(self, t: _Tables):
-        return [self._ptr(v) for v in (t.ins, t.col_ins, t.col_w, t.nz_idx,
-                                       t.nz_coef, t.grp, t.grp_alpha,
-                                       t.xent, t.xins)]
+        return [self._ptr(v) for v in self.table_tensors(t)]
+
+    @property
+    def act_code(self) -> int:
+        """The activation's code in ``_dims`` (it picks the library); the
+        external-weight kernels read no activation."""
+        return _ACT_CODE['silu' if self.ext_w else self.mlp.act]
 
     def _geom_args(self, coeffs: Tensor):
         if self.geom is None:

@@ -65,6 +65,7 @@ import torch
 
 from ..ops import cuda_build
 from ..ops import fused_conv as fc
+from ..ops import torch_ops
 from .timing import card, cuda_ms, require_card
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -187,9 +188,10 @@ def run_edge(other_src: str):
     res = {'card': card(), 'other': os.path.abspath(other_src),
            'pair': 'edge', 'turns': []}
     with tempfile.TemporaryDirectory() as tmp:
-        libs = {'other': build_other(other_src, tmp, 'edge'),
-                'this': fc._geom_lib()}
-        geom_lib = fc._geom_lib
+        # the edge pair launches through the dispatcher op: a side is the
+        # kernel library file named to its shim
+        libs = {'other': build_other(other_src, tmp, 'edge')._name,
+                'this': cuda_build.build('fused_conv_geom')}
         try:
             model, _ = SevenNetCheckpoint(CHECKPOINT).build_model(device=dev)
             convs = {}
@@ -202,7 +204,7 @@ def run_edge(other_src: str):
             systems = {n: (SevenNetCalculator(model, device=dev),
                            build_nacl(n)) for n in DENSE_ATOMS}
             for side in ('other', 'this', 'this', 'other'):
-                fc._geom_lib = lambda lib=libs[side]: lib
+                torch_ops.set_kernel_library('fused_conv_geom', libs[side])
                 turn = {'side': side}
                 for layer, (conv, (mlp_ws, si2_ws), ins) in convs.items():
                     xg, sh, emb, ms, g = ins
@@ -223,7 +225,8 @@ def run_edge(other_src: str):
                 xg, sh, emb, ms, g = ins
                 outs = {}
                 for side in ('other', 'this'):
-                    fc._geom_lib = lambda lib=libs[side]: lib
+                    torch_ops.set_kernel_library('fused_conv_geom',
+                                                 libs[side])
                     outs[side] = (
                         conv.kernel_forward(xg, sh, emb, ms, mlp_ws, si2_ws),
                         *conv.kernel_backward(g, xg, sh, emb, ms, mlp_ws,
@@ -235,7 +238,7 @@ def run_edge(other_src: str):
                       f'builds differ by {res[f"layer{layer}_rel_diff"]} of '
                       'max|other|', flush=True)
         finally:
-            fc._geom_lib = geom_lib
+            torch_ops.set_kernel_library('fused_conv_geom', libs['this'])
     return _means(res)
 
 

@@ -59,6 +59,7 @@ import torch
 
 from ..ops import cuda_build
 from ..ops import fused_conv as fc
+from ..ops import torch_ops
 from .geom_ab import CHECKPOINT, chunk_inputs, dense_inputs, edge_inputs
 from .timing import card, cuda_ms, require_card
 
@@ -511,6 +512,10 @@ def run(other: str = None, pair: str = 'geom') -> Dict:
                 out = {}
                 for v, lib in libs.items():
                     fc._geom_lib = lambda lib=lib: lib
+                    if pair == 'edge':
+                        # the edge pair launches through the dispatcher op
+                        torch_ops.set_kernel_library('fused_conv_geom',
+                                                     lib._name)
                     out[v] = {'fwd_ms': cuda_ms(fwd, reps=reps, warm=1),
                               'bwd_ms': cuda_ms(bwd, reps=reps, warm=1)}
                     full = out['full']
@@ -525,6 +530,9 @@ def run(other: str = None, pair: str = 'geom') -> Dict:
                 torch.cuda.empty_cache()
         finally:
             fc._geom_lib = geom_lib
+            if pair == 'edge':
+                torch_ops.set_kernel_library(
+                    'fused_conv_geom', cuda_build.build('fused_conv_geom'))
     return res
 
 

@@ -78,7 +78,8 @@ def test_module_entry_dispatches(tmp_path):
     res = subprocess.run(run, cwd=str(tmp_path), env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 2
-    assert '{train,preset,graph_build,inference,cp}' in res.stderr
+    assert ('{train,preset,graph_build,inference,cp,get_model,patch_lammps}'
+            in res.stderr)
     res = subprocess.run(run + ['preset', 'base'], cwd=str(tmp_path),
                          env=env, capture_output=True, text=True,
                          timeout=120)

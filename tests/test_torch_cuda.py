@@ -1964,3 +1964,154 @@ def test_brick_md_on_the_card_migrates(cuda, model):
     e_s, f_s = md._ef_fn(md.state.pos, md._grid())
     assert abs(e - float(e_s)) / len(atoms) <= 1e-5
     assert np.abs(f - f_s.cpu().numpy()).max() <= 1e-3
+
+
+# -- the edge pair as dispatcher ops; deploy and native serving -------------
+
+@pytest.mark.parametrize('act', ['silu', 'ssp'])
+@pytest.mark.parametrize('layer', [0, 1, 4])
+def test_edge_ops_equal_the_ctypes_launches(cuda, model, act, layer):
+    """torch.ops.sevenn_torch.conv_edge_fwd / _bwd launch the same kernels
+    as the C entries fused_conv_edge_fwd / _bwd called through ctypes with
+    the same arguments: bit for bit, in the default build and (ssp) the
+    shifted-softplus one; kernel_forward / kernel_backward and the
+    wrapper's autograd route, which launch through the ops, give the same
+    bits and count each launch once, as the shim does."""
+    import ctypes
+
+    from sevennet_exp_tpu_torch.ops import fused_conv as fc
+    from sevennet_exp_tpu_torch.ops import torch_ops
+    from sevennet_exp_tpu_torch.ops.tensor_product import (
+        FullyConnectedNetSpec)
+    cl = model.layers[f'{layer}_convolution']
+    mlp = FullyConnectedNetSpec(cl.weight_nn.hs, act)
+    conv = fc.FusedConv(cl.tp, mlp, cl.si2, 0)
+    mlp_ws, si2_ws = cl._weights()
+    xg, sh, emb, ms, g, pad = _plain_inputs(conv, 301, cuda, 40 + layer)
+    # the C entries, by ctypes
+    lib = conv._geom_kernels()
+    t = conv.kernel_tables(cuda)
+    w0, w1, w1t, w2, w2t, si2, si2t = conv._pack(mlp_ws, si2_ws)
+    P = conv._ptr
+    stream = ctypes.c_void_p(torch.cuda.current_stream(cuda).cuda_stream)
+    tail = (*conv._table_ptrs(t), *conv._dims(t, xg.shape[0]))
+    y_c = torch.empty((xg.shape[0], conv.d_out), device=cuda)
+    assert lib.fused_conv_edge_fwd(P(xg), P(sh), P(emb), P(ms), P(w0), P(w1),
+                                   P(w2), P(si2), *tail, P(y_c), stream) == 0
+    d_c = [torch.empty_like(v) for v in (xg, sh, emb)]
+    assert lib.fused_conv_edge_bwd(P(g), P(xg), P(sh), P(emb), P(ms), P(w0),
+                                   P(w1), P(w1t), P(w2), P(w2t), P(si2t),
+                                   *tail, *map(P, d_c), stream) == 0
+    # the ops
+    torch_ops.use_kernel_library(torch_ops.kernel_library(conv.act_code))
+    rest = (w0, w1, w1t, w2, w2t, si2, si2t, *conv.table_tensors(t),
+            torch_ops.op_dims(conv._dims(t, xg.shape[0])))
+    before = torch_ops.shim_launches()
+    y_o = torch.ops.sevenn_torch.conv_edge_fwd(xg, sh, emb, ms, *rest)
+    d_o = torch.ops.sevenn_torch.conv_edge_bwd(g, xg, sh, emb, ms, *rest)
+    assert [a - b for a, b in zip(torch_ops.shim_launches(), before)] == \
+        [1, 1]
+    torch.cuda.synchronize()
+    assert torch.equal(y_o, y_c)
+    assert all(torch.equal(a, b) for a, b in zip(d_o, d_c))
+    # the wrapper's kernel methods and its autograd route
+    want = dict.fromkeys(fc.launch_counts, 0)
+    want['fused_conv_edge_fwd'] = want['fused_conv_edge_bwd'] = 1
+    fc.reset_launch_counts()
+    y_k = conv.kernel_forward(xg, sh, emb, ms, mlp_ws, si2_ws)
+    d_k = conv.kernel_backward(g, xg, sh, emb, ms, mlp_ws, si2_ws)
+    assert fc.launch_counts == want
+    ins = [v.clone().requires_grad_(True) for v in (xg, sh, emb)]
+    fc.reset_launch_counts()
+    y_w = conv(*ins, ms, mlp_ws, si2_ws)
+    d_w = torch.autograd.grad(y_w, ins, g)
+    assert fc.launch_counts == want
+    for y, d in ((y_k, d_k), (y_w, d_w)):
+        assert torch.equal(y, y_c)
+        assert all(torch.equal(a, b) for a, b in zip(d, d_c))
+
+
+def test_edge_op_refuses_bad_inputs(cuda, model):
+    """The op checks its rows and dims and raises (no fallback)."""
+    from sevennet_exp_tpu_torch.ops import fused_conv as fc
+    from sevennet_exp_tpu_torch.ops import torch_ops
+    cl = model.layers['1_convolution']
+    conv = fc.FusedConv(cl.tp, cl.weight_nn, cl.si2, 0)
+    mlp_ws, si2_ws = cl._weights()
+    xg, sh, emb, ms, g, _ = _plain_inputs(conv, 64, cuda, 3)
+    torch_ops.use_kernel_library(torch_ops.kernel_library(conv.act_code))
+    t = conv.kernel_tables(cuda)
+    dims = torch_ops.op_dims(conv._dims(t, 64))
+    rest = (*conv._pack(mlp_ws, si2_ws), *conv.table_tensors(t))
+    with pytest.raises(RuntimeError, match='rows'):
+        torch.ops.sevenn_torch.conv_edge_fwd(xg[:63], sh[:63], emb[:63],
+                                             ms[:63], *rest, dims)
+    with pytest.raises(RuntimeError, match='D = 1'):
+        torch.ops.sevenn_torch.conv_edge_fwd(xg, sh, emb, ms, *rest,
+                                             [64, 2] + dims[2:])
+    with pytest.raises(RuntimeError, match='shape'):
+        torch.ops.sevenn_torch.conv_edge_fwd(xg, sh[:, :4].contiguous(),
+                                             emb, ms, *rest, dims)
+
+
+def test_deploy_artifact_on_the_card(cuda, tmp_path):
+    """deploy(trained_nacl, device='cuda') at 64 atoms / 2,048 edges: the
+    graph holds the op pair for all five layers, the directory carries the
+    ops and kernel libraries; the AOTInductor package and the export file,
+    reloaded in Python, and the C host (manifest program) equal the
+    calculator on the same kernels on a rattled 64-atom NaCl (|dE|/N
+    1e-5 eV/atom, F 1e-4 eV/A, S 1e-5 eV/A^3), with 5 + 5 launches of the
+    edge pair a call."""
+    import subprocess
+
+    import yaml
+    from sevennet_exp_tpu_torch import native_build
+    from sevennet_exp_tpu_torch.calculator import SevenNetCalculator
+    from sevennet_exp_tpu_torch.data.graph import (
+        build_nacl, collate_graphs, unlabeled_atoms_to_graph)
+    from sevennet_exp_tpu_torch.scripts import deploy as D
+    built = native_build.build_all()
+    dep = D.deploy(CKPT, str(tmp_path / 'dep'), n_node=64, n_edge=2048,
+                   device='cuda')
+    with open(os.path.join(dep, 'meta.yaml')) as fh:
+        meta = yaml.safe_load(fh)
+    assert meta['device'] == 'cuda' and len(meta['kernel_layers']) == 5
+    for name in ('libsevenn_torch_ops.so', 'libfused_conv_geom.so'):
+        assert os.path.exists(os.path.join(dep, name))
+    ep = torch.export.load(os.path.join(dep, 'model_export.pt2'))
+    assert D.op_counts(ep.graph_module) == [5, 5]
+    atoms = build_nacl(64, rattle=0.1, seed=2)
+    calc = SevenNetCalculator(CKPT)
+    ref = calc.calculate(atoms)
+    n = len(atoms)
+    b = collate_graphs([unlabeled_atoms_to_graph(atoms, calc.cutoff)],
+                       n_node=64, n_edge=2048)
+    art = D.load_deployed(dep)
+    ins = [np.ascontiguousarray(b[s['name']].astype(s['dtype']))
+           for s in art.signature['inputs']]
+
+    def check(e, f, s):
+        e, f, s = float(e[0]), np.asarray(f)[:n], np.asarray(s).reshape(6)
+        assert abs(e - ref['energy']) / n <= 1e-5
+        assert np.abs(f - ref['forces']).max() <= 1e-4
+        s_ase = -s[[0, 1, 2, 4, 5, 3]]
+        assert np.abs(s_ase - ref['stress']).max() <= 1e-5
+
+    for program in ('aoti', 'export'):
+        out = D.load_deployed(dep, program)(*ins)
+        check(*(t.cpu().numpy() for t in out))
+    lines = []
+    for i, arr in enumerate(ins):
+        arr.tofile(os.path.join(dep, f'in_{i}.bin'))
+        dt = 'f32' if arr.dtype == np.float32 else 's32'
+        lines.append(f'in_{i}.bin {dt} {arr.ndim} '
+                     + ' '.join(map(str, arr.shape)))
+    with open(os.path.join(dep, 'inputs.manifest'), 'w') as fh:
+        fh.write('\n'.join(lines) + '\n')
+    r = subprocess.run([built['exec_host'], dep], capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert 'launches fwd=5 bwd=5' in r.stdout
+    out = [np.fromfile(os.path.join(dep, f'out_{i}.bin'), np.float32)
+           for i in range(3)]
+    check(out[0], out[1].reshape(64, 3), out[2])
